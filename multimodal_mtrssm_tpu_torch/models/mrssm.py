@@ -1,0 +1,186 @@
+"""MoPoE-MRSSM (port of ``models/mrssm.py``): the serving surface.
+
+``MRSSMConfig`` defaults are the reference config (``configs/mopoe_mrssm.yaml``).
+The model is an ``nn.Module`` whose ``state_dict`` carries the reference
+Lightning names that ``train/torch_export.py`` writes, so a JAX checkpoint
+exported there loads with ``strict=True`` (``train/weights.py``).
+
+Observe runs the representation recurrence kernel (``ops.kernels``) on bulk
+Gumbel noise, ``[T, B, S]`` per sample site as in the JAX package's kernel
+path (``models/mrssm.py:491-500``); imagine runs the rollout kernel, which
+draws its own Philox noise from a seed. On the CPU both take their plain
+versions. The ELBO (KL, likelihood, ``shared_step``) comes with training.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from multimodal_mtrssm_tpu_torch.models.state import State
+from multimodal_mtrssm_tpu_torch.nn.conv import Decoder, DecoderConfig, Encoder, EncoderConfig
+from multimodal_mtrssm_tpu_torch.nn.core import Transition, init_fan_in_uniform_, mlp
+from multimodal_mtrssm_tpu_torch.ops.distributions import gumbel_noise, st_sample
+from multimodal_mtrssm_tpu_torch.ops.kernels import (
+    fused_rollout_transition,
+    fused_train_recurrence,
+)
+
+CONV_LAYOUTS = ("auto", "nhwc", "s2d", "fused_enc")
+
+
+@dataclasses.dataclass(frozen=True)
+class MRSSMConfig:
+    """Static hyperparameters; the defaults are ``configs/mopoe_mrssm.yaml``."""
+
+    deterministic_size: int = 32
+    hidden_size: int = 32
+    obs_embed_size: int = 64
+    class_size: int = 4
+    category_size: int = 4
+    action_size: int = 6
+    activation_name: str = "ELU"
+    init_proj_cells: int = 200
+    # torchrl's default hidden activation: the reference config names none
+    # for init_proj (the JAX package's ``mrssm.py:63-67``).
+    init_proj_activation: str = "Tanh"
+    audio_encoder: EncoderConfig = dataclasses.field(default_factory=EncoderConfig)
+    vision_encoder: EncoderConfig = dataclasses.field(default_factory=EncoderConfig)
+    audio_decoder: DecoderConfig | None = None
+    vision_decoder: DecoderConfig | None = None
+    # Accepted for config compatibility; every value runs the canonical
+    # layout (s2d and the fused Pallas encoder are TPU layouts).
+    conv_layout: str = "auto"
+
+    @property
+    def stoch_size(self) -> int:
+        """Flat width of the categorical latent."""
+        return self.class_size * self.category_size
+
+    @property
+    def feature_size(self) -> int:
+        """Decoder input width, deter + stoch."""
+        return self.deterministic_size + self.stoch_size
+
+    def decoder_cfg(self, which: str) -> DecoderConfig:
+        """The decoder config for ``"audio"`` or ``"vision"``."""
+        cfg = getattr(self, f"{which}_decoder")
+        return cfg if cfg is not None else DecoderConfig(in_features=self.feature_size)
+
+
+class Representation(nn.Module):
+    """A posterior head: MLP over ``cat(deter, obs_embed)`` (reference
+    ``networks.py:18-84``)."""
+
+    def __init__(self, in_dim: int, stoch_size: int, hidden_size: int, activation_name: str):
+        super().__init__()
+        self.rnn_to_post_projector = mlp(in_dim, stoch_size, hidden_size, act=activation_name)
+
+
+class MoPoEMRSSM(nn.Module):
+    """Multimodal RSSM with a MoPoE posterior over audio and vision."""
+
+    def __init__(self, config: MRSSMConfig | None = None):
+        super().__init__()
+        cfg = self.cfg = config or MRSSMConfig()
+        if cfg.conv_layout not in CONV_LAYOUTS:
+            raise ValueError(f"conv_layout must be one of {CONV_LAYOUTS}, got {cfg.conv_layout!r}")
+        S, D, H, E = cfg.stoch_size, cfg.deterministic_size, cfg.hidden_size, cfg.obs_embed_size
+        self.transition = Transition(cfg.action_size, S, H, D, cfg.activation_name)
+        self.audio_representation = Representation(D + E, S, H, cfg.activation_name)
+        self.vision_representation = Representation(D + E, S, H, cfg.activation_name)
+        self.audio_encoder = Encoder(cfg.audio_encoder)
+        self.vision_encoder = Encoder(cfg.vision_encoder)
+        self.audio_decoder = Decoder(cfg.decoder_cfg("audio"))
+        self.vision_decoder = Decoder(cfg.decoder_cfg("vision"))
+        self.init_proj = mlp(E, D, cfg.init_proj_cells, act=cfg.init_proj_activation)
+
+    def init(self, generator: torch.Generator) -> "MoPoEMRSSM":
+        """Fill every parameter with torch's fan-in uniform init, drawn from
+        ``generator`` (a CPU generator: the draw is the same on any device)."""
+        init_fan_in_uniform_(self, generator)
+        return self
+
+    # ---- weight views for the kernels -------------------------------------
+    def representation_weights(self) -> tuple[torch.Tensor, ...]:
+        """The recurrence kernel's 20 tensors: the transition's 12, then the
+        audio and vision posterior heads (w1, b1, w2, b2 each)."""
+        heads = []
+        for rep in (self.audio_representation, self.vision_representation):
+            seq = rep.rnn_to_post_projector
+            heads += [seq[0].weight, seq[0].bias, seq[2].weight, seq[2].bias]
+        return (*self.transition.weights(), *heads)
+
+    # ---- encode / initial state ---------------------------------------------
+    def encode_embeds(self, audio_obs: torch.Tensor,
+                      vision_obs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Per-modality embeddings of NHWC frames ``[..., H, W, C]``."""
+        return self.audio_encoder(audio_obs), self.vision_encoder(vision_obs)
+
+    def encode_observation(self, audio_obs: torch.Tensor, vision_obs: torch.Tensor) -> torch.Tensor:
+        """Mean-fused embedding (reference ``mopoe_mrssm/core.py:165-182``)."""
+        a, v = self.encode_embeds(audio_obs, vision_obs)
+        return (a + v) / 2.0
+
+    def initial_state_from_embed(self, embed: torch.Tensor, gumbel: torch.Tensor) -> State:
+        """Initial latent from a fused embedding ``[B, E]``; the stoch is the
+        straight-through sample for the given ``[B, S]`` Gumbel noise."""
+        deter = self.init_proj(embed)
+        logits = self.transition.rnn_to_prior_projector(deter)
+        stoch = st_sample(logits, gumbel, self.cfg.class_size, self.cfg.category_size)
+        return State(deter=deter, stoch=stoch, logits=logits)
+
+    def initial_state(self, audio_obs0: torch.Tensor, vision_obs0: torch.Tensor,
+                      gumbel: torch.Tensor) -> State:
+        """Initial latent from frame-0 observations (reference ``core.py:121-135``)."""
+        return self.initial_state_from_embed(self.encode_observation(audio_obs0, vision_obs0),
+                                             gumbel)
+
+    # ---- observe / imagine / decode -----------------------------------------
+    def rollout_representation(
+        self, actions: torch.Tensor, audio_obs: torch.Tensor, vision_obs: torch.Tensor,
+        prev_state: State, g_prior: torch.Tensor | None = None,
+        g_post: torch.Tensor | None = None, generator: torch.Generator | None = None,
+    ) -> tuple[State, State]:
+        """Posterior and prior over ``[B, T]`` (reference
+        ``mopoe_mrssm/core.py:184-260``), through the recurrence kernel.
+
+        ``g_prior``/``g_post`` are ``[T, B, S]`` Gumbel noise; any not given
+        is drawn from ``generator`` (torch's default generator if None).
+        Returns ``(posterior, prior)`` with time on axis 1."""
+        cfg = self.cfg
+        B, T = actions.shape[:2]
+        a_emb, v_emb = self.encode_embeds(audio_obs, vision_obs)
+        noise = [g if g is not None else gumbel_noise((T, B, cfg.stoch_size), generator).to(
+            actions.device) for g in (g_prior, g_post)]
+        tm = lambda x: x.transpose(0, 1).contiguous()  # noqa: E731
+        outs = fused_train_recurrence(
+            self.representation_weights(), tm(actions), tm(a_emb), tm(v_emb),
+            prev_state.deter.contiguous(), prev_state.stoch.contiguous(), *noise,
+            cfg.class_size, cfg.category_size, cfg.activation_name,
+        )
+        deter, prior_logits, prior_stoch, mixed, post_stoch = (x.transpose(0, 1) for x in outs)
+        posterior = State(deter=deter, stoch=post_stoch, logits=mixed)
+        prior = State(deter=deter, stoch=prior_stoch, logits=prior_logits)
+        return posterior, prior
+
+    def rollout_transition(self, actions: torch.Tensor, prev_state: State, seed: int) -> State:
+        """Prior-only imagination over ``[B, T]`` actions (reference
+        ``core.py:170-185``) through the rollout kernel; stochs are one-hot
+        samples from the seed's Philox stream, as in the JAX kernel path."""
+        cfg = self.cfg
+        deters, logits, stochs = fused_rollout_transition(
+            self.transition.weights(), actions.contiguous(), prev_state.deter.contiguous(),
+            prev_state.stoch.contiguous(), seed, cfg.class_size, cfg.category_size,
+            cfg.activation_name,
+        )
+        return State(deter=deters, stoch=stochs, logits=logits)
+
+    def decode_state(self, state: State) -> dict[str, torch.Tensor]:
+        """Reconstruct both modalities as NHWC frames (reference
+        ``mopoe_mrssm/core.py:262-277``)."""
+        feature = state.feature
+        return {"recon/audio": self.audio_decoder(feature),
+                "recon/vision": self.vision_decoder(feature)}

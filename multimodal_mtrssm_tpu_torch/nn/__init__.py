@@ -1,0 +1,24 @@
+"""Neural-network building blocks (port of ``multimodal_mtrssm_tpu.nn``)."""
+
+from multimodal_mtrssm_tpu_torch.nn.conv import Decoder, DecoderConfig, Encoder, EncoderConfig
+from multimodal_mtrssm_tpu_torch.nn.core import (
+    Transition,
+    activation,
+    gru_cell,
+    mlp,
+    rssm_transition_core,
+    transition_step,
+)
+
+__all__ = [
+    "Decoder",
+    "DecoderConfig",
+    "Encoder",
+    "EncoderConfig",
+    "Transition",
+    "activation",
+    "gru_cell",
+    "mlp",
+    "rssm_transition_core",
+    "transition_step",
+]

@@ -1,0 +1,91 @@
+"""Hand-written CUDA kernels and their dispatch (port of ``ops/pallas``).
+
+A CPU tensor goes to the kernel's plain PyTorch version; a CUDA tensor goes
+to the kernel, with no fallback: the launch succeeds or raises. The JAX
+package's measured TPU crossover (``B·T ≥ 256``) is not carried over, so on
+CUDA the kernel always runs. The kernels hard-code ELU, so a model with
+another activation raises on CUDA instead of silently taking the plain path.
+
+Kernels (sources in ``csrc/``, built at first use by :mod:`.build`):
+
+- ``recurrence``: the observe recurrence, replacing
+  ``ops/pallas/train_step.py::_fwd_kernel`` and ``::_fwd_kernel_chunked``;
+- ``rollout``: imagination, replacing ``ops/pallas/rollout.py::_rollout_kernel``.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from multimodal_mtrssm_tpu_torch.nn.core import activation
+from multimodal_mtrssm_tpu_torch.ops.kernels import recurrence, rollout
+from multimodal_mtrssm_tpu_torch.ops.kernels.rollout import philox_gumbel
+
+KERNEL_MODULES = {"recurrence_fwd": recurrence, "rollout": rollout}
+
+
+def _route(device: torch.device, activation_name: str):
+    """The plain version's activation on the CPU, None (= launch the
+    kernel) on CUDA; raises where no route exists."""
+    if device.type == "cpu":
+        return activation(activation_name)
+    if device.type != "cuda":
+        raise ValueError(f"no kernel route for device {device}")
+    if activation_name != "ELU":
+        raise ValueError(
+            f"the CUDA kernels implement ELU; this model uses {activation_name!r}")
+    return None
+
+
+def fused_train_recurrence(
+    weights: Sequence[torch.Tensor], actions: torch.Tensor, a_emb: torch.Tensor,
+    v_emb: torch.Tensor, init_deter: torch.Tensor, init_stoch: torch.Tensor,
+    g_prior: torch.Tensor, g_post: torch.Tensor, class_size: int = 4,
+    category_size: int = 4, activation_name: str = "ELU",
+) -> tuple[torch.Tensor, ...]:
+    """The observe recurrence forward over time-major ``[T, B, ·]`` inputs.
+    Returns ``(deter, prior_logits, prior_stoch, mixed_logits, post_stoch)``."""
+    act = _route(actions.device, activation_name)
+    args = (weights, actions, a_emb, v_emb, init_deter, init_stoch, g_prior, g_post,
+            class_size, category_size)
+    if act is None:
+        return recurrence.recurrence_forward_cuda(*args)
+    return recurrence.recurrence_forward_plain(*args, act=act)
+
+
+def fused_rollout_transition(
+    weights: Sequence[torch.Tensor], actions: torch.Tensor, init_deter: torch.Tensor,
+    init_stoch: torch.Tensor, seed: int, class_size: int = 4, category_size: int = 4,
+    activation_name: str = "ELU",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Prior-only imagination over ``[B, T, A]`` actions with the seed's
+    Philox noise. Returns ``(deters, logits, stochs)``, each ``[B, T, ·]``."""
+    act = _route(actions.device, activation_name)
+    if act is None:
+        return rollout.rollout_cuda(weights, actions, init_deter, init_stoch, seed,
+                                    class_size, category_size)
+    return rollout.rollout_plain(weights, actions, init_deter, init_stoch, seed,
+                                 class_size, category_size, act=act)
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches per kernel since the last :func:`reset_launch_counts`."""
+    return {name: mod.launches for name, mod in KERNEL_MODULES.items()}
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    for mod in KERNEL_MODULES.values():
+        mod.launches = 0
+
+
+__all__ = [
+    "KERNEL_MODULES",
+    "fused_rollout_transition",
+    "fused_train_recurrence",
+    "launch_counts",
+    "philox_gumbel",
+    "reset_launch_counts",
+]

@@ -1,0 +1,121 @@
+"""Checks that hold a kernel's output against its plain version.
+
+Sampling makes exact comparison fragile in one place: where the top two
+Gumbel scores of a category block lie within ``tie_eps``, summation order
+alone can pick the other category, and a recurrence then follows another
+trajectory. These checks exclude exactly those blocks (and, for the observe
+recurrence, what follows them in that row) and compare everything else.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from multimodal_mtrssm_tpu_torch.nn.core import transition_step
+from multimodal_mtrssm_tpu_torch.ops.distributions import onehot_blocks
+from multimodal_mtrssm_tpu_torch.ops.kernels.rollout import philox_gumbel
+
+
+class ParityError(AssertionError):
+    """A kernel disagrees with its plain version beyond the stated tolerance."""
+
+
+def near_ties(scores: torch.Tensor, class_size: int, category_size: int,
+              tie_eps: float) -> torch.Tensor:
+    """``[..., class_size]`` mask of blocks whose top two scores lie within ``tie_eps``."""
+    blocks = scores.reshape(*scores.shape[:-1], class_size, category_size)
+    top2 = blocks.topk(2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1]) < tie_eps
+
+
+def _max_err(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor) -> float:
+    """Max |a - b| over the ``[T, B]`` (or ``[B, T]``) entries where ``mask``."""
+    diff = (a - b).abs().amax(dim=-1)
+    return float(diff[mask].max()) if bool(mask.any()) else 0.0
+
+
+@torch.no_grad()
+def check_recurrence(kernel_out: Sequence[torch.Tensor], plain_out: Sequence[torch.Tensor],
+                     g_prior: torch.Tensor, g_post: torch.Tensor, class_size: int,
+                     category_size: int, atol: float = 1e-4,
+                     tie_eps: float = 1e-5) -> dict[str, Any]:
+    """Compare the observe recurrence's ``[T, B, ·]`` outputs. In each batch
+    row, steps up to the first posterior near-tie are compared (deter,
+    prior logits and mixed logits within ``atol``, stochs equal); a prior
+    near-tie excludes only its own block. Raises :class:`ParityError`.
+
+    Returns the largest error, the share of steps compared, and under
+    ``"agree"`` the ``[T, B]`` mask of steps whose whole posterior state
+    (deter and sample) was held equal."""
+    deter_k, prior_k, pstoch_k, mixed_k, post_k = kernel_out
+    deter_p, prior_p, pstoch_p, mixed_p, post_p = plain_out
+    T = deter_p.shape[0]
+    post_tie = near_ties(mixed_p + g_post, class_size, category_size, tie_eps)
+    prior_tie = near_ties(prior_p + g_prior, class_size, category_size, tie_eps)
+    steps = torch.arange(T, device=deter_p.device)[:, None]
+    first = torch.where(post_tie.any(-1), steps, T).amin(0)  # [B]
+    upto = steps <= first  # the carry into these steps agrees
+    before = steps < first
+    err = max(_max_err(k, p, upto) for k, p in
+              ((deter_k, deter_p), (prior_k, prior_p), (mixed_k, mixed_p)))
+    if not err <= atol:
+        raise ParityError(f"recurrence: max |kernel - plain| {err:.3g} > {atol}")
+    blocks = lambda x: x.reshape(*x.shape[:-1], class_size, category_size)  # noqa: E731
+    pmask = upto[..., None] & ~prior_tie
+    post_mask = before[..., None].expand_as(post_tie)
+    for name, k, p, m in (("prior_stoch", pstoch_k, pstoch_p, pmask),
+                          ("post_stoch", post_k, post_p, post_mask)):
+        bad = (blocks(k).argmax(-1) != blocks(p).argmax(-1)) & m
+        if bool(bad.any()):
+            raise ParityError(f"recurrence: {name} differs in {int(bad.sum())} blocks")
+        serr = float((blocks(k) - blocks(p)).abs().amax(-1)[m].max()) if bool(m.any()) else 0.0
+        if not serr <= atol:
+            raise ParityError(f"recurrence: {name} values differ by {serr:.3g}")
+    return {"max_abs_err": err, "compared": float(upto.float().mean()), "agree": before}
+
+
+@torch.no_grad()
+def replay_transition(weights: Sequence[torch.Tensor], actions: torch.Tensor,
+                      init_deter: torch.Tensor, init_stoch: torch.Tensor,
+                      stochs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain transition teacher-forced with given ``[B, T, S]`` stochs:
+    step t reads ``stochs[:, t-1]``. Returns ``(deters, logits)``."""
+    deter, stoch = init_deter, init_stoch
+    deters, logits = [], []
+    for t in range(actions.shape[1]):
+        deter, lg = transition_step(weights, actions[:, t], stoch, deter, F.elu)
+        deters.append(deter)
+        logits.append(lg)
+        stoch = stochs[:, t]
+    return torch.stack(deters, 1), torch.stack(logits, 1)
+
+
+@torch.no_grad()
+def check_rollout(weights: Sequence[torch.Tensor], actions: torch.Tensor,
+                  init_deter: torch.Tensor, init_stoch: torch.Tensor, seed: int,
+                  kernel_out: Sequence[torch.Tensor], class_size: int, category_size: int,
+                  atol: float = 1e-4, tie_eps: float = 1e-5) -> dict[str, float]:
+    """Check the rollout kernel by replaying its stochs through the plain
+    transition (deters and logits within ``atol``) and by re-sampling: its
+    stochs must be the one-hot argmax of its logits plus the plain Philox
+    noise for ``seed``, except in near-tie blocks. Raises :class:`ParityError`."""
+    deters_k, logits_k, stochs_k = kernel_out
+    B, T, _ = actions.shape
+    deters_p, logits_p = replay_transition(weights, actions, init_deter, init_stoch, stochs_k)
+    everywhere = torch.ones(B, T, dtype=torch.bool, device=actions.device)
+    err = max(_max_err(deters_k, deters_p, everywhere), _max_err(logits_k, logits_p, everywhere))
+    if not err <= atol:
+        raise ParityError(f"rollout: max |kernel - replay| {err:.3g} > {atol}")
+    noise = philox_gumbel(seed, T, B, class_size, category_size, actions.device).transpose(0, 1)
+    scores = logits_k + noise
+    expect = onehot_blocks(scores, class_size, category_size)
+    keep = ~near_ties(scores, class_size, category_size, tie_eps)
+    blocks = lambda x: x.reshape(B, T, class_size, category_size)  # noqa: E731
+    bad = (blocks(stochs_k) != blocks(expect)).any(-1) & keep
+    if bool(bad.any()):
+        raise ParityError(f"rollout: stochs differ from argmax(logits + noise) in "
+                          f"{int(bad.sum())} blocks")
+    return {"max_abs_err": err, "compared": float(keep.float().mean())}
