@@ -7,20 +7,34 @@ It refuses to run without a CUDA device and exits non-zero on any failure.
 0. Device: prints the card's name and power limit, turns TF32 off.
 1. Build: compiles the kernels from ``multimodal_mtrssm_tpu_torch/csrc``.
 2. Kernel checks, each kernel against its plain PyTorch version on the card:
-   the observe recurrence at B=8 T=30, B=128 T=30 and B=3 T=7 (same noise;
+   the recurrence forward at B=8 T=30, B=128 T=30 and B=3 T=7 (same noise;
    deter, prior and mixed logits within 1e-4, stochs equal outside
-   near-ties of 1e-5), and the imagination rollout at B=10 T=10, B=64 T=30
-   and B=256 T=180 (replay of its stochs within 1e-4, stochs equal to the
-   argmax of its logits plus the seed's Philox noise, sampling frequencies
-   against the softmax).
-3. The slice end to end: ``MoPoEMRSSM(MRSSMConfig())`` with seeded random
+   near-ties of 1e-5); the recurrence backward at the same shapes, on the
+   forward's record and random cotangents on all five outputs (every
+   gradient within 2e-4 × max(1, max|plain|)); and the imagination rollout
+   at B=10 T=10, B=64 T=30 and B=256 T=180 (replay of its stochs within
+   1e-4, stochs equal to the argmax of its logits plus the seed's Philox
+   noise, sampling frequencies against the softmax).
+3. Serving end to end: ``MoPoEMRSSM(MRSSMConfig())`` with seeded random
    weights behind ``InferenceServer``: ``/healthz``, ``/observe`` (B=8,
    T=30, decode, JSON), two chained ``/imagine`` (T=30, decode, npz then
-   JSON). Checks shapes, finiteness, that both kernels were launched by
-   those requests, and that the card's observe posterior and frames equal
+   JSON). Checks shapes, finiteness, that both serving kernels were launched
+   by those requests, and that the card's observe posterior and frames equal
    the CPU path's on the same weights and seed.
-4. Timings: median ms of each kernel against its plain version, and the
-   median latency of ``/observe`` and ``/imagine`` through the server.
+4. Training end to end: 24 synthetic Audio-MNIST episodes, then
+   ``Trainer(model, datamodule, config).fit()`` with ``MRSSMConfig()``,
+   B=8, T=30, 2 epochs of 3 optimizer steps. Checks finite losses, that
+   every parameter moved, that both recurrence kernels ran at least once a
+   step, and that ``best`` loads into a fresh model; then one train step on
+   the card against the CPU path with the same weights, batch and noise
+   (each loss term within 2e-5 of the loss, gradients within 3e-4 ×
+   scale; noise with a Gumbel near-tie is reported and replaced by the next
+   seed's).
+5. Timings: median ms of each kernel against its plain version, of a full
+   train step on the kernels against the plain versions on the card, a
+   device-time breakdown of the train step (``torch.profiler``), the
+   median latency of ``/observe`` and ``/imagine`` through the server and
+   the optimizer steps per second of ``Trainer.fit``.
 
 Then one JSON line with the kernels, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.
@@ -28,17 +42,22 @@ last ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.request
+from pathlib import Path
 
 import numpy as np
 
 TOL = 1e-4
 TIE_EPS = 1e-5
+BWD_TOL = 2e-4  # × max(1, max|plain|), per gradient tensor
+STEP_RTOL, STEP_TOL = 2e-5, 3e-4  # train step: losses; gradients × scale
 SEED = 0
 
 
@@ -173,6 +192,46 @@ def check_kernels(model, cfg, dev) -> dict[str, dict]:
     return results
 
 
+def _backward_args(weights, args, outs, cots, cfg):
+    """The backward kernel's inputs for a forward record: carries into each step."""
+    import torch
+
+    prev_deter = torch.cat([args[3][None], outs[0][:-1]])
+    prev_stoch = torch.cat([args[4][None], outs[4][:-1]])
+    return (weights, *args[:3], prev_deter, prev_stoch, cots, cfg.class_size, cfg.category_size)
+
+
+def check_backward(model, cfg, dev) -> dict:
+    """Phase 2, backward: the BPTT kernel against its plain version on one
+    forward record per shape and random cotangents on all five outputs."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels import recurrence
+    from multimodal_mtrssm_tpu_torch.ops.kernels.parity import ParityError, check_gradients
+
+    C, K = cfg.class_size, cfg.category_size
+    rng = np.random.default_rng(SEED + 3)
+    rw = model.representation_weights()
+    worst = 0.0
+    for B, T in ((8, 30), (128, 30), (3, 7)):
+        args = _recurrence_inputs(rng, B, T, cfg, dev)
+        outs = recurrence.recurrence_forward_cuda(rw, *args, C, K)
+        cots = [torch.tensor(rng.standard_normal(tuple(o.shape)).astype(np.float32), device=dev)
+                for o in outs]
+        bwd = _backward_args(rw, args, outs, cots, cfg)
+        got = recurrence.recurrence_backward_cuda(*bwd)
+        again = recurrence.recurrence_backward_cuda(*bwd)
+        ref = recurrence.recurrence_backward_plain(*bwd)
+        scaled = check_gradients(got, ref, BWD_TOL)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise ParityError("recurrence_bwd: two launches on the same inputs differ")
+        err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        print(f"check recurrence_bwd B={B} T={T}: max_abs_err={err:.3g} "
+              f"max_err/scale={scaled:.3g} (limit {BWD_TOL}), reproducible")
+        worst = max(worst, err)
+    return {"max_abs_err": worst}
+
+
 def drive_server(model, cfg, dev) -> dict:
     """Phase 3: the serving path through the HTTP server."""
     import torch
@@ -289,6 +348,197 @@ def timings(model, cfg, dev, card: str, ctx: dict) -> dict[str, tuple[float, flo
     return main
 
 
+def _train_batch(rng, B: int, T: int, cfg):
+    """A random batch (6-tuple, CPU) and its noise for ``shared_step``: Gumbel
+    for the three sample sites and standard normals for the inputs."""
+    import torch
+
+    act = rng.uniform(-1, 1, (B, T, cfg.action_size)).astype(np.float32)
+    frames = [rng.uniform(-1, 1, (B, T, 32, 32, 1)).astype(np.float32) for _ in range(2)]
+    S = cfg.stoch_size
+    noise = {k: torch.from_numpy(rng.gumbel(size=s).astype(np.float32))
+             for k, s in (("g_init", (B, S)), ("g_prior", (T, B, S)), ("g_post", (T, B, S)))}
+    noise["input"] = tuple(torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
+                           for x in (act, *frames))
+    return tuple(torch.from_numpy(x) for x in (act, *frames, act, *frames)), noise
+
+
+def _noise_to(noise: dict, dev) -> dict:
+    return {k: tuple(x.to(dev) for x in v) if isinstance(v, tuple) else v.to(dev)
+            for k, v in noise.items()}
+
+
+def drive_training(cfg, dev) -> dict:
+    """Phase 4: ``Trainer.fit`` on synthetic episodes, then one train step on
+    the card against the CPU path."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.data import (
+        DataModuleConfig,
+        EpisodeDataModule,
+        generate_synthetic_audio_mnist,
+    )
+    from multimodal_mtrssm_tpu_torch.models import MoPoEMRSSM
+    from multimodal_mtrssm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from multimodal_mtrssm_tpu_torch.ops.kernels.parity import (
+        check_train_step,
+        train_step_near_ties,
+    )
+    from multimodal_mtrssm_tpu_torch.train import Trainer, TrainerConfig, load_lightning_checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        generate_synthetic_audio_mnist(Path(tmp) / "episodes", n_episodes=24, seed=SEED)
+        # The reference YAML's input noise is the model's (input_noise_std
+        # 0.1, on the device), so the pipeline adds none.
+        dm = EpisodeDataModule(DataModuleConfig(data_dir=str(Path(tmp) / "episodes"),
+                                                batch_size=8, sequence_length=30, noise_std=0.0,
+                                                seed=SEED))
+        dm.setup()
+        print(f"data: 24 episodes x 180 frames generated and loaded in "
+              f"{time.perf_counter() - t0:.2f} s; {dm.n_train} train, {dm.n_val} val")
+        model = MoPoEMRSSM(cfg).to(dev)
+        init = MoPoEMRSSM(cfg).init(torch.Generator().manual_seed(SEED))  # fit's own init
+        trainer = Trainer(model, dm, TrainerConfig(max_epochs=2, seed=SEED,
+                                                   log_dir=str(Path(tmp) / "run")))
+        reset_launch_counts()
+        out = trainer.fit()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        steps = out["global_step"]
+        print(f"training kernel launches over {steps} optimizer steps: {counts}")
+        for row in out["history"]:
+            print("epoch " + " ".join(f"{k}={v:.6g}" for k, v in row.items()))
+        if steps < 4 or len(out["history"]) != 2:
+            raise RuntimeError(f"fit ran {steps} steps in {len(out['history'])} epochs")
+        if not all(np.isfinite(v) for row in out["history"] for v in row.values()):
+            raise RuntimeError("non-finite training metrics")
+        if counts["recurrence_fwd"] < steps or counts["recurrence_bwd"] < steps:
+            raise RuntimeError(f"the training path missed a kernel: {counts}")
+        still = [n for (n, p), q in zip(model.named_parameters(), init.parameters())
+                 if torch.equal(p.detach().cpu(), q.detach())]
+        if still:
+            raise RuntimeError(f"parameters did not move: {still}")
+        best = load_lightning_checkpoint(MoPoEMRSSM(cfg), Path(tmp) / "run" / "checkpoints" / "best.ckpt")
+        if not all(bool(torch.isfinite(p).all()) for p in best.parameters()):
+            raise RuntimeError("the best checkpoint holds non-finite weights")
+        print(f"fit: {steps} steps, best val/loss {out['best_val']:.6g}, every parameter moved, "
+              "best checkpoint loads into a fresh model")
+
+    cpu = MoPoEMRSSM(cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    for seed in range(SEED + 10, SEED + 20):
+        batch, noise = _train_batch(np.random.default_rng(seed), 8, 30, cfg)
+        ties = train_step_near_ties(cpu, batch, noise, TIE_EPS)
+        if ties == 0:
+            break
+        print(f"train step card vs CPU: seed {seed} has {ties} Gumbel near-tie blocks "
+              f"(within {TIE_EPS}); taking the next seed")
+    else:
+        raise RuntimeError("no seed without near-ties for the train-step check")
+    on_card = (tuple(x.to(dev) for x in batch), _noise_to(noise, dev))
+    r = check_train_step(model, cpu, on_card, (batch, noise), STEP_RTOL, STEP_TOL)
+    print(f"train step card vs CPU B=8 T=30 (seed {seed}): " + ", ".join(
+        f"{k} {v:.6g} (err/loss {r['loss_rel_errs'][k]:.3g})" for k, v in r["losses"].items())
+        + f"; limit {STEP_RTOL}; grad max_abs_err {r['grad_max_abs_err']:.3g} "
+        f"(limit {STEP_TOL} x {r['grad_scale']:.4g})")
+    # The last epoch's rate: the first one also pays cuDNN's and the
+    # allocator's first calls.
+    last = out["history"][-1]
+    steps_last = -(-dm.n_train // dm.train_batch_size)
+    return {"counts": counts, "model": model,
+            "steps_per_s": steps / max(out["train_seconds"], 1e-9),
+            "steps_per_s_last": steps_last * last["seq_per_sec"] / dm.n_train}
+
+
+def _self_device_us(event) -> float:
+    """A profiler row's own device time in µs (the attribute was renamed)."""
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(event, attr):
+            return getattr(event, attr)
+    return 0.0
+
+
+@contextlib.contextmanager
+def plain_route():
+    """Timing only: route the recurrence to its plain versions on CUDA
+    tensors too (the dispatch itself never does)."""
+    from multimodal_mtrssm_tpu_torch.nn.core import activation
+    from multimodal_mtrssm_tpu_torch.ops import kernels
+
+    saved = kernels._route
+    kernels._route = lambda device, name: activation(name)
+    try:
+        yield
+    finally:
+        kernels._route = saved
+
+
+def train_timings(model, cfg, dev, card: str) -> dict[str, tuple[float, float]]:
+    """Phase 5, training: the backward kernel and a full train step against
+    their plain versions, and the train step's device-time breakdown."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels import recurrence
+    from multimodal_mtrssm_tpu_torch.train import AdamW, one_update
+
+    C, K = cfg.class_size, cfg.category_size
+    rng = np.random.default_rng(SEED + 4)
+    rw = [w.detach() for w in model.representation_weights()]
+    main: dict[str, tuple[float, float]] = {}
+    for B, T in ((8, 30), (128, 30)):
+        args = _recurrence_inputs(rng, B, T, cfg, dev)
+        with torch.no_grad():
+            outs = recurrence.recurrence_forward_cuda(rw, *args, C, K)
+        cots = [torch.randn(o.shape, device=dev) for o in outs]
+        bwd = _backward_args(rw, args, outs, cots, cfg)
+        k_ms = _median_ms(lambda: recurrence.recurrence_backward_cuda(*bwd), 30)
+        p_ms = _median_ms(lambda: recurrence.recurrence_backward_plain(*bwd), 3, warmup=1)
+        print(f"time recurrence_bwd B={B} T={T}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms | {card}")
+        main.setdefault("recurrence_bwd", (k_ms, p_ms))
+    batch, _ = _train_batch(rng, 8, 30, cfg)
+    batch = tuple(x.to(dev) for x in batch)
+    opt = AdamW(model.parameters())
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    step = lambda: one_update(model, opt, batch, gen)  # noqa: E731
+    k_ms = _median_ms(step, 20, warmup=3)
+    with plain_route():
+        p_ms = _median_ms(step, 5, warmup=1)
+    print(f"time train step B=8 T=30 (forward, backward, AdamW): kernels {k_ms:.4f} ms, "
+          f"plain recurrence {p_ms:.4f} ms | {card}")
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                step()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+    except RuntimeError as e:  # a measurement, not a check: report and go on
+        print(f"train step device breakdown: not measured (torch.profiler failed: {e})")
+        return main
+    rows = sorted(((e.key, _self_device_us(e), e.count) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA and _self_device_us(e) > 0),
+                  key=lambda r: -r[1])
+    total = sum(r[1] for r in rows)
+    if total == 0:
+        print("train step device breakdown: not measured (the profiler saw no device time)")
+        return main
+    groups = {"recurrence kernels": ("recurrence_", "reduce_weight_grads"),
+              "convolutions (cuDNN)": ("conv", "cudnn", "xmma", "implicit", "dgrad", "wgrad",
+                                       "fprop", "sm90_")}
+    shares = {g: sum(r[1] for r in rows if any(k in r[0].lower() for k in keys))
+              for g, keys in groups.items()}
+    shares["everything else"] = total - sum(shares.values())
+    print(f"train step device breakdown B=8 T=30, 5 steps under torch.profiler: "
+          f"{total / 5e3:.4f} ms of device time a step, {total / 5e3 / k_ms:.1%} of the "
+          f"{k_ms:.4f} ms step timed above; " + ", ".join(
+              f"{g} {v / 5e3:.4f} ms ({v / total:.1%})" for g, v in shares.items()) + f" | {card}")
+    for name, t_us, n in rows[:12]:
+        print(f"  {t_us / 5e3:9.4f} ms/step  x{n // 5:<4d} {name[:110]}")
+    return main
+
+
 def main() -> int:
     import torch
 
@@ -311,19 +561,28 @@ def main() -> int:
     model = MoPoEMRSSM(cfg).init(torch.Generator().manual_seed(0)).to(dev).eval()
     with torch.no_grad():
         checks = check_kernels(model, cfg, dev)
+        checks["recurrence_bwd"] = check_backward(model, cfg, dev)
         ctx = drive_server(model, cfg, dev)
         try:
             times = timings(model, cfg, dev, card, ctx)
         finally:
             ctx["server"].stop()
+    training = drive_training(cfg, dev)
+    times.update(train_timings(training["model"], cfg, dev, card))
+    print(f"time Trainer.fit B=8 T=30: {training['steps_per_s']:.3f} optimizer steps/s over "
+          f"2 epochs, {training['steps_per_s_last']:.3f} in the second (host data pipeline "
+          f"included) | {card}")
+    launches = {k: ctx["counts"][k] + training["counts"][k] for k in ctx["counts"]}
+    print(f"main-path launches, serving + training: {launches}")
     pkg = "multimodal_mtrssm_tpu_torch"
+    pallas = "multimodal_mtrssm_tpu/ops/pallas"
     meta = {
-        "recurrence_fwd": (f"{pkg}/csrc/recurrence_fwd.cu",
-                           "multimodal_mtrssm_tpu/ops/pallas/train_step.py:244"),
-        "rollout": (f"{pkg}/csrc/rollout.cu", "multimodal_mtrssm_tpu/ops/pallas/rollout.py:105"),
+        "recurrence_fwd": (f"{pkg}/csrc/recurrence_fwd.cu", f"{pallas}/train_step.py:244"),
+        "recurrence_bwd": (f"{pkg}/csrc/recurrence_bwd.cu", f"{pallas}/train_step.py:366"),
+        "rollout": (f"{pkg}/csrc/rollout.cu", f"{pallas}/rollout.py:105"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": ctx["counts"][name], "max_abs_err": checks[name]["max_abs_err"],
+                "launches": launches[name], "max_abs_err": checks[name]["max_abs_err"],
                 "ms": times[name][0], "plain_ms": times[name][1]}
                for name, (src, rep) in meta.items()]
     print(json.dumps({"kernels": kernels}))

@@ -1,15 +1,17 @@
-"""MoPoE-MRSSM (port of ``models/mrssm.py``): the serving surface.
+"""MoPoE-MRSSM (port of ``models/mrssm.py``): serving and the ELBO.
 
 ``MRSSMConfig`` defaults are the reference config (``configs/mopoe_mrssm.yaml``).
 The model is an ``nn.Module`` whose ``state_dict`` carries the reference
 Lightning names that ``train/torch_export.py`` writes, so a JAX checkpoint
 exported there loads with ``strict=True`` (``train/weights.py``).
 
-Observe runs the representation recurrence kernel (``ops.kernels``) on bulk
+Observe and ``shared_step`` run the representation recurrence kernel
+(``ops.kernels``, differentiable: forward and backward kernels) on bulk
 Gumbel noise, ``[T, B, S]`` per sample site as in the JAX package's kernel
 path (``models/mrssm.py:491-500``); imagine runs the rollout kernel, which
-draws its own Philox noise from a seed. On the CPU both take their plain
-versions. The ELBO (KL, likelihood, ``shared_step``) comes with training.
+draws its own Philox noise from a seed. On the CPU each takes its plain
+version. ``shared_step`` is the ELBO: Gaussian NLL of both reconstructions
+plus the balanced KL (``models/mrssm.py:597-642``).
 """
 
 from __future__ import annotations
@@ -22,11 +24,17 @@ from torch import nn
 from multimodal_mtrssm_tpu_torch.models.state import State
 from multimodal_mtrssm_tpu_torch.nn.conv import Decoder, DecoderConfig, Encoder, EncoderConfig
 from multimodal_mtrssm_tpu_torch.nn.core import Transition, init_fan_in_uniform_, mlp
-from multimodal_mtrssm_tpu_torch.ops.distributions import gumbel_noise, st_sample
+from multimodal_mtrssm_tpu_torch.ops.distributions import (
+    MultiOneHot,
+    gumbel_noise,
+    kl_balanced,
+    st_sample,
+)
 from multimodal_mtrssm_tpu_torch.ops.kernels import (
     fused_rollout_transition,
     fused_train_recurrence,
 )
+from multimodal_mtrssm_tpu_torch.ops.likelihood import gaussian_nll
 
 CONV_LAYOUTS = ("auto", "nhwc", "s2d", "fused_enc")
 
@@ -46,6 +54,14 @@ class MRSSMConfig:
     # torchrl's default hidden activation: the reference config names none
     # for init_proj (the JAX package's ``mrssm.py:63-67``).
     init_proj_activation: str = "Tanh"
+    kl_coeff: float = 1.0
+    use_kl_balancing: bool = True
+    # Gaussian noise on the three input streams inside shared_step, one std
+    # for all or (action, audio, vision); 0 leaves the inputs as the data
+    # pipeline made them. The reference YAML's GaussianNoise input
+    # transforms land here (JAX train/config.py), with the pipeline's
+    # noise_std then 0.
+    input_noise_std: float | tuple[float, float, float] = 0.1
     audio_encoder: EncoderConfig = dataclasses.field(default_factory=EncoderConfig)
     vision_encoder: EncoderConfig = dataclasses.field(default_factory=EncoderConfig)
     audio_decoder: DecoderConfig | None = None
@@ -150,15 +166,23 @@ class MoPoEMRSSM(nn.Module):
         ``g_prior``/``g_post`` are ``[T, B, S]`` Gumbel noise; any not given
         is drawn from ``generator`` (torch's default generator if None).
         Returns ``(posterior, prior)`` with time on axis 1."""
-        cfg = self.cfg
         B, T = actions.shape[:2]
-        a_emb, v_emb = self.encode_embeds(audio_obs, vision_obs)
-        noise = [g if g is not None else gumbel_noise((T, B, cfg.stoch_size), generator).to(
+        noise = [g if g is not None else gumbel_noise((T, B, self.cfg.stoch_size), generator).to(
             actions.device) for g in (g_prior, g_post)]
+        return self._rollout_from_embeds(actions, *self.encode_embeds(audio_obs, vision_obs),
+                                         prev_state, *noise)
+
+    def _rollout_from_embeds(self, actions: torch.Tensor, a_emb: torch.Tensor,
+                             v_emb: torch.Tensor, prev_state: State, g_prior: torch.Tensor,
+                             g_post: torch.Tensor) -> tuple[State, State]:
+        """The recurrence on per-modality embeddings ``[B, T, E]`` and
+        ``[T, B, S]`` noise; returns ``(posterior, prior)``, time on axis 1."""
+        cfg = self.cfg
         tm = lambda x: x.transpose(0, 1).contiguous()  # noqa: E731
         outs = fused_train_recurrence(
             self.representation_weights(), tm(actions), tm(a_emb), tm(v_emb),
-            prev_state.deter.contiguous(), prev_state.stoch.contiguous(), *noise,
+            prev_state.deter.contiguous(), prev_state.stoch.contiguous(),
+            g_prior.contiguous(), g_post.contiguous(),
             cfg.class_size, cfg.category_size, cfg.activation_name,
         )
         deter, prior_logits, prior_stoch, mixed, post_stoch = (x.transpose(0, 1) for x in outs)
@@ -184,3 +208,80 @@ class MoPoEMRSSM(nn.Module):
         feature = state.feature
         return {"recon/audio": self.audio_decoder(feature),
                 "recon/vision": self.vision_decoder(feature)}
+
+    # ---- the ELBO -----------------------------------------------------------
+    def _dist(self, logits: torch.Tensor) -> MultiOneHot:
+        return MultiOneHot(logits, self.cfg.class_size, self.cfg.category_size)
+
+    def compute_reconstruction_loss(self, reconstructions: dict[str, torch.Tensor],
+                                    targets: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """Per-modality Gaussian NLL, summed (reference
+        ``mopoe_mrssm/core.py:279-308``; event_ndims=3)."""
+        audio = gaussian_nll(reconstructions["recon/audio"], targets["recon/audio"], 3)
+        vision = gaussian_nll(reconstructions["recon/vision"], targets["recon/vision"], 3)
+        return {"recon": audio + vision, "recon/audio": audio, "recon/vision": vision}
+
+    def shared_step(self, batch: tuple[torch.Tensor, ...],
+                    noise: dict[str, torch.Tensor | tuple[torch.Tensor, ...]] | None = None,
+                    generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
+        """The ELBO of one batch (reference ``core.py:187-221``).
+
+        ``batch`` is the 6-tuple (action_input, audio_in, vision_in,
+        action_target, audio_target, vision_target), frames NHWC
+        ``[B, T, H, W, C]``. ``noise`` may give ``g_init`` ``[B, S]``,
+        ``g_prior`` and ``g_post`` ``[T, B, S]`` (Gumbel) and ``input``, three
+        standard-normal tensors shaped like the input streams (used where
+        ``input_noise_std`` > 0); what it does not give is drawn from
+        ``generator`` (a generator on the model's device; torch's default
+        generator of that device if None). Returns ``loss``, ``recon``,
+        ``recon/audio``, ``recon/vision`` and ``kl``."""
+        _, posterior, prior, _ = self._observe_batch(batch, noise or {}, generator)
+        losses = self.compute_reconstruction_loss(
+            self.decode_state(posterior), {"recon/audio": batch[4], "recon/vision": batch[5]})
+        # KL summed over time, then the batch mean (reference core.py:212-218).
+        kl_bt = kl_balanced(self._dist(posterior.logits), self._dist(prior.logits),
+                            use_balancing=self.cfg.use_kl_balancing)
+        losses["kl"] = torch.mean(torch.sum(kl_bt, dim=-1)) * self.cfg.kl_coeff
+        losses["loss"] = losses["recon"] + losses["kl"]
+        return losses
+
+    def _observe_batch(self, batch: tuple[torch.Tensor, ...], noise: dict,
+                       generator: torch.Generator | None
+                       ) -> tuple[State, State, State, tuple[torch.Tensor, ...]]:
+        """``shared_step``'s filtering half: input noise, one encoder pass
+        that serves the initial state (frame 0) and the recurrence, as in
+        the JAX package. Returns ``(initial, posterior, prior, (g_init,
+        g_prior, g_post))``."""
+        cfg = self.cfg
+        action_in, audio_in, vision_in = batch[:3]
+        dev = action_in.device
+        B, T = action_in.shape[:2]
+        S = cfg.stoch_size
+        gumbels = tuple(
+            noise[key] if key in noise else gumbel_noise(shape, generator, dev)
+            for key, shape in (("g_init", (B, S)), ("g_prior", (T, B, S)), ("g_post", (T, B, S))))
+        stds = _stream_stds(cfg.input_noise_std)
+        if any(s > 0 for s in stds):
+            normals = noise.get("input") or tuple(
+                torch.randn(x.shape, generator=generator, device=dev)
+                for x in (action_in, audio_in, vision_in))
+            action_in, audio_in, vision_in = _add_input_noise(
+                stds, normals, (action_in, audio_in, vision_in))
+        a_emb, v_emb = self.encode_embeds(audio_in, vision_in)
+        init = self.initial_state_from_embed((a_emb[:, 0] + v_emb[:, 0]) / 2.0, gumbels[0])
+        posterior, prior = self._rollout_from_embeds(action_in, a_emb, v_emb, init, *gumbels[1:])
+        return init, posterior, prior, gumbels
+
+
+def _stream_stds(std: float | tuple[float, ...]) -> tuple[float, ...]:
+    """A noise-std config value as per-stream (action, audio, vision) floats."""
+    if isinstance(std, (tuple, list)):
+        return tuple(float(s) for s in std)
+    return (float(std),) * 3
+
+
+def _add_input_noise(stds: tuple[float, ...], normals: tuple[torch.Tensor, ...],
+                     streams: tuple[torch.Tensor, ...]) -> tuple[torch.Tensor, ...]:
+    """``x + std * n`` per stream (reference ``transform.py:55-72``, applied on
+    the device as the JAX package does); a std of 0 leaves its stream clean."""
+    return tuple(x if s == 0 else x + s * n for s, n, x in zip(stds, normals, streams))

@@ -8,8 +8,11 @@ another activation raises on CUDA instead of silently taking the plain path.
 
 Kernels (sources in ``csrc/``, built at first use by :mod:`.build`):
 
-- ``recurrence``: the observe recurrence, replacing
-  ``ops/pallas/train_step.py::_fwd_kernel`` and ``::_fwd_kernel_chunked``;
+- ``recurrence_fwd``: the representation recurrence (observe, and the
+  forward of a train step), replacing ``ops/pallas/train_step.py::_fwd_kernel``
+  and ``::_fwd_kernel_chunked``;
+- ``recurrence_bwd``: its BPTT backward, replacing ``::_bwd_kernel`` and
+  ``::_bwd_kernel_chunked``;
 - ``rollout``: imagination, replacing ``ops/pallas/rollout.py::_rollout_kernel``.
 """
 
@@ -23,7 +26,10 @@ from multimodal_mtrssm_tpu_torch.nn.core import activation
 from multimodal_mtrssm_tpu_torch.ops.kernels import recurrence, rollout
 from multimodal_mtrssm_tpu_torch.ops.kernels.rollout import philox_gumbel
 
-KERNEL_MODULES = {"recurrence_fwd": recurrence, "rollout": rollout}
+# Kernel name → (module, attribute) of its launch counter.
+LAUNCH_COUNTERS = {"recurrence_fwd": (recurrence, "launches"),
+                   "recurrence_bwd": (recurrence, "bwd_launches"),
+                   "rollout": (rollout, "launches")}
 
 
 def _route(device: torch.device, activation_name: str):
@@ -45,14 +51,14 @@ def fused_train_recurrence(
     g_prior: torch.Tensor, g_post: torch.Tensor, class_size: int = 4,
     category_size: int = 4, activation_name: str = "ELU",
 ) -> tuple[torch.Tensor, ...]:
-    """The observe recurrence forward over time-major ``[T, B, ·]`` inputs.
-    Returns ``(deter, prior_logits, prior_stoch, mixed_logits, post_stoch)``."""
+    """The representation recurrence over time-major ``[T, B, ·]`` inputs,
+    differentiable on both routes (the forward kernel, and the backward
+    kernel as its VJP). Returns ``(deter, prior_logits, prior_stoch,
+    mixed_logits, post_stoch)``."""
     act = _route(actions.device, activation_name)
-    args = (weights, actions, a_emb, v_emb, init_deter, init_stoch, g_prior, g_post,
-            class_size, category_size)
-    if act is None:
-        return recurrence.recurrence_forward_cuda(*args)
-    return recurrence.recurrence_forward_plain(*args, act=act)
+    return recurrence.RecurrenceFunction.apply(
+        act, class_size, category_size, actions, a_emb, v_emb, init_deter, init_stoch,
+        g_prior, g_post, *weights)
 
 
 def fused_rollout_transition(
@@ -72,17 +78,17 @@ def fused_rollout_transition(
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches per kernel since the last :func:`reset_launch_counts`."""
-    return {name: mod.launches for name, mod in KERNEL_MODULES.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in LAUNCH_COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
-    for mod in KERNEL_MODULES.values():
-        mod.launches = 0
+    for mod, attr in LAUNCH_COUNTERS.values():
+        setattr(mod, attr, 0)
 
 
 __all__ = [
-    "KERNEL_MODULES",
+    "LAUNCH_COUNTERS",
     "fused_rollout_transition",
     "fused_train_recurrence",
     "launch_counts",

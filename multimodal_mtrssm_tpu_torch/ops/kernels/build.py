@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("recurrence_fwd.cu", "rollout.cu")
+SOURCES = ("recurrence_fwd.cu", "recurrence_bwd.cu", "rollout.cu")
 HEADERS = ("mrssm_common.cuh",)
 # Hopper only (sm_90a); no --use_fast_math, so expf/logf/tanhf stay accurate
 # and the straight-through value (onehot + p) - p is not reassociated.
@@ -31,6 +31,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # name → (restype, argtypes) of the C entry points called from Python.
 _SIGNATURES = {
     "mrssm_recurrence_forward": (_I, [_P] * 13 + [_I] * 9 + [_P]),
+    "mrssm_recurrence_backward": (_I, [_P] * 18 + [_I] * 9 + [_P]),
+    "mrssm_recurrence_bwd_rows": (_I, [_I] * 7),
     "mrssm_rollout": (_I, [_P] * 7 + [ctypes.c_ulonglong] + [_I] * 8 + [_P]),
     "mrssm_error_string": (ctypes.c_char_p, [_I]),
 }

@@ -3,13 +3,17 @@
 Sampling makes exact comparison fragile in one place: where the top two
 Gumbel scores of a category block lie within ``tie_eps``, summation order
 alone can pick the other category, and a recurrence then follows another
-trajectory. These checks exclude exactly those blocks (and, for the observe
-recurrence, what follows them in that row) and compare everything else.
+trajectory. The forward checks exclude exactly those blocks (and, for the
+observe recurrence, what follows them in that row) and compare everything
+else. A gradient flows through the probs only, so the backward check
+compares everything; a whole train step samples, so its check first counts
+the near-ties of its noise (:func:`train_step_near_ties`) and the caller
+takes other noise where there are any.
 """
 
 from __future__ import annotations
 
-from typing import Any, Sequence
+from typing import Any, Mapping, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -119,3 +123,64 @@ def check_rollout(weights: Sequence[torch.Tensor], actions: torch.Tensor,
         raise ParityError(f"rollout: stochs differ from argmax(logits + noise) in "
                           f"{int(bad.sum())} blocks")
     return {"max_abs_err": err, "compared": float(keep.float().mean())}
+
+
+def check_gradients(kernel_grads: Sequence[torch.Tensor], plain_grads: Sequence[torch.Tensor],
+                    rel: float = 2e-4) -> float:
+    """Each kernel gradient within ``rel × max(1, max|plain|)`` of its plain
+    twin (the bound of ``tests/test_pallas_train_step.py``). Returns the
+    largest error divided by its tensor's scale; raises :class:`ParityError`."""
+    worst = 0.0
+    for i, (k, p) in enumerate(zip(kernel_grads, plain_grads, strict=True)):
+        scale = max(1.0, float(p.abs().max())) if p.numel() else 1.0
+        err = float((k.to(p.device) - p).abs().max()) / scale if p.numel() else 0.0
+        if not err <= rel:
+            raise ParityError(f"grads[{i}]: max |kernel - plain| / scale {err:.3g} > {rel}")
+        worst = max(worst, err)
+    return worst
+
+
+@torch.no_grad()
+def train_step_near_ties(model: Any, batch: Sequence[torch.Tensor],
+                         noise: Mapping[str, Any], tie_eps: float = 1e-5) -> int:
+    """Blocks of a ``shared_step`` on ``batch`` and ``noise`` whose top two
+    Gumbel scores lie within ``tie_eps`` (initial, prior and posterior
+    samples); where there are none, two routes must sample alike."""
+    C, K = model.cfg.class_size, model.cfg.category_size
+    init, post, prior, (g_init, g_prior, g_post) = model._observe_batch(batch, noise, None)
+    tm = lambda x: x.transpose(0, 1)  # noqa: E731
+    return sum(int(near_ties(scores, C, K, tie_eps).sum()) for scores in (
+        init.logits + g_init, tm(prior.logits) + g_prior, tm(post.logits) + g_post))
+
+
+def train_step_grads(model: Any, batch: Sequence[torch.Tensor],
+                     noise: Mapping[str, Any]) -> tuple[dict[str, float],
+                                                                 dict[str, torch.Tensor]]:
+    """The losses of one ``shared_step`` and every parameter's gradient."""
+    model.zero_grad(set_to_none=True)
+    out = model.shared_step(batch, noise)
+    out["loss"].backward()
+    return ({k: float(v.detach()) for k, v in out.items()},
+            {n: p.grad.detach().clone() for n, p in model.named_parameters()})
+
+
+def check_train_step(kernel_model: Any, plain_model: Any, kernel_inputs: tuple, plain_inputs: tuple,
+                     rtol: float = 2e-5, rel: float = 3e-4) -> dict[str, float]:
+    """One train step's loss terms within ``rtol`` of the total loss (the
+    KL is a small term whose own relative error says little) and its
+    gradient tree within ``rel × max(1, max|plain grad|)`` (one scale for
+    the whole tree, as ``tests/test_pallas_train_step.py`` holds the JAX
+    kernel). Each inputs tuple is ``(batch, noise)`` on its model's device.
+    Raises :class:`ParityError`."""
+    loss_k, grads_k = train_step_grads(kernel_model, *kernel_inputs)
+    loss_p, grads_p = train_step_grads(plain_model, *plain_inputs)
+    total = max(abs(loss_p["loss"]), 1e-30)
+    loss_errs = {k: abs(loss_k[k] - v) / total for k, v in loss_p.items()}
+    if not max(loss_errs.values()) <= rtol:
+        raise ParityError(f"train step losses differ: {loss_k} vs {loss_p}")
+    scale = max(1.0, max(float(g.abs().max()) for g in grads_p.values()))
+    err = max(float((grads_k[n].to(g.device) - g).abs().max()) for n, g in grads_p.items())
+    if not err <= rel * scale:
+        raise ParityError(f"train step gradients differ by {err:.3g} > {rel} x {scale:.3g}")
+    return {"losses": loss_p, "loss_rel_errs": loss_errs, "grad_max_abs_err": err,
+            "grad_scale": scale}

@@ -31,7 +31,11 @@ import torch.nn.functional as F
 
 from multimodal_mtrssm_tpu_torch.nn.core import transition_step
 from multimodal_mtrssm_tpu_torch.ops.distributions import onehot_blocks
-from multimodal_mtrssm_tpu_torch.ops.kernels.recurrence import _check_inputs, _rows_per_block
+from multimodal_mtrssm_tpu_torch.ops.kernels.recurrence import (
+    _check_inputs,
+    _rows_per_block,
+    weight_shapes,
+)
 
 N_WEIGHTS = 12
 # Kernel launches since the last reset (plain int; the serving path holds a
@@ -127,8 +131,7 @@ def rollout_cuda(
     D = init_deter.shape[-1]
     H = weights[0].shape[0]
     S = class_size * category_size
-    w_shapes = [(H, A + S), (H,), (H, H), (H,), (3 * D, H), (3 * D,), (3 * D, D), (3 * D,),
-                (H, D), (H,), (S, H), (S,)]
+    w_shapes = weight_shapes(A, S, H, D, 0)[:N_WEIGHTS]
     expect = {"actions": (actions, (B, T, A)), "init_deter": (init_deter, (B, D)),
               "init_stoch": (init_stoch, (B, S))}
     for i, (w, shape) in enumerate(zip(weights, w_shapes)):

@@ -1,0 +1,51 @@
+"""Checkpoints on ``torch.save`` (port of ``train/checkpoint.py``, which uses Orbax).
+
+A checkpoint ``<name>.ckpt`` holds ``{"state_dict": ...}`` under the
+reference Lightning names, the layout ``train/weights.py::
+load_lightning_checkpoint`` reads, so a ``best`` checkpoint loads straight
+into a serving model; a full one adds ``"optimizer"`` (moments, step count,
+learning rate). Host counters go to a JSON sidecar ``<name>.json``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from pathlib import Path
+from typing import Any
+
+import torch
+from torch import nn
+
+from multimodal_mtrssm_tpu_torch.train.optim import AdamW
+
+
+def _cpu(x: Any) -> Any:
+    return x.detach().cpu() if isinstance(x, torch.Tensor) else x
+
+
+class CheckpointManager:
+    """Named checkpoints in one directory."""
+
+    def __init__(self, directory: str | Path):
+        self.dir = Path(directory).resolve()
+        self.dir.mkdir(parents=True, exist_ok=True)
+
+    def path(self, name: str) -> Path:
+        """The ``.ckpt`` file of checkpoint ``name``."""
+        return self.dir / f"{name}.ckpt"
+
+    def save(self, name: str, model: nn.Module, optimizer: AdamW | None = None,
+             aux: dict[str, Any] | None = None) -> Path:
+        """Write the model's weights (and the optimizer's state, if given)
+        under ``name``, replacing any earlier one atomically."""
+        ckpt: dict[str, Any] = {"state_dict": {k: _cpu(v) for k, v in model.state_dict().items()}}
+        if optimizer is not None:
+            ckpt["optimizer"] = {k: _cpu(v) for k, v in optimizer.state_dict().items()}
+        path = self.path(name)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        torch.save(ckpt, tmp)
+        os.replace(tmp, path)
+        if aux is not None:
+            (self.dir / f"{name}.json").write_text(json.dumps(aux))
+        return path

@@ -1,0 +1,30 @@
+"""Metric logging to JSONL (port of ``train/metrics.py`` without its W&B sink).
+
+The metric names are the JAX package's (``train/loss``, ``val/loss``,
+``train/kl``, ``train/recon/audio``, ...): one JSON object per epoch in
+``<log_dir>/metrics.jsonl``.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from pathlib import Path
+
+
+class MetricLogger:
+    """Appends one JSON record per :meth:`log` call; close it when done."""
+
+    def __init__(self, log_dir: str | Path):
+        self.log_dir = Path(log_dir)
+        self.log_dir.mkdir(parents=True, exist_ok=True)
+        self.path = self.log_dir / "metrics.jsonl"
+        self._fh = open(self.path, "a")
+
+    def log(self, metrics: dict[str, float], step: int) -> None:
+        record = {"step": step, "time": time.time(), **{k: float(v) for k, v in metrics.items()}}
+        self._fh.write(json.dumps(record) + "\n")
+        self._fh.flush()
+
+    def close(self) -> None:
+        self._fh.close()

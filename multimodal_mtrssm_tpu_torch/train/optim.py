@@ -1,0 +1,232 @@
+"""Optimizer, LR schedulers and early stopping (port of ``train/optim.py``).
+
+:class:`AdamW` reproduces the JAX package's ``FusedAdamW`` (its lines
+88-109) on one flat vector of every gradient: a global-norm clip
+``min(1, clip / (norm + 1e-12))`` over ALL parameters, then AdamW with
+decoupled weight decay, in f32 and in the same order of operations. The JAX
+package runs this in XLA, not in a Pallas kernel, so here it is plain torch
+ops (a handful of launches over one vector). The schedulers and early
+stopping are host-side state, stepped once per epoch on ``val/loss``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Iterable
+
+import torch
+
+
+class AdamW:
+    """AdamW with global-norm gradient clipping over a fixed parameter list;
+    ``lr`` may be changed between steps (:func:`set_learning_rate`)."""
+
+    def __init__(self, params: Iterable[torch.Tensor], learning_rate: float = 1e-3,
+                 grad_clip: float = 10.0, weight_decay: float = 0.01, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8):
+        self.params = list(params)
+        self.lr = learning_rate
+        self.grad_clip, self.weight_decay = grad_clip, weight_decay
+        self.b1, self.b2, self.eps = b1, b2, eps
+        n = sum(p.numel() for p in self.params)
+        dev = self.params[0].device
+        self.m = torch.zeros(n, dtype=torch.float32, device=dev)
+        self.v = torch.zeros(n, dtype=torch.float32, device=dev)
+        self.count = 0
+
+    def zero_grad(self) -> None:
+        """Drop every parameter's gradient."""
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self) -> None:
+        """One update from the parameters' ``.grad`` (a missing grad is 0)."""
+        g = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1).float()
+                       for p in self.params])
+        p = torch.cat([p.reshape(-1) for p in self.params])
+        f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=g.device)  # noqa: E731
+        norm = torch.sqrt(torch.sum(g * g))
+        g = g * torch.clamp(f32(self.grad_clip) / (norm + 1e-12), max=1.0)
+        self.count += 1
+        # 1 - b is taken in double precision, as the JAX package's Python
+        # floats are; b ** t in f32, as its weak-typed scalars are.
+        b1, b2, t = f32(self.b1), f32(self.b2), f32(self.count)
+        self.m = b1 * self.m + f32(1.0 - self.b1) * g
+        self.v = b2 * self.v + f32(1.0 - self.b2) * g * g
+        mh = self.m / (1.0 - b1 ** t)
+        vh = self.v / (1.0 - b2 ** t)
+        step = -f32(self.lr) * (mh / (torch.sqrt(vh) + self.eps) + self.weight_decay * p)
+        torch._foreach_add_(self.params, [s.view_as(q) for s, q in
+                                          zip(step.split([q.numel() for q in self.params]),
+                                              self.params)])
+
+    def state_dict(self) -> dict:
+        """Moments, step count and learning rate."""
+        return {"m": self.m, "v": self.v, "count": self.count, "lr": self.lr}
+
+
+def set_learning_rate(optimizer: AdamW, learning_rate: float) -> AdamW:
+    """Set the learning rate of the next steps."""
+    optimizer.lr = learning_rate
+    return optimizer
+
+
+@dataclasses.dataclass
+class PlateauScheduler:
+    """ReduceLROnPlateau on a monitored value (min mode), reference
+    ``configs/default.yaml:108-114``; torch's relative threshold."""
+
+    base_lr: float
+    factor: float = 0.5
+    patience: int = 50
+    min_lr: float = 0.0
+    threshold: float = 1e-4
+    best: float = float("inf")
+    bad_epochs: int = 0
+    lr: float | None = None
+
+    def __post_init__(self):
+        if self.lr is None:
+            self.lr = self.base_lr
+
+    def step(self, value: float) -> float:
+        """Feed one epoch's monitored value; returns the (possibly reduced) LR."""
+        if value < self.best * (1.0 - self.threshold):
+            self.best = value
+            self.bad_epochs = 0
+        else:
+            self.bad_epochs += 1
+            if self.bad_epochs > self.patience:
+                self.lr = max(self.lr * self.factor, self.min_lr)
+                self.bad_epochs = 0
+        return self.lr
+
+    def state_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass
+class CosineAnnealingScheduler:
+    """torch ``CosineAnnealingLR`` epoch semantics (periodic past ``t_max``)."""
+
+    base_lr: float
+    t_max: int
+    eta_min: float = 0.0
+    epoch: int = 0
+    lr: float | None = None
+
+    def __post_init__(self):
+        if self.lr is None:
+            self.lr = self._at(self.epoch)
+
+    def _at(self, t: int) -> float:
+        return self.eta_min + (self.base_lr - self.eta_min) * (1 + math.cos(math.pi * t / self.t_max)) / 2
+
+    def step(self, value: float) -> float:
+        self.epoch += 1
+        self.lr = self._at(self.epoch)
+        return self.lr
+
+    def state_dict(self) -> dict:
+        return {"kind": "cosine", **dataclasses.asdict(self)}
+
+
+@dataclasses.dataclass
+class StepScheduler:
+    """torch ``StepLR``: lr = base·gamma^(epoch // step_size)."""
+
+    base_lr: float
+    step_size: int
+    gamma: float = 0.1
+    epoch: int = 0
+    lr: float | None = None
+
+    def __post_init__(self):
+        if self.lr is None:
+            self.lr = self.base_lr * self.gamma ** (self.epoch // self.step_size)
+
+    def step(self, value: float) -> float:
+        self.epoch += 1
+        self.lr = self.base_lr * self.gamma ** (self.epoch // self.step_size)
+        return self.lr
+
+    def state_dict(self) -> dict:
+        return {"kind": "step", **dataclasses.asdict(self)}
+
+
+@dataclasses.dataclass
+class ExponentialScheduler:
+    """torch ``ExponentialLR``: lr = base·gamma^epoch."""
+
+    base_lr: float
+    gamma: float
+    epoch: int = 0
+    lr: float | None = None
+
+    def __post_init__(self):
+        if self.lr is None:
+            self.lr = self.base_lr * self.gamma ** self.epoch
+
+    def step(self, value: float) -> float:
+        self.epoch += 1
+        self.lr = self.base_lr * self.gamma ** self.epoch
+        return self.lr
+
+    def state_dict(self) -> dict:
+        return {"kind": "exponential", **dataclasses.asdict(self)}
+
+
+_SCHEDULERS = {
+    "plateau": PlateauScheduler,
+    "cosine": CosineAnnealingScheduler,
+    "step": StepScheduler,
+    "exponential": ExponentialScheduler,
+}
+
+
+def make_scheduler(spec: dict | None, base_lr: float, plateau_factor: float = 0.5,
+                   plateau_patience: int = 50) -> object:
+    """An LR scheduler from a spec dict (``{"kind": ..., **kwargs}``); None or
+    ``kind: plateau`` is the reference's ReduceLROnPlateau."""
+    spec = dict(spec or {})
+    kind = spec.pop("kind", "plateau")
+    if kind == "plateau":
+        return PlateauScheduler(
+            base_lr,
+            factor=float(spec.get("factor", plateau_factor)),
+            patience=int(spec.get("patience", plateau_patience)),
+            min_lr=float(spec.get("min_lr", 0.0)),
+            threshold=float(spec.get("threshold", 1e-4)),
+        )
+    cls = _SCHEDULERS.get(kind)
+    if cls is None:
+        raise ValueError(f"unknown lr scheduler kind {kind!r} (have {sorted(_SCHEDULERS)})")
+    return cls(base_lr, **spec)
+
+
+@dataclasses.dataclass
+class EarlyStopping:
+    """EarlyStopping on a monitored value (min mode), reference
+    ``configs/default.yaml:137-142``: stops once ``patience`` epochs in a row
+    failed to improve (Lightning's ``wait_count >= patience``)."""
+
+    patience: int = 200
+    min_delta: float = 0.0
+    best: float = float("inf")
+    bad_epochs: int = 0
+    should_stop: bool = False
+
+    def step(self, value: float) -> bool:
+        if value < self.best - self.min_delta:
+            self.best = value
+            self.bad_epochs = 0
+        else:
+            self.bad_epochs += 1
+            if self.bad_epochs >= self.patience:
+                self.should_stop = True
+        return self.should_stop
+
+    def state_dict(self) -> dict:
+        return dataclasses.asdict(self)

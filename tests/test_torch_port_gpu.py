@@ -8,7 +8,9 @@ the card and no JAX, without the JAX-importing ``conftest.py``:
 
 Tolerances as in ``chip_smoke.py``: deter and logits within 1e-4, sampled
 categories equal outside blocks whose top two scores lie within 1e-5
-(``ops/kernels/parity.py``).
+(``ops/kernels/parity.py``); backward gradients within 2e-4 × max(1,
+max|plain|) per tensor; a whole train step's loss terms within 2e-5 of the
+loss and its gradient tree within 3e-4 × scale of the CPU route.
 """
 
 import numpy as np
@@ -46,6 +48,12 @@ def _model(dev) -> MoPoEMRSSM:
     return MoPoEMRSSM().init(torch.Generator().manual_seed(0)).to(dev).eval()
 
 
+def _cotangents(seed: int, outs) -> list[torch.Tensor]:
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.standard_normal(tuple(o.shape)).astype(np.float32), device=o.device)
+            for o in outs]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,T", [(8, 30), (3, 7)])
 def test_recurrence_kernel_matches_plain(cuda_device, B, T):
@@ -69,12 +77,60 @@ def test_rollout_kernel_matches_plain(cuda_device, B, T):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,T", [(8, 30), (3, 7)])
+def test_recurrence_backward_kernel_matches_plain(cuda_device, B, T):
+    """The backward kernel against its plain version on one forward record
+    and random cotangents on all five outputs; the kernel is reproducible."""
+    w = _model(cuda_device).representation_weights()
+    ins = _inputs(B * T, B, T, cuda_device)
+    with torch.no_grad():
+        outs = recurrence.recurrence_forward_cuda(w, *ins, C, K)
+        prev_deter = torch.cat([ins[3][None], outs[0][:-1]])
+        prev_stoch = torch.cat([ins[4][None], outs[4][:-1]])
+        args = (w, *ins[:3], prev_deter, prev_stoch, _cotangents(T, outs), C, K)
+        got = recurrence.recurrence_backward_cuda(*args)
+        again = recurrence.recurrence_backward_cuda(*args)
+    ref = recurrence.recurrence_backward_plain(*args)
+    parity.check_gradients(got, ref)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_train_step_on_the_kernels_matches_the_cpu_route(cuda_device):
+    """One ``shared_step`` and backward on the card (both recurrence kernels)
+    against the CPU (plain versions) with the same weights, batch and noise;
+    noise with Gumbel near-ties is skipped for the next seed."""
+    cpu = MoPoEMRSSM().init(torch.Generator().manual_seed(1))
+    gpu = MoPoEMRSSM().to(cuda_device)
+    gpu.load_state_dict(cpu.state_dict())
+    B, T = 4, 10
+    for seed in range(10):
+        rng = np.random.default_rng(seed)
+        act = rng.uniform(-1, 1, (B, T, 6)).astype(np.float32)
+        frames = [rng.uniform(-1, 1, (B, T, 32, 32, 1)).astype(np.float32) for _ in range(2)]
+        batch = tuple(torch.from_numpy(x) for x in (act, *frames, act, *frames))
+        noise = {k: torch.from_numpy(rng.gumbel(size=s).astype(np.float32))
+                 for k, s in (("g_init", (B, 16)), ("g_prior", (T, B, 16)), ("g_post", (T, B, 16)))}
+        noise["input"] = tuple(torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
+                               for x in batch[:3])
+        if parity.train_step_near_ties(cpu, batch, noise) == 0:
+            break
+    kernels.reset_launch_counts()
+    on_card = (tuple(x.to(cuda_device) for x in batch),
+               {k: v.to(cuda_device) if k != "input" else tuple(x.to(cuda_device) for x in v)
+                for k, v in noise.items()})
+    parity.check_train_step(gpu, cpu, on_card, (batch, noise))
+    assert kernels.launch_counts() == {"recurrence_fwd": 1, "recurrence_bwd": 1, "rollout": 0}
+
+
+@pytest.mark.gpu
 def test_kernels_refuse_tracked_inputs_and_count_launches(cuda_device):
-    """Without a backward the kernels refuse inputs autograd would track;
-    each launch through the dispatch counts once; a non-ELU model raises."""
+    """The wrappers alone are not differentiable, so they refuse inputs
+    autograd would track; each launch through the dispatch counts once; a
+    non-ELU model raises."""
     model = _model(cuda_device)
     ins = _inputs(1, 2, 3, cuda_device)
-    with pytest.raises(RuntimeError, match="no backward"):
+    with pytest.raises(RuntimeError, match="not differentiable"):
         recurrence.recurrence_forward_cuda(model.representation_weights(), *ins, C, K)
     kernels.reset_launch_counts()
     with torch.no_grad():
@@ -85,4 +141,4 @@ def test_kernels_refuse_tracked_inputs_and_count_launches(cuda_device):
             kernels.fused_rollout_transition(model.transition.weights(),
                                              ins[0].transpose(0, 1).contiguous(), ins[3], ins[4],
                                              5, activation_name="Tanh")
-    assert kernels.launch_counts() == {"recurrence_fwd": 1, "rollout": 1}
+    assert kernels.launch_counts() == {"recurrence_fwd": 1, "recurrence_bwd": 0, "rollout": 1}
