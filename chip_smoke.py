@@ -3,41 +3,48 @@
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It refuses to run without a CUDA device and exits non-zero on any failure.
+Both model families go through every phase: MoPoE-MRSSM (``MRSSMConfig()``)
+and the hierarchical MoPoE-MMTRSSM (``MMTRSSMConfig()``), each with seeded
+random weights (no trained checkpoint or dataset on the machine; the
+shapes and the path are the real ones).
 
 0. Device: prints the card's name and power limit, turns TF32 off.
-1. Build: compiles the kernels from ``multimodal_mtrssm_tpu_torch/csrc``.
+1. Build: compiles the six kernels from ``multimodal_mtrssm_tpu_torch/csrc``
+   (one ``nvcc`` per source, in parallel).
 2. Kernel checks, each kernel against its plain PyTorch version on the card:
-   the recurrence forward at B=8 T=30, B=128 T=30 and B=3 T=7 (same noise;
-   deter, prior and mixed logits within 1e-4, stochs equal outside
-   near-ties of 1e-5); the recurrence backward at the same shapes, on the
-   forward's record and random cotangents on all five outputs (every
-   gradient within 2e-4 × max(1, max|plain|)); and the imagination rollout
-   at B=10 T=10, B=64 T=30 and B=256 T=180 (replay of its stochs within
-   1e-4, stochs equal to the argmax of its logits plus the seed's Philox
-   noise, sampling frequencies against the softmax).
-3. Serving end to end: ``MoPoEMRSSM(MRSSMConfig())`` with seeded random
-   weights behind ``InferenceServer``: ``/healthz``, ``/observe`` (B=8,
-   T=30, decode, JSON), two chained ``/imagine`` (T=30, decode, npz then
-   JSON). Checks shapes, finiteness, that both serving kernels were launched
-   by those requests, and that the card's observe posterior and frames equal
-   the CPU path's on the same weights and seed.
-4. Training end to end: 24 synthetic Audio-MNIST episodes, then
-   ``Trainer(model, datamodule, config).fit()`` with ``MRSSMConfig()``,
-   B=8, T=30, 2 epochs of 3 optimizer steps. Checks finite losses, that
-   every parameter moved, that both recurrence kernels ran at least once a
-   step, and that ``best`` loads into a fresh model; then one train step on
-   the card against the CPU path with the same weights, batch and noise
-   (each loss term within 2e-5 of the loss, gradients within 3e-4 ×
-   scale; noise with a Gumbel near-tie is reported and replaced by the next
-   seed's).
+   the MRSSM recurrence forward at B=8 T=30, B=128 T=30 and B=3 T=7, the MT
+   recurrence forward at those and B=32 T=30 (same noise; deters,
+   integrators and logits within 1e-4, stochs equal outside near-ties of
+   1e-5); both backwards at the same shapes, on the forward's record and
+   random cotangents on every output (every gradient within 2e-4 ×
+   max(1, max|plain|), two launches bit-identical); both rollouts at B=10
+   T=10, B=64 T=30 and B=256 T=180 (replay of their stochs within 1e-4,
+   stochs equal to the argmax of their logits plus the seed's Philox noise,
+   sampling frequencies against the softmax, both MT sites).
+3. Serving end to end, per family, behind ``InferenceServer``:
+   ``/healthz``, ``/observe`` (B=8, T=30, decode, JSON), two chained
+   ``/imagine`` (T=30, decode, npz then JSON). Checks shapes, finiteness,
+   that the family's serving kernels were launched by those requests, and
+   that the card's observe posterior and frames equal the CPU path's on the
+   same weights and seed.
+4. Training end to end, per family: 24 synthetic Audio-MNIST episodes, then
+   ``Trainer(model, datamodule, config).fit()``, B=8, T=30, 2 epochs of 3
+   optimizer steps. Checks finite losses, that every parameter moved, that
+   both of the family's recurrence kernels ran at least once a step, and
+   that ``best`` loads into a fresh model; then one train step on the card
+   against the CPU path with the same weights, batch and noise (each loss
+   term within 2e-5 of the loss, gradients within 3e-4 × scale; noise with
+   a Gumbel near-tie is reported and replaced by the next seed's).
 5. Timings: median ms of each kernel against its plain version, of a full
    train step on the kernels against the plain versions on the card, a
    device-time breakdown of the train step (``torch.profiler``), the
    median latency of ``/observe`` and ``/imagine`` through the server and
-   the optimizer steps per second of ``Trainer.fit``.
+   the optimizer steps per second of ``Trainer.fit``, per family.
 
-Then one JSON line with the kernels, the card's name and power limit, and
-last ``{"ok": true, "device": {...}}``.
+Each family's serving and training run is driven with every launch count
+set to 0 just before it and read just after. Then one JSON line with the
+six kernels, the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -232,8 +239,170 @@ def check_backward(model, cfg, dev) -> dict:
     return {"max_abs_err": worst}
 
 
-def drive_server(model, cfg, dev) -> dict:
-    """Phase 3: the serving path through the HTTP server."""
+def _mt_inputs(rng, B: int, T: int, cfg, dev):
+    """Random hierarchical-recurrence inputs (numpy-seeded), on ``dev``:
+    ``(actions, a_emb, v_emb)`` ``[T, B, ·]``, ``init6`` and the four
+    sites' Gumbel noise."""
+    import torch
+
+    def onehot(c, k):
+        x = np.zeros((B, c, k), np.float32)
+        x[np.arange(B)[:, None], np.arange(c), rng.integers(0, k, (B, c))] = 1.0
+        return x.reshape(B, c * k)
+
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    xs = [t(rng.uniform(-1, 1, (T, B, cfg.action_size))),
+          t(rng.standard_normal((T, B, cfg.obs_embed_size))),
+          t(rng.standard_normal((T, B, cfg.obs_embed_size)))]
+    hd = np.tanh(rng.standard_normal((B, cfg.hd_dim)))
+    ld = np.tanh(rng.standard_normal((B, cfg.ld_dim)))
+    init6 = [t(hd), t(ld), t(onehot(cfg.hs_class, cfg.hs_category)),
+             t(onehot(cfg.ls_class, cfg.ls_category)), t(np.arctanh(0.9 * hd)),
+             t(np.arctanh(0.9 * ld))]
+    gumbels = [t(rng.gumbel(size=(T, B, d)))
+               for d in (cfg.ls_dim, cfg.ls_dim, cfg.hs_dim, cfg.hs_dim)]
+    return xs, init6, gumbels
+
+
+MT_SHAPES = ((8, 30), (32, 30), (128, 30), (3, 7))
+
+
+def check_mt_kernels(model, cfg, dev) -> dict[str, dict]:
+    """Phase 2, MMTRSSM: the hierarchical recurrence and rollout kernels
+    against their plain versions at the path's shapes, and the rollout's
+    sampling frequencies at both sites."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels import recurrence_mt, rollout_mt
+    from multimodal_mtrssm_tpu_torch.ops.kernels.parity import (
+        ParityError,
+        check_mt_recurrence,
+        check_mt_rollout,
+    )
+
+    spec = cfg.spec
+    rng = np.random.default_rng(SEED + 5)
+    results: dict[str, dict] = {"mt_recurrence_fwd": {"max_abs_err": 0.0},
+                                "mt_rollout": {"max_abs_err": 0.0}}
+    rw = model.recurrence_weights()
+    for B, T in MT_SHAPES:
+        xs, init6, gumbels = _mt_inputs(rng, B, T, cfg, dev)
+        got = recurrence_mt.mt_recurrence_forward_cuda(rw, *xs, init6, gumbels, spec)
+        ref = recurrence_mt.mt_recurrence_forward_plain(rw, *xs, init6, gumbels, spec)
+        r = check_mt_recurrence(got, ref, gumbels, spec, TOL, TIE_EPS)
+        print(f"check mt_recurrence_fwd B={B} T={T}: max_abs_err={r['max_abs_err']:.3g} "
+              f"steps_compared={r['compared']:.4f}")
+        results["mt_recurrence_fwd"]["max_abs_err"] = max(
+            results["mt_recurrence_fwd"]["max_abs_err"], r["max_abs_err"])
+    tw = model.rollout_weights()
+    for B, T in ((10, 10), (64, 30), (256, 180)):
+        xs, init6, _ = _mt_inputs(rng, B, T, cfg, dev)
+        actions = xs[0].transpose(0, 1).contiguous()
+        seed = 4321 + B
+        got = rollout_mt.rollout_mt_cuda(tw, actions, init6, seed, spec)
+        r = check_mt_rollout(tw, actions, init6, seed, got, spec, TOL, TIE_EPS)
+        print(f"check mt_rollout B={B} T={T}: max_abs_err={r['max_abs_err']:.3g} "
+              f"blocks_compared={r['compared']:.4f}")
+        results["mt_rollout"]["max_abs_err"] = max(results["mt_rollout"]["max_abs_err"],
+                                                   r["max_abs_err"])
+    # Sampling frequencies at both sites: with both priors' output weights
+    # zeroed, the logits are their biases, so every draw follows one known
+    # softmax (4-category lower blocks, 8-category higher blocks).
+    probs_l = np.tile(np.array([0.1, 0.2, 0.3, 0.4], np.float32), cfg.ls_dim // 4)
+    probs_h = np.tile(np.array([0.05, 0.05, 0.1, 0.1, 0.15, 0.15, 0.2, 0.2], np.float32),
+                      cfg.hs_dim // 8)
+    freq_w = list(tw)
+    freq_w[10], freq_w[11] = torch.zeros_like(tw[10]), torch.tensor(np.log(probs_l), device=dev)
+    freq_w[14], freq_w[15] = torch.zeros_like(tw[14]), torch.tensor(np.log(probs_h), device=dev)
+    B, T = 256, 180
+    xs, init6, _ = _mt_inputs(rng, B, T, cfg, dev)
+    out = rollout_mt.rollout_mt_cuda(freq_w, xs[0].transpose(0, 1).contiguous(), init6, 99, spec)
+    for name, stochs, probs, c, k in (("lower", out[5], probs_l, cfg.ls_class, cfg.ls_category),
+                                      ("higher", out[4], probs_h, cfg.hs_class, cfg.hs_category)):
+        blocks = stochs.reshape(B * T, c, k)
+        freq = blocks.mean(0).cpu().numpy()
+        p = probs.reshape(c, k) / probs.reshape(c, k).sum(-1, keepdims=True)
+        sigma = np.sqrt(p * (1 - p) / (B * T))
+        if not (np.abs(freq - p) <= 5 * sigma).all() or not torch.all(blocks.sum(-1) == 1):
+            raise ParityError(f"mt_rollout {name} sampling frequencies {freq} vs softmax {p}")
+        print(f"check mt_rollout sampling, {name} {c}x{k}: {B * T} draws per block, "
+              f"max |freq - p| = {float((np.abs(freq - p) / sigma).max()):.2f} sigma")
+    return results
+
+
+def check_mt_backward(model, cfg, dev) -> dict:
+    """Phase 2, MMTRSSM backward: the BPTT kernel against its plain version
+    on one forward record per shape and random cotangents on all 12 outputs."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels import recurrence_mt
+    from multimodal_mtrssm_tpu_torch.ops.kernels.parity import ParityError, check_gradients
+
+    rng = np.random.default_rng(SEED + 6)
+    rw = model.recurrence_weights()
+    worst = 0.0
+    for B, T in MT_SHAPES:
+        xs, init6, gumbels = _mt_inputs(rng, B, T, cfg, dev)
+        outs = recurrence_mt.mt_recurrence_forward_cuda(rw, *xs, init6, gumbels, cfg.spec)
+        cots = [torch.tensor(rng.standard_normal(tuple(o.shape)).astype(np.float32), device=dev)
+                for o in outs]
+        prev6 = recurrence_mt.shift_carries(init6, recurrence_mt.carries(outs))
+        args = (rw, *xs, prev6, cots, cfg.spec)
+        got = recurrence_mt.mt_recurrence_backward_cuda(*args)
+        again = recurrence_mt.mt_recurrence_backward_cuda(*args)
+        ref = recurrence_mt.mt_recurrence_backward_plain(*args)
+        scaled = check_gradients(got, ref, BWD_TOL)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise ParityError("mt_recurrence_bwd: two launches on the same inputs differ")
+        err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        print(f"check mt_recurrence_bwd B={B} T={T}: max_abs_err={err:.3g} "
+              f"max_err/scale={scaled:.3g} (limit {BWD_TOL}), reproducible")
+        worst = max(worst, err)
+    return {"max_abs_err": worst}
+
+
+def _observe_vs_cpu(model, cfg, wm, obs: dict, recon: dict) -> None:
+    """The card's observe posterior and frames against the CPU path's, on
+    the same weights and seed (7), outside Gumbel near-ties."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.models import MMTRSSMConfig
+    from multimodal_mtrssm_tpu_torch.ops.kernels.parity import check_mt_recurrence, check_recurrence
+    from multimodal_mtrssm_tpu_torch.serving import WorldModel
+
+    cpu_model = type(model)(cfg)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    wm_cpu = WorldModel(cpu_model, "cpu")
+    B, T = obs["actions"].shape[:2]
+    post_g, prior_g = wm.observe(obs["actions"], obs["audio"], obs["vision"], seed=7)
+    post_c, prior_c = wm_cpu.observe(obs["actions"], obs["audio"], obs["vision"], seed=7)
+    noise = cpu_model.draw_noise(B, T, torch.Generator().manual_seed(7))
+    if isinstance(cfg, MMTRSSMConfig):
+        tm = lambda st: [x.transpose(0, 1).cpu() for x in (  # noqa: E731
+            st[0].deter_h, st[0].deter_l, st[0].hidden_h, st[0].hidden_l, st[1].logits_l,
+            st[1].stoch_l, st[0].logits_l, st[0].stoch_l, st[1].logits_h, st[1].stoch_h,
+            st[0].logits_h, st[0].stoch_h)]
+        r = check_mt_recurrence(tm((post_g, prior_g)), tm((post_c, prior_c)),
+                                [noise[k] for k in ("g_lprior", "g_lpost", "g_hprior", "g_hpost")],
+                                cfg.spec, TOL, TIE_EPS)
+    else:
+        tm = lambda st: [x.transpose(0, 1).cpu() for x in  # noqa: E731
+                         (st[0].deter, st[1].logits, st[1].stoch, st[0].logits, st[0].stoch)]
+        r = check_recurrence(tm((post_g, prior_g)), tm((post_c, prior_c)), noise["g_prior"],
+                             noise["g_post"], cfg.class_size, cfg.category_size, TOL, TIE_EPS)
+    # Frames are compared where the posterior state was held equal.
+    agree = r["agree"].transpose(0, 1).numpy()  # [B, T]
+    frames_c = wm_cpu.decode(post_c)
+    ferr = max(float(np.abs(recon[k] - frames_c[k].numpy())[agree].max()) for k in frames_c)
+    if not ferr <= TOL:
+        raise RuntimeError(f"observe frames differ from the CPU path by {ferr:.3g}")
+    print(f"observe card vs CPU: posterior max_abs_err={r['max_abs_err']:.3g}, "
+          f"frames max_abs_err={ferr:.3g}, steps_compared={float(agree.mean()):.4f}")
+
+
+def drive_server(model, cfg, dev, fwd: str, roll: str) -> dict:
+    """Phase 3: a family's serving path through the HTTP server; ``fwd`` and
+    ``roll`` name its observe and imagine kernels."""
     import torch
 
     from multimodal_mtrssm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
@@ -265,10 +434,10 @@ def drive_server(model, cfg, dev) -> dict:
         torch.cuda.synchronize()
         counts = launch_counts()
         print(f"healthz: {health}")
-        print(f"main-path kernel launches: {counts}")
-        if health.get("platform") != "gpu":
+        print(f"main-path kernel launches, {type(model).__name__} serving: {counts}")
+        if health.get("platform") != "gpu" or health.get("model") != type(model).__name__:
             raise RuntimeError(f"/healthz reports {health}")
-        if counts["recurrence_fwd"] < 1 or counts["rollout"] < 2:
+        if counts[fwd] < 1 or counts[roll] < 2:
             raise RuntimeError(f"the serving path missed a kernel: {counts}")
         recon = _frames(observed, "recon")
         for name, frames in (("observe", recon), ("imagine 1", _frames(im1, "frames")),
@@ -277,31 +446,7 @@ def drive_server(model, cfg, dev) -> dict:
                 if v.shape != (B, T, 32, 32, 1) or not np.isfinite(v).all():
                     raise RuntimeError(f"{name} {k}: shape {v.shape}, finite {np.isfinite(v).all()}")
         print(f"served: recon {recon['recon/audio'].shape}, two chained imagines, all finite")
-
-        # The card's observe posterior against the CPU path, same weights and seed.
-        from multimodal_mtrssm_tpu_torch.ops.kernels.parity import check_recurrence
-        from multimodal_mtrssm_tpu_torch.ops.distributions import gumbel_noise
-
-        cpu_model = type(model)(cfg)
-        cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-        wm_cpu = WorldModel(cpu_model, "cpu")
-        post_g, prior_g = wm.observe(obs["actions"], obs["audio"], obs["vision"], seed=7)
-        post_c, prior_c = wm_cpu.observe(obs["actions"], obs["audio"], obs["vision"], seed=7)
-        gen = torch.Generator().manual_seed(7)
-        S = cfg.stoch_size
-        _, g_prior, g_post = (gumbel_noise(s, gen) for s in ((B, S), (T, B, S), (T, B, S)))
-        tm = lambda st: [x.transpose(0, 1).cpu() for x in  # noqa: E731
-                         (st[0].deter, st[1].logits, st[1].stoch, st[0].logits, st[0].stoch)]
-        r = check_recurrence(tm((post_g, prior_g)), tm((post_c, prior_c)), g_prior, g_post,
-                             cfg.class_size, cfg.category_size, TOL, TIE_EPS)
-        # Frames are compared where the posterior state was held equal.
-        agree = r["agree"].transpose(0, 1).numpy()  # [B, T]
-        frames_c = wm_cpu.decode(post_c)
-        ferr = max(float(np.abs(recon[k] - frames_c[k].numpy())[agree].max()) for k in frames_c)
-        if not ferr <= TOL:
-            raise RuntimeError(f"observe frames differ from the CPU path by {ferr:.3g}")
-        print(f"observe card vs CPU: posterior max_abs_err={r['max_abs_err']:.3g}, "
-              f"frames max_abs_err={ferr:.3g}, steps_compared={float(agree.mean()):.4f}")
+        _observe_vs_cpu(model, cfg, wm, obs, recon)
         return {"counts": counts, "server": server, "obs": obs, "plan": plan,
                 "state_id": observed["state_id"]}
     except BaseException:
@@ -309,8 +454,9 @@ def drive_server(model, cfg, dev) -> dict:
         raise
 
 
-def timings(model, cfg, dev, card: str, ctx: dict) -> dict[str, tuple[float, float]]:
-    """Phase 4: medians on the card; returns the main-path shapes' times."""
+def kernel_timings(model, cfg, dev, card: str) -> dict[str, tuple[float, float]]:
+    """Phase 5, MRSSM: the forward and rollout kernels against their plain
+    versions; returns the main-path shapes' times."""
     import torch
 
     from multimodal_mtrssm_tpu_torch.ops.kernels import recurrence, rollout
@@ -321,8 +467,8 @@ def timings(model, cfg, dev, card: str, ctx: dict) -> dict[str, tuple[float, flo
     main: dict[str, tuple[float, float]] = {}
     for B, T in ((8, 30), (128, 30)):
         args = _recurrence_inputs(rng, B, T, cfg, dev)
-        k_ms = _median_ms(lambda: recurrence.recurrence_forward_cuda(rw, *args, C, K), 50)
-        p_ms = _median_ms(lambda: recurrence.recurrence_forward_plain(rw, *args, C, K), 10)
+        k_ms = _median_ms(lambda: recurrence.recurrence_forward_cuda(rw, *args, C, K), 30)
+        p_ms = _median_ms(lambda: recurrence.recurrence_forward_plain(rw, *args, C, K), 5)
         print(f"time recurrence_fwd B={B} T={T}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
               f"| {card}")
         main.setdefault("recurrence_fwd", (k_ms, p_ms))
@@ -330,34 +476,78 @@ def timings(model, cfg, dev, card: str, ctx: dict) -> dict[str, tuple[float, flo
         actions = torch.tensor(rng.uniform(-1, 1, (B, T, cfg.action_size)).astype(np.float32),
                                device=dev)
         deter0, stoch0 = _recurrence_inputs(rng, B, 1, cfg, dev)[3:5]
-        k_ms = _median_ms(lambda: rollout.rollout_cuda(tw, actions, deter0, stoch0, 5, C, K), 50)
-        p_ms = _median_ms(lambda: rollout.rollout_plain(tw, actions, deter0, stoch0, 5, C, K), 5)
+        k_ms = _median_ms(lambda: rollout.rollout_cuda(tw, actions, deter0, stoch0, 5, C, K), 30)
+        p_ms = _median_ms(lambda: rollout.rollout_plain(tw, actions, deter0, stoch0, 5, C, K), 3)
         print(f"time rollout B={B} T={T}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms | {card}")
         main.setdefault("rollout", (k_ms, p_ms))
+    return main
+
+
+def mt_kernel_timings(model, cfg, dev, card: str) -> dict[str, tuple[float, float]]:
+    """Phase 5, MMTRSSM: the hierarchical recurrence (forward and backward)
+    and rollout kernels against their plain versions; returns the
+    main-path shapes' (B=8 T=30) times."""
+    from multimodal_mtrssm_tpu_torch.ops.kernels import recurrence_mt, rollout_mt
+
+    spec = cfg.spec
+    rng = np.random.default_rng(SEED + 7)
+    rw = [w.detach() for w in model.recurrence_weights()]
+    main: dict[str, tuple[float, float]] = {}
+    for B, T in MT_SHAPES[:3]:
+        xs, init6, gumbels = _mt_inputs(rng, B, T, cfg, dev)
+        k_ms = _median_ms(lambda: recurrence_mt.mt_recurrence_forward_cuda(
+            rw, *xs, init6, gumbels, spec), 30)
+        p_ms = _median_ms(lambda: recurrence_mt.mt_recurrence_forward_plain(
+            rw, *xs, init6, gumbels, spec), 3, warmup=1)
+        print(f"time mt_recurrence_fwd B={B} T={T}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
+              f"| {card}")
+        main.setdefault("mt_recurrence_fwd", (k_ms, p_ms))
+        outs = recurrence_mt.mt_recurrence_forward_cuda(rw, *xs, init6, gumbels, spec)
+        cots = [o.new_tensor(rng.standard_normal(tuple(o.shape)).astype(np.float32))
+                for o in outs]
+        prev6 = recurrence_mt.shift_carries(init6, recurrence_mt.carries(outs))
+        args = (rw, *xs, prev6, cots, spec)
+        k_ms = _median_ms(lambda: recurrence_mt.mt_recurrence_backward_cuda(*args), 20)
+        p_ms = _median_ms(lambda: recurrence_mt.mt_recurrence_backward_plain(*args), 2, warmup=1)
+        print(f"time mt_recurrence_bwd B={B} T={T}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
+              f"| {card}")
+        main.setdefault("mt_recurrence_bwd", (k_ms, p_ms))
+    tw = rw[:16]
+    for B, T in ((8, 30), (10, 10), (64, 30), (256, 180)):
+        xs, init6, _ = _mt_inputs(rng, B, T, cfg, dev)
+        actions = xs[0].transpose(0, 1).contiguous()
+        k_ms = _median_ms(lambda: rollout_mt.rollout_mt_cuda(tw, actions, init6, 5, spec), 30)
+        p_ms = _median_ms(lambda: rollout_mt.rollout_mt_plain(tw, actions, init6, 5, spec), 3,
+                          warmup=1)
+        print(f"time mt_rollout B={B} T={T}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms | {card}")
+        main.setdefault("mt_rollout", (k_ms, p_ms))
+    return main
+
+
+def server_latencies(ctx: dict, card: str, label: str) -> None:
+    """Phase 5: median ``/observe`` and ``/imagine`` latency through the server."""
     port, obs = ctx["server"].port, ctx["obs"]
     obs_req = {**obs, "seed": 3, "decode": True}
     im_req = {"state_id": ctx["state_id"], "actions": ctx["plan"], "seed": 4, "decode": True}
     for route, req in (("/observe", obs_req), ("/imagine", im_req)):
         lat = []
-        for _ in range(12):
+        for _ in range(10):
             t0 = time.perf_counter()
             _http(port, route, req, npz=True)
             lat.append((time.perf_counter() - t0) * 1e3)
-        print(f"time server {route} B=8 T=30 decode npz: median {np.median(lat[2:]):.3f} ms "
-              f"over {len(lat) - 2} requests | {card}")
-    return main
+        print(f"time server {label} {route} B=8 T=30 decode npz: median {np.median(lat[2:]):.3f} "
+              f"ms over {len(lat) - 2} requests | {card}")
 
 
-def _train_batch(rng, B: int, T: int, cfg):
-    """A random batch (6-tuple, CPU) and its noise for ``shared_step``: Gumbel
-    for the three sample sites and standard normals for the inputs."""
+def _train_batch(rng, B: int, T: int, model):
+    """A random batch (6-tuple, CPU) and its noise for ``shared_step``:
+    Gumbel for the model's sample sites and standard normals for the inputs."""
     import torch
 
-    act = rng.uniform(-1, 1, (B, T, cfg.action_size)).astype(np.float32)
+    act = rng.uniform(-1, 1, (B, T, model.cfg.action_size)).astype(np.float32)
     frames = [rng.uniform(-1, 1, (B, T, 32, 32, 1)).astype(np.float32) for _ in range(2)]
-    S = cfg.stoch_size
     noise = {k: torch.from_numpy(rng.gumbel(size=s).astype(np.float32))
-             for k, s in (("g_init", (B, S)), ("g_prior", (T, B, S)), ("g_post", (T, B, S)))}
+             for k, s in model.noise_shapes(B, T).items()}
     noise["input"] = tuple(torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
                            for x in (act, *frames))
     return tuple(torch.from_numpy(x) for x in (act, *frames, act, *frames)), noise
@@ -368,9 +558,10 @@ def _noise_to(noise: dict, dev) -> dict:
             for k, v in noise.items()}
 
 
-def drive_training(cfg, dev) -> dict:
-    """Phase 4: ``Trainer.fit`` on synthetic episodes, then one train step on
-    the card against the CPU path."""
+def drive_training(cfg, dev, fwd: str, bwd: str) -> dict:
+    """Phase 4: ``Trainer.fit`` of the family of ``cfg`` on synthetic
+    episodes, then one train step on the card against the CPU path; ``fwd``
+    and ``bwd`` name its recurrence kernels."""
     import torch
 
     from multimodal_mtrssm_tpu_torch.data import (
@@ -378,7 +569,7 @@ def drive_training(cfg, dev) -> dict:
         EpisodeDataModule,
         generate_synthetic_audio_mnist,
     )
-    from multimodal_mtrssm_tpu_torch.models import MoPoEMRSSM
+    from multimodal_mtrssm_tpu_torch.models import MMTRSSMConfig, MoPoEMMTRSSM, MoPoEMRSSM
     from multimodal_mtrssm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from multimodal_mtrssm_tpu_torch.ops.kernels.parity import (
         check_train_step,
@@ -386,6 +577,7 @@ def drive_training(cfg, dev) -> dict:
     )
     from multimodal_mtrssm_tpu_torch.train import Trainer, TrainerConfig, load_lightning_checkpoint
 
+    family = MoPoEMMTRSSM if isinstance(cfg, MMTRSSMConfig) else MoPoEMRSSM
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         generate_synthetic_audio_mnist(Path(tmp) / "episodes", n_episodes=24, seed=SEED)
@@ -397,8 +589,8 @@ def drive_training(cfg, dev) -> dict:
         dm.setup()
         print(f"data: 24 episodes x 180 frames generated and loaded in "
               f"{time.perf_counter() - t0:.2f} s; {dm.n_train} train, {dm.n_val} val")
-        model = MoPoEMRSSM(cfg).to(dev)
-        init = MoPoEMRSSM(cfg).init(torch.Generator().manual_seed(SEED))  # fit's own init
+        model = family(cfg).to(dev)
+        init = family(cfg).init(torch.Generator().manual_seed(SEED))  # fit's own init
         trainer = Trainer(model, dm, TrainerConfig(max_epochs=2, seed=SEED,
                                                    log_dir=str(Path(tmp) / "run")))
         reset_launch_counts()
@@ -406,29 +598,30 @@ def drive_training(cfg, dev) -> dict:
         torch.cuda.synchronize()
         counts = launch_counts()
         steps = out["global_step"]
-        print(f"training kernel launches over {steps} optimizer steps: {counts}")
+        print(f"main-path kernel launches, {family.__name__} training, {steps} optimizer "
+              f"steps: {counts}")
         for row in out["history"]:
             print("epoch " + " ".join(f"{k}={v:.6g}" for k, v in row.items()))
         if steps < 4 or len(out["history"]) != 2:
             raise RuntimeError(f"fit ran {steps} steps in {len(out['history'])} epochs")
         if not all(np.isfinite(v) for row in out["history"] for v in row.values()):
             raise RuntimeError("non-finite training metrics")
-        if counts["recurrence_fwd"] < steps or counts["recurrence_bwd"] < steps:
+        if counts[fwd] < steps or counts[bwd] < steps:
             raise RuntimeError(f"the training path missed a kernel: {counts}")
         still = [n for (n, p), q in zip(model.named_parameters(), init.parameters())
                  if torch.equal(p.detach().cpu(), q.detach())]
         if still:
             raise RuntimeError(f"parameters did not move: {still}")
-        best = load_lightning_checkpoint(MoPoEMRSSM(cfg), Path(tmp) / "run" / "checkpoints" / "best.ckpt")
+        best = load_lightning_checkpoint(family(cfg), Path(tmp) / "run" / "checkpoints" / "best.ckpt")
         if not all(bool(torch.isfinite(p).all()) for p in best.parameters()):
             raise RuntimeError("the best checkpoint holds non-finite weights")
         print(f"fit: {steps} steps, best val/loss {out['best_val']:.6g}, every parameter moved, "
               "best checkpoint loads into a fresh model")
 
-    cpu = MoPoEMRSSM(cfg)
+    cpu = family(cfg)
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     for seed in range(SEED + 10, SEED + 20):
-        batch, noise = _train_batch(np.random.default_rng(seed), 8, 30, cfg)
+        batch, noise = _train_batch(np.random.default_rng(seed), 8, 30, cpu)
         ties = train_step_near_ties(cpu, batch, noise, TIE_EPS)
         if ties == 0:
             break
@@ -438,7 +631,7 @@ def drive_training(cfg, dev) -> dict:
         raise RuntimeError("no seed without near-ties for the train-step check")
     on_card = (tuple(x.to(dev) for x in batch), _noise_to(noise, dev))
     r = check_train_step(model, cpu, on_card, (batch, noise), STEP_RTOL, STEP_TOL)
-    print(f"train step card vs CPU B=8 T=30 (seed {seed}): " + ", ".join(
+    print(f"train step card vs CPU {family.__name__} B=8 T=30 (seed {seed}): " + ", ".join(
         f"{k} {v:.6g} (err/loss {r['loss_rel_errs'][k]:.3g})" for k, v in r["losses"].items())
         + f"; limit {STEP_RTOL}; grad max_abs_err {r['grad_max_abs_err']:.3g} "
         f"(limit {STEP_TOL} x {r['grad_scale']:.4g})")
@@ -461,7 +654,7 @@ def _self_device_us(event) -> float:
 
 @contextlib.contextmanager
 def plain_route():
-    """Timing only: route the recurrence to its plain versions on CUDA
+    """Timing only: route the recurrences to their plain versions on CUDA
     tensors too (the dispatch itself never does)."""
     from multimodal_mtrssm_tpu_torch.nn.core import activation
     from multimodal_mtrssm_tpu_torch.ops import kernels
@@ -474,14 +667,11 @@ def plain_route():
         kernels._route = saved
 
 
-def train_timings(model, cfg, dev, card: str) -> dict[str, tuple[float, float]]:
-    """Phase 5, training: the backward kernel and a full train step against
-    their plain versions, and the train step's device-time breakdown."""
+def bwd_timings(model, cfg, dev, card: str) -> dict[str, tuple[float, float]]:
+    """Phase 5, MRSSM: the backward kernel against its plain version."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from multimodal_mtrssm_tpu_torch.ops.kernels import recurrence
-    from multimodal_mtrssm_tpu_torch.train import AdamW, one_update
 
     C, K = cfg.class_size, cfg.category_size
     rng = np.random.default_rng(SEED + 4)
@@ -493,19 +683,31 @@ def train_timings(model, cfg, dev, card: str) -> dict[str, tuple[float, float]]:
             outs = recurrence.recurrence_forward_cuda(rw, *args, C, K)
         cots = [torch.randn(o.shape, device=dev) for o in outs]
         bwd = _backward_args(rw, args, outs, cots, cfg)
-        k_ms = _median_ms(lambda: recurrence.recurrence_backward_cuda(*bwd), 30)
-        p_ms = _median_ms(lambda: recurrence.recurrence_backward_plain(*bwd), 3, warmup=1)
+        k_ms = _median_ms(lambda: recurrence.recurrence_backward_cuda(*bwd), 20)
+        p_ms = _median_ms(lambda: recurrence.recurrence_backward_plain(*bwd), 2, warmup=1)
         print(f"time recurrence_bwd B={B} T={T}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms | {card}")
         main.setdefault("recurrence_bwd", (k_ms, p_ms))
-    batch, _ = _train_batch(rng, 8, 30, cfg)
+    return main
+
+
+def step_timings(model, dev, card: str) -> None:
+    """Phase 5, training: a full train step on the kernels against the plain
+    route, and the train step's device-time breakdown."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from multimodal_mtrssm_tpu_torch.train import AdamW, one_update
+
+    name = type(model).__name__
+    batch, _ = _train_batch(np.random.default_rng(SEED + 8), 8, 30, model)
     batch = tuple(x.to(dev) for x in batch)
     opt = AdamW(model.parameters())
     gen = torch.Generator(device=dev).manual_seed(SEED)
     step = lambda: one_update(model, opt, batch, gen)  # noqa: E731
-    k_ms = _median_ms(step, 20, warmup=3)
+    k_ms = _median_ms(step, 15, warmup=3)
     with plain_route():
-        p_ms = _median_ms(step, 5, warmup=1)
-    print(f"time train step B=8 T=30 (forward, backward, AdamW): kernels {k_ms:.4f} ms, "
+        p_ms = _median_ms(step, 3, warmup=1)
+    print(f"time {name} train step B=8 T=30 (forward, backward, AdamW): kernels {k_ms:.4f} ms, "
           f"plain recurrence {p_ms:.4f} ms | {card}")
     torch.cuda.synchronize()
     try:
@@ -515,28 +717,27 @@ def train_timings(model, cfg, dev, card: str) -> dict[str, tuple[float, float]]:
             torch.cuda.synchronize()
         events = prof.key_averages()
     except RuntimeError as e:  # a measurement, not a check: report and go on
-        print(f"train step device breakdown: not measured (torch.profiler failed: {e})")
-        return main
+        print(f"{name} train step device breakdown: not measured (torch.profiler failed: {e})")
+        return
     rows = sorted(((e.key, _self_device_us(e), e.count) for e in events
                    if e.device_type == torch.autograd.DeviceType.CUDA and _self_device_us(e) > 0),
                   key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
     if total == 0:
-        print("train step device breakdown: not measured (the profiler saw no device time)")
-        return main
+        print(f"{name} train step device breakdown: not measured (no device time seen)")
+        return
     groups = {"recurrence kernels": ("recurrence_", "reduce_weight_grads"),
               "convolutions (cuDNN)": ("conv", "cudnn", "xmma", "implicit", "dgrad", "wgrad",
                                        "fprop", "sm90_")}
     shares = {g: sum(r[1] for r in rows if any(k in r[0].lower() for k in keys))
               for g, keys in groups.items()}
     shares["everything else"] = total - sum(shares.values())
-    print(f"train step device breakdown B=8 T=30, 5 steps under torch.profiler: "
+    print(f"{name} train step device breakdown B=8 T=30, 5 steps under torch.profiler: "
           f"{total / 5e3:.4f} ms of device time a step, {total / 5e3 / k_ms:.1%} of the "
           f"{k_ms:.4f} ms step timed above; " + ", ".join(
               f"{g} {v / 5e3:.4f} ms ({v / total:.1%})" for g, v in shares.items()) + f" | {card}")
-    for name, t_us, n in rows[:12]:
-        print(f"  {t_us / 5e3:9.4f} ms/step  x{n // 5:<4d} {name[:110]}")
-    return main
+    for key, t_us, n in rows[:10]:
+        print(f"  {t_us / 5e3:9.4f} ms/step  x{n // 5:<4d} {key[:110]}")
 
 
 def main() -> int:
@@ -551,36 +752,73 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    from multimodal_mtrssm_tpu_torch.models import MoPoEMRSSM, MRSSMConfig
+    from multimodal_mtrssm_tpu_torch.models import (
+        MMTRSSMConfig,
+        MoPoEMMTRSSM,
+        MoPoEMRSSM,
+        MRSSMConfig,
+    )
     from multimodal_mtrssm_tpu_torch.ops.kernels import build
 
     build.load_library()
     print(f"build: {build.build_seconds:.2f} s ({build.library_path().name})")
 
+    # MoPoE-MRSSM.
     cfg = MRSSMConfig()
     model = MoPoEMRSSM(cfg).init(torch.Generator().manual_seed(0)).to(dev).eval()
     with torch.no_grad():
         checks = check_kernels(model, cfg, dev)
         checks["recurrence_bwd"] = check_backward(model, cfg, dev)
-        ctx = drive_server(model, cfg, dev)
+        ctx = drive_server(model, cfg, dev, "recurrence_fwd", "rollout")
         try:
-            times = timings(model, cfg, dev, card, ctx)
+            times = kernel_timings(model, cfg, dev, card)
+            server_latencies(ctx, card, "MoPoEMRSSM")
         finally:
             ctx["server"].stop()
-    training = drive_training(cfg, dev)
-    times.update(train_timings(training["model"], cfg, dev, card))
-    print(f"time Trainer.fit B=8 T=30: {training['steps_per_s']:.3f} optimizer steps/s over "
-          f"2 epochs, {training['steps_per_s_last']:.3f} in the second (host data pipeline "
-          f"included) | {card}")
-    launches = {k: ctx["counts"][k] + training["counts"][k] for k in ctx["counts"]}
-    print(f"main-path launches, serving + training: {launches}")
+    training = drive_training(cfg, dev, "recurrence_fwd", "recurrence_bwd")
+    times.update(bwd_timings(training["model"], cfg, dev, card))
+    step_timings(training["model"], dev, card)
+    print(f"time Trainer.fit MoPoEMRSSM B=8 T=30: {training['steps_per_s']:.3f} optimizer "
+          f"steps/s over 2 epochs, {training['steps_per_s_last']:.3f} in the second (host data "
+          f"pipeline included) | {card}")
+    runs = [ctx["counts"], training["counts"]]
+
+    # MoPoE-MMTRSSM.
+    mt_cfg = MMTRSSMConfig()
+    mt_model = MoPoEMMTRSSM(mt_cfg).init(torch.Generator().manual_seed(0)).to(dev).eval()
+    with torch.no_grad():
+        checks.update(check_mt_kernels(mt_model, mt_cfg, dev))
+        checks["mt_recurrence_bwd"] = check_mt_backward(mt_model, mt_cfg, dev)
+        mt_ctx = drive_server(mt_model, mt_cfg, dev, "mt_recurrence_fwd", "mt_rollout")
+        try:
+            times.update(mt_kernel_timings(mt_model, mt_cfg, dev, card))
+            server_latencies(mt_ctx, card, "MoPoEMMTRSSM")
+        finally:
+            mt_ctx["server"].stop()
+    mt_training = drive_training(mt_cfg, dev, "mt_recurrence_fwd", "mt_recurrence_bwd")
+    step_timings(mt_training["model"], dev, card)
+    print(f"time Trainer.fit MoPoEMMTRSSM B=8 T=30: {mt_training['steps_per_s']:.3f} optimizer "
+          f"steps/s over 2 epochs, {mt_training['steps_per_s_last']:.3f} in the second (host "
+          f"data pipeline included) | {card}")
+    runs += [mt_ctx["counts"], mt_training["counts"]]
+
+    launches = {k: sum(run[k] for run in runs) for k in runs[0]}
+    print(f"main-path launches, serving + training of both families: {launches}")
     pkg = "multimodal_mtrssm_tpu_torch"
     pallas = "multimodal_mtrssm_tpu/ops/pallas"
     meta = {
         "recurrence_fwd": (f"{pkg}/csrc/recurrence_fwd.cu", f"{pallas}/train_step.py:244"),
         "recurrence_bwd": (f"{pkg}/csrc/recurrence_bwd.cu", f"{pallas}/train_step.py:366"),
         "rollout": (f"{pkg}/csrc/rollout.cu", f"{pallas}/rollout.py:105"),
+        "mt_recurrence_fwd": (f"{pkg}/csrc/recurrence_mt_fwd.cu",
+                              f"{pallas}/train_step_mt.py:142"),
+        "mt_recurrence_bwd": (f"{pkg}/csrc/recurrence_mt_bwd.cu",
+                              f"{pallas}/train_step_mt.py:280"),
+        "mt_rollout": (f"{pkg}/csrc/rollout_mt.cu", f"{pallas}/rollout_mt.py:51"),
     }
+    missing = [name for name in meta if launches[name] < 1]
+    if missing:
+        raise RuntimeError(f"the main paths never launched {missing}")
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "max_abs_err": checks[name]["max_abs_err"],
                 "ms": times[name][0], "plain_ms": times[name][1]}

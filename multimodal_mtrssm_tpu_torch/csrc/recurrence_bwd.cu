@@ -25,32 +25,12 @@ namespace {
 
 constexpr int kNW = 20;
 
-// Per weight tensor: [in, out] in shared memory (a bias has in = 1), its
-// offset in the flat weight (and gradient) buffer, and the total size.
-struct WeightDims {
-  int in[kNW], out[kNW], off[kNW];
-  int total;
-};
-
-WeightDims weight_dims(int A, int E, int H, int D, int S) {
+mrssm::WeightDims weight_dims(int A, int E, int H, int D, int S) {
   const int X = A + S, G = 3 * D, DE = D + E;
   const int in[kNW] = {X, 1, H, 1, H, 1, D, 1, D, 1, H, 1, DE, 1, H, 1, DE, 1, H, 1};
   const int out[kNW] = {H, H, H, H, G, G, G, G, H, H, S, S, H, H, S, S, H, H, S, S};
-  WeightDims d;
-  int off = 0;
-  for (int i = 0; i < kNW; ++i) {
-    d.in[i] = in[i];
-    d.out[i] = out[i];
-    d.off[i] = off;
-    off += in[i] * out[i];
-  }
-  d.total = off;
-  return d;
+  return mrssm::weight_dims(in, out, kNW);
 }
-
-struct WeightPtrs {
-  const float* p[kNW];
-};
 
 // The per-row buffers of a block, each [R][width] floats, in this order.
 enum Buf {
@@ -94,79 +74,10 @@ __host__ __device__ inline void buffer_widths(int A, int E, int H, int D, int S,
   w[kCs] = S;           // carry: d stoch into the step
 }
 
-__device__ __forceinline__ float d_elu(float pre) { return pre > 0.f ? 1.f : expf(pre); }
-
-__device__ __forceinline__ void elu_rows(const float* pre, float* y, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) y[i] = mrssm::elu(pre[i]);
-}
-
-// dx[r, k] = sum_o dy[r, o] * W[k, o] for k < in, W [in, out] in shared
-// memory; times d_elu(pre[r, k]) when pre is given; added to dx when
-// accumulate. The o loop starts at k % out so that the threads of a warp
-// read different banks.
-__device__ __forceinline__ void dense_rows_t(const float* dy, int sdy, const float* W, int in,
-                                             int out, float* dx, int sdx, int rows,
-                                             const float* pre, int spre, bool accumulate) {
-  for (int i = threadIdx.x; i < rows * in; i += blockDim.x) {
-    const int r = i / in, k = i - r * in;
-    const float* g = dy + r * sdy;
-    const float* wk = W + k * out;
-    float acc = 0.f;
-    int o = k % out;
-    for (int j = 0; j < out; ++j) {
-      acc = fmaf(g[o], wk[o], acc);
-      if (++o == out) o = 0;
-    }
-    if (pre != nullptr) acc *= d_elu(pre[r * spre + k]);
-    float* y = dx + r * sdx + k;
-    *y = accumulate ? *y + acc : acc;
-  }
-}
-
-// Gw[k, o] += sum_r cat(x0[r], x1[r])[k] * dy[r, o] and Gb[o] += sum_r dy[r, o]
-// (Gw [n0 + n1, out] and Gb [out] in shared memory). One thread per element,
-// rows in order: no two threads touch one accumulator.
-__device__ __forceinline__ void accum_grad(const float* x0, int n0, int s0, const float* x1,
-                                           int n1, int s1, const float* dy, int sdy, int out,
-                                           float* Gw, float* Gb, int rows) {
-  const int n = n0 + n1;
-  for (int i = threadIdx.x; i < (n + 1) * out; i += blockDim.x) {
-    const int k = i / out, o = i - k * out;
-    float acc = 0.f;
-    if (k < n) {
-      const float* x = k < n0 ? x0 + k : x1 + (k - n0);
-      const int sx = k < n0 ? s0 : s1;
-      for (int r = 0; r < rows; ++r) acc = fmaf(x[r * sx], dy[r * sdy + o], acc);
-      Gw[i] += acc;
-    } else {
-      for (int r = 0; r < rows; ++r) acc += dy[r * sdy + o];
-      Gb[o] += acc;
-    }
-  }
-}
-
-// Per-block softmax p = e / sum(e), e = exp(l - max), of one category block
-// (st_block's probs).
-__device__ __forceinline__ void block_softmax(const float* logits, int K, float* p) {
-  float mx = logits[0];
-  for (int j = 1; j < K; ++j) mx = fmaxf(mx, logits[j]);
-  float sum = 0.f;
-  for (int j = 0; j < K; ++j) sum += expf(logits[j] - mx);
-  for (int j = 0; j < K; ++j) p[j] = expf(logits[j] - mx) / sum;
-}
-
-// d[j] = base[j] + p[j] * (g[j] - <p, g>) over one block: the straight-through
-// sample's VJP into its logits (train_step.py::_block_softmax_vjp).
-__device__ __forceinline__ void st_vjp(const float* p, const float* g, const float* base, int K,
-                                       float* d) {
-  float dot = 0.f;
-  for (int j = 0; j < K; ++j) dot = fmaf(p[j], g[j], dot);
-  for (int j = 0; j < K; ++j) d[j] = base[j] + p[j] * (g[j] - dot);
-}
-
 __global__ void __launch_bounds__(mrssm::kThreads)
-recurrence_bwd_kernel(WeightPtrs w, WeightDims dims, const float* __restrict__ actions,
-                      const float* __restrict__ a_emb, const float* __restrict__ v_emb,
+recurrence_bwd_kernel(mrssm::WeightPtrs w, mrssm::WeightDims dims,
+                      const float* __restrict__ actions, const float* __restrict__ a_emb,
+                      const float* __restrict__ v_emb,
                       const float* __restrict__ prev_deter, const float* __restrict__ prev_stoch,
                       const float* __restrict__ gd, const float* __restrict__ gpl,
                       const float* __restrict__ gps, const float* __restrict__ gmx,
@@ -201,10 +112,7 @@ recurrence_bwd_kernel(WeightPtrs w, WeightDims dims, const float* __restrict__ a
   auto Wp = [&](int i) -> const float* { return W + dims.off[i]; };
   auto Gp = [&](int i) -> float* { return GW + dims.off[i]; };
 
-  for (int i = 0; i < kNW; ++i) {
-    if (dims.in[i] == 1) stage_vector(W + dims.off[i], w.p[i], dims.out[i]);
-    else stage_matrix(W + dims.off[i], w.p[i], dims.out[i], dims.in[i]);
-  }
+  stage_weights(W, w, dims);
   for (int i = threadIdx.x; i < NW; i += blockDim.x) GW[i] = 0.f;
   const int row0 = blockIdx.x * R;
   const int rows = min(R, B - row0);
@@ -261,26 +169,9 @@ recurrence_bwd_kernel(WeightPtrs w, WeightDims dims, const float* __restrict__ a
     dense_rows(hid + 2 * H, H, 3 * H, nullptr, 0, 0, Wp(18), Wp(19), S, lg + 2 * S, 3 * S, rows,
                false);
     __syncthreads();
-    for (int i = threadIdx.x; i < rows * 2; i += blockDim.x) {
-      const int r = i / 2, m = i - r * 2;
-      const float* x = lg + r * 3 * S + (1 + m) * S;
-      float mx = x[0];
-      for (int s = 1; s < S; ++s) mx = fmaxf(mx, x[s]);
-      float sum = 0.f;
-      for (int s = 0; s < S; ++s) sum += expf(x[s] - mx);
-      stat[r * 4 + 2 * m] = mx;
-      stat[r * 4 + 2 * m + 1] = logf(sum);
-    }
+    mopoe_stats(lg + S, 3 * S, S, stat, rows);
     __syncthreads();
-    for (int i = threadIdx.x; i < rows * S; i += blockDim.x) {
-      const int r = i / S, s = i - r * S;
-      const float* st = stat + r * 4;
-      const float la = (lg[r * 3 * S + S + s] - st[0]) - st[1];
-      const float lv = (lg[r * 3 * S + 2 * S + s] - st[2]) - st[3];
-      const float f = la + lv;
-      const float m = fmaxf(fmaxf(la, lv), f);
-      mixed[i] = (m + kLogThird) + logf(expf(la - m) + expf(lv - m) + expf(f - m));
-    }
+    mopoe_mix(lg + S, 3 * S, stat, S, mixed, rows);
     __syncthreads();
 
     // ---- backward of step t ----
@@ -300,34 +191,7 @@ recurrence_bwd_kernel(WeightPtrs w, WeightDims dims, const float* __restrict__ a
     __syncthreads();
     // MoPoE fusion: mixture weights from the forward values, then the
     // full-axis log-softmax VJP (train_step.py::_mopoe_backward).
-    for (int i = threadIdx.x; i < rows * S; i += blockDim.x) {
-      const int r = i / S, s = i - r * S;
-      const float* st = stat + r * 4;
-      const float la = (lg[r * 3 * S + S + s] - st[0]) - st[1];
-      const float lv = (lg[r * 3 * S + 2 * S + s] - st[2]) - st[3];
-      const float mx = mixed[i];
-      const float wa = expf(la + kLogThird - mx);
-      const float wv = expf(lv + kLogThird - mx);
-      const float wf = expf(la + lv + kLogThird - mx);
-      dlg[r * 3 * S + S + s] = dmix[i] * (wa + wf);
-      dlg[r * 3 * S + 2 * S + s] = dmix[i] * (wv + wf);
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < rows * 2; i += blockDim.x) {
-      const int r = i / 2, m = i - r * 2;
-      const float* d = dlg + r * 3 * S + (1 + m) * S;
-      float sum = 0.f;
-      for (int s = 0; s < S; ++s) sum += d[s];
-      sums[i] = sum;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < rows * 2 * S; i += blockDim.x) {
-      const int r = i / (2 * S), j = i - r * 2 * S, m = j / S;
-      const float* st = stat + r * 4 + 2 * m;
-      const int at = r * 3 * S + S + j;  // audio logits at m = 0, vision at m = 1
-      const float l = (lg[at] - st[0]) - st[1];
-      dlg[at] -= expf(l) * sums[r * 2 + m];
-    }
+    mopoe_backward(lg + S, 3 * S, stat, mixed, dmix, dlg + S, sums, S, rows);
     __syncthreads();
     // Head output layers, then the hidden layers' gradients.
     accum_grad(hid, H, 3 * H, nullptr, 0, 0, dlg, 3 * S, S, Gp(10), Gp(11), rows);
@@ -401,27 +265,12 @@ recurrence_bwd_kernel(WeightPtrs w, WeightDims dims, const float* __restrict__ a
   for (int i = threadIdx.x; i < NW; i += blockDim.x) partial[(size_t)blockIdx.x * NW + i] = GW[i];
 }
 
-// out (torch layout, [out, in] per tensor) = the blocks' partial sums, added
-// in block order; one thread per weight element, reading [in, out] order.
-__global__ void reduce_weight_grads(const float* __restrict__ partial, int n_blocks,
-                                    WeightDims dims, float* __restrict__ out) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= dims.total) return;
-  int i = 0;
-  while (i + 1 < kNW && s >= dims.off[i + 1]) ++i;
-  const int local = s - dims.off[i];
-  const int k = local / dims.out[i], o = local - k * dims.out[i];
-  float acc = 0.f;
-  for (int b = 0; b < n_blocks; ++b) acc += partial[(size_t)b * dims.total + s];
-  out[dims.off[i] + o * dims.in[i] + k] = acc;
-}
-
-size_t bwd_smem_bytes(int A, int E, int H, int D, int S, int R) {
+size_t bwd_row_floats(int A, int E, int H, int D, int S) {
   int width[kNumBufs];
   buffer_widths(A, E, H, D, S, width);
   size_t per_row = 0;
   for (int i = 0; i < kNumBufs; ++i) per_row += width[i];
-  return (2 * (size_t)weight_dims(A, E, H, D, S).total + R * per_row) * sizeof(float);
+  return per_row;
 }
 
 }  // namespace
@@ -431,15 +280,8 @@ extern "C" {
 // The largest rows-per-block ≤ R_want whose shared memory fits one block on
 // the current device (0 if none does).
 int mrssm_recurrence_bwd_rows(int A, int E, int H, int D, int C, int K, int R_want) {
-  int dev = 0, limit = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess) {
-    return 0;
-  }
-  for (int R = R_want; R >= 1; --R) {
-    if (bwd_smem_bytes(A, E, H, D, C * K, R) <= (size_t)limit) return R;
-  }
-  return 0;
+  return mrssm::rows_that_fit(2 * (size_t)weight_dims(A, E, H, D, C * K).total,
+                              bwd_row_floats(A, E, H, D, C * K), R_want);
 }
 
 // Launch on `stream`: the backward kernel, then the reduction of its
@@ -455,10 +297,11 @@ int mrssm_recurrence_backward(const void* const* weights, const float* actions, 
                               float* d_init_deter, float* d_init_stoch, int T, int B, int A, int E,
                               int H, int D, int C, int K, int R, void* stream) {
   if (K > 32) return (int)cudaErrorInvalidValue;  // st_vjp's per-block buffer
-  WeightPtrs w;
+  mrssm::WeightPtrs w;
   for (int i = 0; i < kNW; ++i) w.p[i] = static_cast<const float*>(weights[i]);
-  const WeightDims dims = weight_dims(A, E, H, D, C * K);
-  const size_t smem = bwd_smem_bytes(A, E, H, D, C * K, R);
+  const mrssm::WeightDims dims = weight_dims(A, E, H, D, C * K);
+  const size_t smem =
+      (2 * (size_t)dims.total + R * bwd_row_floats(A, E, H, D, C * K)) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(recurrence_bwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -469,8 +312,7 @@ int mrssm_recurrence_backward(const void* const* weights, const float* actions, 
       d_actions, d_a_emb, d_v_emb, d_init_deter, d_init_stoch, T, B, A, E, H, D, C, K, R);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  reduce_weight_grads<<<(dims.total + 255) / 256, 256, 0, s>>>(partial, blocks, dims, d_weights);
-  return (int)cudaGetLastError();
+  return (int)mrssm::reduce_weight_grads_launch(partial, blocks, dims, d_weights, s);
 }
 
 }  // extern "C"

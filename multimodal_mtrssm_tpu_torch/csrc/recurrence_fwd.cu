@@ -116,36 +116,17 @@ recurrence_fwd_kernel(RecurrenceWeights w, const float* __restrict__ actions,
     dense_rows(hid + H, H, 3 * H, nullptr, 0, 0, wa2, ba2, S, lg + S, 3 * S, rows, false);
     dense_rows(hid + 2 * H, H, 3 * H, nullptr, 0, 0, wv2, bv2, S, lg + 2 * S, 3 * S, rows, false);
     __syncthreads();
-    // Full-axis log-softmax statistics of the two posterior heads (the
-    // reference fusion normalises over all S logits, not per block).
-    for (int i = threadIdx.x; i < rows * 2; i += blockDim.x) {
-      const int r = i / 2, m = i - r * 2;
-      const float* x = lg + r * 3 * S + (1 + m) * S;
-      float mx = x[0];
-      for (int s = 1; s < S; ++s) mx = fmaxf(mx, x[s]);
-      float sum = 0.f;
-      for (int s = 0; s < S; ++s) sum += expf(x[s] - mx);
-      stat[r * 4 + 2 * m] = mx;
-      stat[r * 4 + 2 * m + 1] = logf(sum);
-    }
+    // MoPoE fusion of the two posterior heads (audio at lg + S, vision at
+    // lg + 2S of each row).
+    mopoe_stats(lg + S, 3 * S, S, stat, rows);
     for (int i = threadIdx.x; i < rows * S; i += blockDim.x) {
       const int r = i / S, s = i - r * S;
       prior_logits_out[base * S + i] = lg[r * 3 * S + s];
     }
     __syncthreads();
-    // Equal-weight mixture of {A}, {V} and the unnormalised PoE {A+V}.
-    for (int i = threadIdx.x; i < rows * S; i += blockDim.x) {
-      const int r = i / S, s = i - r * S;
-      const float* st = stat + r * 4;
-      const float la = (lg[r * 3 * S + S + s] - st[0]) - st[1];
-      const float lv = (lg[r * 3 * S + 2 * S + s] - st[2]) - st[3];
-      const float f = la + lv;
-      const float m = fmaxf(fmaxf(la, lv), f);
-      const float mix = (m + kLogThird) + logf(expf(la - m) + expf(lv - m) + expf(f - m));
-      mixed[i] = mix;
-      mixed_out[base * S + i] = mix;
-    }
+    mopoe_mix(lg + S, 3 * S, stat, S, mixed, rows);
     __syncthreads();
+    for (int i = threadIdx.x; i < rows * S; i += blockDim.x) mixed_out[base * S + i] = mixed[i];
     // Straight-through samples, one thread per (row, category block); the
     // posterior sample becomes the next step's stoch carry.
     for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {

@@ -67,7 +67,6 @@ rollout_kernel(RolloutWeights w, const float* __restrict__ actions,
   }
   __syncthreads();
 
-  const int words = (K + 3) / 4;  // Philox calls per category block
   for (int t = 0; t < T; ++t) {
     for (int i = threadIdx.x; i < rows * A; i += blockDim.x) {
       const int r = i / A, a = i - r * A;
@@ -96,18 +95,8 @@ rollout_kernel(RolloutWeights w, const float* __restrict__ actions,
       const int r = i / C, c = i - r * C;
       const int b = row0 + r;
       const float* l = lg + r * S + c * K;
-      int best = 0;
-      float top = 0.f;
-      for (int wd = 0; wd < words; ++wd) {
-        uint32_t ctr[4] = {(uint32_t)t, (uint32_t)b, (uint32_t)c, (uint32_t)wd};
-        philox4x32_10(ctr, key0, key1);
-        for (int q = 0; q < 4 && wd * 4 + q < K; ++q) {
-          const int j = wd * 4 + q;
-          const float u = uniform_from_bits(ctr[q]);
-          const float s = l[j] + (-logf(-logf(u)));
-          if (j == 0 || s > top) { top = s; best = j; }
-        }
-      }
+      const int best =
+          philox_block_argmax(l, K, (uint32_t)t, (uint32_t)b, (uint32_t)c, key0, key1);
       const size_t o = ((size_t)b * T + t) * S + c * K;
       for (int j = 0; j < K; ++j) {
         const float v = j == best ? 1.f : 0.f;

@@ -17,6 +17,7 @@ plus the balanced KL (``models/mrssm.py:597-642``).
 from __future__ import annotations
 
 import dataclasses
+from collections.abc import Mapping
 
 import torch
 from torch import nn
@@ -155,6 +156,27 @@ class MoPoEMRSSM(nn.Module):
                                              gumbel)
 
     # ---- observe / imagine / decode -----------------------------------------
+    def noise_shapes(self, B: int, T: int) -> dict[str, tuple[int, ...]]:
+        """Shapes of the observe path's Gumbel noise, in draw order: the
+        initial sample, then the ``[T, B, S]`` prior and posterior sites."""
+        S = self.cfg.stoch_size
+        return {"g_init": (B, S), "g_prior": (T, B, S), "g_post": (T, B, S)}
+
+    def draw_noise(self, B: int, T: int, generator: torch.Generator | None = None,
+                   device: torch.device | str | None = None,
+                   given: Mapping[str, torch.Tensor] | None = None) -> dict[str, torch.Tensor]:
+        """The observe path's noise (:meth:`noise_shapes`): each tensor of
+        ``given`` as it is, the rest drawn from ``generator`` in order."""
+        return draw_gumbels(self.noise_shapes(B, T), generator, device, given)
+
+    def observe(self, actions: torch.Tensor, audio_obs: torch.Tensor, vision_obs: torch.Tensor,
+                noise: Mapping[str, torch.Tensor]) -> tuple[State, State]:
+        """Initial state from frame 0, then the posterior and prior over
+        ``[B, T]`` on the given noise (:meth:`draw_noise`'s keys)."""
+        init = self.initial_state(audio_obs[:, 0], vision_obs[:, 0], noise["g_init"])
+        return self.rollout_representation(actions, audio_obs, vision_obs, init,
+                                           noise["g_prior"], noise["g_post"])
+
     def rollout_representation(
         self, actions: torch.Tensor, audio_obs: torch.Tensor, vision_obs: torch.Tensor,
         prev_state: State, g_prior: torch.Tensor | None = None,
@@ -256,21 +278,24 @@ class MoPoEMRSSM(nn.Module):
         action_in, audio_in, vision_in = batch[:3]
         dev = action_in.device
         B, T = action_in.shape[:2]
-        S = cfg.stoch_size
-        gumbels = tuple(
-            noise[key] if key in noise else gumbel_noise(shape, generator, dev)
-            for key, shape in (("g_init", (B, S)), ("g_prior", (T, B, S)), ("g_post", (T, B, S))))
-        stds = _stream_stds(cfg.input_noise_std)
-        if any(s > 0 for s in stds):
-            normals = noise.get("input") or tuple(
-                torch.randn(x.shape, generator=generator, device=dev)
-                for x in (action_in, audio_in, vision_in))
-            action_in, audio_in, vision_in = _add_input_noise(
-                stds, normals, (action_in, audio_in, vision_in))
+        gumbels = tuple(self.draw_noise(B, T, generator, dev, noise).values())
+        action_in, audio_in, vision_in = add_input_noise(
+            cfg.input_noise_std, (action_in, audio_in, vision_in), noise, generator)
         a_emb, v_emb = self.encode_embeds(audio_in, vision_in)
         init = self.initial_state_from_embed((a_emb[:, 0] + v_emb[:, 0]) / 2.0, gumbels[0])
         posterior, prior = self._rollout_from_embeds(action_in, a_emb, v_emb, init, *gumbels[1:])
         return init, posterior, prior, gumbels
+
+
+def draw_gumbels(shapes: Mapping[str, tuple[int, ...]], generator: torch.Generator | None,
+                 device: torch.device | str | None,
+                 given: Mapping[str, torch.Tensor] | None = None) -> dict[str, torch.Tensor]:
+    """Gumbel noise for each named shape: ``given[name]`` where it is given,
+    else drawn from ``generator`` (on its device; torch's default generator
+    of ``device`` if None), in the order of ``shapes``."""
+    given = given or {}
+    return {k: given[k] if k in given else gumbel_noise(shape, generator, device)
+            for k, shape in shapes.items()}
 
 
 def _stream_stds(std: float | tuple[float, ...]) -> tuple[float, ...]:
@@ -280,8 +305,16 @@ def _stream_stds(std: float | tuple[float, ...]) -> tuple[float, ...]:
     return (float(std),) * 3
 
 
-def _add_input_noise(stds: tuple[float, ...], normals: tuple[torch.Tensor, ...],
-                     streams: tuple[torch.Tensor, ...]) -> tuple[torch.Tensor, ...]:
-    """``x + std * n`` per stream (reference ``transform.py:55-72``, applied on
-    the device as the JAX package does); a std of 0 leaves its stream clean."""
+def add_input_noise(std: float | tuple[float, ...], streams: tuple[torch.Tensor, ...],
+                    noise: Mapping, generator: torch.Generator | None) -> tuple[torch.Tensor, ...]:
+    """``x + std * n`` per input stream (action, audio, vision; reference
+    ``transform.py:55-72``, applied on the device as the JAX package does):
+    ``n`` is ``noise["input"]`` where given, else standard normals from
+    ``generator``; a std of 0 leaves its stream clean, and with every std 0
+    nothing is drawn."""
+    stds = _stream_stds(std)
+    if not any(s > 0 for s in stds):
+        return streams
+    normals = noise.get("input") or tuple(
+        torch.randn(x.shape, generator=generator, device=x.device) for x in streams)
     return tuple(x if s == 0 else x + s * n for s, n, x in zip(stds, normals, streams))

@@ -2,10 +2,12 @@
 
 from multimodal_mtrssm_tpu_torch.nn.conv import Decoder, DecoderConfig, Encoder, EncoderConfig
 from multimodal_mtrssm_tpu_torch.nn.core import (
+    MTRNN,
     Transition,
     activation,
     gru_cell,
     mlp,
+    mtrnn_step,
     rssm_transition_core,
     transition_step,
 )
@@ -15,10 +17,12 @@ __all__ = [
     "DecoderConfig",
     "Encoder",
     "EncoderConfig",
+    "MTRNN",
     "Transition",
     "activation",
     "gru_cell",
     "mlp",
+    "mtrnn_step",
     "rssm_transition_core",
     "transition_step",
 ]

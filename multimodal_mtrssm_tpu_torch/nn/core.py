@@ -4,8 +4,9 @@ Module and parameter names follow the reference Lightning checkpoints that
 ``multimodal_mtrssm_tpu/train/torch_export.py`` writes: a torchrl MLP is a
 ``Sequential`` with its Linears at even indices, and the GRU cell holds
 ``weight_ih``/``weight_hh``/``bias_ih``/``bias_hh`` in torch layout
-(``[3D, in]``, gate order r, z, n), which is ``nn.GRUCell``'s own. The
-MTRNN cell waits for the MMTRSSM family.
+(``[3D, in]``, gate order r, z, n), which is ``nn.GRUCell``'s own; the
+MTRNN cell holds its ``_d2h`` and ``_input2h`` Linears under the reference's
+names (``mopoe_mmtrssm/core.py:36-37``).
 """
 
 from __future__ import annotations
@@ -100,6 +101,46 @@ def transition_step(weights: tuple[torch.Tensor, ...], action: torch.Tensor,
     x = two_layer(torch.cat([action, prev_stoch], dim=-1), w1, b1, w2, b2, act)
     deter = gru_cell(x, prev_deter, wih, whh, bih, bhh)
     return deter, two_layer(deter, wp1, bp1, wp2, bp2, act)
+
+
+def mtrnn_step(weights: tuple[torch.Tensor, ...], x: torch.Tensor, prev_d: torch.Tensor,
+               hidden: torch.Tensor, tau: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """One MTRNN step on its 4 raw weights ``(w_d2h, b_d2h, w_input2h,
+    b_input2h)`` (torch layout), JAX ``mtrnn_apply``'s association:
+    ``hidden' = (1 - 1/tau) * hidden + (d2h(prev_d) + input2h(x)) * (1/tau)``,
+    ``d = tanh(hidden')``. Returns ``(d, hidden')``.
+
+    The one home of this cell: :class:`MTRNN`, the MMTRSSM model and both
+    MT kernels' plain versions call it."""
+    if tau <= 1.0:
+        raise ValueError("tau must be greater than 1.0")  # reference core.py:34
+    wd, bd, wi, bi = weights
+    inv_tau = 1.0 / tau
+    new_hidden = (1.0 - inv_tau) * hidden + (F.linear(prev_d, wd, bd) + F.linear(x, wi, bi)) * inv_tau
+    return torch.tanh(new_hidden), new_hidden
+
+
+class MTRNN(nn.Module):
+    """Multiple-timescale RNN cell, a leaky integrator (reference
+    ``mopoe_mmtrssm/core.py:40-74``). The integrator ``hidden`` is an
+    explicit argument and result, not module state."""
+
+    def __init__(self, input_size: int, hidden_size: int, tau: float):
+        super().__init__()
+        if tau <= 1.0:
+            raise ValueError("tau must be greater than 1.0")
+        self.tau = tau
+        self._d2h = nn.Linear(hidden_size, hidden_size)
+        self._input2h = nn.Linear(input_size, hidden_size)
+
+    def weights(self) -> tuple[torch.Tensor, ...]:
+        """``(w_d2h, b_d2h, w_input2h, b_input2h)`` in torch layout."""
+        return (self._d2h.weight, self._d2h.bias, self._input2h.weight, self._input2h.bias)
+
+    def forward(self, x: torch.Tensor, prev_d: torch.Tensor,
+                hidden: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """One step: ``(d, hidden')`` (:func:`mtrnn_step`)."""
+        return mtrnn_step(self.weights(), x, prev_d, hidden, self.tau)
 
 
 class Transition(nn.Module):

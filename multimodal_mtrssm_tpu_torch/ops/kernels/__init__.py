@@ -13,7 +13,13 @@ Kernels (sources in ``csrc/``, built at first use by :mod:`.build`):
   and ``::_fwd_kernel_chunked``;
 - ``recurrence_bwd``: its BPTT backward, replacing ``::_bwd_kernel`` and
   ``::_bwd_kernel_chunked``;
-- ``rollout``: imagination, replacing ``ops/pallas/rollout.py::_rollout_kernel``.
+- ``rollout``: imagination, replacing ``ops/pallas/rollout.py::_rollout_kernel``;
+- ``mt_recurrence_fwd``: the MMTRSSM hierarchical recurrence, replacing
+  ``ops/pallas/train_step_mt.py::_fwd_kernel`` and ``::_fwd_kernel_chunked``;
+- ``mt_recurrence_bwd``: its BPTT backward, replacing ``::_bwd_kernel`` and
+  ``::_bwd_kernel_chunked``;
+- ``mt_rollout``: hierarchical imagination, replacing
+  ``ops/pallas/rollout_mt.py::_mt_rollout_kernel``.
 """
 
 from __future__ import annotations
@@ -23,13 +29,18 @@ from typing import Sequence
 import torch
 
 from multimodal_mtrssm_tpu_torch.nn.core import activation
-from multimodal_mtrssm_tpu_torch.ops.kernels import recurrence, rollout
+from multimodal_mtrssm_tpu_torch.ops.kernels import recurrence, recurrence_mt, rollout, rollout_mt
+from multimodal_mtrssm_tpu_torch.ops.kernels.recurrence_mt import MT_SPEC, MTSpec
 from multimodal_mtrssm_tpu_torch.ops.kernels.rollout import philox_gumbel
+from multimodal_mtrssm_tpu_torch.ops.kernels.rollout_mt import philox_mt_gumbel
 
 # Kernel name → (module, attribute) of its launch counter.
 LAUNCH_COUNTERS = {"recurrence_fwd": (recurrence, "launches"),
                    "recurrence_bwd": (recurrence, "bwd_launches"),
-                   "rollout": (rollout, "launches")}
+                   "rollout": (rollout, "launches"),
+                   "mt_recurrence_fwd": (recurrence_mt, "launches"),
+                   "mt_recurrence_bwd": (recurrence_mt, "bwd_launches"),
+                   "mt_rollout": (rollout_mt, "launches")}
 
 
 def _route(device: torch.device, activation_name: str):
@@ -76,6 +87,34 @@ def fused_rollout_transition(
                                  class_size, category_size, act=act)
 
 
+def fused_mt_train_recurrence(
+    weights: Sequence[torch.Tensor], actions: torch.Tensor, a_emb: torch.Tensor,
+    v_emb: torch.Tensor, init6: Sequence[torch.Tensor], gumbels: Sequence[torch.Tensor],
+    spec: MTSpec = MT_SPEC, activation_name: str = "ELU",
+) -> tuple[torch.Tensor, ...]:
+    """The hierarchical recurrence over time-major ``[T, B, ·]`` inputs from
+    ``init6`` ``(h_deter, l_deter, h_stoch, l_stoch, hid_h, hid_l)`` with the
+    four sites' Gumbel noise (l-prior, l-posterior, h-prior, h-posterior),
+    differentiable on both routes. Returns the 12 sequences of
+    ``train_step_mt.fused_mt_train_recurrence``."""
+    act = _route(actions.device, activation_name)
+    return recurrence_mt.MTRecurrenceFunction.apply(
+        act, spec, actions, a_emb, v_emb, *init6, *gumbels, *weights)
+
+
+def fused_mt_rollout_transition(
+    weights: Sequence[torch.Tensor], actions: torch.Tensor, init6: Sequence[torch.Tensor],
+    seed: int, spec: MTSpec = MT_SPEC, activation_name: str = "ELU",
+) -> tuple[torch.Tensor, ...]:
+    """Hierarchical prior-only imagination over ``[B, T, A]`` actions with
+    the seed's Philox noise. Returns ``(h_deter, l_deter, h_logits,
+    l_logits, h_stoch, l_stoch, hid_h, hid_l)``, each ``[B, T, ·]``."""
+    act = _route(actions.device, activation_name)
+    if act is None:
+        return rollout_mt.rollout_mt_cuda(weights, actions, init6, seed, spec)
+    return rollout_mt.rollout_mt_plain(weights, actions, init6, seed, spec, act=act)
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches per kernel since the last :func:`reset_launch_counts`."""
     return {name: getattr(mod, attr) for name, (mod, attr) in LAUNCH_COUNTERS.items()}
@@ -89,9 +128,13 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "LAUNCH_COUNTERS",
+    "MTSpec",
+    "fused_mt_rollout_transition",
+    "fused_mt_train_recurrence",
     "fused_rollout_transition",
     "fused_train_recurrence",
     "launch_counts",
     "philox_gumbel",
+    "philox_mt_gumbel",
     "reset_launch_counts",
 ]

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-The sources in ``csrc/`` have a plain C interface. ``nvcc`` compiles them at
-first use into one shared library under ``build/torch_kernels/`` of the
-checkout, named after a hash of the sources and flags, and ``ctypes`` loads
-it. Nothing here runs at import time: the package imports on a machine with
-no CUDA toolkit, and only a kernel launch on a CUDA tensor needs the build.
+The sources in ``csrc/`` have a plain C interface. At first use ``nvcc``
+compiles each source to an object, all at once in parallel, and links them
+into one shared library under ``build/torch_kernels/`` of the checkout,
+named after a hash of the sources and flags; ``ctypes`` loads it. Nothing
+here runs at import time: the package imports on a machine with no CUDA
+toolkit, and only a kernel launch on a CUDA tensor needs the build.
 """
 
 from __future__ import annotations
@@ -20,20 +21,37 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("recurrence_fwd.cu", "recurrence_bwd.cu", "rollout.cu")
+SOURCES = ("recurrence_fwd.cu", "recurrence_bwd.cu", "rollout.cu", "recurrence_mt_fwd.cu",
+           "recurrence_mt_bwd.cu", "rollout_mt.cu")
 HEADERS = ("mrssm_common.cuh",)
 # Hopper only (sm_90a); no --use_fast_math, so expf/logf/tanhf stay accurate
 # and the straight-through value (onehot + p) - p is not reassociated.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+class MTDims(ctypes.Structure):
+    """``mrssm::MTDims`` of ``csrc/mrssm_common.cuh``, field for field: the
+    MMTRSSM kernels' sizes, rows per block, and each layer's ``1/tau`` and
+    ``1 - 1/tau`` (rounded to f32 from double, as JAX rounds its constants)."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "T", "B", "A", "E", "HD", "LD", "C", "R", "ls_class", "ls_category", "hs_class",
+        "hs_category", "rows")] + [(name, ctypes.c_float) for name in (
+            "l_inv", "l_keep", "h_inv", "h_keep")]
+
 # name → (restype, argtypes) of the C entry points called from Python.
 _SIGNATURES = {
     "mrssm_recurrence_forward": (_I, [_P] * 13 + [_I] * 9 + [_P]),
     "mrssm_recurrence_backward": (_I, [_P] * 18 + [_I] * 9 + [_P]),
     "mrssm_recurrence_bwd_rows": (_I, [_I] * 7),
     "mrssm_rollout": (_I, [_P] * 7 + [ctypes.c_ulonglong] + [_I] * 8 + [_P]),
+    "mt_recurrence_forward": (_I, [_P, _P, _P, MTDims, _P]),
+    "mt_recurrence_backward": (_I, [_P] * 6 + [MTDims, _P]),
+    "mt_recurrence_bwd_rows": (_I, [MTDims, _I]),
+    "mt_rollout": (_I, [_P] * 3 + [ctypes.c_ulonglong, MTDims, _P]),
     "mrssm_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -63,14 +81,34 @@ def library_path() -> Path:
 
 
 def _compile(out: Path) -> None:
+    """One ``nvcc -c`` per source, started together, then one link."""
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)
+    objs = [tmp.with_name(f"{tmp.name}.{Path(s).stem}.o") for s in SOURCES]
+    cmds = [[nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)] for o, s in zip(objs, SOURCES)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    try:
+        errs = [p.communicate()[1] for p in procs]
+        failed = [(cmd, p.returncode, err) for cmd, p, err in zip(cmds, procs, errs)
+                  if p.returncode != 0]
+        if not failed:
+            link = [nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+            proc = subprocess.run(link, capture_output=True, text=True, check=False)
+            if proc.returncode != 0:
+                failed = [(link, proc.returncode, proc.stderr)]
+        if failed:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError("\n".join(f"nvcc failed ({rc}): {' '.join(cmd)}\n{err}"
+                                         for cmd, rc, err in failed))
+        os.replace(tmp, out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for o in objs:
+            o.unlink(missing_ok=True)
 
 
 def load_library() -> ctypes.CDLL:

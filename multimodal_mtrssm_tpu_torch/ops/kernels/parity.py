@@ -18,9 +18,12 @@ from typing import Any, Mapping, Sequence
 import torch
 import torch.nn.functional as F
 
+from multimodal_mtrssm_tpu_torch.models.state import MTState
 from multimodal_mtrssm_tpu_torch.nn.core import transition_step
 from multimodal_mtrssm_tpu_torch.ops.distributions import onehot_blocks
+from multimodal_mtrssm_tpu_torch.ops.kernels.recurrence_mt import MT_SPEC, MTSpec
 from multimodal_mtrssm_tpu_torch.ops.kernels.rollout import philox_gumbel
+from multimodal_mtrssm_tpu_torch.ops.kernels.rollout_mt import mt_prior_step, philox_mt_gumbel
 
 
 class ParityError(AssertionError):
@@ -67,17 +70,11 @@ def check_recurrence(kernel_out: Sequence[torch.Tensor], plain_out: Sequence[tor
               ((deter_k, deter_p), (prior_k, prior_p), (mixed_k, mixed_p)))
     if not err <= atol:
         raise ParityError(f"recurrence: max |kernel - plain| {err:.3g} > {atol}")
-    blocks = lambda x: x.reshape(*x.shape[:-1], class_size, category_size)  # noqa: E731
     pmask = upto[..., None] & ~prior_tie
     post_mask = before[..., None].expand_as(post_tie)
     for name, k, p, m in (("prior_stoch", pstoch_k, pstoch_p, pmask),
                           ("post_stoch", post_k, post_p, post_mask)):
-        bad = (blocks(k).argmax(-1) != blocks(p).argmax(-1)) & m
-        if bool(bad.any()):
-            raise ParityError(f"recurrence: {name} differs in {int(bad.sum())} blocks")
-        serr = float((blocks(k) - blocks(p)).abs().amax(-1)[m].max()) if bool(m.any()) else 0.0
-        if not serr <= atol:
-            raise ParityError(f"recurrence: {name} values differ by {serr:.3g}")
+        _check_blocks(k, p, m, class_size, category_size, atol, f"recurrence: {name}")
     return {"max_abs_err": err, "compared": float(upto.float().mean()), "agree": before}
 
 
@@ -125,6 +122,107 @@ def check_rollout(weights: Sequence[torch.Tensor], actions: torch.Tensor,
     return {"max_abs_err": err, "compared": float(keep.float().mean())}
 
 
+def _check_blocks(k: torch.Tensor, p: torch.Tensor, mask: torch.Tensor, class_size: int,
+                   category_size: int, atol: float, name: str) -> None:
+    """Raise unless the sampled blocks of ``k`` and ``p`` pick the same
+    category and hold the same values (within ``atol``) wherever ``mask``
+    (``[..., class_size]``)."""
+    blocks = lambda x: x.reshape(*x.shape[:-1], class_size, category_size)  # noqa: E731
+    bad = (blocks(k).argmax(-1) != blocks(p).argmax(-1)) & mask
+    if bool(bad.any()):
+        raise ParityError(f"{name} differs in {int(bad.sum())} blocks")
+    err = float((blocks(k) - blocks(p)).abs().amax(-1)[mask].max()) if bool(mask.any()) else 0.0
+    if not err <= atol:
+        raise ParityError(f"{name} values differ by {err:.3g}")
+
+
+@torch.no_grad()
+def check_mt_recurrence(kernel_out: Sequence[torch.Tensor], plain_out: Sequence[torch.Tensor],
+                        gumbels: Sequence[torch.Tensor], spec: MTSpec = MT_SPEC,
+                        atol: float = 1e-4, tie_eps: float = 1e-5) -> dict[str, Any]:
+    """Compare the hierarchical recurrence's 12 ``[T, B, ·]`` outputs. In
+    each batch row, steps up to the first near-tie of either posterior are
+    compared (deters, integrators and the four logits within ``atol``; the
+    posterior samples, which are the next carries, equal before it); a
+    prior near-tie excludes only its own block. Raises :class:`ParityError`.
+
+    Returns the largest error, the share of steps compared, and under
+    ``"agree"`` the ``[T, B]`` mask of steps whose whole posterior state was
+    held equal."""
+    lc, lk, hc, hk = spec.ls_class, spec.ls_category, spec.hs_class, spec.hs_category
+    T = plain_out[0].shape[0]
+    l_post_tie = near_ties(plain_out[6] + gumbels[1], lc, lk, tie_eps)
+    h_post_tie = near_ties(plain_out[10] + gumbels[3], hc, hk, tie_eps)
+    steps = torch.arange(T, device=plain_out[0].device)[:, None]
+    tie = l_post_tie.any(-1) | h_post_tie.any(-1)
+    first = torch.where(tie, steps, T).amin(0)  # [B]
+    upto, before = steps <= first, steps < first
+    err = max(_max_err(kernel_out[i], plain_out[i], upto) for i in (0, 1, 2, 3, 4, 6, 8, 10))
+    if not err <= atol:
+        raise ParityError(f"mt recurrence: max |kernel - plain| {err:.3g} > {atol}")
+    for name, i, c, k, mask in (
+            ("l_prior_stoch", 5, lc, lk,
+             upto[..., None] & ~near_ties(plain_out[4] + gumbels[0], lc, lk, tie_eps)),
+            ("l_stoch", 7, lc, lk, before[..., None].expand_as(l_post_tie)),
+            ("h_prior_stoch", 9, hc, hk,
+             upto[..., None] & ~near_ties(plain_out[8] + gumbels[2], hc, hk, tie_eps)),
+            ("h_stoch", 11, hc, hk, before[..., None].expand_as(h_post_tie))):
+        _check_blocks(kernel_out[i], plain_out[i], mask, c, k, atol, f"mt recurrence: {name}")
+    return {"max_abs_err": err, "compared": float(upto.float().mean()), "agree": before}
+
+
+@torch.no_grad()
+def replay_mt_prior(weights: Sequence[torch.Tensor], actions: torch.Tensor,
+                    init6: Sequence[torch.Tensor], h_stochs: torch.Tensor,
+                    l_stochs: torch.Tensor, spec: MTSpec = MT_SPEC) -> tuple[torch.Tensor, ...]:
+    """The plain imagination step teacher-forced with given ``[B, T, ·]``
+    stochs: step t reads those of step t-1. Returns ``(h_deter, l_deter,
+    h_logits, l_logits, hid_h, hid_l)``, each ``[B, T, ·]``."""
+    carry = tuple(init6)
+    outs = []
+    for t in range(actions.shape[1]):
+        hd, ld, h_logits, l_logits, hidh, hidl = mt_prior_step(weights, actions[:, t], carry,
+                                                               spec, F.elu)
+        outs.append((hd, ld, h_logits, l_logits, hidh, hidl))
+        carry = (hd, ld, h_stochs[:, t], l_stochs[:, t], hidh, hidl)
+    return tuple(torch.stack(seq, 1) for seq in zip(*outs))
+
+
+@torch.no_grad()
+def check_mt_rollout(weights: Sequence[torch.Tensor], actions: torch.Tensor,
+                     init6: Sequence[torch.Tensor], seed: int, kernel_out: Sequence[torch.Tensor],
+                     spec: MTSpec = MT_SPEC, atol: float = 1e-4,
+                     tie_eps: float = 1e-5) -> dict[str, float]:
+    """Check the hierarchical rollout kernel by replaying its stochs through
+    the plain step (deters, logits and integrators within ``atol``) and by
+    re-sampling: each layer's stochs must be the one-hot argmax of its
+    logits plus the plain Philox noise for ``seed``, except in near-tie
+    blocks. Raises :class:`ParityError`."""
+    h_deter, l_deter, h_logits, l_logits, h_stoch, l_stoch, hid_h, hid_l = kernel_out
+    B, T, _ = actions.shape
+    replay = replay_mt_prior(weights, actions, init6, h_stoch, l_stoch, spec)
+    everywhere = torch.ones(B, T, dtype=torch.bool, device=actions.device)
+    err = max(_max_err(k, p, everywhere) for k, p in
+              zip((h_deter, l_deter, h_logits, l_logits, hid_h, hid_l), replay))
+    if not err <= atol:
+        raise ParityError(f"mt rollout: max |kernel - replay| {err:.3g} > {atol}")
+    g_l, g_h = philox_mt_gumbel(seed, T, B, (spec.ls_class, spec.ls_category),
+                                (spec.hs_class, spec.hs_category), actions.device)
+    kept = []
+    for name, logits, stochs, noise, c, k in (
+            ("l_stoch", l_logits, l_stoch, g_l, spec.ls_class, spec.ls_category),
+            ("h_stoch", h_logits, h_stoch, g_h, spec.hs_class, spec.hs_category)):
+        scores = logits + noise.transpose(0, 1)
+        keep = ~near_ties(scores, c, k, tie_eps)
+        blocks = lambda x: x.reshape(B, T, c, k)  # noqa: E731, B023
+        bad = (blocks(stochs) != blocks(onehot_blocks(scores, c, k))).any(-1) & keep
+        if bool(bad.any()):
+            raise ParityError(f"mt rollout: {name} differs from argmax(logits + noise) in "
+                              f"{int(bad.sum())} blocks")
+        kept.append(keep.flatten())
+    return {"max_abs_err": err, "compared": float(torch.cat(kept).float().mean())}
+
+
 def check_gradients(kernel_grads: Sequence[torch.Tensor], plain_grads: Sequence[torch.Tensor],
                     rel: float = 2e-4) -> float:
     """Each kernel gradient within ``rel × max(1, max|plain|)`` of its plain
@@ -144,13 +242,24 @@ def check_gradients(kernel_grads: Sequence[torch.Tensor], plain_grads: Sequence[
 def train_step_near_ties(model: Any, batch: Sequence[torch.Tensor],
                          noise: Mapping[str, Any], tie_eps: float = 1e-5) -> int:
     """Blocks of a ``shared_step`` on ``batch`` and ``noise`` whose top two
-    Gumbel scores lie within ``tie_eps`` (initial, prior and posterior
-    samples); where there are none, two routes must sample alike."""
-    C, K = model.cfg.class_size, model.cfg.category_size
-    init, post, prior, (g_init, g_prior, g_post) = model._observe_batch(batch, noise, None)
+    Gumbel scores lie within ``tie_eps`` (every sample site of either
+    family); where there are none, two routes must sample alike."""
+    init, post, prior, g = model._observe_batch(batch, noise, None)
     tm = lambda x: x.transpose(0, 1)  # noqa: E731
-    return sum(int(near_ties(scores, C, K, tie_eps).sum()) for scores in (
-        init.logits + g_init, tm(prior.logits) + g_prior, tm(post.logits) + g_post))
+    cfg = model.cfg
+    if isinstance(init, MTState):
+        lc, lk, hc, hk = cfg.ls_class, cfg.ls_category, cfg.hs_class, cfg.hs_category
+        sites = ((init.logits_h + g["g_init_h"], hc, hk), (init.logits_l + g["g_init_l"], lc, lk),
+                 (tm(prior.logits_l) + g["g_lprior"], lc, lk),
+                 (tm(post.logits_l) + g["g_lpost"], lc, lk),
+                 (tm(prior.logits_h) + g["g_hprior"], hc, hk),
+                 (tm(post.logits_h) + g["g_hpost"], hc, hk))
+    else:
+        C, K = cfg.class_size, cfg.category_size
+        g_init, g_prior, g_post = g
+        sites = ((init.logits + g_init, C, K), (tm(prior.logits) + g_prior, C, K),
+                 (tm(post.logits) + g_post, C, K))
+    return sum(int(near_ties(scores, c, k, tie_eps).sum()) for scores, c, k in sites)
 
 
 def train_step_grads(model: Any, batch: Sequence[torch.Tensor],

@@ -76,16 +76,26 @@ def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
     return pattern.view(torch.float32) - 1.0
 
 
+def philox_block_gumbel(seed: int, T: int, B: int, first_block: int, n_blocks: int,
+                        category_size: int, device: torch.device | str = "cpu") -> torch.Tensor:
+    """Gumbel noise of category blocks ``first_block ..`` (the counter's
+    block word) for ``seed``, time-major ``[T, B, n_blocks * category_size]``;
+    a block of K categories takes ``ceil(K / 4)`` Philox calls."""
+    words = -(-category_size // 4)
+    t, b, c, w = torch.meshgrid(
+        torch.arange(T, dtype=torch.int64, device=device),
+        torch.arange(B, dtype=torch.int64, device=device),
+        torch.arange(first_block, first_block + n_blocks, dtype=torch.int64, device=device),
+        torch.arange(words, dtype=torch.int64, device=device), indexing="ij")
+    bits = torch.stack(philox4x32_10((t, b, c, w), (seed & _MASK32, seed >> 32)), dim=-1)
+    u = uniform_from_bits(bits.reshape(T, B, n_blocks, 4 * words)[..., :category_size])
+    return (-torch.log(-torch.log(u))).reshape(T, B, n_blocks * category_size)
+
+
 def philox_gumbel(seed: int, T: int, B: int, class_size: int, category_size: int,
                   device: torch.device | str = "cpu") -> torch.Tensor:
     """The kernel's Gumbel noise for ``seed``, time-major ``[T, B, S]``."""
-    words = -(-category_size // 4)
-    t, b, c, w = torch.meshgrid(
-        *(torch.arange(n, dtype=torch.int64, device=device)
-          for n in (T, B, class_size, words)), indexing="ij")
-    bits = torch.stack(philox4x32_10((t, b, c, w), (seed & _MASK32, seed >> 32)), dim=-1)
-    u = uniform_from_bits(bits.reshape(T, B, class_size, 4 * words)[..., :category_size])
-    return (-torch.log(-torch.log(u))).reshape(T, B, class_size * category_size)
+    return philox_block_gumbel(seed, T, B, 0, class_size, category_size, device)
 
 
 def rollout_plain(

@@ -16,8 +16,8 @@ LRU store behind opaque ids. One lock serialises device work, and every
 request runs alone with exact per-seed results; request coalescing is not
 ported yet.
 
-Run: ``python -m multimodal_mtrssm_tpu_torch.server [--checkpoint x.ckpt]
-[--device cuda] [--port 8000]``.
+Run: ``python -m multimodal_mtrssm_tpu_torch.server [--model mrssm|mmtrssm]
+[--checkpoint x.ckpt] [--device cuda] [--port 8000]``.
 """
 
 from __future__ import annotations
@@ -227,29 +227,34 @@ def _payload_to_npz(payload: dict) -> bytes:
 
 
 def main(argv: list[str] | None = None) -> None:
-    """CLI entry: serve ``MoPoEMRSSM(MRSSMConfig())`` with weights from a
-    Lightning ``.ckpt`` (``scripts/export_torch_checkpoint.py`` writes one)
-    or, without one, from a seeded init."""
+    """CLI entry: serve ``MoPoEMRSSM(MRSSMConfig())`` or
+    ``MoPoEMMTRSSM(MMTRSSMConfig())`` with weights from a Lightning ``.ckpt``
+    (``scripts/export_torch_checkpoint.py`` writes one) or, without one,
+    from a seeded init."""
     import argparse
 
     import torch
 
-    from multimodal_mtrssm_tpu_torch.models.mrssm import MoPoEMRSSM
+    from multimodal_mtrssm_tpu_torch.models import MoPoEMMTRSSM, MoPoEMRSSM
     from multimodal_mtrssm_tpu_torch.train.weights import load_lightning_checkpoint
 
+    families = {"mrssm": MoPoEMRSSM, "mmtrssm": MoPoEMMTRSSM}
     ap = argparse.ArgumentParser(prog="serve")
-    ap.add_argument("--checkpoint", help="Lightning .ckpt of a MoPoE-MRSSM at the reference config")
+    ap.add_argument("--model", choices=sorted(families), default="mrssm",
+                    help="model family, at its reference config")
+    ap.add_argument("--checkpoint", help="Lightning .ckpt of the model at the reference config")
     ap.add_argument("--seed", type=int, default=0, help="init seed when no checkpoint is given")
     ap.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)
     args = ap.parse_args(argv)
 
-    model = MoPoEMRSSM().init(torch.Generator().manual_seed(args.seed))
+    model = families[args.model]().init(torch.Generator().manual_seed(args.seed))
     if args.checkpoint:
         load_lightning_checkpoint(model, args.checkpoint)
     server = InferenceServer(WorldModel(model, args.device), host=args.host, port=args.port)
-    print(f"serving MoPoEMRSSM on http://{args.host}:{server.port} (/healthz /observe /imagine)")
+    print(f"serving {type(model).__name__} on http://{args.host}:{server.port} "
+          "(/healthz /observe /imagine)")
     try:
         server.serve_forever()
     except KeyboardInterrupt:

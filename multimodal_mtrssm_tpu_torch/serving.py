@@ -6,12 +6,14 @@
   plan, through the rollout kernel.
 - ``WorldModel.decode``: reconstruct both modalities from latents.
 
-An integer seed takes the place of the JAX key. Observe draws its Gumbel
-noise from a CPU ``torch.Generator`` seeded with it and moves the noise to
-the device; imagine keys the rollout kernel's Philox stream with it. Either
-way a seed gives the same trajectory on the CPU and the card. No mesh, and
-no Orbax ``from_checkpoint``: weights come from ``MoPoEMRSSM.init`` or
-``train.weights``.
+Either family: ``MoPoEMRSSM`` (``State`` latents) or the hierarchical
+``MoPoEMMTRSSM`` (``MTState``, whose integrators make a chained imagine
+exact). An integer seed takes the place of the JAX key. Observe draws its
+Gumbel noise (``model.draw_noise``) from a CPU ``torch.Generator`` seeded
+with it and moves the noise to the device; imagine keys the rollout
+kernel's Philox stream with it. Either way a seed gives the same trajectory
+on the CPU and the card. No mesh, and no Orbax ``from_checkpoint``: weights
+come from the model's ``init`` or ``train.weights``.
 """
 
 from __future__ import annotations
@@ -21,9 +23,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from multimodal_mtrssm_tpu_torch.models.mrssm import MoPoEMRSSM
-from multimodal_mtrssm_tpu_torch.models.state import State
-from multimodal_mtrssm_tpu_torch.ops.distributions import gumbel_noise
+from multimodal_mtrssm_tpu_torch.models import WorldModelNet
+from multimodal_mtrssm_tpu_torch.models.state import AnyState
 
 ArrayLike = torch.Tensor | np.ndarray
 
@@ -32,7 +33,7 @@ class WorldModel:
     """A model on ``device`` behind inference entry points that take and
     return tensors on that device (numpy inputs are accepted too)."""
 
-    def __init__(self, model: MoPoEMRSSM, device: torch.device | str = "cpu"):
+    def __init__(self, model: WorldModelNet, device: torch.device | str = "cpu"):
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
 
@@ -44,7 +45,7 @@ class WorldModel:
 
     @torch.no_grad()
     def observe(self, actions: ArrayLike, audio_obs: ArrayLike, vision_obs: ArrayLike,
-                seed: int = 0) -> tuple[State, State]:
+                seed: int = 0) -> tuple[AnyState, AnyState]:
         """Filter observations → (posterior, prior) latent sequences ``[B, T]``.
         Frames are NHWC ``[B, T, H, W, C]``."""
         cfg = self.model.cfg
@@ -61,15 +62,12 @@ class WorldModel:
             if tuple(x.shape) != (B, T, *enc.in_hw, enc.in_channels):
                 raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
                                  f"{(B, T, *enc.in_hw, enc.in_channels)}")
-        gen = torch.Generator().manual_seed(seed)
-        S = cfg.stoch_size
-        g_init, g_prior, g_post = (gumbel_noise(shape, gen).to(self.device)
-                                   for shape in ((B, S), (T, B, S), (T, B, S)))
-        init = self.model.initial_state(audio[:, 0], vision[:, 0], g_init)
-        return self.model.rollout_representation(actions, audio, vision, init, g_prior, g_post)
+        noise = self.model.draw_noise(B, T, torch.Generator().manual_seed(seed))
+        return self.model.observe(actions, audio, vision,
+                                  {k: v.to(self.device) for k, v in noise.items()})
 
     @torch.no_grad()
-    def imagine(self, actions: ArrayLike, prev_state: State, seed: int = 0) -> State:
+    def imagine(self, actions: ArrayLike, prev_state: AnyState, seed: int = 0) -> AnyState:
         """Prior-only rollout from ``prev_state`` (``[B]`` latents) under an
         action plan ``[B, T, A]``."""
         cfg = self.model.cfg
@@ -79,17 +77,17 @@ class WorldModel:
                 f"actions have width {actions.shape[2]}, the model takes {cfg.action_size}")
         if actions.shape[1] == 0:
             raise ValueError("imagine needs at least one timestep")
-        if prev_state.deter.shape[0] != actions.shape[0]:
-            raise ValueError(f"state batch {prev_state.deter.shape[0]} != action batch "
+        if prev_state.batch_size != actions.shape[0]:
+            raise ValueError(f"state batch {prev_state.batch_size} != action batch "
                              f"{actions.shape[0]}")
         return self.model.rollout_transition(actions, prev_state.to(self.device), seed)
 
     @torch.no_grad()
-    def decode(self, state: State) -> dict[str, torch.Tensor]:
+    def decode(self, state: AnyState) -> dict[str, torch.Tensor]:
         """Reconstruct both modalities from latents → NHWC frames."""
         return self.model.decode_state(state.to(self.device))
 
-    def imagine_frames(self, actions: ArrayLike, prev_state: State,
+    def imagine_frames(self, actions: ArrayLike, prev_state: AnyState,
                        seed: int = 0) -> dict[str, torch.Tensor]:
         """Imagine and decode in one call → dict of ``[B, T, H, W, C]`` frames."""
         return self.decode(self.imagine(actions, prev_state, seed))

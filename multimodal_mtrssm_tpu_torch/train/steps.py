@@ -12,7 +12,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from multimodal_mtrssm_tpu_torch.models.mrssm import MoPoEMRSSM
+from multimodal_mtrssm_tpu_torch.models import WorldModelNet
 from multimodal_mtrssm_tpu_torch.train.optim import AdamW
 
 Batch = tuple[torch.Tensor, ...]
@@ -23,10 +23,11 @@ def fold(seed: int, *path: int) -> int:
     return int(np.random.SeedSequence([seed, *path]).generate_state(1, np.uint64)[0])
 
 
-def one_update(model: MoPoEMRSSM, optimizer: AdamW, batch: Batch,
+def one_update(model: WorldModelNet, optimizer: AdamW, batch: Batch,
                generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
-    """One optimizer step on ``batch``: the ELBO, its gradient, the update.
-    Returns the step's metrics (detached, on the device)."""
+    """One optimizer step on ``batch``: the ELBO (of either family), its
+    gradient, the update. Returns the step's metrics (detached, on the
+    device)."""
     optimizer.zero_grad()
     metrics = model.shared_step(batch, generator=generator)
     metrics["loss"].backward()
@@ -34,7 +35,7 @@ def one_update(model: MoPoEMRSSM, optimizer: AdamW, batch: Batch,
     return {k: v.detach() for k, v in metrics.items()}
 
 
-def make_train_step(model: MoPoEMRSSM,
+def make_train_step(model: WorldModelNet,
                     optimizer: AdamW) -> Callable[[Batch, int, int], dict[str, torch.Tensor]]:
     """``(batch, seed, step) → metrics``: :func:`one_update` with the noise of
     ``fold(seed, step)``, drawn on the model's device."""

@@ -27,7 +27,7 @@ from typing import Any
 import torch
 
 from multimodal_mtrssm_tpu_torch.data.pipeline import EpisodeDataModule
-from multimodal_mtrssm_tpu_torch.models.mrssm import MoPoEMRSSM
+from multimodal_mtrssm_tpu_torch.models import WorldModelNet
 from multimodal_mtrssm_tpu_torch.train.checkpoint import CheckpointManager
 from multimodal_mtrssm_tpu_torch.train.metrics import MetricLogger
 from multimodal_mtrssm_tpu_torch.train.optim import (
@@ -87,10 +87,13 @@ class TrainerConfig:
 
 
 class Trainer:
-    """Epoch-driven trainer for ``MoPoEMRSSM`` on the device its parameters
-    are on (CUDA: the recurrence kernels; CPU: their plain versions)."""
+    """Epoch-driven trainer for either family, ``MoPoEMRSSM`` or
+    ``MoPoEMMTRSSM``, on the device its parameters are on (CUDA: the
+    family's recurrence kernels; CPU: their plain versions). It calls only
+    the model's ``init``, ``shared_step``, ``parameters`` and
+    ``state_dict``, and logs every metric ``shared_step`` returns."""
 
-    def __init__(self, model: MoPoEMRSSM, datamodule: EpisodeDataModule,
+    def __init__(self, model: WorldModelNet, datamodule: EpisodeDataModule,
                  config: TrainerConfig | None = None):
         self.model = model
         self.dm = datamodule

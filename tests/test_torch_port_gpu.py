@@ -6,7 +6,9 @@ the card and no JAX, without the JAX-importing ``conftest.py``:
 
     python -m pytest --noconftest -q -m gpu tests/test_torch_port_gpu.py
 
-Tolerances as in ``chip_smoke.py``: deter and logits within 1e-4, sampled
+The MoPoE-MRSSM kernels and the MoPoE-MMTRSSM kernels (hierarchical
+recurrence forward and backward, hierarchical rollout) alike. Tolerances as
+in ``chip_smoke.py``: deters, integrators and logits within 1e-4, sampled
 categories equal outside blocks whose top two scores lie within 1e-5
 (``ops/kernels/parity.py``); backward gradients within 2e-4 × max(1,
 max|plain|) per tensor; a whole train step's loss terms within 2e-5 of the
@@ -17,9 +19,10 @@ import numpy as np
 import pytest
 import torch
 
+from multimodal_mtrssm_tpu_torch.models.mmtrssm import MoPoEMMTRSSM
 from multimodal_mtrssm_tpu_torch.models.mrssm import MoPoEMRSSM
 from multimodal_mtrssm_tpu_torch.ops import kernels
-from multimodal_mtrssm_tpu_torch.ops.kernels import parity, recurrence, rollout
+from multimodal_mtrssm_tpu_torch.ops.kernels import parity, recurrence, recurrence_mt, rollout, rollout_mt
 
 C, K = 4, 4
 
@@ -120,7 +123,8 @@ def test_train_step_on_the_kernels_matches_the_cpu_route(cuda_device):
                {k: v.to(cuda_device) if k != "input" else tuple(x.to(cuda_device) for x in v)
                 for k, v in noise.items()})
     parity.check_train_step(gpu, cpu, on_card, (batch, noise))
-    assert kernels.launch_counts() == {"recurrence_fwd": 1, "recurrence_bwd": 1, "rollout": 0}
+    assert kernels.launch_counts() == {**dict.fromkeys(kernels.LAUNCH_COUNTERS, 0),
+                                      "recurrence_fwd": 1, "recurrence_bwd": 1}
 
 
 @pytest.mark.gpu
@@ -141,4 +145,101 @@ def test_kernels_refuse_tracked_inputs_and_count_launches(cuda_device):
             kernels.fused_rollout_transition(model.transition.weights(),
                                              ins[0].transpose(0, 1).contiguous(), ins[3], ins[4],
                                              5, activation_name="Tanh")
-    assert kernels.launch_counts() == {"recurrence_fwd": 1, "recurrence_bwd": 0, "rollout": 1}
+    assert kernels.launch_counts() == {**dict.fromkeys(kernels.LAUNCH_COUNTERS, 0),
+                                      "recurrence_fwd": 1, "rollout": 1}
+
+
+# ---- MoPoE-MMTRSSM -----------------------------------------------------------------
+
+
+def _mt_inputs(seed: int, B: int, T: int, dev):
+    """Hierarchical-recurrence inputs ``[T, B, ·]``, ``init6`` and the four
+    sites' Gumbel noise, made by numpy from ``seed``."""
+    rng = np.random.default_rng(seed)
+
+    def onehot(c, k):
+        x = np.zeros((B, c, k), np.float32)
+        x[np.arange(B)[:, None], np.arange(c), rng.integers(0, k, (B, c))] = 1.0
+        return x.reshape(B, c * k)
+
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    xs = [t(rng.uniform(-1, 1, (T, B, 6))), t(rng.standard_normal((T, B, 64))),
+          t(rng.standard_normal((T, B, 64)))]
+    hd, ld = np.tanh(rng.standard_normal((B, 32))), np.tanh(rng.standard_normal((B, 32)))
+    init6 = [t(hd), t(ld), t(onehot(2, 8)), t(onehot(4, 4)), t(np.arctanh(0.9 * hd)),
+             t(np.arctanh(0.9 * ld))]
+    gumbels = [t(rng.gumbel(size=(T, B, 16))) for _ in range(4)]
+    return xs, init6, gumbels
+
+
+def _mt_model(dev) -> MoPoEMMTRSSM:
+    return MoPoEMMTRSSM().init(torch.Generator().manual_seed(0)).to(dev).eval()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T", [(8, 30), (32, 30), (3, 7)])
+def test_mt_recurrence_kernel_matches_plain(cuda_device, B, T):
+    w = _mt_model(cuda_device).recurrence_weights()
+    xs, init6, gumbels = _mt_inputs(B + T, B, T, cuda_device)
+    with torch.no_grad():
+        got = recurrence_mt.mt_recurrence_forward_cuda(w, *xs, init6, gumbels)
+        ref = recurrence_mt.mt_recurrence_forward_plain(w, *xs, init6, gumbels)
+    parity.check_mt_recurrence(got, ref, gumbels)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T", [(8, 30), (3, 7)])
+def test_mt_recurrence_backward_kernel_matches_plain(cuda_device, B, T):
+    """The backward kernel against its plain version on one forward record
+    and random cotangents on all 12 outputs; the kernel is reproducible."""
+    w = _mt_model(cuda_device).recurrence_weights()
+    xs, init6, gumbels = _mt_inputs(B * T, B, T, cuda_device)
+    with torch.no_grad():
+        outs = recurrence_mt.mt_recurrence_forward_cuda(w, *xs, init6, gumbels)
+        prev6 = recurrence_mt.shift_carries(init6, recurrence_mt.carries(outs))
+        args = (w, *xs, prev6, _cotangents(T, outs))
+        got = recurrence_mt.mt_recurrence_backward_cuda(*args)
+        again = recurrence_mt.mt_recurrence_backward_cuda(*args)
+    ref = recurrence_mt.mt_recurrence_backward_plain(*args)
+    parity.check_gradients(got, ref)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T", [(10, 10), (64, 30)])
+def test_mt_rollout_kernel_matches_plain(cuda_device, B, T):
+    w = _mt_model(cuda_device).rollout_weights()
+    xs, init6, _ = _mt_inputs(B + T, B, T, cuda_device)
+    actions = xs[0].transpose(0, 1).contiguous()
+    with torch.no_grad():
+        got = rollout_mt.rollout_mt_cuda(w, actions, init6, 77)
+    parity.check_mt_rollout(w, actions, init6, 77, got)
+
+
+@pytest.mark.gpu
+def test_mt_train_step_on_the_kernels_matches_the_cpu_route(cuda_device):
+    """One MMTRSSM ``shared_step`` and backward on the card (both MT
+    recurrence kernels) against the CPU with the same weights, batch and
+    noise; noise with Gumbel near-ties is skipped for the next seed."""
+    cpu = MoPoEMMTRSSM().init(torch.Generator().manual_seed(1))
+    gpu = MoPoEMMTRSSM().to(cuda_device)
+    gpu.load_state_dict(cpu.state_dict())
+    B, T = 4, 10
+    for seed in range(10):
+        rng = np.random.default_rng(seed)
+        act = rng.uniform(-1, 1, (B, T, 6)).astype(np.float32)
+        frames = [rng.uniform(-1, 1, (B, T, 32, 32, 1)).astype(np.float32) for _ in range(2)]
+        batch = tuple(torch.from_numpy(x) for x in (act, *frames, act, *frames))
+        noise = {k: torch.from_numpy(rng.gumbel(size=s).astype(np.float32))
+                 for k, s in cpu.noise_shapes(B, T).items()}
+        noise["input"] = tuple(torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
+                               for x in batch[:3])
+        if parity.train_step_near_ties(cpu, batch, noise) == 0:
+            break
+    kernels.reset_launch_counts()
+    on_card = (tuple(x.to(cuda_device) for x in batch),
+               {k: v.to(cuda_device) if k != "input" else tuple(x.to(cuda_device) for x in v)
+                for k, v in noise.items()})
+    parity.check_train_step(gpu, cpu, on_card, (batch, noise))
+    assert kernels.launch_counts() == {**dict.fromkeys(kernels.LAUNCH_COUNTERS, 0),
+                                      "mt_recurrence_fwd": 1, "mt_recurrence_bwd": 1}

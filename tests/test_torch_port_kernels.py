@@ -244,4 +244,4 @@ def test_cuda_routes_refuse_what_the_kernels_do_not_take():
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensors"):
         rollout.rollout_cuda(model.transition.weights(), ins[0].transpose(0, 1).contiguous(),
                              ins[3], ins[4], 1, C, K)
-    assert kernels.launch_counts() == {"recurrence_fwd": 0, "recurrence_bwd": 0, "rollout": 0}
+    assert kernels.launch_counts() == dict.fromkeys(kernels.LAUNCH_COUNTERS, 0)

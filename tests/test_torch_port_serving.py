@@ -204,7 +204,7 @@ def test_cpu_tensors_leave_the_launch_counts_at_zero(models):
     wm = WorldModel(port, "cpu")
     post, _ = _observe(wm, _obs(3), seed=0)
     wm.imagine_frames(np.zeros((B, 4, 6), np.float32), post[:, -1], seed=1)
-    assert kernels.launch_counts() == {"recurrence_fwd": 0, "recurrence_bwd": 0, "rollout": 0}
+    assert kernels.launch_counts() == dict.fromkeys(kernels.LAUNCH_COUNTERS, 0)
 
 
 def test_world_model_rejects_malformed_inputs(models):

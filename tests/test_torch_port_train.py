@@ -337,4 +337,4 @@ def test_shared_step_draws_missing_noise_from_the_generator(models):
         c = port.shared_step(batch, generator=torch.Generator().manual_seed(5))
     assert all(torch.isfinite(v) for v in a.values())
     assert float(a["loss"]) == float(b["loss"]) != float(c["loss"])
-    assert kernels.launch_counts() == {"recurrence_fwd": 0, "recurrence_bwd": 0, "rollout": 0}
+    assert kernels.launch_counts() == dict.fromkeys(kernels.LAUNCH_COUNTERS, 0)
