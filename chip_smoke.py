@@ -3,13 +3,16 @@
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It refuses to run without a CUDA device and exits non-zero on any failure.
-Both model families go through every phase: MoPoE-MRSSM (``MRSSMConfig()``)
-and the hierarchical MoPoE-MMTRSSM (``MMTRSSMConfig()``), each with seeded
-random weights (no trained checkpoint or dataset on the machine; the
-shapes and the path are the real ones).
+Four configurations go through the serving and training phases, each with
+seeded random weights (no trained checkpoint or dataset on the machine;
+the shapes and the path are the real ones): MoPoE-MRSSM (``MRSSMConfig()``),
+the hierarchical MoPoE-MMTRSSM (``MMTRSSMConfig()``), MoPoE-MRSSM on the
+fused encoder and the stacked recurrence (``MRSSMConfig(conv_layout=
+"fused_enc", use_pallas_train="stacked")``) and MoPoE-MMTRSSM on the fused
+encoder (``MMTRSSMConfig(conv_layout="fused_enc")``).
 
 0. Device: prints the card's name and power limit, turns TF32 off.
-1. Build: compiles the six kernels from ``multimodal_mtrssm_tpu_torch/csrc``
+1. Build: compiles the ten kernels from ``multimodal_mtrssm_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel).
 2. Kernel checks, each kernel against its plain PyTorch version on the card:
    the MRSSM recurrence forward at B=8 T=30, B=128 T=30 and B=3 T=7, the MT
@@ -20,30 +23,38 @@ shapes and the path are the real ones).
    max(1, max|plain|), two launches bit-identical); both rollouts at B=10
    T=10, B=64 T=30 and B=256 T=180 (replay of their stochs within 1e-4,
    stochs equal to the argmax of their logits plus the seed's Philox noise,
-   sampling frequencies against the softmax, both MT sites).
-3. Serving end to end, per family, behind ``InferenceServer``:
+   sampling frequencies against the softmax, both MT sites); the stacked
+   recurrence forward and backward at B=8 T=30, B=128 T=30 and B=3 T=7
+   (the same limits, on unstacked gradients); the fused encoder forward at
+   N=240, 7 and 3840 frames against its plain version and the cuDNN
+   ``Encoder`` (within 1e-4 × max(1, max|plain|)) and its backward against
+   the plain backward in float64 (2e-4 × scale, two launches bit-identical).
+3. Serving end to end, per configuration, behind ``InferenceServer``:
    ``/healthz``, ``/observe`` (B=8, T=30, decode, JSON), two chained
    ``/imagine`` (T=30, decode, npz then JSON). Checks shapes, finiteness,
-   that the family's serving kernels were launched by those requests, and
-   that the card's observe posterior and frames equal the CPU path's on the
-   same weights and seed.
-4. Training end to end, per family: 24 synthetic Audio-MNIST episodes, then
-   ``Trainer(model, datamodule, config).fit()``, B=8, T=30, 2 epochs of 3
-   optimizer steps. Checks finite losses, that every parameter moved, that
-   both of the family's recurrence kernels ran at least once a step, and
-   that ``best`` loads into a fresh model; then one train step on the card
-   against the CPU path with the same weights, batch and noise (each loss
-   term within 2e-5 of the loss, gradients within 3e-4 × scale; noise with
-   a Gumbel near-tie is reported and replaced by the next seed's).
-5. Timings: median ms of each kernel against its plain version, of a full
-   train step on the kernels against the plain versions on the card, a
-   device-time breakdown of the train step (``torch.profiler``), the
-   median latency of ``/observe`` and ``/imagine`` through the server and
-   the optimizer steps per second of ``Trainer.fit``, per family.
+   that the configuration's serving kernels were launched by those
+   requests, and that the card's observe posterior and frames equal the
+   CPU path's on the same weights and seed.
+4. Training end to end, per configuration: 24 synthetic Audio-MNIST
+   episodes, then ``Trainer(model, datamodule, config).fit()``, B=8, T=30,
+   2 epochs of 3 optimizer steps. Checks finite losses, that every
+   parameter moved, that each of the configuration's training kernels ran
+   at least once a step, and that ``best`` loads into a fresh model; then
+   one train step on the card against the CPU path with the same weights,
+   batch and noise (each loss term within 2e-5 of the loss, gradients
+   within 3e-4 × scale; noise with a Gumbel near-tie is reported and
+   replaced by the next seed's).
+5. Timings: median ms of each kernel against its plain version (the
+   stacked kernels beside the unstacked ones, the fused encoder beside the
+   cuDNN ``Encoder``), of a full train step on the kernels against the
+   plain versions on the card, a device-time breakdown of the train step
+   (``torch.profiler``), the median latency of ``/observe`` and
+   ``/imagine`` through the server and the optimizer steps per second of
+   ``Trainer.fit``; each kernel's bound at the main path's shape.
 
-Each family's serving and training run is driven with every launch count
-set to 0 just before it and read just after. Then one JSON line with the
-six kernels, the card's name and power limit, and last
+Each configuration's serving and training run is driven with every launch
+count set to 0 just before it and read just after. Then one JSON line with
+the ten kernels, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -64,6 +75,7 @@ import numpy as np
 TOL = 1e-4
 TIE_EPS = 1e-5
 BWD_TOL = 2e-4  # × max(1, max|plain|), per gradient tensor
+ENC_TOL = 1e-4  # × max(1, max|plain|): encoder embeddings, f32 sums over ≤ 1024 taps
 STEP_RTOL, STEP_TOL = 2e-5, 3e-4  # train step: losses; gradients × scale
 SEED = 0
 
@@ -400,9 +412,10 @@ def _observe_vs_cpu(model, cfg, wm, obs: dict, recon: dict) -> None:
           f"frames max_abs_err={ferr:.3g}, steps_compared={float(agree.mean()):.4f}")
 
 
-def drive_server(model, cfg, dev, fwd: str, roll: str) -> dict:
-    """Phase 3: a family's serving path through the HTTP server; ``fwd`` and
-    ``roll`` name its observe and imagine kernels."""
+def drive_server(model, cfg, dev, need: dict[str, int]) -> dict:
+    """Phase 3: a configuration's serving path through the HTTP server;
+    ``need`` holds the least launches of each of its kernels that
+    ``/observe`` and two ``/imagine`` must show."""
     import torch
 
     from multimodal_mtrssm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
@@ -434,11 +447,11 @@ def drive_server(model, cfg, dev, fwd: str, roll: str) -> dict:
         torch.cuda.synchronize()
         counts = launch_counts()
         print(f"healthz: {health}")
-        print(f"main-path kernel launches, {type(model).__name__} serving: {counts}")
+        print(f"main-path kernel launches, {_label(cfg)} serving: {counts}")
         if health.get("platform") != "gpu" or health.get("model") != type(model).__name__:
             raise RuntimeError(f"/healthz reports {health}")
-        if counts[fwd] < 1 or counts[roll] < 2:
-            raise RuntimeError(f"the serving path missed a kernel: {counts}")
+        if any(counts[k] < n for k, n in need.items()):
+            raise RuntimeError(f"the serving path missed a kernel: {counts}, needs {need}")
         recon = _frames(observed, "recon")
         for name, frames in (("observe", recon), ("imagine 1", _frames(im1, "frames")),
                              ("imagine 2", _frames(im2, "frames"))):
@@ -558,10 +571,10 @@ def _noise_to(noise: dict, dev) -> dict:
             for k, v in noise.items()}
 
 
-def drive_training(cfg, dev, fwd: str, bwd: str) -> dict:
+def drive_training(cfg, dev, per_step: dict[str, int]) -> dict:
     """Phase 4: ``Trainer.fit`` of the family of ``cfg`` on synthetic
-    episodes, then one train step on the card against the CPU path; ``fwd``
-    and ``bwd`` name its recurrence kernels."""
+    episodes, then one train step on the card against the CPU path;
+    ``per_step`` holds the least launches of each of its kernels a step."""
     import torch
 
     from multimodal_mtrssm_tpu_torch.data import (
@@ -598,7 +611,7 @@ def drive_training(cfg, dev, fwd: str, bwd: str) -> dict:
         torch.cuda.synchronize()
         counts = launch_counts()
         steps = out["global_step"]
-        print(f"main-path kernel launches, {family.__name__} training, {steps} optimizer "
+        print(f"main-path kernel launches, {_label(cfg)} training, {steps} optimizer "
               f"steps: {counts}")
         for row in out["history"]:
             print("epoch " + " ".join(f"{k}={v:.6g}" for k, v in row.items()))
@@ -606,8 +619,9 @@ def drive_training(cfg, dev, fwd: str, bwd: str) -> dict:
             raise RuntimeError(f"fit ran {steps} steps in {len(out['history'])} epochs")
         if not all(np.isfinite(v) for row in out["history"] for v in row.values()):
             raise RuntimeError("non-finite training metrics")
-        if counts[fwd] < steps or counts[bwd] < steps:
-            raise RuntimeError(f"the training path missed a kernel: {counts}")
+        if any(counts[k] < n * steps for k, n in per_step.items()):
+            raise RuntimeError(f"the training path missed a kernel: {counts}, needs {per_step} "
+                               "a step")
         still = [n for (n, p), q in zip(model.named_parameters(), init.parameters())
                  if torch.equal(p.detach().cpu(), q.detach())]
         if still:
@@ -631,7 +645,7 @@ def drive_training(cfg, dev, fwd: str, bwd: str) -> dict:
         raise RuntimeError("no seed without near-ties for the train-step check")
     on_card = (tuple(x.to(dev) for x in batch), _noise_to(noise, dev))
     r = check_train_step(model, cpu, on_card, (batch, noise), STEP_RTOL, STEP_TOL)
-    print(f"train step card vs CPU {family.__name__} B=8 T=30 (seed {seed}): " + ", ".join(
+    print(f"train step card vs CPU {_label(cfg)} B=8 T=30 (seed {seed}): " + ", ".join(
         f"{k} {v:.6g} (err/loss {r['loss_rel_errs'][k]:.3g})" for k, v in r["losses"].items())
         + f"; limit {STEP_RTOL}; grad max_abs_err {r['grad_max_abs_err']:.3g} "
         f"(limit {STEP_TOL} x {r['grad_scale']:.4g})")
@@ -654,17 +668,22 @@ def _self_device_us(event) -> float:
 
 @contextlib.contextmanager
 def plain_route():
-    """Timing only: route the recurrences to their plain versions on CUDA
-    tensors too (the dispatch itself never does)."""
+    """Timing only: route the recurrences and the fused encoder to their
+    plain versions on CUDA tensors too (the dispatch itself never does)."""
     from multimodal_mtrssm_tpu_torch.nn.core import activation
     from multimodal_mtrssm_tpu_torch.ops import kernels
+    from multimodal_mtrssm_tpu_torch.ops.kernels import fused_conv
 
-    saved = kernels._route
+    saved = (kernels._route, fused_conv.fused_encoder_forward_cuda,
+             fused_conv.fused_encoder_backward_cuda)
     kernels._route = lambda device, name: activation(name)
+    fused_conv.fused_encoder_forward_cuda = fused_conv.fused_encoder_plain
+    fused_conv.fused_encoder_backward_cuda = fused_conv.fused_encoder_backward_plain
     try:
         yield
     finally:
-        kernels._route = saved
+        (kernels._route, fused_conv.fused_encoder_forward_cuda,
+         fused_conv.fused_encoder_backward_cuda) = saved
 
 
 def bwd_timings(model, cfg, dev, card: str) -> dict[str, tuple[float, float]]:
@@ -698,7 +717,7 @@ def step_timings(model, dev, card: str) -> None:
 
     from multimodal_mtrssm_tpu_torch.train import AdamW, one_update
 
-    name = type(model).__name__
+    name = _label(model.cfg)
     batch, _ = _train_batch(np.random.default_rng(SEED + 8), 8, 30, model)
     batch = tuple(x.to(dev) for x in batch)
     opt = AdamW(model.parameters())
@@ -726,11 +745,15 @@ def step_timings(model, dev, card: str) -> None:
     if total == 0:
         print(f"{name} train step device breakdown: not measured (no device time seen)")
         return
-    groups = {"recurrence kernels": ("recurrence_", "reduce_weight_grads"),
+    groups = {"recurrence kernels": ("recurrence_", "stacked_"),
+              "fused encoder kernels": ("encoder_",),
+              "their gradient reductions": ("reduce_weight_grads", "reduce_stacked_grads"),
               "convolutions (cuDNN)": ("conv", "cudnn", "xmma", "implicit", "dgrad", "wgrad",
                                        "fprop", "sm90_")}
-    shares = {g: sum(r[1] for r in rows if any(k in r[0].lower() for k in keys))
-              for g, keys in groups.items()}
+    def group(key: str) -> str | None:
+        return next((g for g, keys in groups.items() if any(k in key.lower() for k in keys)), None)
+
+    shares = {g: sum(r[1] for r in rows if group(r[0]) == g) for g in groups}
     shares["everything else"] = total - sum(shares.values())
     print(f"{name} train step device breakdown B=8 T=30, 5 steps under torch.profiler: "
           f"{total / 5e3:.4f} ms of device time a step, {total / 5e3 / k_ms:.1%} of the "
@@ -738,6 +761,334 @@ def step_timings(model, dev, card: str) -> None:
               f"{g} {v / 5e3:.4f} ms ({v / total:.1%})" for g, v in shares.items()) + f" | {card}")
     for key, t_us, n in rows[:10]:
         print(f"  {t_us / 5e3:9.4f} ms/step  x{n // 5:<4d} {key[:110]}")
+
+
+def _label(cfg) -> str:
+    """A configuration's name in the log: the family, and its non-default
+    kernel options."""
+    name = "MoPoEMMTRSSM" if hasattr(cfg, "hd_dim") else "MoPoEMRSSM"
+    opts = [f"{k}={getattr(cfg, k)}" for k in ("conv_layout", "use_pallas_train")
+            if getattr(cfg, k) != "auto"]
+    return name + (f"({', '.join(opts)})" if opts else "")
+
+
+# ---- bounds: the least time the card could take for a kernel's work ----------------
+
+PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores (NVIDIA data sheet)
+PEAK_BYTES = 3.35e12  # its HBM3
+
+
+def _nbytes(*tensors) -> int:
+    """Bytes of the tensors in (nested) sequences: each input read once, each
+    output written once."""
+    import torch
+
+    total = 0
+    for t in tensors:
+        if isinstance(t, torch.Tensor):
+            total += t.numel() * t.element_size()
+        elif isinstance(t, (list, tuple)):
+            total += _nbytes(*t)
+    return total
+
+
+def _bound(flops: float, nbytes: int) -> dict:
+    """``bound_ms`` (the larger of operations over the f32 peak and bytes over
+    the memory rate) and which of the two bounds it."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def _mrssm_step_macs(cfg, heads: bool = True) -> int:
+    """Multiply-adds a recurrence step needs a batch row: the transition
+    (and with ``heads`` the audio and vision posterior heads). The stacked
+    layout's zero blocks are not counted: the work does not need them."""
+    A, S, H, D, E = (cfg.action_size, cfg.stoch_size, cfg.hidden_size, cfg.deterministic_size,
+                     cfg.obs_embed_size)
+    trans = (A + S) * H + H * H + H * 3 * D + D * 3 * D + D * H + H * S
+    return trans + (2 * ((D + E) * H + H * S) if heads else 0)
+
+
+def _mt_step_macs(cfg, full: bool = True) -> int:
+    """Multiply-adds a hierarchical step needs a batch row: both MTRNNs and
+    priors (the rollout), with ``full`` also the h-posterior and both heads."""
+    LD, HD, LS, HS = cfg.ld_dim, cfg.hd_dim, cfg.ls_dim, cfg.hs_dim
+    C, R, E, A = cfg.prior_cells, cfg.rep_hidden_size, cfg.obs_embed_size, cfg.action_size
+    prior = LD * LD + (A + LS + HS) * LD + HD * HD + HS * HD + LD * C + C * LS + HD * C + C * HS
+    return prior + (((LD + HD) * C + C * HS + 2 * ((LD + E) * R + R * LS)) if full else 0)
+
+
+def _encoder_macs(cfg) -> tuple[int, int]:
+    """Multiply-adds the encoder needs a frame, counting only the taps that
+    land inside the padded maps, and those of its first layer."""
+    def conv(h, w, ci, co, k, s, p):
+        ho, wo = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+        ys = [sum(0 <= oy * s - p + d < h for d in range(k)) for oy in range(ho)]
+        xs = [sum(0 <= ox * s - p + d < w for d in range(k)) for ox in range(wo)]
+        return sum(ys) * sum(xs) * ci * co, ho, wo
+
+    h, w = cfg.in_hw
+    ci = cfg.in_channels + (2 if cfg.coord_conv else 0)
+    total = first = 0
+    for co, k, s, p in zip(cfg.channels, cfg.kernel_sizes, cfg.strides, cfg.paddings):
+        m, h, w = conv(h, w, ci, co, k, s, p)
+        first = first or m
+        total, ci = total + m, co
+    if cfg.num_residual_blocks > 0 and ci != cfg.residual_output_size:
+        total, ci = total + conv(h, w, ci, cfg.residual_output_size, 1, 1, 0)[0], \
+            cfg.residual_output_size
+    for _ in range(cfg.num_residual_blocks):
+        total += conv(h, w, ci, cfg.residual_intermediate_size, 3, 1, 1)[0]
+        total += conv(h, w, cfg.residual_intermediate_size, ci, 3, 1, 1)[0]
+    return total + h * w * ci * cfg.out_dim, first
+
+
+# ---- the stacked recurrence and the fused encoder ----------------------------------
+
+
+STACKED_SHAPES = ((8, 30), (128, 30), (3, 7))
+ENCODER_FRAMES = (240, 7, 3840)  # B·T per encoder at B=8 T=30, a ragged tile, B=128 T=30
+
+
+def check_stacked(model, cfg, dev) -> dict[str, dict]:
+    """Phase 2, stacked recurrence: the forward kernel against its plain
+    version, and the backward (unstacked gradients) against its plain
+    version on the forward's record and random cotangents, reproducible."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels import recurrence_stacked as rs
+    from multimodal_mtrssm_tpu_torch.ops.kernels.parity import (
+        ParityError,
+        check_gradients,
+        check_recurrence,
+    )
+
+    C, K = cfg.class_size, cfg.category_size
+    dims = (cfg.action_size, cfg.hidden_size, cfg.deterministic_size, cfg.obs_embed_size)
+    rng = np.random.default_rng(SEED + 9)
+    st = rs.stack_train_params([w.detach() for w in model.representation_weights()])
+    fwd_err = bwd_err = 0.0
+    for B, T in STACKED_SHAPES:
+        args = _recurrence_inputs(rng, B, T, cfg, dev)
+        outs = rs.recurrence_stacked_forward_cuda(st, *args, C, K)
+        r = check_recurrence(outs, rs.recurrence_stacked_forward_plain(st, *args, C, K),
+                             args[5], args[6], C, K, TOL, TIE_EPS)
+        cots = [torch.tensor(rng.standard_normal(tuple(o.shape)).astype(np.float32), device=dev)
+                for o in outs]
+        bwd = _backward_args(st, args, outs, cots, cfg)
+        got = rs.recurrence_stacked_backward_cuda(*bwd)
+        again = rs.recurrence_stacked_backward_cuda(*bwd)
+        ref = rs.recurrence_stacked_backward_plain(*bwd)
+        unstack = lambda g: (*rs.unstack_train_grads(g[:rs.N_STACKED], dims),  # noqa: E731
+                             *g[rs.N_STACKED:])
+        got_u, ref_u = unstack(got), unstack(ref)
+        scaled = check_gradients(got_u, ref_u, BWD_TOL)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise ParityError("stacked_recurrence_bwd: two launches on the same inputs differ")
+        err = max(float((g - p).abs().max()) for g, p in zip(got_u, ref_u))
+        print(f"check stacked_recurrence_fwd B={B} T={T}: max_abs_err={r['max_abs_err']:.3g} "
+              f"steps_compared={r['compared']:.4f}; stacked_recurrence_bwd: max_abs_err="
+              f"{err:.3g} max_err/scale={scaled:.3g} (limit {BWD_TOL}), reproducible")
+        fwd_err, bwd_err = max(fwd_err, r["max_abs_err"]), max(bwd_err, err)
+    return {"stacked_recurrence_fwd": {"max_abs_err": fwd_err},
+            "stacked_recurrence_bwd": {"max_abs_err": bwd_err}}
+
+
+def _encoder_case(rng, enc, N: int, dev):
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels import fused_conv
+
+    w = [t.detach() for t in fused_conv.encoder_weights(enc)]
+    x = torch.tensor(rng.uniform(-1, 1, (N, 32, 32, 1)).astype(np.float32), device=dev)
+    g = torch.tensor(rng.standard_normal((N, enc.cfg.out_dim)).astype(np.float32), device=dev)
+    return w, x, g
+
+
+def _encoder_backward_f64(w, cfg, x, g) -> list:
+    """The plain encoder backward on the inputs upcast to float64, as f32:
+    the reference of the backward kernel. At N=3840 cuDNN's float32
+    backward strays from float64 by ~7e-4 of scale in the first conv's
+    gradients and 2.5e-3 in dx, while the kernel stays within 1e-6 (NVIDIA
+    H100 80GB HBM3), so float32 cuDNN cannot referee it there."""
+    from multimodal_mtrssm_tpu_torch.ops.kernels import fused_conv
+
+    dx, dw = fused_conv.fused_encoder_backward_plain([t.double() for t in w], cfg, x.double(),
+                                                     g.double(), True)
+    return [t.float() for t in (*dw, dx)]
+
+
+def check_encoder(model, dev) -> dict[str, dict]:
+    """Phase 2, fused encoder: the forward kernel against its plain version
+    and the cuDNN ``Encoder`` (TF32 off), each within ENC_TOL × max(1,
+    max|plain|); the backward (every weight gradient and dx) against the
+    plain backward in float64 within BWD_TOL × scale, reproducible."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels import fused_conv
+    from multimodal_mtrssm_tpu_torch.ops.kernels.parity import ParityError, check_gradients
+
+    enc = model.audio_encoder
+    rng = np.random.default_rng(SEED + 10)
+    fwd_err = bwd_err = 0.0
+    for N in ENCODER_FRAMES:
+        w, x, g = _encoder_case(rng, enc, N, dev)
+        got = fused_conv.fused_encoder_forward_cuda(w, enc.cfg, x)
+        plain = fused_conv.fused_encoder_plain(w, enc.cfg, x)
+        scale = max(1.0, float(plain.abs().max()))
+        err, err_cudnn = (float((got - ref).abs().max()) for ref in (plain, enc(x)))
+        if not max(err, err_cudnn) <= ENC_TOL * scale:
+            raise ParityError(f"fused_encoder_fwd N={N}: max |kernel - plain| {err:.3g}, "
+                              f"|kernel - cuDNN| {err_cudnn:.3g} > {ENC_TOL} x {scale:.3g}")
+        dx, dw = fused_conv.fused_encoder_backward_cuda(w, enc.cfg, x, g, True)
+        dx2, dw2 = fused_conv.fused_encoder_backward_cuda(w, enc.cfg, x, g, True)
+        ref = _encoder_backward_f64(w, enc.cfg, x, g)
+        scaled = check_gradients([*dw, dx], ref, BWD_TOL)
+        if not all(torch.equal(a, b) for a, b in zip([*dw, dx], [*dw2, dx2])):
+            raise ParityError("fused_encoder_bwd: two launches on the same inputs differ")
+        berr = max(float((a - b).abs().max()) for a, b in zip([*dw, dx], ref))
+        f32_dx, f32_dw = fused_conv.fused_encoder_backward_plain(w, enc.cfg, x, g, True)
+        f32_err = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                      for a, b in zip([*f32_dw, f32_dx], ref))
+        print(f"check fused_encoder_fwd N={N}: max_abs_err={err:.3g} vs plain, "
+              f"{err_cudnn:.3g} vs cuDNN (limit {ENC_TOL} x {scale:.3g}); fused_encoder_bwd: "
+              f"max_abs_err={berr:.3g} max_err/scale={scaled:.3g} vs the plain backward in "
+              f"float64 (limit {BWD_TOL}), reproducible; the plain backward in float32 (cuDNN) "
+              f"is {f32_err:.3g} of scale from float64")
+        fwd_err, bwd_err = max(fwd_err, err), max(bwd_err, berr)
+    return {"fused_encoder_fwd": {"max_abs_err": fwd_err},
+            "fused_encoder_bwd": {"max_abs_err": bwd_err}}
+
+
+def stacked_timings(model, cfg, dev, card: str) -> tuple[dict, dict]:
+    """Phase 5, stacked recurrence: both kernels against their plain
+    versions and beside the unstacked kernels on the same inputs; returns the
+    main-path (B=8 T=30) times and bounds."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels import recurrence
+    from multimodal_mtrssm_tpu_torch.ops.kernels import recurrence_stacked as rs
+
+    C, K = cfg.class_size, cfg.category_size
+    rng = np.random.default_rng(SEED + 11)
+    rw = [w.detach() for w in model.representation_weights()]
+    st = rs.stack_train_params(rw)
+    main: dict[str, tuple[float, float]] = {}
+    bounds: dict[str, dict] = {}
+    for B, T in STACKED_SHAPES[:2]:
+        args = _recurrence_inputs(rng, B, T, cfg, dev)
+        with torch.no_grad():
+            outs = rs.recurrence_stacked_forward_cuda(st, *args, C, K)
+        cots = [torch.randn(o.shape, device=dev) for o in outs]
+        bwd, bwd_u = _backward_args(st, args, outs, cots, cfg), _backward_args(rw, args, outs,
+                                                                               cots, cfg)
+        k_ms = _median_ms(lambda: rs.recurrence_stacked_forward_cuda(st, *args, C, K), 30)
+        u_ms = _median_ms(lambda: recurrence.recurrence_forward_cuda(rw, *args, C, K), 30)
+        p_ms = _median_ms(lambda: rs.recurrence_stacked_forward_plain(st, *args, C, K), 3, warmup=1)
+        kb_ms = _median_ms(lambda: rs.recurrence_stacked_backward_cuda(*bwd), 20)
+        ub_ms = _median_ms(lambda: recurrence.recurrence_backward_cuda(*bwd_u), 20)
+        pb_ms = _median_ms(lambda: rs.recurrence_stacked_backward_plain(*bwd), 2, warmup=1)
+        print(f"time stacked_recurrence_fwd B={B} T={T}: kernel {k_ms:.4f} ms (unstacked kernel "
+              f"{u_ms:.4f}), plain {p_ms:.4f} ms; stacked_recurrence_bwd: kernel {kb_ms:.4f} ms "
+              f"(unstacked kernel {ub_ms:.4f}), plain {pb_ms:.4f} ms | {card}")
+        if "stacked_recurrence_fwd" not in main:
+            main["stacked_recurrence_fwd"], main["stacked_recurrence_bwd"] = (k_ms, p_ms), (kb_ms,
+                                                                                         pb_ms)
+            macs = _mrssm_step_macs(cfg) * B * T
+            bounds["stacked_recurrence_fwd"] = _bound(2 * macs, _nbytes(st, args, outs))
+            d_out = rs.recurrence_stacked_backward_cuda(*bwd)
+            bounds["stacked_recurrence_bwd"] = _bound(6 * macs, _nbytes(bwd[:6], cots, d_out))
+    return main, bounds
+
+
+def encoder_timings(model, dev, card: str) -> tuple[dict, dict, dict]:
+    """Phase 5, fused encoder: both kernels against their plain versions and
+    against the cuDNN ``Encoder`` (TF32 off; the library yardstick, never
+    called by the port on this path): forward, and forward + backward of
+    every parameter. Returns the main-path (N=240) times, library times and
+    bounds."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels import fused_conv
+
+    enc = model.audio_encoder
+    cfg = enc.cfg
+    rng = np.random.default_rng(SEED + 12)
+    macs, first = _encoder_macs(cfg)
+    params = list(enc.parameters())
+    main: dict[str, tuple[float, float]] = {}
+    library: dict[str, float] = {}
+    bounds: dict[str, dict] = {}
+    for N in ENCODER_FRAMES[::2]:
+        w, x, g = _encoder_case(rng, enc, N, dev)
+        k_ms = _median_ms(lambda: fused_conv.fused_encoder_forward_cuda(w, cfg, x), 20)
+        p_ms = _median_ms(lambda: fused_conv.fused_encoder_plain(w, cfg, x), 10)
+        l_ms = _median_ms(lambda: enc(x), 20)
+        kb_ms = _median_ms(lambda: fused_conv.fused_encoder_backward_cuda(w, cfg, x, g, False), 10)
+        pb_ms = _median_ms(lambda: fused_conv.fused_encoder_backward_plain(w, cfg, x, g, False), 10)
+        with torch.enable_grad():
+            lb_ms = _median_ms(lambda: torch.autograd.grad(enc(x), params, g), 10)
+        print(f"time fused_encoder_fwd N={N}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, cuDNN "
+              f"Encoder {l_ms:.4f} ms; fused_encoder_bwd (recompute + weight gradients): kernel "
+              f"{kb_ms:.4f} ms, plain {pb_ms:.4f} ms, cuDNN Encoder forward + backward "
+              f"{lb_ms:.4f} ms | {card}")
+        if "fused_encoder_fwd" not in main:
+            main["fused_encoder_fwd"], main["fused_encoder_bwd"] = (k_ms, p_ms), (kb_ms, pb_ms)
+            library["fused_encoder_fwd"], library["fused_encoder_bwd"] = l_ms, lb_ms
+            bounds["fused_encoder_fwd"] = _bound(2 * macs * N, _nbytes(w, x) + 4 * N * cfg.out_dim)
+            # Recompute, input cotangents below the first layer, weight gradients.
+            bounds["fused_encoder_bwd"] = _bound(2 * (3 * macs - first) * N, 2 * _nbytes(w) +
+                                                 _nbytes(x, g))
+    return main, library, bounds
+
+
+def recurrence_bounds(model, cfg, dev) -> dict[str, dict]:
+    """Bounds of the MRSSM recurrence and rollout kernels at the main path's B=8 T=30, from
+    one launch's inputs and outputs."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels import recurrence, rollout
+
+    C, K, B, T = cfg.class_size, cfg.category_size, 8, 30
+    rw = [w.detach() for w in model.representation_weights()]
+    args = _recurrence_inputs(np.random.default_rng(SEED + 13), B, T, cfg, dev)
+    with torch.no_grad():
+        outs = recurrence.recurrence_forward_cuda(rw, *args, C, K)
+        bwd = _backward_args(rw, args, outs, [torch.zeros_like(o) for o in outs], cfg)
+        d_out = recurrence.recurrence_backward_cuda(*bwd)
+        tw = rw[:12]
+        actions = args[0].transpose(0, 1).contiguous()
+        roll = rollout.rollout_cuda(tw, actions, args[3], args[4], 5, C, K)
+    macs = _mrssm_step_macs(cfg) * B * T
+    return {"recurrence_fwd": _bound(2 * macs, _nbytes(rw, args, outs)),
+            "recurrence_bwd": _bound(6 * macs, _nbytes(bwd[:7], d_out)),
+            "rollout": _bound(2 * _mrssm_step_macs(cfg, heads=False) * B * T,
+                              _nbytes(tw, actions, args[3:5], roll))}
+
+
+def mt_bounds(model, cfg, dev) -> dict[str, dict]:
+    """Bounds of the MMTRSSM kernels at the main path's B=8 T=30."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels import recurrence_mt, rollout_mt
+
+    B, T = 8, 30
+    rw = [w.detach() for w in model.recurrence_weights()]
+    xs, init6, gumbels = _mt_inputs(np.random.default_rng(SEED + 14), B, T, cfg, dev)
+    with torch.no_grad():
+        outs = recurrence_mt.mt_recurrence_forward_cuda(rw, *xs, init6, gumbels, cfg.spec)
+        prev6 = recurrence_mt.shift_carries(init6, recurrence_mt.carries(outs))
+        cots = [torch.zeros_like(o) for o in outs]
+        d_out = recurrence_mt.mt_recurrence_backward_cuda(rw, *xs, prev6, cots, cfg.spec)
+        actions = xs[0].transpose(0, 1).contiguous()
+        roll = rollout_mt.rollout_mt_cuda(rw[:16], actions, init6, 5, cfg.spec)
+    macs = _mt_step_macs(cfg) * B * T
+    return {"mt_recurrence_fwd": _bound(2 * macs, _nbytes(rw, xs, init6, gumbels, outs)),
+            "mt_recurrence_bwd": _bound(6 * macs, _nbytes(rw, xs, prev6, cots, d_out)),
+            "mt_rollout": _bound(2 * _mt_step_macs(cfg, full=False) * B * T,
+                                 _nbytes(rw[:16], actions, init6, roll))}
 
 
 def main() -> int:
@@ -762,6 +1113,13 @@ def main() -> int:
 
     build.load_library()
     print(f"build: {build.build_seconds:.2f} s ({build.library_path().name})")
+    runs: list[dict[str, int]] = []
+    library: dict[str, float] = {}
+
+    def fit_rate(training: dict, cfg) -> None:
+        print(f"time Trainer.fit {_label(cfg)} B=8 T=30: {training['steps_per_s']:.3f} optimizer "
+              f"steps/s over 2 epochs, {training['steps_per_s_last']:.3f} in the second (host "
+              f"data pipeline included) | {card}")
 
     # MoPoE-MRSSM.
     cfg = MRSSMConfig()
@@ -769,41 +1127,76 @@ def main() -> int:
     with torch.no_grad():
         checks = check_kernels(model, cfg, dev)
         checks["recurrence_bwd"] = check_backward(model, cfg, dev)
-        ctx = drive_server(model, cfg, dev, "recurrence_fwd", "rollout")
+        ctx = drive_server(model, cfg, dev, {"recurrence_fwd": 1, "rollout": 2})
         try:
             times = kernel_timings(model, cfg, dev, card)
-            server_latencies(ctx, card, "MoPoEMRSSM")
+            server_latencies(ctx, card, _label(cfg))
         finally:
             ctx["server"].stop()
-    training = drive_training(cfg, dev, "recurrence_fwd", "recurrence_bwd")
+        bounds = recurrence_bounds(model, cfg, dev)
+    training = drive_training(cfg, dev, {"recurrence_fwd": 1, "recurrence_bwd": 1})
     times.update(bwd_timings(training["model"], cfg, dev, card))
     step_timings(training["model"], dev, card)
-    print(f"time Trainer.fit MoPoEMRSSM B=8 T=30: {training['steps_per_s']:.3f} optimizer "
-          f"steps/s over 2 epochs, {training['steps_per_s_last']:.3f} in the second (host data "
-          f"pipeline included) | {card}")
-    runs = [ctx["counts"], training["counts"]]
+    fit_rate(training, cfg)
+    runs += [ctx["counts"], training["counts"]]
 
     # MoPoE-MMTRSSM.
     mt_cfg = MMTRSSMConfig()
     mt_model = MoPoEMMTRSSM(mt_cfg).init(torch.Generator().manual_seed(0)).to(dev).eval()
+    mt_run = {"mt_recurrence_fwd": 1, "mt_recurrence_bwd": 1}
     with torch.no_grad():
         checks.update(check_mt_kernels(mt_model, mt_cfg, dev))
         checks["mt_recurrence_bwd"] = check_mt_backward(mt_model, mt_cfg, dev)
-        mt_ctx = drive_server(mt_model, mt_cfg, dev, "mt_recurrence_fwd", "mt_rollout")
+        mt_ctx = drive_server(mt_model, mt_cfg, dev, {"mt_recurrence_fwd": 1, "mt_rollout": 2})
         try:
             times.update(mt_kernel_timings(mt_model, mt_cfg, dev, card))
-            server_latencies(mt_ctx, card, "MoPoEMMTRSSM")
+            server_latencies(mt_ctx, card, _label(mt_cfg))
         finally:
             mt_ctx["server"].stop()
-    mt_training = drive_training(mt_cfg, dev, "mt_recurrence_fwd", "mt_recurrence_bwd")
+        bounds.update(mt_bounds(mt_model, mt_cfg, dev))
+    mt_training = drive_training(mt_cfg, dev, mt_run)
     step_timings(mt_training["model"], dev, card)
-    print(f"time Trainer.fit MoPoEMMTRSSM B=8 T=30: {mt_training['steps_per_s']:.3f} optimizer "
-          f"steps/s over 2 epochs, {mt_training['steps_per_s_last']:.3f} in the second (host "
-          f"data pipeline included) | {card}")
+    fit_rate(mt_training, mt_cfg)
     runs += [mt_ctx["counts"], mt_training["counts"]]
 
+    # MoPoE-MRSSM on the fused encoder and the stacked recurrence.
+    enc_run = {"fused_encoder_fwd": 2, "fused_encoder_bwd": 2}
+    fs_cfg = MRSSMConfig(conv_layout="fused_enc", use_pallas_train="stacked")
+    fs_model = MoPoEMRSSM(fs_cfg).init(torch.Generator().manual_seed(0)).to(dev).eval()
+    with torch.no_grad():
+        checks.update(check_stacked(fs_model, fs_cfg, dev))
+        checks.update(check_encoder(fs_model, dev))
+        fs_ctx = drive_server(fs_model, fs_cfg, dev, {"stacked_recurrence_fwd": 1, "rollout": 2,
+                                                      "fused_encoder_fwd": 2})
+        try:
+            st_times, st_bounds = stacked_timings(fs_model, fs_cfg, dev, card)
+            enc_times, enc_library, enc_bounds = encoder_timings(fs_model, dev, card)
+            server_latencies(fs_ctx, card, _label(fs_cfg))
+        finally:
+            fs_ctx["server"].stop()
+    times.update({**st_times, **enc_times})
+    bounds.update({**st_bounds, **enc_bounds})
+    library.update(enc_library)
+    fs_training = drive_training(fs_cfg, dev, {"stacked_recurrence_fwd": 1,
+                                               "stacked_recurrence_bwd": 1, **enc_run})
+    step_timings(fs_training["model"], dev, card)
+    fit_rate(fs_training, fs_cfg)
+    runs += [fs_ctx["counts"], fs_training["counts"]]
+
+    # MoPoE-MMTRSSM on the fused encoder.
+    fe_cfg = MMTRSSMConfig(conv_layout="fused_enc")
+    fe_model = MoPoEMMTRSSM(fe_cfg).init(torch.Generator().manual_seed(0)).to(dev).eval()
+    with torch.no_grad():
+        fe_ctx = drive_server(fe_model, fe_cfg, dev, {"mt_recurrence_fwd": 1, "mt_rollout": 2,
+                                                      "fused_encoder_fwd": 2})
+        fe_ctx["server"].stop()
+    fe_training = drive_training(fe_cfg, dev, {**mt_run, **enc_run})
+    step_timings(fe_training["model"], dev, card)
+    fit_rate(fe_training, fe_cfg)
+    runs += [fe_ctx["counts"], fe_training["counts"]]
+
     launches = {k: sum(run[k] for run in runs) for k in runs[0]}
-    print(f"main-path launches, serving + training of both families: {launches}")
+    print(f"main-path launches, serving + training of the four configurations: {launches}")
     pkg = "multimodal_mtrssm_tpu_torch"
     pallas = "multimodal_mtrssm_tpu/ops/pallas"
     meta = {
@@ -815,13 +1208,24 @@ def main() -> int:
         "mt_recurrence_bwd": (f"{pkg}/csrc/recurrence_mt_bwd.cu",
                               f"{pallas}/train_step_mt.py:280"),
         "mt_rollout": (f"{pkg}/csrc/rollout_mt.cu", f"{pallas}/rollout_mt.py:51"),
+        "stacked_recurrence_fwd": (f"{pkg}/csrc/recurrence_stacked_fwd.cu",
+                                   f"{pallas}/train_step_stacked.py:164"),
+        "stacked_recurrence_bwd": (f"{pkg}/csrc/recurrence_stacked_bwd.cu",
+                                   f"{pallas}/train_step_stacked.py:190"),
+        "fused_encoder_fwd": (f"{pkg}/csrc/fused_encoder_fwd.cu", f"{pallas}/fused_conv.py:455"),
+        "fused_encoder_bwd": (f"{pkg}/csrc/fused_encoder_bwd.cu", f"{pallas}/fused_conv.py:461"),
     }
     missing = [name for name in meta if launches[name] < 1]
     if missing:
         raise RuntimeError(f"the main paths never launched {missing}")
+    for name, b in bounds.items():
+        print(f"bound {name}: {b['flops']:.4g} FLOP, {b['bytes']:.4g} bytes -> {b['bound_ms']:.6f} "
+              f"ms, bound by {b['bound_by']} (f32 67 TFLOP/s, 3.35 TB/s)")
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "max_abs_err": checks[name]["max_abs_err"],
-                "ms": times[name][0], "plain_ms": times[name][1]}
+                "ms": times[name][0], "plain_ms": times[name][1],
+                "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"],
+                "library_ms": library.get(name)}
                for name, (src, rep) in meta.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -829,7 +1233,6 @@ def main() -> int:
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -16,7 +16,9 @@ Observe and ``shared_step`` run the hierarchical recurrence kernel
 backward kernels) on bulk Gumbel noise, ``[T, B, ·]`` per sample site as in
 the JAX kernel path (``models/mmtrssm.py:442-448``); imagine runs the
 hierarchical rollout kernel, which draws its own Philox noise from a seed.
-On the CPU each takes its plain version. ``shared_step`` is the ELBO:
+With ``conv_layout="fused_enc"`` both encoders run the fused encoder
+kernels instead of cuDNN (``models/mmtrssm.py:196-201``). On the CPU each
+takes its plain version. ``shared_step`` is the ELBO:
 Gaussian NLL of both reconstructions plus the balanced KL of each layer
 (``models/mmtrssm.py:576-617``).
 """
@@ -30,10 +32,10 @@ import torch
 from torch import nn
 
 from multimodal_mtrssm_tpu_torch.models.mrssm import (
-    CONV_LAYOUTS,
     Representation,
     add_input_noise,
     draw_gumbels,
+    encode_pair,
 )
 from multimodal_mtrssm_tpu_torch.models.state import MTState
 from multimodal_mtrssm_tpu_torch.nn.conv import Decoder, DecoderConfig, Encoder, EncoderConfig
@@ -43,6 +45,8 @@ from multimodal_mtrssm_tpu_torch.ops.kernels import (
     MTSpec,
     fused_mt_rollout_transition,
     fused_mt_train_recurrence,
+    resolve_conv_layout,
+    resolve_train_kernel_mode,
 )
 from multimodal_mtrssm_tpu_torch.ops.likelihood import gaussian_nll
 
@@ -80,7 +84,12 @@ class MMTRSSMConfig:
     vision_encoder: EncoderConfig = dataclasses.field(default_factory=EncoderConfig)
     audio_decoder: DecoderConfig | None = None
     vision_decoder: DecoderConfig | None = None
-    # Accepted for config compatibility; every value runs the canonical layout.
+    # "auto" or True: the hierarchical recurrence kernels. "stacked" is
+    # MRSSM-only and raises here, as do the JAX package's False, None and
+    # debug modes (ops.kernels.resolve_train_kernel_mode).
+    use_pallas_train: bool | str = "auto"
+    # As MRSSMConfig.conv_layout: "fused_enc" runs the fused encoder
+    # kernels; "auto", "nhwc" and "s2d" the canonical cuDNN layout.
     conv_layout: str = "auto"
 
     @property
@@ -116,8 +125,9 @@ class MoPoEMMTRSSM(nn.Module):
     def __init__(self, config: MMTRSSMConfig | None = None):
         super().__init__()
         cfg = self.cfg = config or MMTRSSMConfig()
-        if cfg.conv_layout not in CONV_LAYOUTS:
-            raise ValueError(f"conv_layout must be one of {CONV_LAYOUTS}, got {cfg.conv_layout!r}")
+        self.fused_enc = resolve_conv_layout(
+            cfg.conv_layout, (cfg.audio_encoder, cfg.vision_encoder)) == "fused_enc"
+        resolve_train_kernel_mode(cfg.use_pallas_train, "mmtrssm")
         A, E, act = cfg.action_size, cfg.obs_embed_size, cfg.activation_name
         HD, LD, HS, LS, C = cfg.hd_dim, cfg.ld_dim, cfg.hs_dim, cfg.ls_dim, cfg.prior_cells
         self.l_rnn = MTRNN(A + LS + HS, LD, cfg.l_tau)
@@ -159,7 +169,7 @@ class MoPoEMMTRSSM(nn.Module):
     def encode_embeds(self, audio_obs: torch.Tensor,
                       vision_obs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """Per-modality embeddings of NHWC frames ``[..., H, W, C]``."""
-        return self.audio_encoder(audio_obs), self.vision_encoder(vision_obs)
+        return encode_pair(self, audio_obs, vision_obs)
 
     def encode_observation(self, audio_obs: torch.Tensor, vision_obs: torch.Tensor) -> torch.Tensor:
         """Mean-fused embedding (reference ``mopoe_mrssm/core.py:165-182``)."""

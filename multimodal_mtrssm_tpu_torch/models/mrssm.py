@@ -8,9 +8,12 @@ exported there loads with ``strict=True`` (``train/weights.py``).
 Observe and ``shared_step`` run the representation recurrence kernel
 (``ops.kernels``, differentiable: forward and backward kernels) on bulk
 Gumbel noise, ``[T, B, S]`` per sample site as in the JAX package's kernel
-path (``models/mrssm.py:491-500``); imagine runs the rollout kernel, which
-draws its own Philox noise from a seed. On the CPU each takes its plain
-version. ``shared_step`` is the ELBO: Gaussian NLL of both reconstructions
+path (``models/mrssm.py:491-500``), or with ``use_pallas_train="stacked"``
+the stacked-layout kernels on the same noise; imagine runs the rollout
+kernel, which draws its own Philox noise from a seed. With
+``conv_layout="fused_enc"`` both encoders run the fused encoder kernels
+instead of cuDNN (``models/mrssm.py:270-289``). On the CPU each takes its
+plain version. ``shared_step`` is the ELBO: Gaussian NLL of both reconstructions
 plus the balanced KL (``models/mrssm.py:597-642``).
 """
 
@@ -32,12 +35,14 @@ from multimodal_mtrssm_tpu_torch.ops.distributions import (
     st_sample,
 )
 from multimodal_mtrssm_tpu_torch.ops.kernels import (
+    fused_encoder_apply,
     fused_rollout_transition,
     fused_train_recurrence,
+    fused_train_recurrence_stacked,
+    resolve_conv_layout,
+    resolve_train_kernel_mode,
 )
 from multimodal_mtrssm_tpu_torch.ops.likelihood import gaussian_nll
-
-CONV_LAYOUTS = ("auto", "nhwc", "s2d", "fused_enc")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,8 +72,15 @@ class MRSSMConfig:
     vision_encoder: EncoderConfig = dataclasses.field(default_factory=EncoderConfig)
     audio_decoder: DecoderConfig | None = None
     vision_decoder: DecoderConfig | None = None
-    # Accepted for config compatibility; every value runs the canonical
-    # layout (s2d and the fused Pallas encoder are TPU layouts).
+    # The representation recurrence's kernels: "auto" or True, the
+    # recurrence kernels; "stacked", the stacked-layout kernels (fewer,
+    # wider products a step). The JAX package's False, None and debug
+    # modes raise (ops.kernels.resolve_train_kernel_mode).
+    use_pallas_train: bool | str = "auto"
+    # "fused_enc": both encoders run the fused encoder kernels, and
+    # construction raises if an encoder is not eligible; "auto", "nhwc" and
+    # "s2d" run the canonical cuDNN layout (s2d is a TPU lane layout of the
+    # same math, not ported). ops.kernels.resolve_conv_layout.
     conv_layout: str = "auto"
 
     @property
@@ -102,8 +114,9 @@ class MoPoEMRSSM(nn.Module):
     def __init__(self, config: MRSSMConfig | None = None):
         super().__init__()
         cfg = self.cfg = config or MRSSMConfig()
-        if cfg.conv_layout not in CONV_LAYOUTS:
-            raise ValueError(f"conv_layout must be one of {CONV_LAYOUTS}, got {cfg.conv_layout!r}")
+        self.fused_enc = resolve_conv_layout(
+            cfg.conv_layout, (cfg.audio_encoder, cfg.vision_encoder)) == "fused_enc"
+        self.stacked = resolve_train_kernel_mode(cfg.use_pallas_train, "mrssm") == "stacked"
         S, D, H, E = cfg.stoch_size, cfg.deterministic_size, cfg.hidden_size, cfg.obs_embed_size
         self.transition = Transition(cfg.action_size, S, H, D, cfg.activation_name)
         self.audio_representation = Representation(D + E, S, H, cfg.activation_name)
@@ -134,7 +147,7 @@ class MoPoEMRSSM(nn.Module):
     def encode_embeds(self, audio_obs: torch.Tensor,
                       vision_obs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """Per-modality embeddings of NHWC frames ``[..., H, W, C]``."""
-        return self.audio_encoder(audio_obs), self.vision_encoder(vision_obs)
+        return encode_pair(self, audio_obs, vision_obs)
 
     def encode_observation(self, audio_obs: torch.Tensor, vision_obs: torch.Tensor) -> torch.Tensor:
         """Mean-fused embedding (reference ``mopoe_mrssm/core.py:165-182``)."""
@@ -201,7 +214,8 @@ class MoPoEMRSSM(nn.Module):
         ``[T, B, S]`` noise; returns ``(posterior, prior)``, time on axis 1."""
         cfg = self.cfg
         tm = lambda x: x.transpose(0, 1).contiguous()  # noqa: E731
-        outs = fused_train_recurrence(
+        recurrence = fused_train_recurrence_stacked if self.stacked else fused_train_recurrence
+        outs = recurrence(
             self.representation_weights(), tm(actions), tm(a_emb), tm(v_emb),
             prev_state.deter.contiguous(), prev_state.stoch.contiguous(),
             g_prior.contiguous(), g_post.contiguous(),
@@ -285,6 +299,17 @@ class MoPoEMRSSM(nn.Module):
         init = self.initial_state_from_embed((a_emb[:, 0] + v_emb[:, 0]) / 2.0, gumbels[0])
         posterior, prior = self._rollout_from_embeds(action_in, a_emb, v_emb, init, *gumbels[1:])
         return init, posterior, prior, gumbels
+
+
+def encode_pair(model: nn.Module, audio_obs: torch.Tensor,
+                vision_obs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both encoders of either family on NHWC frames: the fused encoder
+    kernels when ``model.fused_enc``, else the canonical cuDNN modules
+    (JAX ``models/mrssm.py::_encode_embeds``)."""
+    if model.fused_enc:
+        return (fused_encoder_apply(model.audio_encoder, audio_obs),
+                fused_encoder_apply(model.vision_encoder, vision_obs))
+    return model.audio_encoder(audio_obs), model.vision_encoder(vision_obs)
 
 
 def draw_gumbels(shapes: Mapping[str, tuple[int, ...]], generator: torch.Generator | None,

@@ -19,7 +19,15 @@ Kernels (sources in ``csrc/``, built at first use by :mod:`.build`):
 - ``mt_recurrence_bwd``: its BPTT backward, replacing ``::_bwd_kernel`` and
   ``::_bwd_kernel_chunked``;
 - ``mt_rollout``: hierarchical imagination, replacing
-  ``ops/pallas/rollout_mt.py::_mt_rollout_kernel``.
+  ``ops/pallas/rollout_mt.py::_mt_rollout_kernel``;
+- ``stacked_recurrence_fwd`` / ``stacked_recurrence_bwd``: the MRSSM
+  recurrence and its BPTT on stacked weights (``use_pallas_train=
+  "stacked"``), replacing ``ops/pallas/train_step_stacked.py::
+  _fwd_kernel_stacked`` and ``::_bwd_kernel_stacked``;
+- ``fused_encoder_fwd`` / ``fused_encoder_bwd``: the whole conv encoder per
+  tile of frames and its VJP (``conv_layout="fused_enc"``), replacing
+  ``ops/pallas/fused_conv.py::_fwd_kernel`` and ``::_bwd_kernel`` as
+  ``fused_encoder_apply`` reaches them.
 """
 
 from __future__ import annotations
@@ -29,7 +37,19 @@ from typing import Sequence
 import torch
 
 from multimodal_mtrssm_tpu_torch.nn.core import activation
-from multimodal_mtrssm_tpu_torch.ops.kernels import recurrence, recurrence_mt, rollout, rollout_mt
+from multimodal_mtrssm_tpu_torch.ops.kernels import (
+    fused_conv,
+    recurrence,
+    recurrence_mt,
+    recurrence_stacked,
+    rollout,
+    rollout_mt,
+)
+from multimodal_mtrssm_tpu_torch.ops.kernels.fused_conv import (
+    fused_encoder_applicable,
+    fused_encoder_apply,
+    resolve_conv_layout,
+)
 from multimodal_mtrssm_tpu_torch.ops.kernels.recurrence_mt import MT_SPEC, MTSpec
 from multimodal_mtrssm_tpu_torch.ops.kernels.rollout import philox_gumbel
 from multimodal_mtrssm_tpu_torch.ops.kernels.rollout_mt import philox_mt_gumbel
@@ -40,7 +60,16 @@ LAUNCH_COUNTERS = {"recurrence_fwd": (recurrence, "launches"),
                    "rollout": (rollout, "launches"),
                    "mt_recurrence_fwd": (recurrence_mt, "launches"),
                    "mt_recurrence_bwd": (recurrence_mt, "bwd_launches"),
-                   "mt_rollout": (rollout_mt, "launches")}
+                   "mt_rollout": (rollout_mt, "launches"),
+                   "stacked_recurrence_fwd": (recurrence_stacked, "launches"),
+                   "stacked_recurrence_bwd": (recurrence_stacked, "bwd_launches"),
+                   "fused_encoder_fwd": (fused_conv, "launches"),
+                   "fused_encoder_bwd": (fused_conv, "bwd_launches")}
+
+# use_pallas_train values of the JAX package that the port refuses, besides
+# False and None (its XLA-scan path, which the port does not have): JAX's
+# debug and test modes.
+_JAX_DEBUG_TRAIN_MODES = ("interpret", "reference", "stacked_interpret")
 
 
 def _route(device: torch.device, activation_name: str):
@@ -70,6 +99,42 @@ def fused_train_recurrence(
     return recurrence.RecurrenceFunction.apply(
         act, class_size, category_size, actions, a_emb, v_emb, init_deter, init_stoch,
         g_prior, g_post, *weights)
+
+
+def fused_train_recurrence_stacked(
+    weights: Sequence[torch.Tensor], actions: torch.Tensor, a_emb: torch.Tensor,
+    v_emb: torch.Tensor, init_deter: torch.Tensor, init_stoch: torch.Tensor,
+    g_prior: torch.Tensor, g_post: torch.Tensor, class_size: int = 4,
+    category_size: int = 4, activation_name: str = "ELU",
+) -> tuple[torch.Tensor, ...]:
+    """:func:`fused_train_recurrence` on the stacked layout: the same 20
+    weights in, the same outputs, gradients for the 20, through the stacked
+    kernels (``train_step_stacked.fused_train_recurrence_stacked``)."""
+    act = _route(actions.device, activation_name)
+    return recurrence_stacked.RecurrenceStackedFunction.apply(
+        act, class_size, category_size, actions, a_emb, v_emb, init_deter, init_stoch,
+        g_prior, g_post, *weights)
+
+
+def resolve_train_kernel_mode(value: bool | str | None, family: str = "mrssm") -> str:
+    """A ``use_pallas_train`` value as the port runs it (JAX
+    ``ops/pallas/__init__.py::resolve_train_kernel_mode``, the parts that
+    mean something on one card): ``"auto"`` and ``True`` → ``"kernel"`` (the
+    recurrence kernels), ``"stacked"`` → ``"stacked"`` (MRSSM only).
+    Raises ``ValueError`` for the values the port refuses (``False``,
+    ``None`` and JAX's debug modes) and for anything else."""
+    if value is True or value == "auto":
+        return "kernel"
+    if value == "stacked":
+        if family != "mrssm":
+            raise ValueError("use_pallas_train='stacked' is MRSSM-only (the MT kernel has no "
+                             "stacked-layout variant); use 'auto'/True for MMTRSSM")
+        return "stacked"
+    if value is False or value is None or value in _JAX_DEBUG_TRAIN_MODES:
+        raise ValueError(f"use_pallas_train={value!r} is not supported by the port: it runs the "
+                         "recurrence kernels ('auto'/True) or the stacked ones ('stacked')")
+    raise ValueError(f"use_pallas_train={value!r} not recognized; expected True, 'auto' or "
+                     "'stacked'")
 
 
 def fused_rollout_transition(
@@ -129,12 +194,17 @@ def reset_launch_counts() -> None:
 __all__ = [
     "LAUNCH_COUNTERS",
     "MTSpec",
+    "fused_encoder_applicable",
+    "fused_encoder_apply",
     "fused_mt_rollout_transition",
     "fused_mt_train_recurrence",
     "fused_rollout_transition",
     "fused_train_recurrence",
+    "fused_train_recurrence_stacked",
     "launch_counts",
     "philox_gumbel",
     "philox_mt_gumbel",
     "reset_launch_counts",
+    "resolve_conv_layout",
+    "resolve_train_kernel_mode",
 ]

@@ -22,8 +22,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("recurrence_fwd.cu", "recurrence_bwd.cu", "rollout.cu", "recurrence_mt_fwd.cu",
-           "recurrence_mt_bwd.cu", "rollout_mt.cu")
-HEADERS = ("mrssm_common.cuh",)
+           "recurrence_mt_bwd.cu", "rollout_mt.cu", "recurrence_stacked_fwd.cu",
+           "recurrence_stacked_bwd.cu", "fused_encoder_fwd.cu", "fused_encoder_bwd.cu")
+HEADERS = ("mrssm_common.cuh", "fused_encoder.cuh")
 # Hopper only (sm_90a); no --use_fast_math, so expf/logf/tanhf stay accurate
 # and the straight-through value (onehot + p) - p is not reassociated.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -42,6 +43,16 @@ class MTDims(ctypes.Structure):
         "hs_category", "rows")] + [(name, ctypes.c_float) for name in (
             "l_inv", "l_keep", "h_inv", "h_keep")]
 
+
+class EncDims(ctypes.Structure):
+    """``fenc::EncDims`` of ``csrc/fused_encoder.cuh``, field for field: the
+    fused encoder's frame count and sizes, frames per block, and frames per
+    chunk of its weight-gradient pass."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "N", "H", "W", "C0", "coord", "ch0", "ch1", "ch2", "res_out", "res_mid", "n_res",
+        "out_dim", "frames", "chunk")]
+
 # name → (restype, argtypes) of the C entry points called from Python.
 _SIGNATURES = {
     "mrssm_recurrence_forward": (_I, [_P] * 13 + [_I] * 9 + [_P]),
@@ -52,6 +63,12 @@ _SIGNATURES = {
     "mt_recurrence_backward": (_I, [_P] * 6 + [MTDims, _P]),
     "mt_recurrence_bwd_rows": (_I, [MTDims, _I]),
     "mt_rollout": (_I, [_P] * 3 + [ctypes.c_ulonglong, MTDims, _P]),
+    "mrssm_stacked_forward": (_I, [_P] * 13 + [_I] * 9 + [_P]),
+    "mrssm_stacked_backward": (_I, [_P] * 18 + [_I] * 9 + [_P]),
+    "mrssm_stacked_rows": (_I, [_I] * 8),
+    "fused_encoder_sizes": (_I, [EncDims, _P]),
+    "fused_encoder_forward": (_I, [_P, _I, _P, _P, _P, EncDims, _P]),
+    "fused_encoder_backward": (_I, [_P, _I] + [_P] * 8 + [EncDims, _P]),
     "mrssm_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -244,10 +244,14 @@ def main(argv: list[str] | None = None) -> None:
                     help="model family, at its reference config")
     ap.add_argument("--checkpoint", help="Lightning .ckpt of the model at the reference config")
     ap.add_argument("--seed", type=int, default=0, help="init seed when no checkpoint is given")
-    ap.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to serve on; 'cpu' must be asked for explicitly")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)
     args = ap.parse_args(argv)
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"serve: --device {args.device} but CUDA is not available; "
+                         "pass --device cpu to serve on the CPU")
 
     model = families[args.model]().init(torch.Generator().manual_seed(args.seed))
     if args.checkpoint:

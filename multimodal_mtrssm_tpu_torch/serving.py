@@ -31,10 +31,15 @@ ArrayLike = torch.Tensor | np.ndarray
 
 class WorldModel:
     """A model on ``device`` behind inference entry points that take and
-    return tensors on that device (numpy inputs are accepted too)."""
+    return tensors on that device (numpy inputs are accepted too). The
+    device is the card unless the caller asks for the CPU
+    (``device="cpu"``); without a card the default raises."""
 
-    def __init__(self, model: WorldModelNet, device: torch.device | str = "cpu"):
+    def __init__(self, model: WorldModelNet, device: torch.device | str = "cuda"):
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("WorldModel runs on the CUDA device by default and none is "
+                               "available; pass device='cpu' to run on the CPU")
         self.model = model.to(self.device).eval()
 
     def _tensor(self, x: Any, ndim: int, name: str) -> torch.Tensor:

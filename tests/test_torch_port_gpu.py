@@ -6,23 +6,34 @@ the card and no JAX, without the JAX-importing ``conftest.py``:
 
     python -m pytest --noconftest -q -m gpu tests/test_torch_port_gpu.py
 
-The MoPoE-MRSSM kernels and the MoPoE-MMTRSSM kernels (hierarchical
-recurrence forward and backward, hierarchical rollout) alike. Tolerances as
-in ``chip_smoke.py``: deters, integrators and logits within 1e-4, sampled
+The MoPoE-MRSSM kernels, the MoPoE-MMTRSSM kernels (hierarchical
+recurrence forward and backward, hierarchical rollout), the stacked
+recurrence kernels and the fused encoder kernels alike. Tolerances as in
+``chip_smoke.py``: deters, integrators and logits within 1e-4, sampled
 categories equal outside blocks whose top two scores lie within 1e-5
 (``ops/kernels/parity.py``); backward gradients within 2e-4 × max(1,
-max|plain|) per tensor; a whole train step's loss terms within 2e-5 of the
-loss and its gradient tree within 3e-4 × scale of the CPU route.
+max|plain|) per tensor; encoder embeddings within 1e-4 × max(1, max|plain|)
+(f32 sums over up to 576 taps in another order); a whole train step's loss
+terms within 2e-5 of the loss and its gradient tree within 3e-4 × scale of
+the CPU route.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from multimodal_mtrssm_tpu_torch.models.mmtrssm import MoPoEMMTRSSM
-from multimodal_mtrssm_tpu_torch.models.mrssm import MoPoEMRSSM
+from multimodal_mtrssm_tpu_torch.models.mmtrssm import MMTRSSMConfig, MoPoEMMTRSSM
+from multimodal_mtrssm_tpu_torch.models.mrssm import MoPoEMRSSM, MRSSMConfig
 from multimodal_mtrssm_tpu_torch.ops import kernels
-from multimodal_mtrssm_tpu_torch.ops.kernels import parity, recurrence, recurrence_mt, rollout, rollout_mt
+from multimodal_mtrssm_tpu_torch.ops.kernels import (
+    fused_conv,
+    parity,
+    recurrence,
+    recurrence_mt,
+    recurrence_stacked,
+    rollout,
+    rollout_mt,
+)
 
 C, K = 4, 4
 
@@ -98,13 +109,12 @@ def test_recurrence_backward_kernel_matches_plain(cuda_device, B, T):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.gpu
-def test_train_step_on_the_kernels_matches_the_cpu_route(cuda_device):
-    """One ``shared_step`` and backward on the card (both recurrence kernels)
+def _train_step_card_vs_cpu(family, cfg, dev) -> None:
+    """One ``shared_step`` and backward of ``family(cfg)`` on the card
     against the CPU (plain versions) with the same weights, batch and noise;
     noise with Gumbel near-ties is skipped for the next seed."""
-    cpu = MoPoEMRSSM().init(torch.Generator().manual_seed(1))
-    gpu = MoPoEMRSSM().to(cuda_device)
+    cpu = family(cfg).init(torch.Generator().manual_seed(1))
+    gpu = family(cfg).to(dev)
     gpu.load_state_dict(cpu.state_dict())
     B, T = 4, 10
     for seed in range(10):
@@ -113,16 +123,21 @@ def test_train_step_on_the_kernels_matches_the_cpu_route(cuda_device):
         frames = [rng.uniform(-1, 1, (B, T, 32, 32, 1)).astype(np.float32) for _ in range(2)]
         batch = tuple(torch.from_numpy(x) for x in (act, *frames, act, *frames))
         noise = {k: torch.from_numpy(rng.gumbel(size=s).astype(np.float32))
-                 for k, s in (("g_init", (B, 16)), ("g_prior", (T, B, 16)), ("g_post", (T, B, 16)))}
+                 for k, s in cpu.noise_shapes(B, T).items()}
         noise["input"] = tuple(torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
                                for x in batch[:3])
         if parity.train_step_near_ties(cpu, batch, noise) == 0:
             break
     kernels.reset_launch_counts()
-    on_card = (tuple(x.to(cuda_device) for x in batch),
-               {k: v.to(cuda_device) if k != "input" else tuple(x.to(cuda_device) for x in v)
+    on_card = (tuple(x.to(dev) for x in batch),
+               {k: v.to(dev) if k != "input" else tuple(x.to(dev) for x in v)
                 for k, v in noise.items()})
     parity.check_train_step(gpu, cpu, on_card, (batch, noise))
+
+
+@pytest.mark.gpu
+def test_train_step_on_the_kernels_matches_the_cpu_route(cuda_device):
+    _train_step_card_vs_cpu(MoPoEMRSSM, MRSSMConfig(), cuda_device)
     assert kernels.launch_counts() == {**dict.fromkeys(kernels.LAUNCH_COUNTERS, 0),
                                       "recurrence_fwd": 1, "recurrence_bwd": 1}
 
@@ -218,28 +233,87 @@ def test_mt_rollout_kernel_matches_plain(cuda_device, B, T):
 
 @pytest.mark.gpu
 def test_mt_train_step_on_the_kernels_matches_the_cpu_route(cuda_device):
-    """One MMTRSSM ``shared_step`` and backward on the card (both MT
-    recurrence kernels) against the CPU with the same weights, batch and
-    noise; noise with Gumbel near-ties is skipped for the next seed."""
-    cpu = MoPoEMMTRSSM().init(torch.Generator().manual_seed(1))
-    gpu = MoPoEMMTRSSM().to(cuda_device)
-    gpu.load_state_dict(cpu.state_dict())
-    B, T = 4, 10
-    for seed in range(10):
-        rng = np.random.default_rng(seed)
-        act = rng.uniform(-1, 1, (B, T, 6)).astype(np.float32)
-        frames = [rng.uniform(-1, 1, (B, T, 32, 32, 1)).astype(np.float32) for _ in range(2)]
-        batch = tuple(torch.from_numpy(x) for x in (act, *frames, act, *frames))
-        noise = {k: torch.from_numpy(rng.gumbel(size=s).astype(np.float32))
-                 for k, s in cpu.noise_shapes(B, T).items()}
-        noise["input"] = tuple(torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
-                               for x in batch[:3])
-        if parity.train_step_near_ties(cpu, batch, noise) == 0:
-            break
-    kernels.reset_launch_counts()
-    on_card = (tuple(x.to(cuda_device) for x in batch),
-               {k: v.to(cuda_device) if k != "input" else tuple(x.to(cuda_device) for x in v)
-                for k, v in noise.items()})
-    parity.check_train_step(gpu, cpu, on_card, (batch, noise))
+    _train_step_card_vs_cpu(MoPoEMMTRSSM, MMTRSSMConfig(), cuda_device)
     assert kernels.launch_counts() == {**dict.fromkeys(kernels.LAUNCH_COUNTERS, 0),
                                       "mt_recurrence_fwd": 1, "mt_recurrence_bwd": 1}
+
+
+# ---- the stacked recurrence and the fused encoder ---------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T", [(8, 30), (128, 30), (3, 7)])
+def test_stacked_recurrence_kernels_match_plain(cuda_device, B, T):
+    """The stacked forward kernel against its plain version, and the stacked
+    backward kernel (unstacked gradients) against its plain version on the
+    forward's record and random cotangents; the backward is reproducible."""
+    st = recurrence_stacked.stack_train_params(_model(cuda_device).representation_weights())
+    ins = _inputs(B * T + 1, B, T, cuda_device)
+    with torch.no_grad():
+        outs = recurrence_stacked.recurrence_stacked_forward_cuda(st, *ins, C, K)
+        ref = recurrence_stacked.recurrence_stacked_forward_plain(st, *ins, C, K)
+        parity.check_recurrence(outs, ref, ins[5], ins[6], C, K)
+        prev_deter = torch.cat([ins[3][None], outs[0][:-1]])
+        prev_stoch = torch.cat([ins[4][None], outs[4][:-1]])
+        args = (st, *ins[:3], prev_deter, prev_stoch, _cotangents(T, outs), C, K)
+        got = recurrence_stacked.recurrence_stacked_backward_cuda(*args)
+        again = recurrence_stacked.recurrence_stacked_backward_cuda(*args)
+    ref = recurrence_stacked.recurrence_stacked_backward_plain(*args)
+    dims = (6, 32, 32, 64)
+    unstack = lambda g: (*recurrence_stacked.unstack_train_grads(g[:10], dims), *g[10:])  # noqa: E731
+    parity.check_gradients(unstack(got), unstack(ref))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _scaled_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((got - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [240, 7, 3840])
+def test_fused_encoder_kernels_match_plain_and_cudnn(cuda_device, N):
+    """The fused encoder's forward against its plain version and against the
+    cuDNN ``Encoder`` (TF32 off), and its backward (every weight gradient and
+    dx) against the plain backward on the inputs upcast to float64 (cuDNN's
+    float32 backward strays ~7e-4 of scale from float64 at N=3840); the
+    backward is reproducible."""
+    enc = _model(cuda_device).audio_encoder
+    w = [t.detach() for t in fused_conv.encoder_weights(enc)]
+    rng = np.random.default_rng(N)
+    x = torch.tensor(rng.uniform(-1, 1, (N, 32, 32, 1)).astype(np.float32), device=cuda_device)
+    g = torch.tensor(rng.standard_normal((N, 64)).astype(np.float32), device=cuda_device)
+    with torch.no_grad():
+        got = fused_conv.fused_encoder_forward_cuda(w, enc.cfg, x)
+        plain = fused_conv.fused_encoder_plain(w, enc.cfg, x)
+        cudnn = enc(x)
+        dx, dw = fused_conv.fused_encoder_backward_cuda(w, enc.cfg, x, g, True)
+        dx2, dw2 = fused_conv.fused_encoder_backward_cuda(w, enc.cfg, x, g, True)
+    assert _scaled_err(got, plain) <= 1e-4 and _scaled_err(got, cudnn) <= 1e-4
+    ref_dx, ref_dw = fused_conv.fused_encoder_backward_plain(
+        [t.double() for t in w], enc.cfg, x.double(), g.double(), True)
+    parity.check_gradients([*dw, dx], [t.float() for t in (*ref_dw, ref_dx)])
+    assert all(torch.equal(a, b) for a, b in zip([*dw, dx], [*dw2, dx2]))
+
+
+@pytest.mark.gpu
+def test_fused_encoder_refuses_what_it_does_not_take(cuda_device):
+    enc = _model(cuda_device).audio_encoder
+    w = [t.detach() for t in fused_conv.encoder_weights(enc)]
+    with pytest.raises(ValueError, match="frames"):
+        fused_conv.fused_encoder_forward_cuda(w, enc.cfg, torch.zeros(2, 16, 16, 1,
+                                                                      device=cuda_device))
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_conv.fused_encoder_forward_cuda([t.cpu() for t in w], enc.cfg,
+                                              torch.zeros(2, 32, 32, 1))
+
+
+@pytest.mark.gpu
+def test_stacked_fused_train_step_matches_the_cpu_route(cuda_device):
+    """One train step at ``conv_layout="fused_enc"``, ``use_pallas_train=
+    "stacked"``: both stacked kernels once, both encoders' kernels once each
+    way, and nothing else."""
+    _train_step_card_vs_cpu(MoPoEMRSSM, MRSSMConfig(conv_layout="fused_enc",
+                                                    use_pallas_train="stacked"), cuda_device)
+    assert kernels.launch_counts() == {**dict.fromkeys(kernels.LAUNCH_COUNTERS, 0),
+                                      "stacked_recurrence_fwd": 1, "stacked_recurrence_bwd": 1,
+                                      "fused_encoder_fwd": 2, "fused_encoder_bwd": 2}
