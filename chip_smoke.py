@@ -9,10 +9,12 @@ the shapes and the path are the real ones): MoPoE-MRSSM (``MRSSMConfig()``),
 the hierarchical MoPoE-MMTRSSM (``MMTRSSMConfig()``), MoPoE-MRSSM on the
 fused encoder and the stacked recurrence (``MRSSMConfig(conv_layout=
 "fused_enc", use_pallas_train="stacked")``) and MoPoE-MMTRSSM on the fused
-encoder (``MMTRSSMConfig(conv_layout="fused_enc")``).
+encoder (``MMTRSSMConfig(conv_layout="fused_enc")``). Then the fused conv
+decoder (``fused_decoder_apply``), which no model config selects, on the
+first two configurations' latent features.
 
 0. Device: prints the card's name and power limit, turns TF32 off.
-1. Build: compiles the ten kernels from ``multimodal_mtrssm_tpu_torch/csrc``
+1. Build: compiles the twelve kernels from ``multimodal_mtrssm_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel).
 2. Kernel checks, each kernel against its plain PyTorch version on the card:
    the MRSSM recurrence forward at B=8 T=30, B=128 T=30 and B=3 T=7, the MT
@@ -28,7 +30,12 @@ encoder (``MMTRSSMConfig(conv_layout="fused_enc")``).
    (the same limits, on unstacked gradients); the fused encoder forward at
    N=240, 7 and 3840 frames against its plain version and the cuDNN
    ``Encoder`` (within 1e-4 × max(1, max|plain|)) and its backward against
-   the plain backward in float64 (2e-4 × scale, two launches bit-identical).
+   the plain backward in float64 (2e-4 × scale, two launches bit-identical);
+   the fused decoder forward on both decoders of MRSSM (48-wide features)
+   and MMTRSSM (96-wide) at N=240 and on MRSSM's at N=3840, against its
+   plain version and the model's own cuDNN ``decode_state`` (within 1e-5),
+   and its backward of ``gaussian_nll`` against the plain backward in
+   float64 (2e-4 × scale, two launches bit-identical).
 3. Serving end to end, per configuration, behind ``InferenceServer``:
    ``/healthz``, ``/observe`` (B=8, T=30, decode, JSON), two chained
    ``/imagine`` (T=30, decode, npz then JSON). Checks shapes, finiteness,
@@ -46,16 +53,19 @@ encoder (``MMTRSSMConfig(conv_layout="fused_enc")``).
    replaced by the next seed's).
 5. Timings: median ms of each kernel against its plain version (the
    stacked kernels beside the unstacked ones, the fused encoder beside the
-   cuDNN ``Encoder``), of a full train step on the kernels against the
-   plain versions on the card, a device-time breakdown of the train step
-   (``torch.profiler``), the median latency of ``/observe`` and
-   ``/imagine`` through the server and the optimizer steps per second of
-   ``Trainer.fit``; each kernel's bound at the main path's shape.
+   cuDNN ``Encoder``, the fused decoder beside the cuDNN ``Decoder``), of
+   a full train step on the kernels against the plain versions on the
+   card, a device-time breakdown of the train step (``torch.profiler``),
+   the median latency of ``/observe`` and ``/imagine`` through the server
+   and the optimizer steps per second of ``Trainer.fit``; each kernel's
+   bound at the main path's shape.
 
-Each configuration's serving and training run is driven with every launch
-count set to 0 just before it and read just after. Then one JSON line with
-the ten kernels, the card's name and power limit, and last
-``{"ok": true, "device": {...}}``.
+Each configuration's serving and training run, and the decoder's path
+(``fused_decoder_apply`` on both decoders of the first two configurations'
+observed features at B=8 T=30, forward and a ``gaussian_nll`` backward), is
+driven with every launch count set to 0 just before it and read just after.
+Then one JSON line with the twelve kernels, the card's name and power
+limit, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -907,16 +917,14 @@ def _encoder_case(rng, enc, N: int, dev):
     return w, x, g
 
 
-def _encoder_backward_f64(w, cfg, x, g) -> list:
-    """The plain encoder backward on the inputs upcast to float64, as f32:
-    the reference of the backward kernel. At N=3840 cuDNN's float32
-    backward strays from float64 by ~7e-4 of scale in the first conv's
-    gradients and 2.5e-3 in dx, while the kernel stays within 1e-6 (NVIDIA
-    H100 80GB HBM3), so float32 cuDNN cannot referee it there."""
-    from multimodal_mtrssm_tpu_torch.ops.kernels import fused_conv
-
-    dx, dw = fused_conv.fused_encoder_backward_plain([t.double() for t in w], cfg, x.double(),
-                                                     g.double(), True)
+def _backward_f64(backward_plain, w, cfg, x, g) -> list:
+    """A fused stack's plain backward on the inputs upcast to float64, as
+    f32 (the weight gradients, then the input's): the reference of its
+    backward kernel. At N=3840 cuDNN's float32 backward strays from float64
+    by ~7e-4 of scale in the encoder's first conv's gradients and 2.5e-3 in
+    dx, while the kernel stays within 1e-6 (NVIDIA H100 80GB HBM3), so
+    float32 cuDNN cannot referee it there."""
+    dx, dw = backward_plain([t.double() for t in w], cfg, x.double(), g.double(), True)
     return [t.float() for t in (*dw, dx)]
 
 
@@ -944,7 +952,7 @@ def check_encoder(model, dev) -> dict[str, dict]:
                               f"|kernel - cuDNN| {err_cudnn:.3g} > {ENC_TOL} x {scale:.3g}")
         dx, dw = fused_conv.fused_encoder_backward_cuda(w, enc.cfg, x, g, True)
         dx2, dw2 = fused_conv.fused_encoder_backward_cuda(w, enc.cfg, x, g, True)
-        ref = _encoder_backward_f64(w, enc.cfg, x, g)
+        ref = _backward_f64(fused_conv.fused_encoder_backward_plain, w, enc.cfg, x, g)
         scaled = check_gradients([*dw, dx], ref, BWD_TOL)
         if not all(torch.equal(a, b) for a, b in zip([*dw, dx], [*dw2, dx2])):
             raise ParityError("fused_encoder_bwd: two launches on the same inputs differ")
@@ -1044,51 +1052,261 @@ def encoder_timings(model, dev, card: str) -> tuple[dict, dict, dict]:
     return main, library, bounds
 
 
-def recurrence_bounds(model, cfg, dev) -> dict[str, dict]:
-    """Bounds of the MRSSM recurrence and rollout kernels at the main path's B=8 T=30, from
-    one launch's inputs and outputs."""
+# ---- the fused decoder -------------------------------------------------------------------
+
+DEC_TOL = 1e-5  # frames: the kernel against the plain version and against cuDNN's decode
+DECODER_SHAPES = ((8, 30), (128, 30))  # the observes whose features are decoded: N = 240, 3840
+
+
+def _decoder_macs(cfg) -> int:
+    """Multiply-adds the decoder needs a frame, counting only the taps that
+    land inside the maps (``_encoder_macs``' convention): the linears, the
+    projection, the residual convs and the transposed convs."""
+    def taps(n_from, n_to, k, s, p):  # pairs (i, t) with i·s − p + t inside [0, n_to)
+        return sum(0 <= i * s - p + t < n_to for i in range(n_from) for t in range(k))
+
+    (l0, l1), (c, h, w) = cfg.linear_sizes, cfg.conv_in_shape
+    total = cfg.in_features * l0 + l0 * l1
+    if cfg.num_residual_blocks > 0 and c != cfg.residual_input_size:
+        total, c = total + h * w * c * cfg.residual_input_size, cfg.residual_input_size
+    mid = cfg.residual_intermediate_size
+    total += cfg.num_residual_blocks * 2 * taps(h, h, 3, 1, 1) * taps(w, w, 3, 1, 1) * c * mid
+    for ch, k, s, p in zip(cfg.channels, cfg.kernel_sizes, cfg.strides, cfg.paddings):
+        ho, wo = (h - 1) * s - 2 * p + k, (w - 1) * s - 2 * p + k
+        total += taps(h, ho, k, s, p) * taps(w, wo, k, s, p) * c * ch
+        h, w, c = ho, wo, ch
+    return total
+
+
+def _observed_features(model, cfg, dev, B: int, T: int):
+    """An observe of random frames at ``B`` × ``T`` through ``WorldModel``:
+    the posterior state and its latent features ``[B·T, F]``, the decoders'
+    input (deter ⊕ stoch for MRSSM, hd ⊕ hs ⊕ ld ⊕ ls for MMTRSSM)."""
+    from multimodal_mtrssm_tpu_torch.serving import WorldModel
+
+    rng = np.random.default_rng(SEED + 15 + B)
+    frames = [rng.uniform(-1, 1, (B, T, 32, 32, 1)).astype(np.float32) for _ in range(2)]
+    post, _ = WorldModel(model, dev).observe(
+        rng.uniform(-1, 1, (B, T, cfg.action_size)).astype(np.float32), *frames, seed=B)
+    return post, post.feature.reshape(B * T, -1).contiguous()
+
+
+def drive_decoder(cases, dev) -> dict:
+    """The fused decoder's path: ``fused_decoder_apply`` on both decoders of
+    each model over its observed features (``cases``: a label, a model, its
+    observed state and features, at B=8 T=30), forward and the backward of
+    ``gaussian_nll`` against random target frames, with every launch count
+    set to 0 just before and read just after. No model config selects the
+    decoder kernels (as in JAX), so this is their path. Returns the counts
+    and, per decoder, what the checks hold it to."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels import (
+        fused_decoder_apply,
+        launch_counts,
+        reset_launch_counts,
+    )
+    from multimodal_mtrssm_tpu_torch.ops.kernels.fused_conv import decoder_weights
+    from multimodal_mtrssm_tpu_torch.ops.likelihood import gaussian_nll
+
+    rng = np.random.default_rng(SEED + 16)
+    targets = [torch.tensor(rng.uniform(-1, 1, (feats.shape[0], 32, 32, 1)).astype(np.float32),
+                            device=dev) for _, _, _, feats in cases for _ in range(2)]
+    out = []
+    reset_launch_counts()
+    for label, model, state, feats in cases:
+        for name in ("audio", "vision"):
+            dec = getattr(model, f"{name}_decoder")
+            x = feats.clone().requires_grad_()
+            with torch.enable_grad():
+                frames = fused_decoder_apply(dec, x)
+                loss = gaussian_nll(frames, targets[len(out)], 3)
+                g, dx, *dw = torch.autograd.grad(loss, [frames, x, *decoder_weights(dec)])
+            out.append({"label": label, "model": model, "name": name, "state": state,
+                        "feats": feats, "frames": frames.detach(), "g": g, "grads": [*dw, dx]})
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"main-path kernel launches, fused decoder path (both decoders of "
+          f"{' and '.join(c[0] for c in cases)} on their observed features, B=8 T=30, forward "
+          f"and gaussian_nll backward): {counts}")
+    if min(counts["fused_decoder_fwd"], counts["fused_decoder_bwd"]) < len(out):
+        raise RuntimeError(f"the decoder path missed a kernel: {counts}")
+    return {"counts": counts, "cases": out}
+
+
+def _big_decoder_case(big, dev) -> dict:
+    """The audio decoder's kernels at N=3840 (``big``: a label, a model and
+    its observed state and features at B=128 T=30), as the checks take a
+    case; comparison launches, outside the path's counts."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels import fused_conv
+    from multimodal_mtrssm_tpu_torch.ops.likelihood import gaussian_nll
+
+    label, model, state, feats = big
+    dec = model.audio_decoder
+    w = [t.detach() for t in fused_conv.decoder_weights(dec)]
+    frames = fused_conv.fused_decoder_forward_cuda(w, dec.cfg, feats)
+    target = torch.tensor(np.random.default_rng(SEED + 17).uniform(
+        -1, 1, tuple(frames.shape)).astype(np.float32), device=dev)
+    with torch.enable_grad():
+        y = frames.clone().requires_grad_()
+        g, = torch.autograd.grad(gaussian_nll(y, target, 3), [y])
+    dx, dw = fused_conv.fused_decoder_backward_cuda(w, dec.cfg, feats, g, True)
+    return {"label": label, "model": model, "name": "audio", "state": state, "feats": feats,
+            "frames": frames, "g": g, "grads": [*dw, dx]}
+
+
+def check_decoder(cases: list[dict]) -> dict[str, dict]:
+    """Phase 2, fused decoder: per case, the kernel's frames against the
+    plain version and against the model's own ``decode_state`` (cuDNN, TF32
+    off) within DEC_TOL, and the kernel's backward of ``gaussian_nll``
+    (every weight gradient and the features') against the plain backward in
+    float64 within BWD_TOL × scale; a second launch gives the same bits."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels import fused_conv
+    from multimodal_mtrssm_tpu_torch.ops.kernels.parity import ParityError, check_gradients
+
+    fwd_err = bwd_err = 0.0
+    for c in cases:
+        dec, feats, g = getattr(c["model"], f"{c['name']}_decoder"), c["feats"], c["g"]
+        w = [t.detach() for t in fused_conv.decoder_weights(dec)]
+        where = f"{c['label']} {c['name']} N={feats.shape[0]} F={feats.shape[1]}"
+        plain = fused_conv.fused_decoder_plain(w, dec.cfg, feats)
+        cudnn = c["model"].decode_state(c["state"])[f"recon/{c['name']}"].reshape(plain.shape)
+        err, err_cudnn = (float((c["frames"] - ref).abs().max()) for ref in (plain, cudnn))
+        if not max(err, err_cudnn) <= DEC_TOL:
+            raise ParityError(f"fused_decoder_fwd {where}: max |kernel - plain| {err:.3g}, "
+                              f"|kernel - cuDNN| {err_cudnn:.3g} > {DEC_TOL}")
+        ref = _backward_f64(fused_conv.fused_decoder_backward_plain, w, dec.cfg, feats, g)
+        scaled = check_gradients(c["grads"], ref, BWD_TOL)
+        dx2, dw2 = fused_conv.fused_decoder_backward_cuda(w, dec.cfg, feats, g, True)
+        if not all(torch.equal(a, b) for a, b in zip(c["grads"], [*dw2, dx2])):
+            raise ParityError(f"fused_decoder_bwd {where}: two launches on the same inputs differ")
+        berr = max(float((a - b).abs().max()) for a, b in zip(c["grads"], ref))
+        rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                  for a, b in zip(c["grads"], ref))
+        print(f"check fused_decoder_fwd {where}: max_abs_err={err:.3g} vs plain, {err_cudnn:.3g} "
+              f"vs cuDNN decode_state (limit {DEC_TOL}); fused_decoder_bwd of gaussian_nll: "
+              f"max_abs_err={berr:.3g} max_err/scale={scaled:.3g} vs the plain backward in float64 "
+              f"(limit {BWD_TOL}), max_err/max|float64| per tensor {rel:.3g}, reproducible")
+        fwd_err, bwd_err = max(fwd_err, err), max(bwd_err, berr)
+    return {"fused_decoder_fwd": {"max_abs_err": fwd_err},
+            "fused_decoder_bwd": {"max_abs_err": bwd_err}}
+
+
+def decoder_timings(cases: list[dict], dev, card: str) -> tuple[dict, dict, dict]:
+    """Phase 5, fused decoder: both kernels against their plain versions and
+    against the cuDNN ``Decoder`` (TF32 off; the library yardstick, never
+    called by the kernels' path): forward, and forward + backward to the
+    features and every parameter, on each case's audio decoder and
+    features. Returns the first case's (N=240, 48 wide) times, library
+    times and bounds."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels import fused_conv
+
+    rng = np.random.default_rng(SEED + 18)
+    main: dict[str, tuple[float, float]] = {}
+    library: dict[str, float] = {}
+    bounds: dict[str, dict] = {}
+    for c in cases:
+        dec, feats = c["model"].audio_decoder, c["feats"]
+        cfg, N = dec.cfg, feats.shape[0]
+        w = [t.detach() for t in fused_conv.decoder_weights(dec)]
+        g = torch.tensor(rng.standard_normal((N, 32, 32, 1)).astype(np.float32), device=dev)
+        k_ms = _median_ms(lambda: fused_conv.fused_decoder_forward_cuda(w, cfg, feats), 20)
+        p_ms = _median_ms(lambda: fused_conv.fused_decoder_plain(w, cfg, feats), 10)
+        l_ms = _median_ms(lambda: dec(feats), 20)
+        kb_ms = _median_ms(lambda: fused_conv.fused_decoder_backward_cuda(w, cfg, feats, g, True),
+                           10)
+        pb_ms = _median_ms(lambda: fused_conv.fused_decoder_backward_plain(w, cfg, feats, g, True),
+                           10)
+        x, params = feats.clone().requires_grad_(), list(dec.parameters())
+        with torch.enable_grad():
+            lb_ms = _median_ms(lambda: torch.autograd.grad(dec(x), [x, *params], g), 10)
+        macs = _decoder_macs(cfg) * N
+        b_fwd = _bound(2 * macs, _nbytes(w, feats) + 4 * g.numel())
+        # Recompute, feature and input cotangents, weight gradients.
+        b_bwd = _bound(6 * macs, 2 * _nbytes(w, feats) + _nbytes(g))
+        print(f"time fused_decoder_fwd {c['label']} N={N} F={cfg.in_features}: kernel "
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, cuDNN Decoder {l_ms:.4f} ms, bound "
+              f"{b_fwd['bound_ms']:.6f} ms ({b_fwd['bound_by']}); fused_decoder_bwd (recompute, "
+              f"feature and weight gradients): kernel {kb_ms:.4f} ms, plain {pb_ms:.4f} ms, cuDNN "
+              f"Decoder forward + backward {lb_ms:.4f} ms, bound {b_bwd['bound_ms']:.6f} ms "
+              f"({b_bwd['bound_by']}) | {card}")
+        if "fused_decoder_fwd" not in main:
+            main["fused_decoder_fwd"], main["fused_decoder_bwd"] = (k_ms, p_ms), (kb_ms, pb_ms)
+            library["fused_decoder_fwd"], library["fused_decoder_bwd"] = l_ms, lb_ms
+            bounds["fused_decoder_fwd"], bounds["fused_decoder_bwd"] = b_fwd, b_bwd
+    return main, library, bounds
+
+
+def recurrence_bounds(model, cfg, dev, B: int = 8, T: int = 30,
+                      roll: tuple[int, int] = (8, 30)) -> dict[str, dict]:
+    """Bounds of the MRSSM recurrence kernels at ``B`` × ``T`` and of the
+    rollout at ``roll`` (both the main path's B=8 T=30 by default), from one
+    launch's inputs and outputs."""
     import torch
 
     from multimodal_mtrssm_tpu_torch.ops.kernels import recurrence, rollout
 
-    C, K, B, T = cfg.class_size, cfg.category_size, 8, 30
+    C, K = cfg.class_size, cfg.category_size
+    rng = np.random.default_rng(SEED + 13)
     rw = [w.detach() for w in model.representation_weights()]
-    args = _recurrence_inputs(np.random.default_rng(SEED + 13), B, T, cfg, dev)
+    args = _recurrence_inputs(rng, B, T, cfg, dev)
+    r_args = args if roll == (B, T) else _recurrence_inputs(rng, *roll, cfg, dev)
     with torch.no_grad():
         outs = recurrence.recurrence_forward_cuda(rw, *args, C, K)
         bwd = _backward_args(rw, args, outs, [torch.zeros_like(o) for o in outs], cfg)
         d_out = recurrence.recurrence_backward_cuda(*bwd)
         tw = rw[:12]
-        actions = args[0].transpose(0, 1).contiguous()
-        roll = rollout.rollout_cuda(tw, actions, args[3], args[4], 5, C, K)
+        actions = r_args[0].transpose(0, 1).contiguous()
+        rolled = rollout.rollout_cuda(tw, actions, r_args[3], r_args[4], 5, C, K)
     macs = _mrssm_step_macs(cfg) * B * T
     return {"recurrence_fwd": _bound(2 * macs, _nbytes(rw, args, outs)),
             "recurrence_bwd": _bound(6 * macs, _nbytes(bwd[:7], d_out)),
-            "rollout": _bound(2 * _mrssm_step_macs(cfg, heads=False) * B * T,
-                              _nbytes(tw, actions, args[3:5], roll))}
+            "rollout": _bound(2 * _mrssm_step_macs(cfg, heads=False) * roll[0] * roll[1],
+                              _nbytes(tw, actions, r_args[3:5], rolled))}
 
 
-def mt_bounds(model, cfg, dev) -> dict[str, dict]:
-    """Bounds of the MMTRSSM kernels at the main path's B=8 T=30."""
+def mt_bounds(model, cfg, dev, B: int = 8, T: int = 30,
+              roll: tuple[int, int] = (8, 30)) -> dict[str, dict]:
+    """Bounds of the MMTRSSM kernels, as :func:`recurrence_bounds`."""
     import torch
 
     from multimodal_mtrssm_tpu_torch.ops.kernels import recurrence_mt, rollout_mt
 
-    B, T = 8, 30
+    rng = np.random.default_rng(SEED + 14)
     rw = [w.detach() for w in model.recurrence_weights()]
-    xs, init6, gumbels = _mt_inputs(np.random.default_rng(SEED + 14), B, T, cfg, dev)
+    xs, init6, gumbels = _mt_inputs(rng, B, T, cfg, dev)
+    r_xs, r_init6, _ = (xs, init6, None) if roll == (B, T) else _mt_inputs(rng, *roll, cfg, dev)
     with torch.no_grad():
         outs = recurrence_mt.mt_recurrence_forward_cuda(rw, *xs, init6, gumbels, cfg.spec)
         prev6 = recurrence_mt.shift_carries(init6, recurrence_mt.carries(outs))
         cots = [torch.zeros_like(o) for o in outs]
         d_out = recurrence_mt.mt_recurrence_backward_cuda(rw, *xs, prev6, cots, cfg.spec)
-        actions = xs[0].transpose(0, 1).contiguous()
-        roll = rollout_mt.rollout_mt_cuda(rw[:16], actions, init6, 5, cfg.spec)
+        actions = r_xs[0].transpose(0, 1).contiguous()
+        rolled = rollout_mt.rollout_mt_cuda(rw[:16], actions, r_init6, 5, cfg.spec)
     macs = _mt_step_macs(cfg) * B * T
     return {"mt_recurrence_fwd": _bound(2 * macs, _nbytes(rw, xs, init6, gumbels, outs)),
             "mt_recurrence_bwd": _bound(6 * macs, _nbytes(rw, xs, prev6, cots, d_out)),
-            "mt_rollout": _bound(2 * _mt_step_macs(cfg, full=False) * B * T,
-                                 _nbytes(rw[:16], actions, init6, roll))}
+            "mt_rollout": _bound(2 * _mt_step_macs(cfg, full=False) * roll[0] * roll[1],
+                                 _nbytes(rw[:16], actions, r_init6, rolled))}
+
+
+def other_bounds(name: str, shapes, bounds_fn) -> dict[str, dict]:
+    """Bounds at shapes beyond the main path's, for the record only (not the
+    kernels line): ``bounds_fn(B, T, roll)`` at each ``(B, T)`` of
+    ``shapes``, the rollouts at B=256 T=180."""
+    out = {}
+    for B, T in shapes:
+        for kernel, b in bounds_fn(B, T, (256, 180)).items():
+            out[f"{kernel} " + ("B=256 T=180" if "rollout" in kernel else f"B={B} T={T}")] = b
+    print(f"bounds of the {name} kernels beyond the main path's shapes: " + "; ".join(
+        f"{k} {b['bound_ms']:.6f} ms ({b['bound_by']})" for k, b in out.items()))
+    return out
 
 
 def main() -> int:
@@ -1134,6 +1352,8 @@ def main() -> int:
         finally:
             ctx["server"].stop()
         bounds = recurrence_bounds(model, cfg, dev)
+        other_bounds("MRSSM", ((128, 30),),
+                     lambda B, T, roll: recurrence_bounds(model, cfg, dev, B, T, roll))
     training = drive_training(cfg, dev, {"recurrence_fwd": 1, "recurrence_bwd": 1})
     times.update(bwd_timings(training["model"], cfg, dev, card))
     step_timings(training["model"], dev, card)
@@ -1154,6 +1374,8 @@ def main() -> int:
         finally:
             mt_ctx["server"].stop()
         bounds.update(mt_bounds(mt_model, mt_cfg, dev))
+        other_bounds("MMTRSSM", ((32, 30), (128, 30)),
+                     lambda B, T, roll: mt_bounds(mt_model, mt_cfg, dev, B, T, roll))
     mt_training = drive_training(mt_cfg, dev, mt_run)
     step_timings(mt_training["model"], dev, card)
     fit_rate(mt_training, mt_cfg)
@@ -1195,8 +1417,25 @@ def main() -> int:
     fit_rate(fe_training, fe_cfg)
     runs += [fe_ctx["counts"], fe_training["counts"]]
 
+    # The fused decoder (fused_decoder_apply), on the latent features of the
+    # first two configurations' observes.
+    with torch.no_grad():
+        cases = [(_label(c), m, *_observed_features(m, c, dev, *DECODER_SHAPES[0]))
+                 for c, m in ((cfg, model), (mt_cfg, mt_model))]
+        dec_path = drive_decoder(cases, dev)
+        big = _big_decoder_case((_label(cfg), model,
+                                 *_observed_features(model, cfg, dev, *DECODER_SHAPES[1])), dev)
+        checks.update(check_decoder([*dec_path["cases"], big]))
+        dec_times, dec_library, dec_bounds = decoder_timings(
+            [*(c for c in dec_path["cases"] if c["name"] == "audio"), big], dev, card)
+    times.update(dec_times)
+    bounds.update(dec_bounds)
+    library.update(dec_library)
+    runs.append(dec_path["counts"])
+
     launches = {k: sum(run[k] for run in runs) for k in runs[0]}
-    print(f"main-path launches, serving + training of the four configurations: {launches}")
+    print("main-path launches, serving + training of the four configurations and the fused "
+          f"decoder path: {launches}")
     pkg = "multimodal_mtrssm_tpu_torch"
     pallas = "multimodal_mtrssm_tpu/ops/pallas"
     meta = {
@@ -1214,6 +1453,9 @@ def main() -> int:
                                    f"{pallas}/train_step_stacked.py:190"),
         "fused_encoder_fwd": (f"{pkg}/csrc/fused_encoder_fwd.cu", f"{pallas}/fused_conv.py:455"),
         "fused_encoder_bwd": (f"{pkg}/csrc/fused_encoder_bwd.cu", f"{pallas}/fused_conv.py:461"),
+        # The same TPU kernels as fused_decoder_apply (fused_conv.py:766) reaches them.
+        "fused_decoder_fwd": (f"{pkg}/csrc/fused_decoder_fwd.cu", f"{pallas}/fused_conv.py:455"),
+        "fused_decoder_bwd": (f"{pkg}/csrc/fused_decoder_bwd.cu", f"{pallas}/fused_conv.py:461"),
     }
     missing = [name for name in meta if launches[name] < 1]
     if missing:

@@ -1,0 +1,52 @@
+// The conv decoder in one kernel per tile of frames, forward.
+//
+// Replaces multimodal_mtrssm_tpu/ops/pallas/fused_conv.py::_fwd_kernel
+// (line 455) as fused_decoder_apply (line 766) reaches it for a decoder:
+// the two linears (the second unflattened in (c, h, w) order), the 1×1
+// projection, the residual blocks and the three k4 s2 p1 transposed convs
+// (ELU, ELU, Tanh), with every intermediate activation on chip. JAX cuts
+// the stack into four segments (the linears and residual stack, then one
+// per transposed conv) to keep each backward's VMEM in budget; here one
+// launch covers the whole stack, since only one layer's weights are
+// resident at a time (fused_decoder.cuh). HBM sees the [N, F] features, the
+// weights once per block (from L2) and the [N, 32, 32, 1] frames.
+#include "fused_decoder.cuh"
+
+extern "C" {
+
+// Sizes of the backward's device-memory scratch for `d`: sizes[0] and [1]
+// the floats a frame of the activation and cotangent records, [2] the
+// weight-gradient floats (all tensors back to back, torch layout), [3] the
+// frame chunks of the weight-gradient pass. Returns 0, or -1 where the
+// plan does not fit (too many layers, or a block's shared memory).
+int fused_decoder_sizes(fdec::DecDims d, long long* sizes) {
+  fdec::Plan P;
+  size_t smem = 0;
+  if (!fdec::make_plan(d, &P, &smem)) return -1;
+  long long grads = 0;
+  for (int l = 0; l < P.n; ++l) {
+    const fdec::Layer& L = P.L[l];
+    const long long bias = L.kind == fdec::kUnflatten ? (long long)L.Co * L.Ho * L.Wo : L.Co;
+    grads += (long long)L.Co * L.Ci * L.k * L.k + bias;
+  }
+  sizes[0] = P.stash;
+  sizes[1] = P.dstash;
+  sizes[2] = grads;
+  sizes[3] = (d.N + d.chunk - 1) / d.chunk;
+  return 0;
+}
+
+// Launch on `stream`: features [N, F] → out [N, 32, 32, 1]. `weights` is a
+// host array of the n_weights device pointers of
+// ops/kernels/fused_conv.py::decoder_weights; all tensors f32 and
+// contiguous. Returns the cudaError_t of the launch (0 on success).
+int fused_decoder_forward(const void* const* weights, int n_weights, const float* feats,
+                          float* out, fdec::DecDims d, void* stream) {
+  fdec::Plan P;
+  size_t smem = 0;
+  if (!fdec::make_plan(d, &P, &smem) || n_weights != 2 * P.n) return (int)cudaErrorInvalidValue;
+  return (int)fdec::launch_forward(mrssm::weight_ptrs(weights, n_weights), P, smem, feats, out,
+                                   nullptr, d.N, static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"

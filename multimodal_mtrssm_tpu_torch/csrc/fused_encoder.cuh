@@ -216,13 +216,6 @@ encoder_fwd_kernel(mrssm::WeightPtrs w, Plan P, const float* __restrict__ x,
   }
 }
 
-// Device pointers of the encoder's tensors (weight, bias of each layer).
-inline mrssm::WeightPtrs weight_ptrs(const void* const* weights, int n) {
-  mrssm::WeightPtrs w;
-  for (int i = 0; i < n; ++i) w.p[i] = static_cast<const float*>(weights[i]);
-  return w;
-}
-
 inline cudaError_t launch_forward(const mrssm::WeightPtrs& w, const Plan& P, size_t smem,
                                   const float* x, const float* coords, float* out, float* stash,
                                   int N, cudaStream_t stream) {

@@ -196,7 +196,7 @@ int fused_encoder_backward(const void* const* weights, int n_weights, const floa
   fenc::Plan P;
   size_t smem = 0;
   if (!fenc::make_plan(d, &P, &smem) || n_weights != 2 * P.n) return (int)cudaErrorInvalidValue;
-  const mrssm::WeightPtrs w = fenc::weight_ptrs(weights, n_weights);
+  const mrssm::WeightPtrs w = mrssm::weight_ptrs(weights, n_weights);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = fenc::launch_forward(w, P, smem, x, coords, nullptr, stash, d.N, s);
   if (err != cudaSuccess) return (int)err;

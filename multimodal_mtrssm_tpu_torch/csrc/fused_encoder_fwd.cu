@@ -44,7 +44,7 @@ int fused_encoder_forward(const void* const* weights, int n_weights, const float
   fenc::Plan P;
   size_t smem = 0;
   if (!fenc::make_plan(d, &P, &smem) || n_weights != 2 * P.n) return (int)cudaErrorInvalidValue;
-  return (int)fenc::launch_forward(fenc::weight_ptrs(weights, n_weights), P, smem, x, coords, out,
+  return (int)fenc::launch_forward(mrssm::weight_ptrs(weights, n_weights), P, smem, x, coords, out,
                                    nullptr, d.N, static_cast<cudaStream_t>(stream));
 }
 

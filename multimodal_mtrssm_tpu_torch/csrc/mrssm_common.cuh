@@ -42,6 +42,14 @@ struct WeightPtrs {
   const float* p[kMaxWeights];
 };
 
+// WeightPtrs of the n device pointers in a host array (a C entry point's
+// `weights` argument).
+inline WeightPtrs weight_ptrs(const void* const* weights, int n) {
+  WeightPtrs w;
+  for (int i = 0; i < n; ++i) w.p[i] = static_cast<const float*>(weights[i]);
+  return w;
+}
+
 // Per weight tensor: [in, out] in shared memory (a bias has in = 1), its
 // offset in the flat weight (and gradient) buffer, and the total size.
 struct WeightDims {

@@ -27,7 +27,12 @@ Kernels (sources in ``csrc/``, built at first use by :mod:`.build`):
 - ``fused_encoder_fwd`` / ``fused_encoder_bwd``: the whole conv encoder per
   tile of frames and its VJP (``conv_layout="fused_enc"``), replacing
   ``ops/pallas/fused_conv.py::_fwd_kernel`` and ``::_bwd_kernel`` as
-  ``fused_encoder_apply`` reaches them.
+  ``fused_encoder_apply`` reaches them;
+- ``fused_decoder_fwd`` / ``fused_decoder_bwd``: the whole conv decoder per
+  tile of frames and its VJP (``fused_decoder_apply``, a public function
+  that no model config selects, as in JAX), replacing the same
+  ``fused_conv.py::_fwd_kernel`` and ``::_bwd_kernel`` as
+  ``fused_decoder_apply`` reaches them.
 """
 
 from __future__ import annotations
@@ -46,6 +51,8 @@ from multimodal_mtrssm_tpu_torch.ops.kernels import (
     rollout_mt,
 )
 from multimodal_mtrssm_tpu_torch.ops.kernels.fused_conv import (
+    fused_decoder_applicable,
+    fused_decoder_apply,
     fused_encoder_applicable,
     fused_encoder_apply,
     resolve_conv_layout,
@@ -64,7 +71,9 @@ LAUNCH_COUNTERS = {"recurrence_fwd": (recurrence, "launches"),
                    "stacked_recurrence_fwd": (recurrence_stacked, "launches"),
                    "stacked_recurrence_bwd": (recurrence_stacked, "bwd_launches"),
                    "fused_encoder_fwd": (fused_conv, "launches"),
-                   "fused_encoder_bwd": (fused_conv, "bwd_launches")}
+                   "fused_encoder_bwd": (fused_conv, "bwd_launches"),
+                   "fused_decoder_fwd": (fused_conv, "dec_launches"),
+                   "fused_decoder_bwd": (fused_conv, "dec_bwd_launches")}
 
 # use_pallas_train values of the JAX package that the port refuses, besides
 # False and None (its XLA-scan path, which the port does not have): JAX's
@@ -194,6 +203,8 @@ def reset_launch_counts() -> None:
 __all__ = [
     "LAUNCH_COUNTERS",
     "MTSpec",
+    "fused_decoder_applicable",
+    "fused_decoder_apply",
     "fused_encoder_applicable",
     "fused_encoder_apply",
     "fused_mt_rollout_transition",

@@ -23,8 +23,9 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("recurrence_fwd.cu", "recurrence_bwd.cu", "rollout.cu", "recurrence_mt_fwd.cu",
            "recurrence_mt_bwd.cu", "rollout_mt.cu", "recurrence_stacked_fwd.cu",
-           "recurrence_stacked_bwd.cu", "fused_encoder_fwd.cu", "fused_encoder_bwd.cu")
-HEADERS = ("mrssm_common.cuh", "fused_encoder.cuh")
+           "recurrence_stacked_bwd.cu", "fused_encoder_fwd.cu", "fused_encoder_bwd.cu",
+           "fused_decoder_fwd.cu", "fused_decoder_bwd.cu")
+HEADERS = ("mrssm_common.cuh", "fused_encoder.cuh", "fused_decoder.cuh")
 # Hopper only (sm_90a); no --use_fast_math, so expf/logf/tanhf stay accurate
 # and the straight-through value (onehot + p) - p is not reassociated.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -53,6 +54,16 @@ class EncDims(ctypes.Structure):
         "N", "H", "W", "C0", "coord", "ch0", "ch1", "ch2", "res_out", "res_mid", "n_res",
         "out_dim", "frames", "chunk")]
 
+
+class DecDims(ctypes.Structure):
+    """``fdec::DecDims`` of ``csrc/fused_decoder.cuh``, field for field: the
+    fused decoder's frame count, feature width and layer widths, frames per
+    block, and frames per chunk of its weight-gradient pass."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "N", "F", "lin0", "c0", "h0", "w0", "res_in", "res_mid", "n_res", "ch0", "ch1", "ch2",
+        "frames", "chunk")]
+
 # name → (restype, argtypes) of the C entry points called from Python.
 _SIGNATURES = {
     "mrssm_recurrence_forward": (_I, [_P] * 13 + [_I] * 9 + [_P]),
@@ -69,6 +80,9 @@ _SIGNATURES = {
     "fused_encoder_sizes": (_I, [EncDims, _P]),
     "fused_encoder_forward": (_I, [_P, _I, _P, _P, _P, EncDims, _P]),
     "fused_encoder_backward": (_I, [_P, _I] + [_P] * 8 + [EncDims, _P]),
+    "fused_decoder_sizes": (_I, [DecDims, _P]),
+    "fused_decoder_forward": (_I, [_P, _I, _P, _P, DecDims, _P]),
+    "fused_decoder_backward": (_I, [_P, _I] + [_P] * 7 + [DecDims, _P]),
     "mrssm_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -1,4 +1,5 @@
-"""Kernels 8-9: the whole conv encoder in one kernel per tile of frames.
+"""Kernels 8-11: the whole conv encoder, and the whole conv decoder, each in
+one kernel per tile of frames.
 
 Port of the encoder entry of ``multimodal_mtrssm_tpu/ops/pallas/fused_conv.py``
 (``fused_encoder_applicable`` ``:136``, ``_plan`` ``:151``,
@@ -27,26 +28,52 @@ compute, not their layout.
 in the kernels' order of layers and ELU as ``exp(x) - 1`` (``fused_conv.py:
 232-236``). On a CPU tensor :func:`fused_encoder_apply` runs it; on a CUDA
 tensor it launches the kernels or raises, never cuDNN.
+
+The decoder entry (``fused_decoder_applicable`` ``:670``,
+``fused_decoder_apply`` ``:766``, the same ``_fwd_kernel``/``_bwd_kernel``)
+is ported the same way, on the port's own :class:`~..nn.conv.Decoder`
+weights: the two linears (the second unflattened in the reference's
+``(c, h, w)`` order), the optional 1×1 ``res_proj``, the residual blocks and
+the three k4 s2 p1 transposed convs (ELU, ELU, Tanh), features ``[N, F]`` →
+NHWC frames ``[N, 32, 32, 1]``.
+
+- ``fused_decoder_fwd`` (``csrc/fused_decoder_fwd.cu``) and
+  ``fused_decoder_bwd`` (``csrc/fused_decoder_bwd.cu``): the encoder
+  kernels' design, with the decoder's layers (``csrc/fused_decoder.cuh``);
+  the backward also returns the features' cotangent, since in training the
+  decoder sits on the latents.
+
+JAX's decoder operators (``build_decoder_operators`` ``:686``,
+``_deconv_superrow_maps`` ``:615``, ``superrow_decoder_xla`` ``:752``) are
+the same 128-lane TPU layout and are not ported, nor are the ``tile``,
+``interpret`` and ``operators`` arguments of its entry: the kernels choose
+their own tile, and a CPU tensor runs :func:`fused_decoder_plain`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 
-from multimodal_mtrssm_tpu_torch.nn.conv import Encoder, EncoderConfig
+from multimodal_mtrssm_tpu_torch.nn.conv import Decoder, DecoderConfig, Encoder, EncoderConfig
 
-# The kernels' layer table holds at most 14 layers: 3 strided convs, the
-# projection, two convs a residual block and the head.
+# The kernels' layer table holds at most 14 layers: for the encoder 3
+# strided convs, the projection, two convs a residual block and the head;
+# for the decoder 2 linears, the projection, two convs a block and 3
+# transposed convs.
 MAX_RESIDUAL_BLOCKS = 4
-# Frames per block of the forward and the backward's cotangent pass.
+# Frames per block of the forwards and the backwards' cotangent passes.
 FRAMES_PER_BLOCK = 2
-# Kernel launches since the last reset, forward and backward (plain ints).
+# Kernel launches since the last reset, forward and backward (plain ints),
+# of the encoder and of the decoder kernels.
 launches = 0
 bwd_launches = 0
+dec_launches = 0
+dec_bwd_launches = 0
 
 
 def fused_encoder_applicable(cfg: EncoderConfig) -> bool:
@@ -179,35 +206,63 @@ def _dims(cfg: EncoderConfig, n: int):
                    chunk=max(8, -(-n // 64)))
 
 
-def _check(weights: Sequence[torch.Tensor], cfg: EncoderConfig, x: torch.Tensor,
-           extra: dict[str, tuple[torch.Tensor, tuple[int, ...]]] | None = None) -> None:
-    """Device, dtype, shape and contiguity checks of a kernel launch."""
+def _check_tensors(weights: Sequence[torch.Tensor], shapes: list[tuple[int, ...]], stack: str,
+                   inputs: dict[str, tuple[torch.Tensor, tuple[int, ...]]]) -> None:
+    """The count of a stack's tensors, then the device, dtype, shape and
+    contiguity of them and of the launch's ``inputs``, on the device of the
+    first input."""
     from multimodal_mtrssm_tpu_torch.ops.kernels.recurrence import _check_inputs
 
+    if len(weights) != len(shapes):
+        raise ValueError(f"expected {len(shapes)} {stack} tensors, got {len(weights)}")
+    expect = dict(inputs)
+    for i, (t, shape) in enumerate(zip(weights, shapes)):
+        expect[f"weights[{i}]"] = (t, shape)
+    _check_inputs(expect, next(iter(inputs.values()))[0].device)
+
+
+def _check(weights: Sequence[torch.Tensor], cfg: EncoderConfig, x: torch.Tensor,
+           extra: dict[str, tuple[torch.Tensor, tuple[int, ...]]] | None = None) -> None:
+    """Device, dtype, shape and contiguity checks of an encoder kernel launch."""
     if not fused_encoder_applicable(cfg):
         raise ValueError(f"the fused encoder kernels do not take this encoder: {cfg}")
     if x.ndim != 4 or tuple(x.shape[1:]) != (*cfg.in_hw, cfg.in_channels):
         raise ValueError(f"the fused encoder takes [N, {cfg.in_hw[0]}, {cfg.in_hw[1]}, "
                          f"{cfg.in_channels}] frames, got {tuple(x.shape)}")
-    shapes = weight_shapes(cfg)
-    if len(weights) != len(shapes):
-        raise ValueError(f"expected {len(shapes)} encoder tensors, got {len(weights)}")
-    expect = {"x": (x, tuple(x.shape)), **(extra or {})}
-    for i, (t, shape) in enumerate(zip(weights, shapes)):
-        expect[f"weights[{i}]"] = (t, shape)
-    _check_inputs(expect, x.device)
+    _check_tensors(weights, weight_shapes(cfg), "encoder",
+                   {"x": (x, tuple(x.shape)), **(extra or {})})
 
 
-def _sizes(lib, dims) -> tuple[int, int, int, int]:
-    """``(stash, dstash, grads, chunks)``: floats a frame of the backward's
-    activation and cotangent records, weight-gradient floats, and frame
-    chunks of its weight-gradient pass. Raises where a block's shared
-    memory would not fit."""
+def _sizes(query, dims, stack: str) -> tuple[int, int, int, int]:
+    """``(stash, dstash, grads, chunks)`` from a stack's sizes entry point
+    ``query``: floats a frame of the backward's activation and cotangent
+    records, weight-gradient floats, and frame chunks of its weight-gradient
+    pass. Raises where a block's shared memory would not fit."""
     out = (ctypes.c_longlong * 4)()
-    if lib.fused_encoder_sizes(dims, ctypes.cast(out, ctypes.c_void_p)) != 0:
-        raise ValueError("the fused encoder kernels' shared memory does not fit one block "
+    if query(dims, ctypes.cast(out, ctypes.c_void_p)) != 0:
+        raise ValueError(f"the fused {stack} kernels' shared memory does not fit one block "
                          f"at {dims.frames} frames a block for these widths")
     return tuple(int(v) for v in out)  # type: ignore[return-value]
+
+
+def _backward_buffers(sizes: tuple[int, int, int, int], weights: Sequence[torch.Tensor],
+                      x: torch.Tensor, stack: str):
+    """A stack backward's gradient output and scratch for :func:`_sizes`'
+    ``sizes`` and ``x.shape[0]`` frames: the gradient floats of every tensor
+    back to back (torch layout), their views in the tensors' shapes, the
+    scratch tensor (held until the launch is queued) and its pointers to
+    the activation record, the cotangent record and the partial gradients."""
+    stash, dstash, n_grad, chunks = sizes
+    if n_grad != sum(t.numel() for t in weights):
+        raise RuntimeError(f"the kernel's gradient layout ({n_grad} floats) does not match "
+                           f"the {stack}'s tensors")
+    N = x.shape[0]
+    d_flat = x.new_empty(n_grad)
+    grads = tuple(v.view(t.shape) for v, t in
+                  zip(d_flat.split([t.numel() for t in weights]), weights))
+    scratch = x.new_empty(N * (stash + dstash) + chunks * n_grad)
+    base = scratch.data_ptr()
+    return d_flat, grads, scratch, (base, base + 4 * N * stash, base + 4 * N * (stash + dstash))
 
 
 def fused_encoder_forward_cuda(weights: Sequence[torch.Tensor], cfg: EncoderConfig,
@@ -225,7 +280,7 @@ def fused_encoder_forward_cuda(weights: Sequence[torch.Tensor], cfg: EncoderConf
     dims = _dims(cfg, x.shape[0])
     ptrs = (ctypes.c_void_p * len(weights))(*(t.data_ptr() for t in weights))
     with torch.cuda.device(x.device):
-        _sizes(lib, dims)
+        _sizes(lib.fused_encoder_sizes, dims, "encoder")
         c = coords(cfg, x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.fused_encoder_forward(ctypes.cast(ptrs, ctypes.c_void_p), len(weights),
@@ -250,61 +305,46 @@ def fused_encoder_backward_cuda(weights: Sequence[torch.Tensor], cfg: EncoderCon
 
     N = x.shape[0]
     _check(weights, cfg, x, {"g": (g, (N, cfg.out_dim))})
-    grads = [torch.zeros_like(t) for t in weights]
     dx = torch.zeros_like(x) if want_dx else None
     if N == 0:
-        return dx, tuple(grads)
+        return dx, tuple(torch.zeros_like(t) for t in weights)
     lib = build.load_library()
     dims = _dims(cfg, N)
     ptrs = (ctypes.c_void_p * len(weights))(*(t.data_ptr() for t in weights))
     with torch.cuda.device(x.device):
-        stash, dstash, n_grad, chunks = _sizes(lib, dims)
-        if n_grad != sum(t.numel() for t in weights):
-            raise RuntimeError(f"the kernel's gradient layout ({n_grad} floats) does not match "
-                               "the encoder's tensors")
-        d_flat = x.new_empty(n_grad)
-        grads = [v.view(t.shape) for v, t in
-                 zip(d_flat.split([t.numel() for t in weights]), weights)]
-        scratch = x.new_empty(N * (stash + dstash) + chunks * n_grad)
+        d_flat, grads, scratch, records = _backward_buffers(
+            _sizes(lib.fused_encoder_sizes, dims, "encoder"), weights, x, "encoder")
         c = coords(cfg, x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        base = scratch.data_ptr()
         err = lib.fused_encoder_backward(
             ctypes.cast(ptrs, ctypes.c_void_p), len(weights), x.data_ptr(), c.data_ptr(),
-            g.data_ptr(), None if dx is None else dx.data_ptr(), d_flat.data_ptr(), base,
-            base + 4 * N * stash, base + 4 * N * (stash + dstash), dims, stream)
+            g.data_ptr(), None if dx is None else dx.data_ptr(), d_flat.data_ptr(), *records, dims,
+            stream)
     build.check(err)
     bwd_launches += 1
-    return dx, tuple(grads)
+    return dx, grads
 
 
-class FusedEncoderFunction(torch.autograd.Function):
-    """The fused encoder under autograd: the forward kernel, and the backward
-    kernels as its VJP (``fused_conv.py:530-558``), with the encoder's
-    tensors as separate inputs so that their gradients reach the
-    ``nn.Parameter``s. ``on_cuda`` picks the kernels; otherwise the plain
-    versions run (CPU tensors), through the same wiring."""
+class FusedStackFunction(torch.autograd.Function):
+    """A fused conv stack under autograd: its forward, and its backward as
+    the VJP (``fused_conv.py:530-558``). ``ops`` is the stack's (forward,
+    backward) pair, the kernels' wrappers on CUDA tensors or their plain
+    versions on CPU tensors, called as ``forward(weights, cfg, x)`` and
+    ``backward(weights, cfg, x, g, want_dx)``. The input and every tensor of
+    the stack are separate inputs, so that gradients reach the input and the
+    ``nn.Parameter``s."""
 
     @staticmethod
-    def forward(ctx, cfg: EncoderConfig, on_cuda: bool, x: torch.Tensor,
-                *weights: torch.Tensor) -> torch.Tensor:
-        if on_cuda:
-            out = fused_encoder_forward_cuda(weights, cfg, x)
-        else:
-            out = fused_encoder_plain(weights, cfg, x)
-        ctx.cfg, ctx.on_cuda = cfg, on_cuda
+    def forward(ctx, ops, cfg, x: torch.Tensor, *weights: torch.Tensor) -> torch.Tensor:
+        ctx.ops, ctx.cfg = ops, cfg
         ctx.save_for_backward(x, *weights)
-        return out
+        return ops[0](weights, cfg, x)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g: torch.Tensor):
         x, *weights = ctx.saved_tensors
-        want_dx = ctx.needs_input_grad[2]
-        if ctx.on_cuda:
-            dx, d_w = fused_encoder_backward_cuda(weights, ctx.cfg, x, g.contiguous(), want_dx)
-        else:
-            dx, d_w = fused_encoder_backward_plain(weights, ctx.cfg, x, g, want_dx)
+        dx, d_w = ctx.ops[1](weights, ctx.cfg, x, g.contiguous(), ctx.needs_input_grad[2])
         return (None, None, dx, *d_w)
 
 
@@ -321,7 +361,215 @@ def fused_encoder_apply(encoder: Encoder, x: torch.Tensor) -> torch.Tensor:
                          f"{cfg.in_channels}], got {tuple(x.shape)}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no fused encoder route for device {x.device}")
+    ops = ((fused_encoder_forward_cuda, fused_encoder_backward_cuda) if x.device.type == "cuda"
+           else (fused_encoder_plain, fused_encoder_backward_plain))
     lead = x.shape[:-3]
     flat = x.reshape(-1, *x.shape[-3:]).contiguous()
-    out = FusedEncoderFunction.apply(cfg, x.device.type == "cuda", flat, *encoder_weights(encoder))
+    out = FusedStackFunction.apply(ops, cfg, flat, *encoder_weights(encoder))
     return out.reshape(*lead, out.shape[-1])
+
+
+# ---- the decoder entry ----------------------------------------------------------------------
+
+
+def fused_decoder_applicable(cfg: DecoderConfig) -> bool:
+    """The stacks the decoder kernels take: JAX's (two linears, a ``[C, 4,
+    4]`` conv input, three k4 s2 p1 transposed convs without output padding,
+    ELU inside and Tanh at the output, ``fused_conv.py:670``), and also what
+    the kernels assume beyond it: 32×32×1 frames out (one output channel),
+    a second linear as wide as ``conv_in_shape`` holds, and at most
+    :data:`MAX_RESIDUAL_BLOCKS` residual blocks. A ``res_proj``
+    (``residual_input_size != conv_in_shape[0]``) is taken."""
+    return (
+        len(cfg.linear_sizes) == 2
+        and tuple(cfg.conv_in_shape[1:]) == (4, 4)
+        and len(cfg.channels) == 3
+        and tuple(cfg.kernel_sizes) == (4, 4, 4)
+        and tuple(cfg.strides) == (2, 2, 2)
+        and tuple(cfg.paddings) == (1, 1, 1)
+        and tuple(cfg.output_paddings) == (0, 0, 0)
+        and cfg.activation_name == "ELU"
+        and cfg.out_activation_name == "Tanh"
+        and cfg.channels[-1] == 1
+        and cfg.linear_sizes[-1] == math.prod(cfg.conv_in_shape)
+        and cfg.num_residual_blocks <= MAX_RESIDUAL_BLOCKS
+    )
+
+
+def _has_res_proj(cfg: DecoderConfig) -> bool:
+    return cfg.num_residual_blocks > 0 and cfg.conv_in_shape[0] != cfg.residual_input_size
+
+
+def decoder_weights(decoder: Decoder) -> tuple[torch.Tensor, ...]:
+    """The decoder's tensors in the kernels' layer order, weight then bias
+    of each: ``linears.0``, ``linears.1``, ``res_proj`` (if any), each
+    residual block's two convs, the transposed convs (``ConvTranspose2d``
+    weights ``[Ci, Co, 4, 4]``)."""
+    layers = [*decoder.linears]
+    if decoder.res_proj is not None:
+        layers.append(decoder.res_proj)
+    for block in decoder.res_blocks or ():
+        layers += [block.conv1, block.conv2]
+    return tuple(t for m in (*layers, *decoder.deconvs) for t in (m.weight, m.bias))
+
+
+def decoder_weight_shapes(cfg: DecoderConfig) -> list[tuple[int, ...]]:
+    """Torch-layout shapes of :func:`decoder_weights`' tensors."""
+    (l0, l1), c = cfg.linear_sizes, cfg.conv_in_shape[0]
+    shapes: list[tuple[int, ...]] = [(l0, cfg.in_features), (l0,), (l1, l0), (l1,)]
+    if _has_res_proj(cfg):
+        shapes += [(cfg.residual_input_size, c, 1, 1), (cfg.residual_input_size,)]
+        c = cfg.residual_input_size
+    mid = cfg.residual_intermediate_size
+    for _ in range(cfg.num_residual_blocks):
+        shapes += [(mid, c, 3, 3), (mid,), (c, mid, 3, 3), (c,)]
+    for ch, k in zip(cfg.channels, cfg.kernel_sizes):
+        shapes += [(c, ch, k, k), (ch,)]
+        c = ch
+    return shapes
+
+
+def fused_decoder_plain(weights: Sequence[torch.Tensor], cfg: DecoderConfig,
+                        feats: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the decoder's forward kernel: features
+    ``[N, F]`` → NHWC frames ``[N, 32, 32, 1]`` on :func:`decoder_weights`'
+    tensors, ELU as ``exp(x) - 1``."""
+    it = iter(weights)
+    x = _elu(F.linear(feats, next(it), next(it)))
+    x = _elu(F.linear(x, next(it), next(it))).reshape(-1, *cfg.conv_in_shape)
+    if _has_res_proj(cfg):
+        x = _elu(F.conv2d(x, next(it), next(it)))
+    for _ in range(cfg.num_residual_blocks):
+        t = _elu(F.conv2d(x, next(it), next(it), padding=1))
+        x = _elu(x + F.conv2d(t, next(it), next(it), padding=1))
+    last = len(cfg.channels) - 1
+    for i, (s, p, op) in enumerate(zip(cfg.strides, cfg.paddings, cfg.output_paddings)):
+        x = F.conv_transpose2d(x, next(it), next(it), stride=s, padding=p, output_padding=op)
+        x = torch.tanh(x) if i == last else _elu(x)
+    return x.permute(0, 2, 3, 1)
+
+
+def fused_decoder_backward_plain(weights: Sequence[torch.Tensor], cfg: DecoderConfig,
+                                 feats: torch.Tensor, g: torch.Tensor, want_dx: bool,
+                                 ) -> tuple[torch.Tensor | None, tuple[torch.Tensor, ...]]:
+    """Plain PyTorch version of the decoder's backward kernel: an autograd
+    replay of :func:`fused_decoder_plain` under the cotangent ``g`` of the
+    frames. Returns ``(d_feats or None, weight grads)``."""
+    with torch.enable_grad():
+        w = [t.detach().requires_grad_() for t in weights]
+        xs = feats.detach().requires_grad_(want_dx)
+        out = fused_decoder_plain(w, cfg, xs)
+        grads = torch.autograd.grad(out, [*w, xs] if want_dx else w, g)
+    return (grads[-1] if want_dx else None), tuple(grads[:len(w)])
+
+
+def _dec_dims(cfg: DecoderConfig, n: int):
+    from multimodal_mtrssm_tpu_torch.ops.kernels.build import DecDims
+
+    c0, h0, w0 = cfg.conv_in_shape
+    return DecDims(N=n, F=cfg.in_features, lin0=cfg.linear_sizes[0], c0=c0, h0=h0, w0=w0,
+                   res_in=cfg.residual_input_size, res_mid=cfg.residual_intermediate_size,
+                   n_res=cfg.num_residual_blocks, ch0=cfg.channels[0], ch1=cfg.channels[1],
+                   ch2=cfg.channels[2], frames=FRAMES_PER_BLOCK, chunk=max(8, -(-n // 64)))
+
+
+def _dec_frames_shape(cfg: DecoderConfig) -> tuple[int, int, int]:
+    """``(H, W, C)`` of the decoder's output frames."""
+    h = cfg.conv_in_shape[1]
+    for k, s, p in zip(cfg.kernel_sizes, cfg.strides, cfg.paddings):
+        h = (h - 1) * s - 2 * p + k
+    return h, h, cfg.channels[-1]
+
+
+def _check_dec(weights: Sequence[torch.Tensor], cfg: DecoderConfig, feats: torch.Tensor,
+               extra: dict[str, tuple[torch.Tensor, tuple[int, ...]]] | None = None) -> None:
+    """Device, dtype, shape and contiguity checks of a decoder kernel launch."""
+    if not fused_decoder_applicable(cfg):
+        raise ValueError(f"the fused decoder kernels do not take this decoder: {cfg}")
+    if feats.ndim != 2 or feats.shape[1] != cfg.in_features:
+        raise ValueError(f"the fused decoder takes [N, {cfg.in_features}] features, "
+                         f"got {tuple(feats.shape)}")
+    _check_tensors(weights, decoder_weight_shapes(cfg), "decoder",
+                   {"feats": (feats, tuple(feats.shape)), **(extra or {})})
+
+
+def fused_decoder_forward_cuda(weights: Sequence[torch.Tensor], cfg: DecoderConfig,
+                               feats: torch.Tensor) -> torch.Tensor:
+    """Launch the decoder's forward kernel (``csrc/fused_decoder_fwd.cu``):
+    ``[N, F]`` features → ``[N, 32, 32, 1]`` frames. Raises on any input it
+    does not take."""
+    global dec_launches
+    from multimodal_mtrssm_tpu_torch.ops.kernels import build
+
+    _check_dec(weights, cfg, feats)
+    out = feats.new_empty((feats.shape[0], *_dec_frames_shape(cfg)))
+    if feats.shape[0] == 0:
+        return out
+    lib = build.load_library()
+    dims = _dec_dims(cfg, feats.shape[0])
+    ptrs = (ctypes.c_void_p * len(weights))(*(t.data_ptr() for t in weights))
+    with torch.cuda.device(feats.device):
+        _sizes(lib.fused_decoder_sizes, dims, "decoder")
+        stream = torch.cuda.current_stream(feats.device).cuda_stream
+        err = lib.fused_decoder_forward(ctypes.cast(ptrs, ctypes.c_void_p), len(weights),
+                                        feats.data_ptr(), out.data_ptr(), dims, stream)
+    build.check(err)
+    dec_launches += 1
+    return out
+
+
+def fused_decoder_backward_cuda(weights: Sequence[torch.Tensor], cfg: DecoderConfig,
+                                feats: torch.Tensor, g: torch.Tensor, want_dx: bool,
+                                ) -> tuple[torch.Tensor | None, tuple[torch.Tensor, ...]]:
+    """Launch the decoder's backward kernels (``csrc/fused_decoder_bwd.cu``):
+    the recomputing forward, the cotangent pass, the weight-gradient pass
+    and its fixed-order reduction. Same contract as
+    :func:`fused_decoder_backward_plain`. Its device-memory scratch at the
+    reference widths (48-wide features): 17,520 + 17,472 floats a frame of
+    activation and cotangent records (~140 KB a frame: ~34 MB at N=240,
+    ~537 MB at N=3840) and ≤ 64 frame chunks × 553,905 partial gradient
+    floats (≤ 142 MB)."""
+    global dec_bwd_launches
+    from multimodal_mtrssm_tpu_torch.ops.kernels import build
+
+    N = feats.shape[0]
+    _check_dec(weights, cfg, feats, {"g": (g, (N, *_dec_frames_shape(cfg)))})
+    dx = torch.zeros_like(feats) if want_dx else None
+    if N == 0:
+        return dx, tuple(torch.zeros_like(t) for t in weights)
+    lib = build.load_library()
+    dims = _dec_dims(cfg, N)
+    ptrs = (ctypes.c_void_p * len(weights))(*(t.data_ptr() for t in weights))
+    with torch.cuda.device(feats.device):
+        d_flat, grads, scratch, records = _backward_buffers(
+            _sizes(lib.fused_decoder_sizes, dims, "decoder"), weights, feats, "decoder")
+        stream = torch.cuda.current_stream(feats.device).cuda_stream
+        err = lib.fused_decoder_backward(
+            ctypes.cast(ptrs, ctypes.c_void_p), len(weights), feats.data_ptr(), g.data_ptr(),
+            None if dx is None else dx.data_ptr(), d_flat.data_ptr(), *records, dims, stream)
+    build.check(err)
+    dec_bwd_launches += 1
+    return dx, grads
+
+
+def fused_decoder_apply(decoder: Decoder, feats: torch.Tensor) -> torch.Tensor:
+    """The decoder on features ``[..., F]`` → NHWC frames ``[..., 32, 32,
+    1]`` through the fused kernels (CUDA tensors) or their plain versions
+    (CPU tensors); differentiable with respect to the decoder's parameters
+    and ``feats``. Raises for a decoder or features the kernels do not take,
+    and for any other device. JAX's ``fused_decoder_apply(params, cfg,
+    feats)``; no model config selects it, as in JAX."""
+    cfg = decoder.cfg
+    if not fused_decoder_applicable(cfg):
+        raise ValueError(f"the fused decoder kernels do not take this decoder: {cfg}")
+    if feats.ndim < 1 or feats.shape[-1] != cfg.in_features:
+        raise ValueError(f"the fused decoder takes [..., {cfg.in_features}] features, "
+                         f"got {tuple(feats.shape)}")
+    if feats.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no fused decoder route for device {feats.device}")
+    ops = ((fused_decoder_forward_cuda, fused_decoder_backward_cuda)
+           if feats.device.type == "cuda" else (fused_decoder_plain, fused_decoder_backward_plain))
+    lead = feats.shape[:-1]
+    flat = feats.reshape(-1, cfg.in_features).contiguous()
+    out = FusedStackFunction.apply(ops, cfg, flat, *decoder_weights(decoder))
+    return out.reshape(*lead, *out.shape[1:])

@@ -10,7 +10,7 @@ frames within 1e-4 × max(1, max|JAX|) per tensor; and the MMTRSSM
 ``shared_step`` at ``MMTRSSMConfig(conv_layout="fused_enc")`` — loss within
 rtol 2e-5, gradient tree within 3e-4 × scale — against the JAX model at
 the same config. On the CPU the port runs the kernels' plain versions
-through the same ``FusedEncoderFunction`` the card uses.
+through the same ``FusedStackFunction`` the card uses.
 """
 
 import dataclasses

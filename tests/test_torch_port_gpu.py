@@ -8,15 +8,18 @@ the card and no JAX, without the JAX-importing ``conftest.py``:
 
 The MoPoE-MRSSM kernels, the MoPoE-MMTRSSM kernels (hierarchical
 recurrence forward and backward, hierarchical rollout), the stacked
-recurrence kernels and the fused encoder kernels alike. Tolerances as in
-``chip_smoke.py``: deters, integrators and logits within 1e-4, sampled
-categories equal outside blocks whose top two scores lie within 1e-5
-(``ops/kernels/parity.py``); backward gradients within 2e-4 × max(1,
-max|plain|) per tensor; encoder embeddings within 1e-4 × max(1, max|plain|)
-(f32 sums over up to 576 taps in another order); a whole train step's loss
-terms within 2e-5 of the loss and its gradient tree within 3e-4 × scale of
-the CPU route.
+recurrence kernels, the fused encoder kernels and the fused decoder kernels
+alike. Tolerances as in ``chip_smoke.py``: deters, integrators and logits
+within 1e-4, sampled categories equal outside blocks whose top two scores
+lie within 1e-5 (``ops/kernels/parity.py``); backward gradients within
+2e-4 × max(1, max|plain|) per tensor; encoder embeddings within 1e-4 ×
+max(1, max|plain|) (f32 sums over up to 576 taps in another order); decoder
+frames within 1e-5 (after the Tanh); a whole train step's loss terms within
+2e-5 of the loss and its gradient tree within 3e-4 × scale of the CPU
+route.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -317,3 +320,69 @@ def test_stacked_fused_train_step_matches_the_cpu_route(cuda_device):
     assert kernels.launch_counts() == {**dict.fromkeys(kernels.LAUNCH_COUNTERS, 0),
                                       "stacked_recurrence_fwd": 1, "stacked_recurrence_bwd": 1,
                                       "fused_encoder_fwd": 2, "fused_encoder_bwd": 2}
+
+
+# ---- the fused decoder -------------------------------------------------------------
+
+
+def _decoder(family: str, dev, **cfg):
+    """A decoder of ``family``'s model (48- or 96-wide features), or one
+    built from ``cfg`` overrides of the MRSSM decoder's config."""
+    from multimodal_mtrssm_tpu_torch.nn.conv import Decoder
+
+    if cfg:
+        torch.manual_seed(3)
+        return Decoder(dataclasses.replace(MRSSMConfig().decoder_cfg("vision"), **cfg)).to(dev)
+    return (_model if family == "mrssm" else _mt_model)(dev).vision_decoder
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family,N,cfg", [("mrssm", 240, {}), ("mmtrssm", 240, {}),
+                                          ("mrssm", 7, {}), ("mrssm", 3840, {}),
+                                          ("res_proj", 30, {"residual_input_size": 32})])
+def test_fused_decoder_kernels_match_plain_and_cudnn(cuda_device, family, N, cfg):
+    """The fused decoder's forward against its plain version and the cuDNN
+    ``Decoder`` (TF32 off) within 1e-5, and its backward (every weight
+    gradient and the features') against the plain backward in float64
+    within 2e-4 × scale; the backward is reproducible. Also a decoder with
+    a ``res_proj``."""
+    dec = _decoder(family, cuda_device, **cfg)
+    w = [t.detach() for t in fused_conv.decoder_weights(dec)]
+    rng = np.random.default_rng(N)
+    feats = torch.tensor(rng.standard_normal((N, dec.cfg.in_features)).astype(np.float32),
+                         device=cuda_device)
+    g = torch.tensor(rng.standard_normal((N, 32, 32, 1)).astype(np.float32), device=cuda_device)
+    with torch.no_grad():
+        got = fused_conv.fused_decoder_forward_cuda(w, dec.cfg, feats)
+        plain = fused_conv.fused_decoder_plain(w, dec.cfg, feats)
+        cudnn = dec(feats)
+        dx, dw = fused_conv.fused_decoder_backward_cuda(w, dec.cfg, feats, g, True)
+        dx2, dw2 = fused_conv.fused_decoder_backward_cuda(w, dec.cfg, feats, g, True)
+    assert float((got - plain).abs().max()) <= 1e-5 and float((got - cudnn).abs().max()) <= 1e-5
+    ref_dx, ref_dw = fused_conv.fused_decoder_backward_plain(
+        [t.double() for t in w], dec.cfg, feats.double(), g.double(), True)
+    parity.check_gradients([*dw, dx], [t.float() for t in (*ref_dw, ref_dx)])
+    assert all(torch.equal(a, b) for a, b in zip([*dw, dx], [*dw2, dx2]))
+
+
+@pytest.mark.gpu
+def test_fused_decoder_apply_launches_the_kernels_or_raises(cuda_device):
+    """Through ``fused_decoder_apply`` a forward and its backward launch each
+    kernel once and nothing else; the kernels refuse features and decoders
+    they do not take, and CPU tensors."""
+    dec = _decoder("mrssm", cuda_device)
+    feats = torch.randn(2, 3, 48, device=cuda_device, requires_grad=True)
+    kernels.reset_launch_counts()
+    frames = kernels.fused_decoder_apply(dec, feats)
+    frames.square().sum().backward()
+    assert frames.shape == (2, 3, 32, 32, 1) and feats.grad is not None
+    assert kernels.launch_counts() == {**dict.fromkeys(kernels.LAUNCH_COUNTERS, 0),
+                                      "fused_decoder_fwd": 1, "fused_decoder_bwd": 1}
+    w = [t.detach() for t in fused_conv.decoder_weights(dec)]
+    with pytest.raises(ValueError, match="features"):
+        fused_conv.fused_decoder_forward_cuda(w, dec.cfg, torch.zeros(2, 96, device=cuda_device))
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_conv.fused_decoder_forward_cuda([t.cpu() for t in w], dec.cfg, torch.zeros(2, 48))
+    with pytest.raises(ValueError, match="do not take"):
+        kernels.fused_decoder_apply(_decoder("mrssm", cuda_device, channels=(32, 16, 3)),
+                                    torch.zeros(2, 48, device=cuda_device))
