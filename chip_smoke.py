@@ -58,7 +58,9 @@ first two configurations' latent features.
    card, a device-time breakdown of the train step (``torch.profiler``),
    the median latency of ``/observe`` and ``/imagine`` through the server
    and the optimizer steps per second of ``Trainer.fit``; each kernel's
-   bound at the main path's shape.
+   bound at the main path's shape; the fused encoder forward's device time
+   (``torch.profiler``); and the registers, stack and spills ``ptxas``
+   gives the encoder forward.
 
 Each configuration's serving and training run, and the decoder's path
 (``fused_decoder_apply`` on both decoders of the first two configurations'
@@ -1034,12 +1036,14 @@ def encoder_timings(model, dev, card: str) -> tuple[dict, dict, dict]:
         k_ms = _median_ms(lambda: fused_conv.fused_encoder_forward_cuda(w, cfg, x), 20)
         p_ms = _median_ms(lambda: fused_conv.fused_encoder_plain(w, cfg, x), 10)
         l_ms = _median_ms(lambda: enc(x), 20)
+        d_ms = _device_ms(lambda: fused_conv.fused_encoder_forward_cuda(w, cfg, x), "encoder_")
         kb_ms = _median_ms(lambda: fused_conv.fused_encoder_backward_cuda(w, cfg, x, g, False), 10)
         pb_ms = _median_ms(lambda: fused_conv.fused_encoder_backward_plain(w, cfg, x, g, False), 10)
         with torch.enable_grad():
             lb_ms = _median_ms(lambda: torch.autograd.grad(enc(x), params, g), 10)
-        print(f"time fused_encoder_fwd N={N}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, cuDNN "
-              f"Encoder {l_ms:.4f} ms; fused_encoder_bwd (recompute + weight gradients): kernel "
+        dev_ms = "not measured" if d_ms is None else f"{d_ms:.4f} ms"
+        print(f"time fused_encoder_fwd N={N}: kernel {k_ms:.4f} ms (device {dev_ms}), plain "
+              f"{p_ms:.4f} ms, cuDNN Encoder {l_ms:.4f} ms; fused_encoder_bwd (recompute + weight gradients): kernel "
               f"{kb_ms:.4f} ms, plain {pb_ms:.4f} ms, cuDNN Encoder forward + backward "
               f"{lb_ms:.4f} ms | {card}")
         if "fused_encoder_fwd" not in main:
@@ -1050,6 +1054,68 @@ def encoder_timings(model, dev, card: str) -> tuple[dict, dict, dict]:
             bounds["fused_encoder_bwd"] = _bound(2 * (3 * macs - first) * N, 2 * _nbytes(w) +
                                                  _nbytes(x, g))
     return main, library, bounds
+
+
+def _device_ms(fn, key: str, reps: int = 10) -> float | None:
+    """Device time a call of the kernels whose names hold ``key``, under
+    ``torch.profiler``; None where the profiler does not start or stop, or
+    sees none. Errors of ``fn`` itself propagate."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    try:
+        prof.start()
+    except RuntimeError:
+        return None
+    try:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        try:
+            prof.stop()
+            events = prof.key_averages()
+        except RuntimeError:
+            events = []
+    total = sum(_self_device_us(e) for e in events if key in e.key)
+    return total / reps / 1e3 if total > 0 else None
+
+
+_CHILDREN: list[subprocess.Popen] = []  # stopped on exit, whatever failed
+
+
+def start_ptxas_report() -> subprocess.Popen:
+    """Compile the encoder forward's source once more with ``-Xptxas -v``, in
+    the background (into the git-ignored build directory)."""
+    from multimodal_mtrssm_tpu_torch.ops.kernels import build
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    obj = build.BUILD_DIR / "ptxas_report.o"
+    proc = subprocess.Popen([build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                             str(obj), str(build.CSRC / "fused_encoder_fwd.cu")],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    _CHILDREN.append(proc)
+    return proc
+
+
+def ptxas_report(proc: subprocess.Popen) -> None:
+    """Print ptxas's registers, stack and spills of each encoder forward
+    kernel (a measurement: "not measured" where the compile fails)."""
+    out = proc.communicate(timeout=300)[0]
+    if proc.returncode != 0:
+        print(f"ptxas fused_encoder_fwd.cu: not measured (nvcc exited {proc.returncode})")
+        return
+    name = None
+    for line in out.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            name = next((k for k in ("encoder_pack_kernel", "encoder_fwd_kernel")
+                         if k in mangled), None)
+        elif name and ("stack frame" in line or "Used" in line):
+            print(f"ptxas {name}: {line.replace('ptxas info    :', '').strip()}")
 
 
 # ---- the fused decoder -------------------------------------------------------------------
@@ -1329,6 +1395,7 @@ def main() -> int:
     )
     from multimodal_mtrssm_tpu_torch.ops.kernels import build
 
+    ptxas = start_ptxas_report()
     build.load_library()
     print(f"build: {build.build_seconds:.2f} s ({build.library_path().name})")
     runs: list[dict[str, int]] = []
@@ -1433,6 +1500,7 @@ def main() -> int:
     library.update(dec_library)
     runs.append(dec_path["counts"])
 
+    ptxas_report(ptxas)
     launches = {k: sum(run[k] for run in runs) for k in runs[0]}
     print("main-path launches, serving + training of the four configurations and the fused "
           f"decoder path: {launches}")
@@ -1477,4 +1545,11 @@ def main() -> int:
     return 0
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        for child in _CHILDREN:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    sys.exit(code)

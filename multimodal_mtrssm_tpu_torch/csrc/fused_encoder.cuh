@@ -1,29 +1,40 @@
 // Shared code of the fused encoder kernels (fused_encoder_fwd.cu,
-// fused_encoder_bwd.cu): the layer plan and the forward kernel, which the
-// backward also launches to recompute and record the activations.
+// fused_encoder_bwd.cu): the layer plan and the forward, which the backward
+// also launches to recompute and record the activations.
 //
 // The encoder is a chain of convolutions: the three strided convs, the 1×1
 // projection, two 3×3 convs a residual block, and the linear head, which on
 // the CHW-flattened 4×4 map is a 4×4 valid conv with `out` channels (its
-// torch weight [out, C·16] is [out, C, 4, 4]). Each layer reads its torch
-// weight [Co, Ci, k, k] as it is. Activations are HWC per frame (channel
-// fastest), so the threads of a warp, which own neighbouring output
-// channels, read one input value (a broadcast) and neighbouring weights.
+// torch weight [out, C·16] is [out, C, 4, 4]). Activations are HWC per frame
+// (channel fastest) in shared memory, one block of kFwdThreads per tile of
+// kFwdFrames frames; HBM sees the frames, the weights and the [N, out] embedding.
 //
-// Layout: one block of kThreads per tile of `frames` frames. The tile's
-// activations live in three shared-memory buffers (ping-pong between the
-// first two for the strided convs; the residual stream x in one, the
-// block's intermediate t in the third). A layer's weights are staged into
-// shared memory transposed to [Ci·k·k][Co], a chunk of output channels at a
-// time; the widest, a residual conv, is 147 KB and fits whole beside two
-// frames' activations (48 KB). This is where the TPU design does not carry
-// over: fused_conv.py keeps every layer's banded lane operators (megabytes)
-// resident in VMEM at once; here one layer's weights are resident at a
-// time, read from L2 once per block.
-//
-// f32 FMA, no tensor cores (the reference is f32; TF32 would keep ~3
-// digits). What bounds it: ~5.5 MFLOP a frame, ~90% in the six 64→64
-// residual convs at 4×4 — operations, not bytes.
+// The forward replaces fused_conv.py::_fwd_kernel (line 455) on this card.
+// It does ~2.76 M multiply-adds a frame at the reference widths, 89% in the
+// six 64→64 3×3 convs at 4×4, so it is bound by operations: f32 FMA (the
+// reference is f32; TF32 would keep ~3 digits). What held its first form
+// back was one output a thread, one dependent FMA chain over up to 576 taps,
+// two shared loads an FMA, and every layer's weights staged behind a
+// barrier. Here:
+// - each layer is an implicit GEMM over the tile (M = frames × positions,
+//   N = Co, K = Ci·k·k); a thread owns one position of every frame and 4
+//   output channels, F × 4 independent accumulators, and reads 4 input
+//   channels of a tap as one float4 of activations and one float4 of each
+//   of its 4 channels' weights: F + 4 shared loads per 16·F FMAs. Taps in
+//   the padding are skipped, not multiplied by zero;
+// - encoder_pack_kernel first rewrites the torch weights [Co, Ci, k, k] into
+//   slices [Co][tap][Ci] (so that input channels are contiguous, as in the
+//   activations), row stride padded so that a warp's float4 reads of
+//   neighbouring rows do not share banks, each slice at most half of what
+//   shared memory leaves; the forward streams the slices through two
+//   buffers by the Hopper bulk copy (TMA) on mbarriers, slice i + 1 in
+//   flight while slice i computes;
+// - where a layer has fewer (position, 4 channels) tasks than threads (the
+//   head, a narrow layer), S threads split a task's input channels and the
+//   S partial sums are added in a fixed order: no float atomics, the same
+//   bits on every launch.
+// The TPU kernel instead keeps every layer's banded lane operators
+// (megabytes) resident in VMEM; here one slice of one layer is resident.
 #pragma once
 
 #include <algorithm>
@@ -32,14 +43,19 @@
 
 namespace fenc {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // the backward's cotangent pass
+constexpr int kFwdThreads = 256;  // the forward
+// Frames a block of the forward: at N=240 120 blocks fill most of the
+// card's 132 SMs, where 4 would leave half of them idle (PERF.md, PR 8).
+constexpr int kFwdFrames = 2;
 constexpr int kMaxLayers = mrssm::kMaxWeights / 2;  // weight and bias each
 enum Mode { kElu = 0, kResidual = 1, kHead = 2 };
 
 // ops/kernels/build.py::EncDims, field for field: N frames of H×W×C0 (+ 2
 // CoordConv channels when coord), the strided convs' widths, the residual
 // stream's and intermediate widths and block count, the embedding width,
-// frames per block, and frames per chunk of the weight-gradient pass.
+// frames per block of the cotangent pass, and frames per chunk of the
+// weight-gradient pass.
 struct EncDims {
   int N, H, W, C0, coord, ch0, ch1, ch2, res_out, res_mid, n_res, out_dim, frames, chunk;
 };
@@ -55,6 +71,20 @@ struct Layer {
                                 // cotangent in the cotangent record
   int acc_in;                   // backward: add the input cotangent to its buffer (the
                                 // input also feeds a residual skip)
+  int bias_off;                 // forward: offset of the bias in the bias buffer
+  int fcn, fper, fpk;           // forward: output channels a chunk, taps a slice, and the
+                                // offset of the layer's first slice in the packed weights
+};
+
+// A slice of the forward's weights: the output channels [co0, co0 + cw) of
+// a layer and its taps [t0, t1), as 4·ceil(cw/4) rows (zeros past cw) of
+// (t1 - t0)·Ci floats, [tap][ci], at row stride sp, at `off` in the packed
+// weights. A layer is cut into chunks of Layer::fcn output channels and
+// each chunk into slices of Layer::fper taps; a chunk has several slices
+// only where it has no more tasks than threads.
+struct Slice {
+  int layer, co0, cw, t0, t1, sp, off;
+  int first, last;              // first and last slice of its chunk
 };
 
 struct Plan {
@@ -64,11 +94,90 @@ struct Plan {
   int bsz[3];                   // floats a frame of each shared-memory buffer
   int stash, dstash;            // floats a frame of the activation and cotangent records
   int wcap;                     // floats of the weight staging buffer
+  // The forward's own tile of kFwdFrames frames: fbsz[i] floats a frame of
+  // buffer i (the input holds only the C0 image channels); the bias buffer;
+  // the partial sums of a split task; two slice buffers of fslice floats;
+  // the packed weights' floats, and the dynamic shared memory.
+  int fbsz[3], fbias, fpart, fslice;
+  int packed;
+  size_t fsmem;
 };
 
-// The plan of an encoder and the dynamic shared memory of its kernels;
-// false where the widths need more layers than the table holds or a block's
-// shared memory does not fit.
+// The row stride of a slice of K floats a row: K rounded up to a multiple
+// of 4 with stride/4 odd, so that the threads of a warp that read one float4
+// each of neighbouring rows fall in distinct bank groups.
+__host__ __device__ __forceinline__ int padded_k(int K) {
+  const int r = (K + 3) / 4 * 4;
+  return (r / 4) % 2 == 0 ? r + 4 : r;
+}
+
+__host__ __device__ __forceinline__ int slice_floats(const Slice& s) {
+  return 4 * ((s.cw + 3) / 4) * s.sp;
+}
+
+// The slice of layer l from output channel co0 and tap t0, at `off` in the
+// packed weights.
+__host__ __device__ __forceinline__ Slice make_slice(const Plan& p, int l, int co0, int t0,
+                                                    int off) {
+  const Layer& L = p.L[l];
+  const int kk = L.k * L.k;
+  Slice s;
+  s.layer = l;
+  s.co0 = co0;
+  s.cw = L.Co - co0 < L.fcn ? L.Co - co0 : L.fcn;
+  s.t0 = t0;
+  s.t1 = kk - t0 < L.fper ? kk : t0 + L.fper;
+  s.sp = padded_k((s.t1 - s.t0) * L.Ci);
+  s.off = off;
+  s.first = t0 == 0;
+  s.last = s.t1 == kk;
+  return s;
+}
+
+// The slice after s, in the order of the packed weights; its layer is p.n
+// past the last.
+__host__ __device__ __forceinline__ Slice next_slice(const Plan& p, const Slice& s) {
+  const Layer& L = p.L[s.layer];
+  const int off = s.off + slice_floats(s);
+  if (s.t1 < L.k * L.k) return make_slice(p, s.layer, s.co0, s.t1, off);
+  if (s.co0 + L.fcn < L.Co) return make_slice(p, s.layer, s.co0 + L.fcn, 0, off);
+  if (s.layer + 1 < p.n) return make_slice(p, s.layer + 1, 0, 0, off);
+  Slice end = s;
+  end.layer = p.n;
+  return end;
+}
+
+// Cut each layer of the forward's weights into slices of at most `cap`
+// floats (Layer::fcn, Layer::fper, Layer::fpk); false where not even 4
+// output channels of one tap fit.
+inline bool make_slices(Plan& p, int cap) {
+  p.packed = 0;
+  for (int l = 0; l < p.n; ++l) {
+    Layer& L = p.L[l];
+    const int kk = L.k * L.k, rows = 4 * ((L.Co + 3) / 4);
+    int taps = kk;  // taps a slice, whole output channels
+    while (taps > 0 && rows * padded_k(taps * L.Ci) > cap) --taps;
+    if (taps == kk || (taps > 0 && L.Ho * L.Wo * rows / 4 <= kFwdThreads)) {
+      const int nsl = (kk + taps - 1) / taps;
+      L.fcn = L.Co;
+      L.fper = (kk + nsl - 1) / nsl;
+    } else {
+      L.fcn = cap / padded_k(kk * L.Ci) / 4 * 4;  // chunks of output channels, all taps
+      L.fper = kk;
+      if (L.fcn < 4) return false;
+    }
+    L.fpk = p.packed;
+    for (Slice s = make_slice(p, l, 0, 0, L.fpk); s.layer == l; s = next_slice(p, s)) {
+      p.packed += slice_floats(s);
+    }
+  }
+  return true;
+}
+
+// The plan of an encoder and the dynamic shared memory of its backward's
+// cotangent pass; false where the widths need more layers than the table
+// holds or a block's shared memory does not fit, in the forward (one slice)
+// or the backward.
 inline bool make_plan(const EncDims& d, Plan* out, size_t* smem_bytes) {
   Plan p = {};
   p.H = d.H;
@@ -109,16 +218,15 @@ inline bool make_plan(const EncDims& d, Plan* out, size_t* smem_bytes) {
   ok = ok && hi == wi && add(d.out_dim, hi, 1, 0, kHead, buf, 2, 0);
   if (!ok || d.frames < 1) return false;
 
-  // Weight staging: the forward takes a chunk of output channels at a time,
-  // (Ci·k·k + 1)·(chunk + 1) floats (weights and bias, row stride chunk + 1);
-  // the backward a chunk of input channels, chunk·k·k·(Co + 1).
+  // Weight staging of the backward's cotangent pass: a chunk of input
+  // channels at a time, chunk·k·k·(Co + 1) floats.
   size_t need = 0, least = 0;
   for (int l = 0; l < p.n; ++l) {
     const Layer& L = p.L[l];
-    const size_t K = (size_t)L.Ci * L.k * L.k, kk = (size_t)L.k * L.k;
+    const size_t kk = (size_t)L.k * L.k;
     const size_t ci_bwd = l == 0 ? p.C0 : L.Ci;
-    need = std::max(need, std::max((K + 1) * (L.Co + 1), ci_bwd * kk * (L.Co + 1)));
-    least = std::max(least, std::max((K + 1) * 2, kk * (L.Co + 1)));
+    need = std::max(need, ci_bwd * kk * (L.Co + 1));
+    least = std::max(least, kk * (L.Co + 1));
   }
   int dev = 0, limit = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -129,6 +237,26 @@ inline bool make_plan(const EncDims& d, Plan* out, size_t* smem_bytes) {
   const size_t limit_floats = (size_t)limit / sizeof(float);
   if (act + least > limit_floats) return false;
   p.wcap = (int)std::min(need, limit_floats - act);
+
+  // The forward: buffers rounded to float4s, every bias, the partial sums,
+  // and two slice buffers in what is left (at most a whole layer each).
+  int fb[3] = {d.H * d.W * d.C0, 0, 0}, largest = 0;
+  for (int l = 0; l < p.n; ++l) {
+    Layer& L = p.L[l];
+    if (L.mode != kHead) fb[L.out_buf] = std::max(fb[L.out_buf], L.Ho * L.Wo * L.Co);
+    L.bias_off = p.fbias;
+    p.fbias += 4 * ((L.Co + 3) / 4);
+    largest = std::max(largest, 4 * ((L.Co + 3) / 4) * padded_k(L.Ci * L.k * L.k));
+  }
+  for (int i = 0; i < 3; ++i) p.fbsz[i] = (fb[i] + 3) / 4 * 4;
+  p.fpart = kFwdThreads * 4 * kFwdFrames;
+  // 4: the two slice buffers' mbarriers.
+  const size_t fact =
+      4 + (size_t)kFwdFrames * (p.fbsz[0] + p.fbsz[1] + p.fbsz[2]) + p.fbias + p.fpart;
+  if (fact >= limit_floats) return false;
+  p.fslice = (int)std::min<size_t>(largest, (limit_floats - fact) / 8 * 4);
+  if (!make_slices(p, p.fslice)) return false;
+  p.fsmem = (fact + 2 * (size_t)p.fslice) * sizeof(float);
   *out = p;
   *smem_bytes = (act + p.wcap) * sizeof(float);
   return true;
@@ -136,94 +264,295 @@ inline bool make_plan(const EncDims& d, Plan* out, size_t* smem_bytes) {
 
 namespace {
 
-// The forward over a tile of frames: frames x [N, H, W, C0] → out [N,
-// out_dim] (not written when null). With `stash` it also records each
-// frame's activations (the input with its coordinate channels, then every
-// layer's output but the head's) at stash[n · P.stash + offset], for the
-// backward.
-__global__ void __launch_bounds__(kThreads)
-encoder_fwd_kernel(mrssm::WeightPtrs w, Plan P, const float* __restrict__ x,
-                   const float* __restrict__ coords, float* __restrict__ out,
-                   float* __restrict__ stash, int N) {
-  extern __shared__ float smem[];
-  const int F = P.frames;
-  float* buf[3];
-  buf[0] = smem;
-  buf[1] = buf[0] + F * P.bsz[0];
-  buf[2] = buf[1] + F * P.bsz[1];
-  float* WB = buf[2] + F * P.bsz[2];
-  const int n0 = blockIdx.x * F;
-  const int nf = min(F, N - n0);
-
-  // The input frames with the CoordConv channels (coords = rows, then columns).
-  const int HW = P.H * P.W, in_sz = HW * P.Cin;
-  for (int i = threadIdx.x; i < nf * in_sz; i += blockDim.x) {
-    const int f = i / in_sz, j = i - f * in_sz, pix = j / P.Cin, c = j - pix * P.Cin;
-    const float v = c < P.C0 ? x[((size_t)(n0 + f) * HW + pix) * P.C0 + c]
-                             : (c == P.C0 ? coords[pix / P.W] : coords[P.H + pix % P.W]);
-    buf[0][f * P.bsz[0] + j] = v;
-    if (stash != nullptr) stash[(size_t)(n0 + f) * P.stash + j] = v;
+// The slices reach shared memory by the Hopper bulk copy (TMA): one thread
+// starts a slice's copy, which completes on the buffer's mbarrier.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)));
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_load(float* dst, const float* src, int bytes,
+                                          unsigned long long* bar) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, int parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
   }
+}
 
-  for (int l = 0; l < P.n; ++l) {
-    const Layer L = P.L[l];
-    const int kk = L.k * L.k, K = L.Ci * kk, HWo = L.Ho * L.Wo;
-    const int cn = min(L.Co, P.wcap / (K + 1) - 1);
-    const float* in = buf[L.in_buf];
-    float* ob = buf[L.out_buf];
-    const float* Wl = w.p[2 * l];
-    const float* bl = w.p[2 * l + 1];
-    for (int co0 = 0; co0 < L.Co; co0 += cn) {
-      const int cw = min(cn, L.Co - co0), ws = cw + 1;
-      __syncthreads();  // the previous layer's outputs are in place; WB is free
-      for (int i = threadIdx.x; i < cw * K; i += blockDim.x) {
-        const int c = i / K, j = i - c * K;
-        WB[j * ws + c] = Wl[(size_t)(co0 + c) * K + j];
+// Pack every slice of the torch-layout weights (Slice): blockIdx.y is the
+// layer, whose slices the block walks in order, one thread per packed
+// float, zeros past a chunk's channels and in the row padding.
+__global__ void encoder_pack_kernel(mrssm::WeightPtrs w, Plan P, float* __restrict__ packed) {
+  const int l = blockIdx.y;
+  const Layer& L = P.L[l];
+  const int kk = L.k * L.k;
+  for (Slice sl = make_slice(P, l, 0, 0, L.fpk); sl.layer == l; sl = next_slice(P, sl)) {
+    const int cols = (sl.t1 - sl.t0) * L.Ci, n = slice_floats(sl);
+    for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n; e += gridDim.x * blockDim.x) {
+      const int r = e / sl.sp, col = e - r * sl.sp;
+      float v = 0.f;
+      if (r < sl.cw && col < cols) {
+        const int t = col / L.Ci, ci = col - t * L.Ci;
+        v = w.p[2 * l][((size_t)(sl.co0 + r) * L.Ci + ci) * kk + sl.t0 + t];
       }
-      for (int i = threadIdx.x; i < cw; i += blockDim.x) WB[K * ws + i] = bl[co0 + i];
-      __syncthreads();
-      for (int i = threadIdx.x; i < nf * HWo * cw; i += blockDim.x) {
-        const int c = i % cw, fp = i / cw, pos = fp % HWo, f = fp / HWo;
-        const int oy = pos / L.Wo, ox = pos - oy * L.Wo;
-        const float* src = in + f * P.bsz[L.in_buf];
-        float acc = 0.f;
-        for (int ky = 0; ky < L.k; ++ky) {
-          const int iy = oy * L.s - L.p + ky;
-          if (iy < 0 || iy >= L.Hi) continue;
-          for (int kx = 0; kx < L.k; ++kx) {
-            const int ix = ox * L.s - L.p + kx;
-            if (ix < 0 || ix >= L.Wi) continue;
-            const float* a = src + (iy * L.Wi + ix) * L.Ci;
-            const float* wr = WB + (ky * L.k + kx) * ws + c;
-            // Not unrolled: the unrolled form of this loop faulted with an
-            // illegal instruction on an H100 (CUDA 12.9, ptxas -O1 and up).
-#pragma unroll 1
-            for (int ci = 0; ci < L.Ci; ++ci) acc = fmaf(a[ci], wr[ci * kk * ws], acc);
-          }
+      packed[sl.off + e] = v;
+    }
+  }
+}
+
+// One task of a slice: output position (oy, ox) of every frame of the tile
+// and the output channels cg + G·j, j < 4, of the slice's chunk, summed
+// over the input channels [c0, c1) of the slice's taps that fall inside the
+// input map (taps in the padding are skipped). `wrow` is the slice's row
+// cg; row cg + G·j is j·Gsp further. The vector form reads 4 input
+// channels at once (Ci % 4 == 0); the scalar form reads one, and in the
+// first layer takes the channels from cimg on from the CoordConv values.
+// Every sum runs taps in order, then channels in order.
+template <int F>
+__device__ __forceinline__ void conv_vec(const Layer& L, const Slice& sl,
+                                         const float* __restrict__ in, int ibsz,
+                                         const float* __restrict__ wrow, int Gsp, int oy, int ox,
+                                         int c0, int c1, float (&acc)[F][4]) {
+  for (int tap = sl.t0; tap < sl.t1; ++tap) {
+    const int ky = tap / L.k, kx = tap - ky * L.k;
+    const int iy = oy * L.s - L.p + ky, ix = ox * L.s - L.p + kx;
+    if (iy < 0 || iy >= L.Hi || ix < 0 || ix >= L.Wi) continue;
+    const float* a = in + (iy * L.Wi + ix) * L.Ci;
+    const float* wt = wrow + (tap - sl.t0) * L.Ci;
+    for (int ci = c0; ci < c1; ci += 4) {
+      float4 av[F], wv[4];
+#pragma unroll
+      for (int f = 0; f < F; ++f) av[f] = *reinterpret_cast<const float4*>(a + f * ibsz + ci);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wv[j] = *reinterpret_cast<const float4*>(wt + j * Gsp + ci);
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float r = fmaf(av[f].x, wv[j].x, acc[f][j]);
+          r = fmaf(av[f].y, wv[j].y, r);
+          r = fmaf(av[f].z, wv[j].z, r);
+          acc[f][j] = fmaf(av[f].w, wv[j].w, r);
         }
-        const float v = acc + WB[K * ws + c];
-        const int co = co0 + c;
-        if (L.mode == kHead) {
-          if (out != nullptr) out[(size_t)(n0 + f) * L.Co + co] = v;
-          continue;
-        }
-        float* o = ob + f * P.bsz[L.out_buf] + pos * L.Co + co;
-        const float r = L.mode == kResidual ? mrssm::elu(*o + v) : mrssm::elu(v);
-        *o = r;
-        if (stash != nullptr) stash[(size_t)(n0 + f) * P.stash + L.out_off + pos * L.Co + co] = r;
       }
     }
   }
 }
 
-inline cudaError_t launch_forward(const mrssm::WeightPtrs& w, const Plan& P, size_t smem,
-                                  const float* x, const float* coords, float* out, float* stash,
+template <int F>
+__device__ __forceinline__ void conv_scalar(const Layer& L, const Slice& sl,
+                                            const float* __restrict__ in, int ibsz,
+                                            const float* __restrict__ wrow, int Gsp, int oy,
+                                            int ox, int c0, int c1, int cimg,
+                                            const float* __restrict__ coords, int H,
+                                            float (&acc)[F][4]) {
+  for (int tap = sl.t0; tap < sl.t1; ++tap) {
+    const int ky = tap / L.k, kx = tap - ky * L.k;
+    const int iy = oy * L.s - L.p + ky, ix = ox * L.s - L.p + kx;
+    if (iy < 0 || iy >= L.Hi || ix < 0 || ix >= L.Wi) continue;
+    const float* a = in + (iy * L.Wi + ix) * cimg;
+    const float* wt = wrow + (tap - sl.t0) * L.Ci;
+    for (int ci = c0; ci < c1; ++ci) {
+      float av[F], wv[4];
+      const float cv = ci < cimg ? 0.f : (ci == cimg ? coords[iy] : coords[H + ix]);
+#pragma unroll
+      for (int f = 0; f < F; ++f) av[f] = ci < cimg ? a[f * ibsz + ci] : cv;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wv[j] = wt[j * Gsp + ci];
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[f][j] = fmaf(av[f], wv[j], acc[f][j]);
+      }
+    }
+  }
+}
+
+// The forward over a tile of F frames: frames x [N, H, W, C0] → out [N,
+// out_dim] (not written when null). With `stash` it also records each
+// frame's activations (the input with its coordinate channels, then every
+// layer's output but the head's) at stash[n · P.stash + offset], for the
+// backward. `packed` holds the weights as encoder_pack_kernel wrote them.
+//
+// Each layer is an implicit GEMM over the tile: M = F frames × Ho·Wo
+// positions, N = Co, K = Ci·k·k. A thread owns one position of every frame
+// and 4 output channels (F × 4 accumulators); where a chunk has fewer such
+// tasks than threads (the head, a narrow layer), the input channels are
+// split among S threads a task and the S partial sums added in order. The
+// slices stream through two shared-memory buffers: slice i + 1 loads while
+// slice i computes.
+__global__ void __launch_bounds__(kFwdThreads)
+encoder_fwd_kernel(mrssm::WeightPtrs w, Plan P, const float* __restrict__ x,
+                   const float* __restrict__ coords, const float* __restrict__ packed,
+                   float* __restrict__ out, float* __restrict__ stash, int N) {
+  constexpr int F = kFwdFrames;
+  extern __shared__ __align__(16) float smem[];
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(smem);  // one a slice buffer
+  float* buf[3];
+  buf[0] = smem + 4;
+  buf[1] = buf[0] + F * P.fbsz[0];
+  buf[2] = buf[1] + F * P.fbsz[1];
+  float* bias = buf[2] + F * P.fbsz[2];
+  float* part = bias + P.fbias;
+  float* WB[2] = {part + P.fpart, part + P.fpart + P.fslice};
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * F;
+  const int nf = min(F, N - n0);
+
+  auto load_slice = [&](const Slice& sl, int b) {  // thread 0 only
+    bulk_load(WB[b], packed + sl.off, 4 * slice_floats(sl), &bar[b]);
+  };
+  Slice sl = make_slice(P, 0, 0, 0, 0);
+  if (tid == 0) {
+    mbar_init(&bar[0]);
+    mbar_init(&bar[1]);
+    load_slice(sl, 0);
+  }
+
+  // The frames' image channels (zeros past N); every bias; the record of
+  // the input with the CoordConv channels (coords = rows, then columns).
+  const int HW = P.H * P.W, isz = HW * P.C0;
+  for (int i = tid; i < F * isz; i += kFwdThreads) {
+    const int f = i / isz, j = i - f * isz;
+    buf[0][f * P.fbsz[0] + j] = f < nf ? x[(size_t)n0 * isz + i] : 0.f;
+  }
+  for (int l = 0; l < P.n; ++l) {
+    const Layer& L = P.L[l];
+    for (int c = tid; c < 4 * ((L.Co + 3) / 4); c += kFwdThreads) {
+      bias[L.bias_off + c] = c < L.Co ? w.p[2 * l + 1][c] : 0.f;
+    }
+  }
+  if (stash != nullptr) {
+    const int ssz = HW * P.Cin;
+    for (int i = tid; i < nf * ssz; i += kFwdThreads) {
+      const int f = i / ssz, j = i - f * ssz, pix = j / P.Cin, c = j - pix * P.Cin;
+      stash[(size_t)(n0 + f) * P.stash + j] =
+          c < P.C0 ? x[((size_t)(n0 + f) * HW + pix) * P.C0 + c]
+                   : (c == P.C0 ? coords[pix / P.W] : coords[P.H + pix % P.W]);
+    }
+  }
+  __syncthreads();  // the mbarriers are initialised before any thread waits on them
+
+  float acc[F][4];
+  for (int i = 0; sl.layer < P.n; ++i) {
+    const Slice next = next_slice(P, sl);
+    if (tid == 0 && next.layer < P.n) load_slice(next, (i + 1) & 1);
+    mbar_wait(&bar[i & 1], (i >> 1) & 1);
+    __syncthreads();  // slice i and the previous layer's outputs are in place
+
+    const int l = sl.layer;
+    const Layer L = P.L[l];
+    const int G = (sl.cw + 3) / 4, Gsp = G * sl.sp, tasks = L.Ho * L.Wo * G;
+    const bool vec = l > 0 && L.Ci % 4 == 0;
+    const int unit = vec ? 4 : 1, S = max(1, min(kFwdThreads / tasks, L.Ci / unit));
+    const float* in = buf[L.in_buf];
+    float* ob = buf[L.out_buf];
+    const int ibsz = P.fbsz[L.in_buf], obsz = P.fbsz[L.out_buf];
+    const float* bl = bias + L.bias_off + sl.co0;
+    auto run = [&](int task, int c0, int c1) {
+      const int pos = task / G, cg = task - pos * G;
+      const int oy = pos / L.Wo, ox = pos - oy * L.Wo;
+      if (vec) {
+        conv_vec<F>(L, sl, in, ibsz, WB[i & 1] + cg * sl.sp, Gsp, oy, ox, c0, c1, acc);
+      } else {
+        conv_scalar<F>(L, sl, in, ibsz, WB[i & 1] + cg * sl.sp, Gsp, oy, ox, c0, c1,
+                       l == 0 ? P.C0 : L.Ci, coords, P.H, acc);
+      }
+    };
+    // Output value v (bias added) of frame f, position pos, chunk channel
+    // c: ELU (after the skip in a residual block's second conv), or the
+    // embedding.
+    auto emit = [&](float v, int f, int pos, int c) {
+      const int co = sl.co0 + c;
+      if (L.mode == kHead) {
+        if (out != nullptr && f < nf) out[(size_t)(n0 + f) * L.Co + co] = v;
+        return;
+      }
+      float* o = ob + f * obsz + pos * L.Co + co;
+      const float r = L.mode == kResidual ? mrssm::elu(*o + v) : mrssm::elu(v);
+      *o = r;
+      if (stash != nullptr && f < nf) {
+        stash[(size_t)(n0 + f) * P.stash + L.out_off + pos * L.Co + co] = r;
+      }
+    };
+    auto zero = [&] {
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[f][j] = 0.f;
+      }
+    };
+    auto emit_acc = [&](int task) {
+      const int pos = task / G, cg = task - pos * G;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (cg + G * j >= sl.cw) continue;
+#pragma unroll
+        for (int f = 0; f < F; ++f) emit(acc[f][j] + bl[cg + G * j], f, pos, cg + G * j);
+      }
+    };
+
+    if (tasks > kFwdThreads) {  // several tasks a thread: the chunk is one slice
+      for (int task = tid; task < tasks; task += kFwdThreads) {
+        zero();
+        run(task, 0, L.Ci);
+        emit_acc(task);
+      }
+    } else {
+      const int task = tid % tasks, s = tid / tasks, nu = L.Ci / unit;
+      if (sl.first) zero();
+      if (s < S) run(task, s * nu / S * unit, (s + 1) * nu / S * unit);
+      if (sl.last && S == 1) {
+        if (s == 0) emit_acc(task);
+      } else if (sl.last) {
+        if (s < S) {
+#pragma unroll
+          for (int f = 0; f < F; ++f) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) part[((s * tasks + task) * F + f) * 4 + j] = acc[f][j];
+          }
+        }
+        __syncthreads();
+        for (int e = tid; e < tasks * F * 4; e += kFwdThreads) {
+          const int t = e / (F * 4), j = e % 4, f = e / 4 % F;
+          const int pos = t / G, c = t - pos * G + G * j;
+          if (c >= sl.cw) continue;
+          float v = 0.f;
+          for (int q = 0; q < S; ++q) v += part[((q * tasks + t) * F + f) * 4 + j];
+          emit(v + bl[c], f, pos, c);
+        }
+      }
+    }
+    __syncthreads();  // slice i's buffer is free for slice i + 2
+    sl = next;
+  }
+}
+
+// Pack the weights, then run the forward (encoder_fwd_kernel) on `stream`.
+inline cudaError_t launch_forward(const mrssm::WeightPtrs& w, const Plan& P, const float* x,
+                                  const float* coords, float* packed, float* out, float* stash,
                                   int N, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(encoder_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  encoder_pack_kernel<<<dim3(8, P.n), 256, 0, stream>>>(w, P, packed);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int blocks = (N + P.frames - 1) / P.frames;
-  encoder_fwd_kernel<<<blocks, kThreads, smem, stream>>>(w, P, x, coords, out, stash, N);
+  err = cudaFuncSetAttribute(encoder_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)P.fsmem);
+  if (err != cudaSuccess) return err;
+  encoder_fwd_kernel<<<(N + kFwdFrames - 1) / kFwdFrames, kFwdThreads, P.fsmem, stream>>>(
+      w, P, x, coords, packed, out, stash, N);
   return cudaGetLastError();
 }
 

@@ -4,11 +4,12 @@
 // (line 461), the custom VJP of fused_encoder_apply (lines 530-558): the
 // gradients of every encoder weight and bias and, when asked, of the
 // frames. Like the TPU backward it recomputes the activations from the
-// input instead of keeping the forward's. Four launches:
+// input instead of keeping the forward's. Four passes:
 //
-// 1. encoder_fwd_kernel (fused_encoder.cuh) recomputes each tile and
-//    records every layer's output in device memory (13,824 floats a frame
-//    at the reference widths);
+// 1. the forward (fused_encoder.cuh: encoder_pack_kernel, then
+//    encoder_fwd_kernel) recomputes each tile and records every layer's
+//    output in device memory (13,824 floats a frame at the reference
+//    widths);
 // 2. encoder_bwd_dx_kernel walks the layers in reverse per tile of frames,
 //    with the cotangents in shared memory and each layer's weights staged
 //    a chunk of input channels at a time, transposed as the conv's
@@ -100,7 +101,9 @@ encoder_bwd_dx_kernel(mrssm::WeightPtrs w, Plan P, const float* __restrict__ g,
             if (tx < 0 || tx % L.s != 0 || tx / L.s >= L.Wo) continue;
             const float* dp = src + (oy * L.Wo + tx / L.s) * L.Co;
             const float* wr = WB + (c * kk + ky * L.k + kx) * ws;
-            // Not unrolled, as the forward's tap loop (fused_encoder.cuh).
+            // Not unrolled: the unrolled form of the first forward's
+            // equivalent loop faulted with an illegal instruction on an H100
+            // (CUDA 12.9, ptxas -O1 and up).
 #pragma unroll 1
             for (int co = 0; co < L.Co; ++co) acc = fmaf(dp[co], wr[co], acc);
           }
@@ -187,18 +190,19 @@ extern "C" {
 // g [N, out_dim]; dx [N, H, W, C0] or null; d_weights the gradient floats
 // (fused_encoder_sizes' sizes[2]) in torch layout, every tensor back to
 // back; stash, dstash and partial are scratch of N·sizes[0], N·sizes[1] and
-// sizes[3]·sizes[2] floats. All f32 and contiguous. Returns the
-// cudaError_t of the launches (0 on success).
+// sizes[3]·sizes[2] floats, packed of sizes[4] floats (16-byte aligned).
+// All f32 and contiguous. Returns the cudaError_t of the launches (0 on
+// success).
 int fused_encoder_backward(const void* const* weights, int n_weights, const float* x,
                            const float* coords, const float* g, float* dx, float* d_weights,
-                           float* stash, float* dstash, float* partial, fenc::EncDims d,
-                           void* stream) {
+                           float* stash, float* dstash, float* partial, float* packed,
+                           fenc::EncDims d, void* stream) {
   fenc::Plan P;
   size_t smem = 0;
   if (!fenc::make_plan(d, &P, &smem) || n_weights != 2 * P.n) return (int)cudaErrorInvalidValue;
   const mrssm::WeightPtrs w = mrssm::weight_ptrs(weights, n_weights);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = fenc::launch_forward(w, P, smem, x, coords, nullptr, stash, d.N, s);
+  cudaError_t err = fenc::launch_forward(w, P, x, coords, packed, nullptr, stash, d.N, s);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(encoder_bwd_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);

@@ -4,9 +4,14 @@ device (port of ``data/pipeline.py``, its in-memory host path).
 ``setup`` loads every episode once, normalises it (audio min-max and vision
 [0, 255] to [-1, 1]) and splits the sorted episodes 0.8 / 0.2 (reference
 ``dataset.py:69-81``). A training epoch shuffles with
-``default_rng((seed, epoch))``, so its batch order is the JAX module's; the
-inputs get ``GaussianNoise(noise_std)`` from that generator and the targets
-stay clean. Validation batches are clean. Batches keep the reference's
+``default_rng((seed, epoch))``, so its batch order is the JAX module's.
+Validation batches, in split order, draw from ``default_rng((seed,
+987654321))``, as JAX's and the reference's val DataLoader do. Each batch
+takes one seed from its generator and noises each input stream with
+``GaussianNoise(noise_std)`` from ``default_rng(seed ^ (k + 1))`` (k = 0, 1, 2
+for action, audio, vision): the draws of the JAX module's numpy path
+(``data/native.py::gather_noise``; its optional native build draws from a
+generator of its own). The targets stay clean. Batches keep the reference's
 6-tuple order (``mrssm/dataset.py:168-183``): (action_input, audio_input,
 vision_input, action_target, audio_target, vision_target).
 
@@ -41,7 +46,7 @@ class DataModuleConfig:
     data_dir: str | Path = "data/audio_mnist"
     batch_size: int = 8
     sequence_length: int = 30  # TakeFirstN n (configs :180-220)
-    noise_std: float = 0.1  # GaussianNoise on the training inputs only
+    noise_std: float = 0.1  # GaussianNoise on the inputs, not the targets
     train_ratio: float = 0.8
     audio_min: float = -80.0
     audio_max: float = 0.0
@@ -104,13 +109,17 @@ class EpisodeDataModule:
 
     def _make_batch(self, idx: np.ndarray,
                     rng: np.random.Generator | None) -> tuple[np.ndarray, ...]:
-        """The 6-tuple of numpy arrays; with ``rng`` the inputs get the
-        Gaussian noise (action, audio, vision in that order of draws)."""
+        """The 6-tuple of numpy arrays; with ``rng`` and ``noise_std > 0`` the
+        inputs get the Gaussian noise, stream k from ``default_rng(seed ^ (k +
+        1))`` after one seed drawn from ``rng`` (module docstring)."""
         cfg = self.cfg
         T = cfg.sequence_length
         clean = [self._arrays[s][idx, :T] for s in ("action", "audio", "vision")]
+        if rng is None or cfg.noise_std <= 0:
+            return (*clean, *clean)
+        seed = int(rng.integers(0, 2**62))
         noise = GaussianNoise(cfg.noise_std)
-        inputs = [noise(x, rng) if rng is not None and cfg.noise_std > 0 else x for x in clean]
+        inputs = [noise(x, np.random.default_rng(seed ^ (k + 1))) for k, x in enumerate(clean)]
         return (*inputs, *clean)
 
     def _batched_indices(self, idx: np.ndarray, bs: int) -> list[np.ndarray]:
@@ -136,7 +145,9 @@ class EpisodeDataModule:
             yield self._to_device(self._make_batch(group, rng), device)
 
     def val_batches(self, device: torch.device | str = "cpu") -> Iterator[Batch]:
-        """Clean validation batches in split order."""
+        """Validation batches in split order, the inputs noised from
+        ``default_rng((seed, 987654321))`` (JAX ``data/pipeline.py:653-664``)."""
         self._require_setup()
+        rng = np.random.default_rng((self.cfg.seed, 987654321))
         for group in self._batched_indices(self._split[1], self.val_batch_size):
-            yield self._to_device(self._make_batch(group, None), device)
+            yield self._to_device(self._make_batch(group, rng), device)

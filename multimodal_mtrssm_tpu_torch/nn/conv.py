@@ -2,8 +2,12 @@
 
 NCHW inside, as cuDNN prefers; the public ``forward``s keep the JAX
 package's NHWC frame layout (``[..., 32, 32, 1]``) so both packages are
-called alike. The canonical layout only: the JAX package's s2d form is a
-TPU lane trick and its fused Pallas conv kernel is not ported yet.
+called alike. These modules are the canonical cuDNN layout; the JAX
+package's s2d form is a TPU lane trick and is not ported. Its fused Pallas
+conv kernels, the whole encoder and the whole decoder in one kernel each,
+are ported as hand-written CUDA kernels in ``ops/kernels/fused_conv.py``
+(``fused_encoder_apply``, ``fused_decoder_apply``), which read these
+modules' weights as they are.
 
 Module names follow the slot paths ``train/torch_export.py`` writes
 (``convs.i``, ``res_proj``, ``res_blocks.i.conv{1,2}``, ``linears.i``,

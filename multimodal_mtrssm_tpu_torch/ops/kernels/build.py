@@ -47,8 +47,8 @@ class MTDims(ctypes.Structure):
 
 class EncDims(ctypes.Structure):
     """``fenc::EncDims`` of ``csrc/fused_encoder.cuh``, field for field: the
-    fused encoder's frame count and sizes, frames per block, and frames per
-    chunk of its weight-gradient pass."""
+    fused encoder's frame count and sizes, frames per block of the
+    cotangent pass, and frames per chunk of the weight-gradient pass."""
 
     _fields_ = [(name, ctypes.c_int) for name in (
         "N", "H", "W", "C0", "coord", "ch0", "ch1", "ch2", "res_out", "res_mid", "n_res",
@@ -78,8 +78,8 @@ _SIGNATURES = {
     "mrssm_stacked_backward": (_I, [_P] * 18 + [_I] * 9 + [_P]),
     "mrssm_stacked_rows": (_I, [_I] * 8),
     "fused_encoder_sizes": (_I, [EncDims, _P]),
-    "fused_encoder_forward": (_I, [_P, _I, _P, _P, _P, EncDims, _P]),
-    "fused_encoder_backward": (_I, [_P, _I] + [_P] * 8 + [EncDims, _P]),
+    "fused_encoder_forward": (_I, [_P, _I, _P, _P, _P, _P, EncDims, _P]),
+    "fused_encoder_backward": (_I, [_P, _I] + [_P] * 9 + [EncDims, _P]),
     "fused_decoder_sizes": (_I, [DecDims, _P]),
     "fused_decoder_forward": (_I, [_P, _I, _P, _P, DecDims, _P]),
     "fused_decoder_backward": (_I, [_P, _I] + [_P] * 7 + [DecDims, _P]),

@@ -272,19 +272,46 @@ def _scaled_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     return float((got - ref).abs().max()) / max(1.0, float(ref.abs().max()))
 
 
+# Encoders besides the models': widths that are not multiples of 4 (a
+# vector-free forward, an odd head), no residual blocks without the
+# CoordConv channels (the head right on the last strided conv), and a wide
+# residual stack (more weight slices than any model's).
+ENCODER_VARIANTS = {
+    "narrow": {"channels": (5, 7, 9), "residual_output_size": 12, "residual_intermediate_size": 10,
+               "num_residual_blocks": 2, "linear_sizes": (33,)},
+    "no_res": {"num_residual_blocks": 0, "coord_conv": False},
+    "wide": {"residual_output_size": 128, "residual_intermediate_size": 128,
+             "num_residual_blocks": 3},
+}
+
+
+def _encoder(name: str, dev):
+    """The MRSSM audio encoder, or an :data:`ENCODER_VARIANTS` encoder with
+    seeded weights."""
+    from multimodal_mtrssm_tpu_torch.nn.conv import Encoder, EncoderConfig
+
+    if name == "model":
+        return _model(dev).audio_encoder
+    torch.manual_seed(5)
+    return Encoder(EncoderConfig(**ENCODER_VARIANTS[name])).to(dev)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("N", [240, 7, 3840])
-def test_fused_encoder_kernels_match_plain_and_cudnn(cuda_device, N):
+@pytest.mark.parametrize("name,N", [("model", 240), ("model", 7), ("model", 3840), ("model", 1),
+                                    ("model", 5), ("narrow", 30), ("no_res", 30), ("wide", 30)])
+def test_fused_encoder_kernels_match_plain_and_cudnn(cuda_device, name, N):
     """The fused encoder's forward against its plain version and against the
     cuDNN ``Encoder`` (TF32 off), and its backward (every weight gradient and
     dx) against the plain backward on the inputs upcast to float64 (cuDNN's
     float32 backward strays ~7e-4 of scale from float64 at N=3840); the
-    backward is reproducible."""
-    enc = _model(cuda_device).audio_encoder
+    backward is reproducible. N=1 and N=5 leave a ragged tile of 2 frames
+    a block."""
+    enc = _encoder(name, cuda_device)
     w = [t.detach() for t in fused_conv.encoder_weights(enc)]
     rng = np.random.default_rng(N)
     x = torch.tensor(rng.uniform(-1, 1, (N, 32, 32, 1)).astype(np.float32), device=cuda_device)
-    g = torch.tensor(rng.standard_normal((N, 64)).astype(np.float32), device=cuda_device)
+    g = torch.tensor(rng.standard_normal((N, enc.cfg.out_dim)).astype(np.float32),
+                     device=cuda_device)
     with torch.no_grad():
         got = fused_conv.fused_encoder_forward_cuda(w, enc.cfg, x)
         plain = fused_conv.fused_encoder_plain(w, enc.cfg, x)

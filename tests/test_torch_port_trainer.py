@@ -4,10 +4,10 @@
 Tolerances: the optimizer's parameters within rtol 1e-6 of ``FusedAdamW``
 after each of 5 steps (atol 1e-9 for parameters that pass near 0; the same
 f32 formula, one rounding apart) and its first moment within 1e-7 absolute;
-schedulers, episodes and clean batches exactly.
-The port's input noise is a different stream from the JAX pipeline's
-(numpy ``normal`` against ``native.gather_noise``), so it is checked by its
-standard deviation.
+schedulers, episodes and batches exactly. The port's input noise is the
+JAX pipeline's numpy path (``native.gather_noise`` without its native
+build, which draws from a generator of its own), so the noised batches are
+held to JAX's with that build switched off.
 """
 
 import dataclasses
@@ -123,7 +123,15 @@ def test_datamodule_streams_match_jax_host_path(tmp_path):
             np.testing.assert_array_equal(x.numpy(), np.asarray(y))
 
 
-def test_datamodule_noises_training_inputs_only(tmp_path):
+def _jax_numpy_noise(monkeypatch):
+    """Make the JAX pipeline take its numpy noise path."""
+    from multimodal_mtrssm_tpu.data import native
+
+    monkeypatch.setattr(native, "_load", lambda: None)
+
+
+def test_datamodule_noises_training_inputs_only(tmp_path, monkeypatch):
+    _jax_numpy_noise(monkeypatch)
     ours, theirs = _datamodules(tmp_path, noise_std=0.1)
     resid = []
     for g, w in zip(ours.train_batches(0), theirs.train_batches(0)):
@@ -132,12 +140,34 @@ def test_datamodule_noises_training_inputs_only(tmp_path):
             resid.append((g[k] - g[3 + k]).numpy().ravel())
     resid = np.concatenate(resid)
     assert abs(resid.std() - 0.1) < 0.005 and abs(resid.mean()) < 0.005
-    for batch in ours.val_batches():
-        for k in range(3):
-            assert torch.equal(batch[k], batch[3 + k])  # validation is clean
+    # Validation inputs are noised as JAX noises them; the targets stay clean.
+    got, want = list(ours.val_batches()), list(theirs.val_batches())
+    assert len(got) == len(want) == 1
+    for g, w in zip(got, want):
+        for x, y in zip(g, w):
+            np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+        assert not any(torch.equal(g[k], g[3 + k]) for k in range(3))
     # The epoch's noise is a function of (seed, epoch).
     first = [b[1] for b in ours.train_batches(0)]
     assert all(torch.equal(a, b) for a, b in zip(first, (b[1] for b in ours.train_batches(0))))
+
+
+def test_datamodule_noised_batches_match_jax(tmp_path, monkeypatch):
+    """At ``noise_std=0.1``: every epoch's train batches and the validation
+    batches equal the JAX module's, the inputs' noise bit for bit; a second
+    pass over validation gives the same noise."""
+    _jax_numpy_noise(monkeypatch)
+    ours, theirs = _datamodules(tmp_path, noise_std=0.1)
+    for epoch in (0, 1):
+        for g, w in zip(ours.train_batches(epoch), theirs.train_batches(epoch), strict=True):
+            for x, y in zip(g, w, strict=True):
+                np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+    first = list(ours.val_batches())
+    for g, w in zip(first, theirs.val_batches(), strict=True):
+        for x, y in zip(g, w, strict=True):
+            np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+    for a, b in zip(first, ours.val_batches(), strict=True):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 # ---- the train step and Trainer.fit --------------------------------------------------
