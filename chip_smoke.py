@@ -28,7 +28,7 @@ first two configurations' latent features.
    sampling frequencies against the softmax, both MT sites); the stacked
    recurrence forward and backward at B=8 T=30, B=128 T=30 and B=3 T=7
    (the same limits, on unstacked gradients); the fused encoder forward at
-   N=240, 7 and 3840 frames against its plain version and the cuDNN
+   N=240, 7, 3840 and 241 frames against its plain version and the cuDNN
    ``Encoder`` (within 1e-4 × max(1, max|plain|)) and its backward against
    the plain backward in float64 (2e-4 × scale, two launches bit-identical);
    the fused decoder forward on both decoders of MRSSM (48-wide features)
@@ -59,8 +59,9 @@ first two configurations' latent features.
    the median latency of ``/observe`` and ``/imagine`` through the server
    and the optimizer steps per second of ``Trainer.fit``; each kernel's
    bound at the main path's shape; the fused encoder forward's device time
+   and the device time of each kernel of one fused encoder backward call
    (``torch.profiler``); and the registers, stack and spills ``ptxas``
-   gives the encoder forward.
+   gives the fused encoder's kernels, forward and backward.
 
 Each configuration's serving and training run, and the decoder's path
 (``fused_decoder_apply`` on both decoders of the first two configurations'
@@ -861,7 +862,9 @@ def _encoder_macs(cfg) -> tuple[int, int]:
 
 
 STACKED_SHAPES = ((8, 30), (128, 30), (3, 7))
-ENCODER_FRAMES = (240, 7, 3840)  # B·T per encoder at B=8 T=30, a ragged tile, B=128 T=30
+# B·T per encoder at B=8 T=30, a ragged tile, B=128 T=30, and a ragged tile
+# and last weight-gradient chunk (16 chunks of 16 frames, the last of 1).
+ENCODER_FRAMES = (240, 7, 3840, 241)
 
 
 def check_stacked(model, cfg, dev) -> dict[str, dict]:
@@ -1031,7 +1034,7 @@ def encoder_timings(model, dev, card: str) -> tuple[dict, dict, dict]:
     main: dict[str, tuple[float, float]] = {}
     library: dict[str, float] = {}
     bounds: dict[str, dict] = {}
-    for N in ENCODER_FRAMES[::2]:
+    for N in ENCODER_FRAMES[:3:2]:
         w, x, g = _encoder_case(rng, enc, N, dev)
         k_ms = _median_ms(lambda: fused_conv.fused_encoder_forward_cuda(w, cfg, x), 20)
         p_ms = _median_ms(lambda: fused_conv.fused_encoder_plain(w, cfg, x), 10)
@@ -1041,10 +1044,18 @@ def encoder_timings(model, dev, card: str) -> tuple[dict, dict, dict]:
         pb_ms = _median_ms(lambda: fused_conv.fused_encoder_backward_plain(w, cfg, x, g, False), 10)
         with torch.enable_grad():
             lb_ms = _median_ms(lambda: torch.autograd.grad(enc(x), params, g), 10)
+        parts = _device_breakdown(
+            lambda: fused_conv.fused_encoder_backward_cuda(w, cfg, x, g, False),
+            tuple(ENCODER_BWD_KERNELS.values()))
+        seen = [v for v in parts.values() if v is not None]
+        print(f"time fused_encoder_bwd N={N} device breakdown a call (torch.profiler, 10 calls): "
+              + ", ".join(f"{k} " + ("not measured" if parts[v] is None else f"{parts[v]:.4f} ms")
+                          for k, v in ENCODER_BWD_KERNELS.items())
+              + (f"; total {sum(seen):.4f} ms" if seen else "") + f" | {card}")
         dev_ms = "not measured" if d_ms is None else f"{d_ms:.4f} ms"
         print(f"time fused_encoder_fwd N={N}: kernel {k_ms:.4f} ms (device {dev_ms}), plain "
-              f"{p_ms:.4f} ms, cuDNN Encoder {l_ms:.4f} ms; fused_encoder_bwd (recompute + weight gradients): kernel "
-              f"{kb_ms:.4f} ms, plain {pb_ms:.4f} ms, cuDNN Encoder forward + backward "
+              f"{p_ms:.4f} ms, cuDNN Encoder {l_ms:.4f} ms; fused_encoder_bwd (recompute + weight "
+              f"gradients): kernel {kb_ms:.4f} ms, plain {pb_ms:.4f} ms, cuDNN Encoder forward + backward "
               f"{lb_ms:.4f} ms | {card}")
         if "fused_encoder_fwd" not in main:
             main["fused_encoder_fwd"], main["fused_encoder_bwd"] = (k_ms, p_ms), (kb_ms, pb_ms)
@@ -1060,6 +1071,14 @@ def _device_ms(fn, key: str, reps: int = 10) -> float | None:
     """Device time a call of the kernels whose names hold ``key``, under
     ``torch.profiler``; None where the profiler does not start or stop, or
     sees none. Errors of ``fn`` itself propagate."""
+    return _device_breakdown(fn, (key,), reps)[key]
+
+
+def _device_breakdown(fn, keys, reps: int = 10) -> dict[str, float | None]:
+    """Device ms a call of ``fn`` spends in the kernels whose names hold each
+    of ``keys``, from one ``torch.profiler`` window of ``reps`` calls; None
+    for a key the profiler did not see (or where it does not start or
+    stop). Errors of ``fn`` itself propagate."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1069,7 +1088,7 @@ def _device_ms(fn, key: str, reps: int = 10) -> float | None:
     try:
         prof.start()
     except RuntimeError:
-        return None
+        return dict.fromkeys(keys)
     try:
         for _ in range(reps):
             fn()
@@ -1080,42 +1099,66 @@ def _device_ms(fn, key: str, reps: int = 10) -> float | None:
             events = prof.key_averages()
         except RuntimeError:
             events = []
-    total = sum(_self_device_us(e) for e in events if key in e.key)
-    return total / reps / 1e3 if total > 0 else None
+    out: dict[str, float | None] = {}
+    for key in keys:
+        total = sum(_self_device_us(e) for e in events if key in e.key)
+        out[key] = total / reps / 1e3 if total > 0 else None
+    return out
+
+
+# The device kernels of one fused_encoder_backward_cuda call, as the
+# profiler names them (substrings), in launch order.
+ENCODER_BWD_KERNELS = {"pack": "encoder_pack_kernel", "recompute forward": "encoder_fwd_kernel",
+                       "transposed pack": "encoder_bwd_pack_kernel",
+                       "cotangent pass": "encoder_bwd_dx", "weight-gradient pass": "encoder_bwd_dw",
+                       "reduce_weight_grads": "reduce_weight_grads"}
 
 
 _CHILDREN: list[subprocess.Popen] = []  # stopped on exit, whatever failed
 
 
-def start_ptxas_report() -> subprocess.Popen:
-    """Compile the encoder forward's source once more with ``-Xptxas -v``, in
-    the background (into the git-ignored build directory)."""
+PTXAS_SOURCES = ("fused_encoder_fwd.cu", "fused_encoder_bwd.cu")
+
+
+def start_ptxas_report() -> list[subprocess.Popen]:
+    """Compile the fused encoder's sources once more with ``-Xptxas -v``, in
+    the background (into the git-ignored build directory), one ``nvcc``
+    each."""
     from multimodal_mtrssm_tpu_torch.ops.kernels import build
 
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    obj = build.BUILD_DIR / "ptxas_report.o"
-    proc = subprocess.Popen([build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
-                             str(obj), str(build.CSRC / "fused_encoder_fwd.cu")],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    _CHILDREN.append(proc)
-    return proc
+    procs = []
+    for src in PTXAS_SOURCES:
+        obj = build.BUILD_DIR / f"ptxas_report_{Path(src).stem}.o"
+        procs.append(subprocess.Popen(
+            [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
+             str(build.CSRC / src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        _CHILDREN.append(procs[-1])
+    return procs
 
 
-def ptxas_report(proc: subprocess.Popen) -> None:
-    """Print ptxas's registers, stack and spills of each encoder forward
-    kernel (a measurement: "not measured" where the compile fails)."""
-    out = proc.communicate(timeout=300)[0]
-    if proc.returncode != 0:
-        print(f"ptxas fused_encoder_fwd.cu: not measured (nvcc exited {proc.returncode})")
-        return
-    name = None
-    for line in out.splitlines():
-        if "Compiling entry function" in line:
-            mangled = line.split("'")[1]
-            name = next((k for k in ("encoder_pack_kernel", "encoder_fwd_kernel")
-                         if k in mangled), None)
-        elif name and ("stack frame" in line or "Used" in line):
-            print(f"ptxas {name}: {line.replace('ptxas info    :', '').strip()}")
+def ptxas_report(procs: list[subprocess.Popen]) -> None:
+    """Print ptxas's registers, stack and spills of each fused encoder kernel,
+    forward and backward (a measurement: "not measured" where the compile
+    fails). The backward's source also compiles the forward it recomputes
+    through; those kernels are printed once, from the forward's source."""
+    import re
+
+    seen: set[str] = set()
+    for src, proc in zip(PTXAS_SOURCES, procs):
+        out = proc.communicate(timeout=300)[0]
+        if proc.returncode != 0:
+            print(f"ptxas {src}: not measured (nvcc exited {proc.returncode})")
+            continue
+        name = None
+        for line in out.splitlines():
+            if "Compiling entry function" in line:
+                m = re.search(r"(encoder_[a-z_]*kernel|reduce_weight_grads)", line.split("'")[1])
+                name = m.group(1) if m and m.group(1) not in seen else None
+                if name:
+                    seen.add(name)
+            elif name and ("stack frame" in line or "Used" in line):
+                print(f"ptxas {name} ({src}): {line.replace('ptxas info    :', '').strip()}")
 
 
 # ---- the fused decoder -------------------------------------------------------------------

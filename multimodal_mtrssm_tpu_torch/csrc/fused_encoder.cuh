@@ -1,6 +1,7 @@
 // Shared code of the fused encoder kernels (fused_encoder_fwd.cu,
-// fused_encoder_bwd.cu): the layer plan and the forward, which the backward
-// also launches to recompute and record the activations.
+// fused_encoder_bwd.cu): the layer plan, the weight slices of the forward
+// and of the backward's transposed convolutions, and the forward, which the
+// backward also launches to recompute and record the activations.
 //
 // The encoder is a chain of convolutions: the three strided convs, the 1×1
 // projection, two 3×3 convs a residual block, and the linear head, which on
@@ -43,19 +44,24 @@
 
 namespace fenc {
 
-constexpr int kThreads = 256;  // the backward's cotangent pass
+constexpr int kThreads = 256;  // the backward's cotangent and weight-gradient passes
 constexpr int kFwdThreads = 256;  // the forward
-// Frames a block of the forward: at N=240 120 blocks fill most of the
-// card's 132 SMs, where 4 would leave half of them idle (PERF.md, PR 8).
+// Frames a block of the forward and of the backward's cotangent pass: at
+// N=240 120 blocks fill most of the card's 132 SMs, where 4 would leave half
+// of them idle (PERF.md, PR 8).
 constexpr int kFwdFrames = 2;
+// Floats of each of the weight-gradient pass's two staging buffers (at
+// least one frame of a layer's input and output records): 48 KB, so that
+// two blocks of it fit an SM.
+constexpr int kDwStage = 12288;
 constexpr int kMaxLayers = mrssm::kMaxWeights / 2;  // weight and bias each
 enum Mode { kElu = 0, kResidual = 1, kHead = 2 };
 
 // ops/kernels/build.py::EncDims, field for field: N frames of H×W×C0 (+ 2
 // CoordConv channels when coord), the strided convs' widths, the residual
 // stream's and intermediate widths and block count, the embedding width,
-// frames per block of the cotangent pass, and frames per chunk of the
-// weight-gradient pass.
+// frames per block of the cotangent pass (kFwdFrames), and frames per chunk
+// of the weight-gradient pass.
 struct EncDims {
   int N, H, W, C0, coord, ch0, ch1, ch2, res_out, res_mid, n_res, out_dim, frames, chunk;
 };
@@ -64,7 +70,7 @@ struct Layer {
   int Hi, Wi, Ci, Ho, Wo, Co, k, s, p;
   int mode;
   int in_buf, out_buf;          // shared-memory buffers of input and output (forward),
-                                // of their cotangents (backward)
+                                // of their cotangents (backward cotangent pass)
   int in_off, out_off;          // per-frame offsets of input and output in the activation
                                 // record (out_off -1: the head, not recorded)
   int dpre_off;                 // per-frame offset of the output's pre-activation
@@ -74,6 +80,8 @@ struct Layer {
   int bias_off;                 // forward: offset of the bias in the bias buffer
   int fcn, fper, fpk;           // forward: output channels a chunk, taps a slice, and the
                                 // offset of the layer's first slice in the packed weights
+  int bcn, bper, bpk;           // backward, the same of the transposed slices: input
+                                // channels a chunk, taps a slice, offset
 };
 
 // A slice of the forward's weights: the output channels [co0, co0 + cw) of
@@ -82,6 +90,13 @@ struct Layer {
 // weights. A layer is cut into chunks of Layer::fcn output channels and
 // each chunk into slices of Layer::fper taps; a chunk has several slices
 // only where it has no more tasks than threads.
+//
+// A transposed slice (the backward's cotangent pass) is the same with the
+// roles of the channels swapped: rows are input channels [co0, co0 + cw)
+// (the image channels only in the first layer), a row is (t1 - t0)·Co
+// floats [tap][co], and the taps are those of the kernel flipped in space
+// (tap t holds the torch weight's tap k·k − 1 − t), so that the input
+// cotangent is a convolution of the pre-activation cotangent with them.
 struct Slice {
   int layer, co0, cw, t0, t1, sp, off;
   int first, last;              // first and last slice of its chunk
@@ -90,10 +105,9 @@ struct Slice {
 struct Plan {
   int n;
   Layer L[kMaxLayers];
-  int H, W, C0, Cin, frames;
-  int bsz[3];                   // floats a frame of each shared-memory buffer
+  int H, W, C0, Cin;
   int stash, dstash;            // floats a frame of the activation and cotangent records
-  int wcap;                     // floats of the weight staging buffer
+                                // (multiples of 4: every frame's record is 16-byte aligned)
   // The forward's own tile of kFwdFrames frames: fbsz[i] floats a frame of
   // buffer i (the input holds only the C0 image channels); the bias buffer;
   // the partial sums of a split task; two slice buffers of fslice floats;
@@ -101,6 +115,16 @@ struct Plan {
   int fbsz[3], fbias, fpart, fslice;
   int packed;
   size_t fsmem;
+  // The backward's cotangent pass, on the forward's tile: bbsz[i] floats a
+  // frame of buffer i (the cotangents of the layers' outputs, the head's
+  // included), two transposed-slice buffers of bslice floats, their packed
+  // floats (after the forward's), and the dynamic shared memory. The
+  // weight-gradient pass: floats of each of its two staging buffers, and
+  // its dynamic shared memory.
+  int bbsz[3], bslice, bpacked;
+  size_t bsmem;
+  int dwstage;
+  size_t dwsmem;
 };
 
 // The row stride of a slice of K floats a row: K rounded up to a multiple
@@ -174,19 +198,81 @@ inline bool make_slices(Plan& p, int cap) {
   return true;
 }
 
-// The plan of an encoder and the dynamic shared memory of its backward's
-// cotangent pass; false where the widths need more layers than the table
-// holds or a block's shared memory does not fit, in the forward (one slice)
-// or the backward.
-inline bool make_plan(const EncDims& d, Plan* out, size_t* smem_bytes) {
+// Rows of a layer's transposed slices: its input channels, only the image
+// channels in the first layer (the CoordConv channels take no cotangent).
+__host__ __device__ __forceinline__ int t_rows(const Plan& p, int l) {
+  return l == 0 ? p.C0 : p.L[l].Ci;
+}
+
+// The transposed slice of layer l from input channel r0 and (flipped) tap
+// t0, at `off` in the backward's packed weights.
+__host__ __device__ __forceinline__ Slice make_tslice(const Plan& p, int l, int r0, int t0,
+                                                     int off) {
+  const Layer& L = p.L[l];
+  const int kk = L.k * L.k, R = t_rows(p, l);
+  Slice s;
+  s.layer = l;
+  s.co0 = r0;
+  s.cw = R - r0 < L.bcn ? R - r0 : L.bcn;
+  s.t0 = t0;
+  s.t1 = kk - t0 < L.bper ? kk : t0 + L.bper;
+  s.sp = padded_k((s.t1 - s.t0) * L.Co);
+  s.off = off;
+  s.first = t0 == 0;
+  s.last = s.t1 == kk;
+  return s;
+}
+
+// The transposed slice after s, in the order of the backward's packed
+// weights (the last layer first); its layer is -1 past layer `stop`.
+__host__ __device__ __forceinline__ Slice next_tslice(const Plan& p, const Slice& s, int stop) {
+  const Layer& L = p.L[s.layer];
+  const int off = s.off + slice_floats(s);
+  if (s.t1 < L.k * L.k) return make_tslice(p, s.layer, s.co0, s.t1, off);
+  if (s.co0 + L.bcn < t_rows(p, s.layer)) return make_tslice(p, s.layer, s.co0 + L.bcn, 0, off);
+  if (s.layer > stop) return make_tslice(p, s.layer - 1, 0, 0, off);
+  Slice end = s;
+  end.layer = -1;
+  return end;
+}
+
+// make_slices for the transposed slices (Layer::bcn, bper, bpk), over the
+// input positions of each layer.
+inline bool make_tslices(Plan& p, int cap) {
+  p.bpacked = 0;
+  for (int l = p.n - 1; l >= 0; --l) {
+    Layer& L = p.L[l];
+    const int kk = L.k * L.k, R = t_rows(p, l), rows = 4 * ((R + 3) / 4);
+    int taps = kk;
+    while (taps > 0 && rows * padded_k(taps * L.Co) > cap) --taps;
+    if (taps == kk || (taps > 0 && L.Hi * L.Wi * rows / 4 <= kThreads)) {
+      const int nsl = (kk + taps - 1) / taps;
+      L.bcn = R;
+      L.bper = (kk + nsl - 1) / nsl;
+    } else {
+      L.bcn = cap / padded_k(kk * L.Co) / 4 * 4;
+      L.bper = kk;
+      if (L.bcn < 4) return false;
+    }
+    L.bpk = p.bpacked;
+    for (Slice s = make_tslice(p, l, 0, 0, L.bpk); s.layer == l; s = next_tslice(p, s, 0)) {
+      p.bpacked += slice_floats(s);
+    }
+  }
+  return true;
+}
+
+// The plan of an encoder; false where the widths need more layers than the
+// table holds, the frames a block are not kFwdFrames, or a block's shared
+// memory does not fit: in the forward or the cotangent pass (one slice
+// each), or the weight-gradient pass (one frame of a layer's records).
+inline bool make_plan(const EncDims& d, Plan* out) {
   Plan p = {};
   p.H = d.H;
   p.W = d.W;
   p.C0 = d.C0;
   p.Cin = d.C0 + (d.coord ? 2 : 0);
-  p.frames = d.frames;
-  p.bsz[0] = d.H * d.W * p.Cin;
-  p.stash = p.bsz[0];
+  p.stash = d.H * d.W * p.Cin;
   int hi = d.H, wi = d.W, ci = p.Cin, buf = 0, off = 0;
   auto add = [&](int co, int k, int s, int pad, int mode, int in_buf, int out_buf,
                  int acc_in) -> bool {
@@ -203,7 +289,6 @@ inline bool make_plan(const EncDims& d, Plan* out, size_t* smem_bytes) {
     if (mode != kHead) p.stash += size;
     L.dpre_off = p.dstash;
     p.dstash += size;
-    if (size > p.bsz[out_buf]) p.bsz[out_buf] = size;
     hi = L.Ho; wi = L.Wo; ci = co; buf = out_buf; off = L.out_off;
     return true;
   };
@@ -216,39 +301,38 @@ inline bool make_plan(const EncDims& d, Plan* out, size_t* smem_bytes) {
     ok = add(d.res_mid, 3, 1, 1, kElu, xb, 2, 1) && add(xc, 3, 1, 1, kResidual, 2, xb, 0);
   }
   ok = ok && hi == wi && add(d.out_dim, hi, 1, 0, kHead, buf, 2, 0);
-  if (!ok || d.frames < 1) return false;
-
-  // Weight staging of the backward's cotangent pass: a chunk of input
-  // channels at a time, chunk·k·k·(Co + 1) floats.
-  size_t need = 0, least = 0;
-  for (int l = 0; l < p.n; ++l) {
-    const Layer& L = p.L[l];
-    const size_t kk = (size_t)L.k * L.k;
-    const size_t ci_bwd = l == 0 ? p.C0 : L.Ci;
-    need = std::max(need, ci_bwd * kk * (L.Co + 1));
-    least = std::max(least, kk * (L.Co + 1));
-  }
+  if (!ok || d.frames != kFwdFrames) return false;
+  p.stash = (p.stash + 3) / 4 * 4;
+  p.dstash = (p.dstash + 3) / 4 * 4;
   int dev = 0, limit = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess) {
     return false;
   }
-  const size_t act = (size_t)d.frames * (p.bsz[0] + p.bsz[1] + p.bsz[2]);
   const size_t limit_floats = (size_t)limit / sizeof(float);
-  if (act + least > limit_floats) return false;
-  p.wcap = (int)std::min(need, limit_floats - act);
 
-  // The forward: buffers rounded to float4s, every bias, the partial sums,
-  // and two slice buffers in what is left (at most a whole layer each).
-  int fb[3] = {d.H * d.W * d.C0, 0, 0}, largest = 0;
+  // Buffers rounded to float4s: the forward's (activations; the input holds
+  // only the C0 image channels), the cotangent pass's (the cotangents of the
+  // layers' outputs); every bias; the largest slice of either kind; the
+  // largest frame of a layer's records in the weight-gradient pass.
+  int fb[3] = {d.H * d.W * d.C0, 0, 0}, bb[3] = {0, 0, 0}, largest = 0, tlargest = 0;
+  int frame = 0;
   for (int l = 0; l < p.n; ++l) {
     Layer& L = p.L[l];
-    if (L.mode != kHead) fb[L.out_buf] = std::max(fb[L.out_buf], L.Ho * L.Wo * L.Co);
+    const int kk = L.k * L.k, size = L.Ho * L.Wo * L.Co;
+    if (L.k < 2 * L.p + 1) return false;  // the weight-gradient pass's bias tap (p, p)
+    if (L.mode != kHead) fb[L.out_buf] = std::max(fb[L.out_buf], size);
+    bb[L.out_buf] = std::max(bb[L.out_buf], size);
     L.bias_off = p.fbias;
     p.fbias += 4 * ((L.Co + 3) / 4);
-    largest = std::max(largest, 4 * ((L.Co + 3) / 4) * padded_k(L.Ci * L.k * L.k));
+    largest = std::max(largest, 4 * ((L.Co + 3) / 4) * padded_k(L.Ci * kk));
+    tlargest = std::max(tlargest, 4 * ((t_rows(p, l) + 3) / 4) * padded_k(L.Co * kk));
+    frame = std::max(frame, L.Hi * L.Wi * L.Ci + (size + 3) / 4 * 4);
   }
-  for (int i = 0; i < 3; ++i) p.fbsz[i] = (fb[i] + 3) / 4 * 4;
+  for (int i = 0; i < 3; ++i) {
+    p.fbsz[i] = (fb[i] + 3) / 4 * 4;
+    p.bbsz[i] = (bb[i] + 3) / 4 * 4;
+  }
   p.fpart = kFwdThreads * 4 * kFwdFrames;
   // 4: the two slice buffers' mbarriers.
   const size_t fact =
@@ -257,8 +341,17 @@ inline bool make_plan(const EncDims& d, Plan* out, size_t* smem_bytes) {
   p.fslice = (int)std::min<size_t>(largest, (limit_floats - fact) / 8 * 4);
   if (!make_slices(p, p.fslice)) return false;
   p.fsmem = (fact + 2 * (size_t)p.fslice) * sizeof(float);
+
+  const size_t bact = 4 + (size_t)kFwdFrames * (p.bbsz[0] + p.bbsz[1] + p.bbsz[2]) + p.fpart;
+  if (bact >= limit_floats) return false;
+  p.bslice = (int)std::min<size_t>(tlargest, (limit_floats - bact) / 8 * 4);
+  if (!make_tslices(p, p.bslice)) return false;
+  p.bsmem = (bact + 2 * (size_t)p.bslice) * sizeof(float);
+
+  p.dwstage = std::max(kDwStage, frame);
+  p.dwsmem = 2 * (size_t)p.dwstage * sizeof(float);
+  if (p.dwsmem > (size_t)limit) return false;
   *out = p;
-  *smem_bytes = (act + p.wcap) * sizeof(float);
   return true;
 }
 

@@ -17,13 +17,13 @@ extern "C" {
 // Sizes of the kernels' device-memory scratch for `d`: sizes[0] and [1] the
 // floats a frame of the backward's activation and cotangent records, [2]
 // the weight-gradient floats (all tensors back to back, torch layout), [3]
-// the frame chunks of the weight-gradient pass, [4] the floats of the
-// forward's packed weights. Returns 0, or -1 where the plan does not fit
-// (too many layers, or a block's shared memory).
+// the frame chunks of the weight-gradient pass, [4] the floats of the packed
+// weights: the forward's, then the backward's transposed slices (the
+// forward uses only the first P.packed). Returns 0, or -1 where the plan
+// does not fit (too many layers, or a block's shared memory).
 int fused_encoder_sizes(fenc::EncDims d, long long* sizes) {
   fenc::Plan P;
-  size_t smem = 0;
-  if (!fenc::make_plan(d, &P, &smem)) return -1;
+  if (!fenc::make_plan(d, &P)) return -1;
   long long grads = 0;
   for (int l = 0; l < P.n; ++l) {
     const fenc::Layer& L = P.L[l];
@@ -33,7 +33,7 @@ int fused_encoder_sizes(fenc::EncDims d, long long* sizes) {
   sizes[1] = P.dstash;
   sizes[2] = grads;
   sizes[3] = (d.N + d.chunk - 1) / d.chunk;
-  sizes[4] = P.packed;
+  sizes[4] = P.packed + P.bpacked;
   return 0;
 }
 
@@ -47,8 +47,7 @@ int fused_encoder_forward(const void* const* weights, int n_weights, const float
                           const float* coords, float* packed, float* out, fenc::EncDims d,
                           void* stream) {
   fenc::Plan P;
-  size_t smem = 0;
-  if (!fenc::make_plan(d, &P, &smem) || n_weights != 2 * P.n) return (int)cudaErrorInvalidValue;
+  if (!fenc::make_plan(d, &P) || n_weights != 2 * P.n) return (int)cudaErrorInvalidValue;
   return (int)fenc::launch_forward(mrssm::weight_ptrs(weights, n_weights), P, x, coords, packed,
                                    out, nullptr, d.N, static_cast<cudaStream_t>(stream));
 }

@@ -36,7 +36,15 @@ compute, not their layout.
 - ``fused_encoder_bwd`` (``csrc/fused_encoder_bwd.cu``): recomputes the
   activations from the frames, as the TPU backward does, then propagates
   the cotangent down the stack (``dx`` only where asked) and forms every
-  weight and bias gradient, reduced over frames in a fixed order.
+  weight and bias gradient, reduced over frames in a fixed order. The
+  cotangent pass is the forward's implicit GEMM transposed (weight slices
+  flipped in space and laid out ``[Ci][tap][Co]``, streamed by the bulk
+  copy; stride-2 layers by parity class), the weight-gradient pass a
+  blocked GEMM per layer and tap over both records staged by ``cp.async``,
+  4 × 4 gradient elements a thread. ``chip_smoke.py`` on an NVIDIA H100
+  80GB HBM3, 700.00 W: ~0.52 ms of device time a call at N=240 (the
+  passes' first forms: ~3.28) and ~7.1 ms at N=3840 (~48.6), below the
+  cuDNN ``Encoder``'s forward + backward; ``PERF.md`` §6.
 
 :func:`fused_encoder_plain` is the plain version: ``F.conv2d``/``F.linear``
 in the kernels' order of layers and ELU as ``exp(x) - 1`` (``fused_conv.py:
@@ -80,10 +88,14 @@ from multimodal_mtrssm_tpu_torch.nn.conv import Decoder, DecoderConfig, Encoder,
 # for the decoder 2 linears, the projection, two convs a block and 3
 # transposed convs.
 MAX_RESIDUAL_BLOCKS = 4
-# Frames per block of the decoder's kernels and of the encoder backward's
-# cotangent pass; the encoder forward's is csrc/fused_encoder.cuh's
-# kFwdFrames, also 2.
+# Frames per block of the decoder's kernels and of the encoder's forward and
+# backward cotangent pass (csrc/fused_encoder.cuh's kFwdFrames, which the
+# encoder's plan requires).
 FRAMES_PER_BLOCK = 2
+# Chunks of frames of the encoder's weight-gradient pass: about this many,
+# of at least 8 and at most 256 frames each (a chunk's sums over frames
+# take at most 256 terms).
+ENCODER_DW_CHUNKS = 16
 # Kernel launches since the last reset, forward and backward (plain ints),
 # of the encoder and of the decoder kernels.
 launches = 0
@@ -219,7 +231,7 @@ def _dims(cfg: EncoderConfig, n: int):
                    ch0=cfg.channels[0], ch1=cfg.channels[1], ch2=cfg.channels[2],
                    res_out=cfg.residual_output_size, res_mid=cfg.residual_intermediate_size,
                    n_res=cfg.num_residual_blocks, out_dim=cfg.out_dim, frames=FRAMES_PER_BLOCK,
-                   chunk=max(8, -(-n // 64)))
+                   chunk=min(256, max(8, -(-n // ENCODER_DW_CHUNKS))))
 
 
 def _check_tensors(weights: Sequence[torch.Tensor], shapes: list[tuple[int, ...]], stack: str,
@@ -313,12 +325,14 @@ def fused_encoder_backward_cuda(weights: Sequence[torch.Tensor], cfg: EncoderCon
                                 x: torch.Tensor, g: torch.Tensor, want_dx: bool,
                                 ) -> tuple[torch.Tensor | None, tuple[torch.Tensor, ...]]:
     """Launch the backward kernels (``csrc/fused_encoder_bwd.cu``): the
-    recomputing forward, the cotangent pass, the weight-gradient pass and
-    its fixed-order reduction. Same contract as
-    :func:`fused_encoder_backward_plain`. Its device-memory scratch at the
-    reference widths: 13,824 + 10,816 floats a frame of activation and
-    cotangent records (~99 KB a frame: ~24 MB at N=240, ~378 MB at N=3840)
-    and ≤ 64 frame chunks × 295,312 partial gradient floats (≤ 76 MB)."""
+    recomputing forward, the packing of the transposed weight slices, the
+    cotangent pass, the weight-gradient pass and its fixed-order reduction.
+    Same contract as :func:`fused_encoder_backward_plain`. Its device-memory
+    scratch at the reference widths: 13,824 + 10,816 floats a frame of
+    activation and cotangent records (~99 KB a frame: ~24 MB at N=240,
+    ~378 MB at N=3840), ≤ 16 frame chunks × 295,312 partial gradient floats
+    up to N=4096 (≤ 19 MB; more chunks of 256 frames beyond), and the
+    packed weights of both directions (~2.4 MB)."""
     global bwd_launches
     from multimodal_mtrssm_tpu_torch.ops.kernels import build
 

@@ -298,14 +298,17 @@ def _encoder(name: str, dev):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name,N", [("model", 240), ("model", 7), ("model", 3840), ("model", 1),
-                                    ("model", 5), ("narrow", 30), ("no_res", 30), ("wide", 30)])
+                                    ("model", 5), ("model", 241), ("narrow", 30), ("no_res", 30),
+                                    ("wide", 30), ("narrow", 241)])
 def test_fused_encoder_kernels_match_plain_and_cudnn(cuda_device, name, N):
     """The fused encoder's forward against its plain version and against the
     cuDNN ``Encoder`` (TF32 off), and its backward (every weight gradient and
     dx) against the plain backward on the inputs upcast to float64 (cuDNN's
     float32 backward strays ~7e-4 of scale from float64 at N=3840); the
-    backward is reproducible. N=1 and N=5 leave a ragged tile of 2 frames
-    a block."""
+    backward is reproducible, and without dx gives the same weight
+    gradients' bits. N=1, 5 and 241 leave a ragged tile of 2 frames a
+    block; N=241 also a ragged last chunk of the weight-gradient pass (16
+    chunks of 16 frames, the last of 1)."""
     enc = _encoder(name, cuda_device)
     w = [t.detach() for t in fused_conv.encoder_weights(enc)]
     rng = np.random.default_rng(N)
@@ -318,11 +321,43 @@ def test_fused_encoder_kernels_match_plain_and_cudnn(cuda_device, name, N):
         cudnn = enc(x)
         dx, dw = fused_conv.fused_encoder_backward_cuda(w, enc.cfg, x, g, True)
         dx2, dw2 = fused_conv.fused_encoder_backward_cuda(w, enc.cfg, x, g, True)
+        none, dw3 = fused_conv.fused_encoder_backward_cuda(w, enc.cfg, x, g, False)
     assert _scaled_err(got, plain) <= 1e-4 and _scaled_err(got, cudnn) <= 1e-4
     ref_dx, ref_dw = fused_conv.fused_encoder_backward_plain(
         [t.double() for t in w], enc.cfg, x.double(), g.double(), True)
     parity.check_gradients([*dw, dx], [t.float() for t in (*ref_dw, ref_dx)])
     assert all(torch.equal(a, b) for a, b in zip([*dw, dx], [*dw2, dx2]))
+    assert none is None and all(torch.equal(a, b) for a, b in zip(dw, dw3))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,lead", [("model", (8, 30)), ("narrow", (241,))])
+def test_fused_encoder_apply_gives_the_frames_cotangent(cuda_device, name, lead):
+    """Frames that require grad through ``fused_encoder_apply``: autograd asks
+    the backward kernel for their cotangent, which matches the plain
+    backward in float64 like every weight gradient; each pass launches each
+    kernel once each way, and two passes give the same bits."""
+    enc = _encoder(name, cuda_device)
+    rng = np.random.default_rng(len(lead))
+    x = torch.tensor(rng.uniform(-1, 1, (*lead, 32, 32, 1)).astype(np.float32),
+                     device=cuda_device, requires_grad=True)
+    g = torch.tensor(rng.standard_normal((*lead, enc.cfg.out_dim)).astype(np.float32),
+                     device=cuda_device)
+    runs = []
+    for _ in range(2):
+        enc.zero_grad(set_to_none=True)
+        x.grad = None
+        fused_conv.launches = fused_conv.bwd_launches = 0
+        fused_conv.fused_encoder_apply(enc, x).backward(g)
+        assert (fused_conv.launches, fused_conv.bwd_launches) == (1, 1)
+        runs.append([t.grad for t in fused_conv.encoder_weights(enc)] +
+                    [x.grad.reshape(-1, 32, 32, 1)])
+    w = [t.detach() for t in fused_conv.encoder_weights(enc)]
+    ref_dx, ref_dw = fused_conv.fused_encoder_backward_plain(
+        [t.double() for t in w], enc.cfg, x.detach().reshape(-1, 32, 32, 1).double(),
+        g.reshape(-1, enc.cfg.out_dim).double(), True)
+    parity.check_gradients(runs[0], [t.float() for t in (*ref_dw, ref_dx)])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 @pytest.mark.gpu
