@@ -3,6 +3,8 @@
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It refuses to run without a CUDA device and exits non-zero on any failure.
+``python3 chip_smoke.py --decoder`` runs only the fused decoder's timings
+(``decoder_phase``).
 Four configurations go through the serving and training phases, each with
 seeded random weights (no trained checkpoint or dataset on the machine;
 the shapes and the path are the real ones): MoPoE-MRSSM (``MRSSMConfig()``),
@@ -60,8 +62,9 @@ first two configurations' latent features.
    and the optimizer steps per second of ``Trainer.fit``; each kernel's
    bound at the main path's shape; the fused encoder forward's device time
    and the device time of each kernel of one fused encoder backward call
-   (``torch.profiler``); and the registers, stack and spills ``ptxas``
-   gives the fused encoder's kernels, forward and backward.
+   (``torch.profiler``), the same of the fused decoder's forward and
+   backward calls; and the registers, stack and spills ``ptxas`` gives the
+   fused encoder's and decoder's kernels, forward and backward.
 
 Each configuration's serving and training run, and the decoder's path
 (``fused_decoder_apply`` on both decoders of the first two configurations'
@@ -1047,11 +1050,7 @@ def encoder_timings(model, dev, card: str) -> tuple[dict, dict, dict]:
         parts = _device_breakdown(
             lambda: fused_conv.fused_encoder_backward_cuda(w, cfg, x, g, False),
             tuple(ENCODER_BWD_KERNELS.values()))
-        seen = [v for v in parts.values() if v is not None]
-        print(f"time fused_encoder_bwd N={N} device breakdown a call (torch.profiler, 10 calls): "
-              + ", ".join(f"{k} " + ("not measured" if parts[v] is None else f"{parts[v]:.4f} ms")
-                          for k, v in ENCODER_BWD_KERNELS.items())
-              + (f"; total {sum(seen):.4f} ms" if seen else "") + f" | {card}")
+        _print_breakdown(f"fused_encoder_bwd N={N}", parts, ENCODER_BWD_KERNELS, card)
         dev_ms = "not measured" if d_ms is None else f"{d_ms:.4f} ms"
         print(f"time fused_encoder_fwd N={N}: kernel {k_ms:.4f} ms (device {dev_ms}), plain "
               f"{p_ms:.4f} ms, cuDNN Encoder {l_ms:.4f} ms; fused_encoder_bwd (recompute + weight "
@@ -1112,16 +1111,35 @@ ENCODER_BWD_KERNELS = {"pack": "encoder_pack_kernel", "recompute forward": "enco
                        "transposed pack": "encoder_bwd_pack_kernel",
                        "cotangent pass": "encoder_bwd_dx", "weight-gradient pass": "encoder_bwd_dw",
                        "reduce_weight_grads": "reduce_weight_grads"}
+# The same of one fused_decoder_forward_cuda call (DECODER_FWD_KERNELS) and
+# of one fused_decoder_backward_cuda call, which recomputes through the
+# forward's kernels.
+DECODER_FWD_KERNELS = {"pack": "decoder_pack_kernel", "forward": "decoder_fwd_kernel"}
+DECODER_BWD_KERNELS = {"pack": "decoder_pack_kernel", "recompute forward": "decoder_fwd_kernel",
+                       "cotangent pass": "decoder_bwd_dx", "weight-gradient pass": "decoder_bwd_dw",
+                       "reduce_weight_grads": "reduce_weight_grads"}
+
+
+def _print_breakdown(what: str, parts: dict[str, float | None], kernels: dict[str, str],
+                     card: str) -> None:
+    """One line of a call's device ms per kernel (``_device_breakdown``'s
+    ``parts`` under ``kernels``' names) and their total."""
+    seen = [v for v in parts.values() if v is not None]
+    print(f"time {what} device breakdown a call (torch.profiler, 10 calls): "
+          + ", ".join(f"{k} " + ("not measured" if parts[v] is None else f"{parts[v]:.4f} ms")
+                      for k, v in kernels.items())
+          + (f"; total {sum(seen):.4f} ms" if seen else "") + f" | {card}")
 
 
 _CHILDREN: list[subprocess.Popen] = []  # stopped on exit, whatever failed
 
 
-PTXAS_SOURCES = ("fused_encoder_fwd.cu", "fused_encoder_bwd.cu")
+PTXAS_SOURCES = ("fused_encoder_fwd.cu", "fused_encoder_bwd.cu", "fused_decoder_fwd.cu",
+                 "fused_decoder_bwd.cu")
 
 
 def start_ptxas_report() -> list[subprocess.Popen]:
-    """Compile the fused encoder's sources once more with ``-Xptxas -v``, in
+    """Compile the fused stacks' sources once more with ``-Xptxas -v``, in
     the background (into the git-ignored build directory), one ``nvcc``
     each."""
     from multimodal_mtrssm_tpu_torch.ops.kernels import build
@@ -1138,10 +1156,11 @@ def start_ptxas_report() -> list[subprocess.Popen]:
 
 
 def ptxas_report(procs: list[subprocess.Popen]) -> None:
-    """Print ptxas's registers, stack and spills of each fused encoder kernel,
-    forward and backward (a measurement: "not measured" where the compile
-    fails). The backward's source also compiles the forward it recomputes
-    through; those kernels are printed once, from the forward's source."""
+    """Print ptxas's registers, stack and spills of each fused encoder and
+    decoder kernel, forward and backward (a measurement: "not measured" where
+    the compile fails). A backward's source also compiles the forward it
+    recomputes through; those kernels are printed once, from the forward's
+    source."""
     import re
 
     seen: set[str] = set()
@@ -1153,7 +1172,8 @@ def ptxas_report(procs: list[subprocess.Popen]) -> None:
         name = None
         for line in out.splitlines():
             if "Compiling entry function" in line:
-                m = re.search(r"(encoder_[a-z_]*kernel|reduce_weight_grads)", line.split("'")[1])
+                m = re.search(r"((?:en|de)coder_[a-z_]*kernel|reduce_weight_grads)",
+                              line.split("'")[1])
                 name = m.group(1) if m and m.group(1) not in seen else None
                 if name:
                     seen.add(name)
@@ -1310,7 +1330,8 @@ def decoder_timings(cases: list[dict], dev, card: str) -> tuple[dict, dict, dict
     against the cuDNN ``Decoder`` (TF32 off; the library yardstick, never
     called by the kernels' path): forward, and forward + backward to the
     features and every parameter, on each case's audio decoder and
-    features. Returns the first case's (N=240, 48 wide) times, library
+    features, and the device time of each kernel of a forward and of a
+    backward call. Returns the first case's (N=240, 48 wide) times, library
     times and bounds."""
     import torch
 
@@ -1335,6 +1356,15 @@ def decoder_timings(cases: list[dict], dev, card: str) -> tuple[dict, dict, dict
         x, params = feats.clone().requires_grad_(), list(dec.parameters())
         with torch.enable_grad():
             lb_ms = _median_ms(lambda: torch.autograd.grad(dec(x), [x, *params], g), 10)
+        fwd_parts = _device_breakdown(lambda: fused_conv.fused_decoder_forward_cuda(w, cfg, feats),
+                                      tuple(DECODER_FWD_KERNELS.values()))
+        _print_breakdown(f"fused_decoder_fwd {c['label']} N={N}", fwd_parts, DECODER_FWD_KERNELS,
+                         card)
+        bwd_parts = _device_breakdown(
+            lambda: fused_conv.fused_decoder_backward_cuda(w, cfg, feats, g, True),
+            tuple(DECODER_BWD_KERNELS.values()))
+        _print_breakdown(f"fused_decoder_bwd {c['label']} N={N}", bwd_parts, DECODER_BWD_KERNELS,
+                         card)
         macs = _decoder_macs(cfg) * N
         b_fwd = _bound(2 * macs, _nbytes(w, feats) + 4 * g.numel())
         # Recompute, feature and input cotangents, weight gradients.
@@ -1416,6 +1446,34 @@ def other_bounds(name: str, shapes, bounds_fn) -> dict[str, dict]:
     print(f"bounds of the {name} kernels beyond the main path's shapes: " + "; ".join(
         f"{k} {b['bound_ms']:.6f} ms ({b['bound_by']})" for k, b in out.items()))
     return out
+
+
+def decoder_phase() -> int:
+    """``--decoder``: only the fused decoder's timings and device breakdowns
+    (``decoder_timings``) on MRSSM's audio decoder over observed features
+    at N=240 and 3840, and ``ptxas``'s report; no checks and no contract
+    lines. For comparing decoder kernels within one call."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.models import MoPoEMRSSM, MRSSMConfig
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
+        return 2
+    card = card_line()
+    print(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    ptxas = start_ptxas_report()
+    cfg = MRSSMConfig()
+    model = MoPoEMRSSM(cfg).init(torch.Generator().manual_seed(0)).to(dev).eval()
+    with torch.no_grad():
+        cases = [{"model": model, "label": _label(cfg),
+                  "feats": _observed_features(model, cfg, dev, B, T)[1]} for B, T in DECODER_SHAPES]
+        decoder_timings(cases, dev, card)
+    ptxas_report(ptxas)
+    return 0
 
 
 def main() -> int:
@@ -1589,7 +1647,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        code = main()
+        code = decoder_phase() if sys.argv[1:] == ["--decoder"] else main()
     finally:
         for child in _CHILDREN:
             if child.poll() is None:

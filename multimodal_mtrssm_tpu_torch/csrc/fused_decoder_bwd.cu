@@ -5,12 +5,13 @@
 // 530-558): the gradients of every decoder weight and bias and, when asked,
 // of the features, which JAX returns from the first segment (_walk_bwd's
 // dh0). Like the TPU backward it recomputes the activations from the input
-// instead of keeping the forward's. Four launches, as the fused encoder's
-// backward (fused_encoder_bwd.cu):
+// instead of keeping the forward's. Five launches in four steps, as the
+// fused encoder's backward (fused_encoder_bwd.cu):
 //
-// 1. decoder_fwd_kernel (fused_decoder.cuh) recomputes each tile and
-//    records every layer's output in device memory (17,520 floats a frame
-//    at the reference widths and 48-wide features);
+// 1. the forward (fused_decoder.cuh: decoder_pack_kernel, then
+//    decoder_fwd_kernel) recomputes each tile and records every layer's
+//    output in device memory (17,520 floats a frame at the reference widths
+//    and 48-wide features);
 // 2. decoder_bwd_dx_kernel walks the layers in reverse per tile of frames,
 //    with the cotangents in shared memory and each layer's weights staged
 //    a chunk of input channels at a time: it multiplies by the activation's
@@ -29,7 +30,9 @@
 //
 // What bounds it: operations, ~35 MFLOP a frame (the recompute, the input
 // cotangents and the weight gradients each cost about the forward's
-// ~11.8); the records (~140 KB a frame) stay in L2 at N=240.
+// ~11.8); the records (~140 KB a frame) stay in L2 at N=240. The recompute
+// is the forward's implicit GEMM; steps 2 and 3 keep their first design
+// (one output a thread, weights staged from torch layout).
 #include "fused_decoder.cuh"
 
 namespace {
@@ -68,7 +71,7 @@ __global__ void __launch_bounds__(fdec::kThreads)
 decoder_bwd_dx_kernel(mrssm::WeightPtrs w, Plan P, const float* __restrict__ g,
                       float* __restrict__ dfeats, const float* __restrict__ stash,
                       float* __restrict__ dstash, int N) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int F = P.frames;
   float* buf[3];
   buf[0] = smem;
@@ -230,27 +233,29 @@ mrssm::WeightDims grad_dims(const Plan& P) {
 
 extern "C" {
 
-// Launch on `stream` the four passes above. feats [N, F], g [N, 32, 32, 1];
+// Launch on `stream` the steps above. feats [N, F], g [N, 32, 32, 1];
 // dfeats [N, F] or null; d_weights the gradient floats
 // (fused_decoder_sizes' sizes[2]) in torch layout, every tensor back to
 // back; stash, dstash and partial are scratch of N·sizes[0], N·sizes[1]
-// and sizes[3]·sizes[2] floats. All f32 and contiguous. Returns the
-// cudaError_t of the launches (0 on success).
+// and sizes[3]·sizes[2] floats, packed of sizes[4] floats (16-byte
+// aligned). All f32 and contiguous. Returns the cudaError_t of the launches
+// (0 on success).
 int fused_decoder_backward(const void* const* weights, int n_weights, const float* feats,
                            const float* g, float* dfeats, float* d_weights, float* stash,
-                           float* dstash, float* partial, fdec::DecDims d, void* stream) {
+                           float* dstash, float* partial, float* packed, fdec::DecDims d,
+                           void* stream) {
   fdec::Plan P;
-  size_t smem = 0;
-  if (!fdec::make_plan(d, &P, &smem) || n_weights != 2 * P.n) return (int)cudaErrorInvalidValue;
+  if (!fdec::make_plan(d, &P) || n_weights != 2 * P.n) return (int)cudaErrorInvalidValue;
   const mrssm::WeightPtrs w = mrssm::weight_ptrs(weights, n_weights);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = fdec::launch_forward(w, P, smem, feats, nullptr, stash, d.N, s);
+  cudaError_t err = fdec::launch_forward(w, P, feats, packed, nullptr, stash, d.N, s);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(decoder_bwd_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+                             (int)P.bsmem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (d.N + P.frames - 1) / P.frames;
-  decoder_bwd_dx_kernel<<<blocks, fdec::kThreads, smem, s>>>(w, P, g, dfeats, stash, dstash, d.N);
+  decoder_bwd_dx_kernel<<<blocks, fdec::kThreads, P.bsmem, s>>>(w, P, g, dfeats, stash, dstash,
+                                                                 d.N);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const mrssm::WeightDims gd = grad_dims(P);

@@ -1,7 +1,9 @@
 // Shared code of the fused encoder kernels (fused_encoder_fwd.cu,
 // fused_encoder_bwd.cu): the layer plan, the weight slices of the forward
 // and of the backward's transposed convolutions, and the forward, which the
-// backward also launches to recompute and record the activations.
+// backward also launches to recompute and record the activations. What the
+// encoder shares with the decoder (slices, the bulk copy, the micro-kernel)
+// is in conv_common.cuh.
 //
 // The encoder is a chain of convolutions: the three strided convs, the 1×1
 // projection, two 3×3 convs a residual block, and the linear head, which on
@@ -40,9 +42,14 @@
 
 #include <algorithm>
 
+#include "conv_common.cuh"
 #include "mrssm_common.cuh"
 
 namespace fenc {
+
+using fconv::padded_k;
+using fconv::Slice;
+using fconv::slice_floats;
 
 constexpr int kThreads = 256;  // the backward's cotangent and weight-gradient passes
 constexpr int kFwdThreads = 256;  // the forward
@@ -84,24 +91,6 @@ struct Layer {
                                 // channels a chunk, taps a slice, offset
 };
 
-// A slice of the forward's weights: the output channels [co0, co0 + cw) of
-// a layer and its taps [t0, t1), as 4·ceil(cw/4) rows (zeros past cw) of
-// (t1 - t0)·Ci floats, [tap][ci], at row stride sp, at `off` in the packed
-// weights. A layer is cut into chunks of Layer::fcn output channels and
-// each chunk into slices of Layer::fper taps; a chunk has several slices
-// only where it has no more tasks than threads.
-//
-// A transposed slice (the backward's cotangent pass) is the same with the
-// roles of the channels swapped: rows are input channels [co0, co0 + cw)
-// (the image channels only in the first layer), a row is (t1 - t0)·Co
-// floats [tap][co], and the taps are those of the kernel flipped in space
-// (tap t holds the torch weight's tap k·k − 1 − t), so that the input
-// cotangent is a convolution of the pre-activation cotangent with them.
-struct Slice {
-  int layer, co0, cw, t0, t1, sp, off;
-  int first, last;              // first and last slice of its chunk
-};
-
 struct Plan {
   int n;
   Layer L[kMaxLayers];
@@ -127,77 +116,6 @@ struct Plan {
   size_t dwsmem;
 };
 
-// The row stride of a slice of K floats a row: K rounded up to a multiple
-// of 4 with stride/4 odd, so that the threads of a warp that read one float4
-// each of neighbouring rows fall in distinct bank groups.
-__host__ __device__ __forceinline__ int padded_k(int K) {
-  const int r = (K + 3) / 4 * 4;
-  return (r / 4) % 2 == 0 ? r + 4 : r;
-}
-
-__host__ __device__ __forceinline__ int slice_floats(const Slice& s) {
-  return 4 * ((s.cw + 3) / 4) * s.sp;
-}
-
-// The slice of layer l from output channel co0 and tap t0, at `off` in the
-// packed weights.
-__host__ __device__ __forceinline__ Slice make_slice(const Plan& p, int l, int co0, int t0,
-                                                    int off) {
-  const Layer& L = p.L[l];
-  const int kk = L.k * L.k;
-  Slice s;
-  s.layer = l;
-  s.co0 = co0;
-  s.cw = L.Co - co0 < L.fcn ? L.Co - co0 : L.fcn;
-  s.t0 = t0;
-  s.t1 = kk - t0 < L.fper ? kk : t0 + L.fper;
-  s.sp = padded_k((s.t1 - s.t0) * L.Ci);
-  s.off = off;
-  s.first = t0 == 0;
-  s.last = s.t1 == kk;
-  return s;
-}
-
-// The slice after s, in the order of the packed weights; its layer is p.n
-// past the last.
-__host__ __device__ __forceinline__ Slice next_slice(const Plan& p, const Slice& s) {
-  const Layer& L = p.L[s.layer];
-  const int off = s.off + slice_floats(s);
-  if (s.t1 < L.k * L.k) return make_slice(p, s.layer, s.co0, s.t1, off);
-  if (s.co0 + L.fcn < L.Co) return make_slice(p, s.layer, s.co0 + L.fcn, 0, off);
-  if (s.layer + 1 < p.n) return make_slice(p, s.layer + 1, 0, 0, off);
-  Slice end = s;
-  end.layer = p.n;
-  return end;
-}
-
-// Cut each layer of the forward's weights into slices of at most `cap`
-// floats (Layer::fcn, Layer::fper, Layer::fpk); false where not even 4
-// output channels of one tap fit.
-inline bool make_slices(Plan& p, int cap) {
-  p.packed = 0;
-  for (int l = 0; l < p.n; ++l) {
-    Layer& L = p.L[l];
-    const int kk = L.k * L.k, rows = 4 * ((L.Co + 3) / 4);
-    int taps = kk;  // taps a slice, whole output channels
-    while (taps > 0 && rows * padded_k(taps * L.Ci) > cap) --taps;
-    if (taps == kk || (taps > 0 && L.Ho * L.Wo * rows / 4 <= kFwdThreads)) {
-      const int nsl = (kk + taps - 1) / taps;
-      L.fcn = L.Co;
-      L.fper = (kk + nsl - 1) / nsl;
-    } else {
-      L.fcn = cap / padded_k(kk * L.Ci) / 4 * 4;  // chunks of output channels, all taps
-      L.fper = kk;
-      if (L.fcn < 4) return false;
-    }
-    L.fpk = p.packed;
-    for (Slice s = make_slice(p, l, 0, 0, L.fpk); s.layer == l; s = next_slice(p, s)) {
-      p.packed += slice_floats(s);
-    }
-  }
-  return true;
-}
-
 // Rows of a layer's transposed slices: its input channels, only the image
 // channels in the first layer (the CoordConv channels take no cotangent).
 __host__ __device__ __forceinline__ int t_rows(const Plan& p, int l) {
@@ -205,7 +123,13 @@ __host__ __device__ __forceinline__ int t_rows(const Plan& p, int l) {
 }
 
 // The transposed slice of layer l from input channel r0 and (flipped) tap
-// t0, at `off` in the backward's packed weights.
+// t0, at `off` in the backward's packed weights. A transposed slice (the
+// backward's cotangent pass) is a forward slice (fconv::Slice) with the
+// roles of the channels swapped: rows are input channels [co0, co0 + cw)
+// (the image channels only in the first layer), a row is (t1 - t0)·Co
+// floats [tap][co], and the taps are those of the kernel flipped in space
+// (tap t holds the torch weight's tap k·k − 1 − t), so that the input
+// cotangent is a convolution of the pre-activation cotangent with them.
 __host__ __device__ __forceinline__ Slice make_tslice(const Plan& p, int l, int r0, int t0,
                                                      int off) {
   const Layer& L = p.L[l];
@@ -339,7 +263,9 @@ inline bool make_plan(const EncDims& d, Plan* out) {
       4 + (size_t)kFwdFrames * (p.fbsz[0] + p.fbsz[1] + p.fbsz[2]) + p.fbias + p.fpart;
   if (fact >= limit_floats) return false;
   p.fslice = (int)std::min<size_t>(largest, (limit_floats - fact) / 8 * 4);
-  if (!make_slices(p, p.fslice)) return false;
+  if (!fconv::make_slices(p, p.fslice, kFwdThreads, [](const Layer&) { return true; })) {
+    return false;
+  }
   p.fsmem = (fact + 2 * (size_t)p.fslice) * sizeof(float);
 
   const size_t bact = 4 + (size_t)kFwdFrames * (p.bbsz[0] + p.bbsz[1] + p.bbsz[2]) + p.fpart;
@@ -357,34 +283,6 @@ inline bool make_plan(const EncDims& d, Plan* out) {
 
 namespace {
 
-// The slices reach shared memory by the Hopper bulk copy (TMA): one thread
-// starts a slice's copy, which completes on the buffer's mbarrier.
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)));
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-__device__ __forceinline__ void bulk_load(float* dst, const float* src, int bytes,
-                                          unsigned long long* bar) {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes) : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar, int parity) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  }
-}
-
 // Pack every slice of the torch-layout weights (Slice): blockIdx.y is the
 // layer, whose slices the block walks in order, one thread per packed
 // float, zeros past a chunk's channels and in the row padding.
@@ -392,7 +290,8 @@ __global__ void encoder_pack_kernel(mrssm::WeightPtrs w, Plan P, float* __restri
   const int l = blockIdx.y;
   const Layer& L = P.L[l];
   const int kk = L.k * L.k;
-  for (Slice sl = make_slice(P, l, 0, 0, L.fpk); sl.layer == l; sl = next_slice(P, sl)) {
+  for (Slice sl = fconv::make_slice(P, l, 0, 0, L.fpk); sl.layer == l;
+       sl = fconv::next_slice(P, sl)) {
     const int cols = (sl.t1 - sl.t0) * L.Ci, n = slice_floats(sl);
     for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n; e += gridDim.x * blockDim.x) {
       const int r = e / sl.sp, col = e - r * sl.sp;
@@ -406,45 +305,13 @@ __global__ void encoder_pack_kernel(mrssm::WeightPtrs w, Plan P, float* __restri
   }
 }
 
-// One task of a slice: output position (oy, ox) of every frame of the tile
-// and the output channels cg + G·j, j < 4, of the slice's chunk, summed
-// over the input channels [c0, c1) of the slice's taps that fall inside the
-// input map (taps in the padding are skipped). `wrow` is the slice's row
-// cg; row cg + G·j is j·Gsp further. The vector form reads 4 input
-// channels at once (Ci % 4 == 0); the scalar form reads one, and in the
-// first layer takes the channels from cimg on from the CoordConv values.
-// Every sum runs taps in order, then channels in order.
-template <int F>
-__device__ __forceinline__ void conv_vec(const Layer& L, const Slice& sl,
-                                         const float* __restrict__ in, int ibsz,
-                                         const float* __restrict__ wrow, int Gsp, int oy, int ox,
-                                         int c0, int c1, float (&acc)[F][4]) {
-  for (int tap = sl.t0; tap < sl.t1; ++tap) {
-    const int ky = tap / L.k, kx = tap - ky * L.k;
-    const int iy = oy * L.s - L.p + ky, ix = ox * L.s - L.p + kx;
-    if (iy < 0 || iy >= L.Hi || ix < 0 || ix >= L.Wi) continue;
-    const float* a = in + (iy * L.Wi + ix) * L.Ci;
-    const float* wt = wrow + (tap - sl.t0) * L.Ci;
-    for (int ci = c0; ci < c1; ci += 4) {
-      float4 av[F], wv[4];
-#pragma unroll
-      for (int f = 0; f < F; ++f) av[f] = *reinterpret_cast<const float4*>(a + f * ibsz + ci);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wv[j] = *reinterpret_cast<const float4*>(wt + j * Gsp + ci);
-#pragma unroll
-      for (int f = 0; f < F; ++f) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float r = fmaf(av[f].x, wv[j].x, acc[f][j]);
-          r = fmaf(av[f].y, wv[j].y, r);
-          r = fmaf(av[f].z, wv[j].z, r);
-          acc[f][j] = fmaf(av[f].w, wv[j].w, r);
-        }
-      }
-    }
-  }
-}
-
+// The first layer's task of a slice (conv_common.cuh): output position
+// (oy, ox) of every frame of the tile and the output channels cg + G·j, j <
+// 4, of the slice's chunk, summed over the input channels [c0, c1) of the
+// slice's taps that fall inside the input map, one channel at a time, the
+// channels from cimg on from the CoordConv values. `wrow` is the slice's row
+// cg; row cg + G·j is j·Gsp further. Every sum runs taps in order, then
+// channels in order.
 template <int F>
 __device__ __forceinline__ void conv_scalar(const Layer& L, const Slice& sl,
                                             const float* __restrict__ in, int ibsz,
@@ -506,12 +373,12 @@ encoder_fwd_kernel(mrssm::WeightPtrs w, Plan P, const float* __restrict__ x,
   const int nf = min(F, N - n0);
 
   auto load_slice = [&](const Slice& sl, int b) {  // thread 0 only
-    bulk_load(WB[b], packed + sl.off, 4 * slice_floats(sl), &bar[b]);
+    fconv::bulk_load(WB[b], packed + sl.off, 4 * slice_floats(sl), &bar[b]);
   };
-  Slice sl = make_slice(P, 0, 0, 0, 0);
+  Slice sl = fconv::make_slice(P, 0, 0, 0, 0);
   if (tid == 0) {
-    mbar_init(&bar[0]);
-    mbar_init(&bar[1]);
+    fconv::mbar_init(&bar[0]);
+    fconv::mbar_init(&bar[1]);
     load_slice(sl, 0);
   }
 
@@ -541,16 +408,15 @@ encoder_fwd_kernel(mrssm::WeightPtrs w, Plan P, const float* __restrict__ x,
 
   float acc[F][4];
   for (int i = 0; sl.layer < P.n; ++i) {
-    const Slice next = next_slice(P, sl);
+    const Slice next = fconv::next_slice(P, sl);
     if (tid == 0 && next.layer < P.n) load_slice(next, (i + 1) & 1);
-    mbar_wait(&bar[i & 1], (i >> 1) & 1);
+    fconv::mbar_wait(&bar[i & 1], (i >> 1) & 1);
     __syncthreads();  // slice i and the previous layer's outputs are in place
 
     const int l = sl.layer;
     const Layer L = P.L[l];
     const int G = (sl.cw + 3) / 4, Gsp = G * sl.sp, tasks = L.Ho * L.Wo * G;
     const bool vec = l > 0 && L.Ci % 4 == 0;
-    const int unit = vec ? 4 : 1, S = max(1, min(kFwdThreads / tasks, L.Ci / unit));
     const float* in = buf[L.in_buf];
     float* ob = buf[L.out_buf];
     const int ibsz = P.fbsz[L.in_buf], obsz = P.fbsz[L.out_buf];
@@ -558,18 +424,27 @@ encoder_fwd_kernel(mrssm::WeightPtrs w, Plan P, const float* __restrict__ x,
     auto run = [&](int task, int c0, int c1) {
       const int pos = task / G, cg = task - pos * G;
       const int oy = pos / L.Wo, ox = pos - oy * L.Wo;
+      const float* wrow = WB[i & 1] + cg * sl.sp;
       if (vec) {
-        conv_vec<F>(L, sl, in, ibsz, WB[i & 1] + cg * sl.sp, Gsp, oy, ox, c0, c1, acc);
+        // Taps in the padding are skipped, not multiplied by zero.
+        auto walk = [&](int tap) {
+          const int ky = tap / L.k, kx = tap - ky * L.k;
+          const int iy = oy * L.s - L.p + ky, ix = ox * L.s - L.p + kx;
+          return iy < 0 || iy >= L.Hi || ix < 0 || ix >= L.Wi ? -1 : iy * L.Wi + ix;
+        };
+        fconv::conv_taps<F, 4, true>(sl.t0, sl.t0, sl.t1, L.Ci, in, ibsz, wrow, Gsp, c0, c1, walk,
+                                     acc);
       } else {
-        conv_scalar<F>(L, sl, in, ibsz, WB[i & 1] + cg * sl.sp, Gsp, oy, ox, c0, c1,
-                       l == 0 ? P.C0 : L.Ci, coords, P.H, acc);
+        conv_scalar<F>(L, sl, in, ibsz, wrow, Gsp, oy, ox, c0, c1, l == 0 ? P.C0 : L.Ci, coords,
+                       P.H, acc);
       }
     };
-    // Output value v (bias added) of frame f, position pos, chunk channel
-    // c: ELU (after the skip in a residual block's second conv), or the
+    // Output sum v of frame f, position pos, chunk channel c, plus the
+    // bias: ELU (after the skip in a residual block's second conv), or the
     // embedding.
     auto emit = [&](float v, int f, int pos, int c) {
       const int co = sl.co0 + c;
+      v += bl[c];
       if (L.mode == kHead) {
         if (out != nullptr && f < nf) out[(size_t)(n0 + f) * L.Co + co] = v;
         return;
@@ -581,54 +456,7 @@ encoder_fwd_kernel(mrssm::WeightPtrs w, Plan P, const float* __restrict__ x,
         stash[(size_t)(n0 + f) * P.stash + L.out_off + pos * L.Co + co] = r;
       }
     };
-    auto zero = [&] {
-#pragma unroll
-      for (int f = 0; f < F; ++f) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[f][j] = 0.f;
-      }
-    };
-    auto emit_acc = [&](int task) {
-      const int pos = task / G, cg = task - pos * G;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (cg + G * j >= sl.cw) continue;
-#pragma unroll
-        for (int f = 0; f < F; ++f) emit(acc[f][j] + bl[cg + G * j], f, pos, cg + G * j);
-      }
-    };
-
-    if (tasks > kFwdThreads) {  // several tasks a thread: the chunk is one slice
-      for (int task = tid; task < tasks; task += kFwdThreads) {
-        zero();
-        run(task, 0, L.Ci);
-        emit_acc(task);
-      }
-    } else {
-      const int task = tid % tasks, s = tid / tasks, nu = L.Ci / unit;
-      if (sl.first) zero();
-      if (s < S) run(task, s * nu / S * unit, (s + 1) * nu / S * unit);
-      if (sl.last && S == 1) {
-        if (s == 0) emit_acc(task);
-      } else if (sl.last) {
-        if (s < S) {
-#pragma unroll
-          for (int f = 0; f < F; ++f) {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) part[((s * tasks + task) * F + f) * 4 + j] = acc[f][j];
-          }
-        }
-        __syncthreads();
-        for (int e = tid; e < tasks * F * 4; e += kFwdThreads) {
-          const int t = e / (F * 4), j = e % 4, f = e / 4 % F;
-          const int pos = t / G, c = t - pos * G + G * j;
-          if (c >= sl.cw) continue;
-          float v = 0.f;
-          for (int q = 0; q < S; ++q) v += part[((q * tasks + t) * F + f) * 4 + j];
-          emit(v + bl[c], f, pos, c);
-        }
-      }
-    }
+    fconv::slice_tasks<F, 4, kFwdThreads>(sl, tasks, G, L.Ci, vec ? 4 : 1, part, run, emit, acc);
     __syncthreads();  // slice i's buffer is free for slice i + 2
     sl = next;
   }

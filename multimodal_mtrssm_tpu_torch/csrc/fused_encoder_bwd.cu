@@ -83,7 +83,7 @@ __global__ void encoder_bwd_pack_kernel(mrssm::WeightPtrs w, Plan P, float* __re
   const int kk = L.k * L.k;
   for (Slice sl = fenc::make_tslice(P, l, 0, 0, L.bpk); sl.layer == l;
        sl = fenc::next_tslice(P, sl, 0)) {
-    const int cols = (sl.t1 - sl.t0) * L.Co, n = fenc::slice_floats(sl);
+    const int cols = (sl.t1 - sl.t0) * L.Co, n = fconv::slice_floats(sl);
     for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n; e += gridDim.x * blockDim.x) {
       const int r = e / sl.sp, col = e - r * sl.sp;
       float v = 0.f;
@@ -97,97 +97,20 @@ __global__ void encoder_bwd_pack_kernel(mrssm::WeightPtrs w, Plan P, float* __re
 }
 
 // Input position (iy, ix) of a task's position index: for a stride-2 layer
-// by parity class (even rows and even columns first), whose positions take
-// a fixed subset of the taps; else row-major.
+// by parity class (fconv::parity_position), whose positions take a fixed
+// subset of the taps; else row-major.
 __device__ __forceinline__ void in_position(const Layer& L, int pos, int& iy, int& ix) {
-  if (L.s == 2 && L.Hi % 2 == 0 && L.Wi % 2 == 0) {
-    const int hh = L.Hi / 2, hw = L.Wi / 2, cls = pos / (hh * hw), r = pos - cls * hh * hw;
-    iy = r / hw * 2 + (cls >> 1);
-    ix = r % hw * 2 + (cls & 1);
-  } else {
-    iy = pos / L.Wi;
-    ix = pos - iy * L.Wi;
-  }
-}
-
-// One task of a transposed slice: input position (iy, ix) of every frame
-// of the tile and the input channels cg + G·j, j < 4, of the slice's chunk,
-// summed over the output channels [c0, c1) of the slice's (flipped) taps
-// that reach an output position: tap t of the flipped kernel takes output
-// (ty, tx) / s with ty = iy − (k − 1 − p) + t / k (likewise tx), where both
-// divide by the stride and fall inside the output map. `wrow` is the
-// slice's row cg; row cg + G·j is j·Gsp further. The vector form reads 4
-// output channels at once (Co % 4 == 0). Every sum runs taps in order, then
-// channels in order.
-template <int F>
-__device__ __forceinline__ void convt_vec(const Layer& L, const Slice& sl,
-                                          const float* __restrict__ dout, int dbsz,
-                                          const float* __restrict__ wrow, int Gsp, int iy, int ix,
-                                          int c0, int c1, float (&acc)[F][4]) {
-  const int pt = L.k - 1 - L.p;
-  for (int tap = sl.t0; tap < sl.t1; ++tap) {
-    const int ky = tap / L.k, kx = tap - ky * L.k;
-    const int ty = iy - pt + ky, tx = ix - pt + kx;
-    if (ty < 0 || tx < 0 || ty % L.s != 0 || tx % L.s != 0) continue;
-    const int oy = ty / L.s, ox = tx / L.s;
-    if (oy >= L.Ho || ox >= L.Wo) continue;
-    const float* a = dout + (oy * L.Wo + ox) * L.Co;
-    const float* wt = wrow + (tap - sl.t0) * L.Co;
-    for (int co = c0; co < c1; co += 4) {
-      float4 av[F], wv[4];
-#pragma unroll
-      for (int f = 0; f < F; ++f) av[f] = *reinterpret_cast<const float4*>(a + f * dbsz + co);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wv[j] = *reinterpret_cast<const float4*>(wt + j * Gsp + co);
-#pragma unroll
-      for (int f = 0; f < F; ++f) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float r = fmaf(av[f].x, wv[j].x, acc[f][j]);
-          r = fmaf(av[f].y, wv[j].y, r);
-          r = fmaf(av[f].z, wv[j].z, r);
-          acc[f][j] = fmaf(av[f].w, wv[j].w, r);
-        }
-      }
-    }
-  }
-}
-
-template <int F>
-__device__ __forceinline__ void convt_scalar(const Layer& L, const Slice& sl,
-                                             const float* __restrict__ dout, int dbsz,
-                                             const float* __restrict__ wrow, int Gsp, int iy,
-                                             int ix, int c0, int c1, float (&acc)[F][4]) {
-  const int pt = L.k - 1 - L.p;
-  for (int tap = sl.t0; tap < sl.t1; ++tap) {
-    const int ky = tap / L.k, kx = tap - ky * L.k;
-    const int ty = iy - pt + ky, tx = ix - pt + kx;
-    if (ty < 0 || tx < 0 || ty % L.s != 0 || tx % L.s != 0) continue;
-    const int oy = ty / L.s, ox = tx / L.s;
-    if (oy >= L.Ho || ox >= L.Wo) continue;
-    const float* a = dout + (oy * L.Wo + ox) * L.Co;
-    const float* wt = wrow + (tap - sl.t0) * L.Co;
-    for (int co = c0; co < c1; ++co) {
-      float av[F], wv[4];
-#pragma unroll
-      for (int f = 0; f < F; ++f) av[f] = a[f * dbsz + co];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wv[j] = wt[j * Gsp + co];
-#pragma unroll
-      for (int f = 0; f < F; ++f) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[f][j] = fmaf(av[f], wv[j], acc[f][j]);
-      }
-    }
-  }
+  fconv::parity_position(L.Hi, L.Wi, L.s, pos, iy, ix);
 }
 
 // The cotangent pass over a tile of F frames (see above). g [N, out_dim] is
 // the output's cotangent; dx [N, H, W, C0], or null for no input gradient
 // (then the walk stops after the second layer, whose epilogue records the
 // first layer's pre-activation cotangent). `tpacked` holds the transposed
-// slices as encoder_bwd_pack_kernel wrote them.
-__global__ void __launch_bounds__(kThreads)
+// slices as encoder_bwd_pack_kernel wrote them. One block an SM, as its
+// shared memory leaves it: with the thread count alone ptxas caps a thread
+// at 128 registers, where the shared task loop (conv_common.cuh) spills.
+__global__ void __launch_bounds__(kThreads, 1)
 encoder_bwd_dx_kernel(Plan P, const float* __restrict__ g, float* __restrict__ dx,
                       const float* __restrict__ stash, float* __restrict__ dstash,
                       const float* __restrict__ tpacked, int N) {
@@ -206,12 +129,12 @@ encoder_bwd_dx_kernel(Plan P, const float* __restrict__ g, float* __restrict__ d
   const int stop = dx == nullptr ? 1 : 0;
 
   auto load_slice = [&](const Slice& sl, int b) {  // thread 0 only
-    fenc::bulk_load(WB[b], tpacked + sl.off, 4 * fenc::slice_floats(sl), &bar[b]);
+    fconv::bulk_load(WB[b], tpacked + sl.off, 4 * fconv::slice_floats(sl), &bar[b]);
   };
   Slice sl = fenc::make_tslice(P, P.n - 1, 0, 0, 0);
   if (tid == 0) {
-    fenc::mbar_init(&bar[0]);
-    fenc::mbar_init(&bar[1]);
+    fconv::mbar_init(&bar[0]);
+    fconv::mbar_init(&bar[1]);
     load_slice(sl, 0);
   }
   // The head has no activation: its output's cotangent is its
@@ -231,24 +154,42 @@ encoder_bwd_dx_kernel(Plan P, const float* __restrict__ g, float* __restrict__ d
   for (int i = 0; sl.layer >= 0; ++i) {
     const Slice next = fenc::next_tslice(P, sl, stop);
     if (tid == 0 && next.layer >= 0) load_slice(next, (i + 1) & 1);
-    fenc::mbar_wait(&bar[i & 1], (i >> 1) & 1);
+    fconv::mbar_wait(&bar[i & 1], (i >> 1) & 1);
     __syncthreads();  // slice i and the layer's pre-activation cotangent are in place
 
     const int l = sl.layer;
     const Layer L = P.L[l];
     const int G = (sl.cw + 3) / 4, Gsp = G * sl.sp, tasks = L.Hi * L.Wi * G;
     const bool vec = L.Co % 4 == 0;
-    const int unit = vec ? 4 : 1, S = max(1, min(kThreads / tasks, L.Co / unit));
     const float* dout = buf[L.out_buf];
     const int dbsz = P.bbsz[L.out_buf];
+    // A task of a transposed slice: input position (iy, ix) of every frame
+    // of the tile and the input channels cg + G·j, j < 4, of the slice's
+    // chunk, summed over the output channels [c0, c1) of the slice's
+    // (flipped) taps that reach an output position: tap t of the flipped
+    // kernel takes output (ty, tx) / s with ty = iy − (k − 1 − p) + t / k
+    // (likewise tx), where both divide by the stride and fall inside the
+    // output map. The vector form reads 4 output channels at once (Co % 4
+    // == 0).
     auto run = [&](int task, int c0, int c1) {
       const int pos = task / G, cg = task - pos * G;
       int iy, ix;
       in_position(L, pos, iy, ix);
+      const int pt = L.k - 1 - L.p;
+      auto walk = [&](int tap) {
+        const int ky = tap / L.k, kx = tap - ky * L.k;
+        const int ty = iy - pt + ky, tx = ix - pt + kx;
+        if (ty < 0 || tx < 0 || ty % L.s != 0 || tx % L.s != 0) return -1;
+        const int oy = ty / L.s, ox = tx / L.s;
+        return oy >= L.Ho || ox >= L.Wo ? -1 : oy * L.Wo + ox;
+      };
+      const float* wrow = WB[i & 1] + cg * sl.sp;
       if (vec) {
-        convt_vec<F>(L, sl, dout, dbsz, WB[i & 1] + cg * sl.sp, Gsp, iy, ix, c0, c1, acc);
+        fconv::conv_taps<F, 4, true>(sl.t0, sl.t0, sl.t1, L.Co, dout, dbsz, wrow, Gsp, c0, c1,
+                                     walk, acc);
       } else {
-        convt_scalar<F>(L, sl, dout, dbsz, WB[i & 1] + cg * sl.sp, Gsp, iy, ix, c0, c1, acc);
+        fconv::conv_taps<F, 4, false>(sl.t0, sl.t0, sl.t1, L.Co, dout, dbsz, wrow, Gsp, c0, c1,
+                                      walk, acc);
       }
     };
     // Input cotangent v of frame f, position index pos, chunk row c: the
@@ -275,54 +216,7 @@ encoder_bwd_dx_kernel(Plan P, const float* __restrict__ g, float* __restrict__ d
       }
       *d = v;
     };
-    auto zero = [&] {
-#pragma unroll
-      for (int f = 0; f < F; ++f) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[f][j] = 0.f;
-      }
-    };
-    auto emit_acc = [&](int task) {
-      const int pos = task / G, cg = task - pos * G;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (cg + G * j >= sl.cw) continue;
-#pragma unroll
-        for (int f = 0; f < F; ++f) emit(acc[f][j], f, pos, cg + G * j);
-      }
-    };
-
-    if (tasks > kThreads) {  // several tasks a thread: the chunk is one slice
-      for (int task = tid; task < tasks; task += kThreads) {
-        zero();
-        run(task, 0, L.Co);
-        emit_acc(task);
-      }
-    } else {
-      const int task = tid % tasks, s = tid / tasks, nu = L.Co / unit;
-      if (sl.first) zero();
-      if (s < S) run(task, s * nu / S * unit, (s + 1) * nu / S * unit);
-      if (sl.last && S == 1) {
-        if (s == 0) emit_acc(task);
-      } else if (sl.last) {
-        if (s < S) {
-#pragma unroll
-          for (int f = 0; f < F; ++f) {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) part[((s * tasks + task) * F + f) * 4 + j] = acc[f][j];
-          }
-        }
-        __syncthreads();
-        for (int e = tid; e < tasks * F * 4; e += kThreads) {
-          const int t = e / (F * 4), j = e % 4, f = e / 4 % F;
-          const int pos = t / G, c = t - pos * G + G * j;
-          if (c >= sl.cw) continue;
-          float v = 0.f;
-          for (int q = 0; q < S; ++q) v += part[((q * tasks + t) * F + f) * 4 + j];
-          emit(v, f, pos, c);
-        }
-      }
-    }
+    fconv::slice_tasks<F, 4, kThreads>(sl, tasks, G, L.Co, vec ? 4 : 1, part, run, emit, acc);
     __syncthreads();  // slice i's buffer is free for slice i + 2
     sl = next;
   }
@@ -350,11 +244,11 @@ inline int dw_blocks(const Plan& P) {
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(fenc::smem_addr(dst)),
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(fconv::smem_addr(dst)),
                "l"(src) : "memory");
 }
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(fenc::smem_addr(dst)),
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(fconv::smem_addr(dst)),
                "l"(src) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {

@@ -59,11 +59,19 @@ weights: the two linears (the second unflattened in the reference's
 the three k4 s2 p1 transposed convs (ELU, ELU, Tanh), features ``[N, F]`` →
 NHWC frames ``[N, 32, 32, 1]``.
 
-- ``fused_decoder_fwd`` (``csrc/fused_decoder_fwd.cu``) and
-  ``fused_decoder_bwd`` (``csrc/fused_decoder_bwd.cu``): the encoder
-  kernels' design, with the decoder's layers (``csrc/fused_decoder.cuh``);
-  the backward also returns the features' cotangent, since in training the
-  decoder sits on the latents.
+- ``fused_decoder_fwd`` (``csrc/fused_decoder_fwd.cu``, design notes in
+  ``csrc/fused_decoder.cuh``): the encoder forward's implicit GEMM a layer,
+  built from the pieces both stacks share (``csrc/conv_common.cuh``): a
+  packing launch lays out each layer's weights tap-major, a transposed
+  conv's taps by output-parity class, and the bulk copy streams them; a
+  thread owns a position of both frames of the tile and 4 output channels
+  (1 in the last layer). ``chip_smoke.py`` on an NVIDIA H100 80GB HBM3,
+  700.00 W: ~0.29-0.32 ms of device time at N=240 and ~4.4-4.9 ms at
+  N=3840, below the cuDNN ``Decoder``'s call; ``PERF.md`` §6.
+- ``fused_decoder_bwd`` (``csrc/fused_decoder_bwd.cu``): recomputes through
+  that forward, then its cotangent and weight-gradient passes keep the
+  first design (one output a thread); it also returns the features'
+  cotangent, since in training the decoder sits on the latents.
 
 JAX's decoder operators (``build_decoder_operators`` ``:686``,
 ``_deconv_superrow_maps`` ``:615``, ``superrow_decoder_xla`` ``:752``) are
@@ -89,8 +97,8 @@ from multimodal_mtrssm_tpu_torch.nn.conv import Decoder, DecoderConfig, Encoder,
 # transposed convs.
 MAX_RESIDUAL_BLOCKS = 4
 # Frames per block of the decoder's kernels and of the encoder's forward and
-# backward cotangent pass (csrc/fused_encoder.cuh's kFwdFrames, which the
-# encoder's plan requires).
+# backward cotangent pass (kFwdFrames of csrc/fused_encoder.cuh and kFrames
+# of csrc/fused_decoder.cuh, which the plans require).
 FRAMES_PER_BLOCK = 2
 # Chunks of frames of the encoder's weight-gradient pass: about this many,
 # of at least 8 and at most 256 frames each (a chunk's sums over frames
@@ -265,9 +273,8 @@ def _sizes(query, dims, stack: str) -> tuple[int, ...]:
     """``(stash, dstash, grads, chunks, packed)`` from a stack's sizes entry
     point ``query``: floats a frame of the backward's activation and
     cotangent records, weight-gradient floats, frame chunks of its
-    weight-gradient pass, and the floats of the encoder forward's packed
-    weights (0 for the decoder). Raises where a block's shared memory would
-    not fit."""
+    weight-gradient pass, and the floats of the packed weights. Raises where
+    a block's shared memory would not fit."""
     out = (ctypes.c_longlong * 5)()
     if query(dims, ctypes.cast(out, ctypes.c_void_p)) != 0:
         raise ValueError(f"the fused {stack} kernels' shared memory does not fit one block "
@@ -543,10 +550,11 @@ def fused_decoder_forward_cuda(weights: Sequence[torch.Tensor], cfg: DecoderConf
     dims = _dec_dims(cfg, feats.shape[0])
     ptrs = (ctypes.c_void_p * len(weights))(*(t.data_ptr() for t in weights))
     with torch.cuda.device(feats.device):
-        _sizes(lib.fused_decoder_sizes, dims, "decoder")
+        packed = feats.new_empty(_sizes(lib.fused_decoder_sizes, dims, "decoder")[4])
         stream = torch.cuda.current_stream(feats.device).cuda_stream
         err = lib.fused_decoder_forward(ctypes.cast(ptrs, ctypes.c_void_p), len(weights),
-                                        feats.data_ptr(), out.data_ptr(), dims, stream)
+                                        feats.data_ptr(), packed.data_ptr(), out.data_ptr(), dims,
+                                        stream)
     build.check(err)
     dec_launches += 1
     return out
@@ -556,13 +564,13 @@ def fused_decoder_backward_cuda(weights: Sequence[torch.Tensor], cfg: DecoderCon
                                 feats: torch.Tensor, g: torch.Tensor, want_dx: bool,
                                 ) -> tuple[torch.Tensor | None, tuple[torch.Tensor, ...]]:
     """Launch the decoder's backward kernels (``csrc/fused_decoder_bwd.cu``):
-    the recomputing forward, the cotangent pass, the weight-gradient pass
-    and its fixed-order reduction. Same contract as
-    :func:`fused_decoder_backward_plain`. Its device-memory scratch at the
-    reference widths (48-wide features): 17,520 + 17,472 floats a frame of
-    activation and cotangent records (~140 KB a frame: ~34 MB at N=240,
-    ~537 MB at N=3840) and ≤ 64 frame chunks × 553,905 partial gradient
-    floats (≤ 142 MB)."""
+    the recomputing forward (its packing launch included), the cotangent
+    pass, the weight-gradient pass and its fixed-order reduction. Same
+    contract as :func:`fused_decoder_backward_plain`. Its device-memory
+    scratch at the reference widths (48-wide features): 17,520 + 17,472
+    floats a frame of activation and cotangent records (~140 KB a frame:
+    ~34 MB at N=240, ~537 MB at N=3840), ≤ 64 frame chunks × 553,905
+    partial gradient floats (≤ 142 MB) and the packed weights (~2.2 MB)."""
     global dec_bwd_launches
     from multimodal_mtrssm_tpu_torch.ops.kernels import build
 
@@ -575,12 +583,14 @@ def fused_decoder_backward_cuda(weights: Sequence[torch.Tensor], cfg: DecoderCon
     dims = _dec_dims(cfg, N)
     ptrs = (ctypes.c_void_p * len(weights))(*(t.data_ptr() for t in weights))
     with torch.cuda.device(feats.device):
-        d_flat, grads, scratch, records = _backward_buffers(
-            _sizes(lib.fused_decoder_sizes, dims, "decoder"), weights, feats, "decoder")
+        sizes = _sizes(lib.fused_decoder_sizes, dims, "decoder")
+        d_flat, grads, scratch, records = _backward_buffers(sizes, weights, feats, "decoder")
+        packed = feats.new_empty(sizes[4])
         stream = torch.cuda.current_stream(feats.device).cuda_stream
         err = lib.fused_decoder_backward(
             ctypes.cast(ptrs, ctypes.c_void_p), len(weights), feats.data_ptr(), g.data_ptr(),
-            None if dx is None else dx.data_ptr(), d_flat.data_ptr(), *records, dims, stream)
+            None if dx is None else dx.data_ptr(), d_flat.data_ptr(), *records, packed.data_ptr(),
+            dims, stream)
     build.check(err)
     dec_bwd_launches += 1
     return dx, grads

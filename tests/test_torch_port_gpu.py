@@ -399,15 +399,18 @@ def _decoder(family: str, dev, **cfg):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("family,N,cfg", [("mrssm", 240, {}), ("mmtrssm", 240, {}),
-                                          ("mrssm", 7, {}), ("mrssm", 3840, {}),
-                                          ("res_proj", 30, {"residual_input_size": 32})])
+@pytest.mark.parametrize("family,N,cfg", [
+    ("mrssm", 240, {}), ("mmtrssm", 240, {}), ("mrssm", 7, {}), ("mrssm", 3840, {}),
+    ("mrssm", 1, {}), ("mrssm", 5, {}), ("mrssm", 241, {}), ("mmtrssm", 241, {}),
+    ("res_proj", 30, {"residual_input_size": 32}), ("no_res", 30, {"num_residual_blocks": 0}),
+    ("res4", 30, {"num_residual_blocks": 4})])
 def test_fused_decoder_kernels_match_plain_and_cudnn(cuda_device, family, N, cfg):
     """The fused decoder's forward against its plain version and the cuDNN
-    ``Decoder`` (TF32 off) within 1e-5, and its backward (every weight
-    gradient and the features') against the plain backward in float64
-    within 2e-4 × scale; the backward is reproducible. Also a decoder with
-    a ``res_proj``."""
+    ``Decoder`` (TF32 off) within 1e-5, two launches bit-identical, and its
+    backward (every weight gradient and the features') against the plain
+    backward in float64 within 2e-4 × scale; the backward is reproducible.
+    N=1, 5 and 241 leave a ragged tile of 2 frames a block. Also decoders
+    with a ``res_proj``, with no residual blocks and with 4."""
     dec = _decoder(family, cuda_device, **cfg)
     w = [t.detach() for t in fused_conv.decoder_weights(dec)]
     rng = np.random.default_rng(N)
@@ -416,6 +419,7 @@ def test_fused_decoder_kernels_match_plain_and_cudnn(cuda_device, family, N, cfg
     g = torch.tensor(rng.standard_normal((N, 32, 32, 1)).astype(np.float32), device=cuda_device)
     with torch.no_grad():
         got = fused_conv.fused_decoder_forward_cuda(w, dec.cfg, feats)
+        assert torch.equal(got, fused_conv.fused_decoder_forward_cuda(w, dec.cfg, feats))
         plain = fused_conv.fused_decoder_plain(w, dec.cfg, feats)
         cudnn = dec(feats)
         dx, dw = fused_conv.fused_decoder_backward_cuda(w, dec.cfg, feats, g, True)
