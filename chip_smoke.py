@@ -1116,6 +1116,7 @@ ENCODER_BWD_KERNELS = {"pack": "encoder_pack_kernel", "recompute forward": "enco
 # forward's kernels.
 DECODER_FWD_KERNELS = {"pack": "decoder_pack_kernel", "forward": "decoder_fwd_kernel"}
 DECODER_BWD_KERNELS = {"pack": "decoder_pack_kernel", "recompute forward": "decoder_fwd_kernel",
+                       "transposed pack": "decoder_bwd_pack_kernel",
                        "cotangent pass": "decoder_bwd_dx", "weight-gradient pass": "decoder_bwd_dw",
                        "reduce_weight_grads": "reduce_weight_grads"}
 

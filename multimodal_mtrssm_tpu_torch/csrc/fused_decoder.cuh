@@ -1,7 +1,9 @@
 // Shared code of the fused decoder kernels (fused_decoder_fwd.cu,
 // fused_decoder_bwd.cu): the layer plan, the packing of the weights and the
 // forward, which the backward also launches to recompute and record the
-// activations.
+// activations. What the decoder shares with the encoder (slices forward and
+// transposed, the bulk copy, the micro-kernel, the weight-gradient pass) is
+// in conv_common.cuh.
 //
 // The decoder is a chain of three kinds of layer, each reading its torch
 // weight in its own layout (weight_index):
@@ -102,24 +104,37 @@ struct Layer {
   int bias_off;                 // forward: offset of the bias in the bias buffer
   int fcn, fper, fpk;           // forward: output channels a chunk, taps a slice, and the
                                 // offset of the layer's first slice in the packed weights
+  int bcn, bper, bpk;           // backward, the same of the transposed slices: input
+                                // channels a chunk, taps a slice, offset
 };
 
 struct Plan {
   int n;
   Layer L[kMaxLayers];
-  int F, frames;
+  int F;
   int bsz[3];                   // floats a frame of each shared-memory buffer (multiples
                                 // of 4: every frame's buffer is 16-byte aligned)
   int stash, dstash;            // floats a frame of the activation and cotangent records
+                                // (multiples of 4, as every offset in them: every record
+                                // is 16-byte aligned)
   // The forward: floats of the bias buffer, of the split tasks' partial
   // sums, of each of the two slice buffers and of the packed weights; its
   // dynamic shared memory.
   int fbias, fpart, fslice, packed;
   size_t fsmem;
-  // The backward's cotangent pass: floats of its weight staging buffer, and
-  // its dynamic shared memory.
-  int wcap;
+  // The backward's cotangent pass, on the forward's buffers (the
+  // cotangents of the layers' outputs) and partial sums: two
+  // transposed-slice buffers of bslice floats, their packed floats (after
+  // the forward's), and the dynamic shared memory. The weight-gradient
+  // pass: floats of each of its two staging buffers, and its dynamic shared
+  // memory.
+  int bslice, bpacked;
   size_t bsmem;
+  int dwstage;
+  size_t dwsmem;
+
+  // Rows of layer l's transposed slices: its input channels.
+  __host__ __device__ int t_rows(int l) const { return L[l].Ci; }
 };
 
 // Index in the layer's torch weight of (input channel, output channel, tap
@@ -149,32 +164,15 @@ __host__ __device__ __forceinline__ int bias_size(const Layer& L) {
   return L.kind == kUnflatten ? L.Co * L.Ho * L.Wo : L.Co;
 }
 
-// Along one axis, the index j on the other side of tap t from i, or -1:
-// `direct` j = i·s − p + t (a conv's input from its output; a transposed
-// conv's output from its input), else j = (i + p − t)/s where s divides it
-// (a transposed conv's input from its output; a conv's output from its
-// input). n bounds j.
-__device__ __forceinline__ int tap_index(int i, int t, int s, int p, int n, bool direct) {
-  int j;
-  if (direct) {
-    j = i * s - p + t;
-  } else {
-    const int u = i + p - t;
-    if (u < 0 || u % s != 0) return -1;
-    j = u / s;
-  }
-  return j >= 0 && j < n ? j : -1;
-}
-
 // The plan of a decoder; false where the widths need more layers than the
 // table holds, the frames a block are not kFrames, or a block's shared
-// memory does not fit (the forward's with one slice, the cotangent pass's).
+// memory does not fit: in the forward or the cotangent pass (one slice
+// each), or the weight-gradient pass (one frame of a layer's records).
 inline bool make_plan(const DecDims& d, Plan* out) {
   Plan p = {};
   p.F = d.F;
-  p.frames = d.frames;
   p.bsz[0] = d.F;
-  p.stash = d.F;
+  p.stash = (d.F + 3) / 4 * 4;
   int hi = 1, wi = 1, ci = d.F, buf = 0, off = 0;
   auto add = [&](int kind, int co, int ho, int wo, int k, int s, int pad, int act, int residual,
                  int out_buf, int acc_in) -> bool {
@@ -183,8 +181,8 @@ inline bool make_plan(const DecDims& d, Plan* out) {
     L = Layer{hi, wi, ci, ho, wo, co, k, s, pad, kind, act, residual, buf, out_buf, off,
               p.stash, p.dstash, acc_in};
     const int size = ho * wo * co;
-    p.stash += size;
-    p.dstash += size;
+    p.stash += (size + 3) / 4 * 4;
+    p.dstash += (size + 3) / 4 * 4;
     if (size > p.bsz[out_buf]) p.bsz[out_buf] = size;
     hi = ho; wi = wo; ci = co; buf = out_buf; off = L.out_off;
     return true;
@@ -219,13 +217,21 @@ inline bool make_plan(const DecDims& d, Plan* out) {
   const size_t limit_floats = (size_t)limit / sizeof(float);
 
   // The forward: every bias, the partial sums, two slice buffers of at most
-  // half of what is left (4: the slice buffers' mbarriers).
-  int largest = 0;
+  // half of what is left (4: the slice buffers' mbarriers). The largest
+  // slice of either kind; the largest frame of a layer's records in the
+  // weight-gradient pass.
+  int largest = 0, tlargest = 0, frame = 0;
   for (int l = 0; l < p.n; ++l) {
     Layer& L = p.L[l];
+    const int kk = L.k * L.k;
+    // The cotangent pass walks a conv at stride 1; the weight-gradient
+    // pass forms a conv's bias at its tap (p, p).
+    if (L.kind == kConv && (L.s != 1 || L.k < 2 * L.p + 1)) return false;
     L.bias_off = p.fbias;
     p.fbias += (bias_size(L) + 3) / 4 * 4;
-    largest = std::max(largest, 4 * ((L.Co + 3) / 4) * padded_k(L.Ci * L.k * L.k));
+    largest = std::max(largest, 4 * ((L.Co + 3) / 4) * padded_k(L.Ci * kk));
+    tlargest = std::max(tlargest, 4 * ((L.Ci + 3) / 4) * padded_k(L.Co * kk));
+    frame = std::max(frame, (L.Hi * L.Wi * L.Ci + 3) / 4 * 4 + (L.Ho * L.Wo * L.Co + 3) / 4 * 4);
   }
   p.fpart = kThreads * 4 * kFrames;
   const size_t fact = 4 + act + p.fbias + p.fpart;
@@ -238,18 +244,16 @@ inline bool make_plan(const DecDims& d, Plan* out) {
   }
   p.fsmem = (fact + 2 * (size_t)p.fslice) * sizeof(float);
 
-  // The cotangent pass stages a chunk of input channels at a time,
-  // chunk·k·k·(Co + 1) floats, at least one channel.
-  size_t need = 0, least = 0;
-  for (int l = 0; l < p.n; ++l) {
-    const Layer& L = p.L[l];
-    const size_t kk = (size_t)L.k * L.k;
-    need = std::max(need, L.Ci * kk * (L.Co + 1));
-    least = std::max(least, kk * (L.Co + 1));
-  }
-  if (act + least > limit_floats) return false;
-  p.wcap = (int)std::min(need, limit_floats - act);
-  p.bsmem = (act + p.wcap) * sizeof(float);
+  // The cotangent pass: the partial sums, two transposed-slice buffers of at
+  // most half of what is left, as the encoder's.
+  const size_t bact = 4 + act + p.fpart;
+  p.bslice = (int)std::min<size_t>(tlargest, (limit_floats - bact) / 8 * 4);
+  if (!fconv::make_tslices(p, p.bslice, kThreads)) return false;
+  p.bsmem = (bact + 2 * (size_t)p.bslice) * sizeof(float);
+
+  p.dwstage = std::max(fconv::kDwStage, frame);
+  p.dwsmem = 2 * (size_t)p.dwstage * sizeof(float);
+  if (p.dwsmem > (size_t)limit) return false;
   *out = p;
   return true;
 }

@@ -18,9 +18,10 @@ extern "C" {
 // Sizes of the kernels' device-memory scratch for `d`: sizes[0] and [1] the
 // floats a frame of the backward's activation and cotangent records, [2]
 // the weight-gradient floats (all tensors back to back, torch layout), [3]
-// the frame chunks of the weight-gradient pass, [4] the floats of the packed
-// weights. Returns 0, or -1 where the plan does not fit (too many layers,
-// or a block's shared memory).
+// the frame chunks of the weight-gradient pass, [4] the floats of the
+// backward's packed weights (the forward's, then the transposed slices),
+// [5] the floats of the forward's alone. Returns 0, or -1 where the plan
+// does not fit (too many layers, or a block's shared memory).
 int fused_decoder_sizes(fdec::DecDims d, long long* sizes) {
   fdec::Plan P;
   if (!fdec::make_plan(d, &P)) return -1;
@@ -33,13 +34,14 @@ int fused_decoder_sizes(fdec::DecDims d, long long* sizes) {
   sizes[1] = P.dstash;
   sizes[2] = grads;
   sizes[3] = (d.N + d.chunk - 1) / d.chunk;
-  sizes[4] = P.packed;
+  sizes[4] = P.packed + P.bpacked;
+  sizes[5] = P.packed;
   return 0;
 }
 
 // Launch on `stream`: features [N, F] → out [N, 32, 32, 1]. `weights` is a
 // host array of the n_weights device pointers of
-// ops/kernels/fused_conv.py::decoder_weights; `packed` scratch of sizes[4]
+// ops/kernels/fused_conv.py::decoder_weights; `packed` scratch of sizes[5]
 // floats (16-byte aligned); all tensors f32 and contiguous. Returns the
 // cudaError_t of the launches (0 on success).
 int fused_decoder_forward(const void* const* weights, int n_weights, const float* feats,

@@ -1,9 +1,8 @@
 // Shared code of the fused encoder kernels (fused_encoder_fwd.cu,
-// fused_encoder_bwd.cu): the layer plan, the weight slices of the forward
-// and of the backward's transposed convolutions, and the forward, which the
-// backward also launches to recompute and record the activations. What the
-// encoder shares with the decoder (slices, the bulk copy, the micro-kernel)
-// is in conv_common.cuh.
+// fused_encoder_bwd.cu): the layer plan and the forward, which the backward
+// also launches to recompute and record the activations. What the encoder
+// shares with the decoder (slices forward and transposed, the bulk copy,
+// the micro-kernel, the weight-gradient pass) is in conv_common.cuh.
 //
 // The encoder is a chain of convolutions: the three strided convs, the 1×1
 // projection, two 3×3 convs a residual block, and the linear head, which on
@@ -57,10 +56,6 @@ constexpr int kFwdThreads = 256;  // the forward
 // N=240 120 blocks fill most of the card's 132 SMs, where 4 would leave half
 // of them idle (PERF.md, PR 8).
 constexpr int kFwdFrames = 2;
-// Floats of each of the weight-gradient pass's two staging buffers (at
-// least one frame of a layer's input and output records): 48 KB, so that
-// two blocks of it fit an SM.
-constexpr int kDwStage = 12288;
 constexpr int kMaxLayers = mrssm::kMaxWeights / 2;  // weight and bias each
 enum Mode { kElu = 0, kResidual = 1, kHead = 2 };
 
@@ -114,77 +109,12 @@ struct Plan {
   size_t bsmem;
   int dwstage;
   size_t dwsmem;
+
+  // Rows of layer l's transposed slices: its input channels, only the
+  // image channels in the first layer (the CoordConv channels take no
+  // cotangent).
+  __host__ __device__ int t_rows(int l) const { return l == 0 ? C0 : L[l].Ci; }
 };
-
-// Rows of a layer's transposed slices: its input channels, only the image
-// channels in the first layer (the CoordConv channels take no cotangent).
-__host__ __device__ __forceinline__ int t_rows(const Plan& p, int l) {
-  return l == 0 ? p.C0 : p.L[l].Ci;
-}
-
-// The transposed slice of layer l from input channel r0 and (flipped) tap
-// t0, at `off` in the backward's packed weights. A transposed slice (the
-// backward's cotangent pass) is a forward slice (fconv::Slice) with the
-// roles of the channels swapped: rows are input channels [co0, co0 + cw)
-// (the image channels only in the first layer), a row is (t1 - t0)·Co
-// floats [tap][co], and the taps are those of the kernel flipped in space
-// (tap t holds the torch weight's tap k·k − 1 − t), so that the input
-// cotangent is a convolution of the pre-activation cotangent with them.
-__host__ __device__ __forceinline__ Slice make_tslice(const Plan& p, int l, int r0, int t0,
-                                                     int off) {
-  const Layer& L = p.L[l];
-  const int kk = L.k * L.k, R = t_rows(p, l);
-  Slice s;
-  s.layer = l;
-  s.co0 = r0;
-  s.cw = R - r0 < L.bcn ? R - r0 : L.bcn;
-  s.t0 = t0;
-  s.t1 = kk - t0 < L.bper ? kk : t0 + L.bper;
-  s.sp = padded_k((s.t1 - s.t0) * L.Co);
-  s.off = off;
-  s.first = t0 == 0;
-  s.last = s.t1 == kk;
-  return s;
-}
-
-// The transposed slice after s, in the order of the backward's packed
-// weights (the last layer first); its layer is -1 past layer `stop`.
-__host__ __device__ __forceinline__ Slice next_tslice(const Plan& p, const Slice& s, int stop) {
-  const Layer& L = p.L[s.layer];
-  const int off = s.off + slice_floats(s);
-  if (s.t1 < L.k * L.k) return make_tslice(p, s.layer, s.co0, s.t1, off);
-  if (s.co0 + L.bcn < t_rows(p, s.layer)) return make_tslice(p, s.layer, s.co0 + L.bcn, 0, off);
-  if (s.layer > stop) return make_tslice(p, s.layer - 1, 0, 0, off);
-  Slice end = s;
-  end.layer = -1;
-  return end;
-}
-
-// make_slices for the transposed slices (Layer::bcn, bper, bpk), over the
-// input positions of each layer.
-inline bool make_tslices(Plan& p, int cap) {
-  p.bpacked = 0;
-  for (int l = p.n - 1; l >= 0; --l) {
-    Layer& L = p.L[l];
-    const int kk = L.k * L.k, R = t_rows(p, l), rows = 4 * ((R + 3) / 4);
-    int taps = kk;
-    while (taps > 0 && rows * padded_k(taps * L.Co) > cap) --taps;
-    if (taps == kk || (taps > 0 && L.Hi * L.Wi * rows / 4 <= kThreads)) {
-      const int nsl = (kk + taps - 1) / taps;
-      L.bcn = R;
-      L.bper = (kk + nsl - 1) / nsl;
-    } else {
-      L.bcn = cap / padded_k(kk * L.Co) / 4 * 4;
-      L.bper = kk;
-      if (L.bcn < 4) return false;
-    }
-    L.bpk = p.bpacked;
-    for (Slice s = make_tslice(p, l, 0, 0, L.bpk); s.layer == l; s = next_tslice(p, s, 0)) {
-      p.bpacked += slice_floats(s);
-    }
-  }
-  return true;
-}
 
 // The plan of an encoder; false where the widths need more layers than the
 // table holds, the frames a block are not kFwdFrames, or a block's shared
@@ -250,8 +180,8 @@ inline bool make_plan(const EncDims& d, Plan* out) {
     L.bias_off = p.fbias;
     p.fbias += 4 * ((L.Co + 3) / 4);
     largest = std::max(largest, 4 * ((L.Co + 3) / 4) * padded_k(L.Ci * kk));
-    tlargest = std::max(tlargest, 4 * ((t_rows(p, l) + 3) / 4) * padded_k(L.Co * kk));
-    frame = std::max(frame, L.Hi * L.Wi * L.Ci + (size + 3) / 4 * 4);
+    tlargest = std::max(tlargest, 4 * ((p.t_rows(l) + 3) / 4) * padded_k(L.Co * kk));
+    frame = std::max(frame, (L.Hi * L.Wi * L.Ci + 3) / 4 * 4 + (size + 3) / 4 * 4);
   }
   for (int i = 0; i < 3; ++i) {
     p.fbsz[i] = (fb[i] + 3) / 4 * 4;
@@ -271,10 +201,10 @@ inline bool make_plan(const EncDims& d, Plan* out) {
   const size_t bact = 4 + (size_t)kFwdFrames * (p.bbsz[0] + p.bbsz[1] + p.bbsz[2]) + p.fpart;
   if (bact >= limit_floats) return false;
   p.bslice = (int)std::min<size_t>(tlargest, (limit_floats - bact) / 8 * 4);
-  if (!make_tslices(p, p.bslice)) return false;
+  if (!fconv::make_tslices(p, p.bslice, kThreads)) return false;
   p.bsmem = (bact + 2 * (size_t)p.bslice) * sizeof(float);
 
-  p.dwstage = std::max(kDwStage, frame);
+  p.dwstage = std::max(fconv::kDwStage, frame);
   p.dwsmem = 2 * (size_t)p.dwstage * sizeof(float);
   if (p.dwsmem > (size_t)limit) return false;
   *out = p;

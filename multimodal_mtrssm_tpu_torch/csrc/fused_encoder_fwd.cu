@@ -17,9 +17,9 @@ extern "C" {
 // Sizes of the kernels' device-memory scratch for `d`: sizes[0] and [1] the
 // floats a frame of the backward's activation and cotangent records, [2]
 // the weight-gradient floats (all tensors back to back, torch layout), [3]
-// the frame chunks of the weight-gradient pass, [4] the floats of the packed
-// weights: the forward's, then the backward's transposed slices (the
-// forward uses only the first P.packed). Returns 0, or -1 where the plan
+// the frame chunks of the weight-gradient pass, [4] the floats of the
+// backward's packed weights (the forward's, then the transposed slices),
+// [5] the floats of the forward's alone. Returns 0, or -1 where the plan
 // does not fit (too many layers, or a block's shared memory).
 int fused_encoder_sizes(fenc::EncDims d, long long* sizes) {
   fenc::Plan P;
@@ -34,13 +34,14 @@ int fused_encoder_sizes(fenc::EncDims d, long long* sizes) {
   sizes[2] = grads;
   sizes[3] = (d.N + d.chunk - 1) / d.chunk;
   sizes[4] = P.packed + P.bpacked;
+  sizes[5] = P.packed;
   return 0;
 }
 
 // Launch on `stream`: frames x [N, H, W, C0] → out [N, out_dim].
 // `weights` is a host array of the n_weights device pointers of
 // ops/kernels/fused_conv.py::encoder_weights; `coords` the [H + W]
-// CoordConv values; `packed` scratch of sizes[4] floats (16-byte aligned);
+// CoordConv values; `packed` scratch of sizes[5] floats (16-byte aligned);
 // all tensors f32 and contiguous. Returns the cudaError_t of the launches
 // (0 on success).
 int fused_encoder_forward(const void* const* weights, int n_weights, const float* x,

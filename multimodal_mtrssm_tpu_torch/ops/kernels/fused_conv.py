@@ -69,9 +69,17 @@ NHWC frames ``[N, 32, 32, 1]``.
   700.00 W: ~0.29-0.32 ms of device time at N=240 and ~4.4-4.9 ms at
   N=3840, below the cuDNN ``Decoder``'s call; ``PERF.md`` §6.
 - ``fused_decoder_bwd`` (``csrc/fused_decoder_bwd.cu``): recomputes through
-  that forward, then its cotangent and weight-gradient passes keep the
-  first design (one output a thread); it also returns the features'
-  cotangent, since in training the decoder sits on the latents.
+  that forward, then runs the encoder backward's two passes over the
+  decoder's layers: the cotangent pass an implicit GEMM over transposed
+  ``[Ci][tap][Co]`` slices (a conv's taps flipped, a transposed conv's the
+  direct stride-2 conv of its output's cotangent), the weight-gradient pass
+  a blocked GEMM a tap over ``cp.async``-staged records (a transposed conv
+  walked from its inputs), reduced over 16 chunks of frames in a fixed
+  order. It also returns the features' cotangent, since in training the
+  decoder sits on the latents. ``chip_smoke.py`` on an NVIDIA H100 80GB
+  HBM3, 700.00 W: ~1.09-1.10 ms of device time a call at N=240 (the
+  passes' first forms: ~7.3) and ~14.9 ms at N=3840 (~108), below the cuDNN
+  ``Decoder``'s forward + backward; ``PERF.md`` §6.
 
 JAX's decoder operators (``build_decoder_operators`` ``:686``,
 ``_deconv_superrow_maps`` ``:615``, ``superrow_decoder_xla`` ``:752``) are
@@ -100,10 +108,10 @@ MAX_RESIDUAL_BLOCKS = 4
 # backward cotangent pass (kFwdFrames of csrc/fused_encoder.cuh and kFrames
 # of csrc/fused_decoder.cuh, which the plans require).
 FRAMES_PER_BLOCK = 2
-# Chunks of frames of the encoder's weight-gradient pass: about this many,
-# of at least 8 and at most 256 frames each (a chunk's sums over frames
-# take at most 256 terms).
-ENCODER_DW_CHUNKS = 16
+# Chunks of frames of the encoder's and the decoder's weight-gradient
+# passes: about this many, of at least 8 and at most 256 frames each (a
+# chunk's sums over frames take at most 256 terms).
+DW_CHUNKS = 16
 # Kernel launches since the last reset, forward and backward (plain ints),
 # of the encoder and of the decoder kernels.
 launches = 0
@@ -231,6 +239,11 @@ def fused_encoder_backward_plain(weights: Sequence[torch.Tensor], cfg: EncoderCo
     return (grads[-1] if want_dx else None), tuple(grads[:len(w)])
 
 
+def _dw_chunk(n: int) -> int:
+    """Frames a chunk of a stack's weight-gradient pass over ``n`` frames."""
+    return min(256, max(8, -(-n // DW_CHUNKS)))
+
+
 def _dims(cfg: EncoderConfig, n: int):
     from multimodal_mtrssm_tpu_torch.ops.kernels.build import EncDims
 
@@ -239,7 +252,7 @@ def _dims(cfg: EncoderConfig, n: int):
                    ch0=cfg.channels[0], ch1=cfg.channels[1], ch2=cfg.channels[2],
                    res_out=cfg.residual_output_size, res_mid=cfg.residual_intermediate_size,
                    n_res=cfg.num_residual_blocks, out_dim=cfg.out_dim, frames=FRAMES_PER_BLOCK,
-                   chunk=min(256, max(8, -(-n // ENCODER_DW_CHUNKS))))
+                   chunk=_dw_chunk(n))
 
 
 def _check_tensors(weights: Sequence[torch.Tensor], shapes: list[tuple[int, ...]], stack: str,
@@ -270,12 +283,13 @@ def _check(weights: Sequence[torch.Tensor], cfg: EncoderConfig, x: torch.Tensor,
 
 
 def _sizes(query, dims, stack: str) -> tuple[int, ...]:
-    """``(stash, dstash, grads, chunks, packed)`` from a stack's sizes entry
-    point ``query``: floats a frame of the backward's activation and
-    cotangent records, weight-gradient floats, frame chunks of its
-    weight-gradient pass, and the floats of the packed weights. Raises where
-    a block's shared memory would not fit."""
-    out = (ctypes.c_longlong * 5)()
+    """``(stash, dstash, grads, chunks, packed, fwd_packed)`` from a stack's
+    sizes entry point ``query``: floats a frame of the backward's activation
+    and cotangent records, weight-gradient floats, frame chunks of its
+    weight-gradient pass, and the floats of the backward's packed weights
+    and of the forward's. Raises where a block's shared memory would not
+    fit."""
+    out = (ctypes.c_longlong * 6)()
     if query(dims, ctypes.cast(out, ctypes.c_void_p)) != 0:
         raise ValueError(f"the fused {stack} kernels' shared memory does not fit one block "
                          f"at {dims.frames} frames a block for these widths")
@@ -317,7 +331,7 @@ def fused_encoder_forward_cuda(weights: Sequence[torch.Tensor], cfg: EncoderConf
     dims = _dims(cfg, x.shape[0])
     ptrs = (ctypes.c_void_p * len(weights))(*(t.data_ptr() for t in weights))
     with torch.cuda.device(x.device):
-        packed = x.new_empty(_sizes(lib.fused_encoder_sizes, dims, "encoder")[4])
+        packed = x.new_empty(_sizes(lib.fused_encoder_sizes, dims, "encoder")[5])
         c = coords(cfg, x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.fused_encoder_forward(ctypes.cast(ptrs, ctypes.c_void_p), len(weights),
@@ -511,7 +525,7 @@ def _dec_dims(cfg: DecoderConfig, n: int):
     return DecDims(N=n, F=cfg.in_features, lin0=cfg.linear_sizes[0], c0=c0, h0=h0, w0=w0,
                    res_in=cfg.residual_input_size, res_mid=cfg.residual_intermediate_size,
                    n_res=cfg.num_residual_blocks, ch0=cfg.channels[0], ch1=cfg.channels[1],
-                   ch2=cfg.channels[2], frames=FRAMES_PER_BLOCK, chunk=max(8, -(-n // 64)))
+                   ch2=cfg.channels[2], frames=FRAMES_PER_BLOCK, chunk=_dw_chunk(n))
 
 
 def _dec_frames_shape(cfg: DecoderConfig) -> tuple[int, int, int]:
@@ -550,7 +564,7 @@ def fused_decoder_forward_cuda(weights: Sequence[torch.Tensor], cfg: DecoderConf
     dims = _dec_dims(cfg, feats.shape[0])
     ptrs = (ctypes.c_void_p * len(weights))(*(t.data_ptr() for t in weights))
     with torch.cuda.device(feats.device):
-        packed = feats.new_empty(_sizes(lib.fused_decoder_sizes, dims, "decoder")[4])
+        packed = feats.new_empty(_sizes(lib.fused_decoder_sizes, dims, "decoder")[5])
         stream = torch.cuda.current_stream(feats.device).cuda_stream
         err = lib.fused_decoder_forward(ctypes.cast(ptrs, ctypes.c_void_p), len(weights),
                                         feats.data_ptr(), packed.data_ptr(), out.data_ptr(), dims,
@@ -564,13 +578,15 @@ def fused_decoder_backward_cuda(weights: Sequence[torch.Tensor], cfg: DecoderCon
                                 feats: torch.Tensor, g: torch.Tensor, want_dx: bool,
                                 ) -> tuple[torch.Tensor | None, tuple[torch.Tensor, ...]]:
     """Launch the decoder's backward kernels (``csrc/fused_decoder_bwd.cu``):
-    the recomputing forward (its packing launch included), the cotangent
-    pass, the weight-gradient pass and its fixed-order reduction. Same
+    the recomputing forward (its packing launch included), the packing of
+    the transposed weight slices, the cotangent pass, the weight-gradient
+    pass and its fixed-order reduction. Same
     contract as :func:`fused_decoder_backward_plain`. Its device-memory
     scratch at the reference widths (48-wide features): 17,520 + 17,472
     floats a frame of activation and cotangent records (~140 KB a frame:
-    ~34 MB at N=240, ~537 MB at N=3840), ≤ 64 frame chunks × 553,905
-    partial gradient floats (≤ 142 MB) and the packed weights (~2.2 MB)."""
+    ~34 MB at N=240, ~537 MB at N=3840), ≤ 16 frame chunks × 553,905
+    partial gradient floats up to N=4096 (≤ 35 MB; more chunks of 256
+    frames beyond), and the packed weights of both directions (~4.5 MB)."""
     global dec_bwd_launches
     from multimodal_mtrssm_tpu_torch.ops.kernels import build
 

@@ -403,14 +403,20 @@ def _decoder(family: str, dev, **cfg):
     ("mrssm", 240, {}), ("mmtrssm", 240, {}), ("mrssm", 7, {}), ("mrssm", 3840, {}),
     ("mrssm", 1, {}), ("mrssm", 5, {}), ("mrssm", 241, {}), ("mmtrssm", 241, {}),
     ("res_proj", 30, {"residual_input_size": 32}), ("no_res", 30, {"num_residual_blocks": 0}),
-    ("res4", 30, {"num_residual_blocks": 4})])
+    ("res4", 30, {"num_residual_blocks": 4}), ("feat42", 30, {"in_features": 42}),
+    ("feat33", 30, {"in_features": 33}), ("lin63", 30, {"linear_sizes": (63, 1024)})])
 def test_fused_decoder_kernels_match_plain_and_cudnn(cuda_device, family, N, cfg):
     """The fused decoder's forward against its plain version and the cuDNN
     ``Decoder`` (TF32 off) within 1e-5, two launches bit-identical, and its
     backward (every weight gradient and the features') against the plain
-    backward in float64 within 2e-4 × scale; the backward is reproducible.
-    N=1, 5 and 241 leave a ragged tile of 2 frames a block. Also decoders
-    with a ``res_proj``, with no residual blocks and with 4."""
+    backward in float64 within 2e-4 × scale; the backward is reproducible,
+    and without the features' cotangent gives the same weight gradients'
+    bits. N=1, 5 and 241 leave a ragged tile of 2 frames a block; N=241
+    also a ragged last chunk of the weight-gradient pass (16 chunks of 16
+    frames, the last of 1). Also decoders with a ``res_proj``, with no
+    residual blocks and with 4, and with feature or first-linear widths
+    that are not multiples of 4 (42 ≡ 2 mod 4, 33, 63), whose records the
+    weight-gradient pass stages at a stride rounded to float4s."""
     dec = _decoder(family, cuda_device, **cfg)
     w = [t.detach() for t in fused_conv.decoder_weights(dec)]
     rng = np.random.default_rng(N)
@@ -424,11 +430,43 @@ def test_fused_decoder_kernels_match_plain_and_cudnn(cuda_device, family, N, cfg
         cudnn = dec(feats)
         dx, dw = fused_conv.fused_decoder_backward_cuda(w, dec.cfg, feats, g, True)
         dx2, dw2 = fused_conv.fused_decoder_backward_cuda(w, dec.cfg, feats, g, True)
+        none, dw3 = fused_conv.fused_decoder_backward_cuda(w, dec.cfg, feats, g, False)
     assert float((got - plain).abs().max()) <= 1e-5 and float((got - cudnn).abs().max()) <= 1e-5
     ref_dx, ref_dw = fused_conv.fused_decoder_backward_plain(
         [t.double() for t in w], dec.cfg, feats.double(), g.double(), True)
     parity.check_gradients([*dw, dx], [t.float() for t in (*ref_dw, ref_dx)])
     assert all(torch.equal(a, b) for a, b in zip([*dw, dx], [*dw2, dx2]))
+    assert none is None and all(torch.equal(a, b) for a, b in zip(dw, dw3))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family,lead", [("mrssm", (8, 30)), ("mmtrssm", (241,))])
+def test_fused_decoder_apply_gives_the_features_cotangent(cuda_device, family, lead):
+    """Features that require grad through ``fused_decoder_apply``: autograd
+    asks the backward kernels for their cotangent, which matches the plain
+    backward in float64 like every weight gradient; each pass launches each
+    kernel once each way, and two passes give the same bits."""
+    dec = _decoder(family, cuda_device)
+    rng = np.random.default_rng(len(lead))
+    feats = torch.tensor(rng.standard_normal((*lead, dec.cfg.in_features)).astype(np.float32),
+                         device=cuda_device, requires_grad=True)
+    g = torch.tensor(rng.standard_normal((*lead, 32, 32, 1)).astype(np.float32),
+                     device=cuda_device)
+    runs = []
+    for _ in range(2):
+        dec.zero_grad(set_to_none=True)
+        feats.grad = None
+        fused_conv.dec_launches = fused_conv.dec_bwd_launches = 0
+        fused_conv.fused_decoder_apply(dec, feats).backward(g)
+        assert (fused_conv.dec_launches, fused_conv.dec_bwd_launches) == (1, 1)
+        runs.append([t.grad for t in fused_conv.decoder_weights(dec)] +
+                    [feats.grad.reshape(-1, dec.cfg.in_features)])
+    w = [t.detach() for t in fused_conv.decoder_weights(dec)]
+    ref_dx, ref_dw = fused_conv.fused_decoder_backward_plain(
+        [t.double() for t in w], dec.cfg, feats.detach().reshape(-1, dec.cfg.in_features).double(),
+        g.reshape(-1, 32, 32, 1).double(), True)
+    parity.check_gradients(runs[0], [t.float() for t in (*ref_dw, ref_dx)])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 @pytest.mark.gpu
