@@ -4,7 +4,8 @@
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It refuses to run without a CUDA device and exits non-zero on any failure.
 ``python3 chip_smoke.py --decoder`` runs only the fused decoder's timings
-(``decoder_phase``).
+(``decoder_phase``), ``--recurrence-bwd`` only the MRSSM recurrence
+backward's (``recurrence_bwd_phase``): for comparing two trees in one call.
 Four configurations go through the serving and training phases, each with
 seeded random weights (no trained checkpoint or dataset on the machine;
 the shapes and the path are the real ones): MoPoE-MRSSM (``MRSSMConfig()``),
@@ -60,11 +61,14 @@ first two configurations' latent features.
    card, a device-time breakdown of the train step (``torch.profiler``),
    the median latency of ``/observe`` and ``/imagine`` through the server
    and the optimizer steps per second of ``Trainer.fit``; each kernel's
-   bound at the main path's shape; the fused encoder forward's device time
-   and the device time of each kernel of one fused encoder backward call
-   (``torch.profiler``), the same of the fused decoder's forward and
-   backward calls; and the registers, stack and spills ``ptxas`` gives the
-   fused encoder's and decoder's kernels, forward and backward.
+   bound at the main path's shape; the device time of each kernel of one
+   MRSSM recurrence backward call (recompute, chain, the deferred GEMMs)
+   beside the call's at B=8 and B=128 T=30; the fused encoder forward's
+   device time and the device time of each kernel of one fused encoder
+   backward call (``torch.profiler``), the same of the fused decoder's
+   forward and backward calls; and the registers, stack and spills
+   ``ptxas`` gives the fused encoder's and decoder's kernels, forward and
+   backward, and the recurrence backward's three kernels.
 
 Each configuration's serving and training run, and the decoder's path
 (``fused_decoder_apply`` on both decoders of the first two configurations'
@@ -702,8 +706,21 @@ def plain_route():
          fused_conv.fused_encoder_backward_cuda) = saved
 
 
+# The device kernels of one recurrence_backward_cuda call, as the profiler
+# names them (substrings), in launch order; the parent's one-kernel backward
+# and its reduction are listed too, so that the same timing reads both.
+RECURRENCE_BWD_KERNELS = {"recompute": "recurrence_bwd_recompute",
+                          "chain": "recurrence_bwd_chain",
+                          "tickets memset": "Memset",
+                          "deferred GEMMs": "recurrence_bwd_dw",
+                          "one-kernel backward (before the three passes)": "recurrence_bwd_kernel",
+                          "reduce_weight_grads": "reduce_weight_grads"}
+
+
 def bwd_timings(model, cfg, dev, card: str) -> dict[str, tuple[float, float]]:
-    """Phase 5, MRSSM: the backward kernel against its plain version."""
+    """Phase 5, MRSSM: the backward kernels against their plain version, a
+    call's CUDA-event time beside each kernel's device time
+    (``torch.profiler``), at B=8 and B=128 T=30."""
     import torch
 
     from multimodal_mtrssm_tpu_torch.ops.kernels import recurrence
@@ -721,6 +738,10 @@ def bwd_timings(model, cfg, dev, card: str) -> dict[str, tuple[float, float]]:
         k_ms = _median_ms(lambda: recurrence.recurrence_backward_cuda(*bwd), 20)
         p_ms = _median_ms(lambda: recurrence.recurrence_backward_plain(*bwd), 2, warmup=1)
         print(f"time recurrence_bwd B={B} T={T}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms | {card}")
+        parts = _device_breakdown(lambda: recurrence.recurrence_backward_cuda(*bwd),
+                                  RECURRENCE_BWD_KERNELS.values())
+        _print_breakdown(f"recurrence_bwd B={B} T={T} (call {k_ms:.4f} ms by CUDA events)", parts,
+                         RECURRENCE_BWD_KERNELS, card)
         main.setdefault("recurrence_bwd", (k_ms, p_ms))
     return main
 
@@ -1136,18 +1157,18 @@ _CHILDREN: list[subprocess.Popen] = []  # stopped on exit, whatever failed
 
 
 PTXAS_SOURCES = ("fused_encoder_fwd.cu", "fused_encoder_bwd.cu", "fused_decoder_fwd.cu",
-                 "fused_decoder_bwd.cu")
+                 "fused_decoder_bwd.cu", "recurrence_bwd.cu")
 
 
-def start_ptxas_report() -> list[subprocess.Popen]:
-    """Compile the fused stacks' sources once more with ``-Xptxas -v``, in
-    the background (into the git-ignored build directory), one ``nvcc``
-    each."""
+def start_ptxas_report(sources=PTXAS_SOURCES) -> list[subprocess.Popen]:
+    """Compile the fused stacks' and the recurrence backward's sources once
+    more with ``-Xptxas -v``, in the background (into the git-ignored build
+    directory), one ``nvcc`` each."""
     from multimodal_mtrssm_tpu_torch.ops.kernels import build
 
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
-    for src in PTXAS_SOURCES:
+    for src in sources:
         obj = build.BUILD_DIR / f"ptxas_report_{Path(src).stem}.o"
         procs.append(subprocess.Popen(
             [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
@@ -1156,16 +1177,16 @@ def start_ptxas_report() -> list[subprocess.Popen]:
     return procs
 
 
-def ptxas_report(procs: list[subprocess.Popen]) -> None:
+def ptxas_report(procs: list[subprocess.Popen], sources=PTXAS_SOURCES) -> None:
     """Print ptxas's registers, stack and spills of each fused encoder and
-    decoder kernel, forward and backward (a measurement: "not measured" where
-    the compile fails). A backward's source also compiles the forward it
-    recomputes through; those kernels are printed once, from the forward's
-    source."""
+    decoder kernel, forward and backward, and of the recurrence backward's
+    kernels (a measurement: "not measured" where the compile fails). A
+    backward's source also compiles the forward it recomputes through; those
+    kernels are printed once, from the forward's source."""
     import re
 
     seen: set[str] = set()
-    for src, proc in zip(PTXAS_SOURCES, procs):
+    for src, proc in zip(sources, procs):
         out = proc.communicate(timeout=300)[0]
         if proc.returncode != 0:
             print(f"ptxas {src}: not measured (nvcc exited {proc.returncode})")
@@ -1173,8 +1194,8 @@ def ptxas_report(procs: list[subprocess.Popen]) -> None:
         name = None
         for line in out.splitlines():
             if "Compiling entry function" in line:
-                m = re.search(r"((?:en|de)coder_[a-z_]*kernel|reduce_weight_grads)",
-                              line.split("'")[1])
+                m = re.search(r"((?:en|de)coder_[a-z_]*kernel|recurrence_bwd_[a-z_]*kernel|"
+                              r"reduce_weight_grads)", line.split("'")[1])
                 name = m.group(1) if m and m.group(1) not in seen else None
                 if name:
                     seen.add(name)
@@ -1477,6 +1498,31 @@ def decoder_phase() -> int:
     return 0
 
 
+def recurrence_bwd_phase() -> int:
+    """``--recurrence-bwd``: only the MRSSM recurrence backward's timings and
+    per-kernel device times (``bwd_timings``) and ``ptxas``'s report of its
+    source; no checks and no contract lines. For comparing backward kernels
+    within one call, e.g. a parent archive and the change."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.models import MoPoEMRSSM, MRSSMConfig
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
+        return 2
+    card = card_line()
+    print(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    ptxas = start_ptxas_report(("recurrence_bwd.cu",))
+    cfg = MRSSMConfig()
+    model = MoPoEMRSSM(cfg).init(torch.Generator().manual_seed(0)).to(dev).eval()
+    bwd_timings(model, cfg, dev, card)
+    ptxas_report(ptxas, ("recurrence_bwd.cu",))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1648,7 +1694,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        code = decoder_phase() if sys.argv[1:] == ["--decoder"] else main()
+        modes = {"--decoder": decoder_phase, "--recurrence-bwd": recurrence_bwd_phase}
+        code = modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes else main()
     finally:
         for child in _CHILDREN:
             if child.poll() is None:

@@ -1,24 +1,49 @@
 // MoPoE-MRSSM representation recurrence, backward (BPTT of a train step).
 //
 // Replaces multimodal_mtrssm_tpu/ops/pallas/train_step.py::_bwd_kernel and
-// ::_bwd_kernel_chunked: for t = T-1..0 it recomputes step t from the
-// carries into it (prev_deter[t], prev_stoch[t], shifted once on the host),
-// with the forward kernel's device functions, and applies _bwd_step's VJPs:
-// the block-softmax straight-through VJP of both samples, the MoPoE fusion
-// VJP, the three heads, the GRU and the transition MLP. The gradient of a
-// straight-through sample flows through its probs only, so no noise and no
-// argmax are needed here.
+// ::_bwd_kernel_chunked (the step VJP _bwd_step, the fusion VJP
+// _mopoe_backward). The gradient of a straight-through sample flows through
+// its probs only, so no noise and no argmax are needed here.
 //
-// What bounds it: like the forward, the latency of a dependent chain (~25
-// stages per step), not FLOPs or bytes. Layout: the forward's — one block per
-// tile of R batch rows with the reverse T loop inside, the 20 weights staged
-// once into shared memory as [in, out] (~68 KB), beside them the block's own
-// weight-gradient accumulators in the same layout (~68 KB), and one record of
-// activations and gradients per row (~6.5 KB). [T, B, ·] streams through
-// device memory, so one kernel covers the TPU's single-block and time-chunked
-// variants. Each block writes its partial weight gradients to
-// [n_blocks, n_weights]; a second launch sums them in block order (no float
-// atomics, so a run is reproducible) and transposes them to torch layout.
+// What bounds it: only the carries d deter (cd) and d stoch (cs) make the
+// backward sequential in t, and at the reference batch (B=8) each step is a
+// few thousand multiply-adds a row, so the time is the latency of the
+// dependent chain, not FLOPs or bytes. The design takes everything that does
+// not feed the carries out of the chain, in three launches:
+//
+// 1. recurrence_bwd_recompute_kernel, over all T·B row-steps at once (the
+//    carries into each step, prev_deter[t] and prev_stoch[t], are stored):
+//    the forward step with the forward kernel's device functions, then what
+//    of the VJP needs no carry — the prior head's whole backward (its
+//    straight-through VJP, both transposes), and the coefficients the chain
+//    multiplies by (ELU derivatives, the GRU's gate derivatives, the
+//    fusion's mixture weights and softmax values). It writes three records a
+//    row-step: what the chain reads, the layers' inputs x for the weight
+//    gradients, and the prior head's cotangents.
+// 2. recurrence_bwd_chain_kernel, the reverse-T loop carrying only d deter
+//    and d stoch: one block of 256 threads per tile of R batch rows (rows
+//    never interact), 6 barrier phases a step — the posterior's
+//    straight-through and fusion VJPs (a warp a row), the two head
+//    transposes, d deter and the GRU VJP, d x2 and the deter carry, d h1,
+//    the stoch carry. Each output of a phase is a dot split over P adjacent
+//    lanes (the most that the phase's outputs leave room for, ≤ 32) and
+//    added by shuffles in a fixed order, so a step is ~6 short dots deep.
+//    The weights it transposes are staged once in torch [out, in] layout,
+//    row by row by the bulk copy (TMA) into rows padded off a multiple of 32
+//    floats, so the P lanes of an output read distinct banks; each step's
+//    record arrives by the bulk copy into one of two buffers while the step
+//    before computes. It writes every layer's output cotangent dy to the
+//    third record.
+// 3. recurrence_bwd_dw_kernel (dense_grads.cuh): the 20 weight gradients as
+//    one batched GEMM over the T·B row-steps, Σ x·dyᵀ and Σ dy, and the
+//    input cotangents that feed no carry (d actions, d a_emb, d v_emb: the
+//    stored cotangents times weight columns), summed in a fixed order
+//    straight into torch layout (no float atomics, so two launches give the
+//    same bits).
+#include <algorithm>
+
+#include "conv_common.cuh"
+#include "dense_grads.cuh"
 #include "mrssm_common.cuh"
 
 namespace {
@@ -32,287 +57,744 @@ mrssm::WeightDims weight_dims(int A, int E, int H, int D, int S) {
   return mrssm::weight_dims(in, out, kNW);
 }
 
-// The per-row buffers of a block, each [R][width] floats, in this order.
-enum Buf {
-  kXin, kEmb, kPdeter, kDeter, kH1p, kH1, kX2, kGates, kHp, kHid, kLg, kStat, kMixed,
-  kPprob, kQprob, kCot, kDmix, kDlg, kSums, kDhid, kDdp, kDxa, kGdet, kDgi, kDgh, kDx2,
-  kDh1, kDx, kCd, kCs, kNumBufs
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+
+// The three records of a row-step, each a row of floats rounded to 4, and
+// the offset of each field (ops/kernels/recurrence.py::bwd_record_layout
+// mirrors it field for field).
+struct Layout {
+  // What the chain reads: d deter from the step's output and the prior head
+  // (gdb), the posterior's output cotangents (gmx, gpo), its block probs
+  // (qprob); the fusion's d mixed → d logit weights (ca, cv) and the audio
+  // and vision softmax values (ea, ev); the GRU's r and z and the factors
+  // of d gates (an, az, ar); the ELU derivatives of the transition hidden
+  // layer and of the audio and vision head hidden layers.
+  int cw, gdb, gmx, gpo, qprob, ca, cv, ea, ev, rg, z, an, az, ar, dact_h1, dact_hp;
+  // The layers' inputs: transition hidden, GRU input, deter, head hiddens.
+  int xw, h1, x2, deter, hid;
+  // The layers' output cotangents: prior ⊕ audio ⊕ vision logits and head
+  // hiddens, GRU input and hidden gates, GRU input, transition hidden.
+  int dyw, dlg, dhid, dgi, dgh, dx2, dh1;
 };
 
-__host__ __device__ inline void buffer_widths(int A, int E, int H, int D, int S, int* w) {
-  const int X = A + S, G = 3 * D, DE = D + E;
-  w[kXin] = X;          // action ⊕ stoch carry into the step
-  w[kEmb] = 2 * E;      // audio ⊕ vision embedding
-  w[kPdeter] = D;       // deter carry into the step
-  w[kDeter] = D;        // the step's deter
-  w[kH1p] = H;          // transition MLP hidden, pre-activation
-  w[kH1] = H;           // ... and after ELU
-  w[kX2] = H;           // GRU input
-  w[kGates] = 2 * G;    // gi ⊕ gh
-  w[kHp] = 3 * H;       // prior ⊕ audio ⊕ vision head hidden, pre-activation
-  w[kHid] = 3 * H;      // ... and after ELU
-  w[kLg] = 3 * S;       // prior ⊕ audio ⊕ vision logits
-  w[kStat] = 4;         // max and log-sum-exp of the audio and vision logits
-  w[kMixed] = S;        // fused posterior logits
-  w[kPprob] = S;        // prior block probs
-  w[kQprob] = S;        // posterior block probs
-  w[kCot] = D + 4 * S;  // the step's cotangents: deter, prior logits, prior
-                        // stoch, mixed logits, post stoch
-  w[kDmix] = S;         // d mixed logits
-  w[kDlg] = 3 * S;      // d prior ⊕ audio ⊕ vision logits
-  w[kSums] = 2;         // sums of d log-softmax (audio, vision)
-  w[kDhid] = 3 * H;     // d head hidden pre-activations
-  w[kDdp] = D;          // d deter from the prior head
-  w[kDxa] = 2 * DE;     // d (deter ⊕ embed) from the audio, vision heads
-  w[kGdet] = D;         // total d deter of the step
-  w[kDgi] = G;          // d gi
-  w[kDgh] = G;          // d gh
-  w[kDx2] = H;          // d GRU input
-  w[kDh1] = H;          // d transition hidden pre-activation
-  w[kDx] = X;           // d (action ⊕ stoch)
-  w[kCd] = D;           // carry: d deter into the step
-  w[kCs] = S;           // carry: d stoch into the step
+__host__ __device__ inline Layout layout(int H, int D, int S) {
+  Layout L;
+  int o = 0;
+  auto at = [&o](int w) { const int f = o; o += w; return f; };
+  L.gdb = at(D); L.gmx = at(S); L.gpo = at(S); L.qprob = at(S); L.ca = at(S); L.cv = at(S);
+  L.ea = at(S); L.ev = at(S); L.rg = at(D); L.z = at(D); L.an = at(D); L.az = at(D);
+  L.ar = at(D); L.dact_h1 = at(H); L.dact_hp = at(2 * H);
+  L.cw = round4(o);
+  o = 0;
+  L.h1 = at(H); L.x2 = at(H); L.deter = at(D); L.hid = at(3 * H);
+  L.xw = round4(o);
+  o = 0;
+  L.dlg = at(3 * S); L.dhid = at(3 * H); L.dgi = at(3 * D); L.dgh = at(3 * D); L.dx2 = at(H);
+  L.dh1 = at(H);
+  L.dyw = round4(o);
+  return L;
+}
+
+// ---- pass 1: the recompute ---------------------------------------------------------
+
+// The per-row buffers of a recompute block, each [R][width] floats.
+enum RBuf { kXin, kEmb, kPdeter, kDeter, kH1p, kH1, kX2, kGates, kHp, kHid, kLg, kStat, kMixed,
+            kPprob, kQprob, kDlgp, kDhidp, kDdp, kNumRBufs };
+
+__host__ __device__ inline void recompute_widths(int A, int E, int H, int D, int S, int* w) {
+  const int G = 3 * D;
+  w[kXin] = A + S; w[kEmb] = 2 * E; w[kPdeter] = D; w[kDeter] = D; w[kH1p] = H; w[kH1] = H;
+  w[kX2] = H; w[kGates] = 2 * G; w[kHp] = 3 * H; w[kHid] = 3 * H; w[kLg] = 3 * S; w[kStat] = 4;
+  w[kMixed] = S; w[kPprob] = S; w[kQprob] = S; w[kDlgp] = S; w[kDhidp] = H; w[kDdp] = D;
+}
+
+// Floats of the recompute block's staging area: the 20 weights in torch
+// layout, each from a multiple of 4 floats.
+__host__ __device__ inline int raw_floats(const mrssm::WeightDims& d) {
+  int n = 0;
+  for (int i = 0; i < d.n; ++i) n += round4(d.in[i] * d.out[i]);
+  return n;
+}
+
+size_t recompute_row_floats(int A, int E, int H, int D, int S) {
+  int w[kNumRBufs];
+  recompute_widths(A, E, H, D, S, w);
+  size_t n = 0;
+  for (int i = 0; i < kNumRBufs; ++i) n += w[i];
+  return n;
+}
+
+// One arrival on `bar` that expects `bytes` of bulk copies, and a bulk copy
+// that completes on it (conv_common.cuh's bulk_load is the two for one copy).
+__device__ __forceinline__ void bulk_expect(unsigned long long* bar, int bytes) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(fconv::smem_addr(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src, int bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(fconv::smem_addr(dst)), "l"(src), "r"(bytes), "r"(fconv::smem_addr(bar)) : "memory");
+}
+
+// Stage the 20 weights into W ([in, out] at dims.off, what dense_rows and
+// dense_rows_t read): in torch layout by the bulk copy into `raw` (each
+// tensor from a multiple of 4 floats; one arrival on `bar` expecting all
+// their bytes; a tensor not 16-byte aligned, and the last floats of one
+// whose size is no multiple of 4, by the threads), then transposed from
+// shared memory. Every thread calls it; the block synchronises inside.
+__device__ __forceinline__ void stage_weights_bulk(float* W, float* raw, const mrssm::WeightPtrs& w,
+                                                   const mrssm::WeightDims& d,
+                                                   unsigned long long* bar) {
+  if (threadIdx.x == 0) fconv::mbar_init(bar);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int bytes = 0;
+    for (int i = 0; i < d.n; ++i) {
+      if ((reinterpret_cast<uintptr_t>(w.p[i]) & 15) == 0) bytes += (d.in[i] * d.out[i] & ~3) * 4;
+    }
+    bulk_expect(bar, bytes);
+    for (int i = 0, off = 0; i < d.n; off += round4(d.in[i] * d.out[i]), ++i) {
+      const int nb = (d.in[i] * d.out[i] & ~3) * 4;
+      if ((reinterpret_cast<uintptr_t>(w.p[i]) & 15) == 0 && nb > 0) {
+        bulk_copy(raw + off, w.p[i], nb, bar);
+      }
+    }
+  }
+  for (int i = 0, off = 0; i < d.n; off += round4(d.in[i] * d.out[i]), ++i) {
+    const int n = d.in[i] * d.out[i];
+    const bool bulk = (reinterpret_cast<uintptr_t>(w.p[i]) & 15) == 0;
+    for (int e = (bulk ? n & ~3 : 0) + threadIdx.x; e < n; e += blockDim.x) raw[off + e] = w.p[i][e];
+  }
+  fconv::mbar_wait(bar, 0);
+  __syncthreads();
+  for (int i = 0, off = 0; i < d.n; off += round4(d.in[i] * d.out[i]), ++i) {
+    const int in = d.in[i], out = d.out[i];
+    for (int e = threadIdx.x; e < in * out; e += blockDim.x) {
+      const int o = e / in, k = e - o * in;
+      W[d.off[i] + k * out + o] = raw[off + e];
+    }
+  }
+  __syncthreads();
 }
 
 __global__ void __launch_bounds__(mrssm::kThreads)
-recurrence_bwd_kernel(mrssm::WeightPtrs w, mrssm::WeightDims dims,
-                      const float* __restrict__ actions, const float* __restrict__ a_emb,
-                      const float* __restrict__ v_emb,
-                      const float* __restrict__ prev_deter, const float* __restrict__ prev_stoch,
-                      const float* __restrict__ gd, const float* __restrict__ gpl,
-                      const float* __restrict__ gps, const float* __restrict__ gmx,
-                      const float* __restrict__ gpo, float* __restrict__ partial,
-                      float* __restrict__ d_actions, float* __restrict__ d_a_emb,
-                      float* __restrict__ d_v_emb, float* __restrict__ d_init_deter,
-                      float* __restrict__ d_init_stoch, int T, int B, int A, int E, int H, int D,
-                      int C, int K, int R) {
+recurrence_bwd_recompute_kernel(mrssm::WeightPtrs w, mrssm::WeightDims dims,
+                                const float* __restrict__ actions, const float* __restrict__ a_emb,
+                                const float* __restrict__ v_emb,
+                                const float* __restrict__ prev_deter,
+                                const float* __restrict__ prev_stoch, const float* __restrict__ gd,
+                                const float* __restrict__ gpl, const float* __restrict__ gps,
+                                const float* __restrict__ gmx, const float* __restrict__ gpo,
+                                float* __restrict__ crec, float* __restrict__ xrec,
+                                float* __restrict__ dyrec, int N, int A, int E, int H, int D,
+                                int C, int K, int R) {
   using namespace mrssm;
-  extern __shared__ float smem[];
-  const int S = C * K, X = A + S, G = 3 * D, DE = D + E, NW = dims.total, CW = D + 4 * S;
-  float* W = smem;      // weights, [in, out], at dims.off
-  float* GW = W + NW;   // this block's weight gradients, same layout
-  int width[kNumBufs];
-  buffer_widths(A, E, H, D, S, width);
-  float* buf[kNumBufs];
-  float* p = GW + NW;
-  for (int i = 0; i < kNumBufs; ++i) {
+  extern __shared__ __align__(16) float smem[];
+  const int S = C * K, X = A + S, G = 3 * D;
+  const Layout L = layout(H, D, S);
+  // The staging mbarrier, the weights ([in, out] at dims.off), their
+  // torch-layout staging area, then the per-row buffers.
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(smem);
+  float* W = smem + 4;
+  float* raw = W + round4(dims.total);
+  int width[kNumRBufs];
+  recompute_widths(A, E, H, D, S, width);
+  float* buf[kNumRBufs];
+  float* p = raw + raw_floats(dims);
+  for (int i = 0; i < kNumRBufs; ++i) {
     buf[i] = p;
     p += R * width[i];
   }
   float *xin = buf[kXin], *emb = buf[kEmb], *pdeter = buf[kPdeter], *deter = buf[kDeter];
   float *h1p = buf[kH1p], *h1 = buf[kH1], *x2 = buf[kX2], *gates = buf[kGates];
   float *hp = buf[kHp], *hid = buf[kHid], *lg = buf[kLg], *stat = buf[kStat];
-  float *mixed = buf[kMixed], *pprob = buf[kPprob], *qprob = buf[kQprob], *cot = buf[kCot];
-  float *dmix = buf[kDmix], *dlg = buf[kDlg], *sums = buf[kSums], *dhid = buf[kDhid];
-  float *ddp = buf[kDdp], *dxa = buf[kDxa], *gdet = buf[kGdet], *dgi = buf[kDgi];
-  float *dgh = buf[kDgh], *dx2 = buf[kDx2], *dh1 = buf[kDh1], *dx = buf[kDx];
-  float *cd = buf[kCd], *cs = buf[kCs];
-  // Weight i and its gradient (offsets from the kernel parameters, so no
-  // registers hold 40 pointers).
+  float *mixed = buf[kMixed], *pprob = buf[kPprob], *qprob = buf[kQprob];
+  float *dlgp = buf[kDlgp], *dhidp = buf[kDhidp], *ddp = buf[kDdp];
   auto Wp = [&](int i) -> const float* { return W + dims.off[i]; };
-  auto Gp = [&](int i) -> float* { return GW + dims.off[i]; };
 
-  stage_weights(W, w, dims);
-  for (int i = threadIdx.x; i < NW; i += blockDim.x) GW[i] = 0.f;
-  const int row0 = blockIdx.x * R;
-  const int rows = min(R, B - row0);
-  for (int i = threadIdx.x; i < rows * D; i += blockDim.x) cd[i] = 0.f;
-  for (int i = threadIdx.x; i < rows * S; i += blockDim.x) cs[i] = 0.f;
+  stage_weights_bulk(W, raw, w, dims, bar);
+  const int n0 = blockIdx.x * R;  // first row-step (t·B + b) of this block
+  const int rows = min(R, N - n0);
+  for (int i = threadIdx.x; i < rows * X; i += blockDim.x) {
+    const int r = i / X, j = i - r * X;
+    const size_t n = (size_t)n0 + r;
+    xin[i] = j < A ? actions[n * A + j] : prev_stoch[n * S + j - A];
+  }
+  for (int i = threadIdx.x; i < rows * E; i += blockDim.x) {
+    const int r = i / E, e = i - r * E;
+    emb[r * 2 * E + e] = a_emb[(size_t)n0 * E + i];
+    emb[r * 2 * E + E + e] = v_emb[(size_t)n0 * E + i];
+  }
+  for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
+    pdeter[i] = deter[i] = prev_deter[(size_t)n0 * D + i];
+  }
   __syncthreads();
 
-  for (int t = T - 1; t >= 0; --t) {
-    const size_t base = (size_t)t * B + row0;  // first [t, b] row of this tile
-    for (int i = threadIdx.x; i < rows * X; i += blockDim.x) {
-      const int r = i / X, j = i - r * X;
-      xin[i] = j < A ? actions[(base + r) * A + j] : prev_stoch[(base + r) * S + j - A];
+  // The forward step, as the forward kernel computes it.
+  dense_rows(xin, X, X, nullptr, 0, 0, Wp(0), Wp(1), H, h1p, H, rows, false);
+  __syncthreads();
+  elu_rows(h1p, h1, rows * H);
+  __syncthreads();
+  dense_rows(h1, H, H, nullptr, 0, 0, Wp(2), Wp(3), H, x2, H, rows, false);
+  __syncthreads();
+  dense_rows(x2, H, H, nullptr, 0, 0, Wp(4), Wp(5), G, gates, 2 * G, rows, false);
+  dense_rows(pdeter, D, D, nullptr, 0, 0, Wp(6), Wp(7), G, gates + G, 2 * G, rows, false);
+  __syncthreads();
+  gru_rows(gates, deter, D, rows);
+  __syncthreads();
+  dense_rows(deter, D, D, nullptr, 0, 0, Wp(8), Wp(9), H, hp, 3 * H, rows, false);
+  dense_rows(deter, D, D, emb, E, 2 * E, Wp(12), Wp(13), H, hp + H, 3 * H, rows, false);
+  dense_rows(deter, D, D, emb + E, E, 2 * E, Wp(16), Wp(17), H, hp + 2 * H, 3 * H, rows, false);
+  __syncthreads();
+  elu_rows(hp, hid, rows * 3 * H);
+  __syncthreads();
+  dense_rows(hid, H, 3 * H, nullptr, 0, 0, Wp(10), Wp(11), S, lg, 3 * S, rows, false);
+  dense_rows(hid + H, H, 3 * H, nullptr, 0, 0, Wp(14), Wp(15), S, lg + S, 3 * S, rows, false);
+  dense_rows(hid + 2 * H, H, 3 * H, nullptr, 0, 0, Wp(18), Wp(19), S, lg + 2 * S, 3 * S, rows,
+             false);
+  __syncthreads();
+  mopoe_stats(lg + S, 3 * S, S, stat, rows);
+  __syncthreads();
+  mopoe_mix(lg + S, 3 * S, stat, S, mixed, rows);
+  __syncthreads();
+
+  // Both samples' block probs, and the prior sample's straight-through VJP
+  // into the prior logits: it needs no carry.
+  for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
+    const int r = i / C, c = i - r * C;
+    const int o = r * S + c * K;
+    const size_t g = ((size_t)n0 + r) * S + c * K;
+    block_softmax(mixed + o, K, qprob + o);
+    block_softmax(lg + r * 3 * S + c * K, K, pprob + o);
+    st_vjp(pprob + o, gps + g, gpl + g, K, dlgp + o);
+  }
+  __syncthreads();
+  // The prior head's transposes: d hidden, then its share of d deter.
+  dense_rows_t(dlgp, S, Wp(10), H, S, dhidp, H, rows, hp, 3 * H, false);
+  __syncthreads();
+  dense_rows_t(dhidp, H, Wp(8), D, H, ddp, D, rows, nullptr, 0, false);
+  __syncthreads();
+
+  // The records.
+  for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
+    const int r = i / D, d = i - r * D;
+    const size_t n = (size_t)n0 + r;
+    float* c = crec + n * L.cw;
+    const float* gi = gates + r * 2 * G;
+    const float* gh = gi + G;
+    const float rg = sigmoid(gi[d] + gh[d]);
+    const float z = sigmoid(gi[D + d] + gh[D + d]);
+    const float nn = tanhf(gi[2 * D + d] + rg * gh[2 * D + d]);
+    c[L.gdb + d] = gd[n * D + d] + ddp[i];
+    c[L.rg + d] = rg;
+    c[L.z + d] = z;
+    c[L.an + d] = (1.f - z) * (1.f - nn * nn);
+    c[L.az + d] = (pdeter[i] - nn) * z * (1.f - z);
+    c[L.ar + d] = gh[2 * D + d] * rg * (1.f - rg);
+    xrec[n * L.xw + L.deter + d] = deter[i];
+  }
+  for (int i = threadIdx.x; i < rows * S; i += blockDim.x) {
+    const int r = i / S, s = i - r * S;
+    const size_t n = (size_t)n0 + r;
+    float* c = crec + n * L.cw;
+    const float* st = stat + r * 4;
+    const float la = (lg[r * 3 * S + S + s] - st[0]) - st[1];
+    const float lv = (lg[r * 3 * S + 2 * S + s] - st[2]) - st[3];
+    const float mx = mixed[i];
+    const float wa = expf(la + kLogThird - mx);
+    const float wv = expf(lv + kLogThird - mx);
+    const float wf = expf(la + lv + kLogThird - mx);
+    c[L.gmx + s] = gmx[n * S + s];
+    c[L.gpo + s] = gpo[n * S + s];
+    c[L.qprob + s] = qprob[i];
+    c[L.ca + s] = wa + wf;
+    c[L.cv + s] = wv + wf;
+    c[L.ea + s] = expf(la);
+    c[L.ev + s] = expf(lv);
+    dyrec[n * L.dyw + L.dlg + s] = dlgp[i];
+  }
+  for (int i = threadIdx.x; i < rows * H; i += blockDim.x) {
+    const int r = i / H, h = i - r * H;
+    const size_t n = (size_t)n0 + r;
+    float* c = crec + n * L.cw;
+    float* x = xrec + n * L.xw;
+    c[L.dact_h1 + h] = d_elu(h1p[i]);
+    c[L.dact_hp + h] = d_elu(hp[r * 3 * H + H + h]);
+    c[L.dact_hp + H + h] = d_elu(hp[r * 3 * H + 2 * H + h]);
+    x[L.h1 + h] = h1[i];
+    x[L.x2 + h] = x2[i];
+    for (int m = 0; m < 3; ++m) x[L.hid + m * H + h] = hid[r * 3 * H + m * H + h];
+    dyrec[n * L.dyw + L.dhid + h] = dhidp[i];
+  }
+}
+
+// ---- pass 2: the carry-only chain --------------------------------------------------
+
+constexpr int kChainThreads = 256;
+
+// The weight columns the chain reads, torch layout [out, in], staged in this
+// order, each a block of columns [c0, c0 + nc) of its `out` rows at a padded
+// row stride `ws`: W0's stoch columns, W2, W4, W6, W12's and W16's deter
+// columns, W14, W18.
+constexpr int kNC = 8;
+
+struct ChainWeights {
+  const float* p[kNC];
+  int in[kNC], c0[kNC], nc[kNC], rows[kNC], ws[kNC], off[kNC];
+  int total;  // floats in shared memory
+};
+
+// A row stride ≥ nc, a multiple of 4 (16-byte rows) and not of 32, so that
+// lanes reading one column of rows k, k + 1, ... fall in distinct banks.
+__host__ __device__ inline int padded_stride(int nc) {
+  const int s = round4(nc);
+  return s % 32 == 0 ? s + 4 : s;
+}
+
+ChainWeights chain_weights(const mrssm::WeightPtrs& w, const mrssm::WeightDims& dims, int A,
+                           int D) {
+  const int idx[kNC] = {0, 2, 4, 6, 12, 16, 14, 18};
+  ChainWeights c;
+  int off = 0;
+  for (int i = 0; i < kNC; ++i) {
+    const int k = idx[i];
+    c.p[i] = w.p[k];
+    c.in[i] = dims.in[k];
+    c.rows[i] = dims.out[k];
+    c.c0[i] = i == 0 ? A : 0;
+    c.nc[i] = i == 0 ? dims.in[k] - A : i == 4 || i == 5 ? D : dims.in[k];
+    c.ws[i] = padded_stride(c.nc[i]);
+    c.off[i] = off;
+    off += c.rows[i] * c.ws[i];
+  }
+  c.total = off;
+  return c;
+}
+
+// Per-row state of a chain block, each [R][width] floats after the weights
+// and the two record buffers.
+enum CBuf { kCs, kCd, kDmix, kDlgav, kDhidav, kGz, kCDgi, kCDgh, kCDx2, kCDh1, kNumCBufs };
+
+__host__ __device__ inline void chain_widths(int H, int D, int S, int* w) {
+  w[kCs] = S; w[kCd] = D; w[kDmix] = S; w[kDlgav] = 2 * S; w[kDhidav] = 2 * H; w[kGz] = D;
+  w[kCDgi] = 3 * D; w[kCDgh] = 3 * D; w[kCDx2] = H; w[kCDh1] = H;
+}
+
+size_t chain_row_floats(int H, int D, int S) {
+  int w[kNumCBufs];
+  chain_widths(H, D, S, w);
+  size_t n = 2 * (size_t)layout(H, D, S).cw;  // the two record buffers
+  for (int i = 0; i < kNumCBufs; ++i) n += w[i];
+  return n;
+}
+
+size_t chain_smem_bytes(const ChainWeights& cw, int H, int D, int S, int R) {
+  return 32 + ((size_t)cw.total + R * chain_row_floats(H, D, S)) * sizeof(float);
+}
+
+// Whether a staged weight goes by the bulk copy, row by row: every row's
+// columns start 16-byte aligned and span whole float4s.
+__device__ __forceinline__ bool bulk_rows(const ChainWeights& cw, int i) {
+  return (reinterpret_cast<uintptr_t>(cw.p[i] + cw.c0[i]) & 15) == 0 && cw.in[i] % 4 == 0 &&
+         cw.nc[i] % 4 == 0;
+}
+
+// How a phase's rows × items outputs spread over the block: each output a
+// dot split over P adjacent lanes (a power of two ≤ 32, as large as the
+// outputs leave room for); this thread's group starts at (r, j) and steps
+// by (rstep, jstep), `iters` times on every thread, so that whole warps
+// take each step and shuffle with a full mask; part is its lane in the
+// group.
+struct Split {
+  int P, part, r, j, rstep, jstep, iters;
+};
+
+__device__ __forceinline__ Split make_split(int rows, int items) {
+  Split s;
+  s.P = 32;
+  while (s.P > 1 && rows * items * s.P > (int)blockDim.x) s.P >>= 1;
+  const int slot = threadIdx.x / s.P, slots = blockDim.x / s.P;
+  s.part = threadIdx.x % s.P;
+  s.r = slot / items;
+  s.j = slot % items;
+  s.rstep = slots / items;
+  s.jstep = slots % items;
+  s.iters = (rows * items + slots - 1) / slots;
+  return s;
+}
+
+// f(r, j, valid) for this thread's group's outputs, `iters` calls on every
+// thread: where the group has run out of outputs, valid is false and r is
+// 0 (a row in range, whose results the call drops).
+template <class F>
+__device__ __forceinline__ void for_outputs(const Split& s, int rows, int items, F f) {
+  int r = s.r, j = s.j;
+  for (int it = 0; it < s.iters; ++it) {
+    const bool valid = r < rows;
+    f(valid ? r : 0, j, valid);
+    r += s.rstep;
+    j += s.jstep;
+    if (j >= items) {
+      j -= items;
+      ++r;
     }
-    for (int i = threadIdx.x; i < rows * E; i += blockDim.x) {
-      const int r = i / E, e = i - r * E;
-      emb[r * 2 * E + e] = a_emb[(base + r) * E + e];
-      emb[r * 2 * E + E + e] = v_emb[(base + r) * E + e];
+  }
+}
+
+// This lane's share of Σ_k a[k]·w[k·ws] for k < n: the k ≡ part (mod P), in
+// four partial sums added in a fixed order.
+__device__ __forceinline__ float dot_part(const float* __restrict__ a,
+                                          const float* __restrict__ w, int ws, int n,
+                                          const Split& s) {
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+  const int P = s.P;
+  int k = s.part;
+  for (; k + 3 * P < n; k += 4 * P) {
+    s0 = fmaf(a[k], w[k * ws], s0);
+    s1 = fmaf(a[k + P], w[(k + P) * ws], s1);
+    s2 = fmaf(a[k + 2 * P], w[(k + 2 * P) * ws], s2);
+    s3 = fmaf(a[k + 3 * P], w[(k + 3 * P) * ws], s3);
+  }
+  for (; k < n; k += P) s0 = fmaf(a[k], w[k * ws], s0);
+  return (s0 + s1) + (s2 + s3);
+}
+
+// The sum of v over the group's lanes, by butterfly shuffles of whole
+// warps: every lane gets the same bits (each step adds the same two values).
+__device__ __forceinline__ float group_sum(float v, const Split& s) {
+  for (int m = 1; m < s.P; m <<= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+  return v;
+}
+
+__global__ void __launch_bounds__(kChainThreads)
+recurrence_bwd_chain_kernel(const __grid_constant__ ChainWeights cw, const float* __restrict__ crec,
+                            float* __restrict__ dyrec, float* __restrict__ d_init_deter,
+                            float* __restrict__ d_init_stoch, int T, int B, int H, int D, int C,
+                            int K, int R) {
+  using namespace mrssm;
+  extern __shared__ __align__(16) float smem[];
+  const int S = C * K, G = 3 * D;
+  const Layout L = layout(H, D, S);
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(smem);  // weights, rec 0, rec 1
+  float* Wc = smem + 8;
+  const float* W0s = Wc + cw.off[0];
+  const float* W2 = Wc + cw.off[1];
+  const float* W4 = Wc + cw.off[2];
+  const float* W6 = Wc + cw.off[3];
+  const float* W12d = Wc + cw.off[4];
+  const float* W16d = Wc + cw.off[5];
+  const float* W14 = Wc + cw.off[6];
+  const float* W18 = Wc + cw.off[7];
+  float* recbuf = Wc + cw.total;  // two buffers of R records
+  int width[kNumCBufs];
+  chain_widths(H, D, S, width);
+  float* buf[kNumCBufs];
+  float* p = recbuf + 2 * R * L.cw;
+  for (int i = 0; i < kNumCBufs; ++i) {
+    buf[i] = p;
+    p += R * width[i];
+  }
+  float *cs = buf[kCs], *cd = buf[kCd], *dmix = buf[kDmix], *dlg = buf[kDlgav];
+  float *dhid = buf[kDhidav], *gz = buf[kGz], *dgi = buf[kCDgi], *dgh = buf[kCDgh];
+  float *dx2 = buf[kCDx2], *dh1 = buf[kCDh1];
+
+  const int row0 = blockIdx.x * R;
+  const int rows = min(R, B - row0);
+  const int rec_bytes = rows * L.cw * (int)sizeof(float);
+  auto rec_src = [&](int t) { return crec + ((size_t)t * B + row0) * L.cw; };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 3; ++i) fconv::mbar_init(&bar[i]);
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    // The weights: rows by the bulk copy where they allow it (warp 0's lanes
+    // each start some), on one arrival that expects all their bytes.
+    if (threadIdx.x == 0) {
+      int bytes = 0;
+      for (int i = 0; i < kNC; ++i) {
+        if (bulk_rows(cw, i)) bytes += cw.rows[i] * cw.nc[i] * 4;
+      }
+      bulk_expect(&bar[0], bytes);
+      fconv::bulk_load(recbuf, rec_src(T - 1), rec_bytes, &bar[1]);
+      if (T > 1) fconv::bulk_load(recbuf + R * L.cw, rec_src(T - 2), rec_bytes, &bar[2]);
     }
-    for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
-      pdeter[i] = deter[i] = prev_deter[base * D + i];
+    __syncwarp();
+    for (int i = 0; i < kNC; ++i) {
+      if (!bulk_rows(cw, i)) continue;
+      for (int o = threadIdx.x; o < cw.rows[i]; o += 32) {
+        bulk_copy(Wc + cw.off[i] + o * cw.ws[i], cw.p[i] + (size_t)o * cw.in[i] + cw.c0[i],
+                  cw.nc[i] * 4, &bar[0]);
+      }
     }
-    for (int i = threadIdx.x; i < rows * CW; i += blockDim.x) {
-      const int r = i / CW, j = i - r * CW;
-      if (j < D) {
-        cot[i] = gd[(base + r) * D + j];
-      } else {
-        const int q = (j - D) / S, s = (j - D) - q * S;
-        const float* src = q == 0 ? gpl : q == 1 ? gps : q == 2 ? gmx : gpo;
-        cot[i] = src[(base + r) * S + s];
+  }
+  for (int i = 0; i < kNC; ++i) {
+    if (bulk_rows(cw, i)) continue;
+    for (int e = threadIdx.x; e < cw.rows[i] * cw.nc[i]; e += blockDim.x) {
+      const int o = e / cw.nc[i], c = e - o * cw.nc[i];
+      Wc[cw.off[i] + o * cw.ws[i] + c] = cw.p[i][(size_t)o * cw.in[i] + cw.c0[i] + c];
+    }
+  }
+  for (int i = threadIdx.x; i < rows * D; i += blockDim.x) cd[i] = 0.f;
+  for (int i = threadIdx.x; i < rows * S; i += blockDim.x) cs[i] = 0.f;
+  // Each phase's split of its outputs over the block, fixed for all steps.
+  const Split sB = make_split(rows, 2 * H), sC = make_split(rows, D);
+  const Split sD = make_split(rows, H + D), sE = make_split(rows, H), sF = make_split(rows, S);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, warps = blockDim.x / 32;
+  const int lane_block = lane - lane % K;  // the first logit of this lane's category block
+  fconv::mbar_wait(&bar[0], 0);
+  __syncthreads();
+
+  for (int i = 0; i < T; ++i) {
+    const int t = T - 1 - i;
+    const float* rc = recbuf + (i & 1) * R * L.cw;
+    fconv::mbar_wait(&bar[1 + (i & 1)], (i >> 1) & 1);
+    const size_t base = (size_t)t * B + row0;  // first row-step of this tile
+
+    // A. The posterior's straight-through VJP (output + carry) into the
+    // mixed logits, a lane an element, each block's dot added in order; then
+    // the fusion VJP into the audio and vision logits, the full-axis sums by
+    // shuffles in a fixed order. A warp a row.
+    for (int r = warp; r < rows; r += warps) {
+      const float* c = rc + r * L.cw;
+      float* dm = dmix + r * S;
+      float* dl = dlg + r * 2 * S;
+      const float* csr = cs + r * S;
+      for (int s = lane; s < S; s += 32) dm[s] = c[L.qprob + s] * (c[L.gpo + s] + csr[s]);
+      __syncwarp();
+      float sa = 0.f, sv = 0.f;
+      for (int s = lane, o = lane_block; s < S; s += 32, o = s - s % K) {
+        float dot = 0.f;
+        for (int j = 0; j < K; ++j) dot += dm[o + j];
+        const float m = c[L.gmx + s] + c[L.qprob + s] * ((c[L.gpo + s] + csr[s]) - dot);
+        dl[s] = m * c[L.ca + s];
+        dl[S + s] = m * c[L.cv + s];
+        sa += dl[s];
+        sv += dl[S + s];
+      }
+      for (int m = 16; m > 0; m >>= 1) {
+        sa += __shfl_xor_sync(0xffffffffu, sa, m);
+        sv += __shfl_xor_sync(0xffffffffu, sv, m);
+      }
+      float* y = dyrec + (base + r) * L.dyw + L.dlg;
+      for (int s = lane; s < S; s += 32) {
+        dl[s] -= c[L.ea + s] * sa;
+        dl[S + s] -= c[L.ev + s] * sv;
+        y[S + s] = dl[s];
+        y[2 * S + s] = dl[S + s];
       }
     }
     __syncthreads();
-
-    // ---- recompute step t (the forward kernel's arithmetic) ----
-    dense_rows(xin, X, X, nullptr, 0, 0, Wp(0), Wp(1), H, h1p, H, rows, false);
+    // B. The audio and vision heads' output layers transposed, times the
+    // ELU derivative: d hidden.
+    for_outputs(sB, rows, 2 * H, [&](int r, int j, bool valid) {
+      const int m = j >= H, h = j - m * H;
+      const float v = group_sum(dot_part(dlg + r * 2 * S + m * S, (m ? W18 : W14) + h, cw.ws[6 + m],
+                                         S, sB), sB) * rc[r * L.cw + L.dact_hp + j];
+      if (valid && sB.part == 0) {
+        dhid[r * 2 * H + j] = v;
+        dyrec[(base + r) * L.dyw + L.dhid + H + j] = v;
+      }
+    });
     __syncthreads();
-    elu_rows(h1p, h1, rows * H);
+    // C. d deter (output and prior head, carry, both heads) and the GRU VJP.
+    for_outputs(sC, rows, D, [&](int r, int j, bool valid) {
+      const float* dh = dhid + r * 2 * H;
+      const float* c = rc + r * L.cw;
+      const float heads = group_sum(dot_part(dh, W12d + j, cw.ws[4], H, sC) +
+                                    dot_part(dh + H, W16d + j, cw.ws[5], H, sC), sC);
+      const float g = (c[L.gdb + j] + cd[r * D + j]) + heads;
+      const float dpn = g * c[L.an + j], dpz = g * c[L.az + j], dpr = dpn * c[L.ar + j];
+      const float dgn = dpn * c[L.rg + j];
+      if (valid && sC.part == 0) {
+        float* gi = dgi + r * G;
+        float* gh = dgh + r * G;
+        gi[j] = gh[j] = dpr;
+        gi[D + j] = gh[D + j] = dpz;
+        gi[2 * D + j] = dpn;
+        gh[2 * D + j] = dgn;
+        gz[r * D + j] = g * c[L.z + j];
+        float* y = dyrec + (base + r) * L.dyw;
+        y[L.dgi + j] = y[L.dgh + j] = dpr;
+        y[L.dgi + D + j] = y[L.dgh + D + j] = dpz;
+        y[L.dgi + 2 * D + j] = dpn;
+        y[L.dgh + 2 * D + j] = dgn;
+      }
+    });
     __syncthreads();
-    dense_rows(h1, H, H, nullptr, 0, 0, Wp(2), Wp(3), H, x2, H, rows, false);
+    // D. d x2 (GRU input gates transposed) and the deter carry (z·g plus the
+    // hidden gates transposed).
+    for_outputs(sD, rows, H + D, [&](int r, int j, bool valid) {
+      const bool x2 = j < H;
+      const float v = group_sum(x2 ? dot_part(dgi + r * G, W4 + j, cw.ws[2], G, sD)
+                                   : dot_part(dgh + r * G, W6 + (j - H), cw.ws[3], G, sD), sD);
+      if (valid && sD.part == 0) {
+        if (x2) {
+          dx2[r * H + j] = v;
+          dyrec[(base + r) * L.dyw + L.dx2 + j] = v;
+        } else {
+          cd[r * D + j - H] = gz[r * D + j - H] + v;
+        }
+      }
+    });
     __syncthreads();
-    dense_rows(x2, H, H, nullptr, 0, 0, Wp(4), Wp(5), G, gates, 2 * G, rows, false);
-    dense_rows(pdeter, D, D, nullptr, 0, 0, Wp(6), Wp(7), G, gates + G, 2 * G, rows, false);
+    // E. d h1: the transition MLP's output layer transposed, times ELU'.
+    for_outputs(sE, rows, H, [&](int r, int j, bool valid) {
+      const float v = group_sum(dot_part(dx2 + r * H, W2 + j, cw.ws[1], H, sE), sE) *
+                      rc[r * L.cw + L.dact_h1 + j];
+      if (valid && sE.part == 0) {
+        dh1[r * H + j] = v;
+        dyrec[(base + r) * L.dyw + L.dh1 + j] = v;
+      }
+    });
     __syncthreads();
-    gru_rows(gates, deter, D, rows);
+    // F. The stoch carry: d stoch from the transition MLP's first layer.
+    for_outputs(sF, rows, S, [&](int r, int j, bool valid) {
+      const float v = group_sum(dot_part(dh1 + r * H, W0s + j, cw.ws[0], H, sF), sF);
+      if (valid && sF.part == 0) cs[r * S + j] = v;
+    });
     __syncthreads();
-    dense_rows(deter, D, D, nullptr, 0, 0, Wp(8), Wp(9), H, hp, 3 * H, rows, false);
-    dense_rows(deter, D, D, emb, E, 2 * E, Wp(12), Wp(13), H, hp + H, 3 * H, rows, false);
-    dense_rows(deter, D, D, emb + E, E, 2 * E, Wp(16), Wp(17), H, hp + 2 * H, 3 * H, rows, false);
-    __syncthreads();
-    elu_rows(hp, hid, rows * 3 * H);
-    __syncthreads();
-    dense_rows(hid, H, 3 * H, nullptr, 0, 0, Wp(10), Wp(11), S, lg, 3 * S, rows, false);
-    dense_rows(hid + H, H, 3 * H, nullptr, 0, 0, Wp(14), Wp(15), S, lg + S, 3 * S, rows, false);
-    dense_rows(hid + 2 * H, H, 3 * H, nullptr, 0, 0, Wp(18), Wp(19), S, lg + 2 * S, 3 * S, rows,
-               false);
-    __syncthreads();
-    mopoe_stats(lg + S, 3 * S, S, stat, rows);
-    __syncthreads();
-    mopoe_mix(lg + S, 3 * S, stat, S, mixed, rows);
-    __syncthreads();
-
-    // ---- backward of step t ----
-    // Straight-through samples: the posterior's gradient (output + carry)
-    // into the mixed logits, the prior's into the prior logits.
-    for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
-      const int r = i / C, c = i - r * C;
-      const float* ct = cot + r * CW;
-      const int o = r * S + c * K;
-      float g_s[32];  // K ≤ 32
-      for (int j = 0; j < K; ++j) g_s[j] = ct[D + 3 * S + c * K + j] + cs[o + j];
-      block_softmax(mixed + o, K, qprob + o);
-      st_vjp(qprob + o, g_s, ct + D + 2 * S + c * K, K, dmix + o);
-      block_softmax(lg + r * 3 * S + c * K, K, pprob + o);
-      st_vjp(pprob + o, ct + D + S + c * K, ct + D + c * K, K, dlg + r * 3 * S + c * K);
+    // Every read of this buffer is done: bring in the record two steps on.
+    if (threadIdx.x == 0 && t >= 2) {
+      fconv::bulk_load(recbuf + (i & 1) * R * L.cw, rec_src(t - 2), rec_bytes, &bar[1 + (i & 1)]);
     }
-    __syncthreads();
-    // MoPoE fusion: mixture weights from the forward values, then the
-    // full-axis log-softmax VJP (train_step.py::_mopoe_backward).
-    mopoe_backward(lg + S, 3 * S, stat, mixed, dmix, dlg + S, sums, S, rows);
-    __syncthreads();
-    // Head output layers, then the hidden layers' gradients.
-    accum_grad(hid, H, 3 * H, nullptr, 0, 0, dlg, 3 * S, S, Gp(10), Gp(11), rows);
-    accum_grad(hid + H, H, 3 * H, nullptr, 0, 0, dlg + S, 3 * S, S, Gp(14), Gp(15), rows);
-    accum_grad(hid + 2 * H, H, 3 * H, nullptr, 0, 0, dlg + 2 * S, 3 * S, S, Gp(18), Gp(19), rows);
-    dense_rows_t(dlg, 3 * S, Wp(10), H, S, dhid, 3 * H, rows, hp, 3 * H, false);
-    dense_rows_t(dlg + S, 3 * S, Wp(14), H, S, dhid + H, 3 * H, rows, hp + H, 3 * H, false);
-    dense_rows_t(dlg + 2 * S, 3 * S, Wp(18), H, S, dhid + 2 * H, 3 * H, rows, hp + 2 * H, 3 * H,
-                 false);
-    __syncthreads();
-    accum_grad(deter, D, D, nullptr, 0, 0, dhid, 3 * H, H, Gp(8), Gp(9), rows);
-    accum_grad(deter, D, D, emb, E, 2 * E, dhid + H, 3 * H, H, Gp(12), Gp(13), rows);
-    accum_grad(deter, D, D, emb + E, E, 2 * E, dhid + 2 * H, 3 * H, H, Gp(16), Gp(17), rows);
-    dense_rows_t(dhid, 3 * H, Wp(8), D, H, ddp, D, rows, nullptr, 0, false);
-    dense_rows_t(dhid + H, 3 * H, Wp(12), DE, H, dxa, 2 * DE, rows, nullptr, 0, false);
-    dense_rows_t(dhid + 2 * H, 3 * H, Wp(16), DE, H, dxa + DE, 2 * DE, rows, nullptr, 0, false);
-    __syncthreads();
-    for (int i = threadIdx.x; i < rows * E; i += blockDim.x) {
-      const int r = i / E, e = i - r * E;
-      d_a_emb[(base + r) * E + e] = dxa[r * 2 * DE + D + e];
-      d_v_emb[(base + r) * E + e] = dxa[r * 2 * DE + DE + D + e];
-    }
-    // Total gradient into the step's deter: output + future carry + heads.
-    for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
-      const int r = i / D, d = i - r * D;
-      gdet[i] = cot[r * CW + d] + cd[i] + dxa[r * 2 * DE + d] + dxa[r * 2 * DE + DE + d] + ddp[i];
-    }
-    __syncthreads();
-    // GRU: deter = (1 - z) * n + z * prev_deter.
-    for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
-      const int r = i / D, d = i - r * D;
-      const float* gi = gates + r * 2 * G;
-      const float* gh = gi + G;
-      const float rg = sigmoid(gi[d] + gh[d]);
-      const float z = sigmoid(gi[D + d] + gh[D + d]);
-      const float n = tanhf(gi[2 * D + d] + rg * gh[2 * D + d]);
-      const float g = gdet[i];
-      const float d_pre_n = g * (1.f - z) * (1.f - n * n);
-      const float d_pre_z = g * (pdeter[i] - n) * z * (1.f - z);
-      const float d_pre_r = d_pre_n * gh[2 * D + d] * rg * (1.f - rg);
-      dgi[r * G + d] = d_pre_r;
-      dgi[r * G + D + d] = d_pre_z;
-      dgi[r * G + 2 * D + d] = d_pre_n;
-      dgh[r * G + d] = d_pre_r;
-      dgh[r * G + D + d] = d_pre_z;
-      dgh[r * G + 2 * D + d] = d_pre_n * rg;
-      cd[i] = g * z;
-    }
-    __syncthreads();
-    accum_grad(x2, H, H, nullptr, 0, 0, dgi, G, G, Gp(4), Gp(5), rows);
-    accum_grad(pdeter, D, D, nullptr, 0, 0, dgh, G, G, Gp(6), Gp(7), rows);
-    dense_rows_t(dgi, G, Wp(4), H, G, dx2, H, rows, nullptr, 0, false);
-    dense_rows_t(dgh, G, Wp(6), D, G, cd, D, rows, nullptr, 0, true);
-    __syncthreads();
-    // Transition MLP.
-    accum_grad(h1, H, H, nullptr, 0, 0, dx2, H, H, Gp(2), Gp(3), rows);
-    dense_rows_t(dx2, H, Wp(2), H, H, dh1, H, rows, h1p, H, false);
-    __syncthreads();
-    accum_grad(xin, X, X, nullptr, 0, 0, dh1, H, H, Gp(0), Gp(1), rows);
-    dense_rows_t(dh1, H, Wp(0), X, H, dx, X, rows, nullptr, 0, false);
-    __syncthreads();
-    for (int i = threadIdx.x; i < rows * X; i += blockDim.x) {
-      const int r = i / X, j = i - r * X;
-      if (j < A) d_actions[(base + r) * A + j] = dx[i];
-      else cs[r * S + j - A] = dx[i];
-    }
-    __syncthreads();
   }
   for (int i = threadIdx.x; i < rows * D; i += blockDim.x) d_init_deter[row0 * D + i] = cd[i];
   for (int i = threadIdx.x; i < rows * S; i += blockDim.x) d_init_stoch[row0 * S + i] = cs[i];
-  for (int i = threadIdx.x; i < NW; i += blockDim.x) partial[(size_t)blockIdx.x * NW + i] = GW[i];
 }
 
-size_t bwd_row_floats(int A, int E, int H, int D, int S) {
-  int width[kNumBufs];
-  buffer_widths(A, E, H, D, S, width);
-  size_t per_row = 0;
-  for (int i = 0; i < kNumBufs; ++i) per_row += width[i];
-  return per_row;
+// ---- pass 3: the deferred GEMMs --------------------------------------------------
+
+// The ten dense layers' gradients over the records and the inputs, into
+// d_weights (torch layout, back to back in kernel order), and the input
+// cotangents that feed no carry: d actions (W0's action columns), d a_emb
+// and d v_emb (W12's and W16's embedding columns).
+mrssm::DenseGradTable dw_table(const mrssm::WeightPtrs& w, const mrssm::WeightDims& dims,
+                               const Layout& L, const float* actions, const float* a_emb,
+                               const float* v_emb, const float* prev_deter,
+                               const float* prev_stoch, const float* xrec, const float* dyrec,
+                               float* d_weights, float* d_actions, float* d_a_emb,
+                               float* d_v_emb, int N, int A, int E, int H, int D, int S) {
+  mrssm::DenseGradTable tb;
+  mrssm::dense_grad_table_init(tb, dims.total);
+  const int G = 3 * D, X = A + S, DE = D + E;
+  auto layer = [&](int i, const float* x0, int n0, int s0, const float* x1, int n1, int s1,
+                   int dy, int out) {
+    mrssm::dense_grad_weight(tb, x0, n0, s0, x1, n1, s1, dyrec + dy, L.dyw, out, d_weights,
+                             dims.off[i], dims.off[i + 1], N);
+  };
+  layer(0, actions, A, A, prev_stoch, S, S, L.dh1, H);
+  layer(2, xrec + L.h1, H, L.xw, nullptr, 0, 0, L.dx2, H);
+  layer(4, xrec + L.x2, H, L.xw, nullptr, 0, 0, L.dgi, G);
+  layer(6, prev_deter, D, D, nullptr, 0, 0, L.dgh, G);
+  layer(8, xrec + L.deter, D, L.xw, nullptr, 0, 0, L.dhid, H);
+  layer(10, xrec + L.hid, H, L.xw, nullptr, 0, 0, L.dlg, S);
+  layer(12, xrec + L.deter, D, L.xw, a_emb, E, E, L.dhid + H, H);
+  layer(14, xrec + L.hid + H, H, L.xw, nullptr, 0, 0, L.dlg + S, S);
+  layer(16, xrec + L.deter, D, L.xw, v_emb, E, E, L.dhid + 2 * H, H);
+  layer(18, xrec + L.hid + 2 * H, H, L.xw, nullptr, 0, 0, L.dlg + 2 * S, S);
+  mrssm::dense_grad_rows(tb, dyrec + L.dh1, L.dyw, H, w.p[0], X, 0, A, d_actions, N);
+  mrssm::dense_grad_rows(tb, dyrec + L.dhid + H, L.dyw, H, w.p[12], DE, D, E, d_a_emb, N);
+  mrssm::dense_grad_rows(tb, dyrec + L.dhid + 2 * H, L.dyw, H, w.p[16], DE, D, E, d_v_emb, N);
+  return tb;
+}
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+    return 0;
+  }
+  return sms;
 }
 
 }  // namespace
 
 extern "C" {
 
-// The largest rows-per-block ≤ R_want whose shared memory fits one block on
-// the current device (0 if none does).
+// The largest batch rows per chain block ≤ R_want whose shared memory fits
+// one block on the current device (0 if none does).
 int mrssm_recurrence_bwd_rows(int A, int E, int H, int D, int C, int K, int R_want) {
-  return mrssm::rows_that_fit(2 * (size_t)weight_dims(A, E, H, D, C * K).total,
-                              bwd_row_floats(A, E, H, D, C * K), R_want);
+  const int S = C * K;
+  const ChainWeights cw = chain_weights(mrssm::WeightPtrs{}, weight_dims(A, E, H, D, S), A, D);
+  return mrssm::rows_that_fit(8 + cw.total, chain_row_floats(H, D, S), R_want);
 }
 
-// Launch on `stream`: the backward kernel, then the reduction of its
-// [n_blocks, n_weights] partial sums (`partial`, scratch) into `d_weights`
-// (torch layout, the 20 tensors back to back). `weights` is a host array of
-// 20 device pointers in the order of ops/kernels/recurrence.py; all tensors
-// f32 and contiguous. Returns the cudaError_t of the launches (0 on success).
+// Floats of scratch a backward call needs at these sizes: the three records
+// of every row-step, then the deferred GEMMs' partial sums and their
+// tickets (ops/kernels/recurrence.py views the records).
+long long mrssm_recurrence_bwd_workspace(int T, int B, int A, int E, int H, int D, int C, int K) {
+  const int S = C * K, N = T * B;
+  const Layout L = layout(H, D, S);
+  const mrssm::DenseGradTable tb =
+      dw_table(mrssm::WeightPtrs{}, weight_dims(A, E, H, D, S), L, nullptr, nullptr, nullptr,
+               nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, N, A, E,
+               H, D, S);
+  return (long long)N * (L.cw + L.xw + L.dyw) + mrssm::dense_grad_partial_floats(tb) + tb.tiles;
+}
+
+// Launch on `stream` the passes in `passes` (1: recompute, 2: chain, 4: the
+// deferred GEMMs; 7 for a backward call). `workspace` holds
+// mrssm_recurrence_bwd_workspace floats: the records [N, cw], [N, xw],
+// [N, dyw] (N = T·B), then the GEMMs' scratch. `weights` is a host array of
+// 20 device pointers in the order of ops/kernels/recurrence.py; d_weights
+// gets the 20 gradients in torch layout, back to back; R is the chain's
+// batch rows a block. All tensors f32 and contiguous. Returns the
+// cudaError_t of the launches (0 on success).
 int mrssm_recurrence_backward(const void* const* weights, const float* actions, const float* a_emb,
                               const float* v_emb, const float* prev_deter, const float* prev_stoch,
                               const float* gd, const float* gpl, const float* gps,
-                              const float* gmx, const float* gpo, float* partial,
+                              const float* gmx, const float* gpo, float* workspace,
                               float* d_weights, float* d_actions, float* d_a_emb, float* d_v_emb,
                               float* d_init_deter, float* d_init_stoch, int T, int B, int A, int E,
-                              int H, int D, int C, int K, int R, void* stream) {
-  if (K > 32) return (int)cudaErrorInvalidValue;  // st_vjp's per-block buffer
-  mrssm::WeightPtrs w;
-  for (int i = 0; i < kNW; ++i) w.p[i] = static_cast<const float*>(weights[i]);
-  const mrssm::WeightDims dims = weight_dims(A, E, H, D, C * K);
-  const size_t smem =
-      (2 * (size_t)dims.total + R * bwd_row_floats(A, E, H, D, C * K)) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(recurrence_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (B + R - 1) / R;
+                              int H, int D, int C, int K, int R, int passes, void* stream) {
+  const int S = C * K, N = T * B;
+  const mrssm::WeightPtrs w = mrssm::weight_ptrs(weights, kNW);
+  const mrssm::WeightDims dims = weight_dims(A, E, H, D, S);
+  const Layout L = layout(H, D, S);
+  float* crec = workspace;
+  float* xrec = crec + (size_t)N * L.cw;
+  float* dyrec = xrec + (size_t)N * L.xw;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  recurrence_bwd_kernel<<<blocks, mrssm::kThreads, smem, s>>>(
-      w, dims, actions, a_emb, v_emb, prev_deter, prev_stoch, gd, gpl, gps, gmx, gpo, partial,
-      d_actions, d_a_emb, d_v_emb, d_init_deter, d_init_stoch, T, B, A, E, H, D, C, K, R);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)mrssm::reduce_weight_grads_launch(partial, blocks, dims, d_weights, s);
+  cudaError_t err = cudaSuccess;
+  if (passes & 1) {
+    // About a block an SM: each stages the weights, then recomputes its rows.
+    const int sms = std::max(sm_count(), 1);
+    const size_t fixed = 4 + round4(dims.total) + raw_floats(dims);
+    const int R1 = mrssm::rows_that_fit(fixed, recompute_row_floats(A, E, H, D, S),
+                                        std::max(1, std::min(32, (N + sms - 1) / sms)));
+    if (R1 < 1) return (int)cudaErrorInvalidValue;
+    const size_t smem = (fixed + R1 * recompute_row_floats(A, E, H, D, S)) * sizeof(float);
+    err = cudaFuncSetAttribute(recurrence_bwd_recompute_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    recurrence_bwd_recompute_kernel<<<(N + R1 - 1) / R1, mrssm::kThreads, smem, s>>>(
+        w, dims, actions, a_emb, v_emb, prev_deter, prev_stoch, gd, gpl, gps, gmx, gpo, crec,
+        xrec, dyrec, N, A, E, H, D, C, K, R1);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (passes & 2) {
+    const ChainWeights cw = chain_weights(w, dims, A, D);
+    const size_t smem = chain_smem_bytes(cw, H, D, S, R);
+    err = cudaFuncSetAttribute(recurrence_bwd_chain_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    recurrence_bwd_chain_kernel<<<(B + R - 1) / R, kChainThreads, smem, s>>>(
+        cw, crec, dyrec, d_init_deter, d_init_stoch, T, B, H, D, C, K, R);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (passes & 4) {
+    const mrssm::DenseGradTable tb =
+        dw_table(w, dims, L, actions, a_emb, v_emb, prev_deter, prev_stoch, xrec, dyrec,
+                 d_weights, d_actions, d_a_emb, d_v_emb, N, A, E, H, D, S);
+    float* partial = dyrec + (size_t)N * L.dyw;
+    int* tickets = reinterpret_cast<int*>(partial + mrssm::dense_grad_partial_floats(tb));
+    err = mrssm::dense_grads_launch(tb, partial, tickets, s);
+  }
+  return (int)err;
 }
 
 }  // extern "C"

@@ -102,8 +102,12 @@ class Trainer:
         self.ckpt = CheckpointManager(Path(self.cfg.log_dir) / "checkpoints")
 
     def fit(self, resume: bool = False, resume_from: str | Path | None = None) -> dict[str, Any]:
-        """Train from the seed's initial weights. Returns ``history`` (one row
-        per epoch), ``best_val``, ``global_step`` (optimizer steps) and
+        """Train from the seed's initial weights. Returns JAX ``Trainer.fit``'s
+        keys: ``params`` (the model's ``state_dict``: the port's parameters
+        live in the model), ``opt_state`` (the optimizer's ``state_dict``),
+        ``history`` (one row per epoch), ``best_val`` and ``preempted``
+        (always False: the port has no preemption handling until resume
+        lands); and beside them ``global_step`` (optimizer steps) and
         ``train_seconds`` (wall time of the training loops, validation
         excluded)."""
         if resume or resume_from is not None:
@@ -172,8 +176,9 @@ class Trainer:
                     break
         finally:
             logger.close()
-        return {"history": history, "best_val": best_val, "global_step": global_step,
-                "train_seconds": train_seconds}
+        return {"params": model.state_dict(), "opt_state": optimizer.state_dict(),
+                "history": history, "best_val": best_val, "preempted": False,
+                "global_step": global_step, "train_seconds": train_seconds}
 
 
 def _accumulate(acc: dict[str, torch.Tensor], metrics: dict[str, torch.Tensor],

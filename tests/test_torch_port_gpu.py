@@ -11,8 +11,9 @@ recurrence forward and backward, hierarchical rollout), the stacked
 recurrence kernels, the fused encoder kernels and the fused decoder kernels
 alike. Tolerances as in ``chip_smoke.py``: deters, integrators and logits
 within 1e-4, sampled categories equal outside blocks whose top two scores
-lie within 1e-5 (``ops/kernels/parity.py``); backward gradients within
-2e-4 × max(1, max|plain|) per tensor; encoder embeddings within 1e-4 ×
+lie within 1e-5 (``ops/kernels/parity.py``); backward gradients, and the
+recurrence backward's records pass by pass, within 2e-4 × max(1, max|plain|)
+per tensor; encoder embeddings within 1e-4 ×
 max(1, max|plain|) (f32 sums over up to 576 taps in another order); decoder
 frames within 1e-5 (after the Tanh); a whole train step's loss terms within
 2e-5 of the loss and its gradient tree within 3e-4 × scale of the CPU
@@ -94,10 +95,11 @@ def test_rollout_kernel_matches_plain(cuda_device, B, T):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,T", [(8, 30), (3, 7)])
+@pytest.mark.parametrize("B,T", [(8, 30), (3, 7), (128, 30), (8, 1), (256, 30)])
 def test_recurrence_backward_kernel_matches_plain(cuda_device, B, T):
-    """The backward kernel against its plain version on one forward record
-    and random cotangents on all five outputs; the kernel is reproducible."""
+    """The backward kernels against their plain version on one forward record
+    and random cotangents on all five outputs; the kernels are reproducible.
+    B=256 puts two batch rows in a chain block."""
     w = _model(cuda_device).representation_weights()
     ins = _inputs(B * T, B, T, cuda_device)
     with torch.no_grad():
@@ -110,6 +112,95 @@ def test_recurrence_backward_kernel_matches_plain(cuda_device, B, T):
     ref = recurrence.recurrence_backward_plain(*args)
     parity.check_gradients(got, ref)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# Widths of the backward's cases beyond the model's: A, E, H, D, C, K.
+BWD_WIDTHS = {"odd": (5, 63, 33, 17, 3, 5), "k32": (6, 64, 32, 32, 2, 32)}
+
+
+def _backward_case(seed: int, widths, B: int, T: int, dev):
+    """Random weights (torch layout, some not 16-byte aligned), inputs, the
+    plain forward's record and cotangents at ``widths``, made by numpy."""
+    A, E, H, D, Cw, Kw = widths
+    S = Cw * Kw
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    w = []
+    for i, s in enumerate(recurrence.weight_shapes(A, S, H, D, E)):
+        x = rng.uniform(-1, 1, s) / np.sqrt(s[-1] if len(s) == 2 else H)
+        flat = torch.zeros(int(np.prod(s)) + i % 2, device=dev)  # odd i: one float in
+        flat[i % 2:] = t(x).reshape(-1)
+        w.append(flat[i % 2:].view(s))
+    stoch0 = np.zeros((B, Cw, Kw), np.float32)
+    stoch0[np.arange(B)[:, None], np.arange(Cw), rng.integers(0, Kw, (B, Cw))] = 1.0
+    ins = [t(a) for a in (rng.uniform(-1, 1, (T, B, A)), rng.standard_normal((T, B, E)),
+                          rng.standard_normal((T, B, E)), np.tanh(rng.standard_normal((B, D))),
+                          stoch0.reshape(B, S), rng.gumbel(size=(T, B, S)),
+                          rng.gumbel(size=(T, B, S)))]
+    with torch.no_grad():
+        outs = recurrence.recurrence_forward_plain(w, *ins, Cw, Kw)
+    prev_deter = torch.cat([ins[3][None], outs[0][:-1]])
+    prev_stoch = torch.cat([ins[4][None], outs[4][:-1]])
+    return (w, *ins[:3], prev_deter, prev_stoch, _cotangents(seed, outs), Cw, Kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,B,T", [("odd", 8, 30), ("odd", 3, 7), ("k32", 8, 30)])
+def test_recurrence_backward_kernel_at_other_widths(cuda_device, name, B, T):
+    """The backward kernels at widths whose records and weights are no
+    multiple of 4 floats (weights off 16-byte alignment too), and at 32
+    categories a class: within the limits above, reproducible."""
+    args = _backward_case(B + T, BWD_WIDTHS[name], B, T, cuda_device)
+    with torch.no_grad():
+        got = recurrence.recurrence_backward_cuda(*args)
+        again = recurrence.recurrence_backward_cuda(*args)
+    parity.check_gradients(got, recurrence.recurrence_backward_plain(*args))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,B,T", [("model", 8, 30), ("model", 128, 30), ("odd", 3, 7)])
+def test_recurrence_backward_passes_match_their_plain_passes(cuda_device, name, B, T):
+    """Each of the backward's three kernels alone against its plain pass on
+    the same input: the recompute's records, the chain's cotangents and
+    initial-state gradients on the plain recompute's records, the deferred
+    GEMMs (weight gradients, input cotangents) on the plain chain's records
+    (every field and gradient within 2e-4 × max(1, max|plain|))."""
+    if name == "model":
+        w = _model(cuda_device).representation_weights()
+        ins = _inputs(B + T, B, T, cuda_device)
+        with torch.no_grad():
+            outs = recurrence.recurrence_forward_cuda(w, *ins, C, K)
+        args = (w, *ins[:3], torch.cat([ins[3][None], outs[0][:-1]]),
+                torch.cat([ins[4][None], outs[4][:-1]]), _cotangents(T, outs), C, K)
+        H, D, Cw, Kw = 32, 32, C, K
+    else:
+        args = _backward_case(B + T, BWD_WIDTHS[name], B, T, cuda_device)
+        H, D, Cw, Kw = BWD_WIDTHS[name][2:]
+    weights, actions, a_emb, v_emb, prev_deter, prev_stoch = args[:6]
+    N, S = T * B, Cw * Kw
+    lay = recurrence.bwd_record_layout(H, D, S)
+    with torch.no_grad():
+        crec, xrec, dyrec = recurrence.recurrence_bwd_recompute_plain(*args)
+        _, ws = recurrence.backward_launch(*args, passes=1)
+        k_c, k_x, k_y = recurrence.bwd_workspace_records(ws, N, H, D, S)
+        parity.check_gradients([recurrence.record_field(k, lay[r][1], f)
+                                for k, r in ((k_c, "chain"), (k_x, "x")) for f in lay[r][1]],
+                               [recurrence.record_field(p, lay[r][1], f)
+                                for p, r in ((crec, "chain"), (xrec, "x")) for f in lay[r][1]])
+        prior = (slice(None), slice(0, S))
+        parity.check_gradients([recurrence.record_field(k_y, lay["dy"][1], "dlg")[prior]],
+                               [recurrence.record_field(dyrec, lay["dy"][1], "dlg")[prior]])
+        k_c.copy_(crec)
+        k_x.copy_(xrec)
+        k_y.copy_(dyrec)
+        chain, _ = recurrence.backward_launch(*args, passes=2, workspace=ws)
+        p_y, *p_init = recurrence.recurrence_bwd_chain_plain(weights, crec, dyrec, T, B, Cw, Kw)
+        parity.check_gradients([k_y, *chain[-2:]], [p_y, *p_init])
+        k_y.copy_(p_y)
+        dw, _ = recurrence.backward_launch(*args, passes=4, workspace=ws)
+        parity.check_gradients(dw[:-2], recurrence.recurrence_bwd_dw_plain(
+            weights, actions, a_emb, v_emb, prev_deter, prev_stoch, xrec, p_y))
 
 
 def _train_step_card_vs_cpu(family, cfg, dev) -> None:

@@ -221,6 +221,20 @@ def test_trainer_fit_on_the_cpu(tmp_path):
     assert kernels.launch_counts() == dict.fromkeys(kernels.LAUNCH_COUNTERS, 0)
 
 
+def test_trainer_fit_returns_the_jax_keys(tmp_path):
+    """``fit`` returns JAX ``Trainer.fit``'s keys (``params``, ``opt_state``,
+    ``history``, ``best_val``, ``preempted``) and the port's two extra ones."""
+    dm, _ = _datamodules(tmp_path, noise_std=0.0)
+    model = _small_model()
+    out = Trainer(model, dm, TrainerConfig(max_epochs=1, log_dir=str(tmp_path / "run"))).fit()
+    assert set(out) == {"params", "opt_state", "history", "best_val", "preempted",
+                        "global_step", "train_seconds"}
+    assert out["preempted"] is False
+    assert out["params"].keys() == model.state_dict().keys()
+    assert all(torch.equal(v, model.state_dict()[k]) for k, v in out["params"].items())
+    assert out["opt_state"]["count"] == out["global_step"] == 3
+
+
 @pytest.mark.parametrize("field,value", [("zero1", True), ("dcn_size", 2),
                                          ("accumulate_grad_batches", 2), ("steps_per_dispatch", 4),
                                          ("profile_epoch", 0), ("use_wandb", True)])
