@@ -5,7 +5,9 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It refuses to run without a CUDA device and exits non-zero on any failure.
 ``python3 chip_smoke.py --decoder`` runs only the fused decoder's timings
 (``decoder_phase``), ``--recurrence-bwd`` only the MRSSM recurrence
-backward's (``recurrence_bwd_phase``): for comparing two trees in one call.
+backward's (``recurrence_bwd_phase``), ``--mt-recurrence-bwd`` only the
+MMTRSSM recurrence backward's (``mt_recurrence_bwd_phase``): for comparing
+two trees in one call.
 Four configurations go through the serving and training phases, each with
 seeded random weights (no trained checkpoint or dataset on the machine;
 the shapes and the path are the real ones): MoPoE-MRSSM (``MRSSMConfig()``),
@@ -63,12 +65,13 @@ first two configurations' latent features.
    and the optimizer steps per second of ``Trainer.fit``; each kernel's
    bound at the main path's shape; the device time of each kernel of one
    MRSSM recurrence backward call (recompute, chain, the deferred GEMMs)
-   beside the call's at B=8 and B=128 T=30; the fused encoder forward's
+   beside the call's at B=8 and B=128 T=30, the same of the MMTRSSM
+   recurrence backward at B=8, 32 and 128 T=30; the fused encoder forward's
    device time and the device time of each kernel of one fused encoder
    backward call (``torch.profiler``), the same of the fused decoder's
    forward and backward calls; and the registers, stack and spills
    ``ptxas`` gives the fused encoder's and decoder's kernels, forward and
-   backward, and the recurrence backward's three kernels.
+   backward, and both recurrence backwards' three kernels.
 
 Each configuration's serving and training run, and the decoder's path
 (``fused_decoder_apply`` on both decoders of the first two configurations'
@@ -517,9 +520,9 @@ def kernel_timings(model, cfg, dev, card: str) -> dict[str, tuple[float, float]]
 
 
 def mt_kernel_timings(model, cfg, dev, card: str) -> dict[str, tuple[float, float]]:
-    """Phase 5, MMTRSSM: the hierarchical recurrence (forward and backward)
-    and rollout kernels against their plain versions; returns the
-    main-path shapes' (B=8 T=30) times."""
+    """Phase 5, MMTRSSM: the hierarchical recurrence forward and rollout
+    kernels against their plain versions (the backward: ``mt_bwd_timings``);
+    returns the main-path shapes' (B=8 T=30) times."""
     from multimodal_mtrssm_tpu_torch.ops.kernels import recurrence_mt, rollout_mt
 
     spec = cfg.spec
@@ -535,16 +538,6 @@ def mt_kernel_timings(model, cfg, dev, card: str) -> dict[str, tuple[float, floa
         print(f"time mt_recurrence_fwd B={B} T={T}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
               f"| {card}")
         main.setdefault("mt_recurrence_fwd", (k_ms, p_ms))
-        outs = recurrence_mt.mt_recurrence_forward_cuda(rw, *xs, init6, gumbels, spec)
-        cots = [o.new_tensor(rng.standard_normal(tuple(o.shape)).astype(np.float32))
-                for o in outs]
-        prev6 = recurrence_mt.shift_carries(init6, recurrence_mt.carries(outs))
-        args = (rw, *xs, prev6, cots, spec)
-        k_ms = _median_ms(lambda: recurrence_mt.mt_recurrence_backward_cuda(*args), 20)
-        p_ms = _median_ms(lambda: recurrence_mt.mt_recurrence_backward_plain(*args), 2, warmup=1)
-        print(f"time mt_recurrence_bwd B={B} T={T}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
-              f"| {card}")
-        main.setdefault("mt_recurrence_bwd", (k_ms, p_ms))
     tw = rw[:16]
     for B, T in ((8, 30), (10, 10), (64, 30), (256, 180)):
         xs, init6, _ = _mt_inputs(rng, B, T, cfg, dev)
@@ -743,6 +736,51 @@ def bwd_timings(model, cfg, dev, card: str) -> dict[str, tuple[float, float]]:
         _print_breakdown(f"recurrence_bwd B={B} T={T} (call {k_ms:.4f} ms by CUDA events)", parts,
                          RECURRENCE_BWD_KERNELS, card)
         main.setdefault("recurrence_bwd", (k_ms, p_ms))
+    return main
+
+
+# The same of one mt_recurrence_backward_cuda call; the parent's one-kernel
+# backward (mt_recurrence_bwd_kernel) and its reduction are listed too.
+MT_BWD_KERNELS = {"recompute": "mt_recurrence_bwd_recompute",
+                  "chain": "mt_recurrence_bwd_chain",
+                  "tickets memset": "Memset",
+                  "deferred GEMMs": "recurrence_bwd_dw",
+                  "one-kernel backward (before the three passes)": "mt_recurrence_bwd_kernel",
+                  "reduce_weight_grads": "reduce_weight_grads"}
+
+
+def mt_bwd_timings(model, cfg, dev, card: str,
+                   plain: bool = True) -> dict[str, tuple[float, float]]:
+    """Phase 5, MMTRSSM: the backward kernels (against their plain version
+    where ``plain``), a call's CUDA-event time beside each kernel's device
+    time (``torch.profiler``), at B=8, 32 and 128 T=30; returns the B=8
+    times (plain: NaN where not timed)."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels import recurrence_mt
+
+    spec = cfg.spec
+    rng = np.random.default_rng(SEED + 7)
+    rw = [w.detach() for w in model.recurrence_weights()]
+    main: dict[str, tuple[float, float]] = {}
+    for B, T in MT_SHAPES[:3]:
+        xs, init6, gumbels = _mt_inputs(rng, B, T, cfg, dev)
+        with torch.no_grad():
+            outs = recurrence_mt.mt_recurrence_forward_cuda(rw, *xs, init6, gumbels, spec)
+        cots = [o.new_tensor(rng.standard_normal(tuple(o.shape)).astype(np.float32))
+                for o in outs]
+        prev6 = recurrence_mt.shift_carries(init6, recurrence_mt.carries(outs))
+        args = (rw, *xs, prev6, cots, spec)
+        k_ms = _median_ms(lambda: recurrence_mt.mt_recurrence_backward_cuda(*args), 20)
+        p_ms = (_median_ms(lambda: recurrence_mt.mt_recurrence_backward_plain(*args), 2, warmup=1)
+                if plain else float("nan"))
+        print(f"time mt_recurrence_bwd B={B} T={T}: kernel {k_ms:.4f} ms, plain "
+              + (f"{p_ms:.4f} ms" if plain else "not timed") + f" | {card}")
+        parts = _device_breakdown(lambda: recurrence_mt.mt_recurrence_backward_cuda(*args),
+                                  MT_BWD_KERNELS.values())
+        _print_breakdown(f"mt_recurrence_bwd B={B} T={T} (call {k_ms:.4f} ms by CUDA events)",
+                         parts, MT_BWD_KERNELS, card)
+        main.setdefault("mt_recurrence_bwd", (k_ms, p_ms))
     return main
 
 
@@ -1157,11 +1195,11 @@ _CHILDREN: list[subprocess.Popen] = []  # stopped on exit, whatever failed
 
 
 PTXAS_SOURCES = ("fused_encoder_fwd.cu", "fused_encoder_bwd.cu", "fused_decoder_fwd.cu",
-                 "fused_decoder_bwd.cu", "recurrence_bwd.cu")
+                 "fused_decoder_bwd.cu", "recurrence_bwd.cu", "recurrence_mt_bwd.cu")
 
 
 def start_ptxas_report(sources=PTXAS_SOURCES) -> list[subprocess.Popen]:
-    """Compile the fused stacks' and the recurrence backward's sources once
+    """Compile the fused stacks' and the recurrence backwards' sources once
     more with ``-Xptxas -v``, in the background (into the git-ignored build
     directory), one ``nvcc`` each."""
     from multimodal_mtrssm_tpu_torch.ops.kernels import build
@@ -1179,7 +1217,7 @@ def start_ptxas_report(sources=PTXAS_SOURCES) -> list[subprocess.Popen]:
 
 def ptxas_report(procs: list[subprocess.Popen], sources=PTXAS_SOURCES) -> None:
     """Print ptxas's registers, stack and spills of each fused encoder and
-    decoder kernel, forward and backward, and of the recurrence backward's
+    decoder kernel, forward and backward, and of both recurrence backwards'
     kernels (a measurement: "not measured" where the compile fails). A
     backward's source also compiles the forward it recomputes through; those
     kernels are printed once, from the forward's source."""
@@ -1194,7 +1232,7 @@ def ptxas_report(procs: list[subprocess.Popen], sources=PTXAS_SOURCES) -> None:
         name = None
         for line in out.splitlines():
             if "Compiling entry function" in line:
-                m = re.search(r"((?:en|de)coder_[a-z_]*kernel|recurrence_bwd_[a-z_]*kernel|"
+                m = re.search(r"((?:en|de)coder_[a-z_]*kernel|(?:mt_)?recurrence_bwd_[a-z_]*kernel|"
                               r"reduce_weight_grads)", line.split("'")[1])
                 name = m.group(1) if m and m.group(1) not in seen else None
                 if name:
@@ -1523,6 +1561,32 @@ def recurrence_bwd_phase() -> int:
     return 0
 
 
+def mt_recurrence_bwd_phase() -> int:
+    """``--mt-recurrence-bwd``: only the MMTRSSM recurrence backward's call
+    times and per-kernel device times (``mt_bwd_timings``, no plain timing)
+    and ``ptxas``'s report of its source; no checks and no contract lines.
+    For comparing backward kernels within one call, e.g. a parent archive
+    and the change."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.models import MMTRSSMConfig, MoPoEMMTRSSM
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
+        return 2
+    card = card_line()
+    print(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    ptxas = start_ptxas_report(("recurrence_mt_bwd.cu",))
+    cfg = MMTRSSMConfig()
+    model = MoPoEMMTRSSM(cfg).init(torch.Generator().manual_seed(0)).to(dev).eval()
+    mt_bwd_timings(model, cfg, dev, card, plain=False)
+    ptxas_report(ptxas, ("recurrence_mt_bwd.cu",))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1585,6 +1649,7 @@ def main() -> int:
         mt_ctx = drive_server(mt_model, mt_cfg, dev, {"mt_recurrence_fwd": 1, "mt_rollout": 2})
         try:
             times.update(mt_kernel_timings(mt_model, mt_cfg, dev, card))
+            times.update(mt_bwd_timings(mt_model, mt_cfg, dev, card))
             server_latencies(mt_ctx, card, _label(mt_cfg))
         finally:
             mt_ctx["server"].stop()
@@ -1694,7 +1759,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        modes = {"--decoder": decoder_phase, "--recurrence-bwd": recurrence_bwd_phase}
+        modes = {"--decoder": decoder_phase, "--recurrence-bwd": recurrence_bwd_phase,
+                 "--mt-recurrence-bwd": mt_recurrence_bwd_phase}
         code = modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes else main()
     finally:
         for child in _CHILDREN:

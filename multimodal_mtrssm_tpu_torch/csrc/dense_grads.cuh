@@ -29,7 +29,9 @@
 
 namespace mrssm {
 
-constexpr int kDgMaxTasks = 16;
+// The most tasks a table holds: the MMTRSSM backward has 17 (14 weights,
+// 3 row products).
+constexpr int kDgMaxTasks = 20;
 constexpr int kDgTile = 64;      // i × j of a block's tile
 constexpr int kDgRows = 32;      // r staged at once
 constexpr int kDgThreads = 256;  // 16 × 16 threads of 4 × 4 accumulators
@@ -57,6 +59,8 @@ struct DenseGradTable {
   DenseGradTask task[kDgMaxTasks];
   int n, blocks, tiles, total, max_chunks;
 };
+// The table goes to the kernel by value, as a parameter (4 KB at most).
+static_assert(sizeof(DenseGradTable) <= 4000, "the task table must fit a kernel's parameters");
 
 inline void dense_grad_table_init(DenseGradTable& tb, int total) {
   tb.n = tb.blocks = tb.tiles = tb.max_chunks = 0;

@@ -42,11 +42,19 @@
 //    same bits).
 #include <algorithm>
 
-#include "conv_common.cuh"
+#include "chain_common.cuh"
 #include "dense_grads.cuh"
 #include "mrssm_common.cuh"
 
 namespace {
+
+using chain::dot_part;
+using chain::for_outputs;
+using chain::group_sum;
+using chain::make_split;
+using chain::raw_floats;
+using chain::round4;
+using chain::Split;
 
 constexpr int kNW = 20;
 
@@ -56,8 +64,6 @@ mrssm::WeightDims weight_dims(int A, int E, int H, int D, int S) {
   const int out[kNW] = {H, H, H, H, G, G, G, G, H, H, S, S, H, H, S, S, H, H, S, S};
   return mrssm::weight_dims(in, out, kNW);
 }
-
-__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
 // The three records of a row-step, each a row of floats rounded to 4, and
 // the offset of each field (ops/kernels/recurrence.py::bwd_record_layout
@@ -108,75 +114,12 @@ __host__ __device__ inline void recompute_widths(int A, int E, int H, int D, int
   w[kMixed] = S; w[kPprob] = S; w[kQprob] = S; w[kDlgp] = S; w[kDhidp] = H; w[kDdp] = D;
 }
 
-// Floats of the recompute block's staging area: the 20 weights in torch
-// layout, each from a multiple of 4 floats.
-__host__ __device__ inline int raw_floats(const mrssm::WeightDims& d) {
-  int n = 0;
-  for (int i = 0; i < d.n; ++i) n += round4(d.in[i] * d.out[i]);
-  return n;
-}
-
 size_t recompute_row_floats(int A, int E, int H, int D, int S) {
   int w[kNumRBufs];
   recompute_widths(A, E, H, D, S, w);
   size_t n = 0;
   for (int i = 0; i < kNumRBufs; ++i) n += w[i];
   return n;
-}
-
-// One arrival on `bar` that expects `bytes` of bulk copies, and a bulk copy
-// that completes on it (conv_common.cuh's bulk_load is the two for one copy).
-__device__ __forceinline__ void bulk_expect(unsigned long long* bar, int bytes) {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(fconv::smem_addr(bar)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src, int bytes,
-                                          unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(fconv::smem_addr(dst)), "l"(src), "r"(bytes), "r"(fconv::smem_addr(bar)) : "memory");
-}
-
-// Stage the 20 weights into W ([in, out] at dims.off, what dense_rows and
-// dense_rows_t read): in torch layout by the bulk copy into `raw` (each
-// tensor from a multiple of 4 floats; one arrival on `bar` expecting all
-// their bytes; a tensor not 16-byte aligned, and the last floats of one
-// whose size is no multiple of 4, by the threads), then transposed from
-// shared memory. Every thread calls it; the block synchronises inside.
-__device__ __forceinline__ void stage_weights_bulk(float* W, float* raw, const mrssm::WeightPtrs& w,
-                                                   const mrssm::WeightDims& d,
-                                                   unsigned long long* bar) {
-  if (threadIdx.x == 0) fconv::mbar_init(bar);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int bytes = 0;
-    for (int i = 0; i < d.n; ++i) {
-      if ((reinterpret_cast<uintptr_t>(w.p[i]) & 15) == 0) bytes += (d.in[i] * d.out[i] & ~3) * 4;
-    }
-    bulk_expect(bar, bytes);
-    for (int i = 0, off = 0; i < d.n; off += round4(d.in[i] * d.out[i]), ++i) {
-      const int nb = (d.in[i] * d.out[i] & ~3) * 4;
-      if ((reinterpret_cast<uintptr_t>(w.p[i]) & 15) == 0 && nb > 0) {
-        bulk_copy(raw + off, w.p[i], nb, bar);
-      }
-    }
-  }
-  for (int i = 0, off = 0; i < d.n; off += round4(d.in[i] * d.out[i]), ++i) {
-    const int n = d.in[i] * d.out[i];
-    const bool bulk = (reinterpret_cast<uintptr_t>(w.p[i]) & 15) == 0;
-    for (int e = (bulk ? n & ~3 : 0) + threadIdx.x; e < n; e += blockDim.x) raw[off + e] = w.p[i][e];
-  }
-  fconv::mbar_wait(bar, 0);
-  __syncthreads();
-  for (int i = 0, off = 0; i < d.n; off += round4(d.in[i] * d.out[i]), ++i) {
-    const int in = d.in[i], out = d.out[i];
-    for (int e = threadIdx.x; e < in * out; e += blockDim.x) {
-      const int o = e / in, k = e - o * in;
-      W[d.off[i] + k * out + o] = raw[off + e];
-    }
-  }
-  __syncthreads();
 }
 
 __global__ void __launch_bounds__(mrssm::kThreads)
@@ -214,7 +157,7 @@ recurrence_bwd_recompute_kernel(mrssm::WeightPtrs w, mrssm::WeightDims dims,
   float *dlgp = buf[kDlgp], *dhidp = buf[kDhidp], *ddp = buf[kDdp];
   auto Wp = [&](int i) -> const float* { return W + dims.off[i]; };
 
-  stage_weights_bulk(W, raw, w, dims, bar);
+  chain::stage_weights_bulk(W, raw, w, dims, bar);
   const int n0 = blockIdx.x * R;  // first row-step (t·B + b) of this block
   const int rows = min(R, N - n0);
   for (int i = threadIdx.x; i < rows * X; i += blockDim.x) {
@@ -339,37 +282,17 @@ constexpr int kChainThreads = 256;
 // row stride `ws`: W0's stoch columns, W2, W4, W6, W12's and W16's deter
 // columns, W14, W18.
 constexpr int kNC = 8;
-
-struct ChainWeights {
-  const float* p[kNC];
-  int in[kNC], c0[kNC], nc[kNC], rows[kNC], ws[kNC], off[kNC];
-  int total;  // floats in shared memory
-};
-
-// A row stride ≥ nc, a multiple of 4 (16-byte rows) and not of 32, so that
-// lanes reading one column of rows k, k + 1, ... fall in distinct banks.
-__host__ __device__ inline int padded_stride(int nc) {
-  const int s = round4(nc);
-  return s % 32 == 0 ? s + 4 : s;
-}
+using ChainWeights = chain::ChainWeights<kNC>;
 
 ChainWeights chain_weights(const mrssm::WeightPtrs& w, const mrssm::WeightDims& dims, int A,
                            int D) {
   const int idx[kNC] = {0, 2, 4, 6, 12, 16, 14, 18};
   ChainWeights c;
-  int off = 0;
   for (int i = 0; i < kNC; ++i) {
     const int k = idx[i];
-    c.p[i] = w.p[k];
-    c.in[i] = dims.in[k];
-    c.rows[i] = dims.out[k];
-    c.c0[i] = i == 0 ? A : 0;
-    c.nc[i] = i == 0 ? dims.in[k] - A : i == 4 || i == 5 ? D : dims.in[k];
-    c.ws[i] = padded_stride(c.nc[i]);
-    c.off[i] = off;
-    off += c.rows[i] * c.ws[i];
+    chain::chain_weight(c, i, w.p[k], dims.out[k], dims.in[k], i == 0 ? A : 0,
+                        i == 0 ? dims.in[k] - A : i == 4 || i == 5 ? D : dims.in[k]);
   }
-  c.total = off;
   return c;
 }
 
@@ -392,80 +315,6 @@ size_t chain_row_floats(int H, int D, int S) {
 
 size_t chain_smem_bytes(const ChainWeights& cw, int H, int D, int S, int R) {
   return 32 + ((size_t)cw.total + R * chain_row_floats(H, D, S)) * sizeof(float);
-}
-
-// Whether a staged weight goes by the bulk copy, row by row: every row's
-// columns start 16-byte aligned and span whole float4s.
-__device__ __forceinline__ bool bulk_rows(const ChainWeights& cw, int i) {
-  return (reinterpret_cast<uintptr_t>(cw.p[i] + cw.c0[i]) & 15) == 0 && cw.in[i] % 4 == 0 &&
-         cw.nc[i] % 4 == 0;
-}
-
-// How a phase's rows × items outputs spread over the block: each output a
-// dot split over P adjacent lanes (a power of two ≤ 32, as large as the
-// outputs leave room for); this thread's group starts at (r, j) and steps
-// by (rstep, jstep), `iters` times on every thread, so that whole warps
-// take each step and shuffle with a full mask; part is its lane in the
-// group.
-struct Split {
-  int P, part, r, j, rstep, jstep, iters;
-};
-
-__device__ __forceinline__ Split make_split(int rows, int items) {
-  Split s;
-  s.P = 32;
-  while (s.P > 1 && rows * items * s.P > (int)blockDim.x) s.P >>= 1;
-  const int slot = threadIdx.x / s.P, slots = blockDim.x / s.P;
-  s.part = threadIdx.x % s.P;
-  s.r = slot / items;
-  s.j = slot % items;
-  s.rstep = slots / items;
-  s.jstep = slots % items;
-  s.iters = (rows * items + slots - 1) / slots;
-  return s;
-}
-
-// f(r, j, valid) for this thread's group's outputs, `iters` calls on every
-// thread: where the group has run out of outputs, valid is false and r is
-// 0 (a row in range, whose results the call drops).
-template <class F>
-__device__ __forceinline__ void for_outputs(const Split& s, int rows, int items, F f) {
-  int r = s.r, j = s.j;
-  for (int it = 0; it < s.iters; ++it) {
-    const bool valid = r < rows;
-    f(valid ? r : 0, j, valid);
-    r += s.rstep;
-    j += s.jstep;
-    if (j >= items) {
-      j -= items;
-      ++r;
-    }
-  }
-}
-
-// This lane's share of Σ_k a[k]·w[k·ws] for k < n: the k ≡ part (mod P), in
-// four partial sums added in a fixed order.
-__device__ __forceinline__ float dot_part(const float* __restrict__ a,
-                                          const float* __restrict__ w, int ws, int n,
-                                          const Split& s) {
-  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-  const int P = s.P;
-  int k = s.part;
-  for (; k + 3 * P < n; k += 4 * P) {
-    s0 = fmaf(a[k], w[k * ws], s0);
-    s1 = fmaf(a[k + P], w[(k + P) * ws], s1);
-    s2 = fmaf(a[k + 2 * P], w[(k + 2 * P) * ws], s2);
-    s3 = fmaf(a[k + 3 * P], w[(k + 3 * P) * ws], s3);
-  }
-  for (; k < n; k += P) s0 = fmaf(a[k], w[k * ws], s0);
-  return (s0 + s1) + (s2 + s3);
-}
-
-// The sum of v over the group's lanes, by butterfly shuffles of whole
-// warps: every lane gets the same bits (each step adds the same two values).
-__device__ __forceinline__ float group_sum(float v, const Split& s) {
-  for (int m = 1; m < s.P; m <<= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
-  return v;
 }
 
 __global__ void __launch_bounds__(kChainThreads)
@@ -508,34 +357,11 @@ recurrence_bwd_chain_kernel(const __grid_constant__ ChainWeights cw, const float
     for (int i = 0; i < 3; ++i) fconv::mbar_init(&bar[i]);
   }
   __syncthreads();
-  if (threadIdx.x < 32) {
-    // The weights: rows by the bulk copy where they allow it (warp 0's lanes
-    // each start some), on one arrival that expects all their bytes.
-    if (threadIdx.x == 0) {
-      int bytes = 0;
-      for (int i = 0; i < kNC; ++i) {
-        if (bulk_rows(cw, i)) bytes += cw.rows[i] * cw.nc[i] * 4;
-      }
-      bulk_expect(&bar[0], bytes);
-      fconv::bulk_load(recbuf, rec_src(T - 1), rec_bytes, &bar[1]);
-      if (T > 1) fconv::bulk_load(recbuf + R * L.cw, rec_src(T - 2), rec_bytes, &bar[2]);
-    }
-    __syncwarp();
-    for (int i = 0; i < kNC; ++i) {
-      if (!bulk_rows(cw, i)) continue;
-      for (int o = threadIdx.x; o < cw.rows[i]; o += 32) {
-        bulk_copy(Wc + cw.off[i] + o * cw.ws[i], cw.p[i] + (size_t)o * cw.in[i] + cw.c0[i],
-                  cw.nc[i] * 4, &bar[0]);
-      }
-    }
+  if (threadIdx.x == 0) {
+    fconv::bulk_load(recbuf, rec_src(T - 1), rec_bytes, &bar[1]);
+    if (T > 1) fconv::bulk_load(recbuf + R * L.cw, rec_src(T - 2), rec_bytes, &bar[2]);
   }
-  for (int i = 0; i < kNC; ++i) {
-    if (bulk_rows(cw, i)) continue;
-    for (int e = threadIdx.x; e < cw.rows[i] * cw.nc[i]; e += blockDim.x) {
-      const int o = e / cw.nc[i], c = e - o * cw.nc[i];
-      Wc[cw.off[i] + o * cw.ws[i] + c] = cw.p[i][(size_t)o * cw.in[i] + cw.c0[i] + c];
-    }
-  }
+  chain::stage_chain_weights(cw, Wc, &bar[0]);
   for (int i = threadIdx.x; i < rows * D; i += blockDim.x) cd[i] = 0.f;
   for (int i = threadIdx.x; i < rows * S; i += blockDim.x) cs[i] = 0.f;
   // Each phase's split of its outputs over the block, fixed for all steps.
@@ -700,15 +526,6 @@ mrssm::DenseGradTable dw_table(const mrssm::WeightPtrs& w, const mrssm::WeightDi
   return tb;
 }
 
-int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
-    return 0;
-  }
-  return sms;
-}
-
 }  // namespace
 
 extern "C" {
@@ -760,7 +577,7 @@ int mrssm_recurrence_backward(const void* const* weights, const float* actions, 
   cudaError_t err = cudaSuccess;
   if (passes & 1) {
     // About a block an SM: each stages the weights, then recomputes its rows.
-    const int sms = std::max(sm_count(), 1);
+    const int sms = std::max(chain::sm_count(), 1);
     const size_t fixed = 4 + round4(dims.total) + raw_floats(dims);
     const int R1 = mrssm::rows_that_fit(fixed, recompute_row_floats(A, E, H, D, S),
                                         std::max(1, std::min(32, (N + sms - 1) / sms)));

@@ -21,6 +21,7 @@ route.
 """
 
 import dataclasses
+import hashlib
 
 import numpy as np
 import pytest
@@ -203,6 +204,40 @@ def test_recurrence_backward_passes_match_their_plain_passes(cuda_device, name, 
             weights, actions, a_emb, v_emb, prev_deter, prev_stoch, xrec, p_y))
 
 
+def _digest(tensors) -> str:
+    """sha256 of the tensors' bytes, in order."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def mrssm_backward_digest(dev) -> str:
+    """The digest of the MRSSM backward's 25 outputs at B=8 T=30 on the
+    model's weights, seeded inputs and cotangents (the forward kernel's
+    record)."""
+    w = _model(dev).representation_weights()
+    ins = _inputs(240, 8, 30, dev)
+    with torch.no_grad():
+        outs = recurrence.recurrence_forward_cuda(w, *ins, C, K)
+        args = (w, *ins[:3], torch.cat([ins[3][None], outs[0][:-1]]),
+                torch.cat([ins[4][None], outs[4][:-1]]), _cotangents(30, outs), C, K)
+        return _digest(recurrence.recurrence_backward_cuda(*args))
+
+
+# mrssm_backward_digest on an NVIDIA H100 80GB HBM3 with the MRSSM backward
+# as it stood before its chain and staging helpers moved into
+# csrc/chain_common.cuh and the deferred-GEMM task cap rose.
+MRSSM_BWD_DIGEST = "44589ad728afaa26b3ee9fb62d91f4457df8d1d40550279f1583b5b310ef8145"
+
+
+@pytest.mark.gpu
+def test_recurrence_backward_bits_unchanged_by_the_shared_helpers(cuda_device):
+    """The MRSSM backward's three kernels give the bits they gave before the
+    shared header: the helpers moved, nothing they compute changed."""
+    assert mrssm_backward_digest(cuda_device) == MRSSM_BWD_DIGEST
+
+
 def _train_step_card_vs_cpu(family, cfg, dev) -> None:
     """One ``shared_step`` and backward of ``family(cfg)`` on the card
     against the CPU (plain versions) with the same weights, batch and noise;
@@ -297,10 +332,12 @@ def test_mt_recurrence_kernel_matches_plain(cuda_device, B, T):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,T", [(8, 30), (3, 7)])
+@pytest.mark.parametrize("B,T", [(8, 30), (3, 7), (32, 30), (128, 30), (256, 30)])
 def test_mt_recurrence_backward_kernel_matches_plain(cuda_device, B, T):
-    """The backward kernel against its plain version on one forward record
-    and random cotangents on all 12 outputs; the kernel is reproducible."""
+    """The backward kernels against their plain version on one forward record
+    and random cotangents on all 12 outputs; the kernels are reproducible,
+    and both MTRNN cells' two bias gradients are bit-equal. B=256 puts two
+    batch rows in a chain block."""
     w = _mt_model(cuda_device).recurrence_weights()
     xs, init6, gumbels = _mt_inputs(B * T, B, T, cuda_device)
     with torch.no_grad():
@@ -312,6 +349,113 @@ def test_mt_recurrence_backward_kernel_matches_plain(cuda_device, B, T):
     ref = recurrence_mt.mt_recurrence_backward_plain(*args)
     parity.check_gradients(got, ref)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(got[1], got[3]) and torch.equal(got[5], got[7])
+
+
+# Widths of the MT backward's cases beyond the model's: A, E, HD, LD, C, R
+# and the latents' class × category (HD ≠ LD, records and weights no
+# multiple of 4 floats).
+MT_BWD_WIDTHS = {"odd": (5, 63, 17, 33, 19, 13, recurrence_mt.MTSpec(2.0, 3.0, 3, 5, 2, 7))}
+
+
+def _mt_backward_case(seed: int, widths, B: int, T: int, dev):
+    """Random weights (torch layout, odd ones one float off 16-byte
+    alignment), inputs, the plain forward's record and cotangents at
+    ``widths``, made by numpy; the backward's arguments."""
+    A, E, HD, LD, Cw, Rw, spec = widths
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    w = []
+    for i, s in enumerate(recurrence_mt.mt_weight_shapes(A, E, HD, LD, Cw, Rw, spec)):
+        x = rng.uniform(-1, 1, s) / np.sqrt(s[-1] if len(s) == 2 else Cw)
+        flat = torch.zeros(int(np.prod(s)) + i % 2, device=dev)  # odd i: one float in
+        flat[i % 2:] = t(x).reshape(-1)
+        w.append(flat[i % 2:].view(s))
+
+    def onehot(c, k):
+        x = np.zeros((B, c, k), np.float32)
+        x[np.arange(B)[:, None], np.arange(c), rng.integers(0, k, (B, c))] = 1.0
+        return x.reshape(B, c * k)
+
+    xs = [t(rng.uniform(-1, 1, (T, B, A))), t(rng.standard_normal((T, B, E))),
+          t(rng.standard_normal((T, B, E)))]
+    hd, ld = np.tanh(rng.standard_normal((B, HD))), np.tanh(rng.standard_normal((B, LD)))
+    init6 = [t(hd), t(ld), t(onehot(spec.hs_class, spec.hs_category)),
+             t(onehot(spec.ls_class, spec.ls_category)), t(np.arctanh(0.9 * hd)),
+             t(np.arctanh(0.9 * ld))]
+    gumbels = [t(rng.gumbel(size=(T, B, d))) for d in (spec.ls, spec.ls, spec.hs, spec.hs)]
+    with torch.no_grad():
+        outs = recurrence_mt.mt_recurrence_forward_plain(w, *xs, init6, gumbels, spec)
+    prev6 = recurrence_mt.shift_carries(init6, recurrence_mt.carries(outs))
+    return (w, *xs, prev6, _cotangents(seed, outs), spec)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,B,T", [("odd", 8, 30), ("odd", 3, 7), ("odd", 128, 30)])
+def test_mt_recurrence_backward_kernel_at_other_widths(cuda_device, name, B, T):
+    """The MT backward kernels at widths whose records and weights are no
+    multiple of 4 floats (weights off 16-byte alignment too), HD ≠ LD and
+    3 × 5, 2 × 7 categories: within the limits above, reproducible, the
+    bias gradients bit-equal."""
+    args = _mt_backward_case(B + T, MT_BWD_WIDTHS[name], B, T, cuda_device)
+    with torch.no_grad():
+        got = recurrence_mt.mt_recurrence_backward_cuda(*args)
+        again = recurrence_mt.mt_recurrence_backward_cuda(*args)
+    parity.check_gradients(got, recurrence_mt.mt_recurrence_backward_plain(*args))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(got[1], got[3]) and torch.equal(got[5], got[7])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,B,T", [("model", 8, 30), ("model", 128, 30), ("odd", 3, 7)])
+def test_mt_recurrence_backward_passes_match_their_plain_passes(cuda_device, name, B, T):
+    """Each of the MT backward's three kernels alone against its plain pass
+    on the same input: the recompute's records, the chain's cotangents and
+    initial-state gradients on the plain recompute's records, the deferred
+    GEMMs (weight gradients, input cotangents) on the plain chain's records
+    (every field and gradient within 2e-4 × max(1, max|plain|))."""
+    if name == "model":
+        w = _mt_model(cuda_device).recurrence_weights()
+        xs, init6, gumbels = _mt_inputs(B + T, B, T, cuda_device)
+        with torch.no_grad():
+            outs = recurrence_mt.mt_recurrence_forward_cuda(w, *xs, init6, gumbels)
+        args = (w, *xs, recurrence_mt.shift_carries(init6, recurrence_mt.carries(outs)),
+                _cotangents(T, outs), recurrence_mt.MT_SPEC)
+        widths = (6, 64, 32, 32, 32, 32, recurrence_mt.MT_SPEC)
+    else:
+        args = _mt_backward_case(B + T, MT_BWD_WIDTHS[name], B, T, cuda_device)
+        widths = MT_BWD_WIDTHS[name]
+    weights, actions, a_emb, v_emb, prev6, cots, spec = args
+    lay = recurrence_mt.mt_bwd_record_layout(*widths)
+    field = recurrence.record_field
+    with torch.no_grad():
+        crec, xrec, dyrec = recurrence_mt.mt_bwd_recompute_plain(*args)
+        _, ws = recurrence_mt.mt_backward_launch(*args, passes=1)
+        k_c, k_x, k_y = recurrence_mt.mt_bwd_workspace_records(ws, T * B, lay)
+        parity.check_gradients([field(k, lay[r][1], f)
+                                for k, r in ((k_c, "chain"), (k_x, "x")) for f in lay[r][1]],
+                               [field(p, lay[r][1], f)
+                                for p, r in ((crec, "chain"), (xrec, "x")) for f in lay[r][1]])
+        C_, R_, LS, HS = widths[4], widths[5], spec.ls, spec.hs
+        prior_y = [(slice(None), slice(0, C_)), (slice(None), slice(C_ + 2 * R_, 2 * C_ + 2 * R_))]
+        prior_g = [(slice(None), slice(0, LS)), (slice(None), slice(3 * LS, 3 * LS + HS))]
+        parity.check_gradients(
+            [field(k_y, lay["dy"][1], "dhid")[i] for i in prior_y]
+            + [field(k_y, lay["dy"][1], "dlg")[i] for i in prior_g],
+            [field(dyrec, lay["dy"][1], "dhid")[i] for i in prior_y]
+            + [field(dyrec, lay["dy"][1], "dlg")[i] for i in prior_g])
+        k_c.copy_(crec)
+        k_x.copy_(xrec)
+        k_y.copy_(dyrec)
+        chain, _ = recurrence_mt.mt_backward_launch(*args, passes=2, workspace=ws)
+        p_y, *p_init = recurrence_mt.mt_bwd_chain_plain(weights, crec, dyrec, T, B, spec)
+        parity.check_gradients([field(k_y, lay["dy"][1], f) for f in lay["dy"][1]]
+                               + list(chain[-6:]),
+                               [field(p_y, lay["dy"][1], f) for f in lay["dy"][1]] + p_init)
+        k_y.copy_(p_y)
+        dw, _ = recurrence_mt.mt_backward_launch(*args, passes=4, workspace=ws)
+        parity.check_gradients(dw[:-6], recurrence_mt.mt_bwd_dw_plain(
+            weights, actions, a_emb, v_emb, prev6, xrec, p_y, spec))
 
 
 @pytest.mark.gpu
