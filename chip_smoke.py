@@ -6,8 +6,10 @@ It refuses to run without a CUDA device and exits non-zero on any failure.
 ``python3 chip_smoke.py --decoder`` runs only the fused decoder's timings
 (``decoder_phase``), ``--recurrence-bwd`` only the MRSSM recurrence
 backward's (``recurrence_bwd_phase``), ``--mt-recurrence-bwd`` only the
-MMTRSSM recurrence backward's (``mt_recurrence_bwd_phase``): for comparing
-two trees in one call.
+MMTRSSM recurrence backward's (``mt_recurrence_bwd_phase``),
+``--stacked-recurrence-bwd`` only the stacked recurrence backward's beside
+the unstacked one's (``stacked_recurrence_bwd_phase``): for comparing two
+trees in one call.
 Four configurations go through the serving and training phases, each with
 seeded random weights (no trained checkpoint or dataset on the machine;
 the shapes and the path are the real ones): MoPoE-MRSSM (``MRSSMConfig()``),
@@ -32,7 +34,9 @@ first two configurations' latent features.
    stochs equal to the argmax of their logits plus the seed's Philox noise,
    sampling frequencies against the softmax, both MT sites); the stacked
    recurrence forward and backward at B=8 T=30, B=128 T=30 and B=3 T=7
-   (the same limits, on unstacked gradients); the fused encoder forward at
+   (the same limits, on unstacked gradients; the backward's zero blocks 0,
+   its gradients unstacked and its input cotangents bit-identical to the
+   unstacked backward's kernels on the same weights); the fused encoder forward at
    N=240, 7, 3840 and 241 frames against its plain version and the cuDNN
    ``Encoder`` (within 1e-4 × max(1, max|plain|)) and its backward against
    the plain backward in float64 (2e-4 × scale, two launches bit-identical);
@@ -71,7 +75,8 @@ first two configurations' latent features.
    backward call (``torch.profiler``), the same of the fused decoder's
    forward and backward calls; and the registers, stack and spills
    ``ptxas`` gives the fused encoder's and decoder's kernels, forward and
-   backward, and both recurrence backwards' three kernels.
+   backward, the MRSSM and MMTRSSM recurrence backwards' three kernels and
+   the stacked backward's pack and scatter.
 
 Each configuration's serving and training run, and the decoder's path
 (``fused_decoder_apply`` on both decoders of the first two configurations'
@@ -784,6 +789,69 @@ def mt_bwd_timings(model, cfg, dev, card: str,
     return main
 
 
+# The same of one recurrence_stacked_backward_cuda call: the pack, the
+# unstacked backward's three kernels on the packed weights, the scatter and
+# the caller's zero fill of the stacked gradients; the parent's one-kernel
+# stacked backward and its reduction are listed too.
+STACKED_BWD_KERNELS = {"pack": "stacked_pack_kernel",
+                       "recompute": "recurrence_bwd_recompute",
+                       "chain": "recurrence_bwd_chain",
+                       "tickets memset": "Memset",
+                       "deferred GEMMs": "recurrence_bwd_dw",
+                       "scatter": "stacked_scatter_kernel",
+                       "caller's zero fills": "FillFunctor",
+                       "one-kernel backward (before the three passes)": "stacked_bwd_kernel",
+                       "reduce_stacked_grads": "reduce_stacked_grads"}
+
+
+def stacked_bwd_timings(model, cfg, dev, card: str) -> None:
+    """The stacked recurrence backward beside the unstacked one on the same
+    weights and inputs, at B=8 and B=128 T=30: a call's CUDA-event time and
+    each kernel's device time (``torch.profiler``) of both, the gap between
+    their device times against max(10%, 15 µs) of the unstacked one's, and
+    whether the stacked gradients, unstacked, and the input cotangents equal
+    the unstacked kernels' bit for bit (measurements: nothing here fails)."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels import recurrence
+    from multimodal_mtrssm_tpu_torch.ops.kernels import recurrence_stacked as rs
+
+    C, K = cfg.class_size, cfg.category_size
+    dims = (cfg.action_size, cfg.hidden_size, cfg.deterministic_size, cfg.obs_embed_size)
+    rng = np.random.default_rng(SEED + 15)
+    rw = [w.detach() for w in model.representation_weights()]
+    st = rs.stack_train_params(rw)
+    for B, T in STACKED_SHAPES[:2]:
+        args = _recurrence_inputs(rng, B, T, cfg, dev)
+        with torch.no_grad():
+            outs = rs.recurrence_stacked_forward_cuda(st, *args, C, K)
+        cots = [torch.tensor(rng.standard_normal(tuple(o.shape)).astype(np.float32), device=dev)
+                for o in outs]
+        bwd, bwd_u = (_backward_args(w, args, outs, cots, cfg) for w in (st, rw))
+        got = rs.recurrence_stacked_backward_cuda(*bwd)
+        ref = recurrence.recurrence_backward_cuda(*bwd_u)
+        got_u = (*rs.unstack_train_grads(got[:rs.N_STACKED], dims), *got[rs.N_STACKED:])
+        diff = max(float((a - b).abs().max()) for a, b in zip(got_u, ref))
+        same = all(torch.equal(a, b) for a, b in zip(got_u, ref))
+        s_ms = _median_ms(lambda: rs.recurrence_stacked_backward_cuda(*bwd), 20)
+        u_ms = _median_ms(lambda: recurrence.recurrence_backward_cuda(*bwd_u), 20)
+        s_parts = _device_breakdown(lambda: rs.recurrence_stacked_backward_cuda(*bwd),
+                                    STACKED_BWD_KERNELS.values())
+        u_parts = _device_breakdown(lambda: recurrence.recurrence_backward_cuda(*bwd_u),
+                                    RECURRENCE_BWD_KERNELS.values())
+        _print_breakdown(f"stacked_recurrence_bwd B={B} T={T} (call {s_ms:.4f} ms by CUDA events)",
+                         s_parts, STACKED_BWD_KERNELS, card)
+        _print_breakdown(f"recurrence_bwd on the same weights and inputs B={B} T={T} (call "
+                         f"{u_ms:.4f} ms by CUDA events)", u_parts, RECURRENCE_BWD_KERNELS, card)
+        s_dev = sum(v for v in s_parts.values() if v is not None)
+        u_dev = sum(v for v in u_parts.values() if v is not None)
+        print(f"stacked_recurrence_bwd B={B} T={T}: device {s_dev:.4f} ms, the unstacked backward "
+              f"{u_dev:.4f} ms, gap {s_dev - u_dev:.4f} ms (limit {max(0.1 * u_dev, 0.015):.4f}: "
+              f"max(10%, 15 us)); gradients unstacked and input cotangents "
+              + ("bit-identical to the unstacked kernels'" if same else
+                 f"differ from the unstacked kernels' (max abs diff {diff:.3g})") + f" | {card}")
+
+
 def step_timings(model, dev, card: str) -> None:
     """Phase 5, training: a full train step on the kernels against the plain
     route, and the train step's device-time breakdown."""
@@ -822,7 +890,7 @@ def step_timings(model, dev, card: str) -> None:
         return
     groups = {"recurrence kernels": ("recurrence_", "stacked_"),
               "fused encoder kernels": ("encoder_",),
-              "their gradient reductions": ("reduce_weight_grads", "reduce_stacked_grads"),
+              "their gradient reductions": ("reduce_weight_grads",),
               "convolutions (cuDNN)": ("conv", "cudnn", "xmma", "implicit", "dgrad", "wgrad",
                                        "fprop", "sm90_")}
     def group(key: str) -> str | None:
@@ -932,9 +1000,12 @@ ENCODER_FRAMES = (240, 7, 3840, 241)
 def check_stacked(model, cfg, dev) -> dict[str, dict]:
     """Phase 2, stacked recurrence: the forward kernel against its plain
     version, and the backward (unstacked gradients) against its plain
-    version on the forward's record and random cotangents, reproducible."""
+    version on the forward's record and random cotangents, reproducible,
+    its zero blocks 0, and bit-identical to the unstacked backward's
+    kernels on the 20 weights it was stacked from."""
     import torch
 
+    from multimodal_mtrssm_tpu_torch.ops.kernels import recurrence
     from multimodal_mtrssm_tpu_torch.ops.kernels import recurrence_stacked as rs
     from multimodal_mtrssm_tpu_torch.ops.kernels.parity import (
         ParityError,
@@ -945,7 +1016,9 @@ def check_stacked(model, cfg, dev) -> dict[str, dict]:
     C, K = cfg.class_size, cfg.category_size
     dims = (cfg.action_size, cfg.hidden_size, cfg.deterministic_size, cfg.obs_embed_size)
     rng = np.random.default_rng(SEED + 9)
-    st = rs.stack_train_params([w.detach() for w in model.representation_weights()])
+    rw = [w.detach() for w in model.representation_weights()]
+    st = rs.stack_train_params(rw)
+    nonzero = rs.stack_train_params([torch.ones_like(w) for w in rw])
     fwd_err = bwd_err = 0.0
     for B, T in STACKED_SHAPES:
         args = _recurrence_inputs(rng, B, T, cfg, dev)
@@ -964,10 +1037,17 @@ def check_stacked(model, cfg, dev) -> dict[str, dict]:
         scaled = check_gradients(got_u, ref_u, BWD_TOL)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise ParityError("stacked_recurrence_bwd: two launches on the same inputs differ")
+        if any(g[m == 0].any() for g, m in zip(got, nonzero)):
+            raise ParityError("stacked_recurrence_bwd: a zero block of its gradients is not 0")
+        unstacked = recurrence.recurrence_backward_cuda(*_backward_args(rw, args, outs, cots, cfg))
+        if not all(torch.equal(a, b) for a, b in zip(got_u, unstacked)):
+            raise ParityError("stacked_recurrence_bwd: its gradients, unstacked, differ from the "
+                              "unstacked backward's kernels' on the same weights")
         err = max(float((g - p).abs().max()) for g, p in zip(got_u, ref_u))
         print(f"check stacked_recurrence_fwd B={B} T={T}: max_abs_err={r['max_abs_err']:.3g} "
               f"steps_compared={r['compared']:.4f}; stacked_recurrence_bwd: max_abs_err="
-              f"{err:.3g} max_err/scale={scaled:.3g} (limit {BWD_TOL}), reproducible")
+              f"{err:.3g} max_err/scale={scaled:.3g} (limit {BWD_TOL}), reproducible, zero "
+              "blocks 0, bit-identical to the unstacked kernels")
         fwd_err, bwd_err = max(fwd_err, r["max_abs_err"]), max(bwd_err, err)
     return {"stacked_recurrence_fwd": {"max_abs_err": fwd_err},
             "stacked_recurrence_bwd": {"max_abs_err": bwd_err}}
@@ -1195,11 +1275,12 @@ _CHILDREN: list[subprocess.Popen] = []  # stopped on exit, whatever failed
 
 
 PTXAS_SOURCES = ("fused_encoder_fwd.cu", "fused_encoder_bwd.cu", "fused_decoder_fwd.cu",
-                 "fused_decoder_bwd.cu", "recurrence_bwd.cu", "recurrence_mt_bwd.cu")
+                 "fused_decoder_bwd.cu", "recurrence_bwd.cu", "recurrence_mt_bwd.cu",
+                 "recurrence_stacked_bwd.cu")
 
 
 def start_ptxas_report(sources=PTXAS_SOURCES) -> list[subprocess.Popen]:
-    """Compile the fused stacks' and the recurrence backwards' sources once
+    """Compile the fused stacks' and the three recurrence backwards' sources once
     more with ``-Xptxas -v``, in the background (into the git-ignored build
     directory), one ``nvcc`` each."""
     from multimodal_mtrssm_tpu_torch.ops.kernels import build
@@ -1217,8 +1298,8 @@ def start_ptxas_report(sources=PTXAS_SOURCES) -> list[subprocess.Popen]:
 
 def ptxas_report(procs: list[subprocess.Popen], sources=PTXAS_SOURCES) -> None:
     """Print ptxas's registers, stack and spills of each fused encoder and
-    decoder kernel, forward and backward, and of both recurrence backwards'
-    kernels (a measurement: "not measured" where the compile fails). A
+    decoder kernel, forward and backward, and of the three recurrence
+    backwards' kernels (a measurement: "not measured" where the compile fails). A
     backward's source also compiles the forward it recomputes through; those
     kernels are printed once, from the forward's source."""
     import re
@@ -1233,7 +1314,8 @@ def ptxas_report(procs: list[subprocess.Popen], sources=PTXAS_SOURCES) -> None:
         for line in out.splitlines():
             if "Compiling entry function" in line:
                 m = re.search(r"((?:en|de)coder_[a-z_]*kernel|(?:mt_)?recurrence_bwd_[a-z_]*kernel|"
-                              r"reduce_weight_grads)", line.split("'")[1])
+                              r"stacked_[a-z_]*kernel|reduce_(?:weight|stacked)_grads)",
+                              line.split("'")[1])
                 name = m.group(1) if m and m.group(1) not in seen else None
                 if name:
                     seen.add(name)
@@ -1508,14 +1590,12 @@ def other_bounds(name: str, shapes, bounds_fn) -> dict[str, dict]:
     return out
 
 
-def decoder_phase() -> int:
-    """``--decoder``: only the fused decoder's timings and device breakdowns
-    (``decoder_timings``) on MRSSM's audio decoder over observed features
-    at N=240 and 3840, and ``ptxas``'s report; no checks and no contract
-    lines. For comparing decoder kernels within one call."""
+def _timing_mode(run, sources=PTXAS_SOURCES) -> int:
+    """A timing-only mode: ``run(dev, card)`` on the card with TF32 off,
+    beside ``ptxas``'s report of ``sources``; no checks and no contract
+    lines. For comparing kernels within one call, e.g. a parent archive and
+    the change. Refuses to run without a card."""
     import torch
-
-    from multimodal_mtrssm_tpu_torch.models import MoPoEMRSSM, MRSSMConfig
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -1524,67 +1604,73 @@ def decoder_phase() -> int:
     print(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    ptxas = start_ptxas_report()
-    cfg = MRSSMConfig()
-    model = MoPoEMRSSM(cfg).init(torch.Generator().manual_seed(0)).to(dev).eval()
-    with torch.no_grad():
-        cases = [{"model": model, "label": _label(cfg),
-                  "feats": _observed_features(model, cfg, dev, B, T)[1]} for B, T in DECODER_SHAPES]
-        decoder_timings(cases, dev, card)
-    ptxas_report(ptxas)
+    ptxas = start_ptxas_report(sources)
+    run(torch.device("cuda", 0), card)
+    ptxas_report(ptxas, sources)
     return 0
+
+
+def _seeded(family, cfg, dev):
+    """``family(cfg)`` with seeded random weights on ``dev``, in eval mode."""
+    import torch
+
+    return family(cfg).init(torch.Generator().manual_seed(0)).to(dev).eval()
+
+
+def decoder_phase() -> int:
+    """``--decoder``: only the fused decoder's timings and device breakdowns
+    (``decoder_timings``) on MRSSM's audio decoder over observed features
+    at N=240 and 3840."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.models import MoPoEMRSSM, MRSSMConfig
+
+    def run(dev, card):
+        cfg = MRSSMConfig()
+        model = _seeded(MoPoEMRSSM, cfg, dev)
+        with torch.no_grad():
+            cases = [{"model": model, "label": _label(cfg),
+                      "feats": _observed_features(model, cfg, dev, B, T)[1]}
+                     for B, T in DECODER_SHAPES]
+            decoder_timings(cases, dev, card)
+
+    return _timing_mode(run)
 
 
 def recurrence_bwd_phase() -> int:
     """``--recurrence-bwd``: only the MRSSM recurrence backward's timings and
     per-kernel device times (``bwd_timings``) and ``ptxas``'s report of its
-    source; no checks and no contract lines. For comparing backward kernels
-    within one call, e.g. a parent archive and the change."""
-    import torch
-
+    source."""
     from multimodal_mtrssm_tpu_torch.models import MoPoEMRSSM, MRSSMConfig
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
-        return 2
-    card = card_line()
-    print(card)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    ptxas = start_ptxas_report(("recurrence_bwd.cu",))
     cfg = MRSSMConfig()
-    model = MoPoEMRSSM(cfg).init(torch.Generator().manual_seed(0)).to(dev).eval()
-    bwd_timings(model, cfg, dev, card)
-    ptxas_report(ptxas, ("recurrence_bwd.cu",))
-    return 0
+    return _timing_mode(lambda dev, card: bwd_timings(_seeded(MoPoEMRSSM, cfg, dev), cfg, dev,
+                                                      card), ("recurrence_bwd.cu",))
 
 
 def mt_recurrence_bwd_phase() -> int:
     """``--mt-recurrence-bwd``: only the MMTRSSM recurrence backward's call
     times and per-kernel device times (``mt_bwd_timings``, no plain timing)
-    and ``ptxas``'s report of its source; no checks and no contract lines.
-    For comparing backward kernels within one call, e.g. a parent archive
-    and the change."""
-    import torch
-
+    and ``ptxas``'s report of its source."""
     from multimodal_mtrssm_tpu_torch.models import MMTRSSMConfig, MoPoEMMTRSSM
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
-        return 2
-    card = card_line()
-    print(card)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    ptxas = start_ptxas_report(("recurrence_mt_bwd.cu",))
     cfg = MMTRSSMConfig()
-    model = MoPoEMMTRSSM(cfg).init(torch.Generator().manual_seed(0)).to(dev).eval()
-    mt_bwd_timings(model, cfg, dev, card, plain=False)
-    ptxas_report(ptxas, ("recurrence_mt_bwd.cu",))
-    return 0
+    return _timing_mode(lambda dev, card: mt_bwd_timings(_seeded(MoPoEMMTRSSM, cfg, dev), cfg,
+                                                         dev, card, plain=False),
+                        ("recurrence_mt_bwd.cu",))
+
+
+def stacked_recurrence_bwd_phase() -> int:
+    """``--stacked-recurrence-bwd``: only the stacked recurrence backward's
+    call times and per-kernel device times beside the unstacked backward's
+    on the same weights and inputs (``stacked_bwd_timings``) and ``ptxas``'s
+    report of its source."""
+    from multimodal_mtrssm_tpu_torch.models import MoPoEMRSSM, MRSSMConfig
+
+    cfg = MRSSMConfig(conv_layout="fused_enc", use_pallas_train="stacked")
+    return _timing_mode(lambda dev, card: stacked_bwd_timings(_seeded(MoPoEMRSSM, cfg, dev), cfg,
+                                                              dev, card),
+                        ("recurrence_stacked_bwd.cu",))
 
 
 def main() -> int:
@@ -1730,6 +1816,8 @@ def main() -> int:
         "mt_rollout": (f"{pkg}/csrc/rollout_mt.cu", f"{pallas}/rollout_mt.py:51"),
         "stacked_recurrence_fwd": (f"{pkg}/csrc/recurrence_stacked_fwd.cu",
                                    f"{pallas}/train_step_stacked.py:164"),
+        # The pack, recurrence_bwd.cu's recompute, chain and deferred GEMMs on
+        # the packed weights, the scatter.
         "stacked_recurrence_bwd": (f"{pkg}/csrc/recurrence_stacked_bwd.cu",
                                    f"{pallas}/train_step_stacked.py:190"),
         "fused_encoder_fwd": (f"{pkg}/csrc/fused_encoder_fwd.cu", f"{pallas}/fused_conv.py:455"),
@@ -1760,7 +1848,8 @@ def main() -> int:
 if __name__ == "__main__":
     try:
         modes = {"--decoder": decoder_phase, "--recurrence-bwd": recurrence_bwd_phase,
-                 "--mt-recurrence-bwd": mt_recurrence_bwd_phase}
+                 "--mt-recurrence-bwd": mt_recurrence_bwd_phase,
+                 "--stacked-recurrence-bwd": stacked_recurrence_bwd_phase}
         code = modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes else main()
     finally:
         for child in _CHILDREN:

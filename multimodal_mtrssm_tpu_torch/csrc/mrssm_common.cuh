@@ -3,8 +3,8 @@
 // recurrence_mt_fwd.cu, recurrence_mt_bwd.cu, rollout_mt.cu): weight staging
 // into shared memory, the row-batched dense layer and its transpose, the
 // MTRNN cell, the reference's activation, fusion and sampling conventions,
-// their VJPs, the per-block weight-gradient accumulation and its fixed-order
-// reduction over blocks, Philox4x32-10.
+// their VJPs, the fixed-order reduction of per-block weight gradients over
+// blocks, Philox4x32-10.
 //
 // All math is f32 with plain FMA loops: the products are 1..32 rows by
 // 16..192 columns, far below a tensor-core tile, and the JAX reference is
@@ -242,29 +242,6 @@ __device__ __forceinline__ void dense_rows_t(const float* dy, int sdy, const flo
     if (pre != nullptr) acc *= d_elu(pre[r * spre + k]);
     float* y = dx + r * sdx + k;
     *y = accumulate ? *y + acc : acc;
-  }
-}
-
-// The per-block weight-gradient accumulation of one dense layer:
-// Gw[k, o] += sum_r cat(x0[r], x1[r])[k] * dy[r, o] and Gb[o] += sum_r
-// dy[r, o] (Gw [n0 + n1, out] and Gb [out] in shared memory). One thread
-// per element, rows in order: no two threads touch one accumulator.
-__device__ __forceinline__ void accum_grad(const float* x0, int n0, int s0, const float* x1,
-                                           int n1, int s1, const float* dy, int sdy, int out,
-                                           float* Gw, float* Gb, int rows) {
-  const int n = n0 + n1;
-  for (int i = threadIdx.x; i < (n + 1) * out; i += blockDim.x) {
-    const int k = i / out, o = i - k * out;
-    float acc = 0.f;
-    if (k < n) {
-      const float* x = k < n0 ? x0 + k : x1 + (k - n0);
-      const int sx = k < n0 ? s0 : s1;
-      for (int r = 0; r < rows; ++r) acc = fmaf(x[r * sx], dy[r * sdy + o], acc);
-      Gw[i] += acc;
-    } else {
-      for (int r = 0; r < rows; ++r) acc += dy[r * sdy + o];
-      Gb[o] += acc;
-    }
   }
 }
 

@@ -40,6 +40,10 @@
 //    stored cotangents times weight columns), summed in a fixed order
 //    straight into torch layout (no float atomics, so two launches give the
 //    same bits).
+//
+// recurrence_stacked_bwd.cu runs the same three passes, through
+// mrssm_recurrence_backward_passes, on its packed copy of the stacked
+// weights.
 #include <algorithm>
 
 #include "chain_common.cuh"
@@ -528,6 +532,63 @@ mrssm::DenseGradTable dw_table(const mrssm::WeightPtrs& w, const mrssm::WeightDi
 
 }  // namespace
 
+// The backward's passes in `passes` (1: recompute, 2: chain, 4: the deferred
+// GEMMs) on `s`, on the 20 weights `w` (torch layout, device pointers in the
+// order of ops/kernels/recurrence.py): the body of both C entries that run
+// them, mrssm_recurrence_backward below and mrssm_stacked_backward
+// (recurrence_stacked_bwd.cu, on its packed copy of the stacked weights).
+cudaError_t mrssm_recurrence_backward_passes(
+    const mrssm::WeightPtrs& w, const float* actions, const float* a_emb, const float* v_emb,
+    const float* prev_deter, const float* prev_stoch, const float* gd, const float* gpl,
+    const float* gps, const float* gmx, const float* gpo, float* workspace, float* d_weights,
+    float* d_actions, float* d_a_emb, float* d_v_emb, float* d_init_deter, float* d_init_stoch,
+    int T, int B, int A, int E, int H, int D, int C, int K, int R, int passes, cudaStream_t s) {
+  const int S = C * K, N = T * B;
+  const mrssm::WeightDims dims = weight_dims(A, E, H, D, S);
+  const Layout L = layout(H, D, S);
+  float* crec = workspace;
+  float* xrec = crec + (size_t)N * L.cw;
+  float* dyrec = xrec + (size_t)N * L.xw;
+  cudaError_t err = cudaSuccess;
+  if (passes & 1) {
+    // About a block an SM: each stages the weights, then recomputes its rows.
+    const int sms = std::max(chain::sm_count(), 1);
+    const size_t fixed = 4 + round4(dims.total) + raw_floats(dims);
+    const int R1 = mrssm::rows_that_fit(fixed, recompute_row_floats(A, E, H, D, S),
+                                        std::max(1, std::min(32, (N + sms - 1) / sms)));
+    if (R1 < 1) return cudaErrorInvalidValue;
+    const size_t smem = (fixed + R1 * recompute_row_floats(A, E, H, D, S)) * sizeof(float);
+    err = cudaFuncSetAttribute(recurrence_bwd_recompute_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    recurrence_bwd_recompute_kernel<<<(N + R1 - 1) / R1, mrssm::kThreads, smem, s>>>(
+        w, dims, actions, a_emb, v_emb, prev_deter, prev_stoch, gd, gpl, gps, gmx, gpo, crec,
+        xrec, dyrec, N, A, E, H, D, C, K, R1);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (passes & 2) {
+    const ChainWeights cw = chain_weights(w, dims, A, D);
+    const size_t smem = chain_smem_bytes(cw, H, D, S, R);
+    err = cudaFuncSetAttribute(recurrence_bwd_chain_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    recurrence_bwd_chain_kernel<<<(B + R - 1) / R, kChainThreads, smem, s>>>(
+        cw, crec, dyrec, d_init_deter, d_init_stoch, T, B, H, D, C, K, R);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (passes & 4) {
+    const mrssm::DenseGradTable tb =
+        dw_table(w, dims, L, actions, a_emb, v_emb, prev_deter, prev_stoch, xrec, dyrec,
+                 d_weights, d_actions, d_a_emb, d_v_emb, N, A, E, H, D, S);
+    float* partial = dyrec + (size_t)N * L.dyw;
+    int* tickets = reinterpret_cast<int*>(partial + mrssm::dense_grad_partial_floats(tb));
+    err = mrssm::dense_grads_launch(tb, partial, tickets, s);
+  }
+  return err;
+}
+
 extern "C" {
 
 // The largest batch rows per chain block ≤ R_want whose shared memory fits
@@ -566,52 +627,10 @@ int mrssm_recurrence_backward(const void* const* weights, const float* actions, 
                               float* d_weights, float* d_actions, float* d_a_emb, float* d_v_emb,
                               float* d_init_deter, float* d_init_stoch, int T, int B, int A, int E,
                               int H, int D, int C, int K, int R, int passes, void* stream) {
-  const int S = C * K, N = T * B;
-  const mrssm::WeightPtrs w = mrssm::weight_ptrs(weights, kNW);
-  const mrssm::WeightDims dims = weight_dims(A, E, H, D, S);
-  const Layout L = layout(H, D, S);
-  float* crec = workspace;
-  float* xrec = crec + (size_t)N * L.cw;
-  float* dyrec = xrec + (size_t)N * L.xw;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaSuccess;
-  if (passes & 1) {
-    // About a block an SM: each stages the weights, then recomputes its rows.
-    const int sms = std::max(chain::sm_count(), 1);
-    const size_t fixed = 4 + round4(dims.total) + raw_floats(dims);
-    const int R1 = mrssm::rows_that_fit(fixed, recompute_row_floats(A, E, H, D, S),
-                                        std::max(1, std::min(32, (N + sms - 1) / sms)));
-    if (R1 < 1) return (int)cudaErrorInvalidValue;
-    const size_t smem = (fixed + R1 * recompute_row_floats(A, E, H, D, S)) * sizeof(float);
-    err = cudaFuncSetAttribute(recurrence_bwd_recompute_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    recurrence_bwd_recompute_kernel<<<(N + R1 - 1) / R1, mrssm::kThreads, smem, s>>>(
-        w, dims, actions, a_emb, v_emb, prev_deter, prev_stoch, gd, gpl, gps, gmx, gpo, crec,
-        xrec, dyrec, N, A, E, H, D, C, K, R1);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (passes & 2) {
-    const ChainWeights cw = chain_weights(w, dims, A, D);
-    const size_t smem = chain_smem_bytes(cw, H, D, S, R);
-    err = cudaFuncSetAttribute(recurrence_bwd_chain_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    recurrence_bwd_chain_kernel<<<(B + R - 1) / R, kChainThreads, smem, s>>>(
-        cw, crec, dyrec, d_init_deter, d_init_stoch, T, B, H, D, C, K, R);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (passes & 4) {
-    const mrssm::DenseGradTable tb =
-        dw_table(w, dims, L, actions, a_emb, v_emb, prev_deter, prev_stoch, xrec, dyrec,
-                 d_weights, d_actions, d_a_emb, d_v_emb, N, A, E, H, D, S);
-    float* partial = dyrec + (size_t)N * L.dyw;
-    int* tickets = reinterpret_cast<int*>(partial + mrssm::dense_grad_partial_floats(tb));
-    err = mrssm::dense_grads_launch(tb, partial, tickets, s);
-  }
-  return (int)err;
+  return (int)mrssm_recurrence_backward_passes(
+      mrssm::weight_ptrs(weights, kNW), actions, a_emb, v_emb, prev_deter, prev_stoch, gd, gpl,
+      gps, gmx, gpo, workspace, d_weights, d_actions, d_a_emb, d_v_emb, d_init_deter,
+      d_init_stoch, T, B, A, E, H, D, C, K, R, passes, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

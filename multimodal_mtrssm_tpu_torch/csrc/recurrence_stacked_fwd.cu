@@ -144,16 +144,11 @@ size_t fwd_row_floats(int A, int E, int H, int D, int S) {
 
 }  // namespace
 
-// The backward kernel's shared-memory plan (recurrence_stacked_bwd.cu).
-int mrssm_stacked_bwd_rows_impl(int A, int E, int H, int D, int C, int K, int R_want);
-
 extern "C" {
 
 // The largest rows-per-block ≤ R_want whose shared memory fits one block of
-// the forward (backward = 0) or backward (1) kernel on the current device
-// (0 if none does).
-int mrssm_stacked_rows(int A, int E, int H, int D, int C, int K, int R_want, int backward) {
-  if (backward) return mrssm_stacked_bwd_rows_impl(A, E, H, D, C, K, R_want);
+// the forward kernel on the current device (0 if none does).
+int mrssm_stacked_rows(int A, int E, int H, int D, int C, int K, int R_want) {
   return mrssm::rows_that_fit(stacked_weight_floats(A, E, H, D, C * K),
                               fwd_row_floats(A, E, H, D, C * K), R_want);
 }

@@ -79,7 +79,8 @@ _SIGNATURES = {
     "mt_rollout": (_I, [_P] * 3 + [ctypes.c_ulonglong, MTDims, _P]),
     "mrssm_stacked_forward": (_I, [_P] * 13 + [_I] * 9 + [_P]),
     "mrssm_stacked_backward": (_I, [_P] * 18 + [_I] * 9 + [_P]),
-    "mrssm_stacked_rows": (_I, [_I] * 8),
+    "mrssm_stacked_rows": (_I, [_I] * 7),
+    "mrssm_stacked_bwd_workspace": (ctypes.c_longlong, [_I] * 8),
     "fused_encoder_sizes": (_I, [EncDims, _P]),
     "fused_encoder_forward": (_I, [_P, _I, _P, _P, _P, _P, EncDims, _P]),
     "fused_encoder_backward": (_I, [_P, _I] + [_P] * 9 + [EncDims, _P]),

@@ -377,6 +377,16 @@ def _rows_per_block(batch: int, device: torch.device) -> int:
     return max(1, min(32, -(-batch // sms)))
 
 
+def chain_rows(lib, A: int, E: int, H: int, D: int, C: int, K: int, B: int, device) -> int:
+    """Batch rows per block of the backward's chain kernel (also the stacked
+    backward's) whose shared memory fits; raises where one row does not."""
+    R = lib.mrssm_recurrence_bwd_rows(A, E, H, D, C, K, _rows_per_block(B, device))
+    if R < 1:
+        raise ValueError(f"the backward chain's shared memory does not fit one block at A={A} "
+                         f"E={E} H={H} D={D} S={C * K}")
+    return R
+
+
 def recurrence_forward_cuda(
     weights: Sequence[torch.Tensor], actions: torch.Tensor, a_emb: torch.Tensor,
     v_emb: torch.Tensor, init_deter: torch.Tensor, init_stoch: torch.Tensor,
@@ -496,12 +506,7 @@ def backward_launch(
     lib = build.load_library()
     ptrs = (ctypes.c_void_p * N_WEIGHTS)(*(w.data_ptr() for w in weights))
     with torch.cuda.device(actions.device):
-        R = lib.mrssm_recurrence_bwd_rows(A, E, H, D, class_size, category_size,
-                                          _rows_per_block(B, actions.device))
-        if R < 1:
-            raise ValueError(
-                f"the backward chain's shared memory does not fit one block at A={A} "
-                f"E={E} H={H} D={D} S={S}")
+        R = chain_rows(lib, A, E, H, D, class_size, category_size, B, actions.device)
         need = lib.mrssm_recurrence_bwd_workspace(T, B, A, E, H, D, class_size, category_size)
         if workspace is None:
             workspace = actions.new_empty(need)

@@ -23,12 +23,19 @@ JAX's: ``wg`` is ``[6D, H+D]`` (rows ``gi | gh``, columns ``x2 | deter``),
 
 The kernels (``csrc/recurrence_stacked_{fwd,bwd}.cu``) replace
 ``_fwd_kernel_stacked`` (line 164) and ``_bwd_kernel_stacked`` (line 190).
-Like :mod:`.recurrence`'s kernels, the T loop runs inside one block per
-tile of batch rows with ``[T, B, ·]`` streamed through device memory, so
-the TPU's VMEM guard (stacked falls back to the chunked kernel when
-``[T, B]`` does not fit) has no counterpart. What bounds them is the latency of a dependent
-chain of ~10 stages a step, not FLOPs or bytes; the stacked layout turns
-the three heads and the two gate products into one wider phase each.
+Like :mod:`.recurrence`'s forward kernel, the forward runs the T loop
+inside one block per tile of batch rows with ``[T, B, ·]`` streamed through
+device memory, so the TPU's VMEM guard (stacked falls back to the chunked
+kernel when ``[T, B]`` does not fit) has no counterpart. What bounds it is
+the latency of a dependent chain of ~10 stages a step, not FLOPs or bytes;
+the stacked layout turns the three heads and the two gate products into
+one wider phase each. The backward gains nothing from the fold: it is
+:mod:`.recurrence`'s three passes (a recompute of all T·B row-steps, the
+carry-only chain, the deferred GEMMs), run on the stacked tensors'
+non-zero blocks packed into the 20-tensor layout, with the 20 gradients
+scattered into the non-zero blocks of the stacked gradients
+(:func:`recurrence_stacked_backward_passes_plain` is that composition in
+plain PyTorch).
 """
 
 from __future__ import annotations
@@ -47,10 +54,13 @@ from multimodal_mtrssm_tpu_torch.ops.kernels.recurrence import (
     N_WEIGHTS,
     _check_inputs,
     _rows_per_block,
+    chain_rows,
+    recurrence_backward_passes_plain,
 )
 
 N_STACKED = 10
-# Kernel launches since the last reset, forward and backward (plain ints).
+# Kernel launches since the last reset, forward and backward (plain ints; a
+# backward call counts once for its kernels).
 launches = 0
 bwd_launches = 0
 
@@ -177,20 +187,37 @@ def recurrence_stacked_backward_plain(
     return tuple(torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves))
 
 
+def recurrence_stacked_backward_passes_plain(
+    stacked: Sequence[torch.Tensor], actions: torch.Tensor, a_emb: torch.Tensor,
+    v_emb: torch.Tensor, prev_deter: torch.Tensor, prev_stoch: torch.Tensor,
+    gouts: Sequence[torch.Tensor], class_size: int, category_size: int,
+) -> tuple[torch.Tensor, ...]:
+    """The stacked backward as the kernels compose it (ELU): the non-zero
+    blocks of ``stacked`` as the 20 tensors (the pack), :mod:`.recurrence`'s
+    three plain passes on them, the 20 gradients into the non-zero blocks of
+    the stacked gradients (the scatter; the zero blocks hold 0). Returns
+    :func:`recurrence_stacked_backward_cuda`'s 15 tensors."""
+    dims = (actions.shape[-1], *_dims(stacked, a_emb, prev_deter))
+    packed = [w.contiguous() for w in unstack_train_grads(stacked, dims)]
+    grads = recurrence_backward_passes_plain(packed, actions, a_emb, v_emb, prev_deter,
+                                             prev_stoch, gouts, class_size, category_size)
+    return (*stack_train_params(grads[:N_WEIGHTS]), *grads[N_WEIGHTS:])
+
+
 def _dims(stacked: Sequence[torch.Tensor], a_emb: torch.Tensor,
           deter: torch.Tensor) -> tuple[int, int, int]:
     """``(H, D, E)`` read off the stacked weights and the inputs."""
     return stacked[2].shape[0], deter.shape[-1], a_emb.shape[-1]
 
 
-def _rows(lib, A: int, E: int, H: int, D: int, C: int, K: int, B: int, device,
-          backward: bool) -> int:
-    """Rows per block whose shared memory fits; raises where one row does not."""
-    R = lib.mrssm_stacked_rows(A, E, H, D, C, K, _rows_per_block(B, device), int(backward))
+def _rows(lib, A: int, E: int, H: int, D: int, C: int, K: int, B: int, device) -> int:
+    """The forward's rows per block whose shared memory fits; raises where
+    one row does not."""
+    R = lib.mrssm_stacked_rows(A, E, H, D, C, K, _rows_per_block(B, device))
     if R < 1:
         raise ValueError(
-            f"the stacked {'backward' if backward else 'forward'} kernel's shared memory does "
-            f"not fit one block at A={A} E={E} H={H} D={D} S={C * K}")
+            f"the stacked forward kernel's shared memory does not fit one block at A={A} E={E} "
+            f"H={H} D={D} S={C * K}")
     return R
 
 
@@ -224,7 +251,7 @@ def recurrence_stacked_forward_cuda(
     lib = build.load_library()
     ptrs = (ctypes.c_void_p * N_STACKED)(*(w.data_ptr() for w in stacked))
     with torch.cuda.device(actions.device):
-        R = _rows(lib, A, E, H, D, class_size, category_size, B, actions.device, False)
+        R = _rows(lib, A, E, H, D, class_size, category_size, B, actions.device)
         stream = torch.cuda.current_stream(actions.device).cuda_stream
         err = lib.mrssm_stacked_forward(
             ctypes.cast(ptrs, ctypes.c_void_p),
@@ -242,15 +269,15 @@ def recurrence_stacked_backward_cuda(
     v_emb: torch.Tensor, prev_deter: torch.Tensor, prev_stoch: torch.Tensor,
     gouts: Sequence[torch.Tensor], class_size: int, category_size: int,
 ) -> tuple[torch.Tensor, ...]:
-    """Launch the stacked backward kernel and its fixed-order reduction
-    (``csrc/recurrence_stacked_bwd.cu``); same contract as
-    :func:`recurrence_stacked_backward_plain` with ELU, except that the zero
-    blocks of the stacked gradients hold zeros (they are sliced away).
-    Raises on any input the kernel does not take, and where a block's shared
-    memory would not fit."""
+    """Launch the stacked backward (``csrc/recurrence_stacked_bwd.cu``: the
+    pack, :mod:`.recurrence`'s recompute, chain and deferred GEMMs, the
+    scatter); same contract as :func:`recurrence_stacked_backward_plain` with
+    ELU, except that the zero blocks of the stacked gradients hold zeros
+    (they are sliced away), as :func:`recurrence_stacked_backward_passes_plain`.
+    Raises on any input the kernels do not take, and where a chain block's
+    shared memory would not fit."""
     global bwd_launches
     from multimodal_mtrssm_tpu_torch.ops.kernels import build
-    from multimodal_mtrssm_tpu_torch.ops.kernels.recurrence import weight_shapes
 
     if len(stacked) != N_STACKED or len(gouts) != 5:
         raise ValueError(f"expected {N_STACKED} stacked weights and 5 cotangents, "
@@ -268,23 +295,25 @@ def recurrence_stacked_backward_cuda(
     for i, (w, shape) in enumerate(zip(stacked, shapes)):
         expect[f"stacked[{i}]"] = (w, shape)
     _check_inputs(expect, actions.device)
+    empty = T == 0 or B == 0
     sizes = [math.prod(s) for s in shapes]
-    d_flat = actions.new_zeros(sum(sizes))
-    d_ins = [actions.new_zeros(s) for s in ((T, B, A), (T, B, E), (T, B, E), (B, D), (B, S))]
+    d_flat = actions.new_zeros(sum(sizes))  # the scatter leaves the zero blocks as they are
+    alloc = actions.new_zeros if empty else actions.new_empty
+    d_ins = [alloc(s) for s in ((T, B, A), (T, B, E), (T, B, E), (B, D), (B, S))]
     d_w = [g.view(s) for g, s in zip(d_flat.split(sizes), shapes)]
-    if T == 0 or B == 0:
+    if empty:
         return (*d_w, *d_ins)
     lib = build.load_library()
     ptrs = (ctypes.c_void_p * N_STACKED)(*(w.data_ptr() for w in stacked))
-    n_grads = sum(math.prod(s) for s in weight_shapes(A, S, H, D, E))
     with torch.cuda.device(actions.device):
-        R = _rows(lib, A, E, H, D, class_size, category_size, B, actions.device, True)
-        partial = actions.new_empty((-(-B // R), n_grads))
+        R = chain_rows(lib, A, E, H, D, class_size, category_size, B, actions.device)
+        workspace = actions.new_empty(
+            lib.mrssm_stacked_bwd_workspace(T, B, A, E, H, D, class_size, category_size))
         stream = torch.cuda.current_stream(actions.device).cuda_stream
         err = lib.mrssm_stacked_backward(
             ctypes.cast(ptrs, ctypes.c_void_p),
             *(t.data_ptr() for t in (actions, a_emb, v_emb, prev_deter, prev_stoch, *gouts)),
-            partial.data_ptr(), d_flat.data_ptr(), *(o.data_ptr() for o in d_ins),
+            workspace.data_ptr(), d_flat.data_ptr(), *(o.data_ptr() for o in d_ins),
             T, B, A, E, H, D, class_size, category_size, R, stream,
         )
     build.check(err)

@@ -503,6 +503,47 @@ def test_stacked_recurrence_kernels_match_plain(cuda_device, B, T):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,B,T", [("model", 8, 30), ("model", 128, 30), ("model", 3, 7),
+                                      ("odd", 8, 30), ("k32", 8, 30)])
+def test_stacked_recurrence_backward_is_the_unstacked_kernels(cuda_device, name, B, T):
+    """The stacked backward runs the unstacked backward's kernels on its
+    packed weights: its gradients, unstacked, and its five input cotangents
+    are ``recurrence_backward_cuda``'s on the 20 weights it was stacked from,
+    bit for bit (at the odd widths some of those weights lie off 16-byte
+    alignment); its zero blocks are exactly 0; two launches are
+    bit-identical; it is within 2e-4 × max(1, max|plain|) of its plain
+    composition."""
+    if name == "model":
+        w = [x.detach() for x in _model(cuda_device).representation_weights()]
+        ins = _inputs(B * T + 2, B, T, cuda_device)
+        with torch.no_grad():
+            outs = recurrence.recurrence_forward_cuda(w, *ins, C, K)
+        args = (w, *ins[:3], torch.cat([ins[3][None], outs[0][:-1]]),
+                torch.cat([ins[4][None], outs[4][:-1]]), _cotangents(T, outs), C, K)
+        dims = (6, 32, 32, 64)
+    else:
+        args = _backward_case(B + T, BWD_WIDTHS[name], B, T, cuda_device)
+        A, E, H, D = BWD_WIDTHS[name][:4]
+        dims = (A, H, D, E)
+    w, rest = args[0], args[1:]
+    with torch.no_grad():
+        st = recurrence_stacked.stack_train_params(w)
+        got = recurrence_stacked.recurrence_stacked_backward_cuda(st, *rest)
+        again = recurrence_stacked.recurrence_stacked_backward_cuda(st, *rest)
+        ref = recurrence.recurrence_backward_cuda(*args)
+        plain = recurrence_stacked.recurrence_stacked_backward_passes_plain(st, *rest)
+        nonzero = recurrence_stacked.stack_train_params([torch.ones_like(x) for x in w])
+    unstacked = (*recurrence_stacked.unstack_train_grads(got[:10], dims), *got[10:])
+    assert len(unstacked) == len(ref) == 25
+    for i, (a, b) in enumerate(zip(unstacked, ref)):
+        assert torch.equal(a, b), f"gradient {i} differs from the unstacked kernels'"
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for i, (g, m) in enumerate(zip(got[:10], nonzero)):
+        assert not g[m == 0].any(), f"stacked gradient {i}: a zero block is not 0"
+    parity.check_gradients(got, plain)
+
+
 def _scaled_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     return float((got - ref).abs().max()) / max(1.0, float(ref.abs().max()))
 
