@@ -7,6 +7,8 @@ It refuses to run without a CUDA device and exits non-zero on any failure.
 (``decoder_phase``), ``--recurrence-bwd`` only the MRSSM recurrence
 backward's (``recurrence_bwd_phase``), ``--mt-recurrence-bwd`` only the
 MMTRSSM recurrence backward's (``mt_recurrence_bwd_phase``),
+``--mt-recurrence-fwd`` only the MMTRSSM recurrence forward's
+(``mt_recurrence_fwd_phase``),
 ``--stacked-recurrence-bwd`` only the stacked recurrence backward's beside
 the unstacked one's (``stacked_recurrence_bwd_phase``): for comparing two
 trees in one call.
@@ -25,11 +27,13 @@ first two configurations' latent features.
    (one ``nvcc`` per source, in parallel).
 2. Kernel checks, each kernel against its plain PyTorch version on the card:
    the MRSSM recurrence forward at B=8 T=30, B=128 T=30 and B=3 T=7, the MT
-   recurrence forward at those and B=32 T=30 (same noise; deters,
-   integrators and logits within 1e-4, stochs equal outside near-ties of
-   1e-5); both backwards at the same shapes, on the forward's record and
-   random cotangents on every output (every gradient within 2e-4 ×
-   max(1, max|plain|), two launches bit-identical); both rollouts at B=10
+   recurrence forward at those and B=32 T=30, and on fresh weights at odd
+   widths and at a lower latent of 40 (B=8, 128 T=30, B=3 T=7; two launches
+   bit-identical) (same noise; deters, integrators and logits within 1e-4,
+   stochs equal outside near-ties of 1e-5); both backwards at the same shapes,
+   on the forward's record and random cotangents on every output (every
+   gradient within 2e-4 × max(1, max|plain|), two launches bit-identical);
+   both rollouts at B=10
    T=10, B=64 T=30 and B=256 T=180 (replay of their stochs within 1e-4,
    stochs equal to the argmax of their logits plus the seed's Philox noise,
    sampling frequencies against the softmax, both MT sites); the stacked
@@ -70,13 +74,14 @@ first two configurations' latent features.
    bound at the main path's shape; the device time of each kernel of one
    MRSSM recurrence backward call (recompute, chain, the deferred GEMMs)
    beside the call's at B=8 and B=128 T=30, the same of the MMTRSSM
-   recurrence backward at B=8, 32 and 128 T=30; the fused encoder forward's
+   recurrence backward at B=8, 32 and 128 T=30, and of the MMTRSSM
+   recurrence forward with the device time of each of its stages; the fused encoder forward's
    device time and the device time of each kernel of one fused encoder
    backward call (``torch.profiler``), the same of the fused decoder's
    forward and backward calls; and the registers, stack and spills
    ``ptxas`` gives the fused encoder's and decoder's kernels, forward and
-   backward, the MRSSM and MMTRSSM recurrence backwards' three kernels and
-   the stacked backward's pack and scatter.
+   backward, the MRSSM and MMTRSSM recurrence backwards' three kernels, the
+   stacked backward's pack and scatter and the MMTRSSM recurrence forward.
 
 Each configuration's serving and training run, and the decoder's path
 (``fused_decoder_apply`` on both decoders of the first two configurations'
@@ -305,12 +310,45 @@ def _mt_inputs(rng, B: int, T: int, cfg, dev):
 
 
 MT_SHAPES = ((8, 30), (32, 30), (128, 30), (3, 7))
+# Widths of the MT forward's cases beyond the model's: A, E, HD, LD, C, R and
+# the latents' (tau_l, tau_h, class, category, class, category): HD ≠ LD and
+# no multiple of 4 floats, and a lower latent wider than a warp (LS = 40).
+MT_WIDTHS = {"odd": (5, 63, 17, 33, 19, 13, (2.0, 3.0, 3, 5, 2, 7)),
+             "ls40": (6, 64, 32, 32, 32, 32, (2.0, 4.0, 5, 8, 3, 12))}
+MT_WIDTH_SHAPES = ((8, 30), (128, 30), (3, 7))
+
+
+def _mt_width_case(rng, widths, B: int, T: int, dev):
+    """Fresh random weights at ``widths`` (the odd-numbered ones one float
+    off 16-byte alignment) and :func:`_mt_inputs` at those widths, made by
+    numpy: ``(weights, xs, init6, gumbels, spec)``."""
+    import types
+
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels import recurrence_mt
+
+    A, E, HD, LD, C, R, sp = widths
+    spec = recurrence_mt.MTSpec(*sp)
+    w = []
+    for i, s in enumerate(recurrence_mt.mt_weight_shapes(A, E, HD, LD, C, R, spec)):
+        x = rng.uniform(-1, 1, s) / np.sqrt(s[-1] if len(s) == 2 else C)
+        flat = torch.zeros(int(np.prod(s)) + i % 2, device=dev)
+        flat[i % 2:] = torch.tensor(x.reshape(-1), dtype=torch.float32, device=dev)
+        w.append(flat[i % 2:].view(s))
+    cfg = types.SimpleNamespace(action_size=A, obs_embed_size=E, hd_dim=HD, ld_dim=LD,
+                                ls_class=spec.ls_class, ls_category=spec.ls_category,
+                                hs_class=spec.hs_class, hs_category=spec.hs_category,
+                                ls_dim=spec.ls, hs_dim=spec.hs)
+    return (w, *_mt_inputs(rng, B, T, cfg, dev), spec)
 
 
 def check_mt_kernels(model, cfg, dev) -> dict[str, dict]:
     """Phase 2, MMTRSSM: the hierarchical recurrence and rollout kernels
-    against their plain versions at the path's shapes, and the rollout's
-    sampling frequencies at both sites."""
+    against their plain versions at the path's shapes (the forward also on
+    fresh weights at the odd and LS > 32 widths of ``MT_WIDTHS``, two
+    launches bit-identical), and the rollout's sampling frequencies at both
+    sites."""
     import torch
 
     from multimodal_mtrssm_tpu_torch.ops.kernels import recurrence_mt, rollout_mt
@@ -325,13 +363,19 @@ def check_mt_kernels(model, cfg, dev) -> dict[str, dict]:
     results: dict[str, dict] = {"mt_recurrence_fwd": {"max_abs_err": 0.0},
                                 "mt_rollout": {"max_abs_err": 0.0}}
     rw = model.recurrence_weights()
-    for B, T in MT_SHAPES:
-        xs, init6, gumbels = _mt_inputs(rng, B, T, cfg, dev)
-        got = recurrence_mt.mt_recurrence_forward_cuda(rw, *xs, init6, gumbels, spec)
-        ref = recurrence_mt.mt_recurrence_forward_plain(rw, *xs, init6, gumbels, spec)
-        r = check_mt_recurrence(got, ref, gumbels, spec, TOL, TIE_EPS)
-        print(f"check mt_recurrence_fwd B={B} T={T}: max_abs_err={r['max_abs_err']:.3g} "
-              f"steps_compared={r['compared']:.4f}")
+    cases = [("model", B, T, rw, *_mt_inputs(rng, B, T, cfg, dev), spec) for B, T in MT_SHAPES]
+    cases += [(name, B, T, *_mt_width_case(rng, widths, B, T, dev))
+              for name, widths in MT_WIDTHS.items() for B, T in MT_WIDTH_SHAPES]
+    for name, B, T, w, xs, init6, gumbels, sp in cases:
+        got = recurrence_mt.mt_recurrence_forward_cuda(w, *xs, init6, gumbels, sp)
+        again = recurrence_mt.mt_recurrence_forward_cuda(w, *xs, init6, gumbels, sp)
+        ref = recurrence_mt.mt_recurrence_forward_plain(w, *xs, init6, gumbels, sp)
+        r = check_mt_recurrence(got, ref, gumbels, sp, TOL, TIE_EPS)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise ParityError(f"mt_recurrence_fwd {name} B={B} T={T}: two launches differ")
+        print(f"check mt_recurrence_fwd {name} widths B={B} T={T}: "
+              f"max_abs_err={r['max_abs_err']:.3g} steps_compared={r['compared']:.4f}, "
+              "reproducible")
         results["mt_recurrence_fwd"]["max_abs_err"] = max(
             results["mt_recurrence_fwd"]["max_abs_err"], r["max_abs_err"])
     tw = model.rollout_weights()
@@ -742,6 +786,52 @@ def bwd_timings(model, cfg, dev, card: str) -> dict[str, tuple[float, float]]:
                          RECURRENCE_BWD_KERNELS, card)
         main.setdefault("recurrence_bwd", (k_ms, p_ms))
     return main
+
+
+# The device kernels of one mt_recurrence_forward_cuda call, as the profiler
+# names them (substrings); the one-kernel forward it replaced is listed too,
+# so that the same timing reads both. The stages' kernel runs each stage
+# alone on a call's workspace and outputs (``mt_forward_launch``): staging
+# alone, then each stage with it.
+MT_FWD_KERNELS = {"three stages": "mt_recurrence_fwd_stages_kernel",
+                  "one-kernel forward (before the three stages)": "mt_recurrence_fwd_kernel"}
+MT_FWD_STAGES = {"weight staging": 0, "+ prologue": 1, "+ chain": 2, "+ epilogue": 4}
+
+
+def mt_fwd_timings(model, cfg, dev, card: str) -> None:
+    """Phase 5, MMTRSSM: the forward's call by CUDA events (median of 30)
+    beside its kernels' device time (``torch.profiler``) at B=8, 32 and 128
+    T=30, and, where the kernel runs its stages one at a time, the device
+    time of the weight staging alone and of each stage with it."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels import recurrence_mt
+
+    spec = cfg.spec
+    rng = np.random.default_rng(SEED + 7)
+    rw = [w.detach() for w in model.recurrence_weights()]
+    launch = getattr(recurrence_mt, "mt_forward_launch", None)
+    for B, T in MT_SHAPES[:3]:
+        xs, init6, gumbels = _mt_inputs(rng, B, T, cfg, dev)
+        with torch.no_grad():
+            def call():
+                return recurrence_mt.mt_recurrence_forward_cuda(rw, *xs, init6, gumbels, spec)
+
+            k_ms = _median_ms(call, 30)
+            parts = _device_breakdown(call, MT_FWD_KERNELS.values())
+            _print_breakdown(f"mt_recurrence_fwd B={B} T={T} (call {k_ms:.4f} ms by CUDA events)",
+                             parts, MT_FWD_KERNELS, card)
+            if launch is None:
+                continue
+            outs, ws = launch(rw, *xs, init6, gumbels, spec)
+            stages = {name: _device_ms(lambda m=m: launch(rw, *xs, init6, gumbels, spec, stages=m,
+                                                          workspace=ws, outs=outs),
+                                       MT_FWD_KERNELS["three stages"])
+                      for name, m in MT_FWD_STAGES.items()}
+            print(f"time mt_recurrence_fwd B={B} T={T} stages alone, device ms a launch "
+                  "(torch.profiler, 10 launches): " + ", ".join(
+                      f"{k} " + ("not measured" if v is None else f"{v:.4f}")
+                      for k, v in stages.items()) + f" | {card}")
 
 
 # The same of one mt_recurrence_backward_cuda call; the parent's one-kernel
@@ -1276,13 +1366,13 @@ _CHILDREN: list[subprocess.Popen] = []  # stopped on exit, whatever failed
 
 PTXAS_SOURCES = ("fused_encoder_fwd.cu", "fused_encoder_bwd.cu", "fused_decoder_fwd.cu",
                  "fused_decoder_bwd.cu", "recurrence_bwd.cu", "recurrence_mt_bwd.cu",
-                 "recurrence_stacked_bwd.cu")
+                 "recurrence_stacked_bwd.cu", "recurrence_mt_fwd.cu")
 
 
 def start_ptxas_report(sources=PTXAS_SOURCES) -> list[subprocess.Popen]:
-    """Compile the fused stacks' and the three recurrence backwards' sources once
-    more with ``-Xptxas -v``, in the background (into the git-ignored build
-    directory), one ``nvcc`` each."""
+    """Compile the fused stacks' sources, the three recurrence backwards' and the
+    MMTRSSM recurrence forward's once more with ``-Xptxas -v``, in the background
+    (into the git-ignored build directory), one ``nvcc`` each."""
     from multimodal_mtrssm_tpu_torch.ops.kernels import build
 
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -1297,11 +1387,11 @@ def start_ptxas_report(sources=PTXAS_SOURCES) -> list[subprocess.Popen]:
 
 
 def ptxas_report(procs: list[subprocess.Popen], sources=PTXAS_SOURCES) -> None:
-    """Print ptxas's registers, stack and spills of each fused encoder and
-    decoder kernel, forward and backward, and of the three recurrence
-    backwards' kernels (a measurement: "not measured" where the compile fails). A
-    backward's source also compiles the forward it recomputes through; those
-    kernels are printed once, from the forward's source."""
+    """Print ptxas's registers, stack and spills of each fused encoder and decoder
+    kernel, forward and backward, of the three recurrence backwards' kernels and of
+    the MMTRSSM recurrence forward's (a measurement: "not measured" where the
+    compile fails). A backward's source also compiles the forward it recomputes
+    through; those kernels are printed once, from the forward's source."""
     import re
 
     seen: set[str] = set()
@@ -1313,7 +1403,8 @@ def ptxas_report(procs: list[subprocess.Popen], sources=PTXAS_SOURCES) -> None:
         name = None
         for line in out.splitlines():
             if "Compiling entry function" in line:
-                m = re.search(r"((?:en|de)coder_[a-z_]*kernel|(?:mt_)?recurrence_bwd_[a-z_]*kernel|"
+                m = re.search(r"((?:en|de)coder_[a-z_]*kernel|"
+                              r"(?:mt_)?recurrence_(?:bwd|fwd)_[a-z_]*kernel|"
                               r"stacked_[a-z_]*kernel|reduce_(?:weight|stacked)_grads)",
                               line.split("'")[1])
                 name = m.group(1) if m and m.group(1) not in seen else None
@@ -1660,6 +1751,17 @@ def mt_recurrence_bwd_phase() -> int:
                         ("recurrence_mt_bwd.cu",))
 
 
+def mt_recurrence_fwd_phase() -> int:
+    """``--mt-recurrence-fwd``: only the MMTRSSM recurrence forward's call
+    times, device times and stages (``mt_fwd_timings``) and ``ptxas``'s
+    report of its source."""
+    from multimodal_mtrssm_tpu_torch.models import MMTRSSMConfig, MoPoEMMTRSSM
+
+    cfg = MMTRSSMConfig()
+    return _timing_mode(lambda dev, card: mt_fwd_timings(_seeded(MoPoEMMTRSSM, cfg, dev), cfg,
+                                                         dev, card), ("recurrence_mt_fwd.cu",))
+
+
 def stacked_recurrence_bwd_phase() -> int:
     """``--stacked-recurrence-bwd``: only the stacked recurrence backward's
     call times and per-kernel device times beside the unstacked backward's
@@ -1735,6 +1837,7 @@ def main() -> int:
         mt_ctx = drive_server(mt_model, mt_cfg, dev, {"mt_recurrence_fwd": 1, "mt_rollout": 2})
         try:
             times.update(mt_kernel_timings(mt_model, mt_cfg, dev, card))
+            mt_fwd_timings(mt_model, mt_cfg, dev, card)
             times.update(mt_bwd_timings(mt_model, mt_cfg, dev, card))
             server_latencies(mt_ctx, card, _label(mt_cfg))
         finally:
@@ -1849,6 +1952,7 @@ if __name__ == "__main__":
     try:
         modes = {"--decoder": decoder_phase, "--recurrence-bwd": recurrence_bwd_phase,
                  "--mt-recurrence-bwd": mt_recurrence_bwd_phase,
+                 "--mt-recurrence-fwd": mt_recurrence_fwd_phase,
                  "--stacked-recurrence-bwd": stacked_recurrence_bwd_phase}
         code = modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes else main()
     finally:

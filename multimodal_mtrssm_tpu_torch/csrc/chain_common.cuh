@@ -1,8 +1,10 @@
 // What the recurrence backwards' three passes share (recurrence_bwd.cu, the
-// MRSSM backward, and recurrence_mt_bwd.cu, the MMTRSSM backward): the bulk
-// copy (TMA) on an mbarrier; the recompute's weight staging, torch layout by
-// the bulk copy and transposed in shared memory to the [in, out] layout the
-// forward's device functions read; and the carry-only chain's pieces — the
+// MRSSM backward, and recurrence_mt_bwd.cu, the MMTRSSM backward; the MMTRSSM
+// forward's stages too, through forward_chain.cuh): the bulk copy (TMA) on an
+// mbarrier; the weights in torch layout by the bulk copy (stage_raw), and the
+// recompute's staging, transposed from there in shared memory to the
+// [in, out] layout the forward's device functions read; and the carry-only
+// chain's pieces — the
 // weight columns it transposes, staged row by row into rows padded off a
 // multiple of 32 floats, and each phase's outputs as dots split over up to
 // 32 lanes and added by full-mask shuffles in a fixed order.
@@ -40,15 +42,13 @@ __host__ __device__ inline int raw_floats(const mrssm::WeightDims& d) {
   return n;
 }
 
-// Stage the weights into W ([in, out] at dims.off, what dense_rows and
-// dense_rows_t read): in torch layout by the bulk copy into `raw` (each
-// tensor from a multiple of 4 floats; one arrival on `bar` expecting all
-// their bytes; a tensor not 16-byte aligned, and the last floats of one
-// whose size is no multiple of 4, by the threads), then transposed from
-// shared memory. Every thread calls it; the block synchronises inside.
-__device__ __forceinline__ void stage_weights_bulk(float* W, float* raw, const mrssm::WeightPtrs& w,
-                                                   const mrssm::WeightDims& d,
-                                                   unsigned long long* bar) {
+// Copy the weights in torch layout into `raw`, each tensor from a multiple
+// of 4 floats (raw_floats in all): by the bulk copy, on one arrival on `bar`
+// expecting all their bytes; a tensor not 16-byte aligned, and the last
+// floats of one whose size is no multiple of 4, by the threads. Every thread
+// calls it; the block synchronises inside and after.
+__device__ __forceinline__ void stage_raw(float* raw, const mrssm::WeightPtrs& w,
+                                          const mrssm::WeightDims& d, unsigned long long* bar) {
   if (threadIdx.x == 0) fconv::mbar_init(bar);
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -71,6 +71,16 @@ __device__ __forceinline__ void stage_weights_bulk(float* W, float* raw, const m
   }
   fconv::mbar_wait(bar, 0);
   __syncthreads();
+}
+
+// Stage the weights into W ([in, out] at dims.off, what dense_rows and
+// dense_rows_t read): in torch layout into `raw` (stage_raw), then
+// transposed from shared memory. Every thread calls it; the block
+// synchronises inside.
+__device__ __forceinline__ void stage_weights_bulk(float* W, float* raw, const mrssm::WeightPtrs& w,
+                                                   const mrssm::WeightDims& d,
+                                                   unsigned long long* bar) {
+  stage_raw(raw, w, d, bar);
   for (int i = 0, off = 0; i < d.n; off += round4(d.in[i] * d.out[i]), ++i) {
     const int in = d.in[i], out = d.out[i];
     for (int e = threadIdx.x; e < in * out; e += blockDim.x) {
@@ -166,10 +176,17 @@ struct Split {
   int P, part, r, j, rstep, jstep, iters;
 };
 
+// The lanes P a dot of a phase of rows × items outputs takes on a block of
+// `threads` threads.
+__host__ __device__ inline int split_lanes(int rows, int items, int threads) {
+  int P = 32;
+  while (P > 1 && rows * items * P > threads) P >>= 1;
+  return P;
+}
+
 __device__ __forceinline__ Split make_split(int rows, int items) {
   Split s;
-  s.P = 32;
-  while (s.P > 1 && rows * items * s.P > (int)blockDim.x) s.P >>= 1;
+  s.P = split_lanes(rows, items, blockDim.x);
   const int slot = threadIdx.x / s.P, slots = blockDim.x / s.P;
   s.part = threadIdx.x % s.P;
   s.r = slot / items;

@@ -25,8 +25,8 @@ SOURCES = ("recurrence_fwd.cu", "recurrence_bwd.cu", "rollout.cu", "recurrence_m
            "recurrence_mt_bwd.cu", "rollout_mt.cu", "recurrence_stacked_fwd.cu",
            "recurrence_stacked_bwd.cu", "fused_encoder_fwd.cu", "fused_encoder_bwd.cu",
            "fused_decoder_fwd.cu", "fused_decoder_bwd.cu")
-HEADERS = ("mrssm_common.cuh", "conv_common.cuh", "chain_common.cuh", "dense_grads.cuh",
-           "fused_encoder.cuh", "fused_decoder.cuh")
+HEADERS = ("mrssm_common.cuh", "conv_common.cuh", "chain_common.cuh", "forward_chain.cuh",
+           "dense_grads.cuh", "fused_encoder.cuh", "fused_decoder.cuh")
 # Hopper only (sm_90a); no --use_fast_math, so expf/logf/tanhf stay accurate
 # and the straight-through value (onehot + p) - p is not reassociated.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -72,7 +72,8 @@ _SIGNATURES = {
     "mrssm_recurrence_bwd_rows": (_I, [_I] * 7),
     "mrssm_recurrence_bwd_workspace": (ctypes.c_longlong, [_I] * 8),
     "mrssm_rollout": (_I, [_P] * 7 + [ctypes.c_ulonglong] + [_I] * 8 + [_P]),
-    "mt_recurrence_forward": (_I, [_P, _P, _P, MTDims, _P]),
+    "mt_recurrence_forward": (_I, [_P] * 4 + [MTDims, _I, _P]),
+    "mt_recurrence_fwd_rows": (_I, [MTDims, _I]),
     "mt_recurrence_backward": (_I, [_P] * 6 + [MTDims, _I, _P]),
     "mt_recurrence_bwd_rows": (_I, [MTDims, _I]),
     "mt_recurrence_bwd_workspace": (ctypes.c_longlong, [MTDims]),

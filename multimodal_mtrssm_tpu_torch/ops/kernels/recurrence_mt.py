@@ -18,20 +18,23 @@ its block softmax only, so the backward takes no noise and no sample.
 residuals (``train_step_mt.py:612-617``: the inputs, ``init6`` and the six
 carry sequences).
 
-What bounds it on the card: as for the MRSSM recurrence, the latency of a
-chain of small dependent stages at the reference batch, not FLOPs or
-bytes. The forward is the MRSSM forward's design: one block per tile of
-batch rows with the T loop inside, the 28 weights (16,944 floats, 67.8 KB)
-staged once in shared memory, ``[T, B, ·]`` streamed through device memory
-(so one kernel covers the TPU's single-block and time-chunked variants).
-The backward is the MRSSM backward's three launches, each with a plain
-version here: a parallel recompute of every row-step with what of the VJP
-needs no carry, both prior heads' backward included
-(:func:`mt_bwd_recompute_plain`), the reverse-time chain carrying only the
-six carries (:func:`mt_bwd_chain_plain`), and the deferred GEMMs over the
-T·B row-steps in a fixed order: the 28 weight gradients and the input
-cotangents that feed no carry (:func:`mt_bwd_dw_plain`); they meet in three
-per-row-step records (:func:`mt_bwd_record_layout`).
+What bounds it on the card: as for the MRSSM recurrence, the latency of a chain
+of small dependent stages at the reference batch, not FLOPs or bytes. The
+forward is one launch in three stages, each with a plain version here: a
+prologue of every step's partial sums that no carry feeds
+(:func:`mt_fwd_inputs_plain`, into a ``[T, B, LD + 2R]`` workspace), the T-step
+chain on the six carries alone, three barrier phases a step
+(:func:`mt_fwd_chain_plain`), and an epilogue of both prior heads and their
+samples over all T steps (:func:`mt_fwd_priors_plain`); ``[T, B, ·]`` is
+streamed through device memory, so one kernel covers the TPU's single-block and
+time-chunked variants. The backward is the MRSSM backward's three launches,
+each with a plain version here: a parallel recompute of every row-step with
+what of the VJP needs no carry, both prior heads' backward included
+(:func:`mt_bwd_recompute_plain`), the reverse-time chain carrying only the six
+carries (:func:`mt_bwd_chain_plain`), and the deferred GEMMs over the T·B
+row-steps in a fixed order: the 28 weight gradients and the input cotangents
+that feed no carry (:func:`mt_bwd_dw_plain`); they meet in three per-row-step
+records (:func:`mt_bwd_record_layout`).
 """
 
 from __future__ import annotations
@@ -168,6 +171,90 @@ def mt_recurrence_forward_plain(
         outs.append(step)
         carry = carries(step)
     return tuple(torch.stack(seq) for seq in zip(*outs))
+
+
+# ---- the forward's three stages ----------------------------------------------------
+
+
+def mt_fwd_inputs_plain(weights: Sequence[torch.Tensor], actions: torch.Tensor,
+                        a_emb: torch.Tensor, v_emb: torch.Tensor,
+                        spec: MTSpec = MT_SPEC) -> torch.Tensor:
+    """Plain version of the forward kernel's prologue: the partial sums that
+    no carry feeds, of every row-step at once, ``[T, B, LD + 2R]`` (the
+    workspace the chain reads): ``action·wli[:, :A]ᵀ + bli``, ``a_emb·wa1[:,
+    LD:]ᵀ + ba1`` and ``v_emb·wv1[:, LD:]ᵀ + bv1``."""
+    z = _mt_widths(weights, spec)
+    A, LD = z["A"], z["LD"]
+    return torch.cat([F.linear(actions, weights[2][:, :A], weights[3]),
+                      F.linear(a_emb, weights[20][:, LD:], weights[21]),
+                      F.linear(v_emb, weights[24][:, LD:], weights[25])], -1)
+
+
+def mt_fwd_chain_plain(
+    weights: Sequence[torch.Tensor], inputs: torch.Tensor, init6: Sequence[torch.Tensor],
+    g_l: torch.Tensor, g_h: torch.Tensor, spec: MTSpec = MT_SPEC,
+) -> tuple[torch.Tensor, ...]:
+    """Plain version of the forward kernel's carry chain on the prologue's
+    sums ``inputs`` (:func:`mt_fwd_inputs_plain`), from ``init6`` with the
+    posteriors' noise ``g_l`` and ``g_h`` ``[T, B, ·]``: per step both MTRNN
+    cells (JAX ``mtrnn_apply``'s association, the lower cell's input sum the
+    sample columns' plus the prologue's), the audio, vision and h-posterior
+    heads, the fusion and both posterior samples. Returns ``h_deter,
+    l_deter, hid_h, hid_l, mixed, l_stoch, h_post_logits, h_stoch``, each
+    ``[T, B, ·]`` (the forward's outputs 0-3, 6, 7, 10, 11)."""
+    (wld, bld, wli, _, whd, bhd, whi, bhi, *_, hq1, bhq1, hq2, bhq2,
+     wa1, _, wa2, ba2, wv1, _, wv2, bv2) = weights
+    z = _mt_widths(weights, spec)
+    A, LD, R = z["A"], z["LD"], z["R"]
+    lc, lk, hc, hk = spec.ls_class, spec.ls_category, spec.hs_class, spec.hs_category
+    l_inv, h_inv = 1.0 / spec.l_tau, 1.0 / spec.h_tau
+    hd, ld, hs, ls, hidh, hidl = init6
+    steps = []
+    for t in range(inputs.shape[0]):
+        pl, pa, pv = inputs[t].split([LD, R, R], -1)
+        ul = F.linear(ld, wld, bld) + (F.linear(torch.cat([ls, hs], -1), wli[:, A:]) + pl)
+        hidl = (1.0 - l_inv) * hidl + ul * l_inv
+        uh = F.linear(hd, whd, bhd) + F.linear(hs, whi, bhi)
+        hidh = (1.0 - h_inv) * hidh + uh * h_inv
+        ld, hd = torch.tanh(hidl), torch.tanh(hidh)
+        ha = F.elu(F.linear(ld, wa1[:, :LD]) + pa)
+        hv = F.elu(F.linear(ld, wv1[:, :LD]) + pv)
+        hq = F.elu(F.linear(torch.cat([ld, hd], -1), hq1, bhq1))
+        mixed = mopoe_mix_log_probs(F.linear(ha, wa2, ba2), F.linear(hv, wv2, bv2))
+        hq_logits = F.linear(hq, hq2, bhq2)
+        ls, hs = st_sample(mixed, g_l[t], lc, lk), st_sample(hq_logits, g_h[t], hc, hk)
+        steps.append((hd, ld, hidh, hidl, mixed, ls, hq_logits, hs))
+    return tuple(torch.stack(seq) for seq in zip(*steps))
+
+
+def mt_fwd_priors_plain(
+    weights: Sequence[torch.Tensor], h_deter: torch.Tensor, l_deter: torch.Tensor,
+    g_lp: torch.Tensor, g_hp: torch.Tensor, spec: MTSpec = MT_SPEC,
+) -> tuple[torch.Tensor, ...]:
+    """Plain version of the forward kernel's epilogue: both prior MLPs (ELU)
+    on the deter sequences and their straight-through samples with the
+    priors' noise, over every row-step at once. Returns ``l_prior_logits,
+    l_prior_stoch, h_prior_logits, h_prior_stoch`` (outputs 4, 5, 8, 9)."""
+    lp = two_layer(l_deter, *weights[8:12], F.elu)
+    hp = two_layer(h_deter, *weights[12:16], F.elu)
+    return (lp, st_sample(lp, g_lp, spec.ls_class, spec.ls_category),
+            hp, st_sample(hp, g_hp, spec.hs_class, spec.hs_category))
+
+
+def mt_recurrence_forward_stages_plain(
+    weights: Sequence[torch.Tensor], actions: torch.Tensor, a_emb: torch.Tensor,
+    v_emb: torch.Tensor, init6: Sequence[torch.Tensor], gumbels: Sequence[torch.Tensor],
+    spec: MTSpec = MT_SPEC,
+) -> tuple[torch.Tensor, ...]:
+    """The three plain stages in a row: the forward as the kernel decomposes
+    it, with :func:`mt_recurrence_forward_plain`'s contract (ELU)."""
+    inputs = mt_fwd_inputs_plain(weights, actions, a_emb, v_emb, spec)
+    if actions.shape[0] == 0:
+        return mt_recurrence_forward_plain(weights, actions, a_emb, v_emb, init6, gumbels, spec)
+    hd, ld, hidh, hidl, mixed, l_stoch, hq, h_stoch = mt_fwd_chain_plain(
+        weights, inputs, init6, gumbels[1], gumbels[3], spec)
+    lp, lp_stoch, hp, hp_stoch = mt_fwd_priors_plain(weights, hd, ld, gumbels[0], gumbels[2], spec)
+    return hd, ld, hidh, hidl, lp, lp_stoch, mixed, l_stoch, hp, hp_stoch, hq, h_stoch
 
 
 def mt_recurrence_backward_plain(
@@ -513,10 +600,29 @@ def mt_recurrence_forward_cuda(
     v_emb: torch.Tensor, init6: Sequence[torch.Tensor], gumbels: Sequence[torch.Tensor],
     spec: MTSpec = MT_SPEC,
 ) -> tuple[torch.Tensor, ...]:
-    """Launch the forward kernel (``csrc/recurrence_mt_fwd.cu``); same
-    contract as :func:`mt_recurrence_forward_plain` with ELU. Raises on any
-    input the kernel does not take."""
+    """Launch the forward kernel (``csrc/recurrence_mt_fwd.cu``: prologue,
+    chain and epilogue in one launch); same contract as
+    :func:`mt_recurrence_forward_plain` with ELU. Raises on any input the
+    kernel does not take, and where a block's shared memory would not fit."""
     global launches
+    outs, _ = mt_forward_launch(weights, actions, a_emb, v_emb, init6, gumbels, spec)
+    if actions.shape[0] and actions.shape[1]:
+        launches += 1
+    return outs
+
+
+def mt_forward_launch(
+    weights: Sequence[torch.Tensor], actions: torch.Tensor, a_emb: torch.Tensor,
+    v_emb: torch.Tensor, init6: Sequence[torch.Tensor], gumbels: Sequence[torch.Tensor],
+    spec: MTSpec = MT_SPEC, stages: int = 7, workspace: torch.Tensor | None = None,
+    outs: Sequence[torch.Tensor] | None = None,
+) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
+    """Launch the forward kernel's stages in ``stages`` (1 the prologue, 2
+    the chain, 4 the epilogue) on ``workspace`` (the prologue's sums, ``[T,
+    B, LD + 2R]``; allocated when None) into ``outs`` (the 12 outputs;
+    allocated when None; a stage left out leaves its outputs as they are).
+    Returns the outputs and the workspace, for tests that run one stage on
+    what they wrote. Counts no launch."""
     from multimodal_mtrssm_tpu_torch.ops.kernels import build
 
     if len(weights) != N_WEIGHTS or len(init6) != 6 or len(gumbels) != 4:
@@ -535,20 +641,29 @@ def mt_recurrence_forward_cuda(
     for i, (g, d) in enumerate(zip(gumbels, (LS, LS, HS, HS))):
         expect[f"gumbels[{i}]"] = (g, (T, B, d))
     _expect_weights(expect, weights, mt_weight_shapes(A, E, HD, LD, C, R, spec))
+    if outs is None:
+        outs = [actions.new_empty((T, B, d)) for d in mt_out_dims(HD, LD, spec)]
+    for i, (o, d) in enumerate(zip(outs, mt_out_dims(HD, LD, spec))):
+        expect[f"outs[{i}]"] = (o, (T, B, d))
+    if workspace is None:
+        workspace = actions.new_empty((T, B, LD + 2 * R))
+    expect["workspace"] = (workspace, (T, B, LD + 2 * R))
     _check_inputs(expect, actions.device)
-    out = [actions.new_empty((T, B, d)) for d in mt_out_dims(HD, LD, spec)]
     if T == 0 or B == 0:
-        return tuple(out)
+        return tuple(outs), workspace
     lib = build.load_library()
-    dims = _dims(T, B, A, E, HD, LD, C, R, spec, _rows_per_block(B, actions.device))
     with torch.cuda.device(actions.device):
+        dims = _dims(T, B, A, E, HD, LD, C, R, spec, 0)
+        dims.rows = lib.mt_recurrence_fwd_rows(dims, _rows_per_block(B, actions.device))
+        if dims.rows < 1:
+            raise ValueError(f"the MT forward's shared memory does not fit one block at A={A} "
+                             f"E={E} HD={HD} LD={LD} C={C} R={R} {spec}")
         stream = torch.cuda.current_stream(actions.device).cuda_stream
         err = lib.mt_recurrence_forward(_ptrs(weights),
                                         _ptrs([actions, a_emb, v_emb, *init6, *gumbels]),
-                                        _ptrs(out), dims, stream)
+                                        _ptrs(outs), workspace.data_ptr(), dims, stages, stream)
     build.check(err)
-    launches += 1
-    return tuple(out)
+    return tuple(outs), workspace
 
 
 def mt_recurrence_backward_cuda(

@@ -321,14 +321,19 @@ def _mt_model(dev) -> MoPoEMMTRSSM:
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,T", [(8, 30), (32, 30), (3, 7)])
+@pytest.mark.parametrize("B,T", [(8, 30), (32, 30), (3, 7), (128, 30), (256, 30), (512, 30)])
 def test_mt_recurrence_kernel_matches_plain(cuda_device, B, T):
+    """The forward kernel against its plain version, two launches
+    bit-identical; B=256 puts two batch rows in a block, B=512 four (no warp
+    left idle in phase (c): the next step comes in at the step's start)."""
     w = _mt_model(cuda_device).recurrence_weights()
     xs, init6, gumbels = _mt_inputs(B + T, B, T, cuda_device)
     with torch.no_grad():
         got = recurrence_mt.mt_recurrence_forward_cuda(w, *xs, init6, gumbels)
+        again = recurrence_mt.mt_recurrence_forward_cuda(w, *xs, init6, gumbels)
         ref = recurrence_mt.mt_recurrence_forward_plain(w, *xs, init6, gumbels)
     parity.check_mt_recurrence(got, ref, gumbels)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.gpu
@@ -352,16 +357,19 @@ def test_mt_recurrence_backward_kernel_matches_plain(cuda_device, B, T):
     assert torch.equal(got[1], got[3]) and torch.equal(got[5], got[7])
 
 
-# Widths of the MT backward's cases beyond the model's: A, E, HD, LD, C, R
+# Widths of the MT kernels' cases beyond the model's: A, E, HD, LD, C, R
 # and the latents' class × category (HD ≠ LD, records and weights no
-# multiple of 4 floats).
+# multiple of 4 floats; "ls40": a lower latent of 5 × 8, a higher of 3 × 12,
+# both wider than a warp).
 MT_BWD_WIDTHS = {"odd": (5, 63, 17, 33, 19, 13, recurrence_mt.MTSpec(2.0, 3.0, 3, 5, 2, 7))}
+MT_FWD_WIDTHS = {**MT_BWD_WIDTHS,
+                 "ls40": (6, 64, 32, 32, 32, 32, recurrence_mt.MTSpec(2.0, 4.0, 5, 8, 3, 12))}
 
 
-def _mt_backward_case(seed: int, widths, B: int, T: int, dev):
+def _mt_forward_case(seed: int, widths, B: int, T: int, dev):
     """Random weights (torch layout, odd ones one float off 16-byte
-    alignment), inputs, the plain forward's record and cotangents at
-    ``widths``, made by numpy; the backward's arguments."""
+    alignment), inputs, ``init6`` and noise at ``widths``, made by numpy:
+    the forward's arguments."""
     A, E, HD, LD, Cw, Rw, spec = widths
     rng = np.random.default_rng(seed)
     t = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
@@ -384,10 +392,126 @@ def _mt_backward_case(seed: int, widths, B: int, T: int, dev):
              t(onehot(spec.ls_class, spec.ls_category)), t(np.arctanh(0.9 * hd)),
              t(np.arctanh(0.9 * ld))]
     gumbels = [t(rng.gumbel(size=(T, B, d))) for d in (spec.ls, spec.ls, spec.hs, spec.hs)]
+    return (w, *xs, init6, gumbels, spec)
+
+
+def _mt_backward_case(seed: int, widths, B: int, T: int, dev):
+    """:func:`_mt_forward_case`'s weights and inputs, the plain forward's
+    record and cotangents at ``widths``: the backward's arguments."""
+    w, *xs, init6, gumbels, spec = _mt_forward_case(seed, widths, B, T, dev)
     with torch.no_grad():
         outs = recurrence_mt.mt_recurrence_forward_plain(w, *xs, init6, gumbels, spec)
     prev6 = recurrence_mt.shift_carries(init6, recurrence_mt.carries(outs))
     return (w, *xs, prev6, _cotangents(seed, outs), spec)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,B,T", [("odd", 8, 30), ("odd", 3, 7), ("odd", 256, 30),
+                                      ("ls40", 8, 30), ("ls40", 128, 30)])
+def test_mt_recurrence_kernel_at_other_widths(cuda_device, name, B, T):
+    """The forward kernel at widths whose weights are no multiple of 4
+    floats (and off 16-byte alignment), HD ≠ LD, 3 × 5 and 2 × 7 categories,
+    and at latents wider than a warp (the fusion's and sampling's lanes
+    loop): against its plain version, two launches bit-identical."""
+    args = _mt_forward_case(B + T, MT_FWD_WIDTHS[name], B, T, cuda_device)
+    with torch.no_grad():
+        got = recurrence_mt.mt_recurrence_forward_cuda(*args)
+        again = recurrence_mt.mt_recurrence_forward_cuda(*args)
+        ref = recurrence_mt.mt_recurrence_forward_plain(*args)
+    parity.check_mt_recurrence(got, ref, args[5], args[6])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_mt_recurrence_forward_stays_in_its_workspace(cuda_device):
+    """The kernel reads and writes its workspace ``[T, B, LD + 2R]`` and no
+    float past it: on a view of a larger buffer whose tail holds NaN, the
+    tail stays NaN and the outputs are those of a call on its own
+    workspace, bit for bit."""
+    w, *xs, init6, gumbels, spec = _mt_forward_case(7, MT_FWD_WIDTHS["odd"], 3, 7, cuda_device)
+    LD, R = w[0].shape[0], w[20].shape[0]
+    n = 7 * 3 * (LD + 2 * R)
+    big = torch.full((n + 257,), float("nan"), device=cuda_device)
+    with torch.no_grad():
+        ref, _ = recurrence_mt.mt_forward_launch(w, *xs, init6, gumbels, spec)
+        got, ws = recurrence_mt.mt_forward_launch(w, *xs, init6, gumbels, spec,
+                                                  workspace=big[:n].view(7, 3, LD + 2 * R))
+    assert ws.data_ptr() == big.data_ptr()
+    assert bool(big[n:].isnan().all()) and not bool(big[:n].isnan().any())
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,B,T", [("model", 8, 30), ("model", 128, 30), ("odd", 3, 7),
+                                      ("ls40", 8, 30)])
+def test_mt_recurrence_forward_stages_match_their_plain_stages(cuda_device, name, B, T):
+    """Each stage of the forward kernel alone against its plain stage on the
+    same input: the prologue's workspace (within 1e-4); the chain on the
+    plain prologue's sums (its eight outputs, held with the plain stages'
+    priors by ``check_mt_recurrence``), leaving the priors' outputs as they
+    were; the epilogue on the plain chain's deters."""
+    if name == "model":
+        w = _mt_model(cuda_device).recurrence_weights()
+        xs, init6, gumbels = _mt_inputs(B + T, B, T, cuda_device)
+        args = (w, *xs, init6, gumbels, recurrence_mt.MT_SPEC)
+    else:
+        args = _mt_forward_case(B + T, MT_FWD_WIDTHS[name], B, T, cuda_device)
+    w, actions, a_emb, v_emb, init6, gumbels, spec = args
+    chain_i, prior_i = (0, 1, 2, 3, 6, 7, 10, 11), (4, 5, 8, 9)
+    launch = recurrence_mt.mt_forward_launch
+    with torch.no_grad():
+        ref = recurrence_mt.mt_recurrence_forward_stages_plain(*args)
+        inputs = recurrence_mt.mt_fwd_inputs_plain(w, actions, a_emb, v_emb, spec)
+        _, ws = launch(*args, stages=1)
+        assert float((ws - inputs).abs().max()) <= 1e-4
+        outs = [torch.full_like(r, float("nan")) for r in ref]
+        chain, _ = launch(*args, stages=2, workspace=inputs.clone(), outs=outs)
+        assert all(bool(chain[i].isnan().all()) for i in prior_i)
+        parity.check_mt_recurrence([chain[i] if i in chain_i else ref[i] for i in range(12)], ref,
+                                   gumbels, spec)
+        outs = [r.clone() if i in (0, 1) else torch.full_like(r, float("nan"))
+                for i, r in enumerate(ref)]
+        priors, _ = launch(*args, stages=4, outs=outs)
+        parity.check_mt_recurrence([priors[i] if i in prior_i else ref[i] for i in range(12)],
+                                   ref, gumbels, spec)
+
+
+def mt_backward_digest(dev) -> str:
+    """The digest of the MT backward's 37 outputs at B=8 T=30 on the model's
+    weights, seeded inputs and cotangents, fed with the plain forward's
+    carries (so that it does not move with the forward kernel)."""
+    w = _mt_model(dev).recurrence_weights()
+    xs, init6, gumbels = _mt_inputs(240, 8, 30, dev)
+    with torch.no_grad():
+        outs = recurrence_mt.mt_recurrence_forward_plain(w, *xs, init6, gumbels)
+        prev6 = recurrence_mt.shift_carries(init6, recurrence_mt.carries(outs))
+        return _digest(recurrence_mt.mt_recurrence_backward_cuda(w, *xs, prev6,
+                                                                 _cotangents(30, outs)))
+
+
+def mt_rollout_digest(dev) -> str:
+    """The digest of the MT rollout's outputs at B=8 T=30 on the model's
+    weights, seeded actions and initial state."""
+    w = _mt_model(dev).rollout_weights()
+    xs, init6, _ = _mt_inputs(240, 8, 30, dev)
+    with torch.no_grad():
+        return _digest(rollout_mt.rollout_mt_cuda(w, xs[0].transpose(0, 1).contiguous(), init6, 77))
+
+
+# mt_backward_digest and mt_rollout_digest on an NVIDIA H100 80GB HBM3 with
+# the kernels as they stood before the MT forward's redesign added
+# forward_chain.cuh and split chain_common.cuh's staging and split helpers.
+MT_BWD_DIGEST = "6a2dc462f780a6b18696cf12e789aa41b45ba01162efb1dc03720734107fd0a7"
+MT_ROLLOUT_DIGEST = "6afeb4591c9ee87c99605d33eb694ed33eea494800cfd4ef173757f88fa8c590"
+
+
+@pytest.mark.gpu
+def test_mt_backward_and_rollout_bits_unchanged_by_the_forward(cuda_device):
+    """The MT backward's three kernels and the MT rollout give the bits they
+    gave before the forward's redesign: the device functions they share
+    with it did not move."""
+    assert mt_backward_digest(cuda_device) == MT_BWD_DIGEST
+    assert mt_rollout_digest(cuda_device) == MT_ROLLOUT_DIGEST
 
 
 @pytest.mark.gpu
