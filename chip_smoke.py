@@ -8,10 +8,11 @@ It refuses to run without a CUDA device and exits non-zero on any failure.
 backward's (``recurrence_bwd_phase``), ``--mt-recurrence-bwd`` only the
 MMTRSSM recurrence backward's (``mt_recurrence_bwd_phase``),
 ``--mt-recurrence-fwd`` only the MMTRSSM recurrence forward's
-(``mt_recurrence_fwd_phase``),
-``--stacked-recurrence-bwd`` only the stacked recurrence backward's beside
-the unstacked one's (``stacked_recurrence_bwd_phase``): for comparing two
-trees in one call.
+(``mt_recurrence_fwd_phase``), ``--recurrence-fwd`` only the MRSSM
+recurrence forward's beside the stacked forward's
+(``recurrence_fwd_phase``), ``--stacked-recurrence-bwd`` only the stacked
+recurrence backward's beside the unstacked one's
+(``stacked_recurrence_bwd_phase``): for comparing two trees in one call.
 Four configurations go through the serving and training phases, each with
 seeded random weights (no trained checkpoint or dataset on the machine;
 the shapes and the path are the real ones): MoPoE-MRSSM (``MRSSMConfig()``),
@@ -38,9 +39,11 @@ first two configurations' latent features.
    stochs equal to the argmax of their logits plus the seed's Philox noise,
    sampling frequencies against the softmax, both MT sites); the stacked
    recurrence forward and backward at B=8 T=30, B=128 T=30 and B=3 T=7
-   (the same limits, on unstacked gradients; the backward's zero blocks 0,
-   its gradients unstacked and its input cotangents bit-identical to the
-   unstacked backward's kernels on the same weights); the fused encoder forward at
+   (the same limits, on unstacked gradients; the forward's outputs
+   bit-identical to the unstacked forward's on the same weights; the
+   backward's zero blocks 0, its gradients unstacked and its input
+   cotangents bit-identical to the unstacked backward's kernels on the same
+   weights); the fused encoder forward at
    N=240, 7, 3840 and 241 frames against its plain version and the cuDNN
    ``Encoder`` (within 1e-4 × max(1, max|plain|)) and its backward against
    the plain backward in float64 (2e-4 × scale, two launches bit-identical);
@@ -74,14 +77,15 @@ first two configurations' latent features.
    bound at the main path's shape; the device time of each kernel of one
    MRSSM recurrence backward call (recompute, chain, the deferred GEMMs)
    beside the call's at B=8 and B=128 T=30, the same of the MMTRSSM
-   recurrence backward at B=8, 32 and 128 T=30, and of the MMTRSSM
-   recurrence forward with the device time of each of its stages; the fused encoder forward's
+   recurrence backward at B=8, 32 and 128 T=30, and of the MMTRSSM and
+   MRSSM recurrence forwards with the device time of each of their stages
+   (the stacked forward beside the MRSSM one); the fused encoder forward's
    device time and the device time of each kernel of one fused encoder
    backward call (``torch.profiler``), the same of the fused decoder's
    forward and backward calls; and the registers, stack and spills
    ``ptxas`` gives the fused encoder's and decoder's kernels, forward and
    backward, the MRSSM and MMTRSSM recurrence backwards' three kernels, the
-   stacked backward's pack and scatter and the MMTRSSM recurrence forward.
+   stacked backward's pack and scatter and both recurrence forwards.
 
 Each configuration's serving and training run, and the decoder's path
 (``fused_decoder_apply`` on both decoders of the first two configurations'
@@ -790,12 +794,13 @@ def bwd_timings(model, cfg, dev, card: str) -> dict[str, tuple[float, float]]:
 
 # The device kernels of one mt_recurrence_forward_cuda call, as the profiler
 # names them (substrings); the one-kernel forward it replaced is listed too,
-# so that the same timing reads both. The stages' kernel runs each stage
-# alone on a call's workspace and outputs (``mt_forward_launch``): staging
-# alone, then each stage with it.
+# so that the same timing reads both. Both families' stage kernels run each
+# stage alone on a call's workspace and outputs (``mt_forward_launch``,
+# ``recurrence.forward_launch``): staging alone, then each stage with it
+# (FWD_STAGES).
 MT_FWD_KERNELS = {"three stages": "mt_recurrence_fwd_stages_kernel",
                   "one-kernel forward (before the three stages)": "mt_recurrence_fwd_kernel"}
-MT_FWD_STAGES = {"weight staging": 0, "+ prologue": 1, "+ chain": 2, "+ epilogue": 4}
+FWD_STAGES = {"weight staging": 0, "+ prologue": 1, "+ chain": 2, "+ epilogue": 4}
 
 
 def mt_fwd_timings(model, cfg, dev, card: str) -> None:
@@ -827,8 +832,69 @@ def mt_fwd_timings(model, cfg, dev, card: str) -> None:
             stages = {name: _device_ms(lambda m=m: launch(rw, *xs, init6, gumbels, spec, stages=m,
                                                           workspace=ws, outs=outs),
                                        MT_FWD_KERNELS["three stages"])
-                      for name, m in MT_FWD_STAGES.items()}
+                      for name, m in FWD_STAGES.items()}
             print(f"time mt_recurrence_fwd B={B} T={T} stages alone, device ms a launch "
+                  "(torch.profiler, 10 launches): " + ", ".join(
+                      f"{k} " + ("not measured" if v is None else f"{v:.4f}")
+                      for k, v in stages.items()) + f" | {card}")
+
+
+# The device kernels of one recurrence_forward_cuda call and of one
+# recurrence_stacked_forward_cuda call (the pack, then the same kernel on the
+# packed weights), as the profiler names them (substrings); the one-kernel
+# forwards they replaced are listed too, so that the same timing reads both.
+RECURRENCE_FWD_KERNELS = {"three stages": "recurrence_fwd_stages_kernel",
+                          "one-kernel forward (before the three stages)":
+                              "recurrence_fwd_kernel"}
+STACKED_FWD_KERNELS = {"pack": "stacked_pack_kernel",
+                       "three stages": "recurrence_fwd_stages_kernel",
+                       "one-kernel stacked forward (before the pack)": "stacked_fwd_kernel"}
+
+
+def rec_fwd_timings(model, cfg, dev, card: str) -> None:
+    """Phase 5, MRSSM: the forward's call by CUDA events (median of 30)
+    beside its kernels' device time (``torch.profiler``) at B=8, 32 and 128
+    T=30, the stacked forward's the same on the same inputs (with whether
+    its outputs equal the unstacked forward's bit for bit), and, where the
+    kernel runs its stages one at a time, the device time of the weight
+    staging alone and of each stage with it (measurements: nothing here
+    fails)."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels import recurrence
+    from multimodal_mtrssm_tpu_torch.ops.kernels import recurrence_stacked as rs
+
+    C, K = cfg.class_size, cfg.category_size
+    rng = np.random.default_rng(SEED + 16)
+    rw = [w.detach() for w in model.representation_weights()]
+    st = rs.stack_train_params(rw)
+    launch = getattr(recurrence, "forward_launch", None)
+    for B, T in ((8, 30), (32, 30), (128, 30)):
+        args = _recurrence_inputs(rng, B, T, cfg, dev)
+        with torch.no_grad():
+            def call():
+                return recurrence.recurrence_forward_cuda(rw, *args, C, K)
+
+            def stacked():
+                return rs.recurrence_stacked_forward_cuda(st, *args, C, K)
+
+            for name, fn, kernels in (("recurrence_fwd", call, RECURRENCE_FWD_KERNELS),
+                                      ("stacked_recurrence_fwd", stacked, STACKED_FWD_KERNELS)):
+                ms = _median_ms(fn, 30)
+                _print_breakdown(f"{name} B={B} T={T} (call {ms:.4f} ms by CUDA events)",
+                                 _device_breakdown(fn, kernels.values()), kernels, card)
+            same = all(torch.equal(a, b) for a, b in zip(call(), stacked()))
+            print(f"stacked_recurrence_fwd B={B} T={T}: outputs "
+                  + ("bit-identical to" if same else "differ from")
+                  + f" the unstacked forward's | {card}")
+            if launch is None:
+                continue
+            outs, ws = launch(rw, *args, C, K)
+            stages = {name: _device_ms(lambda m=m: launch(rw, *args, C, K, stages=m, workspace=ws,
+                                                          outs=outs),
+                                       RECURRENCE_FWD_KERNELS["three stages"])
+                      for name, m in FWD_STAGES.items()}
+            print(f"time recurrence_fwd B={B} T={T} stages alone, device ms a launch "
                   "(torch.profiler, 10 launches): " + ", ".join(
                       f"{k} " + ("not measured" if v is None else f"{v:.4f}")
                       for k, v in stages.items()) + f" | {card}")
@@ -1088,8 +1154,9 @@ ENCODER_FRAMES = (240, 7, 3840, 241)
 
 
 def check_stacked(model, cfg, dev) -> dict[str, dict]:
-    """Phase 2, stacked recurrence: the forward kernel against its plain
-    version, and the backward (unstacked gradients) against its plain
+    """Phase 2, stacked recurrence: the forward against its plain version
+    and bit-identical to the unstacked forward on the 20 weights it was
+    stacked from, and the backward (unstacked gradients) against its plain
     version on the forward's record and random cotangents, reproducible,
     its zero blocks 0, and bit-identical to the unstacked backward's
     kernels on the 20 weights it was stacked from."""
@@ -1115,6 +1182,10 @@ def check_stacked(model, cfg, dev) -> dict[str, dict]:
         outs = rs.recurrence_stacked_forward_cuda(st, *args, C, K)
         r = check_recurrence(outs, rs.recurrence_stacked_forward_plain(st, *args, C, K),
                              args[5], args[6], C, K, TOL, TIE_EPS)
+        if not all(torch.equal(a, b) for a, b in
+                   zip(outs, recurrence.recurrence_forward_cuda(rw, *args, C, K))):
+            raise ParityError("stacked_recurrence_fwd: its outputs differ from the unstacked "
+                              "forward's on the same weights")
         cots = [torch.tensor(rng.standard_normal(tuple(o.shape)).astype(np.float32), device=dev)
                 for o in outs]
         bwd = _backward_args(st, args, outs, cots, cfg)
@@ -1135,7 +1206,8 @@ def check_stacked(model, cfg, dev) -> dict[str, dict]:
                               "unstacked backward's kernels' on the same weights")
         err = max(float((g - p).abs().max()) for g, p in zip(got_u, ref_u))
         print(f"check stacked_recurrence_fwd B={B} T={T}: max_abs_err={r['max_abs_err']:.3g} "
-              f"steps_compared={r['compared']:.4f}; stacked_recurrence_bwd: max_abs_err="
+              f"steps_compared={r['compared']:.4f}, bit-identical to the unstacked forward; "
+              "stacked_recurrence_bwd: max_abs_err="
               f"{err:.3g} max_err/scale={scaled:.3g} (limit {BWD_TOL}), reproducible, zero "
               "blocks 0, bit-identical to the unstacked kernels")
         fwd_err, bwd_err = max(fwd_err, r["max_abs_err"]), max(bwd_err, err)
@@ -1366,12 +1438,12 @@ _CHILDREN: list[subprocess.Popen] = []  # stopped on exit, whatever failed
 
 PTXAS_SOURCES = ("fused_encoder_fwd.cu", "fused_encoder_bwd.cu", "fused_decoder_fwd.cu",
                  "fused_decoder_bwd.cu", "recurrence_bwd.cu", "recurrence_mt_bwd.cu",
-                 "recurrence_stacked_bwd.cu", "recurrence_mt_fwd.cu")
+                 "recurrence_stacked_bwd.cu", "recurrence_mt_fwd.cu", "recurrence_fwd.cu")
 
 
 def start_ptxas_report(sources=PTXAS_SOURCES) -> list[subprocess.Popen]:
-    """Compile the fused stacks' sources, the three recurrence backwards' and the
-    MMTRSSM recurrence forward's once more with ``-Xptxas -v``, in the background
+    """Compile the fused stacks' sources, the three recurrence backwards' and
+    both recurrence forwards' once more with ``-Xptxas -v``, in the background
     (into the git-ignored build directory), one ``nvcc`` each."""
     from multimodal_mtrssm_tpu_torch.ops.kernels import build
 
@@ -1389,7 +1461,7 @@ def start_ptxas_report(sources=PTXAS_SOURCES) -> list[subprocess.Popen]:
 def ptxas_report(procs: list[subprocess.Popen], sources=PTXAS_SOURCES) -> None:
     """Print ptxas's registers, stack and spills of each fused encoder and decoder
     kernel, forward and backward, of the three recurrence backwards' kernels and of
-    the MMTRSSM recurrence forward's (a measurement: "not measured" where the
+    both recurrence forwards' (a measurement: "not measured" where the
     compile fails). A backward's source also compiles the forward it recomputes
     through; those kernels are printed once, from the forward's source."""
     import re
@@ -1762,6 +1834,17 @@ def mt_recurrence_fwd_phase() -> int:
                                                          dev, card), ("recurrence_mt_fwd.cu",))
 
 
+def recurrence_fwd_phase() -> int:
+    """``--recurrence-fwd``: only the MRSSM recurrence forward's and the
+    stacked forward's call times, device times and stages
+    (``rec_fwd_timings``) and ``ptxas``'s report of the forward's source."""
+    from multimodal_mtrssm_tpu_torch.models import MoPoEMRSSM, MRSSMConfig
+
+    cfg = MRSSMConfig()
+    return _timing_mode(lambda dev, card: rec_fwd_timings(_seeded(MoPoEMRSSM, cfg, dev), cfg,
+                                                          dev, card), ("recurrence_fwd.cu",))
+
+
 def stacked_recurrence_bwd_phase() -> int:
     """``--stacked-recurrence-bwd``: only the stacked recurrence backward's
     call times and per-kernel device times beside the unstacked backward's
@@ -1815,6 +1898,7 @@ def main() -> int:
         ctx = drive_server(model, cfg, dev, {"recurrence_fwd": 1, "rollout": 2})
         try:
             times = kernel_timings(model, cfg, dev, card)
+            rec_fwd_timings(model, cfg, dev, card)
             server_latencies(ctx, card, _label(cfg))
         finally:
             ctx["server"].stop()
@@ -1953,6 +2037,7 @@ if __name__ == "__main__":
         modes = {"--decoder": decoder_phase, "--recurrence-bwd": recurrence_bwd_phase,
                  "--mt-recurrence-bwd": mt_recurrence_bwd_phase,
                  "--mt-recurrence-fwd": mt_recurrence_fwd_phase,
+                 "--recurrence-fwd": recurrence_fwd_phase,
                  "--stacked-recurrence-bwd": stacked_recurrence_bwd_phase}
         code = modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes else main()
     finally:

@@ -1,6 +1,6 @@
 // What the recurrence backwards' three passes share (recurrence_bwd.cu, the
-// MRSSM backward, and recurrence_mt_bwd.cu, the MMTRSSM backward; the MMTRSSM
-// forward's stages too, through forward_chain.cuh): the bulk copy (TMA) on an
+// MRSSM backward, and recurrence_mt_bwd.cu, the MMTRSSM backward; both
+// forwards' stages too, through forward_chain.cuh): the bulk copy (TMA) on an
 // mbarrier; the weights in torch layout by the bulk copy (stage_raw), and the
 // recompute's staging, transposed from there in shared memory to the
 // [in, out] layout the forward's device functions read; and the carry-only

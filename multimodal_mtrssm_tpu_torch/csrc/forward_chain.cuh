@@ -1,9 +1,9 @@
 // What a recurrence forward in three stages needs beside chain_common.cuh
-// (recurrence_mt_fwd.cu, the MMTRSSM forward; written so that the MRSSM and
-// stacked forwards can take the same design): the weight blocks a stage
-// reads, staged [in, out] in shared memory (the bulk copy brings them in
-// torch layout, then the block transposes them) at a row stride that puts a
-// phase's lane groups on distinct banks; the per-step prefetch of a step's
+// (recurrence_mt_fwd.cu, the MMTRSSM forward, and recurrence_fwd.cu, the
+// MRSSM forward, which the stacked forward runs too): the weight blocks a
+// stage reads, staged [in, out] in shared memory (the bulk copy brings them
+// in torch layout, then the block transposes them) at a row stride that puts
+// a phase's lane groups on distinct banks; the per-step prefetch of a step's
 // inputs by cp.async; the MoPoE fusion with a warp a row, and the
 // straight-through samples with a lane an element.
 //
@@ -178,11 +178,12 @@ __device__ __forceinline__ void mopoe_warp(const float* la, const float* lv, int
 // Straight-through samples of one row's `classes` blocks of K values `v`
 // with the noise `g` (both in shared memory), a lane of the warp an element
 // (all lanes loop together over 32-element slices): the first-index argmax
-// of v + g in the element's block and mrssm::st_block's value ((onehot + p)
-// - p), p = exp(v - max) / Σ exp(v - max), into `carry` (shared; none if
-// null) and `out`. Where K is a power of two a block is K adjacent lanes and
-// its max, sum and argmax go by shuffles within them (the sum in another
-// order than st_block's); else each lane walks its block (st_block's order).
+// of v + g in the element's block and the straight-through value
+// ((onehot + p) - p), p = exp(v - max) / Σ exp(v - max), into `carry`
+// (shared; none if null) and `out`. Where K is a power of two a block is K
+// adjacent lanes and its max, sum and argmax go by shuffles within them (the
+// sum in another order than mrssm::block_softmax's); else each lane walks
+// its block (block_softmax's order).
 // The argmax keeps the first index on ties either way.
 __device__ __forceinline__ void st_lanes(const float* v, const float* g, int classes, int K,
                                          float* carry, float* out) {

@@ -207,19 +207,6 @@ __device__ __forceinline__ void block_softmax(const float* logits, int K, float*
   for (int j = 0; j < K; ++j) p[j] = expf(logits[j] - mx) / sum;
 }
 
-// Straight-through sample value of one block: (onehot + p) - p, with the
-// per-block softmax p (block_softmax's arithmetic).
-__device__ __forceinline__ void st_block(const float* logits, int best, int K, float* out) {
-  float mx = logits[0];
-  for (int j = 1; j < K; ++j) mx = fmaxf(mx, logits[j]);
-  float sum = 0.f;
-  for (int j = 0; j < K; ++j) sum += expf(logits[j] - mx);
-  for (int j = 0; j < K; ++j) {
-    const float p = expf(logits[j] - mx) / sum;
-    out[j] = ((j == best ? 1.f : 0.f) + p) - p;
-  }
-}
-
 // ---- backward building blocks ----------------------------------------------
 
 // dx[r, k] = sum_o dy[r, o] * W[k, o] for k < in, W [in, out] in shared
@@ -252,44 +239,6 @@ __device__ __forceinline__ void st_vjp(const float* p, const float* g, const flo
   float dot = 0.f;
   for (int j = 0; j < K; ++j) dot = fmaf(p[j], g[j], dot);
   for (int j = 0; j < K; ++j) d[j] = base[j] + p[j] * (g[j] - dot);
-}
-
-// The MoPoE fusion's VJP (train_step.py::_mopoe_backward): from dmix
-// [rows][S] into the audio and vision logits' gradients dlg (the layout of
-// lg, as in mopoe_stats): mixture weights from the forward values, then the
-// full-axis log-softmax VJP. sums is [rows][2] scratch. Every thread of the
-// block calls it; it synchronises between its three passes, not after.
-__device__ __forceinline__ void mopoe_backward(const float* lg, int sl, const float* stat,
-                                               const float* mixed, const float* dmix,
-                                               float* dlg, float* sums, int S, int rows) {
-  for (int i = threadIdx.x; i < rows * S; i += blockDim.x) {
-    const int r = i / S, s = i - r * S;
-    const float* st = stat + r * 4;
-    const float la = (lg[r * sl + s] - st[0]) - st[1];
-    const float lv = (lg[r * sl + S + s] - st[2]) - st[3];
-    const float mx = mixed[i];
-    const float wa = expf(la + kLogThird - mx);
-    const float wv = expf(lv + kLogThird - mx);
-    const float wf = expf(la + lv + kLogThird - mx);
-    dlg[r * sl + s] = dmix[i] * (wa + wf);
-    dlg[r * sl + S + s] = dmix[i] * (wv + wf);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < rows * 2; i += blockDim.x) {
-    const int r = i / 2, m = i - r * 2;
-    const float* d = dlg + r * sl + m * S;
-    float sum = 0.f;
-    for (int s = 0; s < S; ++s) sum += d[s];
-    sums[i] = sum;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < rows * 2 * S; i += blockDim.x) {
-    const int r = i / (2 * S), j = i - r * 2 * S, m = j / S;
-    const float* st = stat + r * 4 + 2 * m;
-    const int at = r * sl + j;  // audio logits at m = 0, vision at m = 1
-    const float l = (lg[at] - st[0]) - st[1];
-    dlg[at] -= expf(l) * sums[r * 2 + m];
-  }
 }
 
 // The largest rows-per-block ≤ R_want whose dynamic shared memory, `fixed`

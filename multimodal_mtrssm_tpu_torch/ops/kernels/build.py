@@ -26,7 +26,7 @@ SOURCES = ("recurrence_fwd.cu", "recurrence_bwd.cu", "rollout.cu", "recurrence_m
            "recurrence_stacked_bwd.cu", "fused_encoder_fwd.cu", "fused_encoder_bwd.cu",
            "fused_decoder_fwd.cu", "fused_decoder_bwd.cu")
 HEADERS = ("mrssm_common.cuh", "conv_common.cuh", "chain_common.cuh", "forward_chain.cuh",
-           "dense_grads.cuh", "fused_encoder.cuh", "fused_decoder.cuh")
+           "stack_map.cuh", "dense_grads.cuh", "fused_encoder.cuh", "fused_decoder.cuh")
 # Hopper only (sm_90a); no --use_fast_math, so expf/logf/tanhf stay accurate
 # and the straight-through value (onehot + p) - p is not reassociated.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -67,7 +67,8 @@ class DecDims(ctypes.Structure):
 
 # name → (restype, argtypes) of the C entry points called from Python.
 _SIGNATURES = {
-    "mrssm_recurrence_forward": (_I, [_P] * 13 + [_I] * 9 + [_P]),
+    "mrssm_recurrence_forward": (_I, [_P] * 14 + [_I] * 10 + [_P]),
+    "mrssm_recurrence_fwd_rows": (_I, [_I] * 8),
     "mrssm_recurrence_backward": (_I, [_P] * 18 + [_I] * 10 + [_P]),
     "mrssm_recurrence_bwd_rows": (_I, [_I] * 7),
     "mrssm_recurrence_bwd_workspace": (ctypes.c_longlong, [_I] * 8),
@@ -78,9 +79,9 @@ _SIGNATURES = {
     "mt_recurrence_bwd_rows": (_I, [MTDims, _I]),
     "mt_recurrence_bwd_workspace": (ctypes.c_longlong, [MTDims]),
     "mt_rollout": (_I, [_P] * 3 + [ctypes.c_ulonglong, MTDims, _P]),
-    "mrssm_stacked_forward": (_I, [_P] * 13 + [_I] * 9 + [_P]),
+    "mrssm_stacked_forward": (_I, [_P] * 14 + [_I] * 9 + [_P]),
+    "mrssm_stacked_fwd_workspace": (ctypes.c_longlong, [_I] * 8),
     "mrssm_stacked_backward": (_I, [_P] * 18 + [_I] * 9 + [_P]),
-    "mrssm_stacked_rows": (_I, [_I] * 7),
     "mrssm_stacked_bwd_workspace": (ctypes.c_longlong, [_I] * 8),
     "fused_encoder_sizes": (_I, [EncDims, _P]),
     "fused_encoder_forward": (_I, [_P, _I, _P, _P, _P, _P, EncDims, _P]),

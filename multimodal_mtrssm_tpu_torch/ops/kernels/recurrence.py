@@ -18,16 +18,19 @@ inputs, ``deter`` and ``post_stoch``).
 What bounds it on the card: the T steps are a dependent chain, and at the
 reference batch (B=8) each step is a few thousand FMAs, so the time is the
 latency of its dependent stages, not FLOPs or bytes (inputs and outputs are
-~0.4 MB at B=8 T=30). The forward keeps the whole chain in one launch: one
-block per tile of batch rows with the T loop inside it, the 20 weights
-(~68 KB) staged once into shared memory, the carry and every activation in
-shared memory, and ``[T, B, ·]`` streamed straight through device memory.
-The backward is three launches, each with a plain version here: a parallel
-recompute of every row-step with what of the VJP needs no carry
-(:func:`recurrence_bwd_recompute_plain`), the reverse-time chain carrying
-only d deter and d stoch (:func:`recurrence_bwd_chain_plain`), and the
-deferred GEMMs over the T·B row-steps in a fixed order: the 20 weight
-gradients and the input cotangents that feed no carry
+~0.4 MB at B=8 T=30). The forward is one launch in three stages, each with a
+plain version here: a prologue of every step's partial sums that no carry
+feeds (:func:`fwd_inputs_plain`, into a ``[T, B, 3H]`` workspace), the T-step
+chain on the deter and posterior-sample carries alone, five barrier phases a
+step (:func:`fwd_chain_plain`), and an epilogue of the prior head and its
+sample over all T steps (:func:`fwd_priors_plain`); ``[T, B, ·]`` is streamed
+through device memory, so one kernel covers the TPU's single-block and
+time-chunked variants. The backward is three launches, each with a plain
+version here: a parallel recompute of every row-step with what of the VJP
+needs no carry (:func:`recurrence_bwd_recompute_plain`), the reverse-time
+chain carrying only d deter and d stoch (:func:`recurrence_bwd_chain_plain`),
+and the deferred GEMMs over the T·B row-steps in a fixed order: the 20
+weight gradients and the input cotangents that feed no carry
 (:func:`recurrence_bwd_dw_plain`); they meet in three per-row-step records
 (:func:`bwd_record_layout`). Plain f32 FMA loops: the products are far below
 a tensor-core tile, and the reference is f32.
@@ -42,7 +45,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
-from multimodal_mtrssm_tpu_torch.nn.core import Act, transition_step, two_layer
+from multimodal_mtrssm_tpu_torch.nn.core import Act, gru_cell, transition_step, two_layer
 from multimodal_mtrssm_tpu_torch.ops.distributions import block_probs, st_sample
 from multimodal_mtrssm_tpu_torch.ops.fusion import mopoe_mix_log_probs
 
@@ -87,6 +90,78 @@ def recurrence_forward_plain(
         stoch = st_sample(mixed, g_post[t], class_size, category_size)
         outs.append((deter, prior_logits, prior_stoch, mixed, stoch))
     return tuple(torch.stack(seq) for seq in zip(*outs))
+
+
+# ---- the forward's three stages ----------------------------------------------------
+
+
+def fwd_inputs_plain(weights: Sequence[torch.Tensor], actions: torch.Tensor,
+                     a_emb: torch.Tensor, v_emb: torch.Tensor) -> torch.Tensor:
+    """Plain version of the forward kernel's prologue: the partial sums that
+    no carry feeds, of every row-step at once, ``[T, B, 3H]`` (the workspace
+    the chain reads): ``action·w1[:, :A]ᵀ + b1``, ``a_emb·wa1[:, D:]ᵀ + ba1``
+    and ``v_emb·wv1[:, D:]ᵀ + bv1``."""
+    A, D = actions.shape[-1], weights[6].shape[1]
+    return torch.cat([F.linear(actions, weights[0][:, :A], weights[1]),
+                      F.linear(a_emb, weights[12][:, D:], weights[13]),
+                      F.linear(v_emb, weights[16][:, D:], weights[17])], -1)
+
+
+def fwd_chain_plain(
+    weights: Sequence[torch.Tensor], inputs: torch.Tensor, init_deter: torch.Tensor,
+    init_stoch: torch.Tensor, g_post: torch.Tensor, class_size: int, category_size: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the forward kernel's carry chain on the prologue's
+    sums ``inputs`` (:func:`fwd_inputs_plain`), from the initial carries with
+    the posterior's noise ``g_post`` ``[T, B, S]``: per step the transition's
+    first layer on the stoch carry plus the prologue's sum, its second layer,
+    the GRU, the audio and vision heads on the new deter plus the prologue's
+    embedding sums, the fusion and the posterior sample. Returns ``deter``,
+    ``mixed_logits`` and ``post_stoch``, each ``[T, B, ·]`` (the forward's
+    outputs 0, 3 and 4)."""
+    (w1, _, w2, b2, wih, bih, whh, bhh, *_, wa1, _, wa2, ba2, wv1, _, wv2, bv2) = weights
+    H, D = w2.shape[0], whh.shape[1]
+    A = w1.shape[1] - init_stoch.shape[-1]
+    deter, stoch = init_deter, init_stoch
+    steps = []
+    for t in range(inputs.shape[0]):
+        p1, pa, pv = inputs[t].split([H, H, H], -1)
+        x2 = F.linear(F.elu(F.linear(stoch, w1[:, A:]) + p1), w2, b2)
+        deter = gru_cell(x2, deter, wih, whh, bih, bhh)
+        ha = F.elu(F.linear(deter, wa1[:, :D]) + pa)
+        hv = F.elu(F.linear(deter, wv1[:, :D]) + pv)
+        mixed = mopoe_mix_log_probs(F.linear(ha, wa2, ba2), F.linear(hv, wv2, bv2))
+        stoch = st_sample(mixed, g_post[t], class_size, category_size)
+        steps.append((deter, mixed, stoch))
+    return tuple(torch.stack(seq) for seq in zip(*steps))
+
+
+def fwd_priors_plain(weights: Sequence[torch.Tensor], deter: torch.Tensor, g_prior: torch.Tensor,
+                     class_size: int, category_size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the forward kernel's epilogue: the prior MLP (ELU) on
+    the deter sequence and its straight-through sample with the prior's
+    noise, over every row-step at once. Returns ``prior_logits`` and
+    ``prior_stoch`` (outputs 1 and 2)."""
+    logits = two_layer(deter, *weights[8:12], F.elu)
+    return logits, st_sample(logits, g_prior, class_size, category_size)
+
+
+def recurrence_forward_stages_plain(
+    weights: Sequence[torch.Tensor], actions: torch.Tensor, a_emb: torch.Tensor,
+    v_emb: torch.Tensor, init_deter: torch.Tensor, init_stoch: torch.Tensor,
+    g_prior: torch.Tensor, g_post: torch.Tensor, class_size: int, category_size: int,
+) -> tuple[torch.Tensor, ...]:
+    """The three plain stages in a row: the forward as the kernel decomposes
+    it, with :func:`recurrence_forward_plain`'s contract (ELU)."""
+    if actions.shape[0] == 0:
+        return recurrence_forward_plain(weights, actions, a_emb, v_emb, init_deter, init_stoch,
+                                        g_prior, g_post, class_size, category_size)
+    inputs = fwd_inputs_plain(weights, actions, a_emb, v_emb)
+    deter, mixed, post_stoch = fwd_chain_plain(weights, inputs, init_deter, init_stoch, g_post,
+                                               class_size, category_size)
+    prior_logits, prior_stoch = fwd_priors_plain(weights, deter, g_prior, class_size,
+                                                 category_size)
+    return deter, prior_logits, prior_stoch, mixed, post_stoch
 
 
 def recurrence_backward_plain(
@@ -387,49 +462,104 @@ def chain_rows(lib, A: int, E: int, H: int, D: int, C: int, K: int, B: int, devi
     return R
 
 
+def fwd_rows(lib, T: int, A: int, E: int, H: int, D: int, C: int, K: int, B: int,
+             device) -> int:
+    """Batch rows per block of the forward kernel (also the stacked
+    forward's) whose shared memory fits; raises where one row does not."""
+    R = lib.mrssm_recurrence_fwd_rows(T, A, E, H, D, C, K, _rows_per_block(B, device))
+    if R < 1:
+        raise ValueError(f"the forward kernel's shared memory does not fit one block at T={T} "
+                         f"A={A} E={E} H={H} D={D} S={C}x{K}")
+    return R
+
+
+def _check_categories(category_size: int) -> None:
+    """The forward kernel samples a category block within one warp's lanes."""
+    if category_size > 32:
+        raise ValueError(f"the forward kernel takes category blocks of at most 32, got "
+                         f"{category_size}")
+
+
+def _forward_expect(actions: torch.Tensor, a_emb: torch.Tensor, v_emb: torch.Tensor,
+                    init_deter: torch.Tensor, init_stoch: torch.Tensor, g_prior: torch.Tensor,
+                    g_post: torch.Tensor,
+                    S: int) -> dict[str, tuple[torch.Tensor, tuple[int, ...]]]:
+    """The forward's inputs and the shapes they must have (``_check_inputs``)."""
+    T, B, A = actions.shape
+    E, D = a_emb.shape[-1], init_deter.shape[-1]
+    return {
+        "actions": (actions, (T, B, A)), "a_emb": (a_emb, (T, B, E)), "v_emb": (v_emb, (T, B, E)),
+        "init_deter": (init_deter, (B, D)), "init_stoch": (init_stoch, (B, S)),
+        "g_prior": (g_prior, (T, B, S)), "g_post": (g_post, (T, B, S)),
+    }
+
+
 def recurrence_forward_cuda(
     weights: Sequence[torch.Tensor], actions: torch.Tensor, a_emb: torch.Tensor,
     v_emb: torch.Tensor, init_deter: torch.Tensor, init_stoch: torch.Tensor,
     g_prior: torch.Tensor, g_post: torch.Tensor, class_size: int, category_size: int,
 ) -> tuple[torch.Tensor, ...]:
-    """Launch the forward kernel (``csrc/recurrence_fwd.cu``); same contract as
-    :func:`recurrence_forward_plain` with ELU. Raises on any input the kernel
-    does not take."""
+    """Launch the forward kernel (``csrc/recurrence_fwd.cu``: prologue, chain
+    and epilogue in one launch); same contract as
+    :func:`recurrence_forward_plain` with ELU. Raises on any input the
+    kernel does not take, and where a block's shared memory would not fit."""
     global launches
+    outs, _ = forward_launch(weights, actions, a_emb, v_emb, init_deter, init_stoch, g_prior,
+                             g_post, class_size, category_size)
+    if actions.shape[0] and actions.shape[1]:
+        launches += 1
+    return outs
+
+
+def forward_launch(
+    weights: Sequence[torch.Tensor], actions: torch.Tensor, a_emb: torch.Tensor,
+    v_emb: torch.Tensor, init_deter: torch.Tensor, init_stoch: torch.Tensor,
+    g_prior: torch.Tensor, g_post: torch.Tensor, class_size: int, category_size: int,
+    stages: int = 7, workspace: torch.Tensor | None = None,
+    outs: Sequence[torch.Tensor] | None = None,
+) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
+    """Launch the forward kernel's stages in ``stages`` (1 the prologue, 2
+    the chain, 4 the epilogue) on ``workspace`` (the prologue's sums, ``[T,
+    B, 3H]``; allocated when None) into ``outs`` (the five outputs; allocated
+    when None; a stage left out leaves its outputs as they are). Returns the
+    outputs and the workspace, for tests that run one stage on what they
+    wrote. Counts no launch."""
     from multimodal_mtrssm_tpu_torch.ops.kernels import build
 
     if len(weights) != N_WEIGHTS:
         raise ValueError(f"expected {N_WEIGHTS} weights, got {len(weights)}")
+    _check_categories(category_size)
     T, B, A = actions.shape
     E = a_emb.shape[-1]
     D = init_deter.shape[-1]
     H = weights[0].shape[0]
     S = class_size * category_size
-    expect = {
-        "actions": (actions, (T, B, A)), "a_emb": (a_emb, (T, B, E)), "v_emb": (v_emb, (T, B, E)),
-        "init_deter": (init_deter, (B, D)), "init_stoch": (init_stoch, (B, S)),
-        "g_prior": (g_prior, (T, B, S)), "g_post": (g_post, (T, B, S)),
-    }
+    expect = _forward_expect(actions, a_emb, v_emb, init_deter, init_stoch, g_prior, g_post, S)
     for i, (w, shape) in enumerate(zip(weights, weight_shapes(A, S, H, D, E))):
         expect[f"weights[{i}]"] = (w, shape)
+    if outs is None:
+        outs = [actions.new_empty((T, B, d)) for d in (D, S, S, S, S)]
+    for i, (o, d) in enumerate(zip(outs, (D, S, S, S, S))):
+        expect[f"outs[{i}]"] = (o, (T, B, d))
+    if workspace is None:
+        workspace = actions.new_empty((T, B, 3 * H))
+    expect["workspace"] = (workspace, (T, B, 3 * H))
     _check_inputs(expect, actions.device)
-    out = [actions.new_empty((T, B, d)) for d in (D, S, S, S, S)]
     if T == 0 or B == 0:
-        return tuple(out)
+        return tuple(outs), workspace
     lib = build.load_library()
-    R = _rows_per_block(B, actions.device)
     ptrs = (ctypes.c_void_p * N_WEIGHTS)(*(w.data_ptr() for w in weights))
     with torch.cuda.device(actions.device):
+        R = fwd_rows(lib, T, A, E, H, D, class_size, category_size, B, actions.device)
         stream = torch.cuda.current_stream(actions.device).cuda_stream
         err = lib.mrssm_recurrence_forward(
             ctypes.cast(ptrs, ctypes.c_void_p),
             *(t.data_ptr() for t in (actions, a_emb, v_emb, init_deter, init_stoch, g_prior, g_post)),
-            *(o.data_ptr() for o in out),
-            T, B, A, E, H, D, class_size, category_size, R, stream,
+            *(o.data_ptr() for o in outs), workspace.data_ptr(),
+            T, B, A, E, H, D, class_size, category_size, R, stages, stream,
         )
     build.check(err)
-    launches += 1
-    return tuple(out)
+    return tuple(outs), workspace
 
 
 def recurrence_backward_cuda(

@@ -23,17 +23,15 @@ JAX's: ``wg`` is ``[6D, H+D]`` (rows ``gi | gh``, columns ``x2 | deter``),
 
 The kernels (``csrc/recurrence_stacked_{fwd,bwd}.cu``) replace
 ``_fwd_kernel_stacked`` (line 164) and ``_bwd_kernel_stacked`` (line 190).
-Like :mod:`.recurrence`'s forward kernel, the forward runs the T loop
-inside one block per tile of batch rows with ``[T, B, ·]`` streamed through
-device memory, so the TPU's VMEM guard (stacked falls back to the chunked
-kernel when ``[T, B]`` does not fit) has no counterpart. What bounds it is
-the latency of a dependent chain of ~10 stages a step, not FLOPs or bytes;
-the stacked layout turns the three heads and the two gate products into
-one wider phase each. The backward gains nothing from the fold: it is
-:mod:`.recurrence`'s three passes (a recompute of all T·B row-steps, the
-carry-only chain, the deferred GEMMs), run on the stacked tensors'
-non-zero blocks packed into the 20-tensor layout, with the 20 gradients
-scattered into the non-zero blocks of the stacked gradients
+Neither gains from the fold on the card: a chain's phase count is set by the
+carries' dataflow, and a phase costs the same whatever the length of its
+dots. So each is :mod:`.recurrence`'s kernels run on the stacked tensors'
+non-zero blocks packed into the 20-tensor layout (``csrc/stack_map.cuh``):
+the forward is the pack then :mod:`.recurrence`'s three-stage forward kernel,
+its outputs those of the unstacked forward bit for bit; the backward is the
+pack, :mod:`.recurrence`'s three passes (a recompute of all T·B row-steps,
+the carry-only chain, the deferred GEMMs), and the 20 gradients scattered
+into the non-zero blocks of the stacked gradients
 (:func:`recurrence_stacked_backward_passes_plain` is that composition in
 plain PyTorch).
 """
@@ -52,9 +50,11 @@ from multimodal_mtrssm_tpu_torch.ops.distributions import block_probs, st_sample
 from multimodal_mtrssm_tpu_torch.ops.fusion import mopoe_mix_log_probs
 from multimodal_mtrssm_tpu_torch.ops.kernels.recurrence import (
     N_WEIGHTS,
+    _check_categories,
     _check_inputs,
-    _rows_per_block,
+    _forward_expect,
     chain_rows,
+    fwd_rows,
     recurrence_backward_passes_plain,
 )
 
@@ -210,38 +210,27 @@ def _dims(stacked: Sequence[torch.Tensor], a_emb: torch.Tensor,
     return stacked[2].shape[0], deter.shape[-1], a_emb.shape[-1]
 
 
-def _rows(lib, A: int, E: int, H: int, D: int, C: int, K: int, B: int, device) -> int:
-    """The forward's rows per block whose shared memory fits; raises where
-    one row does not."""
-    R = lib.mrssm_stacked_rows(A, E, H, D, C, K, _rows_per_block(B, device))
-    if R < 1:
-        raise ValueError(
-            f"the stacked forward kernel's shared memory does not fit one block at A={A} E={E} "
-            f"H={H} D={D} S={C * K}")
-    return R
-
-
 def recurrence_stacked_forward_cuda(
     stacked: Sequence[torch.Tensor], actions: torch.Tensor, a_emb: torch.Tensor,
     v_emb: torch.Tensor, init_deter: torch.Tensor, init_stoch: torch.Tensor,
     g_prior: torch.Tensor, g_post: torch.Tensor, class_size: int, category_size: int,
 ) -> tuple[torch.Tensor, ...]:
-    """Launch the stacked forward kernel (``csrc/recurrence_stacked_fwd.cu``);
-    same contract as :func:`recurrence_stacked_forward_plain` with ELU.
-    Raises on any input the kernel does not take."""
+    """Launch the stacked forward (``csrc/recurrence_stacked_fwd.cu``: the
+    pack, then :mod:`.recurrence`'s forward kernel on the packed weights);
+    same contract as :func:`recurrence_stacked_forward_plain` with ELU, its
+    outputs :func:`.recurrence.recurrence_forward_cuda`'s on the unstacked
+    weights bit for bit. Raises on any input the kernels do not take, and
+    where a block's shared memory would not fit."""
     global launches
     from multimodal_mtrssm_tpu_torch.ops.kernels import build
 
     if len(stacked) != N_STACKED:
         raise ValueError(f"expected {N_STACKED} stacked weights, got {len(stacked)}")
+    _check_categories(category_size)
     T, B, A = actions.shape
     H, D, E = _dims(stacked, a_emb, init_deter)
     S = class_size * category_size
-    expect = {
-        "actions": (actions, (T, B, A)), "a_emb": (a_emb, (T, B, E)), "v_emb": (v_emb, (T, B, E)),
-        "init_deter": (init_deter, (B, D)), "init_stoch": (init_stoch, (B, S)),
-        "g_prior": (g_prior, (T, B, S)), "g_post": (g_post, (T, B, S)),
-    }
+    expect = _forward_expect(actions, a_emb, v_emb, init_deter, init_stoch, g_prior, g_post, S)
     for i, (w, shape) in enumerate(zip(stacked, stacked_shapes(A, S, H, D, E))):
         expect[f"stacked[{i}]"] = (w, shape)
     _check_inputs(expect, actions.device)
@@ -251,12 +240,14 @@ def recurrence_stacked_forward_cuda(
     lib = build.load_library()
     ptrs = (ctypes.c_void_p * N_STACKED)(*(w.data_ptr() for w in stacked))
     with torch.cuda.device(actions.device):
-        R = _rows(lib, A, E, H, D, class_size, category_size, B, actions.device)
+        R = fwd_rows(lib, T, A, E, H, D, class_size, category_size, B, actions.device)
+        workspace = actions.new_empty(
+            lib.mrssm_stacked_fwd_workspace(T, B, A, E, H, D, class_size, category_size))
         stream = torch.cuda.current_stream(actions.device).cuda_stream
         err = lib.mrssm_stacked_forward(
             ctypes.cast(ptrs, ctypes.c_void_p),
             *(t.data_ptr() for t in (actions, a_emb, v_emb, init_deter, init_stoch, g_prior, g_post)),
-            *(o.data_ptr() for o in out),
+            *(o.data_ptr() for o in out), workspace.data_ptr(),
             T, B, A, E, H, D, class_size, category_size, R, stream,
         )
     build.check(err)

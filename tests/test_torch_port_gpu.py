@@ -74,14 +74,19 @@ def _cotangents(seed: int, outs) -> list[torch.Tensor]:
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,T", [(8, 30), (3, 7)])
+@pytest.mark.parametrize("T", [1, 7, 30])
+@pytest.mark.parametrize("B", [1, 3, 8, 32, 128, 256, 512])
 def test_recurrence_kernel_matches_plain(cuda_device, B, T):
+    """The forward kernel against its plain version, two launches
+    bit-identical; B=256 puts two batch rows in a block, B=512 four."""
     w = _model(cuda_device).representation_weights()
     ins = _inputs(B + T, B, T, cuda_device)
     with torch.no_grad():
         got = recurrence.recurrence_forward_cuda(w, *ins, C, K)
+        again = recurrence.recurrence_forward_cuda(w, *ins, C, K)
         ref = recurrence.recurrence_forward_plain(w, *ins, C, K)
     parity.check_recurrence(got, ref, ins[5], ins[6], C, K)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.gpu
@@ -115,13 +120,17 @@ def test_recurrence_backward_kernel_matches_plain(cuda_device, B, T):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-# Widths of the backward's cases beyond the model's: A, E, H, D, C, K.
+# Widths of the recurrence's cases beyond the model's: A, E, H, D, C, K
+# (records and weights no multiple of 4 floats and 3 × 5 categories; 32
+# categories a class; a latent of 5 × 8, wider than a warp).
 BWD_WIDTHS = {"odd": (5, 63, 33, 17, 3, 5), "k32": (6, 64, 32, 32, 2, 32)}
+FWD_WIDTHS = {"odd": BWD_WIDTHS["odd"], "s40": (6, 64, 32, 32, 5, 8)}
 
 
-def _backward_case(seed: int, widths, B: int, T: int, dev):
-    """Random weights (torch layout, some not 16-byte aligned), inputs, the
-    plain forward's record and cotangents at ``widths``, made by numpy."""
+def _forward_case(seed: int, widths, B: int, T: int, dev):
+    """Random weights (torch layout, odd ones one float off 16-byte
+    alignment), inputs and noise at ``widths``, made by numpy: the forward's
+    arguments."""
     A, E, H, D, Cw, Kw = widths
     S = Cw * Kw
     rng = np.random.default_rng(seed)
@@ -138,11 +147,87 @@ def _backward_case(seed: int, widths, B: int, T: int, dev):
                           rng.standard_normal((T, B, E)), np.tanh(rng.standard_normal((B, D))),
                           stoch0.reshape(B, S), rng.gumbel(size=(T, B, S)),
                           rng.gumbel(size=(T, B, S)))]
+    return (w, *ins, Cw, Kw)
+
+
+def _backward_case(seed: int, widths, B: int, T: int, dev):
+    """:func:`_forward_case`'s weights and inputs, the plain forward's
+    record and cotangents at ``widths``: the backward's arguments."""
+    w, *ins, Cw, Kw = _forward_case(seed, widths, B, T, dev)
     with torch.no_grad():
         outs = recurrence.recurrence_forward_plain(w, *ins, Cw, Kw)
     prev_deter = torch.cat([ins[3][None], outs[0][:-1]])
     prev_stoch = torch.cat([ins[4][None], outs[4][:-1]])
     return (w, *ins[:3], prev_deter, prev_stoch, _cotangents(seed, outs), Cw, Kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,B,T", [("odd", 8, 30), ("odd", 3, 7), ("odd", 256, 30),
+                                      ("s40", 8, 30), ("s40", 128, 30), ("s40", 3, 1)])
+def test_recurrence_kernel_at_other_widths(cuda_device, name, B, T):
+    """The forward kernel at widths whose weights are no multiple of 4
+    floats (and off 16-byte alignment), 3 × 5 categories, and at a latent
+    wider than a warp (the fusion's and sampling's lanes loop): against its
+    plain version, two launches bit-identical."""
+    args = _forward_case(B + T, FWD_WIDTHS[name], B, T, cuda_device)
+    with torch.no_grad():
+        got = recurrence.recurrence_forward_cuda(*args)
+        again = recurrence.recurrence_forward_cuda(*args)
+        ref = recurrence.recurrence_forward_plain(*args)
+    parity.check_recurrence(got, ref, args[6], args[7], *args[8:])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_recurrence_forward_stays_in_its_workspace(cuda_device):
+    """The kernel reads and writes its workspace ``[T, B, 3H]`` and no float
+    past it: on a view of a larger buffer whose tail holds NaN, the tail
+    stays NaN and the outputs are those of a call on its own workspace, bit
+    for bit."""
+    args = _forward_case(7, FWD_WIDTHS["odd"], 3, 7, cuda_device)
+    H = args[0][0].shape[0]
+    n = 7 * 3 * 3 * H
+    big = torch.full((n + 257,), float("nan"), device=cuda_device)
+    with torch.no_grad():
+        ref, _ = recurrence.forward_launch(*args)
+        got, ws = recurrence.forward_launch(*args, workspace=big[:n].view(7, 3, 3 * H))
+    assert ws.data_ptr() == big.data_ptr()
+    assert bool(big[n:].isnan().all()) and not bool(big[:n].isnan().any())
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,B,T", [("model", 8, 30), ("model", 128, 30), ("odd", 3, 7),
+                                      ("s40", 8, 30)])
+def test_recurrence_forward_stages_match_their_plain_stages(cuda_device, name, B, T):
+    """Each stage of the forward kernel alone against its plain stage on the
+    same input: the prologue's workspace (within 1e-4); the chain on the
+    plain prologue's sums (deter, mixed logits and the posterior sample, held
+    with the plain stages' priors by ``check_recurrence``), leaving the
+    prior's outputs as they were; the epilogue on the plain chain's deters."""
+    if name == "model":
+        args = (_model(cuda_device).representation_weights(),
+                *_inputs(B + T, B, T, cuda_device), C, K)
+    else:
+        args = _forward_case(B + T, FWD_WIDTHS[name], B, T, cuda_device)
+    w, actions, a_emb, v_emb, _, _, g_prior, g_post, Cw, Kw = args
+    chain_i, prior_i = (0, 3, 4), (1, 2)
+    with torch.no_grad():
+        ref = recurrence.recurrence_forward_stages_plain(*args)
+        inputs = recurrence.fwd_inputs_plain(w, actions, a_emb, v_emb)
+        _, ws = recurrence.forward_launch(*args, stages=1)
+        assert float((ws - inputs).abs().max()) <= 1e-4
+        outs = [torch.full_like(r, float("nan")) for r in ref]
+        chain, _ = recurrence.forward_launch(*args, stages=2, workspace=inputs.clone(), outs=outs)
+        assert all(bool(chain[i].isnan().all()) for i in prior_i)
+        parity.check_recurrence([chain[i] if i in chain_i else ref[i] for i in range(5)], ref,
+                                g_prior, g_post, Cw, Kw)
+        outs = [r.clone() if i == 0 else torch.full_like(r, float("nan"))
+                for i, r in enumerate(ref)]
+        priors, _ = recurrence.forward_launch(*args, stages=4, outs=outs)
+        assert all(bool(priors[i].isnan().all()) for i in (3, 4))
+        parity.check_recurrence([priors[i] if i in prior_i else ref[i] for i in range(5)], ref,
+                                g_prior, g_post, Cw, Kw)
 
 
 @pytest.mark.gpu
@@ -214,28 +299,42 @@ def _digest(tensors) -> str:
 
 def mrssm_backward_digest(dev) -> str:
     """The digest of the MRSSM backward's 25 outputs at B=8 T=30 on the
-    model's weights, seeded inputs and cotangents (the forward kernel's
-    record)."""
+    model's weights, seeded inputs and cotangents, fed with the plain
+    forward's record (so that it does not move with the forward kernel)."""
     w = _model(dev).representation_weights()
     ins = _inputs(240, 8, 30, dev)
     with torch.no_grad():
-        outs = recurrence.recurrence_forward_cuda(w, *ins, C, K)
+        outs = recurrence.recurrence_forward_plain(w, *ins, C, K)
         args = (w, *ins[:3], torch.cat([ins[3][None], outs[0][:-1]]),
                 torch.cat([ins[4][None], outs[4][:-1]]), _cotangents(30, outs), C, K)
         return _digest(recurrence.recurrence_backward_cuda(*args))
 
 
-# mrssm_backward_digest on an NVIDIA H100 80GB HBM3 with the MRSSM backward
-# as it stood before its chain and staging helpers moved into
-# csrc/chain_common.cuh and the deferred-GEMM task cap rose.
-MRSSM_BWD_DIGEST = "44589ad728afaa26b3ee9fb62d91f4457df8d1d40550279f1583b5b310ef8145"
+def mrssm_rollout_digest(dev) -> str:
+    """The digest of the MRSSM rollout's outputs at B=8 T=30 on the model's
+    weights, seeded actions and initial state."""
+    w = _model(dev).transition.weights()
+    ins = _inputs(240, 8, 30, dev)
+    with torch.no_grad():
+        return _digest(rollout.rollout_cuda(w, ins[0].transpose(0, 1).contiguous(), ins[3],
+                                            ins[4], 77, C, K))
+
+
+# mrssm_backward_digest and mrssm_rollout_digest on an NVIDIA H100 80GB
+# HBM3, taken with the MRSSM backward and rollout as they stood before the
+# MRSSM forward's redesign (the backward as it stood since its chain and
+# staging helpers moved into csrc/chain_common.cuh).
+MRSSM_BWD_DIGEST = "487a700ee7d1d98cd462729989b44db838c4cb1db0f93b74768d601ff58d45c4"
+MRSSM_ROLLOUT_DIGEST = "8c407abe622e418983ca37c4680024aa463d0426c9d16b85193b9c9ffb2e469c"
 
 
 @pytest.mark.gpu
 def test_recurrence_backward_bits_unchanged_by_the_shared_helpers(cuda_device):
-    """The MRSSM backward's three kernels give the bits they gave before the
-    shared header: the helpers moved, nothing they compute changed."""
+    """The MRSSM backward's three kernels and the MRSSM rollout give the bits
+    they gave before the forward's redesign: the helpers they share with it
+    did not change what they compute."""
     assert mrssm_backward_digest(cuda_device) == MRSSM_BWD_DIGEST
+    assert mrssm_rollout_digest(cuda_device) == MRSSM_ROLLOUT_DIGEST
 
 
 def _train_step_card_vs_cpu(family, cfg, dev) -> None:
@@ -489,6 +588,15 @@ def mt_backward_digest(dev) -> str:
                                                                  _cotangents(30, outs)))
 
 
+def mt_forward_digest(dev) -> str:
+    """The digest of the MT forward's 12 outputs at B=8 T=30 on the model's
+    weights, seeded inputs and noise."""
+    w = _mt_model(dev).recurrence_weights()
+    xs, init6, gumbels = _mt_inputs(240, 8, 30, dev)
+    with torch.no_grad():
+        return _digest(recurrence_mt.mt_recurrence_forward_cuda(w, *xs, init6, gumbels))
+
+
 def mt_rollout_digest(dev) -> str:
     """The digest of the MT rollout's outputs at B=8 T=30 on the model's
     weights, seeded actions and initial state."""
@@ -512,6 +620,18 @@ def test_mt_backward_and_rollout_bits_unchanged_by_the_forward(cuda_device):
     with it did not move."""
     assert mt_backward_digest(cuda_device) == MT_BWD_DIGEST
     assert mt_rollout_digest(cuda_device) == MT_ROLLOUT_DIGEST
+
+
+# mt_forward_digest on an NVIDIA H100 80GB HBM3 with the MT forward as it
+# stood before the MRSSM forward's redesign moved to forward_chain.cuh.
+MT_FWD_DIGEST = "c38cb88fa85315c062e6d052d1f37fd79a245e1efeaa35b2cd0e67273d900576"
+
+
+@pytest.mark.gpu
+def test_mt_forward_bits_unchanged_by_the_mrssm_forward(cuda_device):
+    """The MT forward gives the bits it gave before the MRSSM forward's
+    redesign: the device functions they share did not change."""
+    assert mt_forward_digest(cuda_device) == MT_FWD_DIGEST
 
 
 @pytest.mark.gpu
@@ -624,6 +744,31 @@ def test_stacked_recurrence_kernels_match_plain(cuda_device, B, T):
     dims = (6, 32, 32, 64)
     unstack = lambda g: (*recurrence_stacked.unstack_train_grads(g[:10], dims), *g[10:])  # noqa: E731
     parity.check_gradients(unstack(got), unstack(ref))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,B,T", [("model", 8, 30), ("model", 128, 30), ("model", 3, 7),
+                                      ("odd", 8, 30), ("s40", 3, 7)])
+def test_stacked_recurrence_forward_is_the_unstacked_kernel(cuda_device, name, B, T):
+    """The stacked forward runs the unstacked forward's kernel on its packed
+    weights: its five outputs are ``recurrence_forward_cuda``'s on the 20
+    weights it was stacked from, bit for bit (at the odd widths some of
+    those weights lie off 16-byte alignment); two launches are
+    bit-identical."""
+    if name == "model":
+        args = ([x.detach() for x in _model(cuda_device).representation_weights()],
+                *_inputs(B * T + 3, B, T, cuda_device), C, K)
+    else:
+        args = _forward_case(B + T, FWD_WIDTHS[name], B, T, cuda_device)
+    w, rest = args[0], args[1:]
+    with torch.no_grad():
+        st = recurrence_stacked.stack_train_params(w)
+        got = recurrence_stacked.recurrence_stacked_forward_cuda(st, *rest)
+        again = recurrence_stacked.recurrence_stacked_forward_cuda(st, *rest)
+        ref = recurrence.recurrence_forward_cuda(*args)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert torch.equal(a, b), f"output {i} differs from the unstacked kernel's"
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
