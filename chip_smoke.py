@@ -10,7 +10,10 @@ MMTRSSM recurrence backward's (``mt_recurrence_bwd_phase``),
 ``--mt-recurrence-fwd`` only the MMTRSSM recurrence forward's
 (``mt_recurrence_fwd_phase``), ``--recurrence-fwd`` only the MRSSM
 recurrence forward's beside the stacked forward's
-(``recurrence_fwd_phase``), ``--stacked-recurrence-bwd`` only the stacked
+(``recurrence_fwd_phase``), ``--rollout`` only both imagination rollouts'
+(``rollout_phase``: a call's CUDA-event time, its kernel's device time,
+each stage's alone and one against two batch rows a block, at B=8 T=30,
+B=64 T=30 and B=256 T=180), ``--stacked-recurrence-bwd`` only the stacked
 recurrence backward's beside the unstacked one's
 (``stacked_recurrence_bwd_phase``): for comparing two trees in one call.
 Four configurations go through the serving and training phases, each with
@@ -37,7 +40,8 @@ first two configurations' latent features.
    both rollouts at B=10
    T=10, B=64 T=30 and B=256 T=180 (replay of their stochs within 1e-4,
    stochs equal to the argmax of their logits plus the seed's Philox noise,
-   sampling frequencies against the softmax, both MT sites); the stacked
+   two launches bit-identical, sampling frequencies against the softmax,
+   both MT sites); the stacked
    recurrence forward and backward at B=8 T=30, B=128 T=30 and B=3 T=7
    (the same limits, on unstacked gradients; the forward's outputs
    bit-identical to the unstacked forward's on the same weights; the
@@ -85,7 +89,8 @@ first two configurations' latent features.
    forward and backward calls; and the registers, stack and spills
    ``ptxas`` gives the fused encoder's and decoder's kernels, forward and
    backward, the MRSSM and MMTRSSM recurrence backwards' three kernels, the
-   stacked backward's pack and scatter and both recurrence forwards.
+   stacked backward's pack and scatter, both recurrence forwards and both
+   rollouts.
 
 Each configuration's serving and training run, and the decoder's path
 (``fused_decoder_apply`` on both decoders of the first two configurations'
@@ -222,9 +227,12 @@ def check_kernels(model, cfg, dev) -> dict[str, dict]:
         deter0, stoch0 = _recurrence_inputs(rng, B, 1, cfg, dev)[3:5]
         seed = 1234 + B
         got = rollout.rollout_cuda(tw, actions, deter0, stoch0, seed, C, K)
+        again = rollout.rollout_cuda(tw, actions, deter0, stoch0, seed, C, K)
         r = check_rollout(tw, actions, deter0, stoch0, seed, got, C, K, TOL, TIE_EPS)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise ParityError(f"rollout B={B} T={T}: two launches differ")
         print(f"check rollout B={B} T={T}: max_abs_err={r['max_abs_err']:.3g} "
-              f"blocks_compared={r['compared']:.4f}")
+              f"blocks_compared={r['compared']:.4f}, reproducible")
         results["rollout"]["max_abs_err"] = max(results["rollout"]["max_abs_err"],
                                                 r["max_abs_err"])
     # Sampling frequencies: with the prior head's output weight zeroed, the
@@ -388,9 +396,12 @@ def check_mt_kernels(model, cfg, dev) -> dict[str, dict]:
         actions = xs[0].transpose(0, 1).contiguous()
         seed = 4321 + B
         got = rollout_mt.rollout_mt_cuda(tw, actions, init6, seed, spec)
+        again = rollout_mt.rollout_mt_cuda(tw, actions, init6, seed, spec)
         r = check_mt_rollout(tw, actions, init6, seed, got, spec, TOL, TIE_EPS)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise ParityError(f"mt_rollout B={B} T={T}: two launches differ")
         print(f"check mt_rollout B={B} T={T}: max_abs_err={r['max_abs_err']:.3g} "
-              f"blocks_compared={r['compared']:.4f}")
+              f"blocks_compared={r['compared']:.4f}, reproducible")
         results["mt_rollout"]["max_abs_err"] = max(results["mt_rollout"]["max_abs_err"],
                                                    r["max_abs_err"])
     # Sampling frequencies at both sites: with both priors' output weights
@@ -898,6 +909,79 @@ def rec_fwd_timings(model, cfg, dev, card: str) -> None:
                   "(torch.profiler, 10 launches): " + ", ".join(
                       f"{k} " + ("not measured" if v is None else f"{v:.4f}")
                       for k, v in stages.items()) + f" | {card}")
+
+
+# The device kernel of one rollout_cuda and one rollout_mt_cuda call, as the
+# profiler names it (a substring); the one-kernel rollouts they replaced are
+# listed too, so that the same timing reads both trees. The stages a
+# rollout's launch runs alone (its flags; staging always runs), and the
+# shapes of the --rollout timings.
+ROLLOUT_KERNELS = {"rollout": {"staged kernel": "rollout_stages_kernel",
+                               "one-kernel rollout (before the stages)": "rollout_kernel"},
+                   "mt_rollout": {"staged kernel": "mt_rollout_stages_kernel",
+                                  "one-kernel rollout (before the stages)": "mt_rollout_kernel"}}
+ROLLOUT_STAGES = {"weight staging": 0, "+ prologue": 1, "+ chain": 2}
+ROLLOUT_SHAPES = ((8, 30), (64, 30), (256, 180))
+
+
+def rollout_timings(dev, card: str) -> None:
+    """Both rollouts on seeded weights of ``MRSSMConfig()`` and
+    ``MMTRSSMConfig()``: a call by CUDA events (median of 30) beside its
+    kernel's device time (``torch.profiler``) at ``ROLLOUT_SHAPES``; where
+    the kernel runs its stages one at a time (``rollout_launch``,
+    ``rollout_mt_launch``), the device time of the weight staging alone and
+    of each stage with it, and at B=256 that of one and of two batch rows a
+    block (measurements: nothing here fails)."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.models import (
+        MMTRSSMConfig,
+        MoPoEMMTRSSM,
+        MoPoEMRSSM,
+        MRSSMConfig,
+    )
+    from multimodal_mtrssm_tpu_torch.ops.kernels import rollout, rollout_mt
+
+    cfg, mt_cfg = MRSSMConfig(), MMTRSSMConfig()
+    C, K, spec = cfg.class_size, cfg.category_size, mt_cfg.spec
+    tw = [w.detach() for w in _seeded(MoPoEMRSSM, cfg, dev).transition.weights()]
+    mw = [w.detach() for w in _seeded(MoPoEMMTRSSM, mt_cfg, dev).rollout_weights()]
+    launch = getattr(rollout, "rollout_launch", None)
+    mt_launch = getattr(rollout_mt, "rollout_mt_launch", None)
+    rng = np.random.default_rng(SEED + 17)
+    for B, T in ROLLOUT_SHAPES:
+        actions = torch.tensor(rng.uniform(-1, 1, (B, T, cfg.action_size)).astype(np.float32),
+                               device=dev)
+        deter0, stoch0 = _recurrence_inputs(rng, B, 1, cfg, dev)[3:5]
+        xs, init6, _ = _mt_inputs(rng, B, T, mt_cfg, dev)
+        mt_actions = xs[0].transpose(0, 1).contiguous()
+        cases = (
+            ("rollout", lambda: rollout.rollout_cuda(tw, actions, deter0, stoch0, 5, C, K),
+             launch and (lambda **kw: launch(tw, actions, deter0, stoch0, 5, C, K, **kw))),
+            ("mt_rollout", lambda: rollout_mt.rollout_mt_cuda(mw, mt_actions, init6, 5, spec),
+             mt_launch and (lambda **kw: mt_launch(mw, mt_actions, init6, 5, spec, **kw))))
+        with torch.no_grad():
+            for name, call, stage_launch in cases:
+                kernels = ROLLOUT_KERNELS[name]
+                ms = _median_ms(call, 30)
+                _print_breakdown(f"{name} B={B} T={T} (call {ms:.4f} ms by CUDA events)",
+                                 _device_breakdown(call, kernels.values()), kernels, card)
+                if stage_launch is None:
+                    continue
+                key = kernels["staged kernel"]
+                outs, ws = stage_launch()
+                stages = {k: _device_ms(lambda m=m: stage_launch(stages=m, workspace=ws, outs=outs),
+                                        key) for k, m in ROLLOUT_STAGES.items()}
+                print(f"time {name} B={B} T={T} stages alone, device ms a launch "
+                      "(torch.profiler, 10 launches): " + ", ".join(
+                          f"{k} " + ("not measured" if v is None else f"{v:.4f}")
+                          for k, v in stages.items()) + f" | {card}")
+                if B >= 256:
+                    rows = {R: _device_ms(lambda R=R: stage_launch(rows=R), key) for R in (1, 2)}
+                    print(f"time {name} B={B} T={T} rows a block, device ms a call "
+                          "(torch.profiler, 10 calls): " + ", ".join(
+                              f"R={R} " + ("not measured" if v is None else f"{v:.4f}")
+                              for R, v in rows.items()) + f" | {card}")
 
 
 # The same of one mt_recurrence_backward_cuda call; the parent's one-kernel
@@ -1438,13 +1522,15 @@ _CHILDREN: list[subprocess.Popen] = []  # stopped on exit, whatever failed
 
 PTXAS_SOURCES = ("fused_encoder_fwd.cu", "fused_encoder_bwd.cu", "fused_decoder_fwd.cu",
                  "fused_decoder_bwd.cu", "recurrence_bwd.cu", "recurrence_mt_bwd.cu",
-                 "recurrence_stacked_bwd.cu", "recurrence_mt_fwd.cu", "recurrence_fwd.cu")
+                 "recurrence_stacked_bwd.cu", "recurrence_mt_fwd.cu", "recurrence_fwd.cu",
+                 "rollout.cu", "rollout_mt.cu")
 
 
 def start_ptxas_report(sources=PTXAS_SOURCES) -> list[subprocess.Popen]:
-    """Compile the fused stacks' sources, the three recurrence backwards' and
-    both recurrence forwards' once more with ``-Xptxas -v``, in the background
-    (into the git-ignored build directory), one ``nvcc`` each."""
+    """Compile the fused stacks' sources, the three recurrence backwards',
+    both recurrence forwards' and both rollouts' once more with ``-Xptxas
+    -v``, in the background (into the git-ignored build directory), one
+    ``nvcc`` each."""
     from multimodal_mtrssm_tpu_torch.ops.kernels import build
 
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -1461,7 +1547,7 @@ def start_ptxas_report(sources=PTXAS_SOURCES) -> list[subprocess.Popen]:
 def ptxas_report(procs: list[subprocess.Popen], sources=PTXAS_SOURCES) -> None:
     """Print ptxas's registers, stack and spills of each fused encoder and decoder
     kernel, forward and backward, of the three recurrence backwards' kernels and of
-    both recurrence forwards' (a measurement: "not measured" where the
+    both recurrence forwards' and rollouts' (a measurement: "not measured" where the
     compile fails). A backward's source also compiles the forward it recomputes
     through; those kernels are printed once, from the forward's source."""
     import re
@@ -1477,6 +1563,7 @@ def ptxas_report(procs: list[subprocess.Popen], sources=PTXAS_SOURCES) -> None:
             if "Compiling entry function" in line:
                 m = re.search(r"((?:en|de)coder_[a-z_]*kernel|"
                               r"(?:mt_)?recurrence_(?:bwd|fwd)_[a-z_]*kernel|"
+                              r"(?:mt_)?rollout_[a-z_]*kernel|"
                               r"stacked_[a-z_]*kernel|reduce_(?:weight|stacked)_grads)",
                               line.split("'")[1])
                 name = m.group(1) if m and m.group(1) not in seen else None
@@ -1845,6 +1932,13 @@ def recurrence_fwd_phase() -> int:
                                                           dev, card), ("recurrence_fwd.cu",))
 
 
+def rollout_phase() -> int:
+    """``--rollout``: only both rollouts' call times, device times, stages
+    and rows a block (``rollout_timings``) and ``ptxas``'s report of their
+    sources."""
+    return _timing_mode(rollout_timings, ("rollout.cu", "rollout_mt.cu"))
+
+
 def stacked_recurrence_bwd_phase() -> int:
     """``--stacked-recurrence-bwd``: only the stacked recurrence backward's
     call times and per-kernel device times beside the unstacked backward's
@@ -2037,7 +2131,7 @@ if __name__ == "__main__":
         modes = {"--decoder": decoder_phase, "--recurrence-bwd": recurrence_bwd_phase,
                  "--mt-recurrence-bwd": mt_recurrence_bwd_phase,
                  "--mt-recurrence-fwd": mt_recurrence_fwd_phase,
-                 "--recurrence-fwd": recurrence_fwd_phase,
+                 "--recurrence-fwd": recurrence_fwd_phase, "--rollout": rollout_phase,
                  "--stacked-recurrence-bwd": stacked_recurrence_bwd_phase}
         code = modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes else main()
     finally:

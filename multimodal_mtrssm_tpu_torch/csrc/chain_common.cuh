@@ -1,13 +1,13 @@
 // What the recurrence backwards' three passes share (recurrence_bwd.cu, the
 // MRSSM backward, and recurrence_mt_bwd.cu, the MMTRSSM backward; both
-// forwards' stages too, through forward_chain.cuh): the bulk copy (TMA) on an
-// mbarrier; the weights in torch layout by the bulk copy (stage_raw), and the
-// recompute's staging, transposed from there in shared memory to the
-// [in, out] layout the forward's device functions read; and the carry-only
-// chain's pieces — the
-// weight columns it transposes, staged row by row into rows padded off a
-// multiple of 32 floats, and each phase's outputs as dots split over up to
-// 32 lanes and added by full-mask shuffles in a fixed order.
+// forwards' and both rollouts' stages too, through forward_chain.cuh): the
+// bulk copy (TMA) on an mbarrier; the weights in torch layout by the bulk
+// copy (stage_raw), and the recompute's staging, transposed from there in
+// shared memory to the [in, out] layout the forward's device functions
+// read; and the carry-only chain's pieces — the weight columns it
+// transposes, staged row by row into rows padded off a multiple of 32
+// floats, and each phase's outputs as dots split over up to 32 lanes and
+// added by full-mask shuffles in a fixed order.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -184,17 +184,24 @@ __host__ __device__ inline int split_lanes(int rows, int items, int threads) {
   return P;
 }
 
-__device__ __forceinline__ Split make_split(int rows, int items) {
+// The same over the block's threads from `first` on (a multiple of 32): the
+// threads before it take no output (iters 0).
+__device__ __forceinline__ Split make_split_from(int rows, int items, int first) {
   Split s;
-  s.P = split_lanes(rows, items, blockDim.x);
-  const int slot = threadIdx.x / s.P, slots = blockDim.x / s.P;
-  s.part = threadIdx.x % s.P;
+  const int threads = blockDim.x - first, id = threadIdx.x - first;
+  s.P = split_lanes(rows, items, threads);
+  const int slot = id / s.P, slots = threads / s.P;
+  s.part = id % s.P;
   s.r = slot / items;
   s.j = slot % items;
   s.rstep = slots / items;
   s.jstep = slots % items;
-  s.iters = (rows * items + slots - 1) / slots;
+  s.iters = id < 0 ? 0 : (rows * items + slots - 1) / slots;
   return s;
+}
+
+__device__ __forceinline__ Split make_split(int rows, int items) {
+  return make_split_from(rows, items, 0);
 }
 
 // f(r, j, valid) for this thread's group's outputs, `iters` calls on every

@@ -1,11 +1,12 @@
 // What a recurrence forward in three stages needs beside chain_common.cuh
 // (recurrence_mt_fwd.cu, the MMTRSSM forward, and recurrence_fwd.cu, the
-// MRSSM forward, which the stacked forward runs too): the weight blocks a
-// stage reads, staged [in, out] in shared memory (the bulk copy brings them
-// in torch layout, then the block transposes them) at a row stride that puts
-// a phase's lane groups on distinct banks; the per-step prefetch of a step's
+// MRSSM forward, which the stacked forward runs too), and the imagination
+// rollouts in stages (rollout_mt.cu, rollout.cu): the weight blocks a stage
+// reads, staged [in, out] in shared memory (the bulk copy brings them in
+// torch layout, then the block transposes them) at a row stride that puts a
+// phase's lane groups on distinct banks; the per-step prefetch of a step's
 // inputs by cp.async; the MoPoE fusion with a warp a row, and the
-// straight-through samples with a lane an element.
+// straight-through and one-hot samples with a lane an element.
 //
 // The stages: a prologue computes every step's carry-free partial sums (the
 // layers' columns on inputs that no carry feeds) over all T steps of the
@@ -175,6 +176,23 @@ __device__ __forceinline__ void mopoe_warp(const float* la, const float* lv, int
   }
 }
 
+// The first-index argmax of `score` over the K adjacent lanes of this
+// lane's block (K a power of two ≤ 32, blocks aligned to K lanes; j this
+// lane's index in its block), by butterfly shuffles of the whole warp:
+// every lane of the block gets the block's best index.
+__device__ __forceinline__ int argmax_lanes(float score, int j, int K) {
+  int best = j;
+  for (int m = 1; m < K; m <<= 1) {
+    const float t = __shfl_xor_sync(0xffffffffu, score, m);
+    const int b = __shfl_xor_sync(0xffffffffu, best, m);
+    if (t > score || (t == score && b < best)) {
+      score = t;
+      best = b;
+    }
+  }
+  return best;
+}
+
 // Straight-through samples of one row's `classes` blocks of K values `v`
 // with the noise `g` (both in shared memory), a lane of the warp an element
 // (all lanes loop together over 32-element slices): the first-index argmax
@@ -196,17 +214,8 @@ __device__ __forceinline__ void st_lanes(const float* v, const float* g, int cla
     int best;
     if (shuffle) {
       mx = x;
-      float top = x + g[e];
-      best = j;
-      for (int m = 1; m < K; m <<= 1) {
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, m));
-        const float t = __shfl_xor_sync(0xffffffffu, top, m);
-        const int b = __shfl_xor_sync(0xffffffffu, best, m);
-        if (t > top || (t == top && b < best)) {
-          top = t;
-          best = b;
-        }
-      }
+      for (int m = 1; m < K; m <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, m));
+      best = argmax_lanes(x + g[e], j, K);
       const float ex = expf(x - mx);
       float sum = ex;
       for (int m = 1; m < K; m <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, m);
@@ -224,6 +233,28 @@ __device__ __forceinline__ void st_lanes(const float* v, const float* g, int cla
     if (s < S) {
       if (carry != nullptr) carry[s] = y;
       out[s] = y;
+    }
+  }
+}
+
+// Exact one-hot samples (the imagination rollouts' carries) of one row's
+// `classes` blocks of K logits `v` with the noise `g` (both in shared
+// memory), a lane of the warp an element (all lanes loop together over
+// 32-element slices): the first-index argmax of v + g in each block, as
+// st_lanes takes it, written as 1 or 0 into `out`, and the chosen column,
+// col0 + its index in v, into sel[block] (shared) for the next step's
+// gather of weight columns.
+__device__ __forceinline__ void onehot_lanes(const float* v, const float* g, int classes, int K,
+                                             int col0, int* sel, float* out) {
+  const int S = classes * K, lane = threadIdx.x & 31;
+  const bool shuffle = (K & (K - 1)) == 0 && K <= 32;
+  for (int s0 = 0; s0 < S; s0 += 32) {
+    const int s = s0 + lane, e = min(s, S - 1), j = e % K;
+    const int best = shuffle ? argmax_lanes(v[e] + g[e], j, K)
+                             : mrssm::block_argmax(v + (e - j), g + (e - j), K);
+    if (s < S) {
+      out[s] = j == best ? 1.f : 0.f;
+      if (j == 0) sel[s / K] = col0 + s + best;
     }
   }
 }

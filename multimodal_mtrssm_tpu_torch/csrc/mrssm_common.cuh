@@ -1,10 +1,10 @@
 // Shared device code of the recurrence kernels (the MRSSM kernels
 // recurrence_fwd.cu, recurrence_bwd.cu, rollout.cu and the MMTRSSM kernels
-// recurrence_mt_fwd.cu, recurrence_mt_bwd.cu, rollout_mt.cu): weight staging
-// into shared memory, the row-batched dense layer and its transpose, the
-// MTRNN cell, the reference's activation, fusion and sampling conventions,
-// their VJPs, the fixed-order reduction of per-block weight gradients over
-// blocks, Philox4x32-10.
+// recurrence_mt_fwd.cu, recurrence_mt_bwd.cu, rollout_mt.cu): the weights'
+// shapes, the row-batched dense layer and its transpose, the MTRNN cell, the
+// reference's activation, fusion and sampling conventions, their VJPs, the
+// fixed-order reduction of per-block weight gradients over blocks,
+// Philox4x32-10.
 //
 // All math is f32 with plain FMA loops: the products are 1..32 rows by
 // 16..192 columns, far below a tensor-core tile, and the JAX reference is
@@ -70,28 +70,6 @@ inline WeightDims weight_dims(const int* in, const int* out, int n) {
   }
   d.total = off;
   return d;
-}
-
-// Copy a torch Linear weight [out, in] into shared memory as [in, out], so
-// that the threads of a warp, which own neighbouring outputs, read
-// neighbouring words in the dense loop.
-__device__ __forceinline__ void stage_matrix(float* dst, const float* w, int out, int in) {
-  for (int i = threadIdx.x; i < out * in; i += blockDim.x) {
-    const int o = i / in, k = i - o * in;
-    dst[k * out + o] = w[i];
-  }
-}
-
-__device__ __forceinline__ void stage_vector(float* dst, const float* v, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = v[i];
-}
-
-// Stage every weight tensor at its offset in W.
-__device__ __forceinline__ void stage_weights(float* W, const WeightPtrs& w, const WeightDims& d) {
-  for (int i = 0; i < d.n; ++i) {
-    if (d.in[i] == 1) stage_vector(W + d.off[i], w.p[i], d.out[i]);
-    else stage_matrix(W + d.off[i], w.p[i], d.out[i], d.in[i]);
-  }
 }
 
 // ---- forward building blocks -----------------------------------------------
@@ -331,23 +309,15 @@ __device__ __forceinline__ float uniform_from_bits(uint32_t bits) {
   return __uint_as_float((bits >> 9) | 0x3F800001u) - 1.f;
 }
 
-// First-index Gumbel-argmax of one block of K logits with the Philox noise
-// of counter (t, b, block, word): a call gives four uniforms, so a block
-// takes ceil(K / 4) calls (ops/kernels/rollout.py::philox_block_gumbel).
-__device__ __forceinline__ int philox_block_argmax(const float* l, int K, uint32_t t, uint32_t b,
-                                                   uint32_t block, uint32_t key0, uint32_t key1) {
-  int best = 0;
-  float top = 0.f;
-  for (int wd = 0; wd * 4 < K; ++wd) {
-    uint32_t ctr[4] = {t, b, block, (uint32_t)wd};
-    philox4x32_10(ctr, key0, key1);
-    for (int q = 0; q < 4 && wd * 4 + q < K; ++q) {
-      const int j = wd * 4 + q;
-      const float s = l[j] + (-logf(-logf(uniform_from_bits(ctr[q]))));
-      if (j == 0 || s > top) { top = s; best = j; }
-    }
-  }
-  return best;
+// The Gumbel scores -log(-log(u)) that Philox word wd of category block
+// `block` gives at step t and batch row b: categories 4·wd .. 4·wd + 3 of a
+// block of K (those below K), into y[0..3]
+// (ops/kernels/rollout.py::philox_block_gumbel).
+__device__ __forceinline__ void gumbel_word(float* y, uint32_t t, uint32_t b, uint32_t block,
+                                            int wd, int K, uint32_t key0, uint32_t key1) {
+  uint32_t ctr[4] = {t, b, block, (uint32_t)wd};
+  philox4x32_10(ctr, key0, key1);
+  for (int u = 0; u < 4 && 4 * wd + u < K; ++u) y[u] = -logf(-logf(uniform_from_bits(ctr[u])));
 }
 
 }  // namespace mrssm

@@ -15,10 +15,17 @@ in torch integer ops, so a seed draws the same noise on the CPU and the card.
 
 What bounds it on the card: as for the recurrence, the T dependent steps of
 small products make it latency-bound at serving batches (B=8..64); only at
-B≥256 does the batch fill the SMs. The design is the recurrence kernel's
-(``recurrence.py``): one launch, one block per tile of batch rows with the T
-loop inside, the 12 transition weights (~39 KB) in shared memory, the noise
-generated in registers instead of read from device memory.
+B≥256 does the batch fill the SMs. The kernel is one launch in stages, each
+with a plain version here: a prologue of every step's carry-free work (the
+action columns of the transition's first layer and the seed's Gumbel
+scores, :func:`rollout_inputs_plain`, into a ``[T, B, H + S]`` workspace),
+and the T-step chain on the deter carry, two barrier phases a step
+(:func:`rollout_chain_plain`): the GRU, with the transition's second layer
+folded into its input gates (it is linear), then a warp a row for the prior,
+the sample on the prologue's noise (:func:`sample_plain`) and the next
+step's first layer, whose stoch columns are a gather of the ``class_size``
+columns the one-hot sample selects (:func:`gather_columns`; the given stoch
+at t = 0 need not be one-hot and goes through the dense product).
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ from typing import Callable, Sequence
 import torch
 import torch.nn.functional as F
 
-from multimodal_mtrssm_tpu_torch.nn.core import transition_step
+from multimodal_mtrssm_tpu_torch.nn.core import gru_cell, transition_step, two_layer
 from multimodal_mtrssm_tpu_torch.ops.distributions import onehot_blocks
 from multimodal_mtrssm_tpu_torch.ops.kernels.recurrence import (
     _check_inputs,
@@ -38,6 +45,10 @@ from multimodal_mtrssm_tpu_torch.ops.kernels.recurrence import (
 )
 
 N_WEIGHTS = 12
+# The most batch rows a block of either rollout kernel takes: its sampling
+# phase takes a warp a row (two in the MMTRSSM's) and leaves the next
+# step's carry products to at least two other warps of the eight.
+MAX_ROWS = 3
 # Kernel launches since the last reset (plain int; the serving path holds a
 # device lock around every launch).
 launches = 0
@@ -109,6 +120,9 @@ def rollout_plain(
     ``philox_gumbel(seed, ...)``, the kernel's own stream. Returns
     ``(deters, logits, stochs)``, each ``[B, T, ·]``; stochs are one-hot."""
     B, T, _ = actions.shape
+    if T == 0:
+        return tuple(actions.new_empty((B, 0, x.shape[-1]))
+                     for x in (init_deter, init_stoch, init_stoch))
     if noise is None:
         if seed is None:
             raise ValueError("rollout_plain needs a seed or a noise tensor")
@@ -124,13 +138,114 @@ def rollout_plain(
     return torch.stack(deters, 1), torch.stack(logits, 1), torch.stack(stochs, 1)
 
 
+# ---- the kernel's stages ---------------------------------------------------------
+
+
+def rollout_inputs_plain(weights: Sequence[torch.Tensor], actions: torch.Tensor, seed: int,
+                         class_size: int, category_size: int) -> torch.Tensor:
+    """Plain version of the kernel's prologue: every step's carry-free work,
+    time-major ``[T, B, H + S]`` (the workspace the chain reads):
+    ``action·w1[:, :A]ᵀ + b1``, then the seed's Gumbel scores
+    (:func:`philox_gumbel`)."""
+    B, T, A = actions.shape
+    pre = F.linear(actions.transpose(0, 1), weights[0][:, :A], weights[1])
+    noise = philox_gumbel(seed, T, B, class_size, category_size, actions.device)
+    return torch.cat([pre, noise.to(pre.dtype)], -1)
+
+
+def sample_plain(logits: torch.Tensor, noise: torch.Tensor, class_size: int,
+                 category_size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the kernel's sample on precomputed noise: the one-hot
+    first-index argmax of ``logits + noise`` per block, and each block's
+    chosen column in the flat latent, ``[..., class_size]``."""
+    onehot = onehot_blocks(logits + noise, class_size, category_size)
+    blocks = onehot.reshape(*onehot.shape[:-1], class_size, category_size)
+    first = torch.arange(class_size, device=logits.device) * category_size
+    return onehot, blocks.argmax(-1) + first
+
+
+def gather_columns(w: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """``Σ_c w[:, cols[..., c]]``: the product of ``w`` (torch layout) with
+    the one-hot carry whose chosen columns are ``cols``, which the dense
+    product equals only where the carry is exactly one-hot."""
+    return w.t()[cols].sum(-2)
+
+
+def rollout_chain_plain(
+    weights: Sequence[torch.Tensor], inputs: torch.Tensor, init_deter: torch.Tensor,
+    init_stoch: torch.Tensor, class_size: int, category_size: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the kernel's carry chain on the prologue's rows
+    ``inputs`` (:func:`rollout_inputs_plain`) from the initial carries: per
+    step ``h1 = elu(the prologue's sum + stoch·w1[:, A:]ᵀ)``, the stoch
+    product dense on the given stoch at t = 0 and a gather of the columns
+    the one-hot sample selects after; the GRU with the transition's second
+    layer folded into its input gates (``wih·w2``, ``wih·b2 + bih``); the
+    prior; the sample on the prologue's noise. Returns ``(deters, logits,
+    stochs)``, each ``[B, T, ·]``."""
+    w1, _, w2, b2, wih, bih, whh, bhh, wp1, bp1, wp2, bp2 = weights
+    H, S = w2.shape[0], init_stoch.shape[-1]
+    w1s = w1[:, w1.shape[1] - S:]
+    wf, bf = wih @ w2, wih @ b2 + bih
+    deter, cols = init_deter, None
+    steps = []
+    for t in range(inputs.shape[0]):
+        pre, noise = inputs[t].split([H, S], -1)
+        x = F.linear(init_stoch, w1s) if cols is None else gather_columns(w1s, cols)
+        deter = gru_cell(F.elu(pre + x), deter, wf, whh, bf, bhh)
+        logits = two_layer(deter, wp1, bp1, wp2, bp2, F.elu)
+        stoch, cols = sample_plain(logits, noise, class_size, category_size)
+        steps.append((deter, logits, stoch))
+    return tuple(torch.stack(seq, 1) for seq in zip(*steps))
+
+
+def rollout_stages_plain(
+    weights: Sequence[torch.Tensor], actions: torch.Tensor, init_deter: torch.Tensor,
+    init_stoch: torch.Tensor, seed: int, class_size: int = 4, category_size: int = 4,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain prologue and chain in a row: the rollout as the kernel
+    decomposes it, with :func:`rollout_plain`'s contract (the seed's Philox
+    noise, ELU)."""
+    if actions.shape[1] == 0:
+        return rollout_plain(weights, actions, init_deter, init_stoch, seed, class_size,
+                             category_size)
+    inputs = rollout_inputs_plain(weights, actions, seed, class_size, category_size)
+    return rollout_chain_plain(weights, inputs, init_deter, init_stoch, class_size, category_size)
+
+
+def rollout_rows(batch: int, device: torch.device) -> int:
+    """Batch rows per block of either rollout kernel: one block per SM
+    where the batch allows it, at most :data:`MAX_ROWS`."""
+    return min(MAX_ROWS, _rows_per_block(batch, device))
+
+
 def rollout_cuda(
     weights: Sequence[torch.Tensor], actions: torch.Tensor, init_deter: torch.Tensor,
     init_stoch: torch.Tensor, seed: int, class_size: int = 4, category_size: int = 4,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel (``csrc/rollout.cu``); same contract as
-    :func:`rollout_plain` with the seed's Philox noise and ELU."""
+    """Launch the CUDA kernel (``csrc/rollout.cu``: prologue and chain in one
+    launch); same contract as :func:`rollout_plain` with the seed's Philox
+    noise and ELU. Raises on any input the kernel does not take."""
     global launches
+    outs, _ = rollout_launch(weights, actions, init_deter, init_stoch, seed, class_size,
+                             category_size)
+    if actions.shape[0] and actions.shape[1]:
+        launches += 1
+    return outs
+
+
+def rollout_launch(
+    weights: Sequence[torch.Tensor], actions: torch.Tensor, init_deter: torch.Tensor,
+    init_stoch: torch.Tensor, seed: int, class_size: int = 4, category_size: int = 4,
+    stages: int = 3, workspace: torch.Tensor | None = None,
+    outs: Sequence[torch.Tensor] | None = None, rows: int | None = None,
+) -> tuple[tuple[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]:
+    """Launch the kernel's stages in ``stages`` (1 the prologue, 2 the chain)
+    on ``workspace`` (the prologue's rows, ``[T, B, H + S]``; allocated when
+    None) into ``outs`` (deters, logits, stochs; allocated when None), with
+    ``rows`` batch rows a block (:func:`rollout_rows` when None). Returns the
+    outputs and the workspace, for tests and timings that run one stage on
+    what another wrote. Counts no launch."""
     from multimodal_mtrssm_tpu_torch.ops.kernels import build
 
     if len(weights) != N_WEIGHTS:
@@ -141,26 +256,30 @@ def rollout_cuda(
     D = init_deter.shape[-1]
     H = weights[0].shape[0]
     S = class_size * category_size
-    w_shapes = weight_shapes(A, S, H, D, 0)[:N_WEIGHTS]
     expect = {"actions": (actions, (B, T, A)), "init_deter": (init_deter, (B, D)),
               "init_stoch": (init_stoch, (B, S))}
-    for i, (w, shape) in enumerate(zip(weights, w_shapes)):
+    for i, (w, shape) in enumerate(zip(weights, weight_shapes(A, S, H, D, 0)[:N_WEIGHTS])):
         expect[f"weights[{i}]"] = (w, shape)
+    if outs is None:
+        outs = [actions.new_empty((B, T, d)) for d in (D, S, S)]
+    for i, (o, d) in enumerate(zip(outs, (D, S, S))):
+        expect[f"outs[{i}]"] = (o, (B, T, d))
+    if workspace is None:
+        workspace = actions.new_empty((T, B, H + S))
+    expect["workspace"] = (workspace, (T, B, H + S))
     _check_inputs(expect, actions.device)
-    out = [actions.new_empty((B, T, d)) for d in (D, S, S)]
     if T == 0 or B == 0:
-        return out[0], out[1], out[2]
+        return tuple(outs), workspace
     lib = build.load_library()
-    R = _rows_per_block(B, actions.device)
+    R = rollout_rows(B, actions.device) if rows is None else rows
     ptrs = (ctypes.c_void_p * N_WEIGHTS)(*(w.data_ptr() for w in weights))
     with torch.cuda.device(actions.device):
         stream = torch.cuda.current_stream(actions.device).cuda_stream
         err = lib.mrssm_rollout(
             ctypes.cast(ptrs, ctypes.c_void_p),
             *(t.data_ptr() for t in (actions, init_deter, init_stoch)),
-            *(o.data_ptr() for o in out),
-            seed, T, B, A, H, D, class_size, category_size, R, stream,
+            *(o.data_ptr() for o in outs), workspace.data_ptr(),
+            seed, T, B, A, H, D, class_size, category_size, R, stages, stream,
         )
     build.check(err)
-    launches += 1
-    return out[0], out[1], out[2]
+    return tuple(outs), workspace

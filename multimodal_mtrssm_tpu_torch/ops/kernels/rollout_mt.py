@@ -15,10 +15,17 @@ for the 2×8 higher latent). :func:`philox_mt_gumbel` is the same generator
 in torch integer ops; its lower half is ``philox_gumbel(seed, T, B, 4, 4)``.
 
 What bounds it on the card: the latency of the T dependent steps of small
-products at serving batches. The design is the MRSSM rollout's: one launch,
-one block per tile of batch rows with the T loop inside, the 16 weights
-(7,072 floats, 28.3 KB) staged once in shared memory, the noise made in
-registers.
+products at serving batches. The kernel is one launch in stages, each with
+a plain version here: a prologue of every step's carry-free work (the
+action columns of the lower cell's input layer and both sites' Gumbel
+scores, :func:`rollout_mt_inputs_plain`, into a ``[T, B, LD + LS + HS]``
+workspace), and the T-step chain on the deter and integrator carries, two
+barrier phases a step (:func:`rollout_mt_chain_plain`): both MTRNN updates,
+whose sample columns are a gather of the ``ls_class + hs_class`` columns
+the one-hot samples select (:func:`~.rollout.gather_columns`; the given
+stochs at t = 0 need not be one-hot and go through the dense product), then
+a warp a row and site for the prior and its sample on the prologue's noise
+(:func:`~.rollout.sample_plain`).
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ import torch.nn.functional as F
 
 from multimodal_mtrssm_tpu_torch.nn.core import Act, mtrnn_step, two_layer
 from multimodal_mtrssm_tpu_torch.ops.distributions import onehot_blocks
-from multimodal_mtrssm_tpu_torch.ops.kernels.recurrence import _check_inputs, _rows_per_block
+from multimodal_mtrssm_tpu_torch.ops.kernels.recurrence import _check_inputs
 from multimodal_mtrssm_tpu_torch.ops.kernels.recurrence_mt import (
     MT_SPEC,
     MTSpec,
@@ -40,7 +47,12 @@ from multimodal_mtrssm_tpu_torch.ops.kernels.recurrence_mt import (
     _ptrs,
     mt_weight_shapes,
 )
-from multimodal_mtrssm_tpu_torch.ops.kernels.rollout import philox_block_gumbel
+from multimodal_mtrssm_tpu_torch.ops.kernels.rollout import (
+    gather_columns,
+    philox_block_gumbel,
+    rollout_rows,
+    sample_plain,
+)
 
 N_WEIGHTS = 16
 # Kernel launches since the last reset (plain int; the serving path holds a
@@ -83,6 +95,8 @@ def rollout_mt_plain(
     ``(h_deter, l_deter, h_logits, l_logits, h_stoch, l_stoch, hid_h,
     hid_l)``, each ``[B, T, ·]``; stochs are one-hot."""
     B, T, _ = actions.shape
+    if T == 0:
+        return tuple(actions.new_empty((B, 0, init6[i].shape[-1])) for i in (0, 1, 2, 3, 2, 3, 4, 5))
     if noise is None:
         if seed is None:
             raise ValueError("rollout_mt_plain needs a seed or a noise tensor pair")
@@ -100,13 +114,95 @@ def rollout_mt_plain(
     return tuple(torch.stack(seq, 1) for seq in zip(*outs))
 
 
+# ---- the kernel's stages ---------------------------------------------------------
+
+
+def rollout_mt_inputs_plain(weights: Sequence[torch.Tensor], actions: torch.Tensor, seed: int,
+                            spec: MTSpec = MT_SPEC) -> torch.Tensor:
+    """Plain version of the kernel's prologue: every step's carry-free work,
+    time-major ``[T, B, LD + LS + HS]`` (the workspace the chain reads):
+    ``action·wli[:, :A]ᵀ + bli``, then both sites' Gumbel scores for the seed
+    (:func:`philox_mt_gumbel`)."""
+    B, T, A = actions.shape
+    pre = F.linear(actions.transpose(0, 1), weights[2][:, :A], weights[3])
+    g_l, g_h = philox_mt_gumbel(seed, T, B, (spec.ls_class, spec.ls_category),
+                                (spec.hs_class, spec.hs_category), actions.device)
+    return torch.cat([pre, g_l.to(pre.dtype), g_h.to(pre.dtype)], -1)
+
+
+def rollout_mt_chain_plain(weights: Sequence[torch.Tensor], inputs: torch.Tensor,
+                           init6: Sequence[torch.Tensor],
+                           spec: MTSpec = MT_SPEC) -> tuple[torch.Tensor, ...]:
+    """Plain version of the kernel's carry chain on the prologue's rows
+    ``inputs`` (:func:`rollout_mt_inputs_plain`) from ``init6``: per step both
+    MTRNN updates (JAX ``mtrnn_apply``'s association, the lower cell's input
+    sum the sample columns' plus the prologue's action sum), the sample
+    columns dense on the given stochs at t = 0 and a gather of the columns
+    the one-hot samples select after; both priors and their samples on the
+    prologue's noise. Returns :func:`rollout_mt_plain`'s eight outputs, each
+    ``[B, T, ·]``."""
+    wld, bld, wli, _, whd, bhd, whi, bhi, wp1, bp1, wp2, bp2, wh1, bh1, wh2, bh2 = weights
+    LD, LS, HS = wld.shape[0], spec.ls, spec.hs
+    wlx = wli[:, wli.shape[1] - LS - HS:]
+    l_inv, h_inv = 1.0 / spec.l_tau, 1.0 / spec.h_tau
+    hd, ld, hs, ls, hidh, hidl = init6
+    cols = None  # both sites' chosen columns, in the lower cell's ls ⊕ hs columns
+    steps = []
+    for t in range(inputs.shape[0]):
+        pl, g_l, g_h = inputs[t].split([LD, LS, HS], -1)
+        if cols is None:
+            xl, xh = F.linear(torch.cat([ls, hs], -1), wlx), F.linear(hs, whi)
+        else:
+            xl, xh = gather_columns(wlx, cols), gather_columns(whi, cols[..., spec.ls_class:] - LS)
+        hidl = (1.0 - l_inv) * hidl + (F.linear(ld, wld, bld) + (xl + pl)) * l_inv
+        hidh = (1.0 - h_inv) * hidh + (F.linear(hd, whd, bhd) + (xh + bhi)) * h_inv
+        ld, hd = torch.tanh(hidl), torch.tanh(hidh)
+        l_logits = two_layer(ld, wp1, bp1, wp2, bp2, F.elu)
+        h_logits = two_layer(hd, wh1, bh1, wh2, bh2, F.elu)
+        ls, l_cols = sample_plain(l_logits, g_l, spec.ls_class, spec.ls_category)
+        hs, h_cols = sample_plain(h_logits, g_h, spec.hs_class, spec.hs_category)
+        cols = torch.cat([l_cols, h_cols + LS], -1)
+        steps.append((hd, ld, h_logits, l_logits, hs, ls, hidh, hidl))
+    return tuple(torch.stack(seq, 1) for seq in zip(*steps))
+
+
+def rollout_mt_stages_plain(weights: Sequence[torch.Tensor], actions: torch.Tensor,
+                            init6: Sequence[torch.Tensor], seed: int,
+                            spec: MTSpec = MT_SPEC) -> tuple[torch.Tensor, ...]:
+    """The plain prologue and chain in a row: the rollout as the kernel
+    decomposes it, with :func:`rollout_mt_plain`'s contract (the seed's
+    Philox noise, ELU)."""
+    if actions.shape[1] == 0:
+        return rollout_mt_plain(weights, actions, init6, seed, spec)
+    inputs = rollout_mt_inputs_plain(weights, actions, seed, spec)
+    return rollout_mt_chain_plain(weights, inputs, init6, spec)
+
+
 def rollout_mt_cuda(
     weights: Sequence[torch.Tensor], actions: torch.Tensor, init6: Sequence[torch.Tensor],
     seed: int, spec: MTSpec = MT_SPEC,
 ) -> tuple[torch.Tensor, ...]:
-    """Launch the CUDA kernel (``csrc/rollout_mt.cu``); same contract as
-    :func:`rollout_mt_plain` with the seed's Philox noise and ELU."""
+    """Launch the CUDA kernel (``csrc/rollout_mt.cu``: prologue and chain in
+    one launch); same contract as :func:`rollout_mt_plain` with the seed's
+    Philox noise and ELU. Raises on any input the kernel does not take."""
     global launches
+    outs, _ = rollout_mt_launch(weights, actions, init6, seed, spec)
+    if actions.shape[0] and actions.shape[1]:
+        launches += 1
+    return outs
+
+
+def rollout_mt_launch(
+    weights: Sequence[torch.Tensor], actions: torch.Tensor, init6: Sequence[torch.Tensor],
+    seed: int, spec: MTSpec = MT_SPEC, stages: int = 3, workspace: torch.Tensor | None = None,
+    outs: Sequence[torch.Tensor] | None = None, rows: int | None = None,
+) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
+    """Launch the kernel's stages in ``stages`` (1 the prologue, 2 the chain)
+    on ``workspace`` (the prologue's rows, ``[T, B, LD + LS + HS]``;
+    allocated when None) into ``outs`` (the eight outputs; allocated when
+    None), with ``rows`` batch rows a block (``rollout_rows`` when None).
+    Returns the outputs and the workspace, for tests and timings that run one
+    stage on what another wrote. Counts no launch."""
     from multimodal_mtrssm_tpu_torch.ops.kernels import build
 
     if len(weights) != N_WEIGHTS or len(init6) != 6:
@@ -119,20 +215,27 @@ def rollout_mt_cuda(
     HD, LD = weights[4].shape[0], weights[0].shape[0]
     C = weights[8].shape[0]
     LS, HS = spec.ls, spec.hs
+    widths = (HD, LD, HS, LS, HS, LS, HD, LD)
     expect = {"actions": (actions, (B, T, A))}
     for i, (x, d) in enumerate(zip(init6, (HD, LD, HS, LS, HD, LD))):
         expect[f"init6[{i}]"] = (x, (B, d))
     _expect_weights(expect, weights, mt_weight_shapes(A, 0, HD, LD, C, 0, spec))
+    if outs is None:
+        outs = [actions.new_empty((B, T, d)) for d in widths]
+    for i, (o, d) in enumerate(zip(outs, widths)):
+        expect[f"outs[{i}]"] = (o, (B, T, d))
+    if workspace is None:
+        workspace = actions.new_empty((T, B, LD + LS + HS))
+    expect["workspace"] = (workspace, (T, B, LD + LS + HS))
     _check_inputs(expect, actions.device)
-    out = [actions.new_empty((B, T, d)) for d in (HD, LD, HS, LS, HS, LS, HD, LD)]
     if T == 0 or B == 0:
-        return tuple(out)
+        return tuple(outs), workspace
     lib = build.load_library()
-    dims = _dims(T, B, A, 0, HD, LD, C, 0, spec, _rows_per_block(B, actions.device))
+    R = rollout_rows(B, actions.device) if rows is None else rows
+    dims = _dims(T, B, A, 0, HD, LD, C, 0, spec, R)
     with torch.cuda.device(actions.device):
         stream = torch.cuda.current_stream(actions.device).cuda_stream
-        err = lib.mt_rollout(_ptrs(weights), _ptrs([actions, *init6]), _ptrs(out), seed, dims,
-                             stream)
+        err = lib.mt_rollout(_ptrs(weights), _ptrs([actions, *init6]), _ptrs(outs),
+                             workspace.data_ptr(), seed, dims, stages, stream)
     build.check(err)
-    launches += 1
-    return tuple(out)
+    return tuple(outs), workspace

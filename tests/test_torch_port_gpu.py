@@ -90,14 +90,97 @@ def test_recurrence_kernel_matches_plain(cuda_device, B, T):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,T", [(10, 10), (64, 30)])
+@pytest.mark.parametrize("B,T", [(10, 10), (64, 30), (256, 180), (3, 1)])
 def test_rollout_kernel_matches_plain(cuda_device, B, T):
+    """The rollout kernel against the plain transition replaying its stochs,
+    which must be the argmax of its logits plus the seed's noise; two
+    launches bit-identical."""
     w = _model(cuda_device).transition.weights()
     ins = _inputs(B + T, B, T, cuda_device)
     actions = ins[0].transpose(0, 1).contiguous()
     with torch.no_grad():
         got = rollout.rollout_cuda(w, actions, ins[3], ins[4], 77, C, K)
+        again = rollout.rollout_cuda(w, actions, ins[3], ins[4], 77, C, K)
     parity.check_rollout(w, actions, ins[3], ins[4], 77, got, C, K)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _straight_through(rng, B: int, classes: int, k: int, dev) -> torch.Tensor:
+    """``(onehot + p) - p`` of random logits in float32: the straight-through
+    stoch an observe hands to imagine, not exactly one-hot."""
+    logits = torch.tensor(rng.standard_normal((B, classes, k)).astype(np.float32), device=dev)
+    p = torch.softmax(logits, -1)
+    onehot = torch.nn.functional.one_hot(logits.argmax(-1), k).float()
+    return ((onehot + p) - p).reshape(B, classes * k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,B,T", [("model", 8, 30), ("odd", 8, 30), ("odd", 3, 7),
+                                      ("odd", 256, 30), ("s40", 64, 30)])
+def test_rollout_kernel_at_other_widths(cuda_device, name, B, T):
+    """The rollout kernel at widths whose weights are no multiple of 4 floats
+    (and off 16-byte alignment), 3 × 5 categories and a latent wider than a
+    warp, from a straight-through initial stoch (not one-hot: the first step
+    takes the dense product): against the replay, two launches
+    bit-identical."""
+    widths = FWD_WIDTHS.get(name, (6, 64, 32, 32, C, K))
+    w, actions, *_, deter0, _, _, _, Cw, Kw = _forward_case(B + T, widths, B, T, cuda_device)
+    stoch0 = _straight_through(np.random.default_rng(B), B, Cw, Kw, cuda_device)
+    assert not bool(((stoch0 == 0) | (stoch0 == 1)).all())
+    actions = actions.transpose(0, 1).contiguous()
+    with torch.no_grad():
+        got = rollout.rollout_cuda(w[:12], actions, deter0, stoch0, 91, Cw, Kw)
+        again = rollout.rollout_cuda(w[:12], actions, deter0, stoch0, 91, Cw, Kw)
+    parity.check_rollout(w[:12], actions, deter0, stoch0, 91, got, Cw, Kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,B,T", [("model", 8, 30), ("model", 256, 180), ("odd", 3, 7)])
+def test_rollout_stages_match_their_plain_stages(cuda_device, name, B, T):
+    """The prologue alone, on a workspace of NaN: its action sums within
+    1e-5 of the plain prologue's and its Gumbel scores equal to
+    ``philox_gumbel`` on the card bit for bit; the chain alone on that
+    workspace gives the whole launch's outputs bit for bit; one, two and
+    three batch rows a block each pass the replay."""
+    widths = FWD_WIDTHS.get(name, (6, 64, 32, 32, C, K))
+    w, actions, *_, deter0, stoch0, _, _, Cw, Kw = _forward_case(B + T, widths, B, T, cuda_device)
+    w, actions = w[:12], actions.transpose(0, 1).contiguous()
+    H, S = w[0].shape[0], Cw * Kw
+    with torch.no_grad():
+        whole, _ = rollout.rollout_launch(w, actions, deter0, stoch0, 13, Cw, Kw)
+        ws = torch.full((T, B, H + S), float("nan"), device=cuda_device)
+        outs, _ = rollout.rollout_launch(w, actions, deter0, stoch0, 13, Cw, Kw, stages=1,
+                                         workspace=ws)
+        ref = rollout.rollout_inputs_plain(w, actions, 13, Cw, Kw)
+        assert float((ws[..., :H] - ref[..., :H]).abs().max()) <= 1e-5
+        assert torch.equal(ws[..., H:], rollout.philox_gumbel(13, T, B, Cw, Kw, cuda_device))
+        outs, _ = rollout.rollout_launch(w, actions, deter0, stoch0, 13, Cw, Kw, stages=2,
+                                         workspace=ws)
+        assert all(torch.equal(a, b) for a, b in zip(outs, whole))
+        for R in (1, 2, 3):
+            got, _ = rollout.rollout_launch(w, actions, deter0, stoch0, 13, Cw, Kw, rows=R)
+            parity.check_rollout(w, actions, deter0, stoch0, 13, got, Cw, Kw)
+
+
+@pytest.mark.gpu
+def test_rollout_stays_in_its_workspace(cuda_device):
+    """The kernel reads and writes its workspace ``[T, B, H + S]`` and no
+    float past it: on a view of a larger buffer whose tail holds NaN, the
+    tail stays NaN and the outputs are those of a call on its own workspace,
+    bit for bit."""
+    w, actions, *_, deter0, stoch0, _, _, Cw, Kw = _forward_case(7, FWD_WIDTHS["odd"], 3, 7,
+                                                                 cuda_device)
+    w, actions = w[:12], actions.transpose(0, 1).contiguous()
+    n = 7 * 3 * (w[0].shape[0] + Cw * Kw)
+    big = torch.full((n + 257,), float("nan"), device=cuda_device)
+    with torch.no_grad():
+        ref, _ = rollout.rollout_launch(w, actions, deter0, stoch0, 3, Cw, Kw)
+        got, ws = rollout.rollout_launch(w, actions, deter0, stoch0, 3, Cw, Kw,
+                                         workspace=big[:n].view(7, 3, -1))
+    assert ws.data_ptr() == big.data_ptr()
+    assert bool(big[n:].isnan().all()) and not bool(big[:n].isnan().any())
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
 
 
 @pytest.mark.gpu
@@ -320,20 +403,27 @@ def mrssm_rollout_digest(dev) -> str:
                                             ins[4], 77, C, K))
 
 
-# mrssm_backward_digest and mrssm_rollout_digest on an NVIDIA H100 80GB
-# HBM3, taken with the MRSSM backward and rollout as they stood before the
-# MRSSM forward's redesign (the backward as it stood since its chain and
-# staging helpers moved into csrc/chain_common.cuh).
+# mrssm_backward_digest on an NVIDIA H100 80GB HBM3, taken with the MRSSM
+# backward as it stood before the MRSSM forward's redesign (as it stood since
+# its chain and staging helpers moved into csrc/chain_common.cuh).
 MRSSM_BWD_DIGEST = "487a700ee7d1d98cd462729989b44db838c4cb1db0f93b74768d601ff58d45c4"
-MRSSM_ROLLOUT_DIGEST = "8c407abe622e418983ca37c4680024aa463d0426c9d16b85193b9c9ffb2e469c"
+# mrssm_rollout_digest on an NVIDIA H100 80GB HBM3, taken on the rollout in
+# stages (csrc/rollout.cu).
+MRSSM_ROLLOUT_DIGEST = "cfed4385e15d6578e84ee547986f7cd3fc319a1741e04197cbf26ec1fc2c6ff8"
 
 
 @pytest.mark.gpu
 def test_recurrence_backward_bits_unchanged_by_the_shared_helpers(cuda_device):
-    """The MRSSM backward's three kernels and the MRSSM rollout give the bits
-    they gave before the forward's redesign: the helpers they share with it
-    did not change what they compute."""
+    """The MRSSM backward's three kernels give the bits they gave before the
+    forward's redesign: the helpers they share with the forwards and the
+    rollouts did not change what they compute."""
     assert mrssm_backward_digest(cuda_device) == MRSSM_BWD_DIGEST
+
+
+@pytest.mark.gpu
+def test_rollout_bits_pinned(cuda_device):
+    """The MRSSM rollout gives the bits pinned for it: a change of the
+    helpers it shares with the other kernels shows here."""
     assert mrssm_rollout_digest(cuda_device) == MRSSM_ROLLOUT_DIGEST
 
 
@@ -606,19 +696,28 @@ def mt_rollout_digest(dev) -> str:
         return _digest(rollout_mt.rollout_mt_cuda(w, xs[0].transpose(0, 1).contiguous(), init6, 77))
 
 
-# mt_backward_digest and mt_rollout_digest on an NVIDIA H100 80GB HBM3 with
-# the kernels as they stood before the MT forward's redesign added
-# forward_chain.cuh and split chain_common.cuh's staging and split helpers.
+# mt_backward_digest on an NVIDIA H100 80GB HBM3 with the backward as it
+# stood before the MT forward's redesign added forward_chain.cuh and split
+# chain_common.cuh's staging and split helpers.
 MT_BWD_DIGEST = "6a2dc462f780a6b18696cf12e789aa41b45ba01162efb1dc03720734107fd0a7"
-MT_ROLLOUT_DIGEST = "6afeb4591c9ee87c99605d33eb694ed33eea494800cfd4ef173757f88fa8c590"
+# mt_rollout_digest on an NVIDIA H100 80GB HBM3, taken on the rollout in
+# stages (csrc/rollout_mt.cu).
+MT_ROLLOUT_DIGEST = "2f10ba20f78dfce60cabe584491144ca182b3f7c0bb96ff946fcfa1b7f5314fd"
 
 
 @pytest.mark.gpu
 def test_mt_backward_and_rollout_bits_unchanged_by_the_forward(cuda_device):
-    """The MT backward's three kernels and the MT rollout give the bits they
-    gave before the forward's redesign: the device functions they share
-    with it did not move."""
+    """The MT backward's three kernels give the bits they gave before the
+    forward's redesign: the device functions they share with the forwards
+    and the rollouts did not move (the rollout's own pin:
+    ``test_mt_rollout_bits_pinned``)."""
     assert mt_backward_digest(cuda_device) == MT_BWD_DIGEST
+
+
+@pytest.mark.gpu
+def test_mt_rollout_bits_pinned(cuda_device):
+    """The MT rollout gives the bits pinned for it: a change of the helpers
+    it shares with the other kernels shows here."""
     assert mt_rollout_digest(cuda_device) == MT_ROLLOUT_DIGEST
 
 
@@ -703,14 +802,95 @@ def test_mt_recurrence_backward_passes_match_their_plain_passes(cuda_device, nam
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,T", [(10, 10), (64, 30)])
+@pytest.mark.parametrize("B,T", [(10, 10), (64, 30), (256, 180), (3, 1)])
 def test_mt_rollout_kernel_matches_plain(cuda_device, B, T):
+    """The MT rollout kernel against the plain step replaying its stochs,
+    which must be the argmax of its logits plus the seed's noise at both
+    sites; two launches bit-identical."""
     w = _mt_model(cuda_device).rollout_weights()
     xs, init6, _ = _mt_inputs(B + T, B, T, cuda_device)
     actions = xs[0].transpose(0, 1).contiguous()
     with torch.no_grad():
         got = rollout_mt.rollout_mt_cuda(w, actions, init6, 77)
+        again = rollout_mt.rollout_mt_cuda(w, actions, init6, 77)
     parity.check_mt_rollout(w, actions, init6, 77, got)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _mt_rollout_case(seed: int, name: str, B: int, T: int, dev, straight_through: bool):
+    """The rollout's 16 weights (odd ones off 16-byte alignment), actions
+    ``[B, T, A]``, ``init6`` (its stochs straight-through where asked) and
+    spec at ``MT_FWD_WIDTHS[name]`` or the model's widths."""
+    widths = MT_FWD_WIDTHS.get(name, (6, 64, 32, 32, 32, 32, recurrence_mt.MT_SPEC))
+    w, actions, _, _, init6, _, spec = _mt_forward_case(seed, widths, B, T, dev)
+    init6 = list(init6)
+    if straight_through:
+        rng = np.random.default_rng(seed)
+        init6[2] = _straight_through(rng, B, spec.hs_class, spec.hs_category, dev)
+        init6[3] = _straight_through(rng, B, spec.ls_class, spec.ls_category, dev)
+    return w[:16], actions.transpose(0, 1).contiguous(), init6, spec
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,B,T", [("model", 8, 30), ("odd", 8, 30), ("odd", 3, 7),
+                                      ("odd", 256, 30), ("ls40", 64, 30)])
+def test_mt_rollout_kernel_at_other_widths(cuda_device, name, B, T):
+    """The MT rollout kernel at HD ≠ LD and weights no multiple of 4 floats
+    (and off 16-byte alignment), 3 × 5 and 2 × 7 categories, and latents
+    wider than a warp, from straight-through initial stochs (not one-hot:
+    the first step takes the dense product): against the replay, two
+    launches bit-identical."""
+    w, actions, init6, spec = _mt_rollout_case(B + T, name, B, T, cuda_device, True)
+    with torch.no_grad():
+        got = rollout_mt.rollout_mt_cuda(w, actions, init6, 91, spec)
+        again = rollout_mt.rollout_mt_cuda(w, actions, init6, 91, spec)
+    parity.check_mt_rollout(w, actions, init6, 91, got, spec)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,B,T", [("model", 8, 30), ("model", 256, 180), ("odd", 3, 7)])
+def test_mt_rollout_stages_match_their_plain_stages(cuda_device, name, B, T):
+    """The prologue alone, on a workspace of NaN: its action sums within
+    1e-5 of the plain prologue's and both sites' Gumbel scores equal to
+    ``philox_mt_gumbel`` on the card bit for bit; the chain alone on that
+    workspace gives the whole launch's outputs bit for bit; one, two and
+    three batch rows a block each pass the replay."""
+    w, actions, init6, spec = _mt_rollout_case(B + T, name, B, T, cuda_device, False)
+    LD = w[0].shape[0]
+    with torch.no_grad():
+        whole, _ = rollout_mt.rollout_mt_launch(w, actions, init6, 13, spec)
+        ws = torch.full((T, B, LD + spec.ls + spec.hs), float("nan"), device=cuda_device)
+        rollout_mt.rollout_mt_launch(w, actions, init6, 13, spec, stages=1, workspace=ws)
+        ref = rollout_mt.rollout_mt_inputs_plain(w, actions, 13, spec)
+        assert float((ws[..., :LD] - ref[..., :LD]).abs().max()) <= 1e-5
+        g_l, g_h = rollout_mt.philox_mt_gumbel(13, T, B, (spec.ls_class, spec.ls_category),
+                                               (spec.hs_class, spec.hs_category), cuda_device)
+        assert torch.equal(ws[..., LD:], torch.cat([g_l, g_h], -1))
+        outs, _ = rollout_mt.rollout_mt_launch(w, actions, init6, 13, spec, stages=2,
+                                               workspace=ws)
+        assert all(torch.equal(a, b) for a, b in zip(outs, whole))
+        for R in (1, 2, 3):
+            got, _ = rollout_mt.rollout_mt_launch(w, actions, init6, 13, spec, rows=R)
+            parity.check_mt_rollout(w, actions, init6, 13, got, spec)
+
+
+@pytest.mark.gpu
+def test_mt_rollout_stays_in_its_workspace(cuda_device):
+    """The kernel reads and writes its workspace ``[T, B, LD + LS + HS]``
+    and no float past it: on a view of a larger buffer whose tail holds NaN,
+    the tail stays NaN and the outputs are those of a call on its own
+    workspace, bit for bit."""
+    w, actions, init6, spec = _mt_rollout_case(7, "odd", 3, 7, cuda_device, False)
+    n = 7 * 3 * (w[0].shape[0] + spec.ls + spec.hs)
+    big = torch.full((n + 257,), float("nan"), device=cuda_device)
+    with torch.no_grad():
+        ref, _ = rollout_mt.rollout_mt_launch(w, actions, init6, 3, spec)
+        got, ws = rollout_mt.rollout_mt_launch(w, actions, init6, 3, spec,
+                                               workspace=big[:n].view(7, 3, -1))
+    assert ws.data_ptr() == big.data_ptr()
+    assert bool(big[n:].isnan().all()) and not bool(big[:n].isnan().any())
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
 
 
 @pytest.mark.gpu
