@@ -41,7 +41,10 @@ first two configurations' latent features.
    T=10, B=64 T=30 and B=256 T=180 (replay of their stochs within 1e-4,
    stochs equal to the argmax of their logits plus the seed's Philox noise,
    two launches bit-identical, sampling frequencies against the softmax,
-   both MT sites); the stacked
+   both MT sites; and, on per-row Philox keys, the rows of four coalesced
+   requests at 16 rows and 32 steps: the prologue's noise equal to the
+   plain per-row draw bit for bit, the replay, and each request's rows
+   against its own launch, stochs equal before a near-tie); the stacked
    recurrence forward and backward at B=8 T=30, B=128 T=30 and B=3 T=7
    (the same limits, on unstacked gradients; the forward's outputs
    bit-identical to the unstacked forward's on the same weights; the
@@ -62,6 +65,16 @@ first two configurations' latent features.
    that the configuration's serving kernels were launched by those
    requests, and that the card's observe posterior and frames equal the
    CPU path's on the same weights and seed.
+3b. Serving a trained run, after phase 4, for ``MRSSMConfig()`` and
+   ``MMTRSSMConfig()``: ``WorldModel.from_checkpoint`` on the model config
+   and the fit's checkpoints directory, behind a server that coalesces
+   (5 ms window, ``batch_max`` 8); 8 concurrent ``/observe`` (B ∈ {1, 2,
+   3, 8}, T ∈ {5, 10, 30}, decode, npz, each its own seed), then 8
+   concurrent ``/imagine`` from their states. Fails unless fewer rollout
+   launches than requests served them, no well-formed batch was re-run
+   alone, and each reply equals the same request alone (frames and
+   latents within 1e-4, stochs equal, before each row's first Gumbel
+   near-tie of 1e-5); prints whether the replies were bit-identical.
 4. Training end to end, per configuration: 24 synthetic Audio-MNIST
    episodes, then ``Trainer(model, datamodule, config).fit()``, B=8, T=30,
    2 epochs of 3 optimizer steps. Checks finite losses, that every
@@ -90,9 +103,14 @@ first two configurations' latent features.
    ``ptxas`` gives the fused encoder's and decoder's kernels, forward and
    backward, the MRSSM and MMTRSSM recurrence backwards' three kernels, the
    stacked backward's pack and scatter, both recurrence forwards and both
-   rollouts.
+   rollouts; and for the trained runs of phase 3b, the p50 latency of
+   ``/observe`` and ``/imagine`` under 8 concurrent clients, coalesced and
+   not, and the ``/observe`` split at B=8 T=30 (the route's direct call on
+   the calling thread, in a fresh thread, on a long-lived batcher thread,
+   and through HTTP).
 
-Each configuration's serving and training run, and the decoder's path
+Each configuration's serving and training run, phase 3b's coalesced
+requests, and the decoder's path
 (``fused_decoder_apply`` on both decoders of the first two configurations'
 observed features at B=8 T=30, forward and a ``gaussian_nll`` backward), is
 driven with every launch count set to 0 just before it and read just after.
@@ -103,11 +121,13 @@ limit, and last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.request
 from pathlib import Path
@@ -629,6 +649,366 @@ def server_latencies(ctx: dict, card: str, label: str) -> None:
               f"ms over {len(lat) - 2} requests | {card}")
 
 
+# Coalesced requests of the per-row-key checks (B, T, seed), run as the
+# server runs them: at their total rows and longest steps.
+COALESCE_KEYS = ((1, 5, 3), (2, 30, 4), (3, 10, 2**63 + 5), (8, 30, 6))
+COALESCE_ROWS = sum(b for b, _, _ in COALESCE_KEYS)
+COALESCE_STEPS = max(t for _, t, _ in COALESCE_KEYS)
+
+
+def check_per_row_keys(model, cfg, dev) -> dict:
+    """Phase 2, the family's rollout kernel on per-row keys: the rows of
+    ``COALESCE_KEYS`` (each request's seed and its index inside it) at
+    their total rows and longest steps. The prologue alone (on a NaN
+    workspace) writes the plain per-row draw bit for bit; the launch passes
+    the replay against that draw (atol 1e-4, stochs the argmax of its logits
+    plus the draw outside near-ties) and twice gives the same bits; and each
+    request's rows and steps equal the request's own launch (stochs equal
+    before each row's first near-tie of 1e-5, the rest within 1e-4 up to
+    it)."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.models import MMTRSSMConfig
+    from multimodal_mtrssm_tpu_torch.ops.kernels import rollout, rollout_mt
+    from multimodal_mtrssm_tpu_torch.ops.kernels.parity import (
+        ParityError,
+        check_mt_rollout,
+        check_rollout,
+        check_same_trajectories,
+        first_near_tie,
+    )
+
+    mt = isinstance(cfg, MMTRSSMConfig)
+    name = "mt_rollout" if mt else "rollout"
+    B, T = COALESCE_ROWS, COALESCE_STEPS
+    rng = np.random.default_rng(SEED + 31)
+    keys = [rollout.row_keys(s, b) for b, _, s in COALESCE_KEYS]
+    keys = tuple(torch.cat(k).to(dev) for k in zip(*keys))
+    if mt:
+        w, spec = model.rollout_weights(), cfg.spec
+        xs, init, _ = _mt_inputs(rng, B, T, cfg, dev)
+        actions = xs[0].transpose(0, 1).contiguous()
+        launch = lambda a, i, seed, **kw: rollout_mt.rollout_mt_launch(  # noqa: E731
+            w, a, i, seed, spec, **kw)
+        ls, hs = (spec.ls_class, spec.ls_category), (spec.hs_class, spec.hs_category)
+
+        def sites(out, seed):
+            g_l, g_h = rollout_mt.philox_mt_gumbel(seed, out[0].shape[1], out[0].shape[0], ls,
+                                                   hs, dev)
+            return [(out[3] + g_l.transpose(0, 1), *ls), (out[2] + g_h.transpose(0, 1), *hs)]
+
+        draw = lambda k: torch.cat(rollout_mt.philox_mt_gumbel(k, T, B, ls, hs, dev), -1)  # noqa: E731
+        replay = lambda out: check_mt_rollout(w, actions, init, keys, out, spec,  # noqa: E731
+                                              TOL, TIE_EPS)
+        samples = (4, 5)
+    else:
+        w, C, K = model.transition.weights(), cfg.class_size, cfg.category_size
+        actions = torch.tensor(rng.uniform(-1, 1, (B, T, cfg.action_size)).astype(np.float32),
+                               device=dev)
+        init = list(_recurrence_inputs(rng, B, 1, cfg, dev)[3:5])
+        launch = lambda a, i, seed, **kw: rollout.rollout_launch(  # noqa: E731
+            w, a, *i, seed, C, K, **kw)
+
+        def sites(out, seed):
+            g = rollout.philox_gumbel(seed, out[0].shape[1], out[0].shape[0], C, K, dev)
+            return [(out[1] + g.transpose(0, 1), C, K)]
+
+        draw = lambda k: rollout.philox_gumbel(k, T, B, C, K, dev)  # noqa: E731
+        replay = lambda out: check_rollout(w, actions, *init, keys, out, C, K,  # noqa: E731
+                                           TOL, TIE_EPS)
+        samples = (2,)
+    whole, ws = launch(actions, init, keys)
+    again, _ = launch(actions, init, keys)
+    nan = torch.full_like(ws, float("nan"))
+    launch(actions, init, keys, stages=1, workspace=nan)
+    noise = draw(keys)
+    if not torch.equal(nan[..., ws.shape[-1] - noise.shape[-1]:], noise):
+        raise ParityError(f"{name}: the prologue's per-row noise differs from the plain draw")
+    if not all(torch.equal(a, b) for a, b in zip(whole, again)):
+        raise ParityError(f"{name}: two launches on per-row keys differ")
+    err = replay(whole)["max_abs_err"]
+    off, worst, same = 0, 0.0, True
+    for b, t, seed in COALESCE_KEYS:
+        rows = slice(off, off + b)
+        alone, _ = launch(actions[rows, :t].contiguous(), [x[rows].contiguous() for x in init],
+                          seed)
+        r = check_same_trajectories([x[rows, :t] for x in whole], alone, samples,
+                                    first_near_tie(sites(alone, seed), TIE_EPS), TOL,
+                                    f"{name} coalesced B={b} T={t}")
+        worst, same = max(worst, r["max_abs_err"]), same and r["bit_identical"]
+        off += b
+    print(f"check {name} per-row keys B={B} T={T}: prologue noise equal to the plain per-row "
+          f"draw bit for bit, replay max_abs_err={err:.3g}, two launches alike; each of "
+          f"{len(COALESCE_KEYS)} requests' rows against its own launch max_abs_err={worst:.3g}, "
+          f"bit-identical: {'yes' if same else 'no'}")
+    return {"max_abs_err": max(err, worst)}
+
+
+# Phase 3b: a window of 8 concurrent requests, each (B, observe T, imagine T)
+# with its own seed.
+COALESCE_MIX = ((1, 5, 10), (2, 10, 30), (3, 30, 5), (8, 30, 10), (1, 30, 5), (2, 5, 30),
+                (3, 10, 30), (8, 10, 5))
+COALESCE_WINDOW_MS = 5.0
+
+
+def _concurrently(fn, args: list) -> list:
+    """``fn(*a)`` for each ``a`` in ``args``, each on a thread of its own,
+    all started together; the results in order (the first failure raises)."""
+    out: list = [None] * len(args)
+    errors: list = []
+
+    def run(i):
+        try:
+            out[i] = fn(*args[i])
+        except BaseException as e:  # noqa: BLE001 — raised below on the calling thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(args))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(300)
+    if errors:
+        raise errors[0]
+    return out
+
+
+def _sampled_sites(cfg, seq, noise) -> list:
+    """The sampled sites that feed a ``[B, T]`` trajectory's carry: each
+    site's logits plus its ``[T, B, ·]`` noise, with its blocks."""
+    from multimodal_mtrssm_tpu_torch.models import MMTRSSMConfig
+
+    if isinstance(cfg, MMTRSSMConfig):
+        pairs = ((seq.logits_l, noise[0], cfg.ls_class, cfg.ls_category),
+                 (seq.logits_h, noise[1], cfg.hs_class, cfg.hs_category))
+    else:
+        pairs = ((seq.logits, noise[0], cfg.class_size, cfg.category_size),)
+    return [(lg + n.to(lg.device).transpose(0, 1), c, k) for lg, n, c, k in pairs]
+
+
+def _compare_reply(name: str, frames: dict, state, seq, ref_frames: dict, first,
+                   worst: dict) -> None:
+    """A coalesced reply against the same request alone (``seq``, its
+    ``[B, T]`` trajectory, and ``ref_frames``): frames at the steps before
+    each row's first near-tie within ``TOL``; the last state, in rows with
+    none, stochs equal and the rest within ``TOL``."""
+    import torch
+
+    T = next(iter(ref_frames.values())).shape[1]
+    agree = (torch.arange(T)[None, :] < first.cpu()[:, None]).numpy()
+    for k, v in ref_frames.items():
+        ref = v.cpu().numpy()
+        d = np.abs(frames[k] - ref)[agree]
+        err = float(d.max()) if d.size else 0.0
+        if not err <= TOL:
+            raise RuntimeError(f"{name} {k}: coalesced frames differ from alone by {err:.3g}")
+        worst["frames"] = max(worst["frames"], err)
+        worst["bit_identical"] &= bool(np.array_equal(frames[k], ref))
+    whole = first == T
+    last = seq[:, -1]
+    for f in dataclasses.fields(last):
+        a, b = getattr(state, f.name), getattr(last, f.name)
+        if f.name.startswith("stoch") and not torch.equal(a[whole] > 0.5, b[whole] > 0.5):
+            raise RuntimeError(f"{name}: the coalesced last {f.name} differs from alone")
+        err = float((a[whole] - b[whole]).abs().max()) if bool(whole.any()) else 0.0
+        if not err <= TOL:
+            raise RuntimeError(f"{name}: the coalesced last {f.name} differs by {err:.3g}")
+        worst["latents"] = max(worst["latents"], err)
+        worst["bit_identical"] &= torch.equal(a, b)
+    worst["compared"].append(float(agree.mean()))
+
+
+def drive_coalesced(cfg, dev, checkpoints: Path) -> dict:
+    """Phase 3b: a trained run served. ``WorldModel.from_checkpoint`` reads
+    the model config and the fit phase's checkpoints directory; a server
+    with a 5 ms window and ``batch_max`` 8 (``serve --batch-window-ms 5``)
+    takes 8 concurrent ``/observe`` (``COALESCE_MIX``: B ∈ {1, 2, 3, 8}, T
+    ∈ {5, 10, 30}, decode, npz, each its own seed), then 8 concurrent ``/imagine``
+    from their states. Fails unless fewer rollout launches than requests
+    served them, no well-formed batch was re-run alone, and every reply
+    equals the same request alone (window 0's route: ``WorldModel.observe``
+    / ``imagine``, then ``decode``): frames and latents within 1e-4, stochs
+    equal, outside each row's first Gumbel near-tie of 1e-5."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.models import MMTRSSMConfig
+    from multimodal_mtrssm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from multimodal_mtrssm_tpu_torch.ops.kernels.parity import first_near_tie
+    from multimodal_mtrssm_tpu_torch.ops.kernels.rollout import philox_gumbel
+    from multimodal_mtrssm_tpu_torch.ops.kernels.rollout_mt import philox_mt_gumbel
+    from multimodal_mtrssm_tpu_torch.server import InferenceServer
+    from multimodal_mtrssm_tpu_torch.serving import WorldModel
+
+    wm = WorldModel.from_checkpoint(cfg, checkpoints, device=dev)
+    mt = isinstance(cfg, MMTRSSMConfig)
+    rollout_name = "mt_rollout" if mt else "rollout"
+    rng = np.random.default_rng(SEED + 30)
+    A, n = cfg.action_size, len(COALESCE_MIX)
+    obs = [{"actions": rng.uniform(-1, 1, (b, t, A)).astype(np.float32),
+            "audio": rng.uniform(-1, 1, (b, t, 32, 32, 1)).astype(np.float32),
+            "vision": rng.uniform(-1, 1, (b, t, 32, 32, 1)).astype(np.float32),
+            "seed": 100 + i, "decode": True} for i, (b, t, _) in enumerate(COALESCE_MIX)]
+    plans = [rng.uniform(-1, 1, (b, t2, A)).astype(np.float32) for b, _, t2 in COALESCE_MIX]
+    server = InferenceServer(wm, host="127.0.0.1", port=0, batch_window_ms=COALESCE_WINDOW_MS,
+                             batch_max=8)
+    server.start()
+    try:
+        reset_launch_counts()
+        observed = _concurrently(lambda r: _http(server.port, "/observe", r, npz=True),
+                                 [(r,) for r in obs])
+        imagined = _concurrently(lambda r: _http(server.port, "/imagine", r, npz=True), [
+            ({"state_id": str(o["state_id"]), "actions": p, "seed": 200 + i, "decode": True},)
+            for i, (o, p) in enumerate(zip(observed, plans))])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        sizes = (list(server.observe_batcher.batch_sizes), list(server.batcher.batch_sizes))
+        print(f"main-path kernel launches, {_label(cfg)} coalesced serving from the fit's "
+              f"checkpoints ({n} /observe in batches {sizes[0]}, {n} /imagine in batches "
+              f"{sizes[1]}): {counts}")
+        if server.retries:
+            raise RuntimeError(f"{server.retries} requests of well-formed coalesced batches were "
+                               "re-run alone")
+        if not counts[rollout_name] < n:
+            raise RuntimeError(f"{counts[rollout_name]} {rollout_name} launches served {n} "
+                               "/imagine requests: nothing coalesced")
+        worst = {route: {"frames": 0.0, "latents": 0.0, "compared": [], "bit_identical": True}
+                 for route in ("/observe", "/imagine")}
+        spec = ((cfg.ls_class, cfg.ls_category), (cfg.hs_class, cfg.hs_category)) if mt else None
+        for i, ((b, t, t2), req, o, im) in enumerate(zip(COALESCE_MIX, obs, observed, imagined)):
+            post, _ = wm.observe(req["actions"], req["audio"], req["vision"], req["seed"])
+            noise = wm.model.draw_noise(b, t, torch.Generator().manual_seed(req["seed"]))
+            sites = [noise["g_lpost"], noise["g_hpost"]] if mt else [noise["g_post"]]
+            _compare_reply(f"observe {i} (B={b} T={t})", _frames(o, "recon"),
+                           server.states.get(str(o["state_id"])), post, wm.decode(post),
+                           first_near_tie(_sampled_sites(cfg, post, sites), TIE_EPS),
+                           worst["/observe"])
+            start = server.states.get(str(o["state_id"]))
+            seq = wm.imagine(plans[i], start, 200 + i)
+            g = (philox_mt_gumbel(200 + i, t2, b, *spec, dev) if mt
+                 else (philox_gumbel(200 + i, t2, b, cfg.class_size, cfg.category_size, dev),))
+            _compare_reply(f"imagine {i} (B={b} T={t2})", _frames(im, "frames"),
+                           server.states.get(str(im["state_id"])), seq, wm.decode(seq),
+                           first_near_tie(_sampled_sites(cfg, seq, g), TIE_EPS),
+                           worst["/imagine"])
+        for route, w in worst.items():
+            print(f"coalesced vs alone, {_label(cfg)} {route}: {n} replies, frames max_abs_err="
+                  f"{w['frames']:.3g}, latents max_abs_err={w['latents']:.3g} (limit {TOL}), "
+                  f"steps compared {np.mean(w['compared']):.4f}; bit-identical to alone: "
+                  f"{'yes' if w['bit_identical'] else 'no'}")
+        print(f"coalesced {_label(cfg)}: {counts[rollout_name]} rollout launches for {n} "
+              "/imagine, no retries")
+        return {"counts": counts, "server": server, "wm": wm, "obs": obs, "plans": plans,
+                "starts": [server.states.get(str(o["state_id"])) for o in observed]}
+    except BaseException:
+        server.stop()
+        raise
+
+
+def _wall_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median wall time of ``fn()`` in ms (each call returns with its
+    result on the host)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _fresh_thread_probe(dev, card: str) -> None:
+    """What a fresh thread pays for its first device work: the wall time of
+    one small op and a sync, each on a new thread (median of 10), for an
+    elementwise op, a matmul (cuBLAS) and a conv (cuDNN), beside the same
+    ops on the calling thread."""
+    import torch
+
+    x = torch.randn(64, 64, device=dev)
+    img = torch.randn(8, 1, 32, 32, device=dev)
+    w = torch.randn(8, 1, 3, 3, device=dev)
+    ops = {"elementwise": lambda: x + 1, "matmul": lambda: x @ x,
+           "conv2d": lambda: torch.nn.functional.conv2d(img, w, padding=1)}
+
+    def synced(op):
+        op()
+        torch.cuda.synchronize(dev)
+
+    def on_fresh_thread(op):
+        th = threading.Thread(target=synced, args=(op,))
+        th.start()
+        th.join()
+
+    print("time a fresh thread's first device work, wall ms, median of 10: " + ", ".join(
+        f"{k} {_wall_ms(lambda op=op: synced(op)):.3f} on the calling thread, "
+        f"{_wall_ms(lambda op=op: on_fresh_thread(op)):.3f} on a fresh thread"
+        for k, op in ops.items()) + f" | {card}")
+
+
+def coalesced_latencies(ctx: dict, cfg, card: str) -> None:
+    """Phase 5 (measurements only, nothing claimed from them): p50 request
+    latency of ``/observe`` and ``/imagine`` under 8 concurrent clients
+    (``COALESCE_MIX``, decode, npz), coalesced (the 5 ms window) and not
+    (window 0, the same model), over 3 rounds after a warm-up round; and
+    the ``/observe`` split at B=8 T=30: the route's direct call on the
+    calling thread, in a fresh thread each call, on a long-lived batcher
+    thread, and through HTTP."""
+    from multimodal_mtrssm_tpu_torch.server import InferenceServer, _ImagineBatcher, _Pending
+
+    alone = InferenceServer(ctx["wm"], host="127.0.0.1", port=0)
+    alone.start()
+    try:
+        def timed(port, route, req):
+            t0 = time.perf_counter()
+            _http(port, route, req, npz=True)
+            return (time.perf_counter() - t0) * 1e3
+
+        for label, srv in (("coalesced", ctx["server"]), ("uncoalesced", alone)):
+            sids = [srv.states.put(s) for s in ctx["starts"]]
+            for route in ("/observe", "/imagine"):
+                reqs = ctx["obs"] if route == "/observe" else [
+                    {"state_id": sid, "actions": p, "seed": 7, "decode": True}
+                    for sid, p in zip(sids, ctx["plans"])]
+                lat: list[float] = []
+                for rnd in range(4):
+                    got = _concurrently(lambda r, route=route, srv=srv: timed(srv.port, route, r),
+                                        [(r,) for r in reqs])
+                    lat += got if rnd else []
+                print(f"time server {label} {_label(cfg)} {route}: 8 concurrent clients, B in "
+                      f"{{1, 2, 3, 8}}, T in {{5, 10, 30}}, decode npz: p50 {np.median(lat):.3f} "
+                      f"ms over {len(lat)} requests | {card}")
+        req = next(r for r, (b, t, _) in zip(ctx["obs"], COALESCE_MIX) if (b, t) == (8, 30))
+
+        def direct():
+            alone._observe(dict(req), raw=True)
+
+        def fresh_thread():
+            th = threading.Thread(target=direct)
+            th.start()
+            th.join()
+
+        def run_items(items):
+            for it in items:
+                direct()
+                it.result = {}
+
+        worker = _ImagineBatcher(run_items, 0.0, 1)
+        try:
+            split = {"direct call, calling thread": _wall_ms(direct),
+                     "direct call, a fresh thread each call": _wall_ms(fresh_thread),
+                     "direct call, a long-lived batcher thread":
+                         _wall_ms(lambda: worker.submit(_Pending(0, False, True))),
+                     "through HTTP": _wall_ms(lambda: _http(alone.port, "/observe", req,
+                                                            npz=True))}
+        finally:
+            worker.stop()
+        print(f"time /observe split {_label(cfg)} B=8 T=30 decode npz, median of 10: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in split.items()) + f" | {card}")
+        _fresh_thread_probe(ctx["wm"].device, card)
+    finally:
+        alone.stop()
+
+
 def _train_batch(rng, B: int, T: int, model):
     """A random batch (6-tuple, CPU) and its noise for ``shared_step``:
     Gumbel for the model's sample sites and standard normals for the inputs."""
@@ -648,10 +1028,12 @@ def _noise_to(noise: dict, dev) -> dict:
             for k, v in noise.items()}
 
 
-def drive_training(cfg, dev, per_step: dict[str, int]) -> dict:
+def drive_training(cfg, dev, per_step: dict[str, int], run_dir: Path) -> dict:
     """Phase 4: ``Trainer.fit`` of the family of ``cfg`` on synthetic
-    episodes, then one train step on the card against the CPU path;
-    ``per_step`` holds the least launches of each of its kernels a step."""
+    episodes under ``run_dir``, then one train step on the card against the
+    CPU path; ``per_step`` holds the least launches of each of its kernels a
+    step. The run's checkpoints directory is returned under
+    ``"checkpoints"``."""
     import torch
 
     from multimodal_mtrssm_tpu_torch.data import (
@@ -668,46 +1050,45 @@ def drive_training(cfg, dev, per_step: dict[str, int]) -> dict:
     from multimodal_mtrssm_tpu_torch.train import Trainer, TrainerConfig, load_lightning_checkpoint
 
     family = MoPoEMMTRSSM if isinstance(cfg, MMTRSSMConfig) else MoPoEMRSSM
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        generate_synthetic_audio_mnist(Path(tmp) / "episodes", n_episodes=24, seed=SEED)
-        # The reference YAML's input noise is the model's (input_noise_std
-        # 0.1, on the device), so the pipeline adds none.
-        dm = EpisodeDataModule(DataModuleConfig(data_dir=str(Path(tmp) / "episodes"),
-                                                batch_size=8, sequence_length=30, noise_std=0.0,
-                                                seed=SEED))
-        dm.setup()
-        print(f"data: 24 episodes x 180 frames generated and loaded in "
-              f"{time.perf_counter() - t0:.2f} s; {dm.n_train} train, {dm.n_val} val")
-        model = family(cfg).to(dev)
-        init = family(cfg).init(torch.Generator().manual_seed(SEED))  # fit's own init
-        trainer = Trainer(model, dm, TrainerConfig(max_epochs=2, seed=SEED,
-                                                   log_dir=str(Path(tmp) / "run")))
-        reset_launch_counts()
-        out = trainer.fit()
-        torch.cuda.synchronize()
-        counts = launch_counts()
-        steps = out["global_step"]
-        print(f"main-path kernel launches, {_label(cfg)} training, {steps} optimizer "
-              f"steps: {counts}")
-        for row in out["history"]:
-            print("epoch " + " ".join(f"{k}={v:.6g}" for k, v in row.items()))
-        if steps < 4 or len(out["history"]) != 2:
-            raise RuntimeError(f"fit ran {steps} steps in {len(out['history'])} epochs")
-        if not all(np.isfinite(v) for row in out["history"] for v in row.values()):
-            raise RuntimeError("non-finite training metrics")
-        if any(counts[k] < n * steps for k, n in per_step.items()):
-            raise RuntimeError(f"the training path missed a kernel: {counts}, needs {per_step} "
-                               "a step")
-        still = [n for (n, p), q in zip(model.named_parameters(), init.parameters())
-                 if torch.equal(p.detach().cpu(), q.detach())]
-        if still:
-            raise RuntimeError(f"parameters did not move: {still}")
-        best = load_lightning_checkpoint(family(cfg), Path(tmp) / "run" / "checkpoints" / "best.ckpt")
-        if not all(bool(torch.isfinite(p).all()) for p in best.parameters()):
-            raise RuntimeError("the best checkpoint holds non-finite weights")
-        print(f"fit: {steps} steps, best val/loss {out['best_val']:.6g}, every parameter moved, "
-              "best checkpoint loads into a fresh model")
+    t0 = time.perf_counter()
+    generate_synthetic_audio_mnist(run_dir / "episodes", n_episodes=24, seed=SEED)
+    # The reference YAML's input noise is the model's (input_noise_std
+    # 0.1, on the device), so the pipeline adds none.
+    dm = EpisodeDataModule(DataModuleConfig(data_dir=str(run_dir / "episodes"),
+                                            batch_size=8, sequence_length=30, noise_std=0.0,
+                                            seed=SEED))
+    dm.setup()
+    print(f"data: 24 episodes x 180 frames generated and loaded in "
+          f"{time.perf_counter() - t0:.2f} s; {dm.n_train} train, {dm.n_val} val")
+    model = family(cfg).to(dev)
+    init = family(cfg).init(torch.Generator().manual_seed(SEED))  # fit's own init
+    trainer = Trainer(model, dm, TrainerConfig(max_epochs=2, seed=SEED,
+                                               log_dir=str(run_dir / "run")))
+    reset_launch_counts()
+    out = trainer.fit()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    steps = out["global_step"]
+    print(f"main-path kernel launches, {_label(cfg)} training, {steps} optimizer "
+          f"steps: {counts}")
+    for row in out["history"]:
+        print("epoch " + " ".join(f"{k}={v:.6g}" for k, v in row.items()))
+    if steps < 4 or len(out["history"]) != 2:
+        raise RuntimeError(f"fit ran {steps} steps in {len(out['history'])} epochs")
+    if not all(np.isfinite(v) for row in out["history"] for v in row.values()):
+        raise RuntimeError("non-finite training metrics")
+    if any(counts[k] < n * steps for k, n in per_step.items()):
+        raise RuntimeError(f"the training path missed a kernel: {counts}, needs {per_step} "
+                           "a step")
+    still = [n for (n, p), q in zip(model.named_parameters(), init.parameters())
+             if torch.equal(p.detach().cpu(), q.detach())]
+    if still:
+        raise RuntimeError(f"parameters did not move: {still}")
+    best = load_lightning_checkpoint(family(cfg), run_dir / "run" / "checkpoints" / "best.ckpt")
+    if not all(bool(torch.isfinite(p).all()) for p in best.parameters()):
+        raise RuntimeError("the best checkpoint holds non-finite weights")
+    print(f"fit: {steps} steps, best val/loss {out['best_val']:.6g}, every parameter moved, "
+          "best checkpoint loads into a fresh model")
 
     cpu = family(cfg)
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
@@ -730,7 +1111,7 @@ def drive_training(cfg, dev, per_step: dict[str, int]) -> dict:
     # allocator's first calls.
     last = out["history"][-1]
     steps_last = -(-dm.n_train // dm.train_batch_size)
-    return {"counts": counts, "model": model,
+    return {"counts": counts, "model": model, "checkpoints": run_dir / "run" / "checkpoints",
             "steps_per_s": steps / max(out["train_seconds"], 1e-9),
             "steps_per_s_last": steps_last * last["seq_per_sec"] / dm.n_train}
 
@@ -1952,7 +2333,30 @@ def stacked_recurrence_bwd_phase() -> int:
                         ("recurrence_stacked_bwd.cu",))
 
 
+def serve_trained(cfg, dev, training: dict, card: str) -> dict[str, int]:
+    """Phases 3b and its timings: the fit run of ``cfg`` served from its
+    checkpoints directory, coalesced (``drive_coalesced``), then the
+    serving latencies (``coalesced_latencies``). Returns the launch counts
+    of the coalesced requests."""
+    import torch
+
+    with torch.no_grad():
+        ctx = drive_coalesced(cfg, dev, training["checkpoints"])
+        try:
+            coalesced_latencies(ctx, cfg, card)
+        finally:
+            ctx["server"].stop()
+    return ctx["counts"]
+
+
 def main() -> int:
+    """Every phase; the fit runs' episodes and checkpoints live in a
+    temporary directory removed at the end."""
+    with tempfile.TemporaryDirectory() as work:
+        return _main(Path(work))
+
+
+def _main(work: Path) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -1988,6 +2392,8 @@ def main() -> int:
     model = MoPoEMRSSM(cfg).init(torch.Generator().manual_seed(0)).to(dev).eval()
     with torch.no_grad():
         checks = check_kernels(model, cfg, dev)
+        checks["rollout"]["max_abs_err"] = max(checks["rollout"]["max_abs_err"],
+                                               check_per_row_keys(model, cfg, dev)["max_abs_err"])
         checks["recurrence_bwd"] = check_backward(model, cfg, dev)
         ctx = drive_server(model, cfg, dev, {"recurrence_fwd": 1, "rollout": 2})
         try:
@@ -1999,11 +2405,13 @@ def main() -> int:
         bounds = recurrence_bounds(model, cfg, dev)
         other_bounds("MRSSM", ((128, 30),),
                      lambda B, T, roll: recurrence_bounds(model, cfg, dev, B, T, roll))
-    training = drive_training(cfg, dev, {"recurrence_fwd": 1, "recurrence_bwd": 1})
+    training = drive_training(cfg, dev, {"recurrence_fwd": 1, "recurrence_bwd": 1},
+                              work / "mrssm")
     times.update(bwd_timings(training["model"], cfg, dev, card))
     step_timings(training["model"], dev, card)
     fit_rate(training, cfg)
-    runs += [ctx["counts"], training["counts"]]
+    co = serve_trained(cfg, dev, training, card)
+    runs += [ctx["counts"], training["counts"], co]
 
     # MoPoE-MMTRSSM.
     mt_cfg = MMTRSSMConfig()
@@ -2011,6 +2419,9 @@ def main() -> int:
     mt_run = {"mt_recurrence_fwd": 1, "mt_recurrence_bwd": 1}
     with torch.no_grad():
         checks.update(check_mt_kernels(mt_model, mt_cfg, dev))
+        checks["mt_rollout"]["max_abs_err"] = max(
+            checks["mt_rollout"]["max_abs_err"],
+            check_per_row_keys(mt_model, mt_cfg, dev)["max_abs_err"])
         checks["mt_recurrence_bwd"] = check_mt_backward(mt_model, mt_cfg, dev)
         mt_ctx = drive_server(mt_model, mt_cfg, dev, {"mt_recurrence_fwd": 1, "mt_rollout": 2})
         try:
@@ -2023,10 +2434,11 @@ def main() -> int:
         bounds.update(mt_bounds(mt_model, mt_cfg, dev))
         other_bounds("MMTRSSM", ((32, 30), (128, 30)),
                      lambda B, T, roll: mt_bounds(mt_model, mt_cfg, dev, B, T, roll))
-    mt_training = drive_training(mt_cfg, dev, mt_run)
+    mt_training = drive_training(mt_cfg, dev, mt_run, work / "mmtrssm")
     step_timings(mt_training["model"], dev, card)
     fit_rate(mt_training, mt_cfg)
-    runs += [mt_ctx["counts"], mt_training["counts"]]
+    mt_co = serve_trained(mt_cfg, dev, mt_training, card)
+    runs += [mt_ctx["counts"], mt_training["counts"], mt_co]
 
     # MoPoE-MRSSM on the fused encoder and the stacked recurrence.
     enc_run = {"fused_encoder_fwd": 2, "fused_encoder_bwd": 2}
@@ -2047,7 +2459,8 @@ def main() -> int:
     bounds.update({**st_bounds, **enc_bounds})
     library.update(enc_library)
     fs_training = drive_training(fs_cfg, dev, {"stacked_recurrence_fwd": 1,
-                                               "stacked_recurrence_bwd": 1, **enc_run})
+                                               "stacked_recurrence_bwd": 1, **enc_run},
+                                 work / "mrssm_fused")
     step_timings(fs_training["model"], dev, card)
     fit_rate(fs_training, fs_cfg)
     runs += [fs_ctx["counts"], fs_training["counts"]]
@@ -2059,7 +2472,7 @@ def main() -> int:
         fe_ctx = drive_server(fe_model, fe_cfg, dev, {"mt_recurrence_fwd": 1, "mt_rollout": 2,
                                                       "fused_encoder_fwd": 2})
         fe_ctx["server"].stop()
-    fe_training = drive_training(fe_cfg, dev, {**mt_run, **enc_run})
+    fe_training = drive_training(fe_cfg, dev, {**mt_run, **enc_run}, work / "mmtrssm_fused")
     step_timings(fe_training["model"], dev, card)
     fit_rate(fe_training, fe_cfg)
     runs += [fe_ctx["counts"], fe_training["counts"]]

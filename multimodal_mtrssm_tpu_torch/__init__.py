@@ -5,10 +5,13 @@ the module of the same name there, and the CPU tests hold each one to its
 JAX counterpart on the same weights, inputs and noise. This package imports
 ``torch`` and never ``jax``.
 
-Ported so far: MoPoE-MRSSM serving (observe → imagine → decode,
-``serving.WorldModel`` and ``server.InferenceServer``) and training
-(``train.Trainer`` on ``data.EpisodeDataModule``: the ELBO, AdamW,
-checkpoints), with hand-written CUDA kernels for the representation
-recurrence (forward and BPTT backward) and the imagination rollout
+Ported so far, for MoPoE-MRSSM and MoPoE-MMTRSSM: serving (observe →
+imagine → decode, ``serving.WorldModel`` and ``server.InferenceServer``,
+with request coalescing exact per request; ``python -m
+multimodal_mtrssm_tpu_torch serve``), the YAML configs
+(``train.config.load_experiment``) and training (``train.Trainer`` on
+``data.EpisodeDataModule``: the ELBO, AdamW, checkpoints), with
+hand-written CUDA kernels for the representation recurrences (forward and
+BPTT backward), the imagination rollouts and the fused conv stacks
 (``ops/kernels``, sources in ``csrc/``).
 """

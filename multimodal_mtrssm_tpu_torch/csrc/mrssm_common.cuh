@@ -309,14 +309,29 @@ __device__ __forceinline__ float uniform_from_bits(uint32_t bits) {
   return __uint_as_float((bits >> 9) | 0x3F800001u) - 1.f;
 }
 
+// Batch row b's Philox key and counter row: its 64-bit seed row_seed[b]
+// split into the low and high words, and row_index[b], the row's index
+// inside its own request (ops/kernels/rollout.py::row_keys). One request
+// has its seed on every row and the index b; rows of coalesced requests
+// keep their own request's key and index, and so their own draws.
+struct RowKey {
+  uint32_t k0, k1, index;
+};
+
+__device__ __forceinline__ RowKey row_key(const long long* row_seed, const long long* row_index,
+                                          int b) {
+  const unsigned long long s = (unsigned long long)__ldg(row_seed + b);
+  return {(uint32_t)(s & 0xFFFFFFFFull), (uint32_t)(s >> 32), (uint32_t)__ldg(row_index + b)};
+}
+
 // The Gumbel scores -log(-log(u)) that Philox word wd of category block
-// `block` gives at step t and batch row b: categories 4·wd .. 4·wd + 3 of a
-// block of K (those below K), into y[0..3]
+// `block` gives at step t for a row keyed by `key`: categories 4·wd ..
+// 4·wd + 3 of a block of K (those below K), into y[0..3]
 // (ops/kernels/rollout.py::philox_block_gumbel).
-__device__ __forceinline__ void gumbel_word(float* y, uint32_t t, uint32_t b, uint32_t block,
-                                            int wd, int K, uint32_t key0, uint32_t key1) {
-  uint32_t ctr[4] = {t, b, block, (uint32_t)wd};
-  philox4x32_10(ctr, key0, key1);
+__device__ __forceinline__ void gumbel_word(float* y, uint32_t t, const RowKey& key,
+                                            uint32_t block, int wd, int K) {
+  uint32_t ctr[4] = {t, key.index, block, (uint32_t)wd};
+  philox4x32_10(ctr, key.k0, key.k1);
   for (int u = 0; u < 4 && 4 * wd + u < K; ++u) y[u] = -logf(-logf(uniform_from_bits(ctr[u])));
 }
 

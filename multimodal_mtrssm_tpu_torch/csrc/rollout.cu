@@ -4,10 +4,13 @@
 // t = 0..T-1, transition MLP(action ⊕ stoch) → GRU → prior MLP → one-hot
 // Gumbel-argmax sample per category block, which is the next step's stoch.
 //
-// Noise: the TPU core PRNG becomes Philox4x32-10 keyed by the 64-bit seed,
-// with counter (t, b, block, word): one call gives the four uniforms of a
-// 4-category block. ops/kernels/rollout.py implements the same generator in
-// torch integer ops, so a seed draws the same noise on the CPU and here.
+// Noise: the TPU core PRNG becomes Philox4x32-10 keyed, row by row, by a
+// 64-bit seed, with counter (t, index, block, word), where index is the row's
+// index inside its own request: one call gives the four uniforms of a
+// 4-category block. A request's rows carry its seed, so requests coalesced
+// into one launch each draw what they draw alone.
+// ops/kernels/rollout.py implements the same generator in torch integer
+// ops, so a seed draws the same noise on the CPU and here.
 //
 // What bounds it: the latency of the T dependent steps of small products at
 // serving batches (a step is ~9,000 multiply-adds a row); only at B ≥ 256
@@ -128,8 +131,8 @@ rollout_stages_kernel(const __grid_constant__ RollWeights sw,
                       const float* __restrict__ actions, const float* __restrict__ init_deter,
                       const float* __restrict__ init_stoch, float* __restrict__ deters,
                       float* __restrict__ logits_out, float* __restrict__ stochs,
-                      float* __restrict__ wsp, uint32_t key0, uint32_t key1, Dims d,
-                      int stages) {
+                      float* __restrict__ wsp, const long long* __restrict__ row_seed,
+                      const long long* __restrict__ row_index, Dims d, int stages) {
   extern __shared__ __align__(16) float smem[];
   const int A = d.A, H = d.H, D = d.D, K = d.K, S = d.C * d.K, G = 3 * D, PW = H + S;
   const int B = d.B, T = d.T;
@@ -191,8 +194,8 @@ rollout_stages_kernel(const __grid_constant__ RollWeights sw,
     for (int i = threadIdx.x; i < N * NWD; i += blockDim.x) {
       const int q = i / NWD, k = i - q * NWD, t = q / rows, b = row0 + q - t * rows;
       const int c = k / per, wd = k - c * per;
-      mrssm::gumbel_word(wsp + ((size_t)t * B + b) * PW + H + c * K + 4 * wd, t, b, c, wd, K,
-                         key0, key1);
+      mrssm::gumbel_word(wsp + ((size_t)t * B + b) * PW + H + c * K + 4 * wd, t,
+                         mrssm::row_key(row_seed, row_index, b), c, wd, K);
     }
   }
 
@@ -309,13 +312,16 @@ extern "C" {
 // Launch on `stream` the stages in `stages` (1: the prologue, 2: the chain;
 // 3 for a rollout call). `weights` is a host array of the 12 transition
 // device pointers in the order of ops/kernels/rollout.py; `workspace` holds
-// the prologue's rows, [T, B, H + S] floats; R is the batch rows a block (at
+// the prologue's rows, [T, B, H + S] floats; row_seed and row_index are
+// device arrays of B int64, each row's Philox seed and its index inside its
+// request (mrssm::row_key); R is the batch rows a block (at
 // most 7: phase (b) leaves gh at least one warp). Tensors f32, contiguous,
 // [B, T, ·]. Returns the cudaError_t of the launch (0 on success).
 int mrssm_rollout(const void* const* weights, const float* actions, const float* init_deter,
                   const float* init_stoch, float* deters, float* logits, float* stochs,
-                  float* workspace, unsigned long long seed, int T, int B, int A, int H, int D,
-                  int C, int K, int R, int stages, void* stream) {
+                  float* workspace, const long long* row_seed, const long long* row_index,
+                  int T, int B, int A, int H, int D, int C, int K, int R, int stages,
+                  void* stream) {
   if (R < 1 || R > kThreads / 32 - 1) return (int)cudaErrorInvalidValue;
   const Dims d{T, B, A, H, D, C, K, R};
   const mrssm::WeightDims dims = weight_dims(d);
@@ -326,7 +332,7 @@ int mrssm_rollout(const void* const* weights, const float* actions, const float*
   if (err != cudaSuccess) return (int)err;
   rollout_stages_kernel<<<(B + R - 1) / R, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       sw, mrssm::weight_ptrs(weights, kNW), dims, actions, init_deter, init_stoch, deters, logits,
-      stochs, workspace, (uint32_t)(seed & 0xFFFFFFFFull), (uint32_t)(seed >> 32), d, stages);
+      stochs, workspace, row_seed, row_index, d, stages);
   return (int)cudaGetLastError();
 }
 

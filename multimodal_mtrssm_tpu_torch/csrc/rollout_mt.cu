@@ -6,8 +6,9 @@
 // MTRNN on the previous hs → the h-prior MLP → one-hot sample. It writes the
 // integrator trajectories too, which make a chained continuation exact.
 //
-// Noise: Philox4x32-10 keyed by the 64-bit seed, counter (t, b, block, word):
-// the lower site's blocks are 0 .. ls_class - 1, the higher site's
+// Noise: Philox4x32-10 keyed, row by row, by a 64-bit seed, counter (t,
+// index, block, word) with the row's index inside its own request, as in
+// rollout.cu: the lower site's blocks are 0 .. ls_class - 1, the higher site's
 // ls_class + c, and a block of K categories takes ceil(K / 4) words.
 // ops/kernels/rollout_mt.py::philox_mt_gumbel is the same generator in torch
 // integer ops, so a seed draws the same noise on the CPU and here.
@@ -143,8 +144,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 mt_rollout_stages_kernel(const __grid_constant__ RollWeights sw,
                          const __grid_constant__ mrssm::WeightPtrs w,
                          const __grid_constant__ mrssm::WeightDims dims, MTRolloutIn in,
-                         MTRolloutOut out, float* __restrict__ wsp, uint32_t key0,
-                         uint32_t key1, MTDims d, int stages) {
+                         MTRolloutOut out, float* __restrict__ wsp,
+                         const long long* __restrict__ row_seed,
+                         const long long* __restrict__ row_index, MTDims d, int stages) {
   extern __shared__ __align__(16) float smem[];
   const Sizes z = sizes(d);
   const int A = z.A, HD = z.HD, LD = z.LD, C = z.C, LS = z.LS, HS = z.HS, XS = z.XS;
@@ -180,7 +182,8 @@ mt_rollout_stages_kernel(const __grid_constant__ RollWeights sw,
       const int kk = lower ? k : k - d.ls_class * lw, per = lower ? lw : hw;
       const int c = kk / per, wd = kk - c * per, K = lower ? z.lK : z.hK;
       mrssm::gumbel_word(wsp + ((size_t)t * B + b) * PW + LD + (lower ? 0 : LS) + c * K + 4 * wd,
-                         t, b, lower ? c : d.ls_class + c, wd, K, key0, key1);
+                         t, mrssm::row_key(row_seed, row_index, b),
+                         lower ? c : d.ls_class + c, wd, K);
     }
   }
 
@@ -322,12 +325,15 @@ extern "C" {
 // 3 for a rollout call). Host arrays of device pointers: `weights` (the 16
 // MTRNN and prior weights), `ins` (actions, init6) and `outs` (the 8
 // outputs), in the order of ops/kernels/rollout_mt.py; `workspace` holds
-// the prologue's rows, [T, B, LD + LS + HS] floats; d.rows is the batch rows
+// the prologue's rows, [T, B, LD + LS + HS] floats; row_seed and row_index
+// are device arrays of B int64, each row's Philox seed and its index inside
+// its request (mrssm::row_key); d.rows is the batch rows
 // a block (at most 3: phase (b) leaves the deters' products at least two
 // warps). Tensors f32, contiguous, [B, T, ·]. Returns the cudaError_t of
 // the launch (0 on success).
 int mt_rollout(const void* const* weights, const void* const* ins, void* const* outs,
-               void* workspace, unsigned long long seed, MTDims d, int stages, void* stream) {
+               void* workspace, const long long* row_seed, const long long* row_index,
+               MTDims d, int stages, void* stream) {
   if (d.rows < 1 || 2 * d.rows > kThreads / 32 - 2) return (int)cudaErrorInvalidValue;
   const mrssm::WeightPtrs w = mrssm::weight_ptrs(weights, kNW);
   const float* const* x = reinterpret_cast<const float* const*>(ins);
@@ -342,8 +348,7 @@ int mt_rollout(const void* const* weights, const void* const* ins, void* const* 
   if (err != cudaSuccess) return (int)err;
   const int blocks = (d.B + d.rows - 1) / d.rows;
   mt_rollout_stages_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      sw, w, dims, in, out, static_cast<float*>(workspace), (uint32_t)(seed & 0xFFFFFFFFull),
-      (uint32_t)(seed >> 32), d, stages);
+      sw, w, dims, in, out, static_cast<float*>(workspace), row_seed, row_index, d, stages);
   return (int)cudaGetLastError();
 }
 

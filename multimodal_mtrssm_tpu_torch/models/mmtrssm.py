@@ -43,6 +43,7 @@ from multimodal_mtrssm_tpu_torch.nn.core import MTRNN, init_fan_in_uniform_, mlp
 from multimodal_mtrssm_tpu_torch.ops.distributions import MultiOneHot, kl_balanced, st_sample
 from multimodal_mtrssm_tpu_torch.ops.kernels import (
     MTSpec,
+    Seed,
     fused_mt_rollout_transition,
     fused_mt_train_recurrence,
     resolve_conv_layout,
@@ -261,11 +262,13 @@ class MoPoEMMTRSSM(nn.Module):
                             logits_h=hq_logits, logits_l=mixed, hidden_h=hid_h, hidden_l=hid_l)
         return posterior, prior
 
-    def rollout_transition(self, actions: torch.Tensor, prev_state: MTState, seed: int) -> MTState:
+    def rollout_transition(self, actions: torch.Tensor, prev_state: MTState,
+                           seed: Seed) -> MTState:
         """Prior-only imagination over ``[B, T]`` actions (reference
         ``core.py:496-544``) through the rollout kernel; stochs are one-hot
-        samples from the seed's Philox stream. The integrator trajectories
-        make a continuation from ``[:, -1]`` exact."""
+        samples from the seed's Philox stream (an ``int`` or per-row keys, as
+        ``MoPoEMRSSM.rollout_transition``). The integrator trajectories make
+        a continuation from ``[:, -1]`` exact."""
         cfg = self.cfg
         p = prev_state
         init6 = tuple(x.contiguous() for x in (p.deter_h, p.deter_l, p.stoch_h, p.stoch_l,

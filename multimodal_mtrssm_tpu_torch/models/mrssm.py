@@ -35,6 +35,7 @@ from multimodal_mtrssm_tpu_torch.ops.distributions import (
     st_sample,
 )
 from multimodal_mtrssm_tpu_torch.ops.kernels import (
+    Seed,
     fused_encoder_apply,
     fused_rollout_transition,
     fused_train_recurrence,
@@ -226,10 +227,12 @@ class MoPoEMRSSM(nn.Module):
         prior = State(deter=deter, stoch=prior_stoch, logits=prior_logits)
         return posterior, prior
 
-    def rollout_transition(self, actions: torch.Tensor, prev_state: State, seed: int) -> State:
+    def rollout_transition(self, actions: torch.Tensor, prev_state: State, seed: Seed) -> State:
         """Prior-only imagination over ``[B, T]`` actions (reference
         ``core.py:170-185``) through the rollout kernel; stochs are one-hot
-        samples from the seed's Philox stream, as in the JAX kernel path."""
+        samples from the seed's Philox stream, as in the JAX kernel path.
+        ``seed`` is one request's ``int`` or each row's ``(row_seed,
+        row_index)`` (``ops.kernels.rollout.row_keys``)."""
         cfg = self.cfg
         deters, logits, stochs = fused_rollout_transition(
             self.transition.weights(), actions.contiguous(), prev_state.deter.contiguous(),

@@ -58,7 +58,7 @@ from multimodal_mtrssm_tpu_torch.ops.kernels.fused_conv import (
     resolve_conv_layout,
 )
 from multimodal_mtrssm_tpu_torch.ops.kernels.recurrence_mt import MT_SPEC, MTSpec
-from multimodal_mtrssm_tpu_torch.ops.kernels.rollout import philox_gumbel
+from multimodal_mtrssm_tpu_torch.ops.kernels.rollout import Seed, philox_gumbel
 from multimodal_mtrssm_tpu_torch.ops.kernels.rollout_mt import philox_mt_gumbel
 
 # Kernel name → (module, attribute) of its launch counter.
@@ -148,11 +148,13 @@ def resolve_train_kernel_mode(value: bool | str | None, family: str = "mrssm") -
 
 def fused_rollout_transition(
     weights: Sequence[torch.Tensor], actions: torch.Tensor, init_deter: torch.Tensor,
-    init_stoch: torch.Tensor, seed: int, class_size: int = 4, category_size: int = 4,
+    init_stoch: torch.Tensor, seed: Seed, class_size: int = 4, category_size: int = 4,
     activation_name: str = "ELU",
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Prior-only imagination over ``[B, T, A]`` actions with the seed's
-    Philox noise. Returns ``(deters, logits, stochs)``, each ``[B, T, ·]``."""
+    Philox noise (an ``int``, or each row's ``(row_seed, row_index)``:
+    ``rollout.row_keys``). Returns ``(deters, logits, stochs)``, each
+    ``[B, T, ·]``."""
     act = _route(actions.device, activation_name)
     if act is None:
         return rollout.rollout_cuda(weights, actions, init_deter, init_stoch, seed,
@@ -178,11 +180,12 @@ def fused_mt_train_recurrence(
 
 def fused_mt_rollout_transition(
     weights: Sequence[torch.Tensor], actions: torch.Tensor, init6: Sequence[torch.Tensor],
-    seed: int, spec: MTSpec = MT_SPEC, activation_name: str = "ELU",
+    seed: Seed, spec: MTSpec = MT_SPEC, activation_name: str = "ELU",
 ) -> tuple[torch.Tensor, ...]:
     """Hierarchical prior-only imagination over ``[B, T, A]`` actions with
-    the seed's Philox noise. Returns ``(h_deter, l_deter, h_logits,
-    l_logits, h_stoch, l_stoch, hid_h, hid_l)``, each ``[B, T, ·]``."""
+    the seed's Philox noise (as :func:`fused_rollout_transition`). Returns
+    ``(h_deter, l_deter, h_logits, l_logits, h_stoch, l_stoch, hid_h,
+    hid_l)``, each ``[B, T, ·]``."""
     act = _route(actions.device, activation_name)
     if act is None:
         return rollout_mt.rollout_mt_cuda(weights, actions, init6, seed, spec)
@@ -203,6 +206,7 @@ def reset_launch_counts() -> None:
 __all__ = [
     "LAUNCH_COUNTERS",
     "MTSpec",
+    "Seed",
     "fused_decoder_applicable",
     "fused_decoder_apply",
     "fused_encoder_applicable",

@@ -72,13 +72,13 @@ _SIGNATURES = {
     "mrssm_recurrence_backward": (_I, [_P] * 18 + [_I] * 10 + [_P]),
     "mrssm_recurrence_bwd_rows": (_I, [_I] * 7),
     "mrssm_recurrence_bwd_workspace": (ctypes.c_longlong, [_I] * 8),
-    "mrssm_rollout": (_I, [_P] * 8 + [ctypes.c_ulonglong] + [_I] * 9 + [_P]),
+    "mrssm_rollout": (_I, [_P] * 10 + [_I] * 9 + [_P]),
     "mt_recurrence_forward": (_I, [_P] * 4 + [MTDims, _I, _P]),
     "mt_recurrence_fwd_rows": (_I, [MTDims, _I]),
     "mt_recurrence_backward": (_I, [_P] * 6 + [MTDims, _I, _P]),
     "mt_recurrence_bwd_rows": (_I, [MTDims, _I]),
     "mt_recurrence_bwd_workspace": (ctypes.c_longlong, [MTDims]),
-    "mt_rollout": (_I, [_P] * 4 + [ctypes.c_ulonglong, MTDims, _I, _P]),
+    "mt_rollout": (_I, [_P] * 6 + [MTDims, _I, _P]),
     "mrssm_stacked_forward": (_I, [_P] * 14 + [_I] * 9 + [_P]),
     "mrssm_stacked_fwd_workspace": (ctypes.c_longlong, [_I] * 8),
     "mrssm_stacked_backward": (_I, [_P] * 18 + [_I] * 9 + [_P]),

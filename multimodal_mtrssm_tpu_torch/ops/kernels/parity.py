@@ -22,7 +22,7 @@ from multimodal_mtrssm_tpu_torch.models.state import MTState
 from multimodal_mtrssm_tpu_torch.nn.core import transition_step
 from multimodal_mtrssm_tpu_torch.ops.distributions import onehot_blocks
 from multimodal_mtrssm_tpu_torch.ops.kernels.recurrence_mt import MT_SPEC, MTSpec
-from multimodal_mtrssm_tpu_torch.ops.kernels.rollout import philox_gumbel
+from multimodal_mtrssm_tpu_torch.ops.kernels.rollout import Seed, philox_gumbel
 from multimodal_mtrssm_tpu_torch.ops.kernels.rollout_mt import mt_prior_step, philox_mt_gumbel
 
 
@@ -96,7 +96,7 @@ def replay_transition(weights: Sequence[torch.Tensor], actions: torch.Tensor,
 
 @torch.no_grad()
 def check_rollout(weights: Sequence[torch.Tensor], actions: torch.Tensor,
-                  init_deter: torch.Tensor, init_stoch: torch.Tensor, seed: int,
+                  init_deter: torch.Tensor, init_stoch: torch.Tensor, seed: Seed,
                   kernel_out: Sequence[torch.Tensor], class_size: int, category_size: int,
                   atol: float = 1e-4, tie_eps: float = 1e-5) -> dict[str, float]:
     """Check the rollout kernel by replaying its stochs through the plain
@@ -190,7 +190,7 @@ def replay_mt_prior(weights: Sequence[torch.Tensor], actions: torch.Tensor,
 
 @torch.no_grad()
 def check_mt_rollout(weights: Sequence[torch.Tensor], actions: torch.Tensor,
-                     init6: Sequence[torch.Tensor], seed: int, kernel_out: Sequence[torch.Tensor],
+                     init6: Sequence[torch.Tensor], seed: Seed, kernel_out: Sequence[torch.Tensor],
                      spec: MTSpec = MT_SPEC, atol: float = 1e-4,
                      tie_eps: float = 1e-5) -> dict[str, float]:
     """Check the hierarchical rollout kernel by replaying its stochs through
@@ -221,6 +221,47 @@ def check_mt_rollout(weights: Sequence[torch.Tensor], actions: torch.Tensor,
                               f"{int(bad.sum())} blocks")
         kept.append(keep.flatten())
     return {"max_abs_err": err, "compared": float(torch.cat(kept).float().mean())}
+
+
+@torch.no_grad()
+def first_near_tie(scores: Sequence[tuple[torch.Tensor, int, int]],
+                   tie_eps: float = 1e-5) -> torch.Tensor:
+    """Each row's first step at which a sampled site has a near-tie block:
+    ``scores`` holds, per site that feeds the carry, its ``[B, T, C·K]``
+    logits plus noise with its ``(class_size, category_size)``. Returns a
+    ``[B]`` tensor, ``T`` where a row has none. Up to that step two runs of
+    one trajectory sample alike; from there a rounding can pick another
+    category."""
+    B, T = scores[0][0].shape[:2]
+    tie = torch.zeros(B, T, dtype=torch.bool, device=scores[0][0].device)
+    for s, c, k in scores:
+        tie |= near_ties(s, c, k, tie_eps).any(-1)
+    steps = torch.arange(T, device=tie.device)[None, :]
+    return torch.where(tie, steps, T).amin(1)
+
+
+@torch.no_grad()
+def check_same_trajectories(got: Sequence[torch.Tensor], ref: Sequence[torch.Tensor],
+                            samples: Sequence[int], first: torch.Tensor, atol: float = 1e-4,
+                            name: str = "trajectories") -> dict[str, Any]:
+    """Two runs of the same ``[B, T, ·]`` trajectories (a request coalesced
+    and alone): the outputs whose indices are in ``samples`` equal at the
+    steps before each row's ``first`` near-tie (:func:`first_near_tie`),
+    every other output within ``atol`` up to and including it (it depends
+    only on earlier samples). Raises :class:`ParityError`. Returns the
+    largest error and whether the two runs are bit-identical."""
+    T = ref[0].shape[1]
+    steps = torch.arange(T, device=first.device)[None, :]
+    upto, before = steps <= first[:, None], steps < first[:, None]
+    err = max((_max_err(g, r, upto) for i, (g, r) in enumerate(zip(got, ref))
+               if i not in samples), default=0.0)
+    if not err <= atol:
+        raise ParityError(f"{name}: max |a - b| {err:.3g} > {atol}")
+    for i in samples:
+        if not torch.equal(got[i][before], ref[i][before]):
+            raise ParityError(f"{name}: output {i} differs before the first near-tie")
+    return {"max_abs_err": err,
+            "bit_identical": all(torch.equal(g, r) for g, r in zip(got, ref))}
 
 
 def check_gradients(kernel_grads: Sequence[torch.Tensor], plain_grads: Sequence[torch.Tensor],

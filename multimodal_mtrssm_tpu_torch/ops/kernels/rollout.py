@@ -6,11 +6,16 @@ Replaces ``multimodal_mtrssm_tpu/ops/pallas/rollout.py::_rollout_kernel``
 stoch.
 
 Noise: the TPU's core PRNG becomes Philox4x32-10 written into the kernel,
-keyed by the 64-bit ``seed`` (low word, high word), with the counter
-``(t, b, block, word)``: one call gives the four uniforms of a four-category
-block. Uniforms come from the bits by mantissa stuffing with the low bit
-forced on, so u is never 0 (``rollout.py::_uniform_from_bits``), and the
-Gumbel score is ``-log(-log(u))``. :func:`philox_gumbel` is the same generator
+keyed row by row by a 64-bit seed (low word, high word), with the counter
+``(t, index, block, word)``, where ``index`` is the row's index inside its
+own request: one call gives the four uniforms of a four-category block. A
+seed is an ``int`` (one request: that seed on every row, the indices
+``0 .. B-1``) or a pair ``(row_seed, row_index)`` of int64 ``[B]`` tensors
+(:func:`row_keys`), with which the rows of coalesced requests each keep
+their own request's draws. Uniforms come from the bits by mantissa
+stuffing with the low bit forced on, so u is never 0
+(``rollout.py::_uniform_from_bits``), and the Gumbel score is
+``-log(-log(u))``. :func:`philox_gumbel` is the same generator
 in torch integer ops, so a seed draws the same noise on the CPU and the card.
 
 What bounds it on the card: as for the recurrence, the T dependent steps of
@@ -56,6 +61,8 @@ launches = 0
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+# A rollout's seed: one request's int, or each row's (row_seed, row_index).
+Seed = int | tuple[torch.Tensor, torch.Tensor]
 
 
 def _mul_hi_lo(a: torch.Tensor, m: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -67,9 +74,11 @@ def _mul_hi_lo(a: torch.Tensor, m: int) -> tuple[torch.Tensor, torch.Tensor]:
     return (p_hi >> 16) + (s >> 32), s & _MASK32
 
 
-def philox4x32_10(counter: Sequence[torch.Tensor], key: tuple[int, int]) -> list[torch.Tensor]:
+def philox4x32_10(counter: Sequence[torch.Tensor],
+                  key: tuple[int | torch.Tensor, int | torch.Tensor]) -> list[torch.Tensor]:
     """Philox4x32-10 (Salmon et al., SC'11, as in Random123) on int64 tensors
-    holding 32-bit words. Returns the four output words."""
+    holding 32-bit words; the key's two words are ints or int64 tensors that
+    broadcast against the counter. Returns the four output words."""
     c = [x.to(torch.int64) & _MASK32 for x in counter]
     k0, k1 = key[0] & _MASK32, key[1] & _MASK32
     for i in range(10):
@@ -87,23 +96,50 @@ def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
     return pattern.view(torch.float32) - 1.0
 
 
-def philox_block_gumbel(seed: int, T: int, B: int, first_block: int, n_blocks: int,
+def row_keys(seed: Seed, B: int,
+             device: torch.device | str = "cpu") -> tuple[torch.Tensor, torch.Tensor]:
+    """Each batch row's Philox seed and its index inside its own request,
+    int64 ``[B]`` each, on ``device``. An ``int`` seed in ``[0, 2**64)`` is
+    one request: the seed on every row (as int64, two's complement) and the
+    indices ``0 .. B-1``. A pair ``(row_seed, row_index)`` is taken as it
+    is: the rows of coalesced requests, each with its request's seed and its
+    index in that request. Only the low 64 bits of a row seed and the low 32
+    of an index reach the generator."""
+    if isinstance(seed, tuple):
+        keys = []
+        for name, x in zip(("row_seed", "row_index"), seed):
+            if not isinstance(x, torch.Tensor) or x.dtype != torch.int64 or x.shape != (B,):
+                raise ValueError(f"{name} must be an int64 tensor of shape ({B},), got "
+                                 f"{getattr(x, 'dtype', type(x))} {tuple(getattr(x, 'shape', ()))}")
+            keys.append(x.to(device).contiguous())
+        return keys[0], keys[1]
+    seed = int(seed)
+    if not 0 <= seed < 2**64:
+        raise ValueError(f"seed must fit in 64 unsigned bits, got {seed}")
+    return (torch.full((B,), seed - 2**64 if seed >= 2**63 else seed, dtype=torch.int64,
+                       device=device),
+            torch.arange(B, dtype=torch.int64, device=device))
+
+
+def philox_block_gumbel(seed: Seed, T: int, B: int, first_block: int, n_blocks: int,
                         category_size: int, device: torch.device | str = "cpu") -> torch.Tensor:
     """Gumbel noise of category blocks ``first_block ..`` (the counter's
-    block word) for ``seed``, time-major ``[T, B, n_blocks * category_size]``;
-    a block of K categories takes ``ceil(K / 4)`` Philox calls."""
+    block word) for ``seed`` (:func:`row_keys`), time-major ``[T, B,
+    n_blocks * category_size]``; a block of K categories takes ``ceil(K /
+    4)`` Philox calls."""
     words = -(-category_size // 4)
+    row_seed, row_index = row_keys(seed, B, device)
     t, b, c, w = torch.meshgrid(
-        torch.arange(T, dtype=torch.int64, device=device),
-        torch.arange(B, dtype=torch.int64, device=device),
+        torch.arange(T, dtype=torch.int64, device=device), row_index,
         torch.arange(first_block, first_block + n_blocks, dtype=torch.int64, device=device),
         torch.arange(words, dtype=torch.int64, device=device), indexing="ij")
-    bits = torch.stack(philox4x32_10((t, b, c, w), (seed & _MASK32, seed >> 32)), dim=-1)
+    key = ((row_seed & _MASK32)[:, None, None], (row_seed >> 32 & _MASK32)[:, None, None])
+    bits = torch.stack(philox4x32_10((t, b, c, w), key), dim=-1)
     u = uniform_from_bits(bits.reshape(T, B, n_blocks, 4 * words)[..., :category_size])
     return (-torch.log(-torch.log(u))).reshape(T, B, n_blocks * category_size)
 
 
-def philox_gumbel(seed: int, T: int, B: int, class_size: int, category_size: int,
+def philox_gumbel(seed: Seed, T: int, B: int, class_size: int, category_size: int,
                   device: torch.device | str = "cpu") -> torch.Tensor:
     """The kernel's Gumbel noise for ``seed``, time-major ``[T, B, S]``."""
     return philox_block_gumbel(seed, T, B, 0, class_size, category_size, device)
@@ -111,7 +147,7 @@ def philox_gumbel(seed: int, T: int, B: int, class_size: int, category_size: int
 
 def rollout_plain(
     weights: Sequence[torch.Tensor], actions: torch.Tensor, init_deter: torch.Tensor,
-    init_stoch: torch.Tensor, seed: int | None = None, class_size: int = 4,
+    init_stoch: torch.Tensor, seed: Seed | None = None, class_size: int = 4,
     category_size: int = 4, noise: torch.Tensor | None = None,
     act: Callable[[torch.Tensor], torch.Tensor] = F.elu,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -141,7 +177,7 @@ def rollout_plain(
 # ---- the kernel's stages ---------------------------------------------------------
 
 
-def rollout_inputs_plain(weights: Sequence[torch.Tensor], actions: torch.Tensor, seed: int,
+def rollout_inputs_plain(weights: Sequence[torch.Tensor], actions: torch.Tensor, seed: Seed,
                          class_size: int, category_size: int) -> torch.Tensor:
     """Plain version of the kernel's prologue: every step's carry-free work,
     time-major ``[T, B, H + S]`` (the workspace the chain reads):
@@ -201,7 +237,7 @@ def rollout_chain_plain(
 
 def rollout_stages_plain(
     weights: Sequence[torch.Tensor], actions: torch.Tensor, init_deter: torch.Tensor,
-    init_stoch: torch.Tensor, seed: int, class_size: int = 4, category_size: int = 4,
+    init_stoch: torch.Tensor, seed: Seed, class_size: int = 4, category_size: int = 4,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The plain prologue and chain in a row: the rollout as the kernel
     decomposes it, with :func:`rollout_plain`'s contract (the seed's Philox
@@ -221,7 +257,7 @@ def rollout_rows(batch: int, device: torch.device) -> int:
 
 def rollout_cuda(
     weights: Sequence[torch.Tensor], actions: torch.Tensor, init_deter: torch.Tensor,
-    init_stoch: torch.Tensor, seed: int, class_size: int = 4, category_size: int = 4,
+    init_stoch: torch.Tensor, seed: Seed, class_size: int = 4, category_size: int = 4,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel (``csrc/rollout.cu``: prologue and chain in one
     launch); same contract as :func:`rollout_plain` with the seed's Philox
@@ -236,7 +272,7 @@ def rollout_cuda(
 
 def rollout_launch(
     weights: Sequence[torch.Tensor], actions: torch.Tensor, init_deter: torch.Tensor,
-    init_stoch: torch.Tensor, seed: int, class_size: int = 4, category_size: int = 4,
+    init_stoch: torch.Tensor, seed: Seed, class_size: int = 4, category_size: int = 4,
     stages: int = 3, workspace: torch.Tensor | None = None,
     outs: Sequence[torch.Tensor] | None = None, rows: int | None = None,
 ) -> tuple[tuple[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]:
@@ -250,9 +286,8 @@ def rollout_launch(
 
     if len(weights) != N_WEIGHTS:
         raise ValueError(f"expected {N_WEIGHTS} weights, got {len(weights)}")
-    if not 0 <= seed < 2**64:
-        raise ValueError(f"seed must fit in 64 unsigned bits, got {seed}")
     B, T, A = actions.shape
+    row_seed, row_index = row_keys(seed, B, actions.device)
     D = init_deter.shape[-1]
     H = weights[0].shape[0]
     S = class_size * category_size
@@ -278,8 +313,8 @@ def rollout_launch(
         err = lib.mrssm_rollout(
             ctypes.cast(ptrs, ctypes.c_void_p),
             *(t.data_ptr() for t in (actions, init_deter, init_stoch)),
-            *(o.data_ptr() for o in outs), workspace.data_ptr(),
-            seed, T, B, A, H, D, class_size, category_size, R, stages, stream,
+            *(o.data_ptr() for o in outs), workspace.data_ptr(), row_seed.data_ptr(),
+            row_index.data_ptr(), T, B, A, H, D, class_size, category_size, R, stages, stream,
         )
     build.check(err)
     return tuple(outs), workspace

@@ -7,8 +7,10 @@ Gumbel-argmax sample; the higher MTRNN on the previous ``hs`` → the h-prior
 → one-hot sample. It returns the integrator trajectories ``hidden_h`` /
 ``hidden_l`` too, which make a chained continuation exact.
 
-Noise: Philox4x32-10 keyed by the 64-bit seed, as in the MRSSM rollout
-(``rollout.py``), with the counter ``(t, b, block, word)``: the lower
+Noise: Philox4x32-10 keyed row by row by a 64-bit seed, as in the MRSSM
+rollout (``rollout.py``: an ``int`` seed or each row's ``(row_seed,
+row_index)``, :func:`~.rollout.row_keys`), with the counter ``(t, index,
+block, word)``: the lower
 site's blocks are ``0 .. ls_class - 1``, the higher site's
 ``ls_class + c``; a block of K categories takes ``ceil(K / 4)`` words (two
 for the 2×8 higher latent). :func:`philox_mt_gumbel` is the same generator
@@ -48,9 +50,11 @@ from multimodal_mtrssm_tpu_torch.ops.kernels.recurrence_mt import (
     mt_weight_shapes,
 )
 from multimodal_mtrssm_tpu_torch.ops.kernels.rollout import (
+    Seed,
     gather_columns,
     philox_block_gumbel,
     rollout_rows,
+    row_keys,
     sample_plain,
 )
 
@@ -60,7 +64,7 @@ N_WEIGHTS = 16
 launches = 0
 
 
-def philox_mt_gumbel(seed: int, T: int, B: int, ls: tuple[int, int] = (4, 4),
+def philox_mt_gumbel(seed: Seed, T: int, B: int, ls: tuple[int, int] = (4, 4),
                      hs: tuple[int, int] = (2, 8),
                      device: torch.device | str = "cpu") -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's Gumbel noise for ``seed``: ``(lower [T, B, LS], higher
@@ -85,7 +89,7 @@ def mt_prior_step(w: Sequence[torch.Tensor], action: torch.Tensor,
 
 def rollout_mt_plain(
     weights: Sequence[torch.Tensor], actions: torch.Tensor, init6: Sequence[torch.Tensor],
-    seed: int | None = None, spec: MTSpec = MT_SPEC,
+    seed: Seed | None = None, spec: MTSpec = MT_SPEC,
     noise: tuple[torch.Tensor, torch.Tensor] | None = None, act: Act = F.elu,
 ) -> tuple[torch.Tensor, ...]:
     """Plain PyTorch version of the kernel. ``actions`` is ``[B, T, A]``,
@@ -117,7 +121,7 @@ def rollout_mt_plain(
 # ---- the kernel's stages ---------------------------------------------------------
 
 
-def rollout_mt_inputs_plain(weights: Sequence[torch.Tensor], actions: torch.Tensor, seed: int,
+def rollout_mt_inputs_plain(weights: Sequence[torch.Tensor], actions: torch.Tensor, seed: Seed,
                             spec: MTSpec = MT_SPEC) -> torch.Tensor:
     """Plain version of the kernel's prologue: every step's carry-free work,
     time-major ``[T, B, LD + LS + HS]`` (the workspace the chain reads):
@@ -167,7 +171,7 @@ def rollout_mt_chain_plain(weights: Sequence[torch.Tensor], inputs: torch.Tensor
 
 
 def rollout_mt_stages_plain(weights: Sequence[torch.Tensor], actions: torch.Tensor,
-                            init6: Sequence[torch.Tensor], seed: int,
+                            init6: Sequence[torch.Tensor], seed: Seed,
                             spec: MTSpec = MT_SPEC) -> tuple[torch.Tensor, ...]:
     """The plain prologue and chain in a row: the rollout as the kernel
     decomposes it, with :func:`rollout_mt_plain`'s contract (the seed's
@@ -180,7 +184,7 @@ def rollout_mt_stages_plain(weights: Sequence[torch.Tensor], actions: torch.Tens
 
 def rollout_mt_cuda(
     weights: Sequence[torch.Tensor], actions: torch.Tensor, init6: Sequence[torch.Tensor],
-    seed: int, spec: MTSpec = MT_SPEC,
+    seed: Seed, spec: MTSpec = MT_SPEC,
 ) -> tuple[torch.Tensor, ...]:
     """Launch the CUDA kernel (``csrc/rollout_mt.cu``: prologue and chain in
     one launch); same contract as :func:`rollout_mt_plain` with the seed's
@@ -194,7 +198,7 @@ def rollout_mt_cuda(
 
 def rollout_mt_launch(
     weights: Sequence[torch.Tensor], actions: torch.Tensor, init6: Sequence[torch.Tensor],
-    seed: int, spec: MTSpec = MT_SPEC, stages: int = 3, workspace: torch.Tensor | None = None,
+    seed: Seed, spec: MTSpec = MT_SPEC, stages: int = 3, workspace: torch.Tensor | None = None,
     outs: Sequence[torch.Tensor] | None = None, rows: int | None = None,
 ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
     """Launch the kernel's stages in ``stages`` (1 the prologue, 2 the chain)
@@ -208,10 +212,9 @@ def rollout_mt_launch(
     if len(weights) != N_WEIGHTS or len(init6) != 6:
         raise ValueError(f"expected {N_WEIGHTS} weights and 6 initial carries, "
                          f"got {len(weights)} and {len(init6)}")
-    if not 0 <= seed < 2**64:
-        raise ValueError(f"seed must fit in 64 unsigned bits, got {seed}")
     _check_spec(spec)
     B, T, A = actions.shape
+    row_seed, row_index = row_keys(seed, B, actions.device)
     HD, LD = weights[4].shape[0], weights[0].shape[0]
     C = weights[8].shape[0]
     LS, HS = spec.ls, spec.hs
@@ -236,6 +239,7 @@ def rollout_mt_launch(
     with torch.cuda.device(actions.device):
         stream = torch.cuda.current_stream(actions.device).cuda_stream
         err = lib.mt_rollout(_ptrs(weights), _ptrs([actions, *init6]), _ptrs(outs),
-                             workspace.data_ptr(), seed, dims, stages, stream)
+                             workspace.data_ptr(), row_seed.data_ptr(), row_index.data_ptr(),
+                             dims, stages, stream)
     build.check(err)
     return tuple(outs), workspace

@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from multimodal_mtrssm_tpu_torch.train.optim import AdamW
+from multimodal_mtrssm_tpu_torch.train.weights import load_reference_state_dict
 
 
 def _cpu(x: Any) -> Any:
@@ -34,6 +35,22 @@ class CheckpointManager:
     def path(self, name: str) -> Path:
         """The ``.ckpt`` file of checkpoint ``name``."""
         return self.dir / f"{name}.ckpt"
+
+    def exists(self, name: str) -> bool:
+        """Whether checkpoint ``name`` has been written."""
+        return self.path(name).is_file()
+
+    def restore_params(self, name: str, model: nn.Module) -> dict[str, Any]:
+        """Load the weights of checkpoint ``name`` into ``model`` (strict),
+        from a weights-only checkpoint (``best``) or a full one (``last``,
+        ``diverged``: its optimizer state is left unread). Returns the JSON
+        sidecar, or ``{}`` where there is none."""
+        ckpt = torch.load(self.path(name), map_location="cpu", weights_only=True)
+        if not isinstance(ckpt, dict) or "state_dict" not in ckpt:
+            raise ValueError(f"checkpoint {self.path(name)} holds no 'state_dict'")
+        load_reference_state_dict(model, ckpt["state_dict"])
+        aux = self.dir / f"{name}.json"
+        return json.loads(aux.read_text()) if aux.is_file() else {}
 
     def save(self, name: str, model: nn.Module, optimizer: AdamW | None = None,
              aux: dict[str, Any] | None = None) -> Path:

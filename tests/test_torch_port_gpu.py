@@ -1215,3 +1215,91 @@ def test_fused_decoder_apply_launches_the_kernels_or_raises(cuda_device):
     with pytest.raises(ValueError, match="do not take"):
         kernels.fused_decoder_apply(_decoder("mrssm", cuda_device, channels=(32, 16, 3)),
                                     torch.zeros(2, 48, device=cuda_device))
+
+
+# ---- per-row Philox keys: coalesced requests ----------------------------------------
+
+# (B, T, seed) of coalesced requests: B ∈ {1, 2, 3, 8}, T ∈ {5, 10, 30}; the
+# server runs them at their total rows and longest steps.
+COALESCED = ((1, 5, 3), (2, 30, 4), (3, 10, 2**63 + 5), (8, 30, 6))
+COALESCED_B, COALESCED_T = sum(b for b, _, _ in COALESCED), max(t for _, t, _ in COALESCED)
+
+
+def _coalesced_keys(dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each request's ``row_keys``, in order."""
+    keys = [rollout.row_keys(s, b) for b, _, s in COALESCED]
+    return tuple(torch.cat(k).to(dev) for k in zip(*keys))
+
+
+def _rollout_case(family: str, dev, B: int, T: int):
+    """The family's rollout weights on the model, and numpy-seeded actions
+    ``[B, T, A]`` and initial carries."""
+    if family == "mrssm":
+        ins = _inputs(B + 7 * T, B, T, dev)
+        return _model(dev).transition.weights(), ins[0].transpose(0, 1).contiguous(), ins[3:5]
+    xs, init6, _ = _mt_inputs(B + 7 * T, B, T, dev)
+    return _mt_model(dev).rollout_weights(), xs[0].transpose(0, 1).contiguous(), list(init6)
+
+
+def _launch(family: str, w, actions, init, seed, **kw):
+    if family == "mrssm":
+        return rollout.rollout_launch(w, actions, *init, seed, C, K, **kw)
+    return rollout_mt.rollout_mt_launch(w, actions, init, seed, **kw)
+
+
+def _scores(family: str, out, seed) -> list:
+    """The sampled sites' logits plus the seed's noise, ``[B, T, ·]``."""
+    B, T = out[0].shape[:2]
+    if family == "mrssm":
+        noise = rollout.philox_gumbel(seed, T, B, C, K, out[0].device)
+        return [(out[1] + noise.transpose(0, 1), C, K)]
+    g_l, g_h = rollout_mt.philox_mt_gumbel(seed, T, B, device=out[0].device)
+    return [(out[3] + g_l.transpose(0, 1), 4, 4), (out[2] + g_h.transpose(0, 1), 2, 8)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["mrssm", "mt"])
+def test_per_row_keys_draw_the_plain_noise_on_the_card(cuda_device, family):
+    """With coalesced rows' keys, the prologue alone (on a NaN workspace)
+    writes the plain per-row draw bit for bit, the whole launch passes the
+    replay against that draw, and two launches are bit-identical."""
+    B, T = COALESCED_B, COALESCED_T
+    keys = _coalesced_keys(cuda_device)
+    w, actions, init = _rollout_case(family, cuda_device, B, T)
+    with torch.no_grad():
+        whole, ws = _launch(family, w, actions, init, keys)
+        again, _ = _launch(family, w, actions, init, keys)
+        nan = torch.full_like(ws, float("nan"))
+        _launch(family, w, actions, init, keys, stages=1, workspace=nan)
+    if family == "mrssm":
+        noise = rollout.philox_gumbel(keys, T, B, C, K, cuda_device)
+        parity.check_rollout(w, actions, *init, keys, whole, C, K)
+    else:
+        noise = torch.cat(rollout_mt.philox_mt_gumbel(keys, T, B, device=cuda_device), -1)
+        parity.check_mt_rollout(w, actions, init, keys, whole)
+    assert torch.equal(nan[..., ws.shape[-1] - noise.shape[-1]:], noise)
+    assert all(torch.equal(a, b) for a, b in zip(whole, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["mrssm", "mt"])
+def test_coalesced_rollout_equals_each_request_alone(cuda_device, family):
+    """One launch over the coalesced requests' rows (at their total rows
+    and longest steps) against each request's own launch on its rows and steps:
+    stochs equal before each row's first near-tie of 1e-5, deters, logits
+    and integrators within 1e-4 up to it."""
+    B, T = COALESCED_B, COALESCED_T
+    w, actions, init = _rollout_case(family, cuda_device, B, T)
+    samples = (2,) if family == "mrssm" else (4, 5)
+    with torch.no_grad():
+        together, _ = _launch(family, w, actions, init, _coalesced_keys(cuda_device))
+        off = 0
+        for b, t, seed in COALESCED:
+            rows = slice(off, off + b)
+            alone, _ = _launch(family, w, actions[rows, :t].contiguous(),
+                               [x[rows].contiguous() for x in init], seed)
+            parity.check_same_trajectories(
+                [x[rows, :t] for x in together], alone, samples,
+                parity.first_near_tie(_scores(family, alone, seed)),
+                name=f"{family} B={b} T={t}")
+            off += b
