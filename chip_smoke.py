@@ -38,7 +38,7 @@ first two configurations' latent features.
    on the forward's record and random cotangents on every output (every
    gradient within 2e-4 × max(1, max|plain|), two launches bit-identical);
    both rollouts at B=10
-   T=10, B=64 T=30 and B=256 T=180 (replay of their stochs within 1e-4,
+   T=10, the evaluation's B=60 T=10, B=64 T=30 and B=256 T=180 (replay of their stochs within 1e-4,
    stochs equal to the argmax of their logits plus the seed's Philox noise,
    two launches bit-identical, sampling frequencies against the softmax,
    both MT sites; and, on per-row Philox keys, the rows of four coalesced
@@ -84,6 +84,34 @@ first two configurations' latent features.
    batch and noise (each loss term within 2e-5 of the loss, gradients
    within 3e-4 × scale; noise with a Gumbel near-tie is reported and
    replaced by the next seed's).
+4b. Resume and preemption on the card, after phase 3b, for
+   ``MRSSMConfig()`` and ``MMTRSSMConfig()`` (``drive_resume``; B=8 T=30,
+   24 synthetic episodes, 2 epochs of 3 steps, cuDNN held to deterministic
+   algorithms): a fit SIGTERMed after its 4th optimizer step (mid epoch 1)
+   must return ``preempted`` with a mid-epoch ``last``, and a fresh
+   ``Trainer``'s ``fit(resume=True)`` must end within 3e-4 × max(1,
+   max|w|) per tensor of the uninterrupted fit (printed: bit-identical or
+   not); a fit with ``accumulate_grad_batches=2`` (launches of the
+   training kernels per optimizer step printed), and one with
+   ``profile_epoch=0``, whose trace must exist.
+4c. The train command (``drive_train_command``): ``train.entry.
+   run_training`` on a PyYAML-free ``Experiment`` (``make_experiment``),
+   on the card, ``--synthetic 24 --max-epochs 1``, then ``--max-epochs 2
+   --resume``, which must continue at epoch 1.
+6. Evaluation (``evaluation_inputs``, ``fine_tune``, ``drive_evaluation``):
+   a classifier trained on the card on stripe digits (accuracy above 0.9),
+   24 labeled synthetic episodes, each family's phase-4 ``best``
+   warm-started and trained on them for 100 epochs of 3 steps, then that
+   run's ``best`` evaluated at ``classify_frame`` 0 and 1 (6 intervals ×
+   10 predictions, 10 frames) and once through the
+   ``evaluate-word-transitions`` entry. Fails unless each word took
+   exactly one rollout launch, every ``q_dist`` sums to 1, the rollout
+   states equal the CPU path's on the same weights and seed up to each
+   row's first Gumbel near-tie (stochs equal, the rest within 1e-4), the
+   digits equal the CPU path's outside Gumbel and classifier-logit
+   near-ties of 1e-5, and the compared rows hold more than one digit.
+   Prints the mean MR, rows compared and excluded, the digits seen, ms a
+   word (CUDA events) and the rollout kernel's device time at B=60 T=10.
 5. Timings: median ms of each kernel against its plain version (the
    stacked kernels beside the unstacked ones, the fused encoder beside the
    cuDNN ``Encoder``, the fused decoder beside the cuDNN ``Decoder``), of
@@ -110,7 +138,7 @@ first two configurations' latent features.
    and through HTTP).
 
 Each configuration's serving and training run, phase 3b's coalesced
-requests, and the decoder's path
+requests, phases 4b, 4c and 6, and the decoder's path
 (``fused_decoder_apply`` on both decoders of the first two configurations'
 observed features at B=8 T=30, forward and a ``gaussian_nll`` backward), is
 driven with every launch count set to 0 just before it and read just after.
@@ -135,6 +163,9 @@ from pathlib import Path
 import numpy as np
 
 TOL = 1e-4
+# Phase 6: a word is n_intervals × n_predictions = 60 rollout rows of n_frames = 10.
+EVAL_ARGS = {"n_intervals": 6, "query_length": 30, "n_predictions": 10, "n_frames": 10}
+EVAL_SHAPE = (EVAL_ARGS["n_intervals"] * EVAL_ARGS["n_predictions"], EVAL_ARGS["n_frames"])
 TIE_EPS = 1e-5
 BWD_TOL = 2e-4  # × max(1, max|plain|), per gradient tensor
 ENC_TOL = 1e-4  # × max(1, max|plain|): encoder embeddings, f32 sums over ≤ 1024 taps
@@ -241,7 +272,7 @@ def check_kernels(model, cfg, dev) -> dict[str, dict]:
         results["recurrence_fwd"]["max_abs_err"] = max(
             results["recurrence_fwd"]["max_abs_err"], r["max_abs_err"])
     tw = model.transition.weights()
-    for B, T in ((10, 10), (64, 30), (256, 180)):
+    for B, T in ((10, 10), EVAL_SHAPE, (64, 30), (256, 180)):
         actions = torch.tensor(rng.uniform(-1, 1, (B, T, cfg.action_size)).astype(np.float32),
                                device=dev)
         deter0, stoch0 = _recurrence_inputs(rng, B, 1, cfg, dev)[3:5]
@@ -411,7 +442,7 @@ def check_mt_kernels(model, cfg, dev) -> dict[str, dict]:
         results["mt_recurrence_fwd"]["max_abs_err"] = max(
             results["mt_recurrence_fwd"]["max_abs_err"], r["max_abs_err"])
     tw = model.rollout_weights()
-    for B, T in ((10, 10), (64, 30), (256, 180)):
+    for B, T in ((10, 10), EVAL_SHAPE, (64, 30), (256, 180)):
         xs, init6, _ = _mt_inputs(rng, B, T, cfg, dev)
         actions = xs[0].transpose(0, 1).contiguous()
         seed = 4321 + B
@@ -2333,6 +2364,381 @@ def stacked_recurrence_bwd_phase() -> int:
                         ("recurrence_stacked_bwd.cu",))
 
 
+# ---- phases 4b, 4c and 6: resume and preemption, the train command, evaluation ----
+
+RESUME_STEP = 4  # SIGTERM after this optimizer step: the first of epoch 1 (3 steps an epoch)
+WEIGHT_TOL = STEP_TOL  # × max(1, max|w|) per tensor: the train step's gradient bound
+TRAINING_KERNELS = {False: ("recurrence_fwd", "recurrence_bwd"),
+                    True: ("mt_recurrence_fwd", "mt_recurrence_bwd")}
+# Phase 6's model: phase 4's ``best`` trained on the labeled episodes for this
+# many epochs of 3 optimizer steps (19 training episodes at B=8).
+FINE_TUNE_EPOCHS = 100
+
+
+@contextlib.contextmanager
+def _sigterm_after(n: int):
+    """SIGTERM this process right after the n-th train step of a fit (the
+    trainer's preemption guard turns it into a mid-epoch checkpoint)."""
+    import os
+    import signal
+
+    from multimodal_mtrssm_tpu_torch.train import trainer as trainer_mod
+
+    real = trainer_mod.make_train_step
+
+    def make(*args):
+        step, calls = real(*args), [0]
+
+        def wrapped(*a):
+            out = step(*a)
+            calls[0] += 1
+            if calls[0] == n:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return out
+
+        return wrapped
+
+    trainer_mod.make_train_step = make
+    try:
+        yield
+    finally:
+        trainer_mod.make_train_step = real
+
+
+def _weights_close(model, ref) -> tuple[float, bool]:
+    """The largest |a - b| / max(1, max|b|) over the tensors of two models'
+    state dicts, and whether they are bit-identical."""
+    import torch
+
+    worst, same = 0.0, True
+    for a, b in zip(model.state_dict().values(), ref.state_dict().values(), strict=True):
+        worst = max(worst, float((a - b).abs().max()) / max(1.0, float(b.abs().max())))
+        same &= torch.equal(a, b)
+    return worst, same
+
+
+def drive_resume(cfg, dev, run_dir: Path) -> dict:
+    """Phase 4b: on 24 synthetic episodes at B=8 T=30 (3 steps an epoch), 2
+    epochs of ``Trainer.fit``, with cuDNN held to deterministic algorithms:
+    a fit preempted by SIGTERM after its 4th optimizer step (mid epoch 1)
+    must return ``preempted`` and leave a mid-epoch ``last``; a fresh
+    ``Trainer``'s ``fit(resume=True)`` finishes it, and its weights must
+    equal the uninterrupted fit's within 3e-4 × max(1, max|w|) per tensor.
+    Then a fit with ``accumulate_grad_batches=2`` (19 train episodes make
+    2 full batches and a tail: 2 windows an epoch) and one with
+    ``profile_epoch=0``, whose trace must exist."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.data import (
+        DataModuleConfig,
+        EpisodeDataModule,
+        generate_synthetic_audio_mnist,
+    )
+    from multimodal_mtrssm_tpu_torch.models import MMTRSSMConfig, MoPoEMMTRSSM, MoPoEMRSSM
+    from multimodal_mtrssm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from multimodal_mtrssm_tpu_torch.train import Trainer, TrainerConfig
+
+    mt = isinstance(cfg, MMTRSSMConfig)
+    family = MoPoEMMTRSSM if mt else MoPoEMRSSM
+    episodes = run_dir / "episodes"
+    generate_synthetic_audio_mnist(episodes, n_episodes=24, seed=SEED)
+
+    def trainer(name: str, **kw) -> Trainer:
+        dm = EpisodeDataModule(DataModuleConfig(data_dir=str(episodes), batch_size=8,
+                                                sequence_length=30, noise_std=0.0, seed=SEED))
+        return Trainer(family(cfg).to(dev), dm,
+                       TrainerConfig(max_epochs=2, seed=SEED, log_dir=str(run_dir / name), **kw))
+
+    label = _label(cfg)
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        reset_launch_counts()
+        ref = trainer("ref")
+        ref.fit()
+        with _sigterm_after(RESUME_STEP):
+            cut = trainer("cut")
+            cut_out = cut.fit()
+        aux = cut.ckpt.aux("last")
+        if not (cut_out["preempted"] and aux.get("mid_epoch") and aux["epoch"] == 1
+                and aux["global_step"] == RESUME_STEP):
+            raise RuntimeError(f"SIGTERM after step {RESUME_STEP} left preempted="
+                               f"{cut_out['preempted']} and 'last' {aux}")
+        resumed = trainer("cut")
+        res_out = resumed.fit(resume=True)
+        if res_out["preempted"] or [r["epoch"] for r in res_out["history"]] != [1] \
+                or res_out["global_step"] != 6:
+            raise RuntimeError(f"the resumed fit ran epochs {[r['epoch'] for r in res_out['history']]}"
+                               f" to step {res_out['global_step']}")
+        err, same = _weights_close(resumed.model, ref.model)
+        if not err <= WEIGHT_TOL:
+            raise RuntimeError(f"{label}: resumed weights differ from the uninterrupted fit's "
+                               f"by {err:.3g} x scale")
+        print(f"resume {label}: SIGTERM after step {RESUME_STEP} (mid epoch 1) -> preempted, "
+              f"mid-epoch 'last' with {aux['items_done']} of epoch 1's batches applied; "
+              "resume=True finished epoch 1; "
+              f"weights vs the uninterrupted fit: max err {err:.3g} x scale (limit {WEIGHT_TOL}), "
+              f"bit-identical: {'yes' if same else 'no'} (cuDNN deterministic algorithms held)")
+        kernels = TRAINING_KERNELS[mt]
+        torch.cuda.synchronize()
+        before = launch_counts()
+        out = trainer("accumulate", accumulate_grad_batches=2).fit()
+        torch.cuda.synchronize()
+        after = launch_counts()
+        steps = int(out["opt_state"]["count"])
+        if steps != 4:
+            raise RuntimeError(f"{label} accumulate_grad_batches=2: {steps} optimizer steps, "
+                               "expected 4")
+        per = ", ".join(f"{k} {(after[k] - before[k]) / steps:.2f}" for k in kernels)
+        print(f"fit {label} accumulate_grad_batches=2: {steps} optimizer steps over "
+              f"{out['global_step']} batches; launches per optimizer step: {per}")
+        prof = trainer("profile", profile_epoch=0)
+        prof.fit()
+        trace = run_dir / "profile" / "profile" / "epoch_0.trace.json"
+        if not trace.is_file():
+            raise RuntimeError(f"profile_epoch=0 wrote no trace at {trace}")
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        print(f"profile {label}: epoch 0 traced ({trace.stat().st_size} bytes); main-path kernel "
+              f"launches of the resume phase: {counts}")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    return {"counts": counts}
+
+
+def drive_train_command(cfg, dev, run_dir: Path) -> dict:
+    """Phase 4c: ``train.entry.run_training``, the ``train-*`` commands'
+    body, on an ``Experiment`` built without PyYAML (``make_experiment``),
+    on the card (the default device): ``--synthetic 24 --max-epochs 1``,
+    then ``--max-epochs 2 --resume``, which must continue at epoch 1."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.data import DataModuleConfig
+    from multimodal_mtrssm_tpu_torch.models import MMTRSSMConfig
+    from multimodal_mtrssm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from multimodal_mtrssm_tpu_torch.train import TrainerConfig
+    from multimodal_mtrssm_tpu_torch.train.config import make_experiment
+    from multimodal_mtrssm_tpu_torch.train.entry import default_config_path, run_training
+
+    name = "mopoe_mmtrssm.yaml" if isinstance(cfg, MMTRSSMConfig) else "mopoe_mrssm.yaml"
+    exp = make_experiment(cfg, TrainerConfig(seed=SEED, log_dir=str(run_dir / "run")),
+                          DataModuleConfig(data_dir=str(run_dir / "episodes"), batch_size=8,
+                                           sequence_length=30, noise_std=0.0, seed=SEED))
+    reset_launch_counts()
+    first = run_training(default_config_path(name), ["--synthetic", "24", "--max-epochs", "1"],
+                         experiment=exp)
+    second = run_training(default_config_path(name), ["--max-epochs", "2", "--resume"],
+                          experiment=exp)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    epochs = ([r["epoch"] for r in first["history"]], [r["epoch"] for r in second["history"]])
+    if epochs != ([0], [1]) or next(exp.model.parameters()).device.type != dev.type:
+        raise RuntimeError(f"train command {_label(cfg)}: epochs {epochs} on "
+                           f"{next(exp.model.parameters()).device}")
+    print(f"train command {_label(cfg)}: run_training on a PyYAML-free Experiment trained epoch "
+          f"0 on the card, --resume continued at epoch 1; main-path kernel launches: {counts}")
+    return {"counts": counts}
+
+
+def _stripe_digits(n_per_class: int, seed: int = 0):
+    """Separable 'digits' for the classifier: digit d is a bright vertical
+    stripe at column 3d (as the labeled synthetic episodes draw them)."""
+    rng = np.random.default_rng(seed)
+    images, labels = [], []
+    for d in range(10):
+        for _ in range(n_per_class):
+            img = rng.uniform(0, 0.15, (32, 32)).astype(np.float32)
+            img[:, d * 3:d * 3 + 3] = 1.0
+            images.append(img)
+            labels.append(d)
+    order = rng.permutation(len(images))
+    return np.asarray(images)[order][..., None], np.asarray(labels, np.int32)[order]
+
+
+def evaluation_inputs(dev, work: Path) -> dict:
+    """Phase 6's classifier, trained on the card on stripe digits (accuracy
+    above 0.9 on them), saved as ``.npz``, and 24 labeled synthetic
+    episodes with the evaluation's ``sample_*.npz`` files."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.data import generate_synthetic_labeled_audio_mnist
+    from multimodal_mtrssm_tpu_torch.evaluation import (
+        load_test_data_with_labels,
+        recognize_digits,
+        save_classifier,
+        train_classifier,
+    )
+
+    images, labels = _stripe_digits(30)
+    t0 = time.perf_counter()
+    classifier = train_classifier(images, labels, num_epochs=3, batch_size=50, device=dev)
+    acc = float((recognize_digits(classifier, torch.as_tensor(images, device=dev)).cpu().numpy()
+                 == labels).mean())
+    if not acc > 0.9:
+        raise RuntimeError(f"the classifier reached accuracy {acc} on the stripe digits")
+    path = save_classifier(classifier, work / "classifier.npz")
+    generate_synthetic_labeled_audio_mnist(work / "labeled", work / "labeled_eval",
+                                           n_episodes=24, seed=SEED)
+    test_data = load_test_data_with_labels(work / "labeled_eval")
+    print(f"evaluation inputs: classifier trained on the card in {time.perf_counter() - t0:.2f} s, "
+          f"accuracy {acc:.4f} on {len(labels)} stripe digits; {len(test_data)} labeled episodes")
+    return {"classifier": classifier, "path": path, "test_data": test_data,
+            "train_dir": work / "labeled", "eval_dir": work / "labeled_eval"}
+
+
+def fine_tune(cfg, dev, checkpoints: Path, train_dir: Path, run_dir: Path, card: str) -> dict:
+    """Phase 6's model: phase 4's ``best`` (trained on unlabeled episodes,
+    whose imagined frames the classifier scores as one digit everywhere)
+    warm-started by ``Trainer.fit(resume_from=...)`` and trained on the
+    card on the labeled synthetic episodes for ``FINE_TUNE_EPOCHS`` at B=8
+    T=30, so its imagined frames draw the stripes the classifier tells
+    apart. Returns its checkpoints directory and launch counts."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.data import DataModuleConfig, EpisodeDataModule
+    from multimodal_mtrssm_tpu_torch.models import MMTRSSMConfig, MoPoEMMTRSSM, MoPoEMRSSM
+    from multimodal_mtrssm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from multimodal_mtrssm_tpu_torch.train import Trainer, TrainerConfig
+
+    family = MoPoEMMTRSSM if isinstance(cfg, MMTRSSMConfig) else MoPoEMRSSM
+    dm = EpisodeDataModule(DataModuleConfig(data_dir=str(train_dir), batch_size=8,
+                                            sequence_length=30, noise_std=0.0, seed=SEED))
+    trainer = Trainer(family(cfg).to(dev), dm, TrainerConfig(
+        max_epochs=FINE_TUNE_EPOCHS, seed=SEED, log_dir=str(run_dir),
+        checkpoint_every_n_epochs=FINE_TUNE_EPOCHS))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = trainer.fit(resume_from=checkpoints / "best.ckpt")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    hist = out["history"]
+    if len(hist) != FINE_TUNE_EPOCHS or not trainer.ckpt.exists("best"):
+        raise RuntimeError(f"fine-tune {_label(cfg)}: {len(hist)} epochs of "
+                           f"{FINE_TUNE_EPOCHS}, best saved: {trainer.ckpt.exists('best')}")
+    print(f"fine-tune {_label(cfg)}: phase 4's best warm-started on the labeled episodes, "
+          f"{out['global_step']} optimizer steps in {seconds:.2f} s; val/loss "
+          f"{hist[0]['val/loss']:.6g} -> {hist[-1]['val/loss']:.6g} (best {out['best_val']:.6g}) "
+          f"| {card}")
+    return {"checkpoints": run_dir / "checkpoints", "counts": launch_counts()}
+
+
+def drive_evaluation(cfg, dev, checkpoints: Path, inputs: dict, work: Path, card: str) -> dict:
+    """Phase 6: phase 4's ``best`` fine-tuned on the labeled episodes
+    (:func:`fine_tune`), then the word-transition evaluation of that
+    run's ``best`` on the card, at ``classify_frame`` 0 and 1, then once
+    through the ``evaluate-word-transitions`` entry (``evaluation.cli.
+    main`` on a PyYAML-free ``Experiment``). Fails unless each evaluated
+    word took exactly one rollout launch, every ``q_dist`` sums to 1, each
+    word's rollout states equal the CPU path's on the same weights and
+    seed up to each row's first Gumbel near-tie of 1e-5 (stochs equal,
+    the rest within ``TOL``), its predicted digits equal the CPU path's in
+    every row clear of Gumbel near-ties (the initial sample and the
+    rollout up to the scored frame) and of classifier logit near-ties of
+    1e-5, and the compared rows hold more than one digit. Prints the mean
+    MR, the rows compared and excluded, the digits seen, the ms a word
+    takes (CUDA events) and the rollout kernel's device time at B=60
+    T=10."""
+    import copy
+
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.evaluation import (
+        evaluate_word_transitions,
+        predict_word,
+        select_intervals_for_word,
+    )
+    from multimodal_mtrssm_tpu_torch.evaluation.cli import main as evaluate_main
+    from multimodal_mtrssm_tpu_torch.models import MMTRSSMConfig, MoPoEMMTRSSM, MoPoEMRSSM
+    from multimodal_mtrssm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from multimodal_mtrssm_tpu_torch.ops.kernels.parity import check_predicted_digits
+    from multimodal_mtrssm_tpu_torch.train.checkpoint import CheckpointManager
+    from multimodal_mtrssm_tpu_torch.train.config import make_experiment
+    from multimodal_mtrssm_tpu_torch.train.steps import fold
+
+    mt = isinstance(cfg, MMTRSSMConfig)
+    family = MoPoEMMTRSSM if mt else MoPoEMRSSM
+    rollout_name = "mt_rollout" if mt else "rollout"
+    label = _label(cfg)
+    tuned = fine_tune(cfg, dev, checkpoints, inputs["train_dir"], work / "fine_tune", card)
+    checkpoints = tuned["checkpoints"]
+    model = family(cfg)
+    CheckpointManager(checkpoints).restore_params("best", model)
+    cpu_model = copy.deepcopy(model).eval()
+    model = model.to(dev).eval()
+    classifier, test_data = inputs["classifier"], inputs["test_data"]
+    cpu_classifier = copy.deepcopy(classifier).cpu()
+    total: dict[str, int] = dict(tuned["counts"])
+    for cf in (0, 1):
+        reset_launch_counts()
+        results = evaluate_word_transitions(model, classifier, test_data, seed=SEED,
+                                            classify_frame=cf, **EVAL_ARGS)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        words = results["per_word"]
+        if not words or counts[rollout_name] != len(words):
+            raise RuntimeError(f"{label}: {counts[rollout_name]} {rollout_name} launches for "
+                               f"{len(words)} evaluated words")
+        sums = [sum(r["q_dist"].values()) for r in words.values()]
+        if not all(abs(s - 1.0) <= 1e-9 for s in sums):
+            raise RuntimeError(f"{label}: q_dist sums {sums}")
+        compared = excluded = 0
+        state_err, digits = 0.0, set()
+        for w in words:
+            intervals = select_intervals_for_word(int(w), test_data, EVAL_ARGS["n_intervals"],
+                                                  EVAL_ARGS["query_length"])
+            args = (intervals, fold(SEED, int(w)), EVAL_ARGS["n_predictions"],
+                    EVAL_ARGS["n_frames"])
+            r = check_predicted_digits(
+                predict_word(model, classifier, *args, classify_frame=cf),
+                predict_word(cpu_model, cpu_classifier, *args, classify_frame=cf), cfg, cf,
+                TIE_EPS, TOL)
+            compared, excluded = compared + r["compared"], excluded + r["excluded"]
+            state_err, digits = max(state_err, r["max_abs_err"]), digits | set(r["digits"])
+        if len(digits) < 2:
+            raise RuntimeError(f"{label} classify_frame={cf}: every compared row predicts "
+                               f"{sorted(digits)}; the comparison cannot tell a wrong rollout")
+        s = results["summary"]
+        print(f"evaluation {label} classify_frame={cf}: {len(words)} words, "
+              f"{counts[rollout_name]} {rollout_name} launches; mean MR {s['mean_matching_rate']:.6g} "
+              f"(uniform {s['mean_uniform']:.6g}, peak {s['mean_peak_onehot']:.6g}, random "
+              f"{s['mean_random_onehot']:.6g}); rollout states card vs CPU within {state_err:.3g} "
+              f"up to the first near-tie (limit {TOL}); digits card vs CPU equal in {compared} "
+              f"rows holding digits {sorted(digits)}, {excluded} rows excluded for near-ties of "
+              f"{TIE_EPS}")
+    reset_launch_counts()
+    out = evaluate_main(["--checkpoint", str(checkpoints), "--test-data", str(inputs["eval_dir"]),
+                         "--classifier", str(inputs["path"]), "--out", str(work / "results"),
+                         "--classify-frame", "1", "--seed", str(SEED)],
+                        experiment=make_experiment(cfg))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    if counts[rollout_name] != len(out["per_word"]) or not (work / "results" /
+                                                            "word_transitions.json").is_file():
+        raise RuntimeError(f"{label}: the evaluate-word-transitions entry took "
+                           f"{counts[rollout_name]} rollouts for {len(out['per_word'])} words")
+    print(f"evaluate-word-transitions entry {label}: mean MR "
+          f"{out['summary']['mean_matching_rate']:.6g}, {counts[rollout_name]} {rollout_name} "
+          "launches, results written")
+    word = next(iter(out["per_word"]))
+    intervals = select_intervals_for_word(int(word), test_data, EVAL_ARGS["n_intervals"],
+                                          EVAL_ARGS["query_length"])
+    one_word = lambda: predict_word(model, classifier, intervals, fold(SEED, int(word)),  # noqa: E731
+                                    EVAL_ARGS["n_predictions"], EVAL_ARGS["n_frames"],
+                                    classify_frame=1)
+    with torch.no_grad():
+        ms = _median_ms(one_word, 20)
+        kernel = _device_ms(one_word, "rollout_stages_kernel")
+    B = len(intervals) * EVAL_ARGS["n_predictions"]
+    share = f"{kernel / ms:.4f}" if kernel is not None else "not measured"
+    kernel_ms = f"{kernel:.6f} ms" if kernel is not None else "not measured"
+    print(f"time evaluation {label}: one word (B={B} rows, T={EVAL_ARGS['n_frames']}: initial "
+          f"state, rollout, vision decode at one frame, classifier) {ms:.6f} ms (CUDA events, "
+          f"median of 20); the rollout kernel's device time {kernel_ms}, share {share} | {card}")
+    return {"counts": total}
+
+
 def serve_trained(cfg, dev, training: dict, card: str) -> dict[str, int]:
     """Phases 3b and its timings: the fit run of ``cfg`` served from its
     checkpoints directory, coalesced (``drive_coalesced``), then the
@@ -2411,7 +2817,13 @@ def _main(work: Path) -> int:
     step_timings(training["model"], dev, card)
     fit_rate(training, cfg)
     co = serve_trained(cfg, dev, training, card)
-    runs += [ctx["counts"], training["counts"], co]
+    resume = drive_resume(cfg, dev, work / "mrssm_resume")
+    command = drive_train_command(cfg, dev, work / "mrssm_command")
+    eval_inputs = evaluation_inputs(dev, work / "evaluation")
+    evaluation = drive_evaluation(cfg, dev, training["checkpoints"], eval_inputs,
+                                  work / "mrssm_evaluation", card)
+    runs += [ctx["counts"], training["counts"], co, resume["counts"], command["counts"],
+             evaluation["counts"]]
 
     # MoPoE-MMTRSSM.
     mt_cfg = MMTRSSMConfig()
@@ -2438,7 +2850,12 @@ def _main(work: Path) -> int:
     step_timings(mt_training["model"], dev, card)
     fit_rate(mt_training, mt_cfg)
     mt_co = serve_trained(mt_cfg, dev, mt_training, card)
-    runs += [mt_ctx["counts"], mt_training["counts"], mt_co]
+    mt_resume = drive_resume(mt_cfg, dev, work / "mmtrssm_resume")
+    mt_command = drive_train_command(mt_cfg, dev, work / "mmtrssm_command")
+    mt_evaluation = drive_evaluation(mt_cfg, dev, mt_training["checkpoints"], eval_inputs,
+                                     work / "mmtrssm_evaluation", card)
+    runs += [mt_ctx["counts"], mt_training["counts"], mt_co, mt_resume["counts"],
+             mt_command["counts"], mt_evaluation["counts"]]
 
     # MoPoE-MRSSM on the fused encoder and the stacked recurrence.
     enc_run = {"fused_encoder_fwd": 2, "fused_encoder_bwd": 2}
@@ -2495,8 +2912,8 @@ def _main(work: Path) -> int:
 
     ptxas_report(ptxas)
     launches = {k: sum(run[k] for run in runs) for k in runs[0]}
-    print("main-path launches, serving + training of the four configurations and the fused "
-          f"decoder path: {launches}")
+    print("main-path launches, serving + training of the four configurations, resume, the "
+          f"train command and evaluation of the first two, and the fused decoder path: {launches}")
     pkg = "multimodal_mtrssm_tpu_torch"
     pallas = "multimodal_mtrssm_tpu/ops/pallas"
     meta = {

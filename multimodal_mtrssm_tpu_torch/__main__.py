@@ -1,8 +1,10 @@
 """``python -m multimodal_mtrssm_tpu_torch <command>``: the port's console
 entry points (JAX ``__main__.py``).
 
-Commands: ``serve`` (``server.main``: the HTTP inference server). The
-remaining arguments go to the command.
+Commands: ``train-mopoe-mrssm``, ``train-mopoe-mmtrssm`` (``cli``: train a
+shipped config, or ``-c``), ``evaluate-word-transitions`` (the
+Matching-Rate evaluation) and ``serve`` (``server.main``: the HTTP
+inference server). The remaining arguments go to the command.
 """
 
 from __future__ import annotations
@@ -16,7 +18,19 @@ def _serve(argv: list[str]) -> None:
     serve_main(argv)
 
 
-_COMMANDS = {"serve": _serve}
+def _command(name: str):
+    def run(argv: list[str]) -> None:
+        from multimodal_mtrssm_tpu_torch import cli
+
+        getattr(cli, name)(argv)
+
+    return run
+
+
+_COMMANDS = {"train-mopoe-mrssm": _command("train_mopoe_mrssm"),
+             "train-mopoe-mmtrssm": _command("train_mopoe_mmtrssm"),
+             "evaluate-word-transitions": _command("evaluate_word_transitions"),
+             "serve": _serve}
 
 
 def main(argv: list[str] | None = None) -> None:

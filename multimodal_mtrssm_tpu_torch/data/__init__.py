@@ -7,6 +7,7 @@ the same episodes and batches from the same seed."""
 from multimodal_mtrssm_tpu_torch.data.episodes import (
     Episode,
     generate_synthetic_audio_mnist,
+    generate_synthetic_labeled_audio_mnist,
     list_episodes,
     load_episode,
     save_episode,
@@ -19,6 +20,7 @@ __all__ = [
     "Episode",
     "EpisodeDataModule",
     "generate_synthetic_audio_mnist",
+    "generate_synthetic_labeled_audio_mnist",
     "list_episodes",
     "load_episode",
     "save_episode",

@@ -1,9 +1,11 @@
 """Audio-MNIST episode storage and synthetic generation (port of the parts of
-``data/episodes.py`` the training slice uses).
+``data/episodes.py`` that training and evaluation use).
 
 One ``.npz`` file per episode with keys ``action`` [T, A], ``audio`` and
 ``vision`` [T, H, W, C] (NHWC). 180 frames an episode; audio mel-spec dB in
-[-80, 0]; vision in [0, 255]; action a 6-dim speaker one-hot.
+[-80, 0]; vision in [0, 255]; action a 6-dim speaker one-hot. The labeled
+synthetic episodes also write the evaluation's layout (``sample_*.npz``
+with ``audio``, ``image``, ``label`` and ``speaker``).
 """
 
 from __future__ import annotations
@@ -30,6 +32,19 @@ class Episode:
                 f"vision {self.vision.shape[0]}")
 
 
+def _to_nhwc(obs: np.ndarray) -> np.ndarray:
+    """A ``[T, ...]`` observation as ``[T, H, W, C]``: ``[T, H, W]`` gains a
+    channel, ``[T, C, H, W]`` (a small axis 1) is moved to NHWC, NHWC stays."""
+    if obs.ndim == 3:
+        return obs[..., None]
+    if obs.ndim != 4:
+        raise ValueError(f"expected 3-D or 4-D observation, got shape {obs.shape}")
+    # Channel counts are tiny (1..4); spatial dims are larger.
+    if obs.shape[1] <= 4 < obs.shape[-1]:
+        return np.moveaxis(obs, 1, -1)
+    return obs
+
+
 def save_episode(directory: Path | str, index: int, episode: Episode) -> Path:
     """Write one episode as ``episode_<index>.npz`` under ``directory``."""
     directory = Path(directory)
@@ -40,12 +55,14 @@ def save_episode(directory: Path | str, index: int, episode: Episode) -> Path:
 
 
 def load_episode(path: Path | str) -> Episode:
-    """Load an ``.npz`` episode as float32 (both packages store NHWC)."""
+    """Load an ``.npz`` episode as float32, observations as NHWC (:func:`_to_nhwc`)."""
     path = Path(path)
     if path.suffix != ".npz":
         raise ValueError(f"unknown episode format: {path}")
     with np.load(path) as z:
-        return Episode(*(z[k].astype(np.float32) for k in ("action", "audio", "vision")))
+        return Episode(action=z["action"].astype(np.float32),
+                       audio=_to_nhwc(z["audio"]).astype(np.float32),
+                       vision=_to_nhwc(z["vision"]).astype(np.float32))
 
 
 def list_episodes(directory: Path | str) -> list[Path]:
@@ -79,3 +96,54 @@ def generate_synthetic_audio_mnist(out_dir: Path | str, n_episodes: int = 10,
         vision = np.clip(vision + rng.normal(0, 5.0, vision.shape), 0.0, 255.0).astype(np.float32)
         paths.append(save_episode(out_dir, i, Episode(action=action, audio=audio, vision=vision)))
     return paths
+
+
+def generate_synthetic_labeled_audio_mnist(
+    episodes_dir: Path | str, eval_dir: Path | str, n_episodes: int = 24,
+    episode_length: int = 180, frames_per_word: int = 18, hw: int = 32, n_speakers: int = 6,
+    seed: int = 0, n_successors: int = 2,
+) -> tuple[list[Path], list[Path]]:
+    """Synthetic labeled Audio-MNIST; the same arrays as the JAX package's
+    generator for the same arguments. Digit ``d`` is a bright vertical
+    stripe at column ``3d`` in vision and a horizontal band at row ``3d``
+    in audio. Words follow a sparse transition graph (``n_successors``
+    equally likely successors of each digit), so p(w'|w) is not uniform.
+    Writes training episodes into ``episodes_dir`` and the evaluation's
+    ``sample_*.npz`` (``audio`` (T, 32, 32), ``image`` (T, 1, 32, 32),
+    ``label``, ``speaker``) into ``eval_dir``."""
+    rng = np.random.default_rng(seed)
+    # Ceil: a length that is no multiple still labels every frame.
+    n_words = -(-episode_length // frames_per_word)
+    offsets = (1, 3, 5, 7, 9)
+    if not 1 <= n_successors <= len(offsets):
+        raise ValueError(f"n_successors must be in [1, {len(offsets)}], got {n_successors}")
+    successors = {d: tuple((d + off) % 10 for off in offsets[:n_successors]) for d in range(10)}
+    train_paths, eval_paths = [], []
+    eval_dir = Path(eval_dir)
+    eval_dir.mkdir(parents=True, exist_ok=True)
+    for i in range(n_episodes):
+        speaker_idx = i % n_speakers
+        words = [int(rng.integers(0, 10))]
+        for _ in range(n_words - 1):
+            nxt = successors[words[-1]]
+            words.append(int(nxt[rng.integers(0, len(nxt))]))
+        label = np.repeat(np.asarray(words, np.int64), frames_per_word)[:episode_length]
+        speaker = np.zeros((episode_length, n_speakers), np.float32)
+        speaker[:, speaker_idx] = 1.0
+        vision = np.full((episode_length, hw, hw, 1), 20.0, np.float32)
+        audio = np.full((episode_length, hw, hw, 1), -70.0, np.float32)
+        for t in range(episode_length):
+            d = int(label[t])
+            vision[t, :, 3 * d:3 * d + 3, 0] = 235.0
+            audio[t, 3 * d:3 * d + 3, :, 0] = -10.0
+        vision += rng.normal(0, 4.0, vision.shape).astype(np.float32)
+        audio += rng.normal(0, 1.5, audio.shape).astype(np.float32)
+        vision = np.clip(vision, 0.0, 255.0)
+        audio = np.clip(audio, -80.0, 0.0)
+        train_paths.append(
+            save_episode(episodes_dir, i, Episode(action=speaker, audio=audio, vision=vision)))
+        p = eval_dir / f"sample_{i:04d}.npz"
+        np.savez(p, audio=audio[..., 0], image=np.moveaxis(vision, -1, 1), label=label,
+                 speaker=speaker)
+        eval_paths.append(p)
+    return train_paths, eval_paths

@@ -15,9 +15,12 @@ generator of its own). The targets stay clean. Batches keep the reference's
 6-tuple order (``mrssm/dataset.py:168-183``): (action_input, audio_input,
 vision_input, action_target, audio_target, vision_target).
 
+``train_batches`` takes a ``skip`` for a mid-epoch resume: the batches
+after it and their noise are those of the whole epoch.
+
 Not ported: the memory-mapped pack mode, ``native/fastbatch.cc``, the
-device-resident mode, chunked streams, unimodal batches, custom transforms
-and ``drop_modality``.
+device-resident mode, unimodal batches, custom transforms and
+``drop_modality``.
 """
 
 from __future__ import annotations
@@ -136,13 +139,29 @@ class EpisodeDataModule:
     def _to_device(batch: tuple[np.ndarray, ...], device: torch.device | str) -> Batch:
         return tuple(torch.as_tensor(np.ascontiguousarray(x), device=device) for x in batch)
 
-    def train_batches(self, epoch: int, device: torch.device | str = "cpu") -> Iterator[Batch]:
-        """Shuffled, noised train batches of one epoch."""
+    def _batch_consumes_rng(self, rng: np.random.Generator | None) -> bool:
+        """Whether ``_make_batch(idx, rng)`` draws from ``rng``: the test a
+        mid-epoch skip keys off (skipping at the index level is exact only
+        when no batch draws). It must mirror ``_make_batch``'s draws."""
+        return rng is not None and self.cfg.noise_std > 0
+
+    def train_batches(self, epoch: int, device: torch.device | str = "cpu",
+                      skip: int = 0) -> Iterator[Batch]:
+        """Shuffled, noised train batches of one epoch. ``skip`` drops the
+        first batches (a mid-epoch resume) and leaves the rest as the whole
+        epoch serves them: skipped batches still draw their noise, or are
+        dropped at the index level when no batch draws (JAX
+        ``data/pipeline.py:354-376``)."""
         self._require_setup()
         rng = np.random.default_rng((self.cfg.seed, epoch))
         idx = rng.permutation(self._split[0])
-        for group in self._batched_indices(idx, self.train_batch_size):
-            yield self._to_device(self._make_batch(group, rng), device)
+        groups = self._batched_indices(idx, self.train_batch_size)
+        if skip and not self._batch_consumes_rng(rng):
+            groups, skip = groups[skip:], 0
+        for i, group in enumerate(groups):
+            batch = self._make_batch(group, rng)
+            if i >= skip:
+                yield self._to_device(batch, device)
 
     def val_batches(self, device: torch.device | str = "cpu") -> Iterator[Batch]:
         """Validation batches in split order, the inputs noised from

@@ -13,6 +13,7 @@ takes other noise where there are any.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Mapping, Sequence
 
 import torch
@@ -238,6 +239,75 @@ def first_near_tie(scores: Sequence[tuple[torch.Tensor, int, int]],
         tie |= near_ties(s, c, k, tie_eps).any(-1)
     steps = torch.arange(T, device=tie.device)[None, :]
     return torch.where(tie, steps, T).amin(1)
+
+
+def _tie_rows(out: Mapping[str, Any], cfg: Any,
+              tie_eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """A ``predict_word`` output's ``[B]`` first rollout step with a Gumbel
+    near-tie (:func:`first_near_tie`) and whether the row's initial sample
+    has one."""
+    init, states, seed = out["initial"], out["states"], out["seed"]
+    g0 = out["init_noise"]
+    if isinstance(init, MTState):
+        ls, hs = (cfg.ls_class, cfg.ls_category), (cfg.hs_class, cfg.hs_category)
+        B, T = states.deter_h.shape[:2]
+        g_l, g_h = philox_mt_gumbel(seed, T, B, ls, hs, states.deter_h.device)
+        sites = [(states.logits_l + g_l.transpose(0, 1), *ls),
+                 (states.logits_h + g_h.transpose(0, 1), *hs)]
+        init_sites = [(init.logits_h + g0["g_init_h"], *hs), (init.logits_l + g0["g_init_l"], *ls)]
+    else:
+        C, K = cfg.class_size, cfg.category_size
+        B, T = states.deter.shape[:2]
+        g = philox_gumbel(seed, T, B, C, K, states.deter.device)
+        sites = [(states.logits + g.transpose(0, 1), C, K)]
+        init_sites = [(init.logits + g0["g_init"], C, K)]
+    init_tie = torch.stack([near_ties(s, c, k, tie_eps).any(-1) for s, c, k in init_sites]).any(0)
+    return first_near_tie(sites, tie_eps), init_tie.repeat_interleave(B // init_tie.shape[0])
+
+
+@torch.no_grad()
+def check_predicted_digits(got: Mapping[str, Any], ref: Mapping[str, Any], cfg: Any,
+                           classify_frame: int, tie_eps: float = 1e-5,
+                           atol: float = 1e-4) -> dict[str, Any]:
+    """Two ``evaluation.word_transitions.predict_word`` outputs on the same
+    weights, intervals and seed (the card's and the CPU's). The rollout
+    states, in rows whose initial sample has no Gumbel near-tie, up to each
+    row's first rollout near-tie in either run: stochs equal before it,
+    every other field within ``atol`` up to and including it (it depends
+    only on earlier samples). Each row's digit equal, except in rows with
+    an initial near-tie or a rollout one up to ``classify_frame``, or whose
+    top two classifier logits lie within ``tie_eps``. Raises
+    :class:`ParityError`. Returns the rows compared and excluded, the
+    distinct digits among the compared rows, and the states' largest
+    error."""
+    first_g, init_g = _tie_rows(got, cfg, tie_eps)
+    first_r, init_r = _tie_rows(ref, cfg, tie_eps)
+    first = torch.minimum(first_g.cpu(), first_r.cpu())
+    init_tie = init_g.cpu() | init_r.cpu()
+    fields = [f.name for f in dataclasses.fields(ref["states"])]
+    steps = torch.arange(getattr(ref["states"], fields[0]).shape[1])[None, :]
+    upto = (steps <= first[:, None]) & ~init_tie[:, None]
+    before = (steps < first[:, None]) & ~init_tie[:, None]
+    err = 0.0
+    for name in fields:
+        a, b = getattr(got["states"], name).cpu(), getattr(ref["states"], name).cpu()
+        if name.startswith("stoch"):
+            if not torch.equal(a[before], b[before]):
+                raise ParityError(f"rollout {name} differs before the first near-tie")
+        else:
+            err = max(err, _max_err(a, b, upto))
+    if not err <= atol:
+        raise ParityError(f"rollout states: max |card - cpu| {err:.3g} > {atol}")
+    top2 = lambda out: out["logits"].topk(2, dim=-1).values.cpu()  # noqa: E731
+    clear = ((first > classify_frame) & ~init_tie
+             & ((top2(got)[:, 0] - top2(got)[:, 1]) > tie_eps)
+             & ((top2(ref)[:, 0] - top2(ref)[:, 1]) > tie_eps))
+    a, b = got["digits"].cpu()[clear], ref["digits"].cpu()[clear]
+    if not torch.equal(a, b):
+        raise ParityError(f"predicted digits differ in {int((a != b).sum())} of "
+                          f"{int(clear.sum())} rows clear of near-ties")
+    return {"compared": int(clear.sum()), "excluded": int((~clear).sum()),
+            "digits": sorted(set(b.tolist())), "max_abs_err": err}
 
 
 @torch.no_grad()

@@ -36,6 +36,7 @@ import torch
 from multimodal_mtrssm_tpu_torch.models import WorldModelNet
 from multimodal_mtrssm_tpu_torch.models.state import AnyState, cat_states
 from multimodal_mtrssm_tpu_torch.ops.kernels.rollout import row_keys
+from multimodal_mtrssm_tpu_torch.utils import require_device
 
 ArrayLike = torch.Tensor | np.ndarray
 
@@ -56,10 +57,7 @@ class WorldModel:
             raise TypeError(
                 f"WorldModel serves the multimodal families (MoPoEMRSSM / MoPoEMMTRSSM); got "
                 f"{type(model).__name__}, whose initial_state takes a single observation")
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("WorldModel runs on the CUDA device by default and none is "
-                               "available; pass device='cpu' to run on the CPU")
+        self.device = require_device(device, "WorldModel")
         self.model = model.to(self.device).eval()
 
     @classmethod

@@ -1,6 +1,6 @@
 """Training (port of ``multimodal_mtrssm_tpu.train``): the weight bridge, the
-optimizer and schedulers, the train step, checkpoints, metric logging and
-``Trainer``."""
+optimizer and schedulers, the train step, checkpoints, metric logging,
+``Trainer``, and the ``train-*`` commands (``train.entry``)."""
 
 from multimodal_mtrssm_tpu_torch.train.checkpoint import CheckpointManager
 from multimodal_mtrssm_tpu_torch.train.metrics import MetricLogger
@@ -9,6 +9,7 @@ from multimodal_mtrssm_tpu_torch.train.optim import (
     EarlyStopping,
     PlateauScheduler,
     make_scheduler,
+    scheduler_from_state_dict,
     set_learning_rate,
 )
 from multimodal_mtrssm_tpu_torch.train.steps import make_train_step, one_update
@@ -30,6 +31,7 @@ __all__ = [
     "load_reference_state_dict",
     "make_scheduler",
     "make_train_step",
+    "scheduler_from_state_dict",
     "one_update",
     "set_learning_rate",
 ]

@@ -40,17 +40,37 @@ class CheckpointManager:
         """Whether checkpoint ``name`` has been written."""
         return self.path(name).is_file()
 
+    def _load(self, name: str) -> dict[str, Any]:
+        ckpt = torch.load(self.path(name), map_location="cpu", weights_only=True)
+        if not isinstance(ckpt, dict) or "state_dict" not in ckpt:
+            raise ValueError(f"checkpoint {self.path(name)} holds no 'state_dict'")
+        return ckpt
+
+    def aux(self, name: str) -> dict[str, Any]:
+        """The JSON sidecar of checkpoint ``name``, or ``{}`` where there is none."""
+        path = self.dir / f"{name}.json"
+        return json.loads(path.read_text()) if path.is_file() else {}
+
     def restore_params(self, name: str, model: nn.Module) -> dict[str, Any]:
         """Load the weights of checkpoint ``name`` into ``model`` (strict),
         from a weights-only checkpoint (``best``) or a full one (``last``,
         ``diverged``: its optimizer state is left unread). Returns the JSON
         sidecar, or ``{}`` where there is none."""
-        ckpt = torch.load(self.path(name), map_location="cpu", weights_only=True)
-        if not isinstance(ckpt, dict) or "state_dict" not in ckpt:
-            raise ValueError(f"checkpoint {self.path(name)} holds no 'state_dict'")
+        load_reference_state_dict(model, self._load(name)["state_dict"])
+        return self.aux(name)
+
+    def restore(self, name: str, model: nn.Module, optimizer: AdamW) -> dict[str, Any]:
+        """Load the full training state of checkpoint ``name``: the weights
+        into ``model`` (strict) and the optimizer's state into
+        ``optimizer``. Returns the JSON sidecar. Raises when the checkpoint
+        holds no optimizer state (a weights-only one) or its state does not
+        fit ``optimizer``'s parameters."""
+        ckpt = self._load(name)
+        if "optimizer" not in ckpt:
+            raise ValueError(f"checkpoint {self.path(name)} holds no optimizer state")
+        optimizer.load_state_dict(ckpt["optimizer"])
         load_reference_state_dict(model, ckpt["state_dict"])
-        aux = self.dir / f"{name}.json"
-        return json.loads(aux.read_text()) if aux.is_file() else {}
+        return self.aux(name)
 
     def save(self, name: str, model: nn.Module, optimizer: AdamW | None = None,
              aux: dict[str, Any] | None = None) -> Path:

@@ -18,7 +18,9 @@ reads every config): it waits in ``Experiment.pending`` and
 ``Experiment.build_datamodule`` / ``build_trainer`` raise, naming it and the
 ROADMAP item that ports it. The weighted and unimodal models (ROADMAP queue
 1 item 10) raise at load. PyYAML is imported only to read a file; a model
-config object needs none.
+config object needs none, and :func:`make_experiment` builds an
+``Experiment`` from one. ``Experiment.build_trainer`` moves the model to
+the card and trains there unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import dataclasses
 import warnings
 from pathlib import Path
 from typing import Any
+
+import torch
 
 from multimodal_mtrssm_tpu_torch.data.pipeline import DataModuleConfig, EpisodeDataModule
 from multimodal_mtrssm_tpu_torch.models import (
@@ -38,6 +42,7 @@ from multimodal_mtrssm_tpu_torch.models import (
 )
 from multimodal_mtrssm_tpu_torch.nn.conv import DecoderConfig, EncoderConfig
 from multimodal_mtrssm_tpu_torch.train.trainer import Trainer, TrainerConfig
+from multimodal_mtrssm_tpu_torch.utils import require_device
 
 _ITEM = "ROADMAP queue 1 item"
 
@@ -80,14 +85,36 @@ class Experiment:
         return EpisodeDataModule(self.data)
 
     def build_trainer(self, model: WorldModelNet | None = None,
-                      datamodule: EpisodeDataModule | None = None) -> Trainer:
-        """A ``Trainer`` of ``model`` (the experiment's by default) on
-        ``datamodule`` (:meth:`build_datamodule` by default); raises on a
-        pending trainer or data field."""
+                      datamodule: EpisodeDataModule | None = None,
+                      device: torch.device | str = "cuda") -> Trainer:
+        """A ``Trainer`` of ``model`` (the experiment's by default), moved to
+        ``device`` and trained there (the card unless the caller asks for
+        the CPU; without a card the default raises), on ``datamodule``
+        (:meth:`build_datamodule` by default); raises on a pending trainer
+        or data field."""
         self._refuse("trainer")
-        return Trainer(model if model is not None else self.model,
-                       datamodule if datamodule is not None else self.build_datamodule(),
+        device = require_device(device, "build_trainer")
+        model = (model if model is not None else self.model).to(device)
+        return Trainer(model, datamodule if datamodule is not None else self.build_datamodule(),
                        self.trainer)
+
+    @property
+    def asks_for_gifs(self) -> bool:
+        """Whether the config names the rollout-GIF callback (the viz
+        section; ROADMAP queue 1 item 9 ports it)."""
+        return bool(_find_callback(self.raw.get("trainer", {}).get("callbacks", []), "Output"))
+
+
+def make_experiment(model_config: Any, trainer: TrainerConfig | None = None,
+                    data: DataModuleConfig | None = None) -> Experiment:
+    """An :class:`Experiment` without a YAML file, hence without PyYAML:
+    the model of ``model_config`` (an ``MRSSMConfig`` / ``MMTRSSMConfig``),
+    ``trainer`` and ``data`` (their defaults when None). The data
+    pipeline adds no noise: the model's ``input_noise_std`` does, as a
+    config read from YAML arranges."""
+    return Experiment(model=build_model(model_config), trainer=trainer or TrainerConfig(),
+                      data=data or DataModuleConfig(noise_std=0.0), viz=VizConfig(), raw={},
+                      pending={})
 
 
 def _init_args(node: dict | None) -> dict:
@@ -241,13 +268,9 @@ def _trainer_config(raw: dict, pending: dict) -> TrainerConfig:
     precision = str(trainer_node.get("precision", "32")).lower()
     if "16" in precision:
         pending["precision"] = (trainer_node["precision"], f"bf16 convs, {_ITEM} 8")
-    for key, default, item in (("zero1", False, 11), ("dcn_size", None, 11),
-                               ("accumulate_grad_batches", 1, 4)):
+    for key, default, item in (("zero1", False, 11), ("dcn_size", None, 11)):
         if trainer_node.get(key, default) != default:
             pending[key] = (trainer_node[key], f"{_ITEM} {item}")
-    spd = trainer_node.get("steps_per_dispatch", "auto")
-    if spd not in ("auto", 1):
-        pending["steps_per_dispatch"] = (spd, f"K-step dispatch, {_ITEM} 4")
     if raw.get("use_wandb", False):
         pending["use_wandb"] = (raw["use_wandb"], "W&B is not ported: JSONL metrics are the record")
     callbacks = trainer_node.get("callbacks", [])
@@ -274,6 +297,9 @@ def _trainer_config(raw: dict, pending: dict) -> TrainerConfig:
         log_dir=str(raw.get("log_dir", f"runs/{logger_args.get('project', 'default')}")),
         wandb_project=logger_args.get("project"),
         lr_scheduler=_scheduler_spec(raw.get("lr_scheduler")),
+        accumulate_grad_batches=int(trainer_node.get("accumulate_grad_batches", 1)),
+        steps_per_dispatch=(
+            spd if (spd := trainer_node.get("steps_per_dispatch", "auto")) == "auto" else int(spd)),
     )
 
 

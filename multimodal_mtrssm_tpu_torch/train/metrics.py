@@ -2,7 +2,7 @@
 
 The metric names are the JAX package's (``train/loss``, ``val/loss``,
 ``train/kl``, ``train/recon/audio``, ...): one JSON object per epoch in
-``<log_dir>/metrics.jsonl``.
+``<log_dir>/metrics.jsonl``, and one per chart image (``image``, ``path``).
 """
 
 from __future__ import annotations
@@ -23,6 +23,13 @@ class MetricLogger:
 
     def log(self, metrics: dict[str, float], step: int) -> None:
         record = {"step": step, "time": time.time(), **{k: float(v) for k, v in metrics.items()}}
+        self._fh.write(json.dumps(record) + "\n")
+        self._fh.flush()
+
+    def log_image(self, key: str, png_path: str | Path, step: int | None = None) -> None:
+        """Record a rendered image's path under ``key`` (JAX mirrors it to
+        W&B, which the port has not)."""
+        record = {"step": step, "time": time.time(), "image": key, "path": str(png_path)}
         self._fh.write(json.dumps(record) + "\n")
         self._fh.flush()
 

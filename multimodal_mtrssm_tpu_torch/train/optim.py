@@ -15,6 +15,7 @@ import dataclasses
 import math
 from typing import Iterable
 
+import numpy as np
 import torch
 
 
@@ -66,6 +67,24 @@ class AdamW:
         """Moments, step count and learning rate."""
         return {"m": self.m, "v": self.v, "count": self.count, "lr": self.lr}
 
+    def load_state_dict(self, state: dict) -> "AdamW":
+        """Restore :meth:`state_dict`'s moments (flat, in this optimizer's
+        parameter order), step count and learning rate, on the parameters'
+        device. Raises when the moments do not fit the parameters."""
+        n = self.m.numel()
+        moments = {}
+        for k in ("m", "v"):
+            x = state[k]
+            x = (x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))).reshape(-1)
+            if x.numel() != n:
+                raise ValueError(f"optimizer state {k!r} has {x.numel()} entries, the "
+                                 f"parameters {n}")
+            moments[k] = x.to(self.m.device, torch.float32).clone()
+        self.m, self.v = moments["m"], moments["v"]
+        self.count = int(state["count"])
+        self.lr = float(state["lr"])
+        return self
+
 
 def set_learning_rate(optimizer: AdamW, learning_rate: float) -> AdamW:
     """Set the learning rate of the next steps."""
@@ -106,6 +125,10 @@ class PlateauScheduler:
     def state_dict(self) -> dict:
         return dataclasses.asdict(self)
 
+    @classmethod
+    def from_state_dict(cls, d: dict) -> "PlateauScheduler":
+        return cls(**d)
+
 
 @dataclasses.dataclass
 class CosineAnnealingScheduler:
@@ -132,6 +155,10 @@ class CosineAnnealingScheduler:
     def state_dict(self) -> dict:
         return {"kind": "cosine", **dataclasses.asdict(self)}
 
+    @classmethod
+    def from_state_dict(cls, d: dict) -> "CosineAnnealingScheduler":
+        return cls(**{k: v for k, v in d.items() if k != "kind"})
+
 
 @dataclasses.dataclass
 class StepScheduler:
@@ -155,6 +182,10 @@ class StepScheduler:
     def state_dict(self) -> dict:
         return {"kind": "step", **dataclasses.asdict(self)}
 
+    @classmethod
+    def from_state_dict(cls, d: dict) -> "StepScheduler":
+        return cls(**{k: v for k, v in d.items() if k != "kind"})
+
 
 @dataclasses.dataclass
 class ExponentialScheduler:
@@ -176,6 +207,10 @@ class ExponentialScheduler:
 
     def state_dict(self) -> dict:
         return {"kind": "exponential", **dataclasses.asdict(self)}
+
+    @classmethod
+    def from_state_dict(cls, d: dict) -> "ExponentialScheduler":
+        return cls(**{k: v for k, v in d.items() if k != "kind"})
 
 
 _SCHEDULERS = {
@@ -206,6 +241,16 @@ def make_scheduler(spec: dict | None, base_lr: float, plateau_factor: float = 0.
     return cls(base_lr, **spec)
 
 
+def scheduler_from_state_dict(d: dict) -> object:
+    """Any scheduler from its ``state_dict`` (``kind`` defaults to plateau,
+    whose state dict carries none)."""
+    d = dict(d)
+    kind = d.pop("kind", "plateau")
+    if kind not in _SCHEDULERS:
+        raise ValueError(f"unknown lr scheduler kind {kind!r} (have {sorted(_SCHEDULERS)})")
+    return _SCHEDULERS[kind].from_state_dict(d)
+
+
 @dataclasses.dataclass
 class EarlyStopping:
     """EarlyStopping on a monitored value (min mode), reference
@@ -230,3 +275,7 @@ class EarlyStopping:
 
     def state_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+    @classmethod
+    def from_state_dict(cls, d: dict) -> "EarlyStopping":
+        return cls(**d)

@@ -3,6 +3,8 @@
 Per-step noise is drawn from a generator seeded with ``fold(seed, step)``,
 the role ``jax.random.fold_in(key, step)`` plays in the JAX package (its
 lines 44-48), so a run is a function of its seed and the step index alone.
+Gradient accumulation is :func:`accumulate_gradients` per batch, then
+:func:`apply_accumulated` once a window (JAX ``trainer.py:290-305``).
 """
 
 from __future__ import annotations
@@ -29,10 +31,9 @@ def one_update(model: WorldModelNet, optimizer: AdamW, batch: Batch,
     gradient, the update. Returns the step's metrics (detached, on the
     device)."""
     optimizer.zero_grad()
-    metrics = model.shared_step(batch, generator=generator)
-    metrics["loss"].backward()
+    metrics = accumulate_gradients(model, batch, generator)
     optimizer.step()
-    return {k: v.detach() for k, v in metrics.items()}
+    return metrics
 
 
 def make_train_step(model: WorldModelNet,
@@ -46,3 +47,38 @@ def make_train_step(model: WorldModelNet,
         return one_update(model, optimizer, batch, generator)
 
     return train_step
+
+
+def accumulate_gradients(model: WorldModelNet, batch: Batch,
+                         generator: torch.Generator | None = None,
+                         noise: dict | None = None) -> dict[str, torch.Tensor]:
+    """Add ``batch``'s ELBO gradient to the parameters' ``.grad`` (the
+    window's sum) and take no step. ``noise`` and ``generator`` go to
+    ``shared_step``. Returns the batch's metrics (detached)."""
+    metrics = model.shared_step(batch, noise, generator=generator)
+    metrics["loss"].backward()
+    return {k: v.detach() for k, v in metrics.items()}
+
+
+@torch.no_grad()
+def apply_accumulated(optimizer: AdamW, n_batches: int) -> None:
+    """One clipped AdamW step on the mean of a window's ``n_batches``
+    gradients (their sum, in ``.grad``, divided by ``n_batches``); the
+    gradients are dropped after."""
+    for p in optimizer.params:
+        if p.grad is not None:
+            p.grad.div_(float(n_batches))
+    optimizer.step()
+    optimizer.zero_grad()
+
+
+def make_grad_step(model: WorldModelNet) -> Callable[[Batch, int, int], dict[str, torch.Tensor]]:
+    """``(batch, seed, step) → metrics``: :func:`accumulate_gradients` with
+    the noise of ``fold(seed, step)``, the train step's noise."""
+    generator = torch.Generator(device=next(model.parameters()).device)
+
+    def grad_step(batch: Batch, seed: int, step: int) -> dict[str, torch.Tensor]:
+        generator.manual_seed(fold(seed, step))
+        return accumulate_gradients(model, batch, generator)
+
+    return grad_step

@@ -2,9 +2,22 @@
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 
 def count_params(module: nn.Module) -> int:
     """Total number of scalar parameters of a module."""
     return sum(p.numel() for p in module.parameters())
+
+
+def require_device(device: torch.device | str, who: str,
+                   cpu_hint: str = "device='cpu'") -> torch.device:
+    """``device`` as a ``torch.device``. The port's entry points default to
+    the card and never fall back to the CPU: a CUDA device without a card
+    raises, naming ``who`` and how to ask for the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who} runs on the CUDA device by default and none is available; "
+                           f"pass {cpu_hint} to run on the CPU")
+    return device

@@ -100,11 +100,24 @@ def test_drop_modality_waits_for_the_datamodule():
     ({"trainer": {"zero1": True}}, "zero1", "item 11"),
     ({"data": {"init_args": {"config": {"device_resident": True}}}}, "device_resident", "item 7"),
 ])
-def test_unsupported_trainer_fields_wait_for_the_trainer(override, field, item):
+def test_unsupported_trainer_fields_wait_for_the_trainer(override, field, item, tmp_path):
+    """Fields of later items raise at ``build_trainer``; item 4's (gradient
+    accumulation, ``steps_per_dispatch``) are read into ``TrainerConfig``
+    as JAX reads them and ``build_trainer`` returns a trainer that takes
+    them."""
     exp = load_experiment(REPO / "configs" / "mopoe_mrssm.yaml", override)
     assert isinstance(exp.model, MoPoEMRSSM)
-    with pytest.raises(NotImplementedError, match=f"{field}=.*{item}"):
-        exp.build_trainer()
+    if item != "item 4":
+        with pytest.raises(NotImplementedError, match=f"{field}=.*{item}"):
+            exp.build_trainer(device="cpu")
+        return
+    theirs = jax_load_experiment(REPO / "configs" / "mopoe_mrssm.yaml", override)
+    value = override["trainer"][field]
+    assert getattr(exp.trainer, field) == getattr(theirs.trainer, field) == value
+    assert "trainer" not in exp.pending
+    dm = EpisodeDataModule(DataModuleConfig(data_dir=str(tmp_path / "none")))
+    trainer = exp.build_trainer(datamodule=dm, device="cpu")
+    assert getattr(trainer.cfg, field) == value
 
 
 @pytest.mark.parametrize("class_path", ["multimodal_mtrssm_tpu.models.WeightedMoPoEMRSSM",
@@ -119,8 +132,9 @@ def test_build_trainer_on_a_supported_config(tmp_path):
     exp = load_experiment(REPO / "configs" / "mopoe_mrssm.yaml",
                           {"log_dir": str(tmp_path / "run")})
     dm = EpisodeDataModule(DataModuleConfig(data_dir=str(tmp_path / "none")))
-    trainer = exp.build_trainer(datamodule=dm)
+    trainer = exp.build_trainer(datamodule=dm, device="cpu")
     assert trainer.model is exp.model and trainer.cfg.log_dir == str(tmp_path / "run")
+    assert trainer.device == torch.device("cpu")
 
 
 # ---- checkpoints and from_checkpoint ------------------------------------------------

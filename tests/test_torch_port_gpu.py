@@ -17,7 +17,10 @@ per tensor; encoder embeddings within 1e-4 ×
 max(1, max|plain|) (f32 sums over up to 576 taps in another order); decoder
 frames within 1e-5 (after the Tanh); a whole train step's loss terms within
 2e-5 of the loss and its gradient tree within 3e-4 × scale of the CPU
-route.
+route. A mid-epoch resume on the card ends within 3e-4 × max(1, max|w|)
+per tensor of the uninterrupted fit; the evaluation's digits on the card
+equal the CPU path's outside near-ties of 1e-5. B=60 T=10 is one
+evaluated word's rollout (6 intervals × 10 predictions, 10 frames).
 """
 
 import dataclasses
@@ -90,7 +93,7 @@ def test_recurrence_kernel_matches_plain(cuda_device, B, T):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,T", [(10, 10), (64, 30), (256, 180), (3, 1)])
+@pytest.mark.parametrize("B,T", [(10, 10), (64, 30), (256, 180), (3, 1), (60, 10)])
 def test_rollout_kernel_matches_plain(cuda_device, B, T):
     """The rollout kernel against the plain transition replaying its stochs,
     which must be the argmax of its logits plus the seed's noise; two
@@ -802,7 +805,7 @@ def test_mt_recurrence_backward_passes_match_their_plain_passes(cuda_device, nam
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,T", [(10, 10), (64, 30), (256, 180), (3, 1)])
+@pytest.mark.parametrize("B,T", [(10, 10), (64, 30), (256, 180), (3, 1), (60, 10)])
 def test_mt_rollout_kernel_matches_plain(cuda_device, B, T):
     """The MT rollout kernel against the plain step replaying its stochs,
     which must be the argmax of its logits plus the seed's noise at both
@@ -1303,3 +1306,91 @@ def test_coalesced_rollout_equals_each_request_alone(cuda_device, family):
                 parity.first_near_tie(_scores(family, alone, seed)),
                 name=f"{family} B={b} T={t}")
             off += b
+
+
+# ---- resume on the card, the evaluation's digits card against CPU ----------------------
+
+
+@pytest.mark.gpu
+def test_mid_epoch_resume_on_the_card(cuda_device, tmp_path, monkeypatch):
+    """SIGTERM after the 4th step (mid epoch 1 of 3-step epochs at B=8
+    T=30): a fresh trainer's ``resume=True`` ends within the train step's
+    bound of the uninterrupted fit."""
+    import os
+    import signal
+
+    from multimodal_mtrssm_tpu_torch.data import (
+        DataModuleConfig,
+        EpisodeDataModule,
+        generate_synthetic_audio_mnist,
+    )
+    from multimodal_mtrssm_tpu_torch.train import Trainer, TrainerConfig
+    from multimodal_mtrssm_tpu_torch.train import trainer as trainer_mod
+
+    generate_synthetic_audio_mnist(tmp_path / "episodes", n_episodes=24, seed=0)
+
+    def trainer(name):
+        dm = EpisodeDataModule(DataModuleConfig(data_dir=str(tmp_path / "episodes"), batch_size=8,
+                                                sequence_length=30, noise_std=0.0))
+        return Trainer(MoPoEMRSSM().to(cuda_device), dm,
+                       TrainerConfig(max_epochs=2, seed=0, log_dir=str(tmp_path / name)))
+
+    ref = trainer("ref")
+    ref.fit()
+    real = trainer_mod.make_train_step
+
+    def make(*args):
+        step, calls = real(*args), [0]
+
+        def wrapped(*a):
+            out = step(*a)
+            calls[0] += 1
+            if calls[0] == 4:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return out
+
+        return wrapped
+
+    monkeypatch.setattr(trainer_mod, "make_train_step", make)
+    assert trainer("cut").fit()["preempted"]
+    monkeypatch.undo()
+    resumed = trainer("cut")
+    assert [r["epoch"] for r in resumed.fit(resume=True)["history"]] == [1]
+    for (name, a), b in zip(resumed.model.state_dict().items(), ref.model.state_dict().values()):
+        scale = max(1.0, float(b.abs().max()))
+        assert float((a - b).abs().max()) <= 3e-4 * scale, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["mrssm", "mt"])
+def test_evaluation_digits_match_the_cpu(cuda_device, tmp_path, family):
+    """One word's predictions (6 intervals × 10 predictions, 10 frames) on
+    the card and on the CPU, on the same weights, classifier and seed: the
+    rollout states up to each row's first near-tie (stochs equal, the rest
+    within 1e-4) and the digits in every row clear of near-ties of 1e-5, at
+    frames 0 and 1."""
+    import copy
+
+    from multimodal_mtrssm_tpu_torch.data import generate_synthetic_labeled_audio_mnist
+    from multimodal_mtrssm_tpu_torch.evaluation import (
+        MNISTClassifier,
+        load_test_data_with_labels,
+        predict_word,
+        select_intervals_for_word,
+    )
+
+    model = _model(cuda_device) if family == "mrssm" else _mt_model(cuda_device)
+    cpu_model = copy.deepcopy(model).cpu()
+    torch.manual_seed(0)
+    classifier = MNISTClassifier().eval()
+    cpu_classifier = copy.deepcopy(classifier)
+    classifier = classifier.to(cuda_device)
+    generate_synthetic_labeled_audio_mnist(tmp_path / "train", tmp_path / "eval", n_episodes=12,
+                                           seed=0)
+    test_data = load_test_data_with_labels(tmp_path / "eval")
+    intervals = select_intervals_for_word(3, test_data, 6, 30)
+    for cf in (0, 1):
+        got = predict_word(model, classifier, intervals, 1234, 10, 10, classify_frame=cf)
+        ref = predict_word(cpu_model, cpu_classifier, intervals, 1234, 10, 10, classify_frame=cf)
+        r = parity.check_predicted_digits(got, ref, model.cfg, cf)
+        assert r["compared"] > 0

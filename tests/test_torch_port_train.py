@@ -27,6 +27,7 @@ from multimodal_mtrssm_tpu.nn.core import mlp_apply
 from multimodal_mtrssm_tpu.ops import distributions as jdist
 from multimodal_mtrssm_tpu.ops.likelihood import gaussian_nll as jax_gaussian_nll
 from multimodal_mtrssm_tpu.ops.pallas import train_step as jax_ts
+from multimodal_mtrssm_tpu.train import optim as jax_optim
 from multimodal_mtrssm_tpu.train.torch_export import export_reference_state_dict
 from multimodal_mtrssm_tpu_torch.models.mrssm import MoPoEMRSSM, MRSSMConfig
 from multimodal_mtrssm_tpu_torch.nn.conv import EncoderConfig
@@ -34,6 +35,8 @@ from multimodal_mtrssm_tpu_torch.ops import distributions as dist
 from multimodal_mtrssm_tpu_torch.ops import kernels
 from multimodal_mtrssm_tpu_torch.ops.kernels import recurrence
 from multimodal_mtrssm_tpu_torch.ops.likelihood import gaussian_nll
+from multimodal_mtrssm_tpu_torch.train import optim
+from multimodal_mtrssm_tpu_torch.train.steps import accumulate_gradients, apply_accumulated
 from multimodal_mtrssm_tpu_torch.train.weights import load_reference_state_dict
 
 C, K = 4, 4
@@ -275,16 +278,26 @@ def _jax_elbo(jmodel, params, batch, noise):
     return losses
 
 
+_ELBO_GRADS: dict = {}
+
+
+def _jax_elbo_grad(jmodel):
+    """``jax.grad`` of ``_jax_elbo``'s loss, its terms as aux, jitted once a
+    model so the tests on one shape share its compile."""
+    if id(jmodel) not in _ELBO_GRADS:
+        def loss(p, batch, noise):
+            d = _jax_elbo(jmodel, p, batch, noise)
+            return d["loss"], d
+
+        _ELBO_GRADS[id(jmodel)] = (jmodel, jax.jit(jax.grad(loss, has_aux=True)))
+    return _ELBO_GRADS[id(jmodel)][1]
+
+
 def test_shared_step_loss_and_gradients_match_jax(models):
     jmodel, params, port = models
     batch, noise = _batch(11)
-    jb = tuple(map(jnp.asarray, batch))
-    jn = {k: jnp.asarray(v) for k, v in noise.items()}
-    def loss(p):
-        d = _jax_elbo(jmodel, p, jb, jn)
-        return d["loss"], d
-
-    grads, ref = jax.jit(jax.grad(loss, has_aux=True))(params)
+    grads, ref = _jax_elbo_grad(jmodel)(params, tuple(map(jnp.asarray, batch)),
+                                        {k: jnp.asarray(v) for k, v in noise.items()})
     ref_grads = export_reference_state_dict(grads)
     port.zero_grad(set_to_none=True)
     out = port.shared_step(tuple(map(torch.from_numpy, batch)),
@@ -306,6 +319,40 @@ def test_shared_step_loss_and_gradients_match_jax(models):
     # initial stoch reaches init_proj and both encoders.
     for prefix in ("init_proj", "audio_encoder", "vision_encoder", "transition", "audio_decoder"):
         assert any(float(got[n].abs().max()) > 0 for n in got if n.startswith(prefix)), prefix
+
+
+def test_accumulated_gradient_and_step_match_jax(models):
+    """Two batches' gradients summed by ``accumulate_gradients`` and
+    divided by ``apply_accumulated``, on noise handed to both packages,
+    against the mean of ``jax.grad`` over the same batches (the gradient
+    tree's bound, per tensor); then that step against ``FusedAdamW``'s on
+    JAX's mean gradient (rtol 1e-6, atol 1e-9: the optimizer's bound)."""
+    jmodel, params, port = models
+    batches = [_batch(21), _batch(22)]
+    grad = _jax_elbo_grad(jmodel)
+    jgrads = [grad(params, tuple(map(jnp.asarray, batch)),
+                   {k: jnp.asarray(v) for k, v in noise.items()})[0] for batch, noise in batches]
+    jmean = jax.tree.map(lambda a, b: (a + b) / 2.0, *jgrads)
+    want = export_reference_state_dict(jmean)
+    opt = optim.AdamW(port.parameters(), 1e-3)
+    port.zero_grad(set_to_none=True)
+    for batch, noise in batches:
+        accumulate_gradients(port, tuple(map(torch.from_numpy, batch)),
+                             noise={k: torch.from_numpy(v) for k, v in noise.items()})
+    for name, p in port.named_parameters():
+        _scaled_close(p.grad.numpy() / 2.0, want[name], 3e-4, name)
+    # The step, on JAX's mean gradient in both packages.
+    before = {k: v.clone() for k, v in port.state_dict().items()}
+    for name, p in port.named_parameters():
+        p.grad = torch.from_numpy(np.asarray(want[name]) * 2.0)
+    apply_accumulated(opt, 2)
+    assert all(p.grad is None for p in port.parameters())
+    jopt = jax_optim.make_optimizer(1e-3)
+    updates, _ = jopt.update(jmean, jopt.init(params), params)
+    after = export_reference_state_dict(jax.tree.map(lambda p, u: p + u, params, updates))
+    for name, v in port.state_dict().items():
+        np.testing.assert_allclose(v.numpy(), after[name], rtol=1e-6, atol=1e-9, err_msg=name)
+    port.load_state_dict(before)  # the module's other tests share the weights
 
 
 def test_shared_step_input_noise_is_added_to_the_inputs_only(models):

@@ -30,6 +30,7 @@ from multimodal_mtrssm_tpu_torch.train import optim
 from multimodal_mtrssm_tpu_torch.train.steps import make_train_step
 from multimodal_mtrssm_tpu_torch.train.trainer import Trainer, TrainerConfig
 from multimodal_mtrssm_tpu_torch.train.weights import load_lightning_checkpoint
+from _port_threads import _one_intra_op_thread  # noqa: F401 (autouse)
 
 # ---- optimizer and schedulers -----------------------------------------------------
 
@@ -207,6 +208,7 @@ def test_trainer_fit_on_the_cpu(tmp_path):
         assert all(np.isfinite(v) for v in row.values())
         assert {"train/loss", "train/kl", "val/loss", "val/recon/audio", "lr"} <= set(row)
     rows = [json.loads(line) for line in (tmp_path / "run" / "metrics.jsonl").read_text().splitlines()]
+    rows = [r for r in rows if "image" not in r]  # the charts' paths follow the epoch rows
     assert [r["val/loss"] for r in rows] == [r["val/loss"] for r in out["history"]]
     assert out["best_val"] == min(r["val/loss"] for r in rows)
     moved = [not torch.equal(p, q) for p, q in zip(model.parameters(), init.parameters())]
@@ -238,16 +240,36 @@ def test_trainer_fit_returns_the_jax_keys(tmp_path):
 @pytest.mark.parametrize("field,value", [("zero1", True), ("dcn_size", 2),
                                          ("accumulate_grad_batches", 2), ("steps_per_dispatch", 4),
                                          ("profile_epoch", 0), ("use_wandb", True)])
-def test_trainer_refuses_unsupported_fields(field, value):
-    with pytest.raises(ValueError, match=field):
-        TrainerConfig(**{field: value})
+def test_trainer_refuses_unsupported_fields(field, value, tmp_path):
+    """``zero1``, ``dcn_size`` and ``use_wandb`` still raise; gradient
+    accumulation, an integer ``steps_per_dispatch`` and ``profile_epoch``
+    are honoured: a one-epoch fit steps once a window, trains batch by
+    batch at any K, or writes a trace."""
+    if field in ("zero1", "dcn_size", "use_wandb"):
+        with pytest.raises(ValueError, match=field):
+            TrainerConfig(**{field: value})
+        return
+    dm, _ = _datamodules(tmp_path, noise_std=0.0)
+    trainer = Trainer(_small_model(), dm, TrainerConfig(max_epochs=1, log_dir=str(tmp_path / "run"),
+                                                        **{field: value}))
+    out = trainer.fit()
+    assert out["global_step"] == 3 and np.isfinite(out["history"][0]["train/loss"])
+    # 3 batches: windows of 2 and the leftover 1 take 2 optimizer steps.
+    assert out["opt_state"]["count"] == (2 if field == "accumulate_grad_batches" else 3)
+    assert (tmp_path / "run" / "profile" / "epoch_0.trace.json").is_file() \
+        == (field == "profile_epoch")
 
 
 def test_trainer_refuses_resume(tmp_path):
+    """Resuming is supported: ``resume=True`` without a ``last``
+    checkpoint trains from scratch, then continues the run's ``last``;
+    ``resume_from`` a directory without checkpoints raises."""
     dm, _ = _datamodules(tmp_path, noise_std=0.0)
     trainer = Trainer(_small_model(), dm, TrainerConfig(log_dir=str(tmp_path / "run"),
-                                                        steps_per_dispatch=1))
-    with pytest.raises(ValueError, match="resum"):
-        trainer.fit(resume=True)
-    with pytest.raises(ValueError, match="resum"):
+                                                        max_epochs=1, steps_per_dispatch=1))
+    assert [r["epoch"] for r in trainer.fit(resume=True)["history"]] == [0]
+    trainer.cfg = dataclasses.replace(trainer.cfg, max_epochs=2)
+    out = trainer.fit(resume=True)
+    assert [r["epoch"] for r in out["history"]] == [1] and out["global_step"] == 6
+    with pytest.raises(FileNotFoundError, match="checkpoint"):
         trainer.fit(resume_from=tmp_path)
