@@ -112,6 +112,31 @@ first two configurations' latent features.
    near-ties of 1e-5, and the compared rows hold more than one digit.
    Prints the mean MR, rows compared and excluded, the digits seen, ms a
    word (CUDA events) and the rollout kernel's device time at B=60 T=10.
+7. The cross-modal run (``drive_crossmodal``), after phase 5's decoder
+   path: (a) ``configs/mopoe_mrssm_crossmodal.yaml``, loaded with this
+   run's directories, seed, 2 epochs and the GIFs every epoch, fits 2
+   epochs × 3 steps at B=8 T=30 on 24 synthetic episodes with the GIF
+   callback every epoch: finite losses; every train and val sample's
+   audio input at -1, no target dropped; the recurrence forward launched
+   once a step, a validation batch and a stage's render, the backward
+   once a step, the rollout once a render; GIFs of 30 frames in
+   ``viz/epoch_0001`` and ``viz/final_best`` (7 train, 5 val), each logged,
+   the audio row "(missing)"; (b) ``compute_reconstructions`` of the fit's
+   best (``MRSSMConfig()``) and of seeded ``MMTRSSMConfig()`` weights at 7
+   episodes × 30 frames, q=10: one recurrence-forward and one rollout
+   launch, states and frames against the CPU path within 1e-4 before each
+   row's first near-tie of 1e-5 (``parity.check_reconstructions``), on at
+   least half the steps; (c)
+   phase 4b's preempt-and-resume under ``drop_modality="random"``:
+   bit-identical to the uninterrupted fit, validation clean, the train
+   samples of each kind printed; (d) ``reconstruction_report`` of the best
+   on phase 6's labeled episodes: JAX's structure, 3 forward and 3 rollout
+   launches, ``drop_audio`` unlike ``both``, each condition against the
+   CPU path; (e) ms a ``compute_reconstructions`` (CUDA events, median of
+   20) and its kernels' device share (``torch.profiler``), ms a report, s
+   a GIF render of each stage (host clock, median of 3); (f)
+   ``crossmodal_e2e`` at 1 seed, the crossmodal variant, 2 epochs, 24
+   episodes: ``summary.json`` with JAX's keys, MR and audio MSE printed.
 5. Timings: median ms of each kernel against its plain version (the
    stacked kernels beside the unstacked ones, the fused encoder beside the
    cuDNN ``Encoder``, the fused decoder beside the cuDNN ``Decoder``), of
@@ -138,7 +163,7 @@ first two configurations' latent features.
    and through HTTP).
 
 Each configuration's serving and training run, phase 3b's coalesced
-requests, phases 4b, 4c and 6, and the decoder's path
+requests, phases 4b, 4c, 6 and each part of 7, and the decoder's path
 (``fused_decoder_apply`` on both decoders of the first two configurations'
 observed features at B=8 T=30, forward and a ``gaussian_nll`` backward), is
 driven with every launch count set to 0 just before it and read just after.
@@ -2417,60 +2442,94 @@ def _weights_close(model, ref) -> tuple[float, bool]:
     return worst, same
 
 
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    """cuDNN held to deterministic algorithms (a resumed fit can then equal
+    the uninterrupted one bit for bit)."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+def _fit_maker(cfg, dev, episodes: Path, run_dir: Path, dm_class=None, **data_kw):
+    """``make(name, **trainer_kw)``: a fresh 2-epoch ``Trainer`` of ``cfg`` at
+    B=8 T=30 on ``episodes`` (pipeline noise 0, ``data_kw`` beside), logging
+    into ``run_dir / name``; its datamodule of ``dm_class``."""
+    from multimodal_mtrssm_tpu_torch.data import DataModuleConfig, EpisodeDataModule
+    from multimodal_mtrssm_tpu_torch.models import MMTRSSMConfig, MoPoEMMTRSSM, MoPoEMRSSM
+    from multimodal_mtrssm_tpu_torch.train import Trainer, TrainerConfig
+
+    family = MoPoEMMTRSSM if isinstance(cfg, MMTRSSMConfig) else MoPoEMRSSM
+
+    def make(name: str, **kw) -> Trainer:
+        dm = (dm_class or EpisodeDataModule)(DataModuleConfig(
+            data_dir=str(episodes), batch_size=8, sequence_length=30, noise_std=0.0, seed=SEED,
+            **data_kw))
+        return Trainer(family(cfg).to(dev), dm,
+                       TrainerConfig(max_epochs=2, seed=SEED, log_dir=str(run_dir / name), **kw))
+
+    return make
+
+
+def preempt_and_resume(make, what: str) -> dict:
+    """A fit of ``make("ref")`` and the same fit SIGTERMed after its 4th
+    optimizer step (mid epoch 1), which must return ``preempted`` with a
+    mid-epoch ``last``; a fresh ``make("cut")``'s ``fit(resume=True)``
+    finishes it. Returns the resumed weights' largest error against the
+    uninterrupted fit's (× max(1, max|w|) per tensor), whether they are
+    bit-identical, the mid-epoch aux and the uninterrupted trainer."""
+    ref = make("ref")
+    ref.fit()
+    with _sigterm_after(RESUME_STEP):
+        cut = make("cut")
+        cut_out = cut.fit()
+    aux = cut.ckpt.aux("last")
+    if not (cut_out["preempted"] and aux.get("mid_epoch") and aux["epoch"] == 1
+            and aux["global_step"] == RESUME_STEP):
+        raise RuntimeError(f"{what}: SIGTERM after step {RESUME_STEP} left preempted="
+                           f"{cut_out['preempted']} and 'last' {aux}")
+    resumed = make("cut")
+    res_out = resumed.fit(resume=True)
+    if res_out["preempted"] or [r["epoch"] for r in res_out["history"]] != [1] \
+            or res_out["global_step"] != 6:
+        raise RuntimeError(f"{what}: the resumed fit ran epochs "
+                           f"{[r['epoch'] for r in res_out['history']]} to step "
+                           f"{res_out['global_step']}")
+    err, same = _weights_close(resumed.model, ref.model)
+    return {"err": err, "same": same, "aux": aux, "ref": ref}
+
+
 def drive_resume(cfg, dev, run_dir: Path) -> dict:
     """Phase 4b: on 24 synthetic episodes at B=8 T=30 (3 steps an epoch), 2
     epochs of ``Trainer.fit``, with cuDNN held to deterministic algorithms:
     a fit preempted by SIGTERM after its 4th optimizer step (mid epoch 1)
     must return ``preempted`` and leave a mid-epoch ``last``; a fresh
     ``Trainer``'s ``fit(resume=True)`` finishes it, and its weights must
-    equal the uninterrupted fit's within 3e-4 × max(1, max|w|) per tensor.
-    Then a fit with ``accumulate_grad_batches=2`` (19 train episodes make
-    2 full batches and a tail: 2 windows an epoch) and one with
-    ``profile_epoch=0``, whose trace must exist."""
+    equal the uninterrupted fit's within 3e-4 × max(1, max|w|) per tensor
+    (:func:`preempt_and_resume`). Then a fit with
+    ``accumulate_grad_batches=2`` (19 train episodes make 2 full batches
+    and a tail: 2 windows an epoch) and one with ``profile_epoch=0``, whose
+    trace must exist."""
     import torch
 
-    from multimodal_mtrssm_tpu_torch.data import (
-        DataModuleConfig,
-        EpisodeDataModule,
-        generate_synthetic_audio_mnist,
-    )
-    from multimodal_mtrssm_tpu_torch.models import MMTRSSMConfig, MoPoEMMTRSSM, MoPoEMRSSM
+    from multimodal_mtrssm_tpu_torch.data import generate_synthetic_audio_mnist
+    from multimodal_mtrssm_tpu_torch.models import MMTRSSMConfig
     from multimodal_mtrssm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
-    from multimodal_mtrssm_tpu_torch.train import Trainer, TrainerConfig
 
     mt = isinstance(cfg, MMTRSSMConfig)
-    family = MoPoEMMTRSSM if mt else MoPoEMRSSM
     episodes = run_dir / "episodes"
     generate_synthetic_audio_mnist(episodes, n_episodes=24, seed=SEED)
-
-    def trainer(name: str, **kw) -> Trainer:
-        dm = EpisodeDataModule(DataModuleConfig(data_dir=str(episodes), batch_size=8,
-                                                sequence_length=30, noise_std=0.0, seed=SEED))
-        return Trainer(family(cfg).to(dev), dm,
-                       TrainerConfig(max_epochs=2, seed=SEED, log_dir=str(run_dir / name), **kw))
-
+    trainer = _fit_maker(cfg, dev, episodes, run_dir)
     label = _label(cfg)
-    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
-    try:
+    with _deterministic_cudnn():
         reset_launch_counts()
-        ref = trainer("ref")
-        ref.fit()
-        with _sigterm_after(RESUME_STEP):
-            cut = trainer("cut")
-            cut_out = cut.fit()
-        aux = cut.ckpt.aux("last")
-        if not (cut_out["preempted"] and aux.get("mid_epoch") and aux["epoch"] == 1
-                and aux["global_step"] == RESUME_STEP):
-            raise RuntimeError(f"SIGTERM after step {RESUME_STEP} left preempted="
-                               f"{cut_out['preempted']} and 'last' {aux}")
-        resumed = trainer("cut")
-        res_out = resumed.fit(resume=True)
-        if res_out["preempted"] or [r["epoch"] for r in res_out["history"]] != [1] \
-                or res_out["global_step"] != 6:
-            raise RuntimeError(f"the resumed fit ran epochs {[r['epoch'] for r in res_out['history']]}"
-                               f" to step {res_out['global_step']}")
-        err, same = _weights_close(resumed.model, ref.model)
+        r = preempt_and_resume(trainer, label)
+        err, same, aux = r["err"], r["same"], r["aux"]
         if not err <= WEIGHT_TOL:
             raise RuntimeError(f"{label}: resumed weights differ from the uninterrupted fit's "
                                f"by {err:.3g} x scale")
@@ -2501,8 +2560,6 @@ def drive_resume(cfg, dev, run_dir: Path) -> dict:
         counts = launch_counts()
         print(f"profile {label}: epoch 0 traced ({trace.stat().st_size} bytes); main-path kernel "
               f"launches of the resume phase: {counts}")
-    finally:
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
     return {"counts": counts}
 
 
@@ -2739,6 +2796,307 @@ def drive_evaluation(cfg, dev, checkpoints: Path, inputs: dict, work: Path, card
     return {"counts": total}
 
 
+# ---- phase 7: the cross-modal run ------------------------------------------------------
+
+# 7(b) and (e): compute_reconstructions at 7 episodes × 30 frames (the GIF
+# callback's batch), q = 10; the report's q is its default, 15.
+RECON_Q = 10
+# Least share of reconstruction steps that must come before a row's first
+# near-tie, so that a card-against-CPU check compares something.
+MIN_COMPARED = 0.5
+RECON_KERNELS = {False: ("recurrence_fwd", "rollout"), True: ("mt_recurrence_fwd", "mt_rollout")}
+RECON_DEVICE_KERNELS = {False: ("recurrence_fwd_stages_kernel", "rollout_stages_kernel"),
+                        True: ("mt_recurrence_fwd_stages_kernel", "mt_rollout_stages_kernel")}
+KINDS = ("both", "audio dropped", "vision dropped")
+REPORT_KEYS = {"conditions": {"both", "drop_audio", "drop_vision"},
+               "cells": {"posterior/audio", "posterior/vision", "prior/audio", "prior/vision"},
+               "baselines": {"constant_-1/audio", "mean_frame/audio", "constant_-1/vision",
+                             "mean_frame/vision"},
+               "config": {"n_episodes", "T", "query_length", "seed"}}
+SUMMARY_KEYS = {"mr_both", "mr_vision", "mr_audio",
+                *(f"recon_{c}_{m}" for c in ("both", "drop_audio", "drop_vision")
+                  for m in ("audio", "vision"))}
+
+
+def _counting_datamodule():
+    """An ``EpisodeDataModule`` that counts, of the batches it serves, the
+    train and the validation samples of each kind (both inputs, audio
+    dropped, vision dropped: an input all -1), the validation batches, and
+    the samples with a target all -1."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.data import EpisodeDataModule
+
+    class CountingDataModule(EpisodeDataModule):
+        def __init__(self, config):
+            super().__init__(config)
+            self.kinds = {"train": dict.fromkeys(KINDS, 0), "val": dict.fromkeys(KINDS, 0)}
+            self.val_batches_served = 0
+            self.dropped_targets = 0
+
+        def _count(self, batch, stage: str) -> None:
+            dropped = [(x == -1).flatten(1).all(1) for x in batch[1:3]]
+            kinds = self.kinds[stage]
+            kinds["audio dropped"] += int(dropped[0].sum())
+            kinds["vision dropped"] += int(dropped[1].sum())
+            kinds["both"] += int((~(dropped[0] | dropped[1])).sum())
+            self.dropped_targets += int(torch.stack(
+                [(x == -1).flatten(1).all(1) for x in batch[4:6]]).any(0).sum())
+
+        def train_batches(self, epoch, device="cpu", skip=0):
+            for batch in super().train_batches(epoch, device, skip):
+                self._count(batch, "train")
+                yield batch
+
+        def val_batches(self, device="cpu"):
+            for batch in super().val_batches(device):
+                self._count(batch, "val")
+                self.val_batches_served += 1
+                yield batch
+
+    return CountingDataModule
+
+
+def _reconstructions_vs_cpu(cfg, model, batch, q: int) -> dict:
+    """``viz.rollout.reconstruction_states`` and its frames on the card,
+    which must take exactly one recurrence-forward and one rollout launch,
+    against the CPU path on the same weights, batch and seed
+    (``parity.check_reconstructions``: states and frames within ``TOL``
+    before each row's first Gumbel near-tie of ``TIE_EPS``, stochs equal),
+    on at least ``MIN_COMPARED`` of the steps."""
+    import copy
+
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.models import MMTRSSMConfig
+    from multimodal_mtrssm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from multimodal_mtrssm_tpu_torch.ops.kernels.parity import check_reconstructions
+    from multimodal_mtrssm_tpu_torch.viz.rollout import decode_reconstructions, reconstruction_states
+
+    def run(m):
+        out = reconstruction_states(m, batch, q, SEED)
+        out["frames"] = decode_reconstructions(m, out)
+        return out
+
+    reset_launch_counts()
+    card = run(model)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    want = dict.fromkeys(RECON_KERNELS[isinstance(cfg, MMTRSSMConfig)], 1)
+    if counts != want:
+        raise RuntimeError(f"reconstructions {_label(cfg)}: launches {counts}, expected {want}")
+    r = check_reconstructions(card, run(copy.deepcopy(model).cpu()), cfg, TIE_EPS, TOL)
+    if r["compared"] < MIN_COMPARED:
+        raise RuntimeError(f"reconstructions {_label(cfg)}: only {r['compared']:.4f} of the steps "
+                           f"compared before a near-tie (at least {MIN_COMPARED} needed)")
+    return {**r, "counts": counts}
+
+
+def drive_crossmodal(dev, work: Path, test_data: list[dict], card: str) -> dict:
+    """Phase 7, the cross-modal run on the card. (a) The crossmodal config
+    (``configs/mopoe_mrssm_crossmodal.yaml``) fits 2 epochs × 3 steps on 24 synthetic
+    episodes with the GIF callback: losses finite, every train and val
+    sample's audio input at -1 and no target dropped, the recurrence
+    forward launched once a step, a validation batch and a stage's render,
+    its backward once a step, the rollout once a render, and GIFs of 30
+    frames in ``viz/epoch_0001`` and ``viz/final_best`` (train and val)
+    with the audio row "(missing)", each logged. (b) ``compute_
+    reconstructions`` on the card against the CPU path for ``MRSSMConfig()``
+    (the fit's best) and ``MMTRSSMConfig()`` (seeded weights), 7 episodes,
+    T=30, q=10. (c) Phase 4b's preempt-and-resume under
+    ``drop_modality="random"``: bit-identical to the uninterrupted fit,
+    validation clean. (d) ``reconstruction_report`` of the best on the
+    labeled episodes: JAX's structure, 3 forward and 3 rollout launches,
+    ``drop_audio`` unlike ``both``, each condition against the CPU path.
+    (e) Timings. (f) The crossmodal experiment's entry at smoke scale."""
+    import json as _json
+
+    import torch
+    from PIL import Image
+
+    from multimodal_mtrssm_tpu_torch import crossmodal_e2e
+    from multimodal_mtrssm_tpu_torch.data import generate_synthetic_audio_mnist
+    from multimodal_mtrssm_tpu_torch.evaluation import build_normalized_batch, reconstruction_report
+    from multimodal_mtrssm_tpu_torch.models import MMTRSSMConfig, MoPoEMMTRSSM, MRSSMConfig
+    from multimodal_mtrssm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from multimodal_mtrssm_tpu_torch.train.config import load_experiment
+    from multimodal_mtrssm_tpu_torch.train.entry import default_config_path
+    from multimodal_mtrssm_tpu_torch.viz.callback import make_viz_callback
+    from multimodal_mtrssm_tpu_torch.viz.rollout import (
+        compute_reconstructions,
+        log_rollout_gifs,
+        row_labels,
+    )
+
+    total: dict[str, int] = {}
+
+    def add(counts: dict) -> None:
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    episodes = work / "episodes"
+    generate_synthetic_audio_mnist(episodes, n_episodes=24, seed=SEED)
+    counting = _counting_datamodule()
+
+    # (a) The fit, with the GIF callback.
+    exp = load_experiment(default_config_path("mopoe_mrssm_crossmodal.yaml"))
+    if exp.pending or exp.data.drop_modality != "audio":
+        raise RuntimeError(f"crossmodal config: pending {exp.pending}, drop_modality "
+                           f"{exp.data.drop_modality!r}")
+    exp.trainer.max_epochs, exp.trainer.seed, exp.trainer.log_dir = 2, SEED, str(work / "run")
+    exp.data.data_dir, exp.data.seed = str(episodes), SEED
+    exp.viz.every_n_epochs = 1
+    dm = counting(exp.data)
+    trainer = exp.build_trainer(datamodule=dm, device=dev)
+    callback = make_viz_callback(exp)
+    trainer.callbacks.append(callback)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = launch_counts()
+    add(counts)
+    steps, renders = out["global_step"], 4  # epoch_0001 and final_best, train and val
+    expect = {"recurrence_fwd": steps + dm.val_batches_served + renders,
+              "recurrence_bwd": steps, "rollout": renders}
+    losses = [r[k] for r in out["history"] for k in ("train/loss", "val/loss")]
+    if steps != 6 or not all(np.isfinite(losses)) or \
+            {k: counts[k] for k in expect} != expect:
+        raise RuntimeError(f"crossmodal fit: {steps} steps, losses {losses}, launches "
+                           f"{ {k: counts[k] for k in expect} } against {expect}")
+    n_train, n_val = 2 * dm.n_train, 2 * dm.n_val
+    want_kinds = {"train": {"both": 0, "audio dropped": n_train, "vision dropped": 0},
+                  "val": {"both": 0, "audio dropped": n_val, "vision dropped": 0}}
+    if dm.kinds != want_kinds or dm.dropped_targets:
+        raise RuntimeError(f"crossmodal fit: samples {dm.kinds}, {dm.dropped_targets} dropped "
+                           "targets; every input audio at -1 expected, targets clean")
+    viz = work / "run" / "viz"
+    gifs = {}
+    for name in ("epoch_0001", "final_best"):
+        for stage, n in (("train", min(7, dm.n_train)), ("val", min(7, dm.n_val))):
+            found = sorted((viz / name / stage).glob("episode_*.gif"))
+            frames = {Image.open(g).n_frames for g in found}
+            if len(found) != n or frames != {30}:
+                raise RuntimeError(f"crossmodal GIFs {name}/{stage}: {len(found)} of {n}, "
+                                   f"frames {frames}")
+            gifs[f"{name}/{stage}"] = len(found)
+    logged = [line for line in (work / "run" / "metrics.jsonl").read_text().splitlines()
+              if '"video"' in line]
+    batch = callback._collect_stage_batch(trainer, "train")
+    labels = row_labels({"audio": batch[1][0], "vision": batch[2][0]})
+    if (viz / "epoch_0000").exists() or len(logged) != sum(gifs.values()) or \
+            labels != ["vision", "audio (missing)"]:
+        raise RuntimeError(f"crossmodal GIFs: epoch 0 drawn {(viz / 'epoch_0000').exists()}, "
+                           f"{len(logged)} logged of {sum(gifs.values())}, row labels {labels}")
+    print(f"crossmodal fit (mopoe_mrssm_crossmodal, B=8 T=30): {steps} steps in {fit_s:.2f} s with "
+          f"the GIF callback; val/loss {out['history'][0]['val/loss']:.6g} -> "
+          f"{out['history'][-1]['val/loss']:.6g}; train samples {dm.kinds['train']}, val "
+          f"{dm.kinds['val']}, targets clean; launches {expect}; GIFs of 30 frames {gifs}, "
+          f"each logged; row labels {labels} | {card}")
+
+    # (b) compute_reconstructions, card against the CPU path.
+    best = trainer.load_best_params(trainer.model).eval()
+    mt_cfg = MMTRSSMConfig()
+    mt_model = MoPoEMMTRSSM(mt_cfg).init(torch.Generator().manual_seed(SEED)).to(dev).eval()
+    models = ((MRSSMConfig(), best), (mt_cfg, mt_model))
+    B, T = batch[0].shape[:2]
+    for cfg, model in models:
+        r = _reconstructions_vs_cpu(cfg, model, batch, RECON_Q)
+        add(r["counts"])
+        print(f"reconstructions {_label(cfg)} B={B} T={T} q={RECON_Q}: launches {r['counts']}; "
+              f"card vs CPU: states within {r['max_abs_err']:.3g}, frames within "
+              f"{r['frame_err']:.3g} before each row's first near-tie (limit {TOL}), "
+              f"{r['compared']:.4f} of the steps compared")
+
+    # (c) A mid-epoch resume under random dropout.
+    make = _fit_maker(MRSSMConfig(), dev, episodes, work / "random", counting,
+                      drop_modality="random")
+    reset_launch_counts()
+    with _deterministic_cudnn():
+        r = preempt_and_resume(make, "random dropout")
+    torch.cuda.synchronize()
+    add(launch_counts())
+    seen = r["ref"].dm
+    if not r["same"] or seen.kinds["val"]["both"] != 2 * seen.n_val or seen.dropped_targets \
+            or sum(seen.kinds["train"].values()) != 2 * seen.n_train:
+        raise RuntimeError(f"random dropout: resume bit-identical {r['same']} (err "
+                           f"{r['err']:.3g}), samples {seen.kinds}, {seen.dropped_targets} "
+                           "dropped targets")
+    print(f"resume under drop_modality='random': SIGTERM after step {RESUME_STEP}, resume=True "
+          f"bit-identical to the uninterrupted fit (cuDNN deterministic); its 2 epochs' train "
+          f"samples {seen.kinds['train']}, validation {seen.kinds['val']} (clean), targets clean")
+
+    # (d) The report on the card.
+    reset_launch_counts()
+    report = reconstruction_report(best, test_data, seed=SEED)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    add(counts)
+    conds = report["conditions"]
+    shape_ok = (set(report) == {"conditions", "baselines", "config"}
+                and set(conds) == REPORT_KEYS["conditions"]
+                and all(set(c) == REPORT_KEYS["cells"] for c in conds.values())
+                and set(report["baselines"]) == REPORT_KEYS["baselines"]
+                and set(report["config"]) == REPORT_KEYS["config"])
+    if not shape_ok or counts != {"recurrence_fwd": 3, "rollout": 3} or \
+            conds["drop_audio"]["posterior/audio"] == conds["both"]["posterior/audio"]:
+        raise RuntimeError(f"reconstruction report: {report}, launches {counts}")
+    print(f"reconstruction report (best, 8 labeled episodes, T=30, q=15): launches {counts}; "
+          f"{_json.dumps(report)}")
+    for drop in (None, "audio", "vision"):
+        r = _reconstructions_vs_cpu(MRSSMConfig(), best, build_normalized_batch(test_data, drop=drop),
+                                    15)
+        add(r["counts"])
+        print(f"report condition drop={drop}: card vs CPU states within {r['max_abs_err']:.3g}, "
+              f"frames within {r['frame_err']:.3g} (limit {TOL}), {r['compared']:.4f} compared")
+
+    # (e) Timings.
+    with torch.no_grad():
+        for cfg, model in models:
+            call = lambda m=model: compute_reconstructions(m, batch, RECON_Q, SEED)  # noqa: E731
+            ms = _median_ms(call, 20)
+            keys = RECON_DEVICE_KERNELS[isinstance(cfg, MMTRSSMConfig)]
+            parts = _device_breakdown(call, keys)
+            said = ", ".join(f"{k} {v:.6f} ms ({v / ms:.4f})" if v is not None
+                             else f"{k} not measured" for k, v in parts.items())
+            print(f"time compute_reconstructions {_label(cfg)} B={B} T={T} q={RECON_Q}: "
+                  f"{ms:.6f} ms (CUDA events, median of 20); device time (share): {said} | {card}")
+        ms = _median_ms(lambda: reconstruction_report(best, test_data, seed=SEED), 20)
+        print(f"time reconstruction_report {_label(MRSSMConfig())} (3 conditions, B=8 T=30 q=15, "
+              f"MSEs read on the host): {ms:.6f} ms (CUDA events, median of 20) | {card}")
+        for stage in ("train", "val"):
+            b = callback._collect_stage_batch(trainer, stage)
+            times = []
+            for i in range(3):
+                t0 = time.perf_counter()
+                log_rollout_gifs(best, b, work / "gif_timing" / f"{stage}{i}", RECON_Q, 10.0, 0,
+                                 range(b[0].shape[0]))
+                times.append(time.perf_counter() - t0)
+            print(f"time GIF render {stage} ({b[0].shape[0]} episodes x {T} frames: "
+                  f"reconstructions, frames, GIF files): {float(np.median(times)):.4f} s "
+                  f"(host clock, median of 3) | {card}")
+
+    # (f) The experiment's entry at smoke scale.
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = crossmodal_e2e.main(["--workdir", str(work / "e2e"), "--seeds", "1", "--variants",
+                                   "crossmodal", "--epochs", "2", "--episodes", "24"])
+    torch.cuda.synchronize()
+    e2e_s = time.perf_counter() - t0
+    add(launch_counts())
+    saved = _json.loads((work / "e2e" / "summary.json").read_text())
+    agg = saved["aggregate"].get("crossmodal", {})
+    if set(saved) != {"protocol", "per_seed", "aggregate"} or set(agg) != SUMMARY_KEYS or \
+            saved != _json.loads(_json.dumps(summary)):
+        raise RuntimeError(f"crossmodal_e2e summary.json: {sorted(saved)}, {sorted(agg)}")
+    mr = ", ".join(f"{c} {agg[f'mr_{c}']['mean']:.6g}" for c in ("both", "vision", "audio"))
+    print(f"crossmodal_e2e (crossmodal variant, 1 seed, 2 epochs, 24 episodes) on the card in "
+          f"{e2e_s:.2f} s: MR {mr}; audio recon MSE both {agg['recon_both_audio']:.6g}, "
+          f"vision-only {agg['recon_drop_audio_audio']:.6g}; summary.json has JAX's keys | {card}")
+    return {"counts": total}
+
+
 def serve_trained(cfg, dev, training: dict, card: str) -> dict[str, int]:
     """Phases 3b and its timings: the fit run of ``cfg`` served from its
     checkpoints directory, coalesced (``drive_coalesced``), then the
@@ -2910,10 +3268,16 @@ def _main(work: Path) -> int:
     library.update(dec_library)
     runs.append(dec_path["counts"])
 
+    # The cross-modal run: the crossmodal config's fit with the GIF callback,
+    # reconstructions of both families, the report, the experiment's entry.
+    runs.append(drive_crossmodal(dev, work / "crossmodal", eval_inputs["test_data"],
+                                 card)["counts"])
+
     ptxas_report(ptxas)
-    launches = {k: sum(run[k] for run in runs) for k in runs[0]}
+    launches = {k: sum(run.get(k, 0) for run in runs) for k in runs[0]}
     print("main-path launches, serving + training of the four configurations, resume, the "
-          f"train command and evaluation of the first two, and the fused decoder path: {launches}")
+          "train command and evaluation of the first two, the fused decoder path and the "
+          f"cross-modal run: {launches}")
     pkg = "multimodal_mtrssm_tpu_torch"
     pallas = "multimodal_mtrssm_tpu/ops/pallas"
     meta = {

@@ -1,11 +1,13 @@
-"""Audio-MNIST episode storage and synthetic generation (port of the parts of
-``data/episodes.py`` that training and evaluation use).
+"""Audio-MNIST episode storage, conversion and synthetic generation (port
+of ``data/episodes.py``; its gdrive download is not ported: no network).
 
 One ``.npz`` file per episode with keys ``action`` [T, A], ``audio`` and
 ``vision`` [T, H, W, C] (NHWC). 180 frames an episode; audio mel-spec dB in
-[-80, 0]; vision in [0, 255]; action a 6-dim speaker one-hot. The labeled
-synthetic episodes also write the evaluation's layout (``sample_*.npz``
-with ``audio``, ``image``, ``label`` and ``speaker``).
+[-80, 0]; vision in [0, 255]; action a 6-dim speaker one-hot. The
+converters read the audio-mnist generator's ``.npz`` files and the
+reference's processed ``act_*/audio_obs_*/vision_obs_*`` triplets. The
+labeled synthetic episodes also write the evaluation's layout
+(``sample_*.npz`` with ``audio``, ``image``, ``label`` and ``speaker``).
 """
 
 from __future__ import annotations
@@ -14,6 +16,9 @@ import dataclasses
 from pathlib import Path
 
 import numpy as np
+import torch
+
+EPISODE_KEYS = ("action", "audio", "vision")
 
 
 @dataclasses.dataclass
@@ -74,6 +79,54 @@ def split_paths(paths: list[Path], train_ratio: float = 0.8) -> tuple[list[Path]
     """Sorted-order head/tail split (reference ``dataset.py:69-81``)."""
     split = int(len(paths) * train_ratio)
     return paths[:split], paths[split:]
+
+
+def convert_audio_mnist_npz(source_files: list[Path | str], out_dir: Path | str,
+                            start_index: int = 0) -> int:
+    """Convert audio-mnist-generator ``.npz`` files (``audio`` (T, 32, 32),
+    ``image`` (T, 1, 32, 32), ``speaker`` (T, 6)) into episodes, numbered on
+    from ``start_index`` in sorted file order (reference
+    ``scripts/convert_audio_mnist_data.py:28-56,83-88``). Returns the next
+    free index."""
+    idx = start_index
+    for f in sorted(str(p) for p in source_files):
+        with np.load(f) as z:
+            audio = _to_nhwc(z["audio"].astype(np.float32))
+            vision = _to_nhwc(z["image"].astype(np.float32))
+            action = z["speaker"].astype(np.float32)
+        save_episode(out_dir, idx, Episode(action=action, audio=audio, vision=vision))
+        idx += 1
+    return idx
+
+
+def _load_array(p: Path) -> np.ndarray:
+    """A ``.npy`` array, or the tensor of a ``.pt`` file (loaded with
+    ``weights_only``: a processed dump holds tensors only)."""
+    if p.suffix == ".npy":
+        return np.load(p)
+    if p.suffix == ".pt":
+        return torch.load(p, weights_only=True).numpy()
+    raise ValueError(f"unknown file extension: {p.suffix}")
+
+
+def convert_reference_processed_dir(src_dir: Path | str, out_dir: Path | str) -> int:
+    """Convert a reference-format processed directory (``act_*``,
+    ``audio_obs_*``, ``vision_obs_*`` ``.pt``/``.npy`` triplets, reference
+    ``mrssm/dataset.py:105-153``) into episodes; returns their count."""
+    src = Path(src_dir)
+    # Underscored patterns: a stray act-/audio-prefixed file (a pack's
+    # action.npy) must not join, or misalign, the triplets.
+    acts = sorted(src.glob("act_*"))
+    audios = sorted(src.glob("audio_obs_*"))
+    visions = sorted(src.glob("vision_obs_*"))
+    if not len(acts) == len(audios) == len(visions):
+        raise ValueError(f"triplet mismatch: {len(acts)} act / {len(audios)} audio / "
+                         f"{len(visions)} vision")
+    for i, (a, au, vi) in enumerate(zip(acts, audios, visions)):
+        save_episode(out_dir, i, Episode(action=_load_array(a).astype(np.float32),
+                                         audio=_to_nhwc(_load_array(au)).astype(np.float32),
+                                         vision=_to_nhwc(_load_array(vi)).astype(np.float32)))
+    return len(acts)
 
 
 def generate_synthetic_audio_mnist(out_dir: Path | str, n_episodes: int = 10,

@@ -1,45 +1,67 @@
 """Input pipeline: episode store → preprocessed host arrays → batches on the
-device (port of ``data/pipeline.py``, its in-memory host path).
+device (port of ``data/pipeline.py``, its host paths).
 
-``setup`` loads every episode once, normalises it (audio min-max and vision
-[0, 255] to [-1, 1]) and splits the sorted episodes 0.8 / 0.2 (reference
-``dataset.py:69-81``). A training epoch shuffles with
-``default_rng((seed, epoch))``, so its batch order is the JAX module's.
-Validation batches, in split order, draw from ``default_rng((seed,
-987654321))``, as JAX's and the reference's val DataLoader do. Each batch
-takes one seed from its generator and noises each input stream with
-``GaussianNoise(noise_std)`` from ``default_rng(seed ^ (k + 1))`` (k = 0, 1, 2
-for action, audio, vision): the draws of the JAX module's numpy path
-(``data/native.py::gather_noise``; its optional native build draws from a
-generator of its own). The targets stay clean. Batches keep the reference's
-6-tuple order (``mrssm/dataset.py:168-183``): (action_input, audio_input,
-vision_input, action_target, audio_target, vision_target).
+``setup`` reads the data directory (``effective_data_dir``: the common
+processed directory where it holds a data set, else ``data_dir``) in one of
+three layouts: a memory-mapped pack (``data/pack.py``), ``.npz`` episodes,
+or the reference's processed ``act_*/audio_obs_*/vision_obs_*`` triplets,
+converted once into ``converted_episodes/`` behind a completion marker.
+Episodes are normalised once (audio min-max and vision [0, 255] to [-1, 1],
+or the config's ``*_preprocess`` transforms); a pack stays raw and each
+gathered batch is normalised, affinely for the standard normalisers, as
+JAX's numpy path does. The sorted episodes split 0.8 / 0.2 (reference
+``dataset.py:69-81``). A training epoch shuffles with ``default_rng((seed,
+epoch))``, so its batch order is the JAX module's. Validation batches, in
+split order, draw from ``default_rng((seed, 987654321))``, as JAX's and the
+reference's val DataLoader do. Each batch takes one seed from its generator
+and noises each input stream with ``GaussianNoise(noise_std)`` from
+``default_rng(seed ^ (k + 1))`` (k = 0, 1, 2 for action, audio, vision): the
+draws of the JAX module's numpy path (``data/native.py``; its optional
+native build draws from a generator of its own). The targets stay clean.
+Batches keep the reference's 6-tuple order (``mrssm/dataset.py:168-183``):
+(action_input, audio_input, vision_input, action_target, audio_target,
+vision_target).
+
+``drop_modality``: ``"audio"`` or ``"vision"`` replaces that input stream
+with the ``ZeroOut`` fill -1 in every batch; ``"random"`` draws, after the
+noise, each train sample's fate from the epoch's generator (both kept,
+audio dropped, vision dropped, a third each), as JAX draws it. Validation
+stays clean under ``"random"``, as JAX's comment promises and its code does
+not (it drops validation inputs too); and a mid-epoch resume counts the
+dropout draw, which JAX's ``_batch_consumes_rng`` does not, so the resumed
+epoch is the whole epoch's tail.
 
 ``train_batches`` takes a ``skip`` for a mid-epoch resume: the batches
-after it and their noise are those of the whole epoch.
+after it, their noise and their drops are those of the whole epoch.
 
-Not ported: the memory-mapped pack mode, ``native/fastbatch.cc``, the
-device-resident mode, unimodal batches, custom transforms and
-``drop_modality``.
+Not ported here: ``native/fastbatch.cc``, the device-resident mode and the
+pinned-memory prefetch (host speed: the ROADMAP speed queue), and unimodal
+batches (``modality``, with the unimodal models: queue 1 item 10).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from pathlib import Path
-from typing import Iterator
+from typing import Callable, Iterator
 
 import numpy as np
 import torch
 
 from multimodal_mtrssm_tpu_torch.data import episodes as ep
+from multimodal_mtrssm_tpu_torch.data import pack as packmod
 from multimodal_mtrssm_tpu_torch.data.transforms import (
     GaussianNoise,
+    Identity,
     NormalizeAudioMelSpectrogram,
     NormalizeVisionImage,
+    affine_of,
 )
 
 Batch = tuple[torch.Tensor, ...]
+HostBatch = tuple[np.ndarray, ...]
+DROPS = (None, "audio", "vision", "random")
 
 
 @dataclasses.dataclass
@@ -54,9 +76,54 @@ class DataModuleConfig:
     audio_min: float = -80.0
     audio_max: float = 0.0
     seed: int = 42
+    # None, "audio" or "vision" (ZeroOut that input stream), or "random"
+    # (per train sample: both, audio dropped or vision dropped, a third each).
+    drop_modality: str | None = None
     # False: the ragged tail batch trains and validates too (reference
     # DataLoader drop_last=False).
     drop_last: bool = False
+    # Reference get_effective_processed_data_dir (dataset.py:136-161): where
+    # this directory holds a data set in a layout setup reads, it takes
+    # precedence over data_dir.
+    common_processed_dir: str | Path = Path("data") / "processed_data"
+    # Per-stream preprocess transforms (None: the normalisers above).
+    action_preprocess: Callable | None = None
+    audio_preprocess: Callable | None = None
+    vision_preprocess: Callable | None = None
+
+    def __post_init__(self):
+        if self.drop_modality not in DROPS:
+            raise ValueError(f"drop_modality={self.drop_modality!r} not in {DROPS}")
+
+
+def _is_reference_pt_layout(d: Path) -> bool:
+    """A reference-format processed directory: ``act_*`` files with their
+    observation streams (a lone ``act``-prefixed file does not count)."""
+    return bool(sorted(d.glob("act_*")) and sorted(d.glob("audio_obs_*"))
+                and sorted(d.glob("vision_obs_*")))
+
+
+def effective_data_dir(cfg: DataModuleConfig) -> Path:
+    """``common_processed_dir`` where it holds a data set in a layout
+    ``setup`` reads (episodes, a pack, reference triplets), else
+    ``data_dir`` (reference ``get_effective_processed_data_dir``,
+    ``dataset.py:136-161``)."""
+    common = Path(cfg.common_processed_dir)
+    if common.exists() and (packmod.has_pack(common) or ep.list_episodes(common)
+                            or _is_reference_pt_layout(common)):
+        return common
+    return Path(cfg.data_dir)
+
+
+def _gather_affine(src: np.ndarray, idx: np.ndarray, seq_len: int, scale: float, shift: float,
+                   noise_std: float, seed: int) -> np.ndarray:
+    """``src[idx, :seq_len] · scale + shift`` plus noise from
+    ``default_rng(seed)``: JAX ``native.gather_affine_noise``'s numpy path."""
+    idx = np.ascontiguousarray(idx, dtype=np.int64)
+    out = np.asarray(src[idx, :seq_len], dtype=np.float32) * scale + shift
+    if noise_std > 0:
+        out += np.random.default_rng(seed).normal(0.0, noise_std, out.shape).astype(np.float32)
+    return out
 
 
 class EpisodeDataModule:
@@ -66,26 +133,36 @@ class EpisodeDataModule:
         self.cfg = config
         self._arrays: dict[str, np.ndarray] | None = None
         self._split: tuple[np.ndarray, np.ndarray] | None = None
+        self._raw = False  # a pack: raw memmapped streams, normalised per batch
+        self._preprocess: dict[str, Callable] = {}
 
     def setup(self) -> None:
-        """Load and normalise every episode of ``data_dir`` and split them."""
+        """Open the data directory's pack, or load and normalise its
+        episodes (converting reference triplets first), and split them."""
         cfg = self.cfg
-        paths = ep.list_episodes(cfg.data_dir)
-        if not paths:
-            raise FileNotFoundError(
-                f"no episodes under {cfg.data_dir}; generate some with "
-                "multimodal_mtrssm_tpu_torch.data.generate_synthetic_audio_mnist")
-        norm_audio = NormalizeAudioMelSpectrogram(cfg.audio_min, cfg.audio_max)
-        norm_vision = NormalizeVisionImage()
-        streams: dict[str, list[np.ndarray]] = {"action": [], "audio": [], "vision": []}
-        for p in paths:
-            e = ep.load_episode(p)
-            streams["action"].append(e.action)
-            streams["audio"].append(norm_audio(e.audio))
-            streams["vision"].append(norm_vision(e.vision))
-        self._arrays = {k: np.stack(v).astype(np.float32) for k, v in streams.items()}
-        n_train = len(ep.split_paths(paths, cfg.train_ratio)[0])
-        self._split = (np.arange(n_train), np.arange(n_train, len(paths)))
+        self._preprocess = {
+            "action": cfg.action_preprocess or Identity(),
+            "audio": cfg.audio_preprocess or NormalizeAudioMelSpectrogram(cfg.audio_min,
+                                                                          cfg.audio_max),
+            "vision": cfg.vision_preprocess or NormalizeVisionImage(),
+        }
+        data_dir = effective_data_dir(cfg)
+        pack_dir = data_dir if packmod.has_pack(data_dir) else data_dir / "pack"
+        if packmod.has_pack(pack_dir):
+            self._arrays = packmod.open_pack(pack_dir)
+            self._raw = True
+            n = self._arrays["action"].shape[0]
+        else:
+            paths = _episode_paths(data_dir)
+            streams: dict[str, list[np.ndarray]] = {s: [] for s in ep.EPISODE_KEYS}
+            for e in map(ep.load_episode, paths):
+                for s, frames in streams.items():
+                    frames.append(self._preprocess[s](getattr(e, s)))
+            self._arrays = {k: np.stack(v).astype(np.float32) for k, v in streams.items()}
+            self._raw = False
+            n = len(paths)
+        n_train = int(n * cfg.train_ratio)
+        self._split = (np.arange(n_train), np.arange(n_train, n))
 
     def _require_setup(self) -> None:
         if self._arrays is None:
@@ -110,20 +187,56 @@ class EpisodeDataModule:
     def val_batch_size(self) -> int:
         return max(1, min(self.cfg.batch_size, self.n_val)) if self.n_val else 0
 
-    def _make_batch(self, idx: np.ndarray,
-                    rng: np.random.Generator | None) -> tuple[np.ndarray, ...]:
-        """The 6-tuple of numpy arrays; with ``rng`` and ``noise_std > 0`` the
-        inputs get the Gaussian noise, stream k from ``default_rng(seed ^ (k +
-        1))`` after one seed drawn from ``rng`` (module docstring)."""
+    def _gather(self, stream: str, idx: np.ndarray, k: int, rng: np.random.Generator | None,
+                seed: int) -> tuple[np.ndarray, np.ndarray]:
+        """One stream's (input, target) for episodes ``idx``: the input
+        noised from ``default_rng(seed ^ (k + 1))`` where noise applies.
+        From a pack, the gathered raw frames are normalised here: affinely
+        for the standard normalisers (their noise drawn as above, even at
+        std 0), else by the transform with the noise drawn from ``rng``
+        (JAX ``data/pipeline.py:256-280``)."""
         cfg = self.cfg
         T = cfg.sequence_length
-        clean = [self._arrays[s][idx, :T] for s in ("action", "audio", "vision")]
-        if rng is None or cfg.noise_std <= 0:
-            return (*clean, *clean)
-        seed = int(rng.integers(0, 2**62))
-        noise = GaussianNoise(cfg.noise_std)
-        inputs = [noise(x, np.random.default_rng(seed ^ (k + 1))) for k, x in enumerate(clean)]
-        return (*inputs, *clean)
+        if not self._raw:
+            clean = self._arrays[stream][idx, :T]
+            if rng is None or cfg.noise_std <= 0:
+                return clean, clean
+            return GaussianNoise(cfg.noise_std)(clean, np.random.default_rng(seed ^ (k + 1))), clean
+        std = cfg.noise_std if rng is not None else 0.0
+        pre = self._preprocess[stream]
+        affine = affine_of(pre)
+        if affine is not None:
+            noised = _gather_affine(self._arrays[stream], idx, T, *affine, std, seed ^ (k + 1))
+            clean = _gather_affine(self._arrays[stream], idx, T, *affine, 0.0, 0) if std > 0 \
+                else noised
+            return noised, clean
+        clean = pre(np.asarray(self._arrays[stream][idx, :T]))
+        if std > 0:
+            return clean + rng.normal(0, std, clean.shape).astype(np.float32), clean
+        return clean, clean
+
+    def _make_batch(self, idx: np.ndarray, rng: np.random.Generator | None,
+                    train: bool = False) -> HostBatch:
+        """The 6-tuple of numpy arrays: the inputs noised and dropped as the
+        module docstring says, the targets clean. With ``rng`` a batch
+        first draws one noise seed (in memory only where ``noise_std > 0``);
+        a ``train`` batch under ``drop_modality="random"`` then draws each
+        sample's fate."""
+        cfg = self.cfg
+        draws = rng is not None and (self._raw or cfg.noise_std > 0)
+        seed = int(rng.integers(0, 2**62)) if draws else 0
+        outs = {s: self._gather(s, idx, k, rng, seed) for k, s in enumerate(ep.EPISODE_KEYS)}
+        drop = cfg.drop_modality
+        if drop in ("audio", "vision"):
+            outs[drop] = (np.full_like(outs[drop][0], -1.0), outs[drop][1])
+        elif drop == "random" and train:
+            choice = rng.integers(0, 3, size=len(idx))
+            for k, s in ((1, "audio"), (2, "vision")):
+                x, target = outs[s]
+                sel = (choice == k).reshape((-1,) + (1,) * (x.ndim - 1))
+                outs[s] = (np.where(sel, -1.0, x).astype(np.float32), target)
+        inputs, targets = zip(*(outs[s] for s in ep.EPISODE_KEYS))
+        return (*inputs, *targets)
 
     def _batched_indices(self, idx: np.ndarray, bs: int) -> list[np.ndarray]:
         """Full batches, then (unless ``drop_last``) the ragged tail."""
@@ -136,37 +249,83 @@ class EpisodeDataModule:
         return out
 
     @staticmethod
-    def _to_device(batch: tuple[np.ndarray, ...], device: torch.device | str) -> Batch:
+    def _to_device(batch: HostBatch, device: torch.device | str) -> Batch:
         return tuple(torch.as_tensor(np.ascontiguousarray(x), device=device) for x in batch)
 
     def _batch_consumes_rng(self, rng: np.random.Generator | None) -> bool:
-        """Whether ``_make_batch(idx, rng)`` draws from ``rng``: the test a
-        mid-epoch skip keys off (skipping at the index level is exact only
-        when no batch draws). It must mirror ``_make_batch``'s draws."""
-        return rng is not None and self.cfg.noise_std > 0
+        """Whether a train batch, ``_make_batch(idx, rng, train=True)``,
+        draws from ``rng``: the test a mid-epoch skip keys off (skipping
+        at the index level is exact only when no batch draws). It mirrors
+        ``_make_batch``'s draws: the noise seed (a pack's whenever ``rng``
+        is given, in memory where ``noise_std > 0``) and, under
+        ``drop_modality="random"``, the dropout draw, which JAX's predicate
+        leaves out."""
+        if rng is None:
+            return False
+        return self._raw or self.cfg.noise_std > 0 or self.cfg.drop_modality == "random"
+
+    def _train_groups(self, epoch: int) -> tuple[np.random.Generator, list[np.ndarray]]:
+        """The epoch's generator, after its shuffle, and its index batches."""
+        rng = np.random.default_rng((self.cfg.seed, epoch))
+        idx = rng.permutation(self._split[0])
+        return rng, self._batched_indices(idx, self.train_batch_size)
 
     def train_batches(self, epoch: int, device: torch.device | str = "cpu",
                       skip: int = 0) -> Iterator[Batch]:
-        """Shuffled, noised train batches of one epoch. ``skip`` drops the
-        first batches (a mid-epoch resume) and leaves the rest as the whole
-        epoch serves them: skipped batches still draw their noise, or are
-        dropped at the index level when no batch draws (JAX
-        ``data/pipeline.py:354-376``)."""
+        """Shuffled, noised (and dropped) train batches of one epoch.
+        ``skip`` drops the first batches (a mid-epoch resume) and leaves
+        the rest as the whole epoch serves them: skipped batches still make
+        their draws, or are dropped at the index level when no batch draws
+        (JAX ``data/pipeline.py:354-376``)."""
         self._require_setup()
-        rng = np.random.default_rng((self.cfg.seed, epoch))
-        idx = rng.permutation(self._split[0])
-        groups = self._batched_indices(idx, self.train_batch_size)
+        rng, groups = self._train_groups(epoch)
         if skip and not self._batch_consumes_rng(rng):
             groups, skip = groups[skip:], 0
         for i, group in enumerate(groups):
-            batch = self._make_batch(group, rng)
+            batch = self._make_batch(group, rng, train=True)
             if i >= skip:
                 yield self._to_device(batch, device)
 
     def val_batches(self, device: torch.device | str = "cpu") -> Iterator[Batch]:
         """Validation batches in split order, the inputs noised from
-        ``default_rng((seed, 987654321))`` (JAX ``data/pipeline.py:653-664``)."""
+        ``default_rng((seed, 987654321))`` (JAX ``data/pipeline.py:653-664``)
+        and dropped only by a static ``drop_modality``."""
+        for batch in self.host_batches("val"):
+            yield self._to_device(batch, device)
+
+    def host_batches(self, stage: str, epoch: int = 0) -> Iterator[HostBatch]:
+        """Numpy batches of ``stage`` (``"train"``: epoch ``epoch``'s, as
+        ``train_batches`` makes them; else validation's) for consumers that
+        work on the host (the rollout GIFs; JAX ``data/pipeline.py:666-680``)."""
         self._require_setup()
-        rng = np.random.default_rng((self.cfg.seed, 987654321))
-        for group in self._batched_indices(self._split[1], self.val_batch_size):
-            yield self._to_device(self._make_batch(group, rng), device)
+        if stage == "train":
+            rng, groups = self._train_groups(epoch)
+        else:
+            rng = np.random.default_rng((self.cfg.seed, 987654321))
+            groups = self._batched_indices(self._split[1], self.val_batch_size)
+        return (self._make_batch(g, rng, train=stage == "train") for g in groups)
+
+
+def _episode_paths(data_dir: Path) -> list[Path]:
+    """The ``.npz`` episodes of ``data_dir``; reference triplets there are
+    converted once into ``converted_episodes/``, whose ``_converted_ok.json``
+    marker keeps a partial conversion from passing for the data set
+    (reference prepare_data, ``dataset.py:264-315``)."""
+    paths = ep.list_episodes(data_dir)
+    if not paths and _is_reference_pt_layout(data_dir):
+        converted = data_dir / "converted_episodes"
+        marker = converted / "_converted_ok.json"
+        if not marker.exists():
+            if ep.list_episodes(converted):
+                print(f"incomplete earlier conversion in {converted}; reconverting")
+            n = ep.convert_reference_processed_dir(data_dir, converted)
+            marker.write_text(json.dumps({"n_episodes": n}))
+            print(f"converted {n} reference-format episodes into {converted}")
+        paths = ep.list_episodes(converted)
+    if not paths:
+        raise FileNotFoundError(
+            f"no episodes under {data_dir}; generate some with multimodal_mtrssm_tpu_torch.data."
+            "generate_synthetic_audio_mnist, convert them with data.episodes."
+            "convert_audio_mnist_npz or convert_reference_processed_dir, or pack them with "
+            "data.pack.pack_episodes")
+    return paths

@@ -1,7 +1,7 @@
 """Evaluation (port of ``multimodal_mtrssm_tpu.evaluation``): the MNIST
-digit classifier and the word-transition Matching Rate. The cross-modal
-reconstruction report (``evaluation/crossmodal.py``) waits for the rollout
-visualisation it is built on (ROADMAP queue 1 item 9)."""
+digit classifier, the word-transition Matching Rate (with one modality's
+conditioning frame dropped, ``condition``) and the cross-modal
+reconstruction report (``evaluation/crossmodal.py``)."""
 
 from multimodal_mtrssm_tpu_torch.evaluation.classifier import (
     MNISTClassifier,
@@ -13,6 +13,10 @@ from multimodal_mtrssm_tpu_torch.evaluation.classifier import (
     recognize_digits,
     save_classifier,
     train_classifier,
+)
+from multimodal_mtrssm_tpu_torch.evaluation.crossmodal import (
+    build_normalized_batch,
+    reconstruction_report,
 )
 from multimodal_mtrssm_tpu_torch.evaluation.word_transitions import (
     CONDITIONS,
@@ -33,6 +37,7 @@ __all__ = [
     "CONDITIONS",
     "MNISTClassifier",
     "WORD_SET",
+    "build_normalized_batch",
     "classifier_logits",
     "compute_baselines",
     "compute_matching_rate",
@@ -45,6 +50,7 @@ __all__ = [
     "load_or_train_classifier",
     "load_test_data_with_labels",
     "predict_word",
+    "reconstruction_report",
     "recognize_digit",
     "recognize_digits",
     "save_classifier",

@@ -310,6 +310,85 @@ def check_predicted_digits(got: Mapping[str, Any], ref: Mapping[str, Any], cfg: 
             "digits": sorted(set(b.tolist())), "max_abs_err": err}
 
 
+def _reconstruction_ties(out: Mapping[str, Any], cfg: Any,
+                         tie_eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """A ``viz.rollout.reconstruction_states`` output's ``[B]`` first step
+    with a sampled near-tie, over the posterior's sites and the imagined
+    ones from step ``q`` on (:func:`first_near_tie`), and whether the
+    row's initial sample has one."""
+    init, post, imag, noise = out["initial"], out["posterior"], out["imagined"], out["noise"]
+    q = out["q"]
+    tm = lambda g: g.transpose(0, 1)  # noqa: E731
+    if isinstance(init, MTState):
+        ls, hs = (cfg.ls_class, cfg.ls_category), (cfg.hs_class, cfg.hs_category)
+        B, T = post.deter_h.shape[:2]
+        sites = [(post.logits_l + tm(noise["g_lpost"]), *ls),
+                 (post.logits_h + tm(noise["g_hpost"]), *hs)]
+        init_sites = [(init.logits_h + noise["g_init_h"], *hs),
+                      (init.logits_l + noise["g_init_l"], *ls)]
+        if imag is not None:
+            g_l, g_h = philox_mt_gumbel(out["seed"], T - q, B, ls, hs, post.deter_h.device)
+            imag_sites = [(imag.logits_l + tm(g_l), *ls), (imag.logits_h + tm(g_h), *hs)]
+    else:
+        C, K = cfg.class_size, cfg.category_size
+        B, T = post.deter.shape[:2]
+        sites = [(post.logits + tm(noise["g_post"]), C, K)]
+        init_sites = [(init.logits + noise["g_init"], C, K)]
+        if imag is not None:
+            g = philox_gumbel(out["seed"], T - q, B, C, K, post.deter.device)
+            imag_sites = [(imag.logits + tm(g), C, K)]
+    first = first_near_tie(sites, tie_eps)
+    if imag is not None:  # its steps are the prior's from q on; T - q + q = T: none
+        first = torch.minimum(first, first_near_tie(imag_sites, tie_eps) + q)
+    init_tie = torch.stack([near_ties(s, c, k, tie_eps).any(-1) for s, c, k in init_sites]).any(0)
+    return first, init_tie
+
+
+@torch.no_grad()
+def check_reconstructions(got: Mapping[str, Any], ref: Mapping[str, Any], cfg: Any,
+                          tie_eps: float = 1e-5, atol: float = 1e-4) -> dict[str, Any]:
+    """Two ``viz.rollout.reconstruction_states`` outputs on the same
+    weights, batch and seed (the card's and the CPU's), each with its
+    decoded ``frames`` (``decode_reconstructions``). In rows whose initial
+    sample has no Gumbel near-tie, up to each row's first sampled near-tie
+    in either run (:func:`_reconstruction_ties`): the posterior's and the
+    prior's stochs pick the same categories before it (their values, a
+    straight-through sample's, within ``atol``) and every other field is
+    within ``atol`` up to and including it; the frames within ``atol``
+    before it. Raises :class:`ParityError`. Returns the largest state and
+    frame errors and the share of steps compared."""
+    first_g, init_g = _reconstruction_ties(got, cfg, tie_eps)
+    first_r, init_r = _reconstruction_ties(ref, cfg, tie_eps)
+    first = torch.minimum(first_g.cpu(), first_r.cpu())
+    init_tie = init_g.cpu() | init_r.cpu()
+    T = ref["frames"]["posterior/audio"].shape[1]
+    steps = torch.arange(T)[None, :]
+    upto = (steps <= first[:, None]) & ~init_tie[:, None]
+    before = (steps < first[:, None]) & ~init_tie[:, None]
+    if isinstance(ref["initial"], MTState):
+        blocks = {"stoch_h": (cfg.hs_class, cfg.hs_category),
+                  "stoch_l": (cfg.ls_class, cfg.ls_category)}
+    else:
+        blocks = {"stoch": (cfg.class_size, cfg.category_size)}
+    err = 0.0
+    for which in ("posterior", "prior"):
+        for f in dataclasses.fields(ref[which]):
+            a, b = getattr(got[which], f.name).cpu(), getattr(ref[which], f.name).cpu()
+            if f.name in blocks:
+                c, k = blocks[f.name]
+                _check_blocks(a, b, before[..., None].expand(*before.shape, c), c, k, atol,
+                              f"{which} {f.name} before the first near-tie")
+            else:
+                err = max(err, _max_err(a, b, upto))
+    if not err <= atol:
+        raise ParityError(f"reconstruction states: max |a - b| {err:.3g} > {atol}")
+    frame_err = max(_max_err(got["frames"][k].cpu().flatten(2), v.cpu().flatten(2), before)
+                    for k, v in ref["frames"].items())
+    if not frame_err <= atol:
+        raise ParityError(f"reconstructed frames: max |a - b| {frame_err:.3g} > {atol}")
+    return {"max_abs_err": err, "frame_err": frame_err, "compared": float(before.float().mean())}
+
+
 @torch.no_grad()
 def check_same_trajectories(got: Sequence[torch.Tensor], ref: Sequence[torch.Tensor],
                             samples: Sequence[int], first: torch.Tensor, atol: float = 1e-4,

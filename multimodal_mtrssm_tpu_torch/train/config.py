@@ -9,7 +9,9 @@ nodes; the shipped ``configs/*.yaml`` use it) into the port's dataclasses:
   pipeline's own noise 0, as JAX does;
 - ``optimizer`` / ``lr_scheduler`` / ``trainer`` (and its callbacks) →
   ``TrainerConfig``;
-- ``data`` → ``DataModuleConfig``;
+- ``data`` → ``DataModuleConfig`` (``drop_modality``, and each
+  ``*_preprocess`` node that names another transform than the pipeline's
+  default as that transform, ``data.transforms.TRANSFORMS``);
 - the viz callback → ``VizConfig``; ``seed_everything`` → the seeds.
 
 A data or trainer field that the port cannot honour yet is not dropped and
@@ -33,6 +35,7 @@ from typing import Any
 import torch
 
 from multimodal_mtrssm_tpu_torch.data.pipeline import DataModuleConfig, EpisodeDataModule
+from multimodal_mtrssm_tpu_torch.data.transforms import TRANSFORMS, Compose
 from multimodal_mtrssm_tpu_torch.models import (
     MMTRSSMConfig,
     MoPoEMMTRSSM,
@@ -49,8 +52,8 @@ _ITEM = "ROADMAP queue 1 item"
 
 @dataclasses.dataclass
 class VizConfig:
-    """Viz callback settings (reference ``configs/default.yaml:149-155``),
-    for the rollout GIFs of ROADMAP queue 1 item 9."""
+    """The rollout-GIF callback's settings (reference
+    ``configs/default.yaml:149-155``; ``viz.callback.make_viz_callback``)."""
 
     every_n_epochs: int = 10
     indices: tuple[int, ...] = (0, 1, 2)
@@ -97,12 +100,6 @@ class Experiment:
         model = (model if model is not None else self.model).to(device)
         return Trainer(model, datamodule if datamodule is not None else self.build_datamodule(),
                        self.trainer)
-
-    @property
-    def asks_for_gifs(self) -> bool:
-        """Whether the config names the rollout-GIF callback (the viz
-        section; ROADMAP queue 1 item 9 ports it)."""
-        return bool(_find_callback(self.raw.get("trainer", {}).get("callbacks", []), "Output"))
 
 
 def make_experiment(model_config: Any, trainer: TrainerConfig | None = None,
@@ -234,24 +231,46 @@ def _input_transforms(dconf: dict) -> tuple[int, float | tuple[float, float, flo
     return next(iter(seq_lens.values()), 30), stds3[0] if len(set(stds3)) == 1 else stds3
 
 
-# Preprocess nodes of the data section and the transform the pipeline
-# applies itself (a node without class_path names it).
-_PREPROCESS = {"action_preprocess": "Identity",
-               "audio_observation_preprocess": "NormalizeAudioMelSpectrogram",
-               "vision_observation_preprocess": "NormalizeVisionImage"}
+# Preprocess nodes of the data section, the pipeline's field for each, and
+# the transform the pipeline applies itself (a node without class_path
+# names it).
+_PREPROCESS = {"action_preprocess": ("action_preprocess", "Identity"),
+               "audio_observation_preprocess": ("audio_preprocess", "NormalizeAudioMelSpectrogram"),
+               "vision_observation_preprocess": ("vision_preprocess", "NormalizeVisionImage")}
+
+
+def _build_transform(node: dict):
+    """The transform a YAML ``class_path`` node names (the reference's
+    ``multimodal_rssm`` transforms, ``torch.nn.Identity``, or a
+    ``Compose`` of them), with its ``init_args``."""
+    name = _class_name(node)
+    args = dict(node.get("init_args") or {})
+    if name == "Compose":
+        return Compose([_build_transform(t) for t in args.get("transforms", [])])
+    cls = TRANSFORMS.get(name)
+    if cls is None:
+        raise ValueError(f"unknown transform class_path: {node.get('class_path')}")
+    return cls(**args)
 
 
 def _data_config(raw: dict, dconf: dict, seq_len: int, pending: dict) -> DataModuleConfig:
-    for key, default in _PREPROCESS.items():
+    """The data section as a ``DataModuleConfig``. A preprocess node that
+    names the pipeline's own normaliser sets its parameters (the audio
+    range); another transform replaces it."""
+    transforms = {}
+    for key, (field, default) in _PREPROCESS.items():
         node = dconf.get(key)
         if node and (_class_name(node) or default) != default:
-            pending[key] = (_class_name(node), f"custom transforms, {_ITEM} 7")
-    for key, default, item in (("drop_modality", None, 7), ("modality", "multimodal", "7 and 10"),
-                               ("device_resident", False, 7)):
-        if dconf.get(key, default) != default:
-            pending[key] = (dconf[key], f"{_ITEM} {item}")
+            transforms[field] = _build_transform(node)
+    if dconf.get("modality", "multimodal") != "multimodal":
+        pending["modality"] = (dconf["modality"], f"unimodal batches, {_ITEM} 10")
+    if dconf.get("device_resident", False):
+        pending["device_resident"] = (dconf["device_resident"], f"host speed, moved from {_ITEM} "
+                                      "7 to the ROADMAP speed queue")
     audio_pre = _init_args(dconf.get("audio_observation_preprocess"))
     return DataModuleConfig(
+        drop_modality=dconf.get("drop_modality"),
+        **transforms,
         data_dir=dconf.get("data_dir", f"data/{dconf.get('data_name', 'audio_mnist')}"),
         batch_size=int(dconf.get("batch_size", 8)),
         sequence_length=seq_len,

@@ -6,9 +6,9 @@ names, else ``default_config``, with JAX's flags (``--max-epochs``,
 ``--data-dir``, ``--log-dir``, ``--resume``, ``--synthetic N``) and
 ``--device`` (the card by default; ``cpu`` to train on the CPU). It also
 takes an ``Experiment`` built without PyYAML (``train.config.
-make_experiment``), which then stands in for the config file. The rollout
-GIFs JAX's command attaches (``viz/callback.py``) are not ported yet: when
-the config asks for them, one line says so and training goes on.
+make_experiment``), which then stands in for the config file. As JAX's
+command does, it attaches the rollout-GIF callback of the experiment's
+``VizConfig`` (``viz.callback.make_viz_callback``).
 """
 
 from __future__ import annotations
@@ -43,6 +43,7 @@ def run_training(default_config: str | Path, argv: list[str] | None = None,
 
     from multimodal_mtrssm_tpu_torch.data import generate_synthetic_audio_mnist
     from multimodal_mtrssm_tpu_torch.train.config import load_experiment
+    from multimodal_mtrssm_tpu_torch.viz.callback import make_viz_callback
 
     exp = experiment if experiment is not None else load_experiment(args.config)
     if args.max_epochs is not None:
@@ -53,10 +54,8 @@ def run_training(default_config: str | Path, argv: list[str] | None = None,
         exp.trainer.log_dir = args.log_dir
     if args.synthetic:
         generate_synthetic_audio_mnist(exp.data.data_dir, n_episodes=args.synthetic)
-    if exp.asks_for_gifs:
-        print("viz: the config asks for rollout GIFs, which the port does not draw yet (ROADMAP "
-              "queue 1 item 9); training without them")
     trainer = exp.build_trainer(device=args.device)
+    trainer.callbacks.append(make_viz_callback(exp))
     out = trainer.fit(resume=args.resume)
     print(f"done: best val/loss = {out['best_val']:.4f} over {len(out['history'])} epochs "
           f"(log_dir={exp.trainer.log_dir})")

@@ -175,7 +175,8 @@ class Trainer:
     ``callbacks``: each is called ``cb(trainer, epoch, model, row)`` after
     every epoch (JAX passes the parameters; the port's live in the model),
     and, where it has one, ``cb.on_train_end(trainer, best_model)`` once
-    at the end, with the ``best`` weights."""
+    at the end, with the ``best`` weights. During ``fit`` they may log to
+    ``trainer.logger``, the run's :class:`MetricLogger`."""
 
     def __init__(self, model: WorldModelNet, datamodule: EpisodeDataModule,
                  config: TrainerConfig | None = None, callbacks: list | None = None):
@@ -185,6 +186,7 @@ class Trainer:
         self.callbacks = list(callbacks or [])
         self.device = next(model.parameters()).device
         self.ckpt = CheckpointManager(Path(self.cfg.log_dir) / "checkpoints")
+        self.logger: MetricLogger | None = None
 
     def _optimizer(self) -> AdamW:
         c = self.cfg
@@ -303,7 +305,7 @@ class Trainer:
                 "seed_base": seed_base, "scheduler": scheduler.state_dict(),
                 "early_stop": early_stop.state_dict(), **extra})
 
-        logger = MetricLogger(cfg.log_dir)
+        logger = self.logger = MetricLogger(cfg.log_dir)
         preempt = _PreemptionGuard()
         try:
             with preempt:

@@ -60,13 +60,15 @@ def test_module_entry_lists_the_four_commands():
 def test_train_command_writes_best_and_last_then_resumes(tmp_path, capsys, command, config):
     """``<command> -c <tiny config> --synthetic 4 --max-epochs 1 --device
     cpu`` trains and writes ``best`` and ``last``; ``--resume`` with two
-    epochs continues at epoch 1. The shipped configs ask for the rollout
-    GIFs, which the port names as not drawn yet."""
+    epochs continues at epoch 1. The command attaches the config's
+    rollout-GIF callback: each fit draws its best weights' GIFs."""
     args = [command, "-c", str(_tiny_yaml(tmp_path, config)), "--data-dir",
             str(tmp_path / "data"), "--log-dir", str(tmp_path / "run"), "--device", "cpu"]
     entry.main(args + ["--synthetic", "4", "--max-epochs", "1"])
     said = capsys.readouterr().out
-    assert "item 9" in said and "done: best val/loss" in said
+    assert "done: best val/loss" in said
+    assert sorted(p.name for p in (tmp_path / "run" / "viz" / "final_best" / "train").iterdir()) \
+        == ["episode_0.gif", "episode_1.gif", "episode_2.gif"]
     ckpt = CheckpointManager(tmp_path / "run" / "checkpoints")
     assert ckpt.exists("best") and ckpt.exists("last")
     entry.main(args + ["--max-epochs", "2", "--resume"])
@@ -98,10 +100,10 @@ def test_run_training_takes_an_experiment_without_pyyaml(tmp_path, monkeypatch, 
                           TrainerConfig(max_epochs=1, log_dir=str(tmp_path / "run")),
                           DataModuleConfig(data_dir=str(tmp_path / "data"), batch_size=2,
                                            sequence_length=3, noise_std=0.0))
-    assert not exp.asks_for_gifs and exp.data.noise_std == 0.0
+    assert exp.data.noise_std == 0.0
     out = run_training("unused.yaml", ["--synthetic", "4", "--device", "cpu"], experiment=exp)
     assert [r["epoch"] for r in out["history"]] == [0]
     out = run_training("unused.yaml", ["--max-epochs", "2", "--resume", "--device", "cpu"],
                        experiment=exp)
     assert [r["epoch"] for r in out["history"]] == [1]
-    assert "item 9" not in capsys.readouterr().out
+    assert (tmp_path / "run" / "viz" / "final_best" / "val").is_dir()

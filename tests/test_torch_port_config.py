@@ -74,21 +74,28 @@ def test_load_experiment_matches_jax(name):
         if hasattr(theirs.trainer, f.name):
             assert getattr(ours.trainer, f.name) == getattr(theirs.trainer, f.name), f.name
     for f in dataclasses.fields(ours.data):
-        if f.name != "data_dir" and hasattr(theirs.data, f.name):
+        if f.name.endswith("_preprocess"):
+            # JAX builds the default normaliser a node names (None without
+            # a node); the port leaves it to the pipeline, same parameters.
+            assert getattr(ours.data, f.name) is None and type(getattr(theirs.data, f.name)) \
+                .__name__ in ("NoneType", "Identity", "NormalizeAudioMelSpectrogram",
+                              "NormalizeVisionImage")
+        elif f.name != "data_dir" and hasattr(theirs.data, f.name):
             assert getattr(ours.data, f.name) == getattr(theirs.data, f.name), f.name
     assert str(ours.data.data_dir) == str(theirs.data.data_dir)
     assert dataclasses.asdict(ours.viz) == dataclasses.asdict(theirs.viz)
     assert ours.model.cfg.input_noise_std == 0.1 and ours.data.noise_std == 0.0
 
 
-def test_drop_modality_waits_for_the_datamodule():
-    """``drop_modality: audio`` (ROADMAP queue 1 item 7) loads, and raises,
-    naming the field and the item, when the datamodule or trainer is built."""
+def test_drop_modality_waits_for_the_datamodule(tmp_path):
+    """``drop_modality: audio`` no longer waits: the crossmodal config loads
+    with nothing pending and builds its datamodule and trainer, which drop
+    the audio inputs (``tests/test_torch_port_crossmodal.py``)."""
     exp = load_experiment(REPO / "configs" / "mopoe_mrssm_crossmodal.yaml")
-    assert exp.pending["data"] == {"drop_modality": ("audio", "ROADMAP queue 1 item 7")}
-    for build in (exp.build_datamodule, exp.build_trainer):
-        with pytest.raises(NotImplementedError, match=r"drop_modality='audio'.*item 7"):
-            build()
+    assert exp.pending == {} and exp.data.drop_modality == "audio"
+    dm = exp.build_datamodule()
+    assert isinstance(dm, EpisodeDataModule) and dm.cfg.drop_modality == "audio"
+    assert exp.build_trainer(datamodule=dm, device="cpu").dm is dm
     assert isinstance(load_experiment(REPO / "configs" / "mopoe_mrssm.yaml").build_datamodule(),
                       EpisodeDataModule)
 

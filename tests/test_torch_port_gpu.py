@@ -20,7 +20,10 @@ frames within 1e-5 (after the Tanh); a whole train step's loss terms within
 route. A mid-epoch resume on the card ends within 3e-4 × max(1, max|w|)
 per tensor of the uninterrupted fit; the evaluation's digits on the card
 equal the CPU path's outside near-ties of 1e-5. B=60 T=10 is one
-evaluated word's rollout (6 intervals × 10 predictions, 10 frames).
+evaluated word's rollout (6 intervals × 10 predictions, 10 frames). The
+cross-modal GIF batch's reconstructions (7 episodes × 30 frames) equal the
+CPU path's states and frames within 1e-4 before each row's first near-tie;
+a mid-epoch resume under random modality dropout ends bit-identical.
 """
 
 import dataclasses
@@ -1394,3 +1397,90 @@ def test_evaluation_digits_match_the_cpu(cuda_device, tmp_path, family):
         ref = predict_word(cpu_model, cpu_classifier, intervals, 1234, 10, 10, classify_frame=cf)
         r = parity.check_predicted_digits(got, ref, model.cfg, cf)
         assert r["compared"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["mrssm", "mt"])
+def test_reconstructions_match_the_cpu(cuda_device, family):
+    """``viz.rollout.reconstruction_states`` and its decoded frames at 7
+    episodes × 30 frames, q=10, audio inputs dropped (the cross-modal GIF
+    batch), on the card and on the CPU with the same weights and seed: one
+    recurrence-forward and one rollout launch, the states and frames
+    within 1e-4 before each row's first Gumbel near-tie of 1e-5, the
+    sampled categories equal (``parity.check_reconstructions``)."""
+    import copy
+
+    from multimodal_mtrssm_tpu_torch.viz.rollout import decode_reconstructions, reconstruction_states
+
+    model = _model(cuda_device) if family == "mrssm" else _mt_model(cuda_device)
+    rng = np.random.default_rng(5)
+    batch = (rng.standard_normal((7, 30, 6)).astype(np.float32),
+             np.full((7, 30, 32, 32, 1), -1.0, np.float32),
+             rng.uniform(-1, 1, (7, 30, 32, 32, 1)).astype(np.float32))
+
+    def run(m):
+        out = reconstruction_states(m, batch, 10, 77)
+        out["frames"] = decode_reconstructions(m, out)
+        return out
+
+    kernels.reset_launch_counts()
+    got = run(model)
+    torch.cuda.synchronize()
+    names = ("recurrence_fwd", "rollout") if family == "mrssm" else ("mt_recurrence_fwd",
+                                                                      "mt_rollout")
+    assert {k: v for k, v in kernels.launch_counts().items() if v} == dict.fromkeys(names, 1)
+    r = parity.check_reconstructions(got, run(copy.deepcopy(model).cpu()), model.cfg)
+    assert r["compared"] > 0.5
+
+
+@pytest.mark.gpu
+def test_random_dropout_resume_on_the_card(cuda_device, tmp_path, monkeypatch):
+    """Under ``drop_modality="random"`` (pipeline noise 0), with cuDNN held
+    to deterministic algorithms: a fit SIGTERMed after its 4th step (mid
+    epoch 1 of 3-step epochs at B=8 T=30) and resumed ends bit-identical to
+    the uninterrupted fit."""
+    import os
+    import signal
+
+    from multimodal_mtrssm_tpu_torch.data import (
+        DataModuleConfig,
+        EpisodeDataModule,
+        generate_synthetic_audio_mnist,
+    )
+    from multimodal_mtrssm_tpu_torch.train import Trainer, TrainerConfig
+    from multimodal_mtrssm_tpu_torch.train import trainer as trainer_mod
+
+    generate_synthetic_audio_mnist(tmp_path / "episodes", n_episodes=24, seed=0)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+
+    def trainer(name):
+        dm = EpisodeDataModule(DataModuleConfig(data_dir=str(tmp_path / "episodes"), batch_size=8,
+                                                sequence_length=30, noise_std=0.0,
+                                                drop_modality="random"))
+        return Trainer(MoPoEMRSSM().to(cuda_device), dm,
+                       TrainerConfig(max_epochs=2, seed=0, log_dir=str(tmp_path / name)))
+
+    ref = trainer("ref")
+    ref.fit()
+    real = trainer_mod.make_train_step
+
+    def make(*args):
+        step, calls = real(*args), [0]
+
+        def wrapped(*a):
+            out = step(*a)
+            calls[0] += 1
+            if calls[0] == 4:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return out
+
+        return wrapped
+
+    with monkeypatch.context() as m:
+        m.setattr(trainer_mod, "make_train_step", make)
+        assert trainer("cut").fit()["preempted"]
+    resumed = trainer("cut")
+    assert [r["epoch"] for r in resumed.fit(resume=True)["history"]] == [1]
+    for a, b in zip(resumed.model.state_dict().values(), ref.model.state_dict().values()):
+        assert torch.equal(a, b)
