@@ -27,7 +27,7 @@ decoder (``fused_decoder_apply``), which no model config selects, on the
 first two configurations' latent features.
 
 0. Device: prints the card's name and power limit, turns TF32 off.
-1. Build: compiles the twelve kernels from ``multimodal_mtrssm_tpu_torch/csrc``
+1. Build: compiles the fourteen kernels from ``multimodal_mtrssm_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel).
 2. Kernel checks, each kernel against its plain PyTorch version on the card:
    the MRSSM recurrence forward at B=8 T=30, B=128 T=30 and B=3 T=7, the MT
@@ -161,13 +161,40 @@ first two configurations' latent features.
    not, and the ``/observe`` split at B=8 T=30 (the route's direct call on
    the calling thread, in a fresh thread, on a long-lived batcher thread,
    and through HTTP).
+8. After phase 7: (a) the bf16 fused encoder kernels (``trainer.precision:
+   16-mixed`` at ``conv_layout="fused_enc"``) against their plain bf16
+   versions at N=240 and 3840, forward within 1e-2 × scale and within 0.1
+   of the f32 kernel, backward within 2e-2 × scale per tensor, two launches
+   bit-identical; their times beside the f32 kernels and cuDNN's ``Encoder``
+   on bf16 frames, and each backward kernel's device time; (b) the plain
+   route by name (``use_pallas_train=False``), each family: a Tanh model's
+   train step and imagination on the card against the CPU, an ELU model's
+   plain route against its kernel route on the same weights and noise, no
+   recurrence or rollout launch on the plain route, a train step's time on
+   both routes; a category block of 33 refused with a message naming the
+   route, then run on it; whether a train step at T=180 fits the kernels;
+   (c) ``configs/mopoe_mrssm.yaml`` and ``mopoe_mmtrssm.yaml`` with
+   ``precision: 16-mixed`` at nhwc and fused_enc, each fit 2 epochs × 3
+   steps: no f32 encoder kernel, at fused_enc the bf16 kernels twice a
+   step each way; a train step card vs CPU within 1e-2 of the loss and 5e-2
+   × scale; the step's time and device breakdown; (d)
+   ``demo_e2e`` and ``probe_transitions`` of each family at 1 seed, 2
+   epochs and 24 episodes, as path checks.
+
+``python3 chip_smoke.py --learning-demo`` runs only the learning
+demonstration's long runs (``learning_demo_phase``: ``demo_e2e`` at the JAX
+script's decisive flags, 5 seeds a family, ``crossmodal_e2e`` at 100 epochs
+× 3 seeds, ``probe_transitions`` of each family at its defaults, as five
+processes at once on the card), copying their summaries, per-seed results
+and metrics under ``runs/learning_demo`` (or the directory given after the
+flag), with no contract lines.
 
 Each configuration's serving and training run, phase 3b's coalesced
-requests, phases 4b, 4c, 6 and each part of 7, and the decoder's path
+requests, phases 4b, 4c, 6, each part of 7 and of 8, and the decoder's path
 (``fused_decoder_apply`` on both decoders of the first two configurations'
 observed features at B=8 T=30, forward and a ``gaussian_nll`` backward), is
 driven with every launch count set to 0 just before it and read just after.
-Then one JSON line with the twelve kernels, the card's name and power
+Then one JSON line with the fourteen kernels, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -1188,16 +1215,19 @@ def plain_route():
     from multimodal_mtrssm_tpu_torch.ops import kernels
     from multimodal_mtrssm_tpu_torch.ops.kernels import fused_conv
 
-    saved = (kernels._route, fused_conv.fused_encoder_forward_cuda,
-             fused_conv.fused_encoder_backward_cuda)
+    names = ("fused_encoder_forward_cuda", "fused_encoder_backward_cuda",
+             "fused_encoder_bf16_forward_cuda", "fused_encoder_bf16_backward_cuda")
+    saved = (kernels._route, *(getattr(fused_conv, n) for n in names))
     kernels._route = lambda device, name: activation(name)
-    fused_conv.fused_encoder_forward_cuda = fused_conv.fused_encoder_plain
-    fused_conv.fused_encoder_backward_cuda = fused_conv.fused_encoder_backward_plain
+    for n, plain in zip(names, (fused_conv.fused_encoder_plain,
+                                fused_conv.fused_encoder_backward_plain) * 2):
+        setattr(fused_conv, n, plain)
     try:
         yield
     finally:
-        (kernels._route, fused_conv.fused_encoder_forward_cuda,
-         fused_conv.fused_encoder_backward_cuda) = saved
+        kernels._route = saved[0]
+        for n, f in zip(names, saved[1:]):
+            setattr(fused_conv, n, f)
 
 
 # The device kernels of one recurrence_backward_cuda call, as the profiler
@@ -1589,6 +1619,8 @@ def _label(cfg) -> str:
     name = "MoPoEMMTRSSM" if hasattr(cfg, "hd_dim") else "MoPoEMRSSM"
     opts = [f"{k}={getattr(cfg, k)}" for k in ("conv_layout", "use_pallas_train")
             if getattr(cfg, k) != "auto"]
+    if getattr(cfg, "conv_dtype", None) is not None:
+        opts.append("conv_dtype=bfloat16")
     return name + (f"({', '.join(opts)})" if opts else "")
 
 
@@ -1612,13 +1644,13 @@ def _nbytes(*tensors) -> int:
     return total
 
 
-def _bound(flops: float, nbytes: int) -> dict:
-    """``bound_ms`` (the larger of operations over the f32 peak and bytes over
-    the memory rate) and which of the two bounds it."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def _bound(flops: float, nbytes: int, peak: float = PEAK_F32_FLOPS) -> dict:
+    """``bound_ms`` (the larger of operations over ``peak``, the f32 peak by
+    default, and bytes over the memory rate) and which of the two bounds it."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "flops": flops, "bytes": nbytes}
+            "flops": flops, "bytes": nbytes, "peak": peak}
 
 
 def _mrssm_step_macs(cfg, heads: bool = True) -> int:
@@ -1960,7 +1992,8 @@ _CHILDREN: list[subprocess.Popen] = []  # stopped on exit, whatever failed
 PTXAS_SOURCES = ("fused_encoder_fwd.cu", "fused_encoder_bwd.cu", "fused_decoder_fwd.cu",
                  "fused_decoder_bwd.cu", "recurrence_bwd.cu", "recurrence_mt_bwd.cu",
                  "recurrence_stacked_bwd.cu", "recurrence_mt_fwd.cu", "recurrence_fwd.cu",
-                 "rollout.cu", "rollout_mt.cu")
+                 "rollout.cu", "rollout_mt.cu", "fused_encoder_bf16_fwd.cu",
+                 "fused_encoder_bf16_bwd.cu")
 
 
 def start_ptxas_report(sources=PTXAS_SOURCES) -> list[subprocess.Popen]:
@@ -1998,7 +2031,7 @@ def ptxas_report(procs: list[subprocess.Popen], sources=PTXAS_SOURCES) -> None:
         name = None
         for line in out.splitlines():
             if "Compiling entry function" in line:
-                m = re.search(r"((?:en|de)coder_[a-z_]*kernel|"
+                m = re.search(r"((?:en|de)coder_[a-z0-9_]*kernel|"
                               r"(?:mt_)?recurrence_(?:bwd|fwd)_[a-z_]*kernel|"
                               r"(?:mt_)?rollout_[a-z_]*kernel|"
                               r"stacked_[a-z_]*kernel|reduce_(?:weight|stacked)_grads)",
@@ -3113,6 +3146,482 @@ def serve_trained(cfg, dev, training: dict, card: str) -> dict[str, int]:
     return ctx["counts"]
 
 
+# ---- phase 8: the plain route, 16-mixed and the bf16 encoder kernels ----------------------
+
+# The bf16 encoder kernels against their plain versions, × max(1, max|plain|):
+# a different f32 summation order may flip one bf16 ulp (2^-8 relative) of a
+# layer's output, which the later layers carry; against the f32 kernels,
+# absolute, JAX's own bound (tests/test_fused_conv.py::test_bf16_path).
+BF16_FWD_TOL, BF16_BWD_TOL, BF16_VS_F32 = 1e-2, 2e-2, 0.1
+# A 16-mixed train step on the card against the CPU route: loss terms within
+# 1e-2 of the loss, gradients within 5e-2 × scale; noise with Gumbel
+# near-ties of 1e-2 (bf16 convs move the logits by ~1e-3) is skipped.
+MIXED_RTOL, MIXED_REL, MIXED_TIE = 1e-2, 5e-2, 1e-2
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 (NVIDIA data sheet)
+# The device kernels of one fused_encoder_bf16_backward_cuda call.
+ENCODER_BF16_BWD_KERNELS = {"pack": "encoder_bf16_pack_kernel",
+                            "recompute forward": "encoder_bf16_fwd_kernel",
+                            "cotangent pass": "encoder_bf16_bwd_dx",
+                            "weight-gradient pass": "encoder_bf16_bwd_dw",
+                            "reduce": "encoder_bf16_reduce"}
+ROUTE_KERNELS = ("recurrence_fwd", "recurrence_bwd", "rollout", "mt_recurrence_fwd",
+                 "mt_recurrence_bwd", "mt_rollout", "stacked_recurrence_fwd",
+                 "stacked_recurrence_bwd")
+
+
+def _bf16_case(rng, enc, N: int, dev):
+    """``_encoder_case``'s f32 weights, frames and cotangent, and their bf16
+    casts."""
+    import torch
+
+    w, x, g = _encoder_case(rng, enc, N, dev)
+    return (w, x), ([t.to(torch.bfloat16) for t in w], x.to(torch.bfloat16), g.to(torch.bfloat16))
+
+
+def check_bf16_encoder(model, dev) -> dict[str, dict]:
+    """Phase 8(a), bf16 fused encoder at N=240 and 3840: the forward kernel
+    against the plain bf16 version (BF16_FWD_TOL × scale) and the f32
+    kernel (BF16_VS_F32), the backward (every weight gradient and dx)
+    against the plain bf16 backward (BF16_BWD_TOL × scale per tensor); two
+    launches of each bit-identical."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels import fused_conv
+    from multimodal_mtrssm_tpu_torch.ops.kernels.parity import ParityError, check_gradients
+
+    enc = model.audio_encoder
+    cfg = enc.cfg
+    rng = np.random.default_rng(SEED + 12)
+    fwd_err = bwd_err = 0.0
+    for N in ENCODER_FRAMES[::2]:
+        (w32, x32), (w, x, g) = _bf16_case(rng, enc, N, dev)
+        got = fused_conv.fused_encoder_bf16_forward_cuda(w, cfg, x)
+        again = fused_conv.fused_encoder_bf16_forward_cuda(w, cfg, x)
+        plain = fused_conv.fused_encoder_plain(w, cfg, x).float()
+        f32 = fused_conv.fused_encoder_forward_cuda(w32, cfg, x32)
+        scale = max(1.0, float(plain.abs().max()))
+        err, err32 = (float((got.float() - ref).abs().max()) for ref in (plain, f32))
+        if not (err <= BF16_FWD_TOL * scale and err32 <= BF16_VS_F32 and torch.equal(got, again)):
+            raise ParityError(f"fused_encoder_fwd_bf16 N={N}: {err:.3g} vs plain (limit "
+                              f"{BF16_FWD_TOL} x {scale:.3g}), {err32:.3g} vs f32, or two "
+                              "launches differ")
+        dx, dw = fused_conv.fused_encoder_bf16_backward_cuda(w, cfg, x, g, True)
+        dx2, dw2 = fused_conv.fused_encoder_bf16_backward_cuda(w, cfg, x, g, True)
+        ref_dx, ref_dw = fused_conv.fused_encoder_backward_plain(w, cfg, x, g, True)
+        got_b = [t.float() for t in (*dw, dx)]
+        ref_b = [t.float() for t in (*ref_dw, ref_dx)]
+        scaled = check_gradients(got_b, ref_b, BF16_BWD_TOL)
+        if not all(torch.equal(a, b) for a, b in zip([*dw, dx], [*dw2, dx2])):
+            raise ParityError("fused_encoder_bwd_bf16: two launches on the same inputs differ")
+        berr = max(float((a - b).abs().max()) for a, b in zip(got_b, ref_b))
+        print(f"check fused_encoder_fwd_bf16 N={N}: max_abs_err={err:.3g} vs plain bf16 (limit "
+              f"{BF16_FWD_TOL} x {scale:.3g}), {err32:.3g} vs the f32 kernel (limit "
+              f"{BF16_VS_F32}); fused_encoder_bwd_bf16: max_abs_err={berr:.3g} max_err/scale="
+              f"{scaled:.3g} vs the plain bf16 backward (limit {BF16_BWD_TOL}); two launches of "
+              "each bit-identical")
+        fwd_err, bwd_err = max(fwd_err, err), max(bwd_err, berr)
+    return {"fused_encoder_fwd_bf16": {"max_abs_err": fwd_err},
+            "fused_encoder_bwd_bf16": {"max_abs_err": bwd_err}}
+
+
+def bf16_encoder_timings(model, dev, card: str) -> tuple[dict, dict, dict]:
+    """Phase 8(a) timings at N=240 and 3840: the bf16 encoder kernels against
+    their plain versions, beside the f32 kernels and the cuDNN ``Encoder``
+    on bf16 frames (its forward, and forward + backward), with the device
+    time of each kernel of one backward call; the bounds at N=240 (bf16
+    bytes, and the multiply-adds over the bf16 peak)."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels import fused_conv
+
+    enc = model.audio_encoder
+    cfg = enc.cfg
+    macs, first = _encoder_macs(cfg)
+    rng = np.random.default_rng(SEED + 13)
+    params = list(enc.parameters())
+    main: dict[str, tuple[float, float]] = {}
+    library: dict[str, float] = {}
+    bounds: dict[str, dict] = {}
+    fwd = fused_conv.fused_encoder_bf16_forward_cuda
+    bwd = fused_conv.fused_encoder_bf16_backward_cuda
+    for N in ENCODER_FRAMES[::2]:
+        (w32, x32), (w, x, g) = _bf16_case(rng, enc, N, dev)
+        k_ms = _median_ms(lambda: fwd(w, cfg, x), 20)
+        p_ms = _median_ms(lambda: fused_conv.fused_encoder_plain(w, cfg, x), 10)
+        f_ms = _median_ms(lambda: fused_conv.fused_encoder_forward_cuda(w32, cfg, x32), 20)
+        l_ms = _median_ms(lambda: enc(x), 20)
+        d_ms = _device_ms(lambda: fwd(w, cfg, x), "encoder_bf16_fwd")
+        kb_ms = _median_ms(lambda: bwd(w, cfg, x, g, False), 10)
+        pb_ms = _median_ms(lambda: fused_conv.fused_encoder_backward_plain(w, cfg, x, g, False), 5)
+        fb_ms = _median_ms(lambda: fused_conv.fused_encoder_backward_cuda(
+            w32, cfg, x32, g.float(), False), 10)
+        with torch.enable_grad():
+            lb_ms = _median_ms(lambda: torch.autograd.grad(enc(x), params, g), 10)
+        parts = _device_breakdown(lambda: bwd(w, cfg, x, g, False),
+                                  tuple(ENCODER_BF16_BWD_KERNELS.values()))
+        _print_breakdown(f"fused_encoder_bwd_bf16 N={N}", parts, ENCODER_BF16_BWD_KERNELS, card)
+        dev_ms = "not measured" if d_ms is None else f"{d_ms:.4f} ms"
+        print(f"time fused_encoder_fwd_bf16 N={N}: kernel {k_ms:.4f} ms (device {dev_ms}), plain "
+              f"bf16 {p_ms:.4f} ms, the f32 kernel {f_ms:.4f} ms, cuDNN Encoder on bf16 frames "
+              f"{l_ms:.4f} ms; fused_encoder_bwd_bf16 (recompute + weight gradients): kernel "
+              f"{kb_ms:.4f} ms, plain bf16 {pb_ms:.4f} ms, the f32 kernels {fb_ms:.4f} ms, cuDNN "
+              f"Encoder bf16 forward + backward {lb_ms:.4f} ms | {card}")
+        if "fused_encoder_fwd_bf16" not in main:
+            main["fused_encoder_fwd_bf16"] = (k_ms, p_ms)
+            main["fused_encoder_bwd_bf16"] = (kb_ms, pb_ms)
+            library["fused_encoder_fwd_bf16"], library["fused_encoder_bwd_bf16"] = l_ms, lb_ms
+            bounds["fused_encoder_fwd_bf16"] = _bound(2 * macs * N, _nbytes(w, x) +
+                                                      2 * N * cfg.out_dim, PEAK_BF16_FLOPS)
+            bounds["fused_encoder_bwd_bf16"] = _bound(2 * (3 * macs - first) * N,
+                                                      2 * _nbytes(w) + _nbytes(x, g),
+                                                      PEAK_BF16_FLOPS)
+    return main, library, bounds
+
+
+def _zero_route_launches(counts: dict[str, int], what: str) -> None:
+    bad = {k: counts[k] for k in ROUTE_KERNELS if counts[k]}
+    if bad:
+        raise RuntimeError(f"{what}: the plain route launched {bad}")
+
+
+def _rollouts(model, dev, B: int = 8, T: int = 10, seed: int = 5):
+    """``model``'s imagination on ``dev`` from a seeded initial state."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    act = torch.tensor(rng.uniform(-1, 1, (B, 1, 6)).astype(np.float32), device=dev)
+    frames = [torch.tensor(rng.uniform(-1, 1, (B, 32, 32, 1)).astype(np.float32), device=dev)
+              for _ in range(2)]
+    noise = {k: torch.tensor(rng.gumbel(size=s).astype(np.float32), device=dev)
+             for k, s in model.noise_shapes(B, 1).items() if k.startswith("g_init")}
+    with torch.no_grad():
+        init = model.initial_state(*frames, *noise.values())
+        return model.rollout_transition(act.expand(B, T, 6).contiguous(), init, seed)
+
+
+def _step_vs(model, other, dev, other_dev, rtol: float, rel: float, tie_eps: float,
+             shape: tuple[int, int] = (4, 10), seeds: int = 30) -> dict:
+    """One train step of ``model`` on ``dev`` against ``other`` on
+    ``other_dev`` (the same weights), on the first seed whose batch and
+    noise have no Gumbel near-tie of ``tie_eps`` (``parity.check_train_step``
+    at ``rtol`` and ``rel``)."""
+    from multimodal_mtrssm_tpu_torch.ops.kernels.parity import (
+        check_train_step,
+        train_step_near_ties,
+    )
+
+    B, T = shape
+    for seed in range(SEED + 40, SEED + 40 + seeds):
+        batch, noise = _train_batch(np.random.default_rng(seed), B, T, other)
+        if train_step_near_ties(other, tuple(x.to(other_dev) for x in batch),
+                                _noise_to(noise, other_dev), tie_eps) == 0:
+            break
+    else:
+        raise RuntimeError(f"no seed without near-ties of {tie_eps} for the train-step check")
+    inputs = (tuple(x.to(dev) for x in batch), _noise_to(noise, dev))
+    out = check_train_step(model, other, inputs,
+                           (tuple(x.to(other_dev) for x in batch), _noise_to(noise, other_dev)),
+                           rtol, rel)
+    return {**out, "seed": seed, "inputs": inputs}
+
+
+def drive_plain_route(dev, card: str) -> dict:
+    """Phase 8(b), the plain route by name (``use_pallas_train=False``) on
+    the card, each family: a Tanh model (which the kernels refuse) trains
+    one step and imagines as on the CPU; an ELU model on the plain route
+    against the same weights on the kernels (a train step at the phase 4
+    bounds; imagination on the same Philox noise within 1e-4 before each
+    row's first near-tie), launching no recurrence or rollout kernel; a
+    shape the kernels refuse (a category block of 33) raises a message
+    naming the route, which then runs it; whether T=180 fits the kernels,
+    on each family's train step (``demo_e2e --seq-len 180``). Returns the
+    plain route's launch counts."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.models import (
+        MMTRSSMConfig,
+        MoPoEMMTRSSM,
+        MoPoEMRSSM,
+        MRSSMConfig,
+    )
+    from multimodal_mtrssm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from multimodal_mtrssm_tpu_torch.ops.kernels.parity import (
+        check_same_rollouts,
+        train_step_grads,
+    )
+    from multimodal_mtrssm_tpu_torch.train import AdamW, one_update
+
+    counts = dict.fromkeys(launch_counts(), 0)
+    cpu = torch.device("cpu")
+    for family, cfg_cls in ((MoPoEMRSSM, MRSSMConfig), (MoPoEMMTRSSM, MMTRSSMConfig)):
+        name = family.__name__
+        tanh = cfg_cls(activation_name="Tanh", use_pallas_train=False)
+        on_cpu = family(tanh).init(torch.Generator().manual_seed(SEED + 1))
+        card_model = family(tanh).to(dev)
+        card_model.load_state_dict(on_cpu.state_dict())
+        reset_launch_counts()
+        r = _step_vs(card_model, on_cpu, dev, cpu, STEP_RTOL, STEP_TOL, TIE_EPS)
+        imagined = _rollouts(card_model, dev)
+        run = launch_counts()
+        _zero_route_launches(run, f"{name} Tanh")
+        roll = check_same_rollouts(imagined, _rollouts(on_cpu, cpu).to(dev), tanh, 5, TOL,
+                                   TIE_EPS)
+        print(f"plain route {name} Tanh on the card vs the CPU: train step (seed {r['seed']}) "
+              f"loss err/loss {max(r['loss_rel_errs'].values()):.3g} (limit {STEP_RTOL}), grad "
+              f"max_abs_err {r['grad_max_abs_err']:.3g} (limit {STEP_TOL} x "
+              f"{r['grad_scale']:.4g}); imagination B=8 T=10 max_abs_err "
+              f"{roll['max_abs_err']:.3g}, {roll['compared']:.0%} of steps before a near-tie; "
+              "no recurrence or rollout launch")
+        counts = {k: counts[k] + v for k, v in run.items()}
+
+        kernel = family(cfg_cls()).init(torch.Generator().manual_seed(SEED + 2)).to(dev)
+        plain = family(cfg_cls(use_pallas_train=False)).to(dev)
+        plain.load_state_dict(kernel.state_dict())
+        r = _step_vs(plain, kernel, dev, dev, STEP_RTOL, STEP_TOL, TIE_EPS)
+        reset_launch_counts()
+        train_step_grads(plain, *r["inputs"])
+        got = _rollouts(plain, dev)
+        run = launch_counts()
+        _zero_route_launches(run, f"{name} ELU")
+        counts = {k: counts[k] + v for k, v in run.items()}
+        ref = _rollouts(kernel, dev)
+        roll = check_same_rollouts(got, ref, kernel.cfg, 5, TOL, TIE_EPS)
+        print(f"plain route {name} ELU vs its kernel route on the card: train step (seed "
+              f"{r['seed']}) loss err/loss {max(r['loss_rel_errs'].values()):.3g}, grad "
+              f"max_abs_err {r['grad_max_abs_err']:.3g} (limit {STEP_TOL} x "
+              f"{r['grad_scale']:.4g}); imagination max_abs_err {roll['max_abs_err']:.3g} (limit "
+              f"{TOL}), {roll['compared']:.0%} of steps before a near-tie")
+        step = _plain_step_ms(kernel, plain, dev)
+        print(f"time {name} train step B=8 T=30: kernel route {step[0]:.4f} ms, plain route "
+              f"(use_pallas_train=False) {step[1]:.4f} ms | {card}")
+
+    wide = dict(class_size=1, category_size=33)
+    refused = MoPoEMRSSM(MRSSMConfig(**wide)).to(dev)
+    batch, noise = _train_batch(np.random.default_rng(SEED + 3), 2, 5, refused)
+    batch, noise = tuple(x.to(dev) for x in batch), _noise_to(noise, dev)
+    try:
+        refused.shared_step(batch, noise)
+    except ValueError as e:
+        if "use_pallas_train=False" not in str(e):
+            raise
+        print(f"refused shape (a category block of 33): {e}")
+    else:
+        raise RuntimeError("the kernels took a category block of 33")
+    plain = MoPoEMRSSM(MRSSMConfig(use_pallas_train=False, **wide)).to(dev)
+    plain.load_state_dict(refused.state_dict())
+    reset_launch_counts()
+    loss = float(plain.shared_step(batch, noise)["loss"].detach())
+    _zero_route_launches(launch_counts(), "the refused shape")
+    if not np.isfinite(loss):
+        raise RuntimeError("the plain route's loss on the refused shape is not finite")
+    print(f"the same shape on the plain route: loss {loss:.6g}, no recurrence launch")
+
+    for family, cfg_cls in ((MoPoEMRSSM, MRSSMConfig), (MoPoEMMTRSSM, MMTRSSMConfig)):
+        model = family(cfg_cls()).init(torch.Generator().manual_seed(SEED)).to(dev)
+        batch, _ = _train_batch(np.random.default_rng(SEED + 4), 8, 180, model)
+        try:
+            one_update(model, AdamW(model.parameters()), tuple(x.to(dev) for x in batch),
+                       torch.Generator(device=dev).manual_seed(SEED))
+            torch.cuda.synchronize()
+            print(f"T=180: a {family.__name__} train step at B=8 T=180 runs on the kernels "
+                  "(demo_e2e --seq-len 180 takes the kernel route)")
+        except ValueError as e:
+            print(f"T=180: the {family.__name__} kernels refuse B=8 T=180: {e}")
+    return counts
+
+
+def _plain_step_ms(kernel, plain, dev) -> tuple[float, float]:
+    """Median ms of a train step (forward, backward, AdamW) at B=8 T=30 on
+    the kernel route and on the plain route, the same weights and batch."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.train import AdamW, one_update
+
+    batch, _ = _train_batch(np.random.default_rng(SEED + 8), 8, 30, kernel)
+    batch = tuple(x.to(dev) for x in batch)
+    out = []
+    for model in (kernel, plain):
+        opt = AdamW(model.parameters())
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        out.append(_median_ms(lambda: one_update(model, opt, batch, gen), 5, warmup=2))
+    return out[0], out[1]
+
+
+def drive_precision(dev, work: Path, card: str) -> dict:
+    """Phase 8(c), ``trainer.precision: 16-mixed``: ``configs/mopoe_mrssm.yaml``
+    and ``mopoe_mmtrssm.yaml`` with ``precision: 16-mixed`` at ``conv_layout``
+    nhwc (cuDNN in bf16) and fused_enc (the bf16 encoder kernels) fit 2
+    epochs × 3 steps at B=8 T=30 on 24 synthetic episodes: finite losses, no
+    f32 encoder kernel, at fused_enc the bf16 encoder kernels twice a step
+    each way (and at nhwc none); an observe's launches; then one train step
+    of the fit's model on the card against the CPU route at the bf16 bounds
+    (MIXED_*), and the train step's time and device breakdown. Returns the
+    fits' and observes' launch counts."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.data import generate_synthetic_audio_mnist
+    from multimodal_mtrssm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from multimodal_mtrssm_tpu_torch.train.config import load_experiment
+    from multimodal_mtrssm_tpu_torch.train.entry import default_config_path
+
+    episodes = work / "episodes"
+    generate_synthetic_audio_mnist(episodes, n_episodes=24, seed=SEED)
+    total: dict[str, int] = {}
+    for family in ("mrssm", "mmtrssm"):
+        rec = "recurrence" if family == "mrssm" else "mt_recurrence"
+        for layout in ("nhwc", "fused_enc"):
+            exp = load_experiment(default_config_path(f"mopoe_{family}.yaml"), {
+                "trainer": {"precision": "16-mixed", "max_epochs": 2},
+                "model": {"init_args": {"conv_layout": layout}}})
+            if exp.model.cfg.conv_dtype != torch.bfloat16:
+                raise RuntimeError("16-mixed did not set the bf16 conv dtype")
+            exp.data.data_dir = episodes
+            exp.trainer.seed = SEED
+            exp.trainer.log_dir = str(work / f"{family}_{layout}")
+            trainer = exp.build_trainer(device=dev)
+            reset_launch_counts()
+            out = trainer.fit()
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            steps = out["global_step"]
+            label = f"{family} 16-mixed {layout}"
+            if not all(np.isfinite(v) for row in out["history"] for v in row.values()):
+                raise RuntimeError(f"{label}: non-finite training metrics")
+            enc = (counts["fused_encoder_fwd_bf16"], counts["fused_encoder_bwd_bf16"])
+            want = (2 * steps, 2 * steps) if layout == "fused_enc" else (0, 0)
+            if (counts["fused_encoder_fwd"] or counts["fused_encoder_bwd"] or
+                    enc[1] != want[1] or enc[0] < want[0] or counts[f"{rec}_bwd"] != steps):
+                raise RuntimeError(f"{label}: launches {counts} over {steps} steps")
+            print(f"main-path kernel launches, {label} fit, {steps} optimizer steps: {counts}; "
+                  f"{out['history'][-1]['train/loss']:.6g} train/loss last epoch; "
+                  f"{steps / max(out['train_seconds'], 1e-9):.3f} steps/s | {card}")
+            total = {k: total.get(k, 0) + v for k, v in counts.items()}
+            model = trainer.model
+            batch, noise = _train_batch(np.random.default_rng(SEED + 5), 8, 30, model)
+            reset_launch_counts()
+            with torch.no_grad():
+                model.observe(*(x.to(dev) for x in batch[:3]), _noise_to(noise, dev))
+            torch.cuda.synchronize()
+            seen = launch_counts()
+            if seen["fused_encoder_fwd"] or (layout == "fused_enc") != bool(
+                    seen["fused_encoder_fwd_bf16"]):
+                raise RuntimeError(f"{label}: an observe launched {seen}")
+            print(f"main-path kernel launches, {label} observe B=8 T=30: {seen}")
+            total = {k: total[k] + v for k, v in seen.items()}
+            cpu_model = type(model)(model.cfg)
+            cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+            r = _step_vs(model, cpu_model, dev, torch.device("cpu"), MIXED_RTOL, MIXED_REL,
+                         MIXED_TIE, (2, 5))
+            print(f"train step card vs CPU, {label} B=2 T=5 (seed {r['seed']}): loss err/loss "
+                  f"{max(r['loss_rel_errs'].values()):.3g} (limit {MIXED_RTOL}), grad "
+                  f"max_abs_err {r['grad_max_abs_err']:.3g} (limit {MIXED_REL} x "
+                  f"{r['grad_scale']:.4g})")
+            step_timings(model, dev, card)
+    return total
+
+
+def drive_learning_path(dev, work: Path) -> dict:
+    """Phase 8(d): ``demo_e2e`` and ``probe_transitions`` of each family at
+    one seed, 2 epochs and 24 episodes on the card (the decisive flags), as
+    path checks: the results' and the probe's keys. Returns the launch
+    counts."""
+    from multimodal_mtrssm_tpu_torch import demo_e2e, probe_transitions
+    from multimodal_mtrssm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    for family in ("mrssm", "mmtrssm"):
+        t0 = time.perf_counter()
+        demo_e2e.main(["--workdir", str(work / f"demo_{family}"), "--model", family, "--epochs",
+                       "2", "--episodes", "24", "--frames-per-word", "1", "--query-length", "1",
+                       "--classify-frame", "1"])
+        results = json.loads((work / f"demo_{family}" / "results" /
+                              "word_transitions.json").read_text())
+        if set(results) != {"per_word", "summary"}:
+            raise RuntimeError(f"demo_e2e {family}: results keys {set(results)}")
+        payload = probe_transitions.main(["--workdir", str(work / f"probe_{family}"), "--model",
+                                          family, "--epochs", "2", "--episodes", "24"])
+        if set(payload) != {"means", "per_digit"} or set(payload["means"]) != {
+                "frame1", "frame2", "frame3"}:
+            raise RuntimeError(f"probe_transitions {family}: keys {set(payload)}")
+        print(f"demo_e2e + probe_transitions {family} (1 seed, 2 epochs, 24 episodes): MR "
+              f"{results['summary']['mean_matching_rate']:.3f}, probe means {payload['means']}, "
+              f"{time.perf_counter() - t0:.1f} s")
+    return launch_counts()
+
+
+# The learning demonstration's long runs (--learning-demo): each is one
+# process of `python -m <argv>` with its own --workdir, started together on
+# the one card. The demo at the JAX script's decisive flags, 5 seeds of each
+# family; the cross-modal experiment at 100 epochs x 3 seeds; the probe at its
+# defaults, for each family.
+DECISIVE = ("--frames-per-word", "1", "--query-length", "1", "--classify-frame", "1",
+            "--epochs", "100", "--episodes", "96", "--seeds", "5")
+LEARNING_RUNS = {
+    "mrssm": ("multimodal_mtrssm_tpu_torch.demo_e2e", "--model", "mrssm", *DECISIVE),
+    "mmtrssm": ("multimodal_mtrssm_tpu_torch.demo_e2e", "--model", "mmtrssm", *DECISIVE),
+    "crossmodal": ("multimodal_mtrssm_tpu_torch.crossmodal_e2e", "--epochs", "100", "--seeds", "3"),
+    "probe_mrssm": ("multimodal_mtrssm_tpu_torch.probe_transitions", "--model", "mrssm"),
+    "probe_mmtrssm": ("multimodal_mtrssm_tpu_torch.probe_transitions", "--model", "mmtrssm"),
+}
+# What of a run's work directory is kept (the episodes, checkpoints and GIFs
+# are not): summaries, per-seed results and reports, each run's metrics.
+LEARNING_KEEP = ("summary*.json", "probe.json", "**/word_transitions*.json",
+                 "**/crossmodal_recon.json", "**/metrics.jsonl")
+
+
+LEARNING_OUT = Path("runs") / "learning_demo"
+
+
+def learning_demo_phase(out: Path = LEARNING_OUT) -> int:
+    """``--learning-demo``: the long runs of :data:`LEARNING_RUNS` on the
+    card, all at once (each process's log and what :data:`LEARNING_KEEP`
+    names are copied under ``out``); prints each run's last lines and no
+    contract lines. Fails if a run fails."""
+    import os
+    import shutil
+
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels import build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
+        return 2
+    card = card_line()
+    print(card)
+    build.load_library()  # built once here, then loaded by every run
+    out.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for name, argv in LEARNING_RUNS.items():
+            log = open(out / f"{name}.log", "w")  # noqa: SIM115 (closed below)
+            procs[name] = (subprocess.Popen([sys.executable, "-m", *argv, "--workdir",
+                                             str(Path(tmp) / name)], stdout=log,
+                                            stderr=subprocess.STDOUT, env=env,
+                                            cwd=Path(__file__).resolve().parent), log)
+            _CHILDREN.append(procs[name][0])
+        failed = []
+        for name, (proc, log) in procs.items():
+            code = proc.wait()
+            log.close()
+            print(f"learning demo {name}: exit {code} after {time.perf_counter() - t0:.1f} s | "
+                  f"{card}")
+            print("\n".join((out / f"{name}.log").read_text().splitlines()[-12:]))
+            if code != 0:
+                failed.append(name)
+            for pattern in LEARNING_KEEP:
+                for src in (Path(tmp) / name).glob(pattern):
+                    dst = out / name / src.relative_to(Path(tmp) / name)
+                    dst.parent.mkdir(parents=True, exist_ok=True)
+                    shutil.copy2(src, dst)
+    if failed:
+        print(f"learning demo: failed runs {failed}", file=sys.stderr)
+        return 1
+    return 0
+
+
 def main() -> int:
     """Every phase; the fit runs' episodes and checkpoints live in a
     temporary directory removed at the end."""
@@ -3273,11 +3782,23 @@ def _main(work: Path) -> int:
     runs.append(drive_crossmodal(dev, work / "crossmodal", eval_inputs["test_data"],
                                  card)["counts"])
 
+    # Phase 8: the bf16 encoder kernels, the plain route by name, 16-mixed
+    # from the YAMLs, the learning demonstration's path.
+    with torch.no_grad():
+        checks.update(check_bf16_encoder(fs_model, dev))
+        bf_times, bf_library, bf_bounds = bf16_encoder_timings(fs_model, dev, card)
+    times.update(bf_times)
+    bounds.update(bf_bounds)
+    library.update(bf_library)
+    runs.append(drive_plain_route(dev, card))
+    runs.append(drive_precision(dev, work / "precision", card))
+    runs.append(drive_learning_path(dev, work / "learning"))
+
     ptxas_report(ptxas)
     launches = {k: sum(run.get(k, 0) for run in runs) for k in runs[0]}
     print("main-path launches, serving + training of the four configurations, resume, the "
-          "train command and evaluation of the first two, the fused decoder path and the "
-          f"cross-modal run: {launches}")
+          "train command and evaluation of the first two, the fused decoder path, the "
+          f"cross-modal run and phase 8: {launches}")
     pkg = "multimodal_mtrssm_tpu_torch"
     pallas = "multimodal_mtrssm_tpu/ops/pallas"
     meta = {
@@ -3300,13 +3821,18 @@ def _main(work: Path) -> int:
         # The same TPU kernels as fused_decoder_apply (fused_conv.py:766) reaches them.
         "fused_decoder_fwd": (f"{pkg}/csrc/fused_decoder_fwd.cu", f"{pallas}/fused_conv.py:455"),
         "fused_decoder_bwd": (f"{pkg}/csrc/fused_decoder_bwd.cu", f"{pallas}/fused_conv.py:461"),
+        # The encoder's TPU kernels at dtype=bfloat16 (fused_conv.py:561 on bf16 frames).
+        "fused_encoder_fwd_bf16": (f"{pkg}/csrc/fused_encoder_bf16_fwd.cu",
+                                   f"{pallas}/fused_conv.py:455"),
+        "fused_encoder_bwd_bf16": (f"{pkg}/csrc/fused_encoder_bf16_bwd.cu",
+                                   f"{pallas}/fused_conv.py:461"),
     }
     missing = [name for name in meta if launches[name] < 1]
     if missing:
         raise RuntimeError(f"the main paths never launched {missing}")
     for name, b in bounds.items():
         print(f"bound {name}: {b['flops']:.4g} FLOP, {b['bytes']:.4g} bytes -> {b['bound_ms']:.6f} "
-              f"ms, bound by {b['bound_by']} (f32 67 TFLOP/s, 3.35 TB/s)")
+              f"ms, bound by {b['bound_by']} ({b['peak'] / 1e12:g} TFLOP/s, 3.35 TB/s)")
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "max_abs_err": checks[name]["max_abs_err"],
                 "ms": times[name][0], "plain_ms": times[name][1],
@@ -3326,8 +3852,12 @@ if __name__ == "__main__":
                  "--mt-recurrence-bwd": mt_recurrence_bwd_phase,
                  "--mt-recurrence-fwd": mt_recurrence_fwd_phase,
                  "--recurrence-fwd": recurrence_fwd_phase, "--rollout": rollout_phase,
-                 "--stacked-recurrence-bwd": stacked_recurrence_bwd_phase}
-        code = modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes else main()
+                 "--stacked-recurrence-bwd": stacked_recurrence_bwd_phase,
+                 "--learning-demo": learning_demo_phase}
+        if sys.argv[1:2] == ["--learning-demo"] and len(sys.argv) > 2:
+            code = learning_demo_phase(Path(sys.argv[2]))
+        else:
+            code = modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes else main()
     finally:
         for child in _CHILDREN:
             if child.poll() is None:

@@ -56,13 +56,31 @@ def train_variant(args, work: Path, seed: int, variant: str, train_dir: Path):
     exp.data.data_dir = train_dir
     if variant == "random":
         exp.data.drop_modality = "random"
-    trainer = exp.build_trainer(device=args.device)
+    return fit_best(exp, args.device, f"[seed {seed}][{variant}]")
+
+
+def fit_best(exp, device: str, tag: str, callbacks=()):
+    """Train ``exp`` on ``device`` with ``callbacks``, print its first and
+    last epochs' losses after ``tag``, and return the best-weights model."""
+    trainer = exp.build_trainer(device=device)
+    trainer.callbacks.extend(callbacks)
     out = trainer.fit()
     first, last = out["history"][0], out["history"][-1]
-    print(f"[seed {seed}][{variant}] train/loss {first['train/loss']:.1f} -> "
-          f"{last['train/loss']:.1f}; val/loss {first['val/loss']:.1f} -> "
-          f"{last['val/loss']:.1f}", flush=True)
+    print(f"{tag} train/loss {first['train/loss']:.1f} -> {last['train/loss']:.1f}; "
+          f"val/loss {first['val/loss']:.1f} -> {last['val/loss']:.1f}", flush=True)
     return trainer.load_best_params(trainer.model).eval()
+
+
+def labeled_frames(test_data: list[dict], every: int = 1) -> tuple[np.ndarray, np.ndarray]:
+    """Every ``every``-th labeled vision frame of the episodes as ``[N, 32,
+    32, 1]`` floats in [0, 1], and their digits: the classifier's data."""
+    imgs, labels = [], []
+    for d in test_data:
+        for t in range(0, d["image"].shape[0], every):
+            if int(d["label"][t]) >= 0:
+                imgs.append(d["image"][t, 0] / 255.0)
+                labels.append(int(d["label"][t]))
+    return np.asarray(imgs, np.float32)[..., None], np.asarray(labels, np.int32)
 
 
 def run_seed(args, work: Path, seed: int) -> dict:
@@ -85,14 +103,7 @@ def run_seed(args, work: Path, seed: int) -> dict:
                                            frames_per_word=args.frames_per_word, seed=seed,
                                            n_successors=args.n_successors)
     test_data = load_test_data_with_labels(eval_dir)
-    imgs, labels = [], []
-    for d in test_data:
-        for t in range(0, d["image"].shape[0], 3):
-            if int(d["label"][t]) >= 0:
-                imgs.append(d["image"][t, 0] / 255.0)
-                labels.append(int(d["label"][t]))
-    clf = train_classifier(np.asarray(imgs, np.float32)[..., None], np.asarray(labels, np.int32),
-                           num_epochs=3, device=args.device)
+    clf = train_classifier(*labeled_frames(test_data, every=3), num_epochs=3, device=args.device)
 
     seed_out: dict = {"seed": seed, "variants": {}}
     for variant in _variants(args):

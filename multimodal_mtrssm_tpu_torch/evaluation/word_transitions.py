@@ -43,6 +43,7 @@ from multimodal_mtrssm_tpu_torch.data.transforms import (
 from multimodal_mtrssm_tpu_torch.evaluation.classifier import MNISTClassifier, classifier_logits
 from multimodal_mtrssm_tpu_torch.models import WorldModelNet
 from multimodal_mtrssm_tpu_torch.models.mrssm import draw_gumbels
+from multimodal_mtrssm_tpu_torch.nn.conv import cast_conv_in, cast_conv_out
 from multimodal_mtrssm_tpu_torch.train.steps import fold
 
 WORD_SET = list(range(10))
@@ -245,7 +246,8 @@ def predict_word(model: WorldModelNet, classifier: MNISTClassifier, intervals: l
     initial = model.initial_state(torch.as_tensor(a0, device=device),
                                   torch.as_tensor(v0, device=device), *init_noise.values())
     states = model.rollout_transition(actions, _repeat_rows(initial, P), int(seed))
-    frame = model.vision_decoder(states[:, classify_frame].feature)  # [I·P, H, W, C]
+    feature = cast_conv_in(model.cfg, states[:, classify_frame].feature)
+    frame = cast_conv_out(model.cfg, model.vision_decoder(feature))  # [I·P, H, W, C]
     logits = classifier_logits(classifier, (frame + 1.0) / 2.0)
     return {"digits": logits.argmax(-1), "logits": logits, "initial": initial,
             "init_noise": init_noise, "states": states, "seed": int(seed)}

@@ -34,11 +34,19 @@ from torch import nn
 from multimodal_mtrssm_tpu_torch.models.mrssm import (
     Representation,
     add_input_noise,
+    check_precision_fields,
+    decode_pair,
     draw_gumbels,
     encode_pair,
 )
 from multimodal_mtrssm_tpu_torch.models.state import MTState
-from multimodal_mtrssm_tpu_torch.nn.conv import Decoder, DecoderConfig, Encoder, EncoderConfig
+from multimodal_mtrssm_tpu_torch.nn.conv import (
+    Decoder,
+    DecoderConfig,
+    Encoder,
+    EncoderConfig,
+    cast_conv_out,
+)
 from multimodal_mtrssm_tpu_torch.nn.core import MTRNN, init_fan_in_uniform_, mlp
 from multimodal_mtrssm_tpu_torch.ops.distributions import MultiOneHot, kl_balanced, st_sample
 from multimodal_mtrssm_tpu_torch.ops.kernels import (
@@ -85,13 +93,23 @@ class MMTRSSMConfig:
     vision_encoder: EncoderConfig = dataclasses.field(default_factory=EncoderConfig)
     audio_decoder: DecoderConfig | None = None
     vision_decoder: DecoderConfig | None = None
-    # "auto" or True: the hierarchical recurrence kernels. "stacked" is
-    # MRSSM-only and raises here, as do the JAX package's False, None and
-    # debug modes (ops.kernels.resolve_train_kernel_mode).
-    use_pallas_train: bool | str = "auto"
+    # "auto" or True: the hierarchical recurrence kernels; False or None:
+    # the plain route, as MRSSMConfig's. "stacked" is MRSSM-only and raises
+    # here, as do the JAX package's debug modes
+    # (ops.kernels.resolve_train_kernel_mode).
+    use_pallas_train: bool | str | None = "auto"
     # As MRSSMConfig.conv_layout: "fused_enc" runs the fused encoder
     # kernels; "auto", "nhwc" and "s2d" the canonical cuDNN layout.
     conv_layout: str = "auto"
+    # As MRSSMConfig's: remat (both routes recompute a step from the saved
+    # carries already), scan_unroll (accepted and unused) and conv_dtype
+    # (None or torch.bfloat16, trainer.precision 16-mixed).
+    remat: bool = False
+    scan_unroll: int = 1
+    conv_dtype: torch.dtype | None = None
+
+    def __post_init__(self):
+        check_precision_fields(self)
 
     @property
     def hs_dim(self) -> int:
@@ -128,7 +146,7 @@ class MoPoEMMTRSSM(nn.Module):
         cfg = self.cfg = config or MMTRSSMConfig()
         self.fused_enc = resolve_conv_layout(
             cfg.conv_layout, (cfg.audio_encoder, cfg.vision_encoder)) == "fused_enc"
-        resolve_train_kernel_mode(cfg.use_pallas_train, "mmtrssm")
+        self.plain = resolve_train_kernel_mode(cfg.use_pallas_train, "mmtrssm") == "plain"
         A, E, act = cfg.action_size, cfg.obs_embed_size, cfg.activation_name
         HD, LD, HS, LS, C = cfg.hd_dim, cfg.ld_dim, cfg.hs_dim, cfg.ls_dim, cfg.prior_cells
         self.l_rnn = MTRNN(A + LS + HS, LD, cfg.l_tau)
@@ -169,13 +187,14 @@ class MoPoEMMTRSSM(nn.Module):
     # ---- encode / initial state ---------------------------------------------
     def encode_embeds(self, audio_obs: torch.Tensor,
                       vision_obs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """Per-modality embeddings of NHWC frames ``[..., H, W, C]``."""
+        """Per-modality embeddings of NHWC frames ``[..., H, W, C]``, in the
+        conv dtype (``encode_pair``)."""
         return encode_pair(self, audio_obs, vision_obs)
 
     def encode_observation(self, audio_obs: torch.Tensor, vision_obs: torch.Tensor) -> torch.Tensor:
         """Mean-fused embedding (reference ``mopoe_mrssm/core.py:165-182``)."""
         a, v = self.encode_embeds(audio_obs, vision_obs)
-        return (a + v) / 2.0
+        return cast_conv_out(self.cfg, (a + v) / 2.0)
 
     def initial_state_from_embed(self, embed: torch.Tensor, g_init_h: torch.Tensor,
                                  g_init_l: torch.Tensor) -> MTState:
@@ -242,9 +261,9 @@ class MoPoEMMTRSSM(nn.Module):
     def _rollout_from_embeds(self, actions: torch.Tensor, a_emb: torch.Tensor,
                              v_emb: torch.Tensor, prev_state: MTState,
                              noise: Mapping[str, torch.Tensor]) -> tuple[MTState, MTState]:
-        """The recurrence on per-modality embeddings ``[B, T, E]`` and the
-        sites' ``[T, B, ·]`` noise; returns ``(posterior, prior)``, time on
-        axis 1."""
+        """The recurrence on per-modality embeddings ``[B, T, E]`` (in the
+        conv dtype) and the sites' ``[T, B, ·]`` noise; returns
+        ``(posterior, prior)``, time on axis 1."""
         cfg = self.cfg
         tm = lambda x: x.transpose(0, 1).contiguous()  # noqa: E731
         p = prev_state
@@ -252,8 +271,10 @@ class MoPoEMMTRSSM(nn.Module):
                                                p.hidden_h, p.hidden_l))
         gumbels = tuple(noise[k].contiguous() for k in ("g_lprior", "g_lpost", "g_hprior",
                                                         "g_hpost"))
-        outs = fused_mt_train_recurrence(self.recurrence_weights(), tm(actions), tm(a_emb),
-                                         tm(v_emb), init6, gumbels, cfg.spec, cfg.activation_name)
+        outs = fused_mt_train_recurrence(
+            self.recurrence_weights(), tm(actions), tm(cast_conv_out(cfg, a_emb)),
+            tm(cast_conv_out(cfg, v_emb)), init6, gumbels, cfg.spec, cfg.activation_name,
+            self.plain)
         (h_deter, l_deter, hid_h, hid_l, lp_logits, lp_stoch, mixed, l_stoch,
          hp_logits, hp_stoch, hq_logits, h_stoch) = (x.transpose(0, 1) for x in outs)
         prior = MTState(deter_h=h_deter, deter_l=l_deter, stoch_h=hp_stoch, stoch_l=lp_stoch,
@@ -275,16 +296,14 @@ class MoPoEMMTRSSM(nn.Module):
                                                p.hidden_h, p.hidden_l))
         (h_deter, l_deter, h_logits, l_logits, h_stoch, l_stoch, hid_h,
          hid_l) = fused_mt_rollout_transition(self.rollout_weights(), actions.contiguous(), init6,
-                                              seed, cfg.spec, cfg.activation_name)
+                                              seed, cfg.spec, cfg.activation_name, self.plain)
         return MTState(deter_h=h_deter, deter_l=l_deter, stoch_h=h_stoch, stoch_l=l_stoch,
                        logits_h=h_logits, logits_l=l_logits, hidden_h=hid_h, hidden_l=hid_l)
 
     def decode_state(self, state: MTState) -> dict[str, torch.Tensor]:
         """Reconstruct both modalities as NHWC frames from the 96-wide
         feature (reference ``core.py:546-561``)."""
-        feature = state.feature
-        return {"recon/audio": self.audio_decoder(feature),
-                "recon/vision": self.vision_decoder(feature)}
+        return decode_pair(self, state.feature)
 
     # ---- the ELBO -----------------------------------------------------------
     def _l_dist(self, logits: torch.Tensor) -> MultiOneHot:
@@ -340,7 +359,8 @@ class MoPoEMMTRSSM(nn.Module):
         action_in, audio_in, vision_in = add_input_noise(
             self.cfg.input_noise_std, (action_in, audio_in, vision_in), noise, generator)
         a_emb, v_emb = self.encode_embeds(audio_in, vision_in)
-        init = self.initial_state_from_embed((a_emb[:, 0] + v_emb[:, 0]) / 2.0,
-                                             gumbels["g_init_h"], gumbels["g_init_l"])
+        init = self.initial_state_from_embed(
+            cast_conv_out(self.cfg, (a_emb[:, 0] + v_emb[:, 0]) / 2.0), gumbels["g_init_h"],
+            gumbels["g_init_l"])
         posterior, prior = self._rollout_from_embeds(action_in, a_emb, v_emb, init, gumbels)
         return init, posterior, prior, gumbels

@@ -26,7 +26,14 @@ import torch
 from torch import nn
 
 from multimodal_mtrssm_tpu_torch.models.state import State
-from multimodal_mtrssm_tpu_torch.nn.conv import Decoder, DecoderConfig, Encoder, EncoderConfig
+from multimodal_mtrssm_tpu_torch.nn.conv import (
+    Decoder,
+    DecoderConfig,
+    Encoder,
+    EncoderConfig,
+    cast_conv_in,
+    cast_conv_out,
+)
 from multimodal_mtrssm_tpu_torch.nn.core import Transition, init_fan_in_uniform_, mlp
 from multimodal_mtrssm_tpu_torch.ops.distributions import (
     MultiOneHot,
@@ -75,14 +82,31 @@ class MRSSMConfig:
     vision_decoder: DecoderConfig | None = None
     # The representation recurrence's kernels: "auto" or True, the
     # recurrence kernels; "stacked", the stacked-layout kernels (fewer,
-    # wider products a step). The JAX package's False, None and debug
-    # modes raise (ops.kernels.resolve_train_kernel_mode).
-    use_pallas_train: bool | str = "auto"
+    # wider products a step); False or None, the plain route: the
+    # recurrence and the rollout as their plain versions on any device, for
+    # any activation and shape (JAX's XLA scan; unlike JAX it also selects
+    # imagination's route). The JAX package's debug modes raise
+    # (ops.kernels.resolve_train_kernel_mode).
+    use_pallas_train: bool | str | None = "auto"
+    # JAX's jax.checkpoint of the scan step. Both of the port's routes
+    # already recompute a step in the backward from the saved carries (the
+    # backward kernels, and RecurrenceFunction, which saves the inputs and
+    # the carries only), so True and False train alike.
+    remat: bool = False
+    # JAX's lax.scan unroll factor: accepted and unused (no scan here).
+    scan_unroll: int = 1
+    # The conv stacks' dtype: None (float32) or torch.bfloat16, which
+    # trainer.precision 16-mixed selects: bf16 encoders and decoders, the
+    # recurrence and the ELBO in float32 (nn.conv.cast_conv_in/out).
+    conv_dtype: torch.dtype | None = None
     # "fused_enc": both encoders run the fused encoder kernels, and
     # construction raises if an encoder is not eligible; "auto", "nhwc" and
     # "s2d" run the canonical cuDNN layout (s2d is a TPU lane layout of the
     # same math, not ported). ops.kernels.resolve_conv_layout.
     conv_layout: str = "auto"
+
+    def __post_init__(self):
+        check_precision_fields(self)
 
     @property
     def stoch_size(self) -> int:
@@ -117,7 +141,8 @@ class MoPoEMRSSM(nn.Module):
         cfg = self.cfg = config or MRSSMConfig()
         self.fused_enc = resolve_conv_layout(
             cfg.conv_layout, (cfg.audio_encoder, cfg.vision_encoder)) == "fused_enc"
-        self.stacked = resolve_train_kernel_mode(cfg.use_pallas_train, "mrssm") == "stacked"
+        mode = resolve_train_kernel_mode(cfg.use_pallas_train, "mrssm")
+        self.stacked, self.plain = mode == "stacked", mode == "plain"
         S, D, H, E = cfg.stoch_size, cfg.deterministic_size, cfg.hidden_size, cfg.obs_embed_size
         self.transition = Transition(cfg.action_size, S, H, D, cfg.activation_name)
         self.audio_representation = Representation(D + E, S, H, cfg.activation_name)
@@ -147,13 +172,14 @@ class MoPoEMRSSM(nn.Module):
     # ---- encode / initial state ---------------------------------------------
     def encode_embeds(self, audio_obs: torch.Tensor,
                       vision_obs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """Per-modality embeddings of NHWC frames ``[..., H, W, C]``."""
+        """Per-modality embeddings of NHWC frames ``[..., H, W, C]``, in the
+        conv dtype (:func:`encode_pair`)."""
         return encode_pair(self, audio_obs, vision_obs)
 
     def encode_observation(self, audio_obs: torch.Tensor, vision_obs: torch.Tensor) -> torch.Tensor:
         """Mean-fused embedding (reference ``mopoe_mrssm/core.py:165-182``)."""
         a, v = self.encode_embeds(audio_obs, vision_obs)
-        return (a + v) / 2.0
+        return cast_conv_out(self.cfg, (a + v) / 2.0)
 
     def initial_state_from_embed(self, embed: torch.Tensor, gumbel: torch.Tensor) -> State:
         """Initial latent from a fused embedding ``[B, E]``; the stoch is the
@@ -211,17 +237,19 @@ class MoPoEMRSSM(nn.Module):
     def _rollout_from_embeds(self, actions: torch.Tensor, a_emb: torch.Tensor,
                              v_emb: torch.Tensor, prev_state: State, g_prior: torch.Tensor,
                              g_post: torch.Tensor) -> tuple[State, State]:
-        """The recurrence on per-modality embeddings ``[B, T, E]`` and
-        ``[T, B, S]`` noise; returns ``(posterior, prior)``, time on axis 1."""
+        """The recurrence on per-modality embeddings ``[B, T, E]`` (in the
+        conv dtype) and ``[T, B, S]`` noise; returns ``(posterior, prior)``,
+        time on axis 1."""
         cfg = self.cfg
         tm = lambda x: x.transpose(0, 1).contiguous()  # noqa: E731
-        recurrence = fused_train_recurrence_stacked if self.stacked else fused_train_recurrence
-        outs = recurrence(
-            self.representation_weights(), tm(actions), tm(a_emb), tm(v_emb),
-            prev_state.deter.contiguous(), prev_state.stoch.contiguous(),
-            g_prior.contiguous(), g_post.contiguous(),
-            cfg.class_size, cfg.category_size, cfg.activation_name,
-        )
+        args = (self.representation_weights(), tm(actions), tm(cast_conv_out(cfg, a_emb)),
+                tm(cast_conv_out(cfg, v_emb)), prev_state.deter.contiguous(),
+                prev_state.stoch.contiguous(), g_prior.contiguous(), g_post.contiguous(),
+                cfg.class_size, cfg.category_size, cfg.activation_name)
+        if self.stacked:
+            outs = fused_train_recurrence_stacked(*args)
+        else:
+            outs = fused_train_recurrence(*args, plain=self.plain)
         deter, prior_logits, prior_stoch, mixed, post_stoch = (x.transpose(0, 1) for x in outs)
         posterior = State(deter=deter, stoch=post_stoch, logits=mixed)
         prior = State(deter=deter, stoch=prior_stoch, logits=prior_logits)
@@ -237,16 +265,14 @@ class MoPoEMRSSM(nn.Module):
         deters, logits, stochs = fused_rollout_transition(
             self.transition.weights(), actions.contiguous(), prev_state.deter.contiguous(),
             prev_state.stoch.contiguous(), seed, cfg.class_size, cfg.category_size,
-            cfg.activation_name,
+            cfg.activation_name, self.plain,
         )
         return State(deter=deters, stoch=stochs, logits=logits)
 
     def decode_state(self, state: State) -> dict[str, torch.Tensor]:
         """Reconstruct both modalities as NHWC frames (reference
         ``mopoe_mrssm/core.py:262-277``)."""
-        feature = state.feature
-        return {"recon/audio": self.audio_decoder(feature),
-                "recon/vision": self.vision_decoder(feature)}
+        return decode_pair(self, state.feature)
 
     # ---- the ELBO -----------------------------------------------------------
     def _dist(self, logits: torch.Tensor) -> MultiOneHot:
@@ -299,20 +325,42 @@ class MoPoEMRSSM(nn.Module):
         action_in, audio_in, vision_in = add_input_noise(
             cfg.input_noise_std, (action_in, audio_in, vision_in), noise, generator)
         a_emb, v_emb = self.encode_embeds(audio_in, vision_in)
-        init = self.initial_state_from_embed((a_emb[:, 0] + v_emb[:, 0]) / 2.0, gumbels[0])
+        init = self.initial_state_from_embed(
+            cast_conv_out(cfg, (a_emb[:, 0] + v_emb[:, 0]) / 2.0), gumbels[0])
         posterior, prior = self._rollout_from_embeds(action_in, a_emb, v_emb, init, *gumbels[1:])
         return init, posterior, prior, gumbels
 
 
+def check_precision_fields(cfg) -> None:
+    """Either family's ``remat``, ``scan_unroll`` and ``conv_dtype``."""
+    if not isinstance(cfg.remat, bool):
+        raise ValueError(f"remat must be a bool, got {cfg.remat!r}")
+    if isinstance(cfg.scan_unroll, bool) or not isinstance(cfg.scan_unroll, int) \
+            or cfg.scan_unroll < 1:
+        raise ValueError(f"scan_unroll must be an int >= 1, got {cfg.scan_unroll!r}")
+    if cfg.conv_dtype not in (None, torch.bfloat16):
+        raise ValueError(f"conv_dtype must be None or torch.bfloat16, got {cfg.conv_dtype!r}")
+
+
 def encode_pair(model: nn.Module, audio_obs: torch.Tensor,
                 vision_obs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Both encoders of either family on NHWC frames: the fused encoder
+    """Both encoders of either family on NHWC frames, in the model's conv
+    dtype (``cast_conv_in``; the caller casts out): the fused encoder
     kernels when ``model.fused_enc``, else the canonical cuDNN modules
     (JAX ``models/mrssm.py::_encode_embeds``)."""
+    audio_obs, vision_obs = cast_conv_in(model.cfg, audio_obs), cast_conv_in(model.cfg, vision_obs)
     if model.fused_enc:
         return (fused_encoder_apply(model.audio_encoder, audio_obs),
                 fused_encoder_apply(model.vision_encoder, vision_obs))
     return model.audio_encoder(audio_obs), model.vision_encoder(vision_obs)
+
+
+def decode_pair(model: nn.Module, feature: torch.Tensor) -> dict[str, torch.Tensor]:
+    """Both decoders of either family on ``[..., feature]``, through the
+    conv-dtype casts: float32 NHWC frames."""
+    x = cast_conv_in(model.cfg, feature)
+    return {"recon/audio": cast_conv_out(model.cfg, model.audio_decoder(x)),
+            "recon/vision": cast_conv_out(model.cfg, model.vision_decoder(x))}
 
 
 def draw_gumbels(shapes: Mapping[str, tuple[int, ...]], generator: torch.Generator | None,

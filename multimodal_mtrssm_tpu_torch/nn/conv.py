@@ -14,6 +14,15 @@ Module names follow the slot paths ``train/torch_export.py`` writes
 ``deconvs.i``). The encoder head reads the conv output flattened in CHW
 order, torch's own, which is the order the exporter permutes the head
 weights into.
+
+Mixed precision (``trainer.precision: 16-mixed``, a model's ``conv_dtype``
+bf16): :func:`cast_conv_in` and :func:`cast_conv_out` are the one pair of
+casts every encoder and decoder call site of both families goes through
+(JAX ``nn/conv.py:45-59``). The stacks run in their input's dtype: the
+parameters stay float32 masters and are cast inside each layer, so their
+gradients reach them in float32. Nothing else of the model changes dtype:
+the recurrence and the ELBO stay float32 (no ``torch.autocast``, which
+would cast the recurrence's linears too).
 """
 
 from __future__ import annotations
@@ -21,9 +30,51 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from multimodal_mtrssm_tpu_torch.nn.core import Act, activation
+
+
+def cast_conv_in(model_cfg: object, x: torch.Tensor) -> torch.Tensor:
+    """A conv stack's input in the model's ``conv_dtype`` (unchanged when it
+    is None)."""
+    cd = getattr(model_cfg, "conv_dtype", None)
+    return x if cd is None else x.to(cd)
+
+
+def cast_conv_out(model_cfg: object, x: torch.Tensor) -> torch.Tensor:
+    """A conv stack's output back in float32, the model's compute dtype
+    (unchanged when ``conv_dtype`` is None)."""
+    cd = getattr(model_cfg, "conv_dtype", None)
+    return x if cd is None else x.to(torch.float32)
+
+
+def coord_linspace(n: int, dtype: torch.dtype, device: torch.device | str) -> torch.Tensor:
+    """CoordConv's ``n`` coordinates from -1 to 1 in ``dtype``. Below 32
+    bits they are computed as ``jnp.linspace`` computes them in that dtype,
+    ``-1 · (1 - s) + 1 · s`` on the rounded steps ``s = i / (n - 1)``."""
+    if dtype.itemsize >= 4:
+        return torch.linspace(-1.0, 1.0, n, dtype=dtype, device=device)
+    step = (torch.arange(n, dtype=torch.float32, device=device) / max(n - 1, 1)).to(dtype)
+    return -(1 - step) + step
+
+
+def _conv(m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``m(x)`` in ``x``'s dtype, the float32 parameters cast to it."""
+    return F.conv2d(x, m.weight.to(x.dtype), m.bias.to(x.dtype), m.stride, m.padding,
+                    m.dilation, m.groups)
+
+
+def _deconv(m: nn.ConvTranspose2d, x: torch.Tensor) -> torch.Tensor:
+    """``m(x)`` in ``x``'s dtype, the float32 parameters cast to it."""
+    return F.conv_transpose2d(x, m.weight.to(x.dtype), m.bias.to(x.dtype), m.stride, m.padding,
+                              m.output_padding, m.groups, m.dilation)
+
+
+def _linear(m: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``m(x)`` in ``x``'s dtype, the float32 parameters cast to it."""
+    return F.linear(x, m.weight.to(x.dtype), m.bias.to(x.dtype))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,7 +140,7 @@ class ResidualBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, act: Act) -> torch.Tensor:
         """Apply the block with activation ``act``."""
-        return act(x + self.conv2(act(self.conv1(x))))
+        return act(x + _conv(self.conv2, act(_conv(self.conv1, x))))
 
 
 def _residual_stack(c_in: int, target: int, blocks: int,
@@ -128,20 +179,20 @@ class Encoder(nn.Module):
         x = x.reshape(-1, h, w, c).permute(0, 3, 1, 2)
         if cfg.coord_conv:
             n = x.shape[0]
-            ys = torch.linspace(-1.0, 1.0, h, dtype=x.dtype, device=x.device)
-            xs = torch.linspace(-1.0, 1.0, w, dtype=x.dtype, device=x.device)
+            ys = coord_linspace(h, x.dtype, x.device)
+            xs = coord_linspace(w, x.dtype, x.device)
             yy = ys.view(1, 1, h, 1).expand(n, 1, h, w)
             xx = xs.view(1, 1, 1, w).expand(n, 1, h, w)
             x = torch.cat([x, yy, xx], dim=1)  # (input, yy, xx), as the JAX encoder
         for conv in self.convs:
-            x = act(conv(x))
+            x = act(_conv(conv, x))
         if self.res_proj is not None:
-            x = act(self.res_proj(x))
+            x = act(_conv(self.res_proj, x))
         for block in self.res_blocks or ():
             x = block(x, act)
         x = x.flatten(1)
         for i, lin in enumerate(self.linears):
-            x = lin(x)
+            x = _linear(lin, x)
             if i < len(self.linears) - 1:
                 x = act(x)
         x = activation(cfg.out_activation_name)(x)
@@ -173,14 +224,14 @@ class Decoder(nn.Module):
         lead = x.shape[:-1]
         x = x.reshape(-1, x.shape[-1])
         for lin in self.linears:
-            x = act(lin(x))
+            x = act(_linear(lin, x))
         x = x.reshape(-1, *cfg.conv_in_shape)
         if self.res_proj is not None:
-            x = act(self.res_proj(x))
+            x = act(_conv(self.res_proj, x))
         for block in self.res_blocks or ():
             x = block(x, act)
         for i, deconv in enumerate(self.deconvs):
-            x = deconv(x)
+            x = _deconv(deconv, x)
             if i < len(self.deconvs) - 1:
                 x = act(x)
         x = activation(cfg.out_activation_name)(x).permute(0, 2, 3, 1)

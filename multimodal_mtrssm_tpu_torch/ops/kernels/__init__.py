@@ -5,6 +5,13 @@ to the kernel, with no fallback: the launch succeeds or raises. The JAX
 package's measured TPU crossover (``B·T ≥ 256``) is not carried over, so on
 CUDA the kernel always runs. The kernels hard-code ELU, so a model with
 another activation raises on CUDA instead of silently taking the plain path.
+The plain route is chosen by name: ``use_pallas_train=False`` (or None)
+runs the recurrences (forward, and an autograd replay as the backward) and
+the rollouts (on the kernels' Philox noise) as their plain versions on any
+device, for any activation and shape; every refusal of the kernels names
+it. Unlike JAX, where False touches training alone and imagination picks
+XLA by eligibility, it also selects the plain rollouts: it is the one
+knob, since serving has no ``use_pallas`` of its own.
 
 Kernels (sources in ``csrc/``, built at first use by :mod:`.build`):
 
@@ -28,6 +35,9 @@ Kernels (sources in ``csrc/``, built at first use by :mod:`.build`):
   tile of frames and its VJP (``conv_layout="fused_enc"``), replacing
   ``ops/pallas/fused_conv.py::_fwd_kernel`` and ``::_bwd_kernel`` as
   ``fused_encoder_apply`` reaches them;
+- ``fused_encoder_fwd_bf16`` / ``fused_encoder_bwd_bf16``: the same encoder
+  on bf16 frames (``trainer.precision: 16-mixed``), replacing the same two
+  TPU kernels at ``dtype=bfloat16``;
 - ``fused_decoder_fwd`` / ``fused_decoder_bwd``: the whole conv decoder per
   tile of frames and its VJP (``fused_decoder_apply``, a public function
   that no model config selects, as in JAX), replacing the same
@@ -73,10 +83,11 @@ LAUNCH_COUNTERS = {"recurrence_fwd": (recurrence, "launches"),
                    "fused_encoder_fwd": (fused_conv, "launches"),
                    "fused_encoder_bwd": (fused_conv, "bwd_launches"),
                    "fused_decoder_fwd": (fused_conv, "dec_launches"),
-                   "fused_decoder_bwd": (fused_conv, "dec_bwd_launches")}
+                   "fused_decoder_bwd": (fused_conv, "dec_bwd_launches"),
+                   "fused_encoder_fwd_bf16": (fused_conv, "bf16_launches"),
+                   "fused_encoder_bwd_bf16": (fused_conv, "bf16_bwd_launches")}
 
-# use_pallas_train values of the JAX package that the port refuses, besides
-# False and None (its XLA-scan path, which the port does not have): JAX's
+# use_pallas_train values of the JAX package that the port refuses: JAX's
 # debug and test modes.
 _JAX_DEBUG_TRAIN_MODES = ("interpret", "reference", "stacked_interpret")
 
@@ -89,22 +100,31 @@ def _route(device: torch.device, activation_name: str):
     if device.type != "cuda":
         raise ValueError(f"no kernel route for device {device}")
     if activation_name != "ELU":
-        raise ValueError(
-            f"the CUDA kernels implement ELU; this model uses {activation_name!r}")
+        raise ValueError(f"the CUDA kernels implement ELU; this model uses {activation_name!r}: "
+                         f"{recurrence.PLAIN_ROUTE}")
     return None
+
+
+def _dispatch(device: torch.device, activation_name: str, plain: bool):
+    """:func:`_route`, or where the caller chose the plain route by name
+    (``plain``) the plain version's activation on the CPU and on CUDA."""
+    if plain and device.type in ("cpu", "cuda"):
+        return activation(activation_name)
+    return _route(device, activation_name)
 
 
 def fused_train_recurrence(
     weights: Sequence[torch.Tensor], actions: torch.Tensor, a_emb: torch.Tensor,
     v_emb: torch.Tensor, init_deter: torch.Tensor, init_stoch: torch.Tensor,
     g_prior: torch.Tensor, g_post: torch.Tensor, class_size: int = 4,
-    category_size: int = 4, activation_name: str = "ELU",
+    category_size: int = 4, activation_name: str = "ELU", plain: bool = False,
 ) -> tuple[torch.Tensor, ...]:
     """The representation recurrence over time-major ``[T, B, ·]`` inputs,
     differentiable on both routes (the forward kernel, and the backward
-    kernel as its VJP). Returns ``(deter, prior_logits, prior_stoch,
-    mixed_logits, post_stoch)``."""
-    act = _route(actions.device, activation_name)
+    kernel as its VJP; with ``plain``, their plain versions on any device).
+    Returns ``(deter, prior_logits, prior_stoch, mixed_logits,
+    post_stoch)``."""
+    act = _dispatch(actions.device, activation_name, plain)
     return recurrence.RecurrenceFunction.apply(
         act, class_size, category_size, actions, a_emb, v_emb, init_deter, init_stoch,
         g_prior, g_post, *weights)
@@ -129,9 +149,12 @@ def resolve_train_kernel_mode(value: bool | str | None, family: str = "mrssm") -
     """A ``use_pallas_train`` value as the port runs it (JAX
     ``ops/pallas/__init__.py::resolve_train_kernel_mode``, the parts that
     mean something on one card): ``"auto"`` and ``True`` → ``"kernel"`` (the
-    recurrence kernels), ``"stacked"`` → ``"stacked"`` (MRSSM only).
-    Raises ``ValueError`` for the values the port refuses (``False``,
-    ``None`` and JAX's debug modes) and for anything else."""
+    recurrence kernels), ``"stacked"`` → ``"stacked"`` (MRSSM only),
+    ``False`` and ``None`` → ``"plain"`` (the plain versions on any device,
+    JAX's XLA scan). Raises ``ValueError`` for JAX's debug modes and for
+    anything else."""
+    if value is False or value is None:
+        return "plain"
     if value is True or value == "auto":
         return "kernel"
     if value == "stacked":
@@ -139,23 +162,25 @@ def resolve_train_kernel_mode(value: bool | str | None, family: str = "mrssm") -
             raise ValueError("use_pallas_train='stacked' is MRSSM-only (the MT kernel has no "
                              "stacked-layout variant); use 'auto'/True for MMTRSSM")
         return "stacked"
-    if value is False or value is None or value in _JAX_DEBUG_TRAIN_MODES:
+    if value in _JAX_DEBUG_TRAIN_MODES:
         raise ValueError(f"use_pallas_train={value!r} is not supported by the port: it runs the "
-                         "recurrence kernels ('auto'/True) or the stacked ones ('stacked')")
-    raise ValueError(f"use_pallas_train={value!r} not recognized; expected True, 'auto' or "
-                     "'stacked'")
+                         "recurrence kernels ('auto'/True), the stacked ones ('stacked') or the "
+                         "plain route (False)")
+    raise ValueError(f"use_pallas_train={value!r} not recognized; expected True, 'auto', "
+                     "'stacked' or False")
 
 
 def fused_rollout_transition(
     weights: Sequence[torch.Tensor], actions: torch.Tensor, init_deter: torch.Tensor,
     init_stoch: torch.Tensor, seed: Seed, class_size: int = 4, category_size: int = 4,
-    activation_name: str = "ELU",
+    activation_name: str = "ELU", plain: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Prior-only imagination over ``[B, T, A]`` actions with the seed's
     Philox noise (an ``int``, or each row's ``(row_seed, row_index)``:
     ``rollout.row_keys``). Returns ``(deters, logits, stochs)``, each
-    ``[B, T, ·]``."""
-    act = _route(actions.device, activation_name)
+    ``[B, T, ·]``. ``plain`` runs the plain version on any device, on the
+    kernel's noise."""
+    act = _dispatch(actions.device, activation_name, plain)
     if act is None:
         return rollout.rollout_cuda(weights, actions, init_deter, init_stoch, seed,
                                     class_size, category_size)
@@ -166,27 +191,28 @@ def fused_rollout_transition(
 def fused_mt_train_recurrence(
     weights: Sequence[torch.Tensor], actions: torch.Tensor, a_emb: torch.Tensor,
     v_emb: torch.Tensor, init6: Sequence[torch.Tensor], gumbels: Sequence[torch.Tensor],
-    spec: MTSpec = MT_SPEC, activation_name: str = "ELU",
+    spec: MTSpec = MT_SPEC, activation_name: str = "ELU", plain: bool = False,
 ) -> tuple[torch.Tensor, ...]:
     """The hierarchical recurrence over time-major ``[T, B, ·]`` inputs from
     ``init6`` ``(h_deter, l_deter, h_stoch, l_stoch, hid_h, hid_l)`` with the
     four sites' Gumbel noise (l-prior, l-posterior, h-prior, h-posterior),
-    differentiable on both routes. Returns the 12 sequences of
+    differentiable on both routes (``plain``: the plain versions on any
+    device). Returns the 12 sequences of
     ``train_step_mt.fused_mt_train_recurrence``."""
-    act = _route(actions.device, activation_name)
+    act = _dispatch(actions.device, activation_name, plain)
     return recurrence_mt.MTRecurrenceFunction.apply(
         act, spec, actions, a_emb, v_emb, *init6, *gumbels, *weights)
 
 
 def fused_mt_rollout_transition(
     weights: Sequence[torch.Tensor], actions: torch.Tensor, init6: Sequence[torch.Tensor],
-    seed: Seed, spec: MTSpec = MT_SPEC, activation_name: str = "ELU",
+    seed: Seed, spec: MTSpec = MT_SPEC, activation_name: str = "ELU", plain: bool = False,
 ) -> tuple[torch.Tensor, ...]:
     """Hierarchical prior-only imagination over ``[B, T, A]`` actions with
     the seed's Philox noise (as :func:`fused_rollout_transition`). Returns
     ``(h_deter, l_deter, h_logits, l_logits, h_stoch, l_stoch, hid_h,
     hid_l)``, each ``[B, T, ·]``."""
-    act = _route(actions.device, activation_name)
+    act = _dispatch(actions.device, activation_name, plain)
     if act is None:
         return rollout_mt.rollout_mt_cuda(weights, actions, init6, seed, spec)
     return rollout_mt.rollout_mt_plain(weights, actions, init6, seed, spec, act=act)

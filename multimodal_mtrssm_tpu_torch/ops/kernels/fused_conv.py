@@ -51,6 +51,20 @@ in the kernels' order of layers and ELU as ``exp(x) - 1`` (``fused_conv.py:
 232-236``). On a CPU tensor :func:`fused_encoder_apply` runs it; on a CUDA
 tensor it launches the kernels or raises, never cuDNN.
 
+bf16 frames (``trainer.precision: 16-mixed``, the model's ``conv_dtype``)
+take the bf16 kernels, JAX's ``_fwd_kernel``/``_bwd_kernel`` at
+``dtype=bfloat16``: ``fused_encoder_fwd_bf16`` and ``fused_encoder_bwd_bf16``
+(``csrc/fused_encoder_bf16_{fwd,bwd}.cu``, design notes in
+``csrc/fused_encoder_bf16.cuh``), a simple design of their own: f32 FMA
+over bf16 operands, one output of every frame of a tile a thread, the
+tile's bf16 activations in shared memory (4 frames a block). Each layer
+rounds its output to bf16 after its f32 sums, bias and ELU; the backward
+keeps its cotangents and weight-gradient sums in f32 and rounds ``dx`` and
+the weight gradients to bf16, as JAX does. :func:`fused_encoder_plain` and
+:func:`fused_encoder_backward_plain` round alike on bf16 input (the ELU
+derivative from the rounded output, the roundings passed straight through
+by the backward); the f32 kernels and plain versions are unchanged.
+
 The decoder entry (``fused_decoder_applicable`` ``:670``,
 ``fused_decoder_apply`` ``:766``, the same ``_fwd_kernel``/``_bwd_kernel``)
 is ported the same way, on the port's own :class:`~..nn.conv.Decoder`
@@ -97,7 +111,13 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
-from multimodal_mtrssm_tpu_torch.nn.conv import Decoder, DecoderConfig, Encoder, EncoderConfig
+from multimodal_mtrssm_tpu_torch.nn.conv import (
+    Decoder,
+    DecoderConfig,
+    Encoder,
+    EncoderConfig,
+    coord_linspace,
+)
 
 # The kernels' layer table holds at most 14 layers: for the encoder 3
 # strided convs, the projection, two convs a residual block and the head;
@@ -118,6 +138,9 @@ launches = 0
 bwd_launches = 0
 dec_launches = 0
 dec_bwd_launches = 0
+# The bf16 encoder kernels' launches, forward and backward.
+bf16_launches = 0
+bf16_bwd_launches = 0
 
 
 def fused_encoder_applicable(cfg: EncoderConfig) -> bool:
@@ -196,45 +219,98 @@ def _elu(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x > 0, x, torch.exp(torch.minimum(x, torch.zeros_like(x))) - 1.0)
 
 
-def coords(cfg: EncoderConfig, device: torch.device | str) -> torch.Tensor:
-    """The CoordConv maps' 1-D values, ``[H + W]``: the row coordinates, then
-    the column coordinates (``Encoder.forward``'s ``linspace``)."""
+def coords(cfg: EncoderConfig, device: torch.device | str,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The CoordConv maps' 1-D values in ``dtype``, ``[H + W]``: the row
+    coordinates, then the column coordinates (``Encoder.forward``'s)."""
     h, w = cfg.in_hw
-    return torch.cat([torch.linspace(-1.0, 1.0, h, device=device),
-                      torch.linspace(-1.0, 1.0, w, device=device)])
+    return torch.cat([coord_linspace(h, dtype, device), coord_linspace(w, dtype, device)])
 
 
-def fused_encoder_plain(weights: Sequence[torch.Tensor], cfg: EncoderConfig,
-                        x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the forward kernel: NHWC frames ``[N, H, W,
-    C]`` → ``[N, out]`` on :func:`encoder_weights`' tensors."""
-    n, h, w, _ = x.shape
-    x = x.permute(0, 3, 1, 2)
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 (to nearest even) and held in float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+class _RoundedElu(torch.autograd.Function):
+    """ELU in float32, its output rounded to bf16; the backward takes the
+    derivative from the rounded output, ``o > 0 ? 1 : o + 1`` (JAX
+    ``fused_conv.py::_act_deriv``), and passes the rounding straight
+    through."""
+
+    @staticmethod
+    def forward(ctx, pre: torch.Tensor) -> torch.Tensor:
+        out = _round_bf16(_elu(pre))
+        ctx.save_for_backward(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        (out,) = ctx.saved_tensors
+        return g * torch.where(out > 0, torch.ones_like(out), out + 1.0)
+
+
+class _Rounded(torch.autograd.Function):
+    """``x`` rounded to bf16, the rounding passed straight through by the
+    backward (the head's output)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        return _round_bf16(x)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        return g
+
+
+def _encoder_walk(weights: Sequence[torch.Tensor], cfg: EncoderConfig, x: torch.Tensor,
+                  c: torch.Tensor, act, head_round) -> torch.Tensor:
+    """The encoder's layers in the kernels' order on NCHW ``x`` and the
+    CoordConv values ``c``, each hidden layer through ``act``, the head
+    through ``head_round``."""
+    n, _, h, w = x.shape
     if cfg.coord_conv:
-        c = coords(cfg, x.device).to(x.dtype)
         x = torch.cat([x, c[:h].view(1, 1, h, 1).expand(n, 1, h, w),
                        c[h:].view(1, 1, 1, w).expand(n, 1, h, w)], 1)
     it = iter(weights)
     for s, p in zip(cfg.strides, cfg.paddings):
-        x = _elu(F.conv2d(x, next(it), next(it), stride=s, padding=p))
+        x = act(F.conv2d(x, next(it), next(it), stride=s, padding=p))
     if cfg.num_residual_blocks > 0 and cfg.channels[-1] != cfg.residual_output_size:
-        x = _elu(F.conv2d(x, next(it), next(it)))
+        x = act(F.conv2d(x, next(it), next(it)))
     for _ in range(cfg.num_residual_blocks):
-        t = _elu(F.conv2d(x, next(it), next(it), padding=1))
-        x = _elu(x + F.conv2d(t, next(it), next(it), padding=1))
-    return F.linear(x.flatten(1), next(it), next(it))
+        t = act(F.conv2d(x, next(it), next(it), padding=1))
+        x = act(x + F.conv2d(t, next(it), next(it), padding=1))
+    return head_round(F.linear(x.flatten(1), next(it), next(it)))
+
+
+def fused_encoder_plain(weights: Sequence[torch.Tensor], cfg: EncoderConfig,
+                        x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the forward kernels: NHWC frames ``[N, H, W,
+    C]`` → ``[N, out]`` on :func:`encoder_weights`' tensors, in ``x``'s
+    dtype. On bf16 frames (and bf16 weights) it computes as the bf16
+    kernels do: float32 sums of the bf16 values, each layer's output
+    rounded to bf16."""
+    if x.dtype == torch.bfloat16:
+        out = _encoder_walk([t.float() for t in weights], cfg, x.permute(0, 3, 1, 2).float(),
+                            coords(cfg, x.device, torch.bfloat16).float(), _RoundedElu.apply,
+                            _Rounded.apply)
+        return out.to(torch.bfloat16)
+    return _encoder_walk(weights, cfg, x.permute(0, 3, 1, 2), coords(cfg, x.device).to(x.dtype),
+                         _elu, lambda y: y)
 
 
 def fused_encoder_backward_plain(weights: Sequence[torch.Tensor], cfg: EncoderConfig,
                                  x: torch.Tensor, g: torch.Tensor,
                                  want_dx: bool) -> tuple[torch.Tensor | None, tuple[torch.Tensor, ...]]:
-    """Plain PyTorch version of the backward kernel: an autograd replay of
+    """Plain PyTorch version of the backward kernels: an autograd replay of
     :func:`fused_encoder_plain` under the cotangent ``g``. Returns ``(dx or
-    None, weight grads)``."""
+    None, weight grads)``, in ``x``'s dtype (bf16: float32 cotangents and
+    sums, rounded to bf16 at the end)."""
     with torch.enable_grad():
         w = [t.detach().requires_grad_() for t in weights]
         xs = x.detach().requires_grad_(want_dx)
         out = fused_encoder_plain(w, cfg, xs)
+        # A bf16 leaf's gradient is its float32 sum rounded once (the cast's VJP).
         grads = torch.autograd.grad(out, [*w, xs] if want_dx else w, g)
     return (grads[-1] if want_dx else None), tuple(grads[:len(w)])
 
@@ -256,10 +332,11 @@ def _dims(cfg: EncoderConfig, n: int):
 
 
 def _check_tensors(weights: Sequence[torch.Tensor], shapes: list[tuple[int, ...]], stack: str,
-                   inputs: dict[str, tuple[torch.Tensor, tuple[int, ...]]]) -> None:
-    """The count of a stack's tensors, then the device, dtype, shape and
-    contiguity of them and of the launch's ``inputs``, on the device of the
-    first input."""
+                   inputs: dict[str, tuple[torch.Tensor, tuple[int, ...]]],
+                   dtype: torch.dtype = torch.float32) -> None:
+    """The count of a stack's tensors, then the device, dtype (``dtype``),
+    shape and contiguity of them and of the launch's ``inputs``, on the
+    device of the first input."""
     from multimodal_mtrssm_tpu_torch.ops.kernels.recurrence import _check_inputs
 
     if len(weights) != len(shapes):
@@ -267,19 +344,21 @@ def _check_tensors(weights: Sequence[torch.Tensor], shapes: list[tuple[int, ...]
     expect = dict(inputs)
     for i, (t, shape) in enumerate(zip(weights, shapes)):
         expect[f"weights[{i}]"] = (t, shape)
-    _check_inputs(expect, next(iter(inputs.values()))[0].device)
+    _check_inputs(expect, next(iter(inputs.values()))[0].device, dtype)
 
 
 def _check(weights: Sequence[torch.Tensor], cfg: EncoderConfig, x: torch.Tensor,
-           extra: dict[str, tuple[torch.Tensor, tuple[int, ...]]] | None = None) -> None:
-    """Device, dtype, shape and contiguity checks of an encoder kernel launch."""
+           extra: dict[str, tuple[torch.Tensor, tuple[int, ...]]] | None = None,
+           dtype: torch.dtype = torch.float32) -> None:
+    """Device, dtype (``dtype``), shape and contiguity checks of an encoder
+    kernel launch."""
     if not fused_encoder_applicable(cfg):
         raise ValueError(f"the fused encoder kernels do not take this encoder: {cfg}")
     if x.ndim != 4 or tuple(x.shape[1:]) != (*cfg.in_hw, cfg.in_channels):
         raise ValueError(f"the fused encoder takes [N, {cfg.in_hw[0]}, {cfg.in_hw[1]}, "
                          f"{cfg.in_channels}] frames, got {tuple(x.shape)}")
     _check_tensors(weights, weight_shapes(cfg), "encoder",
-                   {"x": (x, tuple(x.shape)), **(extra or {})})
+                   {"x": (x, tuple(x.shape)), **(extra or {})}, dtype)
 
 
 def _sizes(query, dims, stack: str) -> tuple[int, ...]:
@@ -291,8 +370,10 @@ def _sizes(query, dims, stack: str) -> tuple[int, ...]:
     fit."""
     out = (ctypes.c_longlong * 6)()
     if query(dims, ctypes.cast(out, ctypes.c_void_p)) != 0:
+        hint = ("; conv_layout='nhwc' runs the encoders on cuDNN" if stack == "encoder" else
+                "; the Decoder module runs it on cuDNN")
         raise ValueError(f"the fused {stack} kernels' shared memory does not fit one block "
-                         f"at {dims.frames} frames a block for these widths")
+                         f"at {dims.frames} frames a block for these widths{hint}")
     return tuple(int(v) for v in out)
 
 
@@ -380,6 +461,96 @@ def fused_encoder_backward_cuda(weights: Sequence[torch.Tensor], cfg: EncoderCon
     return dx, grads
 
 
+def bf16_sizes(lib, dims) -> dict[str, int]:
+    """The bf16 kernels' sizes (``fused_encoder_bf16_sizes``): ``stash``
+    (bf16 elements a frame of the activation record), ``dpre`` (floats a
+    frame of the pre-activation cotangent record), ``grads``, ``chunks``,
+    ``packed`` (bf16 elements), the frames a block of the forward
+    (``fwd_frames``) and of the cotangent pass (``bwd_frames``), and the
+    ``rows`` of the weight-gradient pass. Raises where the plan does not
+    fit a block."""
+    out = (ctypes.c_longlong * 8)()
+    if lib.fused_encoder_bf16_sizes(dims, ctypes.cast(out, ctypes.c_void_p)) != 0:
+        raise ValueError("the bf16 fused encoder kernels' shared memory does not fit one frame "
+                         "for these widths; conv_layout='nhwc' runs the encoders on cuDNN")
+    return dict(zip(("stash", "dpre", "grads", "chunks", "packed", "fwd_frames", "bwd_frames",
+                     "rows"), (int(v) for v in out)))
+
+
+def fused_encoder_bf16_forward_cuda(weights: Sequence[torch.Tensor], cfg: EncoderConfig,
+                                    x: torch.Tensor) -> torch.Tensor:
+    """Launch the bf16 forward kernel (``csrc/fused_encoder_bf16_fwd.cu``):
+    bf16 ``[N, 32, 32, 1]`` frames and bf16 weights → bf16 ``[N, out]``, as
+    :func:`fused_encoder_plain` computes it on bf16 input. Raises on any
+    input it does not take."""
+    global bf16_launches
+    from multimodal_mtrssm_tpu_torch.ops.kernels import build
+
+    _check(weights, cfg, x, dtype=torch.bfloat16)
+    out = x.new_empty((x.shape[0], cfg.out_dim))
+    if x.shape[0] == 0:
+        return out
+    lib = build.load_library()
+    dims = _dims(cfg, x.shape[0])
+    ptrs = (ctypes.c_void_p * len(weights))(*(t.data_ptr() for t in weights))
+    with torch.cuda.device(x.device):
+        packed = x.new_empty(bf16_sizes(lib, dims)["packed"])
+        c = coords(cfg, x.device, torch.bfloat16).float()
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.fused_encoder_bf16_forward(ctypes.cast(ptrs, ctypes.c_void_p), len(weights),
+                                             x.data_ptr(), c.data_ptr(), packed.data_ptr(),
+                                             out.data_ptr(), dims, stream)
+    build.check(err)
+    bf16_launches += 1
+    return out
+
+
+def fused_encoder_bf16_backward_cuda(weights: Sequence[torch.Tensor], cfg: EncoderConfig,
+                                     x: torch.Tensor, g: torch.Tensor, want_dx: bool,
+                                     ) -> tuple[torch.Tensor | None, tuple[torch.Tensor, ...]]:
+    """Launch the bf16 backward kernels (``csrc/fused_encoder_bf16_bwd.cu``:
+    the packing and the recomputing forward, the cotangent pass, the
+    weight-gradient pass and its fixed-order reduction); same contract as
+    :func:`fused_encoder_backward_plain` on bf16 input: bf16 ``dx`` (when
+    asked) and bf16 weight gradients. Its device-memory scratch at the
+    reference widths: 13,824 bf16 activations and 10,816 float cotangents a
+    frame (~71 KB: ~17 MB at N=240, ~272 MB at N=3840), and 16 chunks ×
+    295,312 partial gradient floats (~19 MB)."""
+    global bf16_bwd_launches
+    from multimodal_mtrssm_tpu_torch.ops.kernels import build
+
+    N = x.shape[0]
+    _check(weights, cfg, x, {"g": (g, (N, cfg.out_dim))}, torch.bfloat16)
+    dx = torch.zeros_like(x) if want_dx else None
+    if N == 0:
+        return dx, tuple(torch.zeros_like(t) for t in weights)
+    lib = build.load_library()
+    dims = _dims(cfg, N)
+    ptrs = (ctypes.c_void_p * len(weights))(*(t.data_ptr() for t in weights))
+    with torch.cuda.device(x.device):
+        sz = bf16_sizes(lib, dims)
+        if sz["grads"] != sum(t.numel() for t in weights):
+            raise RuntimeError(f"the kernel's gradient layout ({sz['grads']} elements) does not "
+                               "match the encoder's tensors")
+        d_flat = x.new_empty(sz["grads"])
+        grads = tuple(v.view(t.shape) for v, t in
+                      zip(d_flat.split([t.numel() for t in weights]), weights))
+        stash = x.new_empty(N * sz["stash"])
+        dpre = torch.empty(N * sz["dpre"], dtype=torch.float32, device=x.device)
+        partial = torch.empty(sz["chunks"] * sz["grads"], dtype=torch.float32, device=x.device)
+        packed = x.new_empty(sz["packed"])
+        c = coords(cfg, x.device, torch.bfloat16).float()
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.fused_encoder_bf16_backward(
+            ctypes.cast(ptrs, ctypes.c_void_p), len(weights), x.data_ptr(), c.data_ptr(),
+            g.data_ptr(), None if dx is None else dx.data_ptr(), d_flat.data_ptr(),
+            stash.data_ptr(), dpre.data_ptr(), partial.data_ptr(), packed.data_ptr(), dims,
+            stream)
+    build.check(err)
+    bf16_bwd_launches += 1
+    return dx, grads
+
+
 class FusedStackFunction(torch.autograd.Function):
     """A fused conv stack under autograd: its forward, and its backward as
     the VJP (``fused_conv.py:530-558``). ``ops`` is the stack's (forward,
@@ -416,12 +587,23 @@ def fused_encoder_apply(encoder: Encoder, x: torch.Tensor) -> torch.Tensor:
                          f"{cfg.in_channels}], got {tuple(x.shape)}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no fused encoder route for device {x.device}")
-    ops = ((fused_encoder_forward_cuda, fused_encoder_backward_cuda) if x.device.type == "cuda"
-           else (fused_encoder_plain, fused_encoder_backward_plain))
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"fused_enc: the fused encoder kernels take float32 or bfloat16 frames, "
+                         f"got {x.dtype}")
+    if x.device.type == "cpu":
+        ops = (fused_encoder_plain, fused_encoder_backward_plain)
+    elif x.dtype == torch.bfloat16:
+        ops = (fused_encoder_bf16_forward_cuda, fused_encoder_bf16_backward_cuda)
+    else:
+        ops = (fused_encoder_forward_cuda, fused_encoder_backward_cuda)
     lead = x.shape[:-3]
     flat = x.reshape(-1, *x.shape[-3:]).contiguous()
-    out = FusedStackFunction.apply(ops, cfg, flat, *encoder_weights(encoder))
+    # bf16 frames take the float32 master weights cast inside the stack, so
+    # their gradients reach the parameters in float32.
+    weights = (w.to(x.dtype) for w in encoder_weights(encoder))
+    out = FusedStackFunction.apply(ops, cfg, flat, *weights)
     return out.reshape(*lead, out.shape[-1])
+
 
 
 # ---- the decoder entry ----------------------------------------------------------------------

@@ -483,3 +483,31 @@ def check_train_step(kernel_model: Any, plain_model: Any, kernel_inputs: tuple, 
         raise ParityError(f"train step gradients differ by {err:.3g} > {rel} x {scale:.3g}")
     return {"losses": loss_p, "loss_rel_errs": loss_errs, "grad_max_abs_err": err,
             "grad_scale": scale}
+
+
+@torch.no_grad()
+def check_same_rollouts(got: Any, ref: Any, cfg: Any, seed: int, atol: float = 1e-4,
+                        tie_eps: float = 1e-5) -> dict[str, Any]:
+    """Two imaginations of one ``seed`` (``State``s or ``MTState``s, ``[B,
+    T, ·]``; two routes or two devices): the same trajectories up to each
+    row's first near-tie on ``ref``'s logits plus the seed's Philox noise
+    (:func:`check_same_trajectories`). Returns its result and the share of
+    steps before a near-tie (``"compared"``)."""
+    B, T = ref.feature.shape[:2]
+    dev = ref.feature.device
+    if isinstance(ref, MTState):
+        g_l, g_h = philox_mt_gumbel(seed, T, B, (cfg.ls_class, cfg.ls_category),
+                                    (cfg.hs_class, cfg.hs_category), dev)
+        sites = [(ref.logits_l + g_l.transpose(0, 1), cfg.ls_class, cfg.ls_category),
+                 (ref.logits_h + g_h.transpose(0, 1), cfg.hs_class, cfg.hs_category)]
+        fields = ("deter_h", "deter_l", "logits_h", "logits_l", "stoch_h", "stoch_l",
+                  "hidden_h", "hidden_l")
+        samples = (4, 5)
+    else:
+        g = philox_gumbel(seed, T, B, cfg.class_size, cfg.category_size, dev)
+        sites = [(ref.logits + g.transpose(0, 1), cfg.class_size, cfg.category_size)]
+        fields, samples = ("deter", "logits", "stoch"), (2,)
+    first = first_near_tie(sites, tie_eps)
+    out = check_same_trajectories([getattr(got, f).to(dev) for f in fields],
+                                  [getattr(ref, f) for f in fields], samples, first, atol)
+    return {**out, "compared": float(first.float().mean()) / T}

@@ -58,6 +58,9 @@ bwd_launches = 0
 # the chunks are added in order (kDgChunk of csrc/dense_grads.cuh).
 DW_CHUNK = 128
 LOG_THIRD = -math.log(3.0)
+# What a refusal of the recurrence and rollout kernels tells the caller to
+# run instead: the model's plain route, chosen by name (ops.kernels).
+PLAIN_ROUTE = "set use_pallas_train=False to run the model's plain route on the card"
 
 
 def weight_shapes(A: int, S: int, H: int, D: int, E: int) -> list[tuple[int, ...]]:
@@ -458,7 +461,7 @@ def chain_rows(lib, A: int, E: int, H: int, D: int, C: int, K: int, B: int, devi
     R = lib.mrssm_recurrence_bwd_rows(A, E, H, D, C, K, _rows_per_block(B, device))
     if R < 1:
         raise ValueError(f"the backward chain's shared memory does not fit one block at A={A} "
-                         f"E={E} H={H} D={D} S={C * K}")
+                         f"E={E} H={H} D={D} S={C * K}; {PLAIN_ROUTE}")
     return R
 
 
@@ -469,7 +472,7 @@ def fwd_rows(lib, T: int, A: int, E: int, H: int, D: int, C: int, K: int, B: int
     R = lib.mrssm_recurrence_fwd_rows(T, A, E, H, D, C, K, _rows_per_block(B, device))
     if R < 1:
         raise ValueError(f"the forward kernel's shared memory does not fit one block at T={T} "
-                         f"A={A} E={E} H={H} D={D} S={C}x{K}")
+                         f"A={A} E={E} H={H} D={D} S={C}x{K}; {PLAIN_ROUTE}")
     return R
 
 
@@ -477,7 +480,7 @@ def _check_categories(category_size: int) -> None:
     """The forward kernel samples a category block within one warp's lanes."""
     if category_size > 32:
         raise ValueError(f"the forward kernel takes category blocks of at most 32, got "
-                         f"{category_size}")
+                         f"{category_size}; {PLAIN_ROUTE}")
 
 
 def _forward_expect(actions: torch.Tensor, a_emb: torch.Tensor, v_emb: torch.Tensor,
@@ -696,18 +699,19 @@ class RecurrenceFunction(torch.autograd.Function):
 
 
 def _check_inputs(expect: dict[str, tuple[torch.Tensor, tuple[int, ...]]],
-                  device: torch.device) -> None:
-    """Device, dtype, shape, contiguity and autograd checks shared by the
-    kernel wrappers. A wrapper is not differentiable by itself, so it refuses
-    inputs that autograd would track; :class:`RecurrenceFunction` calls the
-    recurrence wrappers where autograd is off."""
+                  device: torch.device, dtype: torch.dtype = torch.float32) -> None:
+    """Device, dtype (``dtype``), shape, contiguity and autograd checks
+    shared by the kernel wrappers. A wrapper is not differentiable by
+    itself, so it refuses inputs that autograd would track;
+    :class:`RecurrenceFunction` calls the recurrence wrappers where autograd
+    is off."""
     if device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {device}")
     for name, (t, shape) in expect.items():
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} has dtype {t.dtype}, the kernel takes float32")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} has dtype {t.dtype}, the kernel takes {dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
         if not t.is_contiguous():

@@ -52,6 +52,7 @@ from multimodal_mtrssm_tpu_torch.ops.fusion import mopoe_mix_log_probs
 from multimodal_mtrssm_tpu_torch.ops.kernels.recurrence import (
     DW_CHUNK,
     LOG_THIRD,
+    PLAIN_ROUTE,
     _block_sum,
     _check_inputs,
     _d_elu,
@@ -586,7 +587,7 @@ def _check_spec(spec: MTSpec) -> None:
     if spec.l_tau <= 1.0 or spec.h_tau <= 1.0:
         raise ValueError("tau must be greater than 1.0")
     if max(spec.ls_category, spec.hs_category) > 32:
-        raise ValueError("the kernels take category blocks of at most 32")
+        raise ValueError(f"the kernels take category blocks of at most 32; {PLAIN_ROUTE}")
 
 
 def _expect_weights(expect: dict, weights: Sequence[torch.Tensor],
@@ -657,7 +658,7 @@ def mt_forward_launch(
         dims.rows = lib.mt_recurrence_fwd_rows(dims, _rows_per_block(B, actions.device))
         if dims.rows < 1:
             raise ValueError(f"the MT forward's shared memory does not fit one block at A={A} "
-                             f"E={E} HD={HD} LD={LD} C={C} R={R} {spec}")
+                             f"E={E} HD={HD} LD={LD} C={C} R={R} {spec}; {PLAIN_ROUTE}")
         stream = torch.cuda.current_stream(actions.device).cuda_stream
         err = lib.mt_recurrence_forward(_ptrs(weights),
                                         _ptrs([actions, a_emb, v_emb, *init6, *gumbels]),
@@ -741,7 +742,7 @@ def mt_backward_launch(
         dims.rows = lib.mt_recurrence_bwd_rows(dims, _rows_per_block(B, actions.device))
         if dims.rows < 1:
             raise ValueError(f"the MT backward chain's shared memory does not fit one block "
-                             f"at A={A} E={E} HD={HD} LD={LD} C={C} R={R} {spec}")
+                             f"at A={A} E={E} HD={HD} LD={LD} C={C} R={R} {spec}; {PLAIN_ROUTE}")
         need = lib.mt_recurrence_bwd_workspace(dims)
         if workspace is None:
             workspace = actions.new_empty(need)

@@ -6,7 +6,11 @@ nodes; the shipped ``configs/*.yaml`` use it) into the port's dataclasses:
 - ``model`` → ``MRSSMConfig`` / ``MMTRSSMConfig`` and the model, with the
   data section's ``GaussianNoise`` input transforms moved into the model's
   ``input_noise_std`` (added on the device in ``shared_step``) and the
-  pipeline's own noise 0, as JAX does;
+  pipeline's own noise 0, as JAX does; ``trainer.precision`` containing 16
+  (Lightning's ``16-mixed``) sets the model's ``conv_dtype`` to bf16, as
+  JAX's ``train/config.py:192-202`` does: bf16 conv stacks, the recurrence
+  and the ELBO in float32. The port also reads ``remat`` and
+  ``scan_unroll`` from the model's ``init_args``;
 - ``optimizer`` / ``lr_scheduler`` / ``trainer`` (and its callbacks) →
   ``TrainerConfig``;
 - ``data`` → ``DataModuleConfig`` (``drop_modality``, and each
@@ -283,10 +287,6 @@ def _data_config(raw: dict, dconf: dict, seq_len: int, pending: dict) -> DataMod
 
 def _trainer_config(raw: dict, pending: dict) -> TrainerConfig:
     trainer_node = raw.get("trainer", {})
-    # Lightning's 16-mixed is JAX's bf16 conv stacks.
-    precision = str(trainer_node.get("precision", "32")).lower()
-    if "16" in precision:
-        pending["precision"] = (trainer_node["precision"], f"bf16 convs, {_ITEM} 8")
     for key, default, item in (("zero1", False, 11), ("dcn_size", None, 11)):
         if trainer_node.get(key, default) != default:
             pending[key] = (trainer_node[key], f"{_ITEM} {item}")
@@ -349,6 +349,10 @@ def load_experiment(path: str | Path, overrides: dict | None = None) -> Experime
     trainer_pending: dict[str, tuple[Any, str]] = {}
     data = _data_config(raw, dconf, seq_len, data_pending)
     trainer = _trainer_config(raw, trainer_pending)
+    # Lightning's 16-mixed is bf16 conv stacks with a float32 recurrence.
+    if "16" in str(raw.get("trainer", {}).get("precision", "32")).lower() \
+            and model.cfg.conv_dtype is None:
+        model = type(model)(dataclasses.replace(model.cfg, conv_dtype=torch.bfloat16))
     viz_args = _find_callback(raw.get("trainer", {}).get("callbacks", []), "Output")
     viz = VizConfig(
         every_n_epochs=int(viz_args.get("every_n_epochs", 10)),
@@ -397,12 +401,19 @@ def _build_mrssm(margs: dict, noise_std: float | tuple = 0.1) -> MoPoEMRSSM:
         input_noise_std=noise_std,
         use_pallas_train=margs.get("use_pallas_train", "auto"),
         conv_layout=margs.get("conv_layout", "auto"),
+        **_scan_fields(margs),
         audio_encoder=_encoder_cfg(margs.get("audio_encoder")),
         vision_encoder=_encoder_cfg(margs.get("vision_encoder")),
         audio_decoder=_decoder_cfg(margs.get("audio_decoder"), feature),
         vision_decoder=_decoder_cfg(margs.get("vision_decoder"), feature),
     )
     return MoPoEMRSSM(cfg)
+
+
+def _scan_fields(margs: dict) -> dict:
+    """``remat`` and ``scan_unroll`` of a model's ``init_args`` (the
+    configs validate them)."""
+    return {"remat": margs.get("remat", False), "scan_unroll": margs.get("scan_unroll", 1)}
 
 
 def _build_weighted_mrssm(margs: dict, noise_std: float | tuple = 0.1):
@@ -443,6 +454,7 @@ def _build_mmtrssm(margs: dict, noise_std: float | tuple = 0.1) -> MoPoEMMTRSSM:
         w_kl_h=float(margs.get("w_kl_h", 1.0)),
         use_pallas_train=margs.get("use_pallas_train", "auto"),
         conv_layout=margs.get("conv_layout", "auto"),
+        **_scan_fields(margs),
         audio_encoder=_encoder_cfg(margs.get("audio_encoder")),
         vision_encoder=_encoder_cfg(margs.get("vision_encoder")),
         audio_decoder=_decoder_cfg(margs.get("audio_decoder"), feature),

@@ -65,3 +65,116 @@ def to_jax_state(state, cfg):
             hidden_h=j(state.hidden_h), hidden_l=j(state.hidden_l))
     return JaxState(deter=j(state.deter), stoch=j(state.stoch),
                     distribution=MultiOneHot(j(state.logits), cfg.class_size, cfg.category_size))
+
+
+def jax_scan_gumbels(key, cfg, B: int, T: int) -> dict:
+    """The Gumbel noise JAX's ``shared_step`` draws from ``key`` on its XLA
+    scan (``use_pallas_train=False``: per-step key splits,
+    ``models/mrssm.py:367-380``, ``models/mmtrssm.py:318-340``), as the
+    port's noise dict of ``cfg``'s family (numpy float32): each
+    straight-through sample's ``jax.random.categorical`` adds
+    ``gumbel(key, [B, classes, categories])`` to its block logits."""
+    import numpy as np
+
+    def g(k, c, n):
+        return np.asarray(jax.random.gumbel(k, (B, c, n), jnp.float32)).reshape(B, c * n)
+
+    k_init, k_roll, _ = jax.random.split(key, 3)
+    steps = jax.random.split(k_roll, T)
+    if hasattr(cfg, "hs_class"):
+        hc, hk, lc, lk = cfg.hs_class, cfg.hs_category, cfg.ls_class, cfg.ls_category
+        k_h, k_l = jax.random.split(k_init)
+        sites = {"g_lprior": [], "g_lpost": [], "g_hprior": [], "g_hpost": []}
+        for k in steps:
+            k_lp, k_lq, k_hp, k_hq = jax.random.split(k, 4)
+            sites["g_lprior"].append(g(k_lp, lc, lk))
+            sites["g_lpost"].append(g(k_lq, lc, lk))
+            sites["g_hprior"].append(g(k_hp, hc, hk))
+            sites["g_hpost"].append(g(k_hq, hc, hk))
+        return {"g_init_h": g(k_h, hc, hk), "g_init_l": g(k_l, lc, lk),
+                **{name: np.stack(v) for name, v in sites.items()}}
+    c, n = cfg.class_size, cfg.category_size
+    prior, post = [], []
+    for k in steps:
+        k_p, k_q = jax.random.split(k)
+        prior.append(g(k_p, c, n))
+        post.append(g(k_q, c, n))
+    return {"g_init": g(k_init, c, n), "g_prior": np.stack(prior), "g_post": np.stack(post)}
+
+
+@functools.lru_cache(maxsize=None)
+def scan_family(name: str, activation: str = "ELU", conv_dtype: str | None = None):
+    """``family``'s small models on JAX's XLA scan (``use_pallas_train=
+    False``) and the port's plain route, with ``activation`` in the
+    recurrence and ``conv_dtype`` (None or "bfloat16") in the conv stacks;
+    the same weights (eval mode)."""
+    import torch
+
+    from conftest import small_encoder_config
+    from multimodal_mtrssm_tpu.models.mmtrssm import MMTRSSMConfig as JaxMMTRSSMConfig
+    from multimodal_mtrssm_tpu.models.mmtrssm import MoPoEMMTRSSM as JaxMoPoEMMTRSSM
+    from multimodal_mtrssm_tpu.models.mrssm import MoPoEMRSSM as JaxMoPoEMRSSM
+    from multimodal_mtrssm_tpu.models.mrssm import MRSSMConfig as JaxMRSSMConfig
+    from multimodal_mtrssm_tpu.train.torch_export import (
+        export_reference_mmtrssm_state_dict,
+        export_reference_state_dict,
+    )
+
+    from multimodal_mtrssm_tpu.nn.conv import DecoderConfig as JaxDecoderConfig
+
+    from multimodal_mtrssm_tpu_torch.nn.conv import DecoderConfig
+
+    enc = small_encoder_config()
+    penc = EncoderConfig(**dataclasses.asdict(enc))
+    # Narrow decoders (the reference shape, no residual blocks): JAX's
+    # compile of the two stacks' VJP dominates these tests.
+    feat = 96 if name == "mmtrssm" else 48
+    dec = dict(in_features=feat, linear_sizes=(32, 256), conv_in_shape=(16, 4, 4),
+               channels=(8, 4, 1), num_residual_blocks=0)
+    jdec, pdec = JaxDecoderConfig(**dec), DecoderConfig(**dec)
+    common = dict(init_proj_cells=32, activation_name=activation, use_pallas_train=False)
+    jdt = None if conv_dtype is None else getattr(jnp, conv_dtype)
+    pdt = None if conv_dtype is None else getattr(torch, conv_dtype)
+    if name == "mmtrssm":
+        jmodel = JaxMoPoEMMTRSSM(JaxMMTRSSMConfig(
+            audio_encoder=enc, vision_encoder=enc, audio_decoder=jdec, vision_decoder=jdec,
+            conv_dtype=jdt, **common))
+        port = MoPoEMMTRSSM(MMTRSSMConfig(
+            audio_encoder=penc, vision_encoder=penc, audio_decoder=pdec, vision_decoder=pdec,
+            input_noise_std=0.0, conv_dtype=pdt, **common))
+        export = export_reference_mmtrssm_state_dict
+    else:
+        jmodel = JaxMoPoEMRSSM(JaxMRSSMConfig(
+            audio_encoder=enc, vision_encoder=enc, audio_decoder=jdec, vision_decoder=jdec,
+            conv_dtype=jdt, **common))
+        port = MoPoEMRSSM(MRSSMConfig(
+            audio_encoder=penc, vision_encoder=penc, audio_decoder=pdec, vision_decoder=pdec,
+            input_noise_std=0.0, conv_dtype=pdt, **common))
+        export = export_reference_state_dict
+    port.init(torch.Generator().manual_seed(9))
+    return jmodel, params_from_port(jmodel, port, export), port.eval(), export
+
+
+def params_from_port(jmodel, port, export):
+    """JAX params of ``jmodel`` holding ``port``'s weights: the inverse of
+    ``export`` (a pure relayout: transposes, splits and permutations), found
+    by exporting a params tree whose every element holds its own index.
+    Faster than JAX's own init (a compile of every draw) for the tests that
+    only need both packages on one set of weights."""
+    import numpy as np
+
+    shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0))
+    leaves, tree = jax.tree_util.tree_flatten(shapes)
+    sizes = [int(np.prod(x.shape)) for x in leaves]
+    ids = np.arange(sum(sizes), dtype=np.float64)
+    tagged = jax.tree_util.tree_unflatten(tree, [
+        part.reshape(x.shape) for part, x in zip(np.split(ids, np.cumsum(sizes)[:-1]), leaves)])
+    flat = np.full(ids.shape, np.nan, np.float32)
+    sd = port.state_dict()
+    for name, where in export(tagged).items():
+        flat[np.asarray(where, np.float64).astype(np.int64).ravel()] = \
+            sd[name].detach().cpu().numpy().ravel()
+    assert not np.isnan(flat).any(), "export does not cover every JAX parameter"
+    return jax.tree_util.tree_unflatten(tree, [
+        jnp.asarray(part.reshape(x.shape)) for part, x in
+        zip(np.split(flat, np.cumsum(sizes)[:-1]), leaves)])

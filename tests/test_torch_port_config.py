@@ -111,9 +111,18 @@ def test_unsupported_trainer_fields_wait_for_the_trainer(override, field, item, 
     """Fields of later items raise at ``build_trainer``; item 4's (gradient
     accumulation, ``steps_per_dispatch``) are read into ``TrainerConfig``
     as JAX reads them and ``build_trainer`` returns a trainer that takes
-    them."""
+    them; item 8's ``precision: 16-mixed`` is the model's bf16 conv dtype,
+    as JAX maps it, and nothing waits."""
     exp = load_experiment(REPO / "configs" / "mopoe_mrssm.yaml", override)
     assert isinstance(exp.model, MoPoEMRSSM)
+    if item == "item 8":
+        theirs = jax_load_experiment(REPO / "configs" / "mopoe_mrssm.yaml", override)
+        assert exp.model.cfg.conv_dtype == torch.bfloat16
+        assert str(theirs.model.cfg.conv_dtype.__name__) == "bfloat16"
+        assert exp.pending == {}
+        exp.build_trainer(datamodule=EpisodeDataModule(DataModuleConfig(
+            data_dir=str(tmp_path / "none"))), device="cpu")
+        return
     if item != "item 4":
         with pytest.raises(NotImplementedError, match=f"{field}=.*{item}"):
             exp.build_trainer(device="cpu")

@@ -433,15 +433,18 @@ def test_rollout_bits_pinned(cuda_device):
     assert mrssm_rollout_digest(cuda_device) == MRSSM_ROLLOUT_DIGEST
 
 
-def _train_step_card_vs_cpu(family, cfg, dev) -> None:
+def _train_step_card_vs_cpu(family, cfg, dev, tie_eps: float = 1e-5, rtol: float = 2e-5,
+                            rel: float = 3e-4, shape: tuple[int, int] = (4, 10),
+                            seeds: int = 10) -> None:
     """One ``shared_step`` and backward of ``family(cfg)`` on the card
-    against the CPU (plain versions) with the same weights, batch and noise;
-    noise with Gumbel near-ties is skipped for the next seed."""
+    against the CPU (plain versions) with the same weights, batch and noise
+    (``parity.check_train_step`` at ``rtol`` and ``rel``); noise with Gumbel
+    near-ties of ``tie_eps`` is skipped for the next seed."""
     cpu = family(cfg).init(torch.Generator().manual_seed(1))
     gpu = family(cfg).to(dev)
     gpu.load_state_dict(cpu.state_dict())
-    B, T = 4, 10
-    for seed in range(10):
+    B, T = shape
+    for seed in range(seeds):
         rng = np.random.default_rng(seed)
         act = rng.uniform(-1, 1, (B, T, 6)).astype(np.float32)
         frames = [rng.uniform(-1, 1, (B, T, 32, 32, 1)).astype(np.float32) for _ in range(2)]
@@ -450,13 +453,13 @@ def _train_step_card_vs_cpu(family, cfg, dev) -> None:
                  for k, s in cpu.noise_shapes(B, T).items()}
         noise["input"] = tuple(torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
                                for x in batch[:3])
-        if parity.train_step_near_ties(cpu, batch, noise) == 0:
+        if parity.train_step_near_ties(cpu, batch, noise, tie_eps) == 0:
             break
     kernels.reset_launch_counts()
     on_card = (tuple(x.to(dev) for x in batch),
                {k: v.to(dev) if k != "input" else tuple(x.to(dev) for x in v)
                 for k, v in noise.items()})
-    parity.check_train_step(gpu, cpu, on_card, (batch, noise))
+    parity.check_train_step(gpu, cpu, on_card, (batch, noise), rtol, rel)
 
 
 @pytest.mark.gpu
@@ -1484,3 +1487,235 @@ def test_random_dropout_resume_on_the_card(cuda_device, tmp_path, monkeypatch):
     assert [r["epoch"] for r in resumed.fit(resume=True)["history"]] == [1]
     for a, b in zip(resumed.model.state_dict().values(), ref.model.state_dict().values()):
         assert torch.equal(a, b)
+
+
+# ---- the bf16 fused encoder kernels (trainer.precision 16-mixed) -------------------------
+
+# bf16 kernel against its plain version on the card: a different f32 summation
+# order may flip one bf16 ulp (2^-8 relative) of a layer's output, which the
+# later layers carry; × max(1, max|plain|).
+BF16_FWD_TOL = 1e-2
+BF16_BWD_TOL = 2e-2
+# bf16 embeddings against the f32 kernels', absolute: JAX's own bound
+# (tests/test_fused_conv.py::test_bf16_path).
+BF16_VS_F32 = 0.1
+
+
+def encoder_f32_digest(dev) -> str:
+    """The digest of the f32 fused encoder's embedding, frames' cotangent
+    and weight gradients on the MRSSM audio encoder at N=240 (seeded frames
+    and cotangent)."""
+    enc = _encoder("model", dev)
+    w = [t.detach() for t in fused_conv.encoder_weights(enc)]
+    rng = np.random.default_rng(240)
+    x = torch.tensor(rng.uniform(-1, 1, (240, 32, 32, 1)).astype(np.float32), device=dev)
+    g = torch.tensor(rng.standard_normal((240, enc.cfg.out_dim)).astype(np.float32), device=dev)
+    with torch.no_grad():
+        out = fused_conv.fused_encoder_forward_cuda(w, enc.cfg, x)
+        dx, dw = fused_conv.fused_encoder_backward_cuda(w, enc.cfg, x, g, True)
+    return _digest([out, dx, *dw])
+
+
+# encoder_f32_digest on an NVIDIA H100 80GB HBM3, taken on the f32 encoder
+# kernels as they stood before the bf16 kernels were added.
+ENCODER_F32_DIGEST = "d295ed7df9675b46b11753184962bcfcb247566adc2e9384c2f983cbd79b598c"
+
+
+@pytest.mark.gpu
+def test_fused_encoder_f32_bits_unchanged_by_the_bf16_kernels(cuda_device):
+    assert encoder_f32_digest(cuda_device) == ENCODER_F32_DIGEST
+
+
+def _bf16_case(name: str, N: int, dev):
+    enc = _encoder(name, dev)
+    w32 = [t.detach() for t in fused_conv.encoder_weights(enc)]
+    rng = np.random.default_rng(N)
+    x32 = torch.tensor(rng.uniform(-1, 1, (N, 32, 32, 1)).astype(np.float32), device=dev)
+    g = torch.tensor(rng.standard_normal((N, enc.cfg.out_dim)).astype(np.float32), device=dev)
+    return enc, w32, x32, g.to(torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,N", [("model", 240), ("model", 3840), ("model", 5),
+                                    ("narrow", 241), ("no_res", 30), ("wide", 30)])
+def test_fused_encoder_bf16_kernels_match_plain(cuda_device, name, N):
+    """The bf16 forward against the plain bf16 version within 1e-2 × scale
+    and the f32 kernels within 0.1; the bf16 backward (every weight gradient
+    and dx, bf16) against the plain bf16 backward within 2e-2 × scale per
+    tensor; two launches bit-identical, and the backward without dx gives
+    the same weight-gradient bits. N=5 and 241 leave ragged tiles of 4 and
+    2 frames a block."""
+    enc, w32, x32, g = _bf16_case(name, N, cuda_device)
+    w, x = [t.to(torch.bfloat16) for t in w32], x32.to(torch.bfloat16)
+    with torch.no_grad():
+        got = fused_conv.fused_encoder_bf16_forward_cuda(w, enc.cfg, x)
+        again = fused_conv.fused_encoder_bf16_forward_cuda(w, enc.cfg, x)
+        f32 = fused_conv.fused_encoder_forward_cuda(w32, enc.cfg, x32)
+        dx, dw = fused_conv.fused_encoder_bf16_backward_cuda(w, enc.cfg, x, g, True)
+        dx2, dw2 = fused_conv.fused_encoder_bf16_backward_cuda(w, enc.cfg, x, g, True)
+        none, dw3 = fused_conv.fused_encoder_bf16_backward_cuda(w, enc.cfg, x, g, False)
+        plain = fused_conv.fused_encoder_plain(w, enc.cfg, x)
+    ref_dx, ref_dw = fused_conv.fused_encoder_backward_plain(w, enc.cfg, x, g, True)
+    assert got.dtype == dx.dtype == torch.bfloat16 and all(t.dtype == torch.bfloat16 for t in dw)
+    assert _scaled_err(got.float(), plain.float()) <= BF16_FWD_TOL
+    assert float((got.float() - f32).abs().max()) <= BF16_VS_F32
+    parity.check_gradients([t.float() for t in (*dw, dx)], [t.float() for t in (*ref_dw, ref_dx)],
+                           BF16_BWD_TOL)
+    assert torch.equal(got, again)
+    assert all(torch.equal(a, b) for a, b in zip([*dw, dx], [*dw2, dx2]))
+    assert none is None and all(torch.equal(a, b) for a, b in zip(dw, dw3))
+
+
+@pytest.mark.gpu
+def test_fused_encoder_apply_on_bf16_frames_launches_the_bf16_kernels(cuda_device):
+    """bf16 frames through ``fused_encoder_apply``: the bf16 kernels once
+    each way and no f32 encoder kernel; the float32 master parameters take
+    float32 gradients equal to the bf16 kernel's, widened."""
+    enc, w32, x32, g = _bf16_case("model", 240, cuda_device)
+    x = x32.to(torch.bfloat16)
+    enc.zero_grad(set_to_none=True)
+    kernels.reset_launch_counts()
+    out = fused_conv.fused_encoder_apply(enc, x)
+    out.backward(g)
+    assert kernels.launch_counts() == {**dict.fromkeys(kernels.LAUNCH_COUNTERS, 0),
+                                      "fused_encoder_fwd_bf16": 1, "fused_encoder_bwd_bf16": 1}
+    with torch.no_grad():
+        _, dw = fused_conv.fused_encoder_bf16_backward_cuda(
+            [t.to(torch.bfloat16) for t in w32], enc.cfg, x, g, False)
+    for t, d in zip(fused_conv.encoder_weights(enc), dw):
+        assert t.grad.dtype == torch.float32 and torch.equal(t.grad, d.float())
+
+
+def _fit_16_mixed(family: str, layout: str, dev, tmp_path):
+    """``configs/mopoe_<family>.yaml`` with ``precision: 16-mixed`` at
+    ``conv_layout=layout`` fit 2 epochs × 3 steps at B=8 T=30 on 24
+    synthetic episodes; returns the fit's history and the launch counts."""
+    from multimodal_mtrssm_tpu_torch.data import generate_synthetic_audio_mnist
+    from multimodal_mtrssm_tpu_torch.train.config import load_experiment
+    from multimodal_mtrssm_tpu_torch.train.entry import default_config_path
+
+    episodes = tmp_path / "episodes"
+    if not episodes.exists():
+        generate_synthetic_audio_mnist(episodes, n_episodes=24, seed=0)
+    exp = load_experiment(default_config_path(f"mopoe_{family}.yaml"), {
+        "trainer": {"precision": "16-mixed", "max_epochs": 2},
+        "model": {"init_args": {"conv_layout": layout}}})
+    assert exp.model.cfg.conv_dtype == torch.bfloat16
+    exp.data.data_dir = episodes
+    exp.trainer.log_dir = str(tmp_path / f"{family}_{layout}")
+    kernels.reset_launch_counts()
+    history = exp.build_trainer(device=dev).fit()["history"]
+    return history, kernels.launch_counts()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["mrssm", "mmtrssm"])
+def test_16_mixed_fit_on_the_fused_encoder_launches_the_bf16_kernels(cuda_device, tmp_path,
+                                                                     family):
+    """A 16-mixed YAML at ``conv_layout: fused_enc`` trains on the card with
+    finite losses, its encoders only on the bf16 kernels (two a step each
+    way), its recurrence on the recurrence kernels."""
+    history, counts = _fit_16_mixed(family, "fused_enc", cuda_device, tmp_path)
+    assert all(np.isfinite(r["train/loss"]) and np.isfinite(r["val/loss"]) for r in history)
+    steps = counts["fused_encoder_bwd_bf16"] // 2
+    assert steps >= 2 and counts["fused_encoder_fwd"] == counts["fused_encoder_bwd"] == 0
+    rec = "recurrence" if family == "mrssm" else "mt_recurrence"
+    assert counts[f"{rec}_bwd"] == steps
+
+
+# ---- the plain route (use_pallas_train=False) on the card --------------------------------
+
+
+def _no_launches() -> bool:
+    return kernels.launch_counts() == dict.fromkeys(kernels.LAUNCH_COUNTERS, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family,cfg_cls", [(MoPoEMRSSM, MRSSMConfig),
+                                            (MoPoEMMTRSSM, MMTRSSMConfig)])
+def test_plain_route_tanh_train_step_on_the_card_matches_the_cpu(cuda_device, family, cfg_cls):
+    """A Tanh model, which the kernels refuse, trains on the card by name
+    (``use_pallas_train=False``): one train step against the CPU route,
+    launching no kernel."""
+    cfg = cfg_cls(activation_name="Tanh", use_pallas_train=False)
+    _train_step_card_vs_cpu(family, cfg, cuda_device)
+    assert _no_launches()
+    with pytest.raises(ValueError, match="use_pallas_train=False"):
+        family(cfg_cls(activation_name="Tanh")).to(cuda_device).shared_step(
+            tuple(torch.zeros(1, 2, *s, device=cuda_device) for s in
+                  ((6,), (32, 32, 1), (32, 32, 1), (6,), (32, 32, 1), (32, 32, 1))))
+
+
+def _rollouts(model, dev, B: int = 8, T: int = 10, seed: int = 5):
+    """``model``'s imagination from a seeded initial state on ``dev``, and
+    the first near-tie of each row on its own logits."""
+    rng = np.random.default_rng(seed)
+    act = torch.tensor(rng.uniform(-1, 1, (B, 1, 6)).astype(np.float32), device=dev)
+    frames = [torch.tensor(rng.uniform(-1, 1, (B, 32, 32, 1)).astype(np.float32), device=dev)
+              for _ in range(2)]
+    noise = {k: torch.tensor(rng.gumbel(size=s).astype(np.float32), device=dev)
+             for k, s in model.noise_shapes(B, 1).items() if k.startswith("g_init")}
+    with torch.no_grad():
+        init = model.initial_state(*frames, *noise.values())
+        return model.rollout_transition(act.expand(B, T, 6).contiguous(), init, seed)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family,cfg_cls", [(MoPoEMRSSM, MRSSMConfig),
+                                            (MoPoEMMTRSSM, MMTRSSMConfig)])
+def test_plain_route_matches_the_kernel_route_on_the_card(cuda_device, family, cfg_cls):
+    """An ELU model on the plain route against the same weights on the
+    kernels: a train step (losses within 2e-5 of the loss, gradients 3e-4
+    × scale) and imagination on the same Philox noise (1e-4 before each
+    row's first near-tie), the plain route launching no kernel; a Tanh
+    model imagines on the card as on the CPU."""
+    kernel = family(cfg_cls()).init(torch.Generator().manual_seed(1)).to(cuda_device)
+    plain = family(cfg_cls(use_pallas_train=False)).to(cuda_device)
+    plain.load_state_dict(kernel.state_dict())
+    B, T = 4, 10
+    for seed in range(10):
+        rng = np.random.default_rng(seed)
+        act = rng.uniform(-1, 1, (B, T, 6)).astype(np.float32)
+        frames = [rng.uniform(-1, 1, (B, T, 32, 32, 1)).astype(np.float32) for _ in range(2)]
+        batch = tuple(torch.tensor(x, device=cuda_device) for x in (act, *frames, act, *frames))
+        noise = {k: torch.tensor(rng.gumbel(size=s).astype(np.float32), device=cuda_device)
+                 for k, s in kernel.noise_shapes(B, T).items()}
+        noise["input"] = tuple(torch.tensor(rng.standard_normal(x.shape).astype(np.float32),
+                                            device=cuda_device) for x in batch[:3])
+        if parity.train_step_near_ties(kernel, batch, noise) == 0:
+            break
+    kernel_out = parity.train_step_grads(kernel, batch, noise)
+    kernels.reset_launch_counts()
+    plain_out = parity.train_step_grads(plain, batch, noise)
+    ref_roll = _rollouts(kernel, cuda_device)
+    kernels.reset_launch_counts()
+    got_roll = _rollouts(plain, cuda_device)
+    assert _no_launches()
+    total = abs(kernel_out[0]["loss"])
+    assert all(abs(plain_out[0][k] - v) <= 2e-5 * total for k, v in kernel_out[0].items())
+    scale = max(1.0, max(float(g.abs().max()) for g in kernel_out[1].values()))
+    assert max(float((plain_out[1][n] - g).abs().max()) for n, g in kernel_out[1].items()) \
+        <= 3e-4 * scale
+    parity.check_same_rollouts(got_roll, ref_roll, kernel.cfg, 5)
+    tanh = cfg_cls(activation_name="Tanh", use_pallas_train=False)
+    cpu = family(tanh).init(torch.Generator().manual_seed(1))
+    card = family(tanh).to(cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    kernels.reset_launch_counts()
+    on_card = _rollouts(card, cuda_device)
+    assert _no_launches()
+    parity.check_same_rollouts(on_card.to(torch.device("cpu")), _rollouts(cpu, torch.device("cpu")),
+                               cpu.cfg, 5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family,cfg_cls", [(MoPoEMRSSM, MRSSMConfig),
+                                            (MoPoEMMTRSSM, MMTRSSMConfig)])
+def test_16_mixed_train_step_on_the_card_matches_the_cpu(cuda_device, family, cfg_cls):
+    """A train step at ``conv_dtype=torch.bfloat16`` (cuDNN's bf16 convs)
+    against the CPU route's bf16 convs, as ``parity.check_train_step`` with
+    bf16 bounds: loss terms within 1e-2 of the loss, gradients 5e-2 × scale
+    (bf16 rounding flips, 2^-8 relative, carried through the stacks); Gumbel
+    near-ties of 1e-2 are skipped for the next seed."""
+    _train_step_card_vs_cpu(family, cfg_cls(conv_dtype=torch.bfloat16), cuda_device,
+                            tie_eps=1e-2, rtol=1e-2, rel=5e-2, shape=(2, 5), seeds=30)

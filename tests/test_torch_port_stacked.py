@@ -250,7 +250,7 @@ def test_fused_stacked_shared_step_matches_jax(fused_stacked):
 # ---- the dispatch table -------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("value", [False, None, "interpret", "reference", "stacked_interpret",
+@pytest.mark.parametrize("value", ["plain", "xla", "interpret", "reference", "stacked_interpret",
                                    "false", "atuo", 1])
 def test_refused_train_modes_raise(value):
     with pytest.raises(ValueError, match="use_pallas_train"):
