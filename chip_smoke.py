@@ -16,6 +16,17 @@ each stage's alone and one against two batch rows a block, at B=8 T=30,
 B=64 T=30 and B=256 T=180), ``--stacked-recurrence-bwd`` only the stacked
 recurrence backward's beside the unstacked one's
 (``stacked_recurrence_bwd_phase``): for comparing two trees in one call.
+``--bf16-encoder [PARENT]`` times only the bf16 fused encoder kernels
+(call and device ms at N=240 and 3840, the backward's kernels) and the
+16-mixed ``fused_enc`` train step of both families, beside ``ptxas``'s
+report of their sources; given PARENT, an unpacked ``git archive`` of
+another commit, it times PARENT's package too, in turns parent, this
+tree, this tree, parent, each in a process of its own
+(``bf16_encoder_phase``). ``--bf16-encoder-stamps`` runs stamped copies of
+the bf16 encoder kernels (clock64 at each weight slice and each
+weight-gradient block; the forward also without its tensor-core products,
+and without its ldmatrix loads) and prints where a block's cycles go
+(``bf16_stamps_phase``).
 Four configurations go through the serving and training phases, each with
 seeded random weights (no trained checkpoint or dataset on the machine;
 the shapes and the path are the real ones): MoPoE-MRSSM (``MRSSMConfig()``),
@@ -2330,6 +2341,313 @@ def _timing_mode(run, sources=PTXAS_SOURCES) -> int:
     return 0
 
 
+BF16_SOURCES = ("fused_encoder_bf16_fwd.cu", "fused_encoder_bf16_bwd.cu")
+BF16_RESULT = "bf16-encoder result "  # a --bf16-encoder-at turn's last line: its JSON
+
+
+def mixed_step_times(model, dev, card: str) -> dict:
+    """A train step of ``model`` (16-mixed) at B=8 T=30: its CUDA-event
+    median, and under ``torch.profiler`` over 5 steps its device time a step
+    and the bf16 encoder kernels' part of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from multimodal_mtrssm_tpu_torch.train import AdamW, one_update
+
+    model.train()
+    batch, _ = _train_batch(np.random.default_rng(SEED + 8), 8, 30, model)
+    batch = tuple(x.to(dev) for x in batch)
+    opt = AdamW(model.parameters())
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    step = lambda: one_update(model, opt, batch, gen)  # noqa: E731
+    k_ms = _median_ms(step, 15, warmup=3)
+    out = {"step_ms": k_ms, "device_ms": None, "bf16_encoder_ms": None}
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                step()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    except RuntimeError as e:
+        print(f"16-mixed train step device time: not measured (torch.profiler failed: {e})")
+        return out
+    total = sum(_self_device_us(e) for e in events)
+    enc = sum(_self_device_us(e) for e in events if "encoder_bf16" in e.key)
+    if total > 0:
+        out.update(device_ms=total / 5e3, bf16_encoder_ms=enc / 5e3)
+    print(f"time {_label(model.cfg)} 16-mixed train step B=8 T=30: {k_ms:.4f} ms (CUDA events, "
+          "median of 15); device "
+          + ("not measured" if total == 0 else
+             f"{total / 5e3:.4f} ms a step, the bf16 encoder kernels {enc / 5e3:.4f} ms") +
+          f" (torch.profiler, 5 steps) | {card}")
+    return out
+
+
+def bf16_encoder_at(root: Path) -> int:
+    """``--bf16-encoder-at ROOT``: one turn of ``--bf16-encoder`` on the
+    package under ROOT, imported ahead of this tree's: ``bf16_encoder_timings``
+    on MRSSM's audio encoder, then the 16-mixed ``fused_enc`` train step of
+    ``configs/mopoe_mrssm.yaml`` and ``mopoe_mmtrssm.yaml`` (seeded weights),
+    then the result as one JSON line."""
+    sys.path.insert(0, str(root.resolve()))
+    from multimodal_mtrssm_tpu_torch.ops.kernels import build
+
+    if root.resolve() not in Path(build.__file__).resolve().parents:
+        raise RuntimeError(f"--bf16-encoder-at {root}: imported {build.__file__} instead")
+
+    def run(dev, card):
+        import torch
+
+        from multimodal_mtrssm_tpu_torch.models import MoPoEMRSSM, MRSSMConfig
+        from multimodal_mtrssm_tpu_torch.train.config import load_experiment
+        from multimodal_mtrssm_tpu_torch.train.entry import default_config_path
+
+        build.load_library()
+        print(f"build: {build.build_seconds:.2f} s ({build.library_path()})", flush=True)
+        model = _seeded(MoPoEMRSSM, MRSSMConfig(), dev)
+        with torch.no_grad():
+            record = bf16_encoder_timings(model, dev, card)[3]
+        steps = {}
+        for family in ("mrssm", "mmtrssm"):
+            torch.manual_seed(SEED)
+            exp = load_experiment(default_config_path(f"mopoe_{family}.yaml"), {
+                "trainer": {"precision": "16-mixed"},
+                "model": {"init_args": {"conv_layout": "fused_enc"}}})
+            steps[family] = mixed_step_times(exp.model.to(dev), dev, card)
+        print(BF16_RESULT + json.dumps({"kernels": record, "steps": steps}), flush=True)
+
+    return _timing_mode(run, ())
+
+
+def bf16_encoder_phase(parent: Path | None = None) -> int:
+    """``--bf16-encoder [PARENT]``: ``bf16_encoder_at`` on this tree, in a
+    process of its own, beside ``ptxas``'s report of the bf16 sources; with
+    PARENT (an unpacked ``git archive`` of another commit) in turns parent,
+    this tree, this tree, parent, then each kernel's device time a call and
+    each family's 16-mixed step against the parent's (means of the turns)."""
+    here = Path(__file__).resolve().parent
+
+    def run(dev, card):
+        roots = [parent, here, here, parent] if parent is not None else [here]
+        turns: dict[str, list[dict]] = {"parent": [], "change": []}
+        for root in roots:
+            label = "parent" if root == parent else "change"
+            print(f"---- --bf16-encoder turn: {label} ({root})", flush=True)
+            proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                     "--bf16-encoder-at", str(root)], stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            _CHILDREN.append(proc)
+            result = None
+            for line in proc.stdout:
+                print(line, end="", flush=True)
+                if line.startswith(BF16_RESULT):
+                    result = json.loads(line[len(BF16_RESULT):])
+            if proc.wait() != 0 or result is None:
+                raise RuntimeError(f"--bf16-encoder-at {root} exited {proc.returncode}")
+            turns[label].append(result)
+        if parent is None:
+            return
+
+        def mean(label, get):
+            vals = [get(r) for r in turns[label]]
+            return None if None in vals else float(np.mean(vals))
+
+        for N in turns["change"][0]["kernels"]:
+            for kernel, key in (("fused_encoder_fwd_bf16", "fwd_device_ms"),
+                                ("fused_encoder_bwd_bf16", "bwd_device_ms")):
+                new = mean("change", lambda r: r["kernels"][N][key])
+                old = mean("parent", lambda r: r["kernels"][N][key])
+                ratio = "not measured" if None in (new, old) else f"{new / old:.4f}"
+                print(f"{kernel} N={N}: device {new} ms a call (mean of 2 turns), parent {old} "
+                      f"ms; change / parent {ratio} (limit 0.5) | {card}")
+        for family in turns["change"][0]["steps"]:
+            row = {label: {k: mean(label, lambda r: r["steps"][family][k])
+                           for k in ("step_ms", "device_ms", "bf16_encoder_ms")}
+                   for label in turns}
+            print(f"{family} 16-mixed fused_enc train step B=8 T=30 (means of 2 turns): change "
+                  f"{row['change']}, parent {row['parent']} | {card}")
+
+    return _timing_mode(run, BF16_SOURCES)
+
+
+# --bf16-encoder-stamps: clock64 stamps in a copy of the bf16 encoder
+# kernels. Each edit is (source, anchor, replacement); a missing anchor
+# fails the mode. Thread 0 of each block stamps the forward's and the
+# cotangent pass's slices (when a slice's weights have arrived, when its
+# products and epilogue are done) and each weight-gradient block's start
+# and end, into __device__ arrays that dbg_* entry points copy out.
+_STAMP_EDITS = [
+    ("fused_encoder_bf16.cuh", "namespace fbf {\n\ntypedef",
+     "namespace fbf {\n__device__ long long g_ft[4096][72];\n__device__ long long g_xt[4096][72];\n"
+     "__device__ long long g_wt[16384][4];\ntypedef"),
+    ("fused_encoder_bf16.cuh", "  Slice sl = make_slice(P, 0, 0, 0, 0, 0);\n",
+     "  if (tid == 0 && blockIdx.x < 4096) g_ft[blockIdx.x][0] = clock64();\n"
+     "  Slice sl = make_slice(P, 0, 0, 0, 0, 0);\n"),
+    ("fused_encoder_bf16.cuh",
+     "  __syncthreads();  // the mbarriers and the input map are in place\n",
+     "  __syncthreads();  // the mbarriers and the input map are in place\n"
+     "  if (tid == 0 && blockIdx.x < 4096) g_ft[blockIdx.x][1] = clock64();\n"),
+    ("fused_encoder_bf16.cuh", "    fconv::mbar_wait(&bar[i & 1], (i >> 1) & 1);\n",
+     "    fconv::mbar_wait(&bar[i & 1], (i >> 1) & 1);\n"
+     "    if (tid == 0 && blockIdx.x < 4096 && i < 34) g_ft[blockIdx.x][2 + 2 * i] = clock64();\n"),
+    ("fused_encoder_bf16.cuh", "slice i's buffer is free\n",
+     "slice i's buffer is free\n"
+     "    if (tid == 0 && blockIdx.x < 4096 && i < 34) g_ft[blockIdx.x][3 + 2 * i] = clock64();\n"),
+    ("fused_encoder_bf16_bwd.cu", "    fconv::mbar_wait(&bar[i & 1], (i >> 1) & 1);\n",
+     "    fconv::mbar_wait(&bar[i & 1], (i >> 1) & 1);\n"
+     "    if (tid == 0 && blockIdx.x < 4096 && i < 34) g_xt[blockIdx.x][2 + 2 * i] = clock64();\n"),
+    ("fused_encoder_bf16_bwd.cu", "slice i's buffer is free\n",
+     "slice i's buffer is free\n"
+     "    if (tid == 0 && blockIdx.x < 4096 && i < 34) g_xt[blockIdx.x][3 + 2 * i] = clock64();\n"),
+    ("fused_encoder_bf16_bwd.cu",
+     "  __syncthreads();  // the mbarriers and the head's cotangent are in place\n",
+     "  __syncthreads();  // the mbarriers and the head's cotangent are in place\n"
+     "  if (tid == 0 && blockIdx.x < 4096) g_xt[blockIdx.x][1] = clock64();\n"),
+    ("fused_encoder_bf16_bwd.cu", "  const int z = blockIdx.z;\n",
+     "  const long long t_start = clock64();\n  const int z = blockIdx.z;\n"),
+    ("fused_encoder_bf16_bwd.cu",
+     "  // Splits 1.. S-1 hand their sums to split 0 through the staging buffers.",
+     "  const int wb = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;\n"
+     "  if (tid == 0 && wb < 16384) {\n    g_wt[wb][0] = t_start;\n    g_wt[wb][1] = clock64();\n"
+     "    g_wt[wb][2] = l;\n    g_wt[wb][3] = stages;\n  }\n"
+     "  // Splits 1.. S-1 hand their sums to split 0 through the staging buffers."),
+]
+_STAMP_COPY = "  return (int)cudaMemcpyFromSymbol(out, fbf::{0}, sizeof(fbf::{0}));\n"
+_STAMP_ENTRIES = {
+    "fused_encoder_bf16_fwd.cu": 'extern "C" int dbg_fwd_stamps(void* out) {\n'
+                                 + _STAMP_COPY.format("g_ft") + "}\n",
+    "fused_encoder_bf16_bwd.cu": 'extern "C" int dbg_bwd_stamps(void* out, int which) {\n'
+                                 "  if (which == 1)\n" + _STAMP_COPY.format("g_xt")
+                                 + _STAMP_COPY.format("g_wt") + "}\n"}
+# The forward's variants: its HMMAs, or its ldmatrix loads, left out (its
+# outputs then mean nothing; its time does).
+_STAMP_VARIANTS = {
+    "kernels": [],
+    "forward without its HMMAs": [
+        ("fused_encoder_bf16.cuh", f"        mma({a}, {f}, {b}[0], {b}[1]);\n"
+         f"        mma({a} + 4, {f}, {b}[2], {b}[3]);\n", "")
+        for a, f, b in (("a8", "af", "bfr"), ("b8", "an", "bn"))],
+    "forward without its ldmatrix loads": [
+        ("fused_encoder_bf16.cuh",
+         f"          ldsm4({f}, ap + cs * astep);\n          ldsm4({b}, bp);\n",
+         f"          for (int e = 0; e < 4; ++e) {{ {f}[e] = ap + cs * astep + e; "
+         f"{b}[e] = bp + e; }}\n")
+        for f, b in (("an", "bn"), ("af", "bfr"))],
+}
+
+
+def _stamped_copy(dst: Path, variant: str) -> None:
+    """This tree's port package and configs copied under ``dst``, its bf16
+    encoder kernels stamped (``_STAMP_EDITS``) with ``variant``'s edits."""
+    import shutil
+
+    here = Path(__file__).resolve().parent
+    shutil.copytree(here / "multimodal_mtrssm_tpu_torch", dst / "multimodal_mtrssm_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copytree(here / "configs", dst / "configs")
+    csrc = dst / "multimodal_mtrssm_tpu_torch" / "csrc"
+    for name, old, new in _STAMP_EDITS + _STAMP_VARIANTS[variant]:
+        text = (csrc / name).read_text()
+        if old not in text:
+            raise RuntimeError(f"--bf16-encoder-stamps: {name} lacks {old[:60]!r}")
+        (csrc / name).write_text(text.replace(old, new, 1))
+    for name, entry in _STAMP_ENTRIES.items():
+        (csrc / name).write_text((csrc / name).read_text() + entry)
+
+
+def bf16_stamps_at(root: Path) -> int:
+    """``--bf16-encoder-stamps-at ROOT``: the stamped kernels under ROOT at
+    N=240 and 3840 on MRSSM's audio encoder: CUDA-event ms of 10 calls in a
+    row, each slice's mean cycles (weights' arrival, then products and
+    epilogue) over the blocks of a forward and of a cotangent pass, each
+    layer's weight-gradient blocks' cycles."""
+    import ctypes
+
+    sys.path.insert(0, str(root.resolve()))
+    from multimodal_mtrssm_tpu_torch.ops.kernels import build, fused_conv
+
+    if root.resolve() not in Path(build.__file__).resolve().parents:
+        raise RuntimeError(f"--bf16-encoder-stamps-at {root}: imported {build.__file__} instead")
+
+    def run(dev, card):
+        import torch
+
+        from multimodal_mtrssm_tpu_torch.models import MoPoEMRSSM, MRSSMConfig
+
+        lib = build.load_library()
+        lib.dbg_fwd_stamps.argtypes = [ctypes.c_void_p]
+        lib.dbg_bwd_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        enc = _seeded(MoPoEMRSSM, MRSSMConfig(), dev).audio_encoder
+        w = [t.detach().to(torch.bfloat16) for t in fused_conv.encoder_weights(enc)]
+
+        def slices(buf, nb, what):
+            t = buf[:nb].astype(np.float64)
+            n = 0
+            while n < 34 and np.all(t[:, 2 + 2 * n] > 0):
+                n += 1
+            wait = [np.mean(t[:, 2 + 2 * i] - t[:, 1 + 2 * i]) for i in range(n)]
+            comp = [np.mean(t[:, 3 + 2 * i] - t[:, 2 + 2 * i]) for i in range(n)]
+            print(f"  {what}, cycles a slice (mean over {nb} blocks), weights' wait: "
+                  + " ".join(f"{v:.0f}" for v in wait))
+            print(f"  {what}, cycles a slice, products and epilogue: "
+                  + " ".join(f"{v:.0f}" for v in comp))
+
+        for N in (240, 3840):
+            rng = np.random.default_rng(N)
+            x = torch.tensor(rng.uniform(-1, 1, (N, 32, 32, 1)).astype(np.float32),
+                             device=dev).to(torch.bfloat16)
+            g = torch.tensor(rng.standard_normal((N, enc.cfg.out_dim)).astype(np.float32),
+                             device=dev).to(torch.bfloat16)
+            fwd = lambda: fused_conv.fused_encoder_bf16_forward_cuda(w, enc.cfg, x)  # noqa: E731
+            bwd = lambda: fused_conv.fused_encoder_bf16_backward_cuda(  # noqa: E731
+                w, enc.cfg, x, g, False)
+            with torch.no_grad():
+                ms = [_median_ms(f, 10) for f in (fwd, bwd)]
+                print(f"stamped N={N}: forward call {ms[0]:.4f} ms, backward call {ms[1]:.4f} ms "
+                      f"(CUDA events) | {card}")
+                nb = min(4096, -(-N // fused_conv.bf16_sizes(
+                    lib, fused_conv._dims(enc.cfg, N))["fwd_frames"]))
+                fwd()
+                torch.cuda.synchronize()
+                buf = np.zeros((4096, 72), np.int64)
+                build.check(lib.dbg_fwd_stamps(buf.ctypes.data))
+                slices(buf, nb, "forward")
+                bwd()
+                torch.cuda.synchronize()
+                build.check(lib.dbg_bwd_stamps(buf.ctypes.data, 1))
+                slices(buf, nb, "cotangent pass")
+                wt = np.zeros((16384, 4), np.int64)
+                build.check(lib.dbg_bwd_stamps(wt.ctypes.data, 2))
+                wt = wt[wt[:, 1] > 0]
+                for layer in sorted(set(wt[:, 2])):
+                    r = wt[wt[:, 2] == layer]
+                    d = (r[:, 1] - r[:, 0]).astype(np.float64)
+                    print(f"  weight-gradient pass layer {layer}: {len(r)} blocks, cycles mean "
+                          f"{d.mean():.0f} max {d.max():.0f}, {r[0, 3]} stages a block")
+
+    return _timing_mode(run, ())
+
+
+def bf16_stamps_phase() -> int:
+    """``--bf16-encoder-stamps``: ``bf16_stamps_at`` on each variant of
+    ``_STAMP_VARIANTS``, a stamped copy of this tree's kernels each (under a
+    temporary directory), each in a process of its own."""
+
+    def run(dev, card):
+        for variant in _STAMP_VARIANTS:
+            with tempfile.TemporaryDirectory() as tmp:
+                _stamped_copy(Path(tmp), variant)
+                print(f"---- --bf16-encoder-stamps: {variant}", flush=True)
+                proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                                       "--bf16-encoder-stamps-at", tmp], check=False)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"--bf16-encoder-stamps-at ({variant}) exited "
+                                       f"{proc.returncode}")
+
+    return _timing_mode(run, ())
+
+
 def _seeded(family, cfg, dev):
     """``family(cfg)`` with seeded random weights on ``dev``, in eval mode."""
     import torch
@@ -3158,12 +3476,18 @@ BF16_FWD_TOL, BF16_BWD_TOL, BF16_VS_F32 = 1e-2, 2e-2, 0.1
 # near-ties of 1e-2 (bf16 convs move the logits by ~1e-3) is skipped.
 MIXED_RTOL, MIXED_REL, MIXED_TIE = 1e-2, 5e-2, 1e-2
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 (NVIDIA data sheet)
-# The device kernels of one fused_encoder_bf16_backward_cuda call.
-ENCODER_BF16_BWD_KERNELS = {"pack": "encoder_bf16_pack_kernel",
-                            "recompute forward": "encoder_bf16_fwd_kernel",
-                            "cotangent pass": "encoder_bf16_bwd_dx",
-                            "weight-gradient pass": "encoder_bf16_bwd_dw",
-                            "reduce": "encoder_bf16_reduce"}
+# The device kernels of one fused_encoder_bf16_backward_cuda call, and as
+# PR 21's first form named them (``--bf16-encoder`` times its archive).
+ENCODER_BF16_BWD_KERNELS = {"pack": "encoder_bf16_tc_pack_kernel",
+                            "recompute forward": "encoder_bf16_tc_fwd_kernel",
+                            "cotangent pass": "encoder_bf16_tc_dx_kernel",
+                            "weight-gradient pass": "encoder_bf16_tc_dw_kernel",
+                            "reduce": "encoder_bf16_tc_reduce_kernel"}
+ENCODER_BF16_BWD_KERNELS_PR21 = {"pack": "encoder_bf16_pack_kernel",
+                                 "recompute forward": "encoder_bf16_fwd_kernel",
+                                 "cotangent pass": "encoder_bf16_bwd_dx",
+                                 "weight-gradient pass": "encoder_bf16_bwd_dw",
+                                 "reduce": "encoder_bf16_reduce"}
 ROUTE_KERNELS = ("recurrence_fwd", "recurrence_bwd", "rollout", "mt_recurrence_fwd",
                  "mt_recurrence_bwd", "mt_rollout", "stacked_recurrence_fwd",
                  "stacked_recurrence_bwd")
@@ -3224,16 +3548,30 @@ def check_bf16_encoder(model, dev) -> dict[str, dict]:
             "fused_encoder_bwd_bf16": {"max_abs_err": bwd_err}}
 
 
-def bf16_encoder_timings(model, dev, card: str) -> tuple[dict, dict, dict]:
+def _bf16_kernel_names() -> dict[str, str]:
+    """The bf16 backward's kernels as the imported package names them: this
+    tree's, or PR 21's first form (an archive timed by ``--bf16-encoder``)."""
+    from multimodal_mtrssm_tpu_torch.ops.kernels import build
+
+    src = (build.CSRC / "fused_encoder_bf16_bwd.cu").read_text()
+    return (ENCODER_BF16_BWD_KERNELS if ENCODER_BF16_BWD_KERNELS["weight-gradient pass"] in src
+            else ENCODER_BF16_BWD_KERNELS_PR21)
+
+
+def bf16_encoder_timings(model, dev, card: str) -> tuple[dict, dict, dict, dict]:
     """Phase 8(a) timings at N=240 and 3840: the bf16 encoder kernels against
     their plain versions, beside the f32 kernels and the cuDNN ``Encoder``
     on bf16 frames (its forward, and forward + backward), with the device
-    time of each kernel of one backward call; the bounds at N=240 (bf16
-    bytes, and the multiply-adds over the bf16 peak)."""
+    time of every kernel of a forward call and of each kernel of a backward
+    call; the bounds at N=240 (bf16 bytes, and the multiply-adds over the
+    bf16 peak). Returns the kernels line's times, library times and bounds,
+    and a record of each N's call and device ms."""
     import torch
 
     from multimodal_mtrssm_tpu_torch.ops.kernels import fused_conv
 
+    names = _bf16_kernel_names()
+    record: dict[int, dict] = {}
     enc = model.audio_encoder
     cfg = enc.cfg
     macs, first = _encoder_macs(cfg)
@@ -3250,18 +3588,24 @@ def bf16_encoder_timings(model, dev, card: str) -> tuple[dict, dict, dict]:
         p_ms = _median_ms(lambda: fused_conv.fused_encoder_plain(w, cfg, x), 10)
         f_ms = _median_ms(lambda: fused_conv.fused_encoder_forward_cuda(w32, cfg, x32), 20)
         l_ms = _median_ms(lambda: enc(x), 20)
-        d_ms = _device_ms(lambda: fwd(w, cfg, x), "encoder_bf16_fwd")
+        d_ms = _device_ms(lambda: fwd(w, cfg, x), "encoder_bf16")
         kb_ms = _median_ms(lambda: bwd(w, cfg, x, g, False), 10)
         pb_ms = _median_ms(lambda: fused_conv.fused_encoder_backward_plain(w, cfg, x, g, False), 5)
         fb_ms = _median_ms(lambda: fused_conv.fused_encoder_backward_cuda(
             w32, cfg, x32, g.float(), False), 10)
         with torch.enable_grad():
             lb_ms = _median_ms(lambda: torch.autograd.grad(enc(x), params, g), 10)
-        parts = _device_breakdown(lambda: bwd(w, cfg, x, g, False),
-                                  tuple(ENCODER_BF16_BWD_KERNELS.values()))
-        _print_breakdown(f"fused_encoder_bwd_bf16 N={N}", parts, ENCODER_BF16_BWD_KERNELS, card)
+        parts = _device_breakdown(lambda: bwd(w, cfg, x, g, False), tuple(names.values()))
+        _print_breakdown(f"fused_encoder_bwd_bf16 N={N}", parts, names, card)
+        seen = [v for v in parts.values() if v is not None]
+        record[N] = {"fwd_ms": k_ms, "fwd_device_ms": d_ms, "bwd_ms": kb_ms,
+                     "bwd_device_ms": sum(seen) if seen else None,
+                     "bwd_parts": {k: parts[v] for k, v in names.items()},
+                     "cudnn_fwd_ms": l_ms, "cudnn_fwd_bwd_ms": lb_ms,
+                     "f32_fwd_ms": f_ms, "f32_bwd_ms": fb_ms}
         dev_ms = "not measured" if d_ms is None else f"{d_ms:.4f} ms"
-        print(f"time fused_encoder_fwd_bf16 N={N}: kernel {k_ms:.4f} ms (device {dev_ms}), plain "
+        print(f"time fused_encoder_fwd_bf16 N={N}: kernel {k_ms:.4f} ms (device, all its kernels, "
+              f"{dev_ms}), plain "
               f"bf16 {p_ms:.4f} ms, the f32 kernel {f_ms:.4f} ms, cuDNN Encoder on bf16 frames "
               f"{l_ms:.4f} ms; fused_encoder_bwd_bf16 (recompute + weight gradients): kernel "
               f"{kb_ms:.4f} ms, plain bf16 {pb_ms:.4f} ms, the f32 kernels {fb_ms:.4f} ms, cuDNN "
@@ -3275,7 +3619,7 @@ def bf16_encoder_timings(model, dev, card: str) -> tuple[dict, dict, dict]:
             bounds["fused_encoder_bwd_bf16"] = _bound(2 * (3 * macs - first) * N,
                                                       2 * _nbytes(w) + _nbytes(x, g),
                                                       PEAK_BF16_FLOPS)
-    return main, library, bounds
+    return main, library, bounds, record
 
 
 def _zero_route_launches(counts: dict[str, int], what: str) -> None:
@@ -3786,7 +4130,7 @@ def _main(work: Path) -> int:
     # from the YAMLs, the learning demonstration's path.
     with torch.no_grad():
         checks.update(check_bf16_encoder(fs_model, dev))
-        bf_times, bf_library, bf_bounds = bf16_encoder_timings(fs_model, dev, card)
+        bf_times, bf_library, bf_bounds, _ = bf16_encoder_timings(fs_model, dev, card)
     times.update(bf_times)
     bounds.update(bf_bounds)
     library.update(bf_library)
@@ -3853,9 +4197,16 @@ if __name__ == "__main__":
                  "--mt-recurrence-fwd": mt_recurrence_fwd_phase,
                  "--recurrence-fwd": recurrence_fwd_phase, "--rollout": rollout_phase,
                  "--stacked-recurrence-bwd": stacked_recurrence_bwd_phase,
-                 "--learning-demo": learning_demo_phase}
+                 "--learning-demo": learning_demo_phase, "--bf16-encoder": bf16_encoder_phase,
+                 "--bf16-encoder-stamps": bf16_stamps_phase}
         if sys.argv[1:2] == ["--learning-demo"] and len(sys.argv) > 2:
             code = learning_demo_phase(Path(sys.argv[2]))
+        elif sys.argv[1:2] == ["--bf16-encoder"] and len(sys.argv) > 2:
+            code = bf16_encoder_phase(Path(sys.argv[2]).resolve())
+        elif sys.argv[1:2] == ["--bf16-encoder-at"] and len(sys.argv) > 2:
+            code = bf16_encoder_at(Path(sys.argv[2]))
+        elif sys.argv[1:2] == ["--bf16-encoder-stamps-at"] and len(sys.argv) > 2:
+            code = bf16_stamps_at(Path(sys.argv[2]))
         else:
             code = modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes else main()
     finally:

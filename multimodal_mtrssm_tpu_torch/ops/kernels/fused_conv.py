@@ -55,12 +55,14 @@ bf16 frames (``trainer.precision: 16-mixed``, the model's ``conv_dtype``)
 take the bf16 kernels, JAX's ``_fwd_kernel``/``_bwd_kernel`` at
 ``dtype=bfloat16``: ``fused_encoder_fwd_bf16`` and ``fused_encoder_bwd_bf16``
 (``csrc/fused_encoder_bf16_{fwd,bwd}.cu``, design notes in
-``csrc/fused_encoder_bf16.cuh``), a simple design of their own: f32 FMA
-over bf16 operands, one output of every frame of a tile a thread, the
-tile's bf16 activations in shared memory (4 frames a block). Each layer
-rounds its output to bf16 after its f32 sums, bias and ELU; the backward
-keeps its cotangents and weight-gradient sums in f32 and rounds ``dx`` and
-the weight gradients to bf16, as JAX does. :func:`fused_encoder_plain` and
+``csrc/fused_encoder_bf16.cuh``), on the tensor cores: every layer of the
+forward, the cotangent pass and the weight-gradient pass an implicit GEMM
+on ``mma.sync`` bf16 instructions, a tile of 2 frames a block with its
+bf16 maps in shared memory and the weights streamed by the bulk copy. Each
+layer rounds its output to bf16 after its f32 sums, bias and ELU; the
+backward keeps its cotangents in f32 (split into two bf16 terms, hi and
+lo, as tensor-core operands: :func:`split_bf16`) and rounds ``dx`` and the
+weight gradients to bf16, as JAX does. :func:`fused_encoder_plain` and
 :func:`fused_encoder_backward_plain` round alike on bf16 input (the ELU
 derivative from the rounded output, the roundings passed straight through
 by the backward); the f32 kernels and plain versions are unchanged.
@@ -230,6 +232,17 @@ def coords(cfg: EncoderConfig, device: torch.device | str,
 def _round_bf16(x: torch.Tensor) -> torch.Tensor:
     """``x`` rounded to bf16 (to nearest even) and held in float32."""
     return x.to(torch.bfloat16).to(torch.float32)
+
+
+def split_bf16(d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two bf16 terms the bf16 backward kernels feed the tensor cores
+    for a float32 cotangent ``d``: ``hi = bf16(d)`` and ``lo = bf16(d - hi)``,
+    held in float32. ``hi + lo`` keeps ~2^-17 of ``d``'s relative precision
+    (2^-9 for ``hi`` alone), and a product of either with a bf16 value is
+    exact in float32. The plain versions do not use it: it states the
+    kernels' arithmetic for the tests."""
+    hi = _round_bf16(d)
+    return hi, _round_bf16(d - hi)
 
 
 class _RoundedElu(torch.autograd.Function):
@@ -464,17 +477,19 @@ def fused_encoder_backward_cuda(weights: Sequence[torch.Tensor], cfg: EncoderCon
 def bf16_sizes(lib, dims) -> dict[str, int]:
     """The bf16 kernels' sizes (``fused_encoder_bf16_sizes``): ``stash``
     (bf16 elements a frame of the activation record), ``dpre`` (floats a
-    frame of the pre-activation cotangent record), ``grads``, ``chunks``,
-    ``packed`` (bf16 elements), the frames a block of the forward
-    (``fwd_frames``) and of the cotangent pass (``bwd_frames``), and the
-    ``rows`` of the weight-gradient pass. Raises where the plan does not
-    fit a block."""
+    frame of the pre-activation cotangent record), ``grads``, ``slots`` (the
+    weight-gradient pass's partial sums, ``grads`` floats each: its frame
+    chunks, and room for the first layers' parts of a chunk),
+    ``packed`` (bf16 elements, both directions), the frames a block of the
+    forward (``fwd_frames``) and of the cotangent pass (``bwd_frames``), and
+    the tiles of the weight-gradient pass (``dw_tiles``). Raises where the
+    plan does not fit a block."""
     out = (ctypes.c_longlong * 8)()
     if lib.fused_encoder_bf16_sizes(dims, ctypes.cast(out, ctypes.c_void_p)) != 0:
         raise ValueError("the bf16 fused encoder kernels' shared memory does not fit one frame "
                          "for these widths; conv_layout='nhwc' runs the encoders on cuDNN")
-    return dict(zip(("stash", "dpre", "grads", "chunks", "packed", "fwd_frames", "bwd_frames",
-                     "rows"), (int(v) for v in out)))
+    return dict(zip(("stash", "dpre", "grads", "slots", "packed", "fwd_frames", "bwd_frames",
+                     "dw_tiles"), (int(v) for v in out)))
 
 
 def fused_encoder_bf16_forward_cuda(weights: Sequence[torch.Tensor], cfg: EncoderConfig,
@@ -513,9 +528,11 @@ def fused_encoder_bf16_backward_cuda(weights: Sequence[torch.Tensor], cfg: Encod
     weight-gradient pass and its fixed-order reduction); same contract as
     :func:`fused_encoder_backward_plain` on bf16 input: bf16 ``dx`` (when
     asked) and bf16 weight gradients. Its device-memory scratch at the
-    reference widths: 13,824 bf16 activations and 10,816 float cotangents a
-    frame (~71 KB: ~17 MB at N=240, ~272 MB at N=3840), and 16 chunks ×
-    295,312 partial gradient floats (~19 MB)."""
+    reference widths: 17,424 bf16 activations (channels padded to 16, the
+    input with a zero halo) and 12,864 floats of split cotangents a frame
+    (~86 KB: ~21 MB at N=240, ~331 MB at N=3840), and 17 slots × 295,312
+    partial gradient floats (~20 MB: 16 frame chunks, and the first two
+    layers' parts of each chunk)."""
     global bf16_bwd_launches
     from multimodal_mtrssm_tpu_torch.ops.kernels import build
 
@@ -537,7 +554,7 @@ def fused_encoder_bf16_backward_cuda(weights: Sequence[torch.Tensor], cfg: Encod
                       zip(d_flat.split([t.numel() for t in weights]), weights))
         stash = x.new_empty(N * sz["stash"])
         dpre = torch.empty(N * sz["dpre"], dtype=torch.float32, device=x.device)
-        partial = torch.empty(sz["chunks"] * sz["grads"], dtype=torch.float32, device=x.device)
+        partial = torch.empty(sz["slots"] * sz["grads"], dtype=torch.float32, device=x.device)
         packed = x.new_empty(sz["packed"])
         c = coords(cfg, x.device, torch.bfloat16).float()
         stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -1016,6 +1016,8 @@ ENCODER_VARIANTS = {
     "no_res": {"num_residual_blocks": 0, "coord_conv": False},
     "wide": {"residual_output_size": 128, "residual_intermediate_size": 128,
              "num_residual_blocks": 3},
+    "not16": {"channels": (8, 24, 40), "residual_output_size": 48,
+              "residual_intermediate_size": 56, "num_residual_blocks": 1, "linear_sizes": (40,)},
 }
 
 
@@ -1535,16 +1537,21 @@ def _bf16_case(name: str, N: int, dev):
     return enc, w32, x32, g.to(torch.bfloat16)
 
 
+BF16_CASES = [("model", 240), ("model", 3840), ("model", 5), ("narrow", 241), ("no_res", 30),
+              ("wide", 30), ("model", 1), ("model", 241), ("not16", 31)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("name,N", [("model", 240), ("model", 3840), ("model", 5),
-                                    ("narrow", 241), ("no_res", 30), ("wide", 30)])
+@pytest.mark.parametrize("name,N", BF16_CASES)
 def test_fused_encoder_bf16_kernels_match_plain(cuda_device, name, N):
     """The bf16 forward against the plain bf16 version within 1e-2 × scale
     and the f32 kernels within 0.1; the bf16 backward (every weight gradient
     and dx, bf16) against the plain bf16 backward within 2e-2 × scale per
     tensor; two launches bit-identical, and the backward without dx gives
-    the same weight-gradient bits. N=5 and 241 leave ragged tiles of 4 and
-    2 frames a block."""
+    the same weight-gradient bits. N=1, 5, 31 and 241 leave a ragged tile
+    of the 2 frames a block (N=241 also a last weight-gradient chunk of one
+    frame); "narrow" and "not16" have channel counts that are not multiples
+    of 16 (padded with zeros in the tensor-core operands)."""
     enc, w32, x32, g = _bf16_case(name, N, cuda_device)
     w, x = [t.to(torch.bfloat16) for t in w32], x32.to(torch.bfloat16)
     with torch.no_grad():
@@ -1564,6 +1571,89 @@ def test_fused_encoder_bf16_kernels_match_plain(cuda_device, name, N):
     assert torch.equal(got, again)
     assert all(torch.equal(a, b) for a, b in zip([*dw, dx], [*dw2, dx2]))
     assert none is None and all(torch.equal(a, b) for a, b in zip(dw, dw3))
+
+
+# Widths at the edge of what the first bf16 kernels' plan took (one frame's
+# f32 cotangent record in a block's shared memory): the widest first, second
+# and last conv, and the widest residual block.
+BF16_EDGE_CASES = {"ch0": {"channels": (176, 16, 32)}, "ch1": {"channels": (8, 704, 32)},
+                   "ch2": {"channels": (8, 16, 3240), "num_residual_blocks": 0},
+                   "res": {"residual_output_size": 1064, "residual_intermediate_size": 1064,
+                           "num_residual_blocks": 1}}
+
+
+@pytest.mark.gpu
+def test_fused_encoder_bf16_plan_takes_every_case(cuda_device):
+    """Every encoder of the bf16 cases, and the widths at the edge of what
+    the first bf16 kernels' plan took, plans at N=1, 240 and 3840: frames a
+    block of both passes, packed weights, tiles of the weight-gradient pass
+    and the gradient layout of the encoder's tensors."""
+    from multimodal_mtrssm_tpu_torch.nn.conv import EncoderConfig
+    from multimodal_mtrssm_tpu_torch.ops.kernels import build
+
+    lib = build.load_library()
+    for cfg in BF16_EDGE_CASES.values():
+        for N in (1, 240, 3840):
+            sz = fused_conv.bf16_sizes(lib, fused_conv._dims(EncoderConfig(**cfg), N))
+            assert sz["fwd_frames"] >= 1 and sz["bwd_frames"] >= 1
+    for name in dict(BF16_CASES):
+        enc = _encoder(name, cuda_device)
+        for N in (1, 240, 3840):
+            sz = fused_conv.bf16_sizes(lib, fused_conv._dims(enc.cfg, N))
+            assert sz["fwd_frames"] >= 1 and sz["bwd_frames"] >= 1 and sz["dw_tiles"] >= 1
+            assert sz["packed"] > 0 and sz["slots"] >= -(-N // fused_conv._dw_chunk(N))
+            assert sz["grads"] == sum(t.numel() for t in fused_conv.encoder_weights(enc))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("edge", list(BF16_EDGE_CASES))
+def test_fused_encoder_bf16_kernels_at_edge_widths(cuda_device, edge):
+    """At the edge widths one frame a block, and the widest cotangent maps
+    read from the record rather than shared memory: the bf16 forward and
+    backward against the plain bf16 versions (BF16_FWD_TOL, BF16_BWD_TOL ×
+    scale), two launches bit-identical, at N=3."""
+    from multimodal_mtrssm_tpu_torch.nn.conv import Encoder, EncoderConfig
+
+    torch.manual_seed(5)
+    enc = Encoder(EncoderConfig(**BF16_EDGE_CASES[edge])).to(cuda_device)
+    w = [t.detach().to(torch.bfloat16) for t in fused_conv.encoder_weights(enc)]
+    rng = np.random.default_rng(3)
+    x = torch.tensor(rng.uniform(-1, 1, (3, 32, 32, 1)).astype(np.float32),
+                     device=cuda_device).to(torch.bfloat16)
+    g = torch.tensor(rng.standard_normal((3, enc.cfg.out_dim)).astype(np.float32),
+                     device=cuda_device).to(torch.bfloat16)
+    with torch.no_grad():
+        got = fused_conv.fused_encoder_bf16_forward_cuda(w, enc.cfg, x)
+        plain = fused_conv.fused_encoder_plain(w, enc.cfg, x)
+        dx, dw = fused_conv.fused_encoder_bf16_backward_cuda(w, enc.cfg, x, g, True)
+        dx2, dw2 = fused_conv.fused_encoder_bf16_backward_cuda(w, enc.cfg, x, g, True)
+    ref_dx, ref_dw = fused_conv.fused_encoder_backward_plain(w, enc.cfg, x, g, True)
+    assert _scaled_err(got.float(), plain.float()) <= BF16_FWD_TOL
+    parity.check_gradients([t.float() for t in (*dw, dx)], [t.float() for t in (*ref_dw, ref_dx)],
+                           BF16_BWD_TOL)
+    assert all(torch.equal(a, b) for a, b in zip([*dw, dx], [*dw2, dx2]))
+
+
+@pytest.mark.gpu
+def test_fused_encoder_bf16_refused_width_names_the_plain_route(cuda_device):
+    """A width whose maps do not fit a block's shared memory even one frame
+    a block (an 8000-channel last conv: the head's input map alone is 256
+    KB) is refused by the sizes query and by both wrappers, naming
+    ``conv_layout='nhwc'``."""
+    from multimodal_mtrssm_tpu_torch.nn.conv import Encoder, EncoderConfig
+    from multimodal_mtrssm_tpu_torch.ops.kernels import build
+
+    torch.manual_seed(5)
+    enc = Encoder(EncoderConfig(channels=(8, 16, 8000), num_residual_blocks=0)).to(cuda_device)
+    w = [t.detach().to(torch.bfloat16) for t in fused_conv.encoder_weights(enc)]
+    x = torch.zeros(4, 32, 32, 1, dtype=torch.bfloat16, device=cuda_device)
+    g = torch.zeros(4, enc.cfg.out_dim, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="conv_layout='nhwc'"):
+        fused_conv.bf16_sizes(build.load_library(), fused_conv._dims(enc.cfg, 4))
+    with pytest.raises(ValueError, match="conv_layout='nhwc'"):
+        fused_conv.fused_encoder_bf16_forward_cuda(w, enc.cfg, x)
+    with pytest.raises(ValueError, match="conv_layout='nhwc'"):
+        fused_conv.fused_encoder_bf16_backward_cuda(w, enc.cfg, x, g, True)
 
 
 @pytest.mark.gpu
