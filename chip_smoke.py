@@ -191,6 +191,24 @@ first two configurations' latent features.
    × scale; the step's time and device breakdown; (d)
    ``demo_e2e`` and ``probe_transitions`` of each family at 1 seed, 2
    epochs and 24 episodes, as path checks.
+9. After phase 8, the other families (``drive_other_families``), TF32
+   off: (a) ``configs/mopoe_mrssm.yaml`` with ``class_path:
+   WeightedMoPoEMRSSM`` (its step loop: no recurrence kernel computes
+   learned weights) fits 2 epochs × 3 steps at B=8 T=30 with no recurrence
+   launch; a train step's CUDA-event ms, device ms and busy share; one
+   train step card vs CPU (a seed without near-ties, the phase 4 bounds)
+   and the posterior, prior and subset weights card vs CPU within 1e-4
+   before each row's first near-tie (``parity.first_near_tie``), the
+   weights summing to 1 within 1e-5; ``/observe`` and two ``/imagine``
+   through an ``InferenceServer`` on ``WorldModel.from_checkpoint`` of the
+   weighted YAML and the fit's checkpoints (a rollout launch an
+   ``/imagine``), and its imagination held to the plain rollout
+   (``parity.check_rollout``); ``use_pallas_train=True`` refused; a step
+   at ``conv_layout: fused_enc`` launching each fused encoder kernel twice;
+   (b) the same YAML with ``class_path: RSSM`` and ``modality: vision``:
+   the fit, a step's times, a train step card vs CPU, and its imagination
+   on ``rollout.cu`` held to the plain rollout and to the plain route's on
+   the CPU.
 
 ``python3 chip_smoke.py --learning-demo`` runs only the learning
 demonstration's long runs (``learning_demo_phase``: ``demo_e2e`` at the JAX
@@ -201,7 +219,7 @@ and metrics under ``runs/learning_demo`` (or the directory given after the
 flag), with no contract lines.
 
 Each configuration's serving and training run, phase 3b's coalesced
-requests, phases 4b, 4c, 6, each part of 7 and of 8, and the decoder's path
+requests, phases 4b, 4c, 6, each part of 7, 8 and 9, and the decoder's path
 (``fused_decoder_apply`` on both decoders of the first two configurations'
 observed features at B=8 T=30, forward and a ``gaussian_nll`` backward), is
 driven with every launch count set to 0 just before it and read just after.
@@ -1627,7 +1645,9 @@ def step_timings(model, dev, card: str) -> None:
 def _label(cfg) -> str:
     """A configuration's name in the log: the family, and its non-default
     kernel options."""
-    name = "MoPoEMMTRSSM" if hasattr(cfg, "hd_dim") else "MoPoEMRSSM"
+    name = ("MoPoEMMTRSSM" if hasattr(cfg, "hd_dim") else "WeightedMoPoEMRSSM"
+            if hasattr(cfg, "weight_head_cells") else "RSSM" if hasattr(cfg, "encoder")
+            else "MoPoEMRSSM")
     opts = [f"{k}={getattr(cfg, k)}" for k in ("conv_layout", "use_pallas_train")
             if getattr(cfg, k) != "auto"]
     if getattr(cfg, "conv_dtype", None) is not None:
@@ -3893,6 +3913,265 @@ def drive_learning_path(dev, work: Path) -> dict:
     return launch_counts()
 
 
+# ---- phase 9: the weighted and unimodal families --------------------------------------------
+
+FAMILY_PATHS = {"WeightedMoPoEMRSSM": {},
+                "RSSM": {"data": {"init_args": {"config": {"modality": "vision"}}}}}
+
+
+def _family_experiment(family: str, work: Path, episodes: Path, **model_args):
+    """``configs/mopoe_mrssm.yaml`` with ``class_path`` swapped to ``family``
+    (and :data:`FAMILY_PATHS`' data), 2 epochs on ``episodes``, its run
+    under ``work``; the merged YAML is written there for serving. Returns
+    ``(experiment, yaml path)``."""
+    import yaml
+
+    from multimodal_mtrssm_tpu_torch.train.config import _deep_merge, load_experiment
+    from multimodal_mtrssm_tpu_torch.train.entry import default_config_path
+
+    over = _deep_merge(FAMILY_PATHS[family], {
+        "model": {"class_path": f"multimodal_mtrssm_tpu.models.{family}",
+                  "init_args": model_args},
+        "trainer": {"max_epochs": 2}, "seed_everything": SEED, "log_dir": str(work / family),
+        "data": {"init_args": {"config": {"data_dir": str(episodes)}}}})
+    exp = load_experiment(default_config_path("mopoe_mrssm.yaml"), over)
+    work.mkdir(parents=True, exist_ok=True)
+    if type(exp.model).__name__ != family or exp.pending:
+        raise RuntimeError(f"{family}: the YAML built {type(exp.model).__name__}, pending "
+                           f"{exp.pending}")
+    path = work / f"{family}.yaml"
+    path.write_text(yaml.safe_dump(exp.raw))
+    return exp, path
+
+
+def _family_batch(rng, model, B: int = 8, T: int = 30):
+    """``_train_batch``'s batch and noise, as the family takes them: the
+    unimodal RSSM's 4-tuple of the action and the vision streams."""
+    batch, noise = _train_batch(rng, B, T, model)
+    if hasattr(model.cfg, "audio_encoder"):
+        return batch, noise
+    noise["input"] = (noise["input"][0], noise["input"][2])
+    return (batch[0], batch[2], batch[3], batch[5]), noise
+
+
+def _family_step_times(model, dev, card: str, label: str) -> dict:
+    """A train step (forward, backward, AdamW) at B=8 T=30: its CUDA-event
+    median ms, its device ms under ``torch.profiler`` and the busy share."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.train import AdamW, one_update
+
+    batch, _ = _family_batch(np.random.default_rng(SEED + 8), model)
+    batch = tuple(x.to(dev) for x in batch)
+    opt = AdamW(model.parameters())
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    step = lambda: one_update(model, opt, batch, gen)  # noqa: E731
+    ms = _median_ms(step, 7, warmup=2)
+    device = _device_ms(step, "", reps=5)
+    busy = "not measured" if device is None else f"{device:.4f} ms ({device / ms:.1%} busy)"
+    print(f"time {label} train step B=8 T=30 (forward, backward, AdamW): {ms:.4f} ms, device "
+          f"{busy} | {card}")
+    return {"ms": ms, "device_ms": device}
+
+
+def _family_vs_cpu(model, dev, label: str) -> None:
+    """One train step of ``model`` on the card against its CPU copy on a
+    seed without Gumbel near-ties (the phase 4 bounds), then the posterior
+    and prior of another seed (and the weighted model's subset weights)
+    within ``TOL`` before each row's first near-tie."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels.parity import (
+        check_same_trajectories,
+        check_train_step,
+        first_near_tie,
+        train_step_near_ties,
+    )
+
+    cpu_dev = torch.device("cpu")
+    cpu = type(model)(model.cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    for seed in range(SEED + 10, SEED + 30):
+        batch, noise = _family_batch(np.random.default_rng(seed), cpu)
+        if train_step_near_ties(cpu, batch, noise, TIE_EPS) == 0:
+            break
+    else:
+        raise RuntimeError(f"{label}: no seed without near-ties for the train-step check")
+    r = check_train_step(model, cpu, (tuple(x.to(dev) for x in batch), _noise_to(noise, dev)),
+                         (batch, noise), STEP_RTOL, STEP_TOL)
+    print(f"train step card vs CPU {label} B=8 T=30 (seed {seed}): loss err/loss "
+          f"{max(r['loss_rel_errs'].values()):.3g} (limit {STEP_RTOL}), grad max_abs_err "
+          f"{r['grad_max_abs_err']:.3g} (limit {STEP_TOL} x {r['grad_scale']:.4g})")
+    batch, noise = _family_batch(np.random.default_rng(SEED + 31), cpu)
+    cfg = model.cfg
+    n = len(batch) // 2
+    outs = []
+    with torch.no_grad():
+        for m, d in ((model, dev), (cpu, cpu_dev)):
+            obs = [x.to(d) for x in batch[1:n]]
+            g = [noise[k].to(d) for k in ("g_init", "g_prior", "g_post")]
+            init = m.initial_state(*(x[:, 0] for x in obs), g[0])
+            if hasattr(m, "rollout_representation_with_weights"):
+                post, prior, weights = m.rollout_representation_with_weights(
+                    batch[0].to(d), *obs, init, g[1], g[2])
+            else:
+                (post, prior), weights = m.rollout_representation(
+                    batch[0].to(d), *obs, init, g[1], g[2]), None
+            # Straight-through stochs are (onehot + p) - p: their categories
+            # are compared (rounded), their ulps follow p's.
+            fields = [post.deter, post.logits, post.stoch.round(), prior.logits,
+                      prior.stoch.round()]
+            outs.append((fields + ([] if weights is None else [weights]), init, post, prior, g))
+    (got, *_), (ref, init, post, prior, g) = outs
+    C, K = cfg.class_size, cfg.category_size
+    tm = lambda x: x.transpose(0, 1)  # noqa: E731
+    first = first_near_tie([(post.logits + tm(g[2]), C, K), (prior.logits + tm(g[1]), C, K)],
+                           TIE_EPS)
+    # A near-tie of the initial sample moves every step of its row.
+    first = torch.where(first_near_tie([((init.logits + g[0])[:, None], C, K)], TIE_EPS) == 0,
+                        0, first)
+    out = check_same_trajectories([x.cpu() for x in got], ref, (2, 4), first, TOL)
+    msg = (f"states card vs CPU {label} B=8 T=30: max_abs_err {out['max_abs_err']:.3g} (limit "
+           f"{TOL}), {float(first.float().mean()) / batch[0].shape[1]:.0%} of steps before a "
+           "near-tie")
+    if len(got) > 5:
+        err = float((got[5].sum(-1) - 1).abs().max())
+        if not err <= 1e-5:
+            raise RuntimeError(f"{label}: subset weights sum to 1 within {err:.3g} > 1e-5")
+        msg += f"; subset weights [8, 30, 3] sum to 1 within {err:.3g} (limit 1e-5)"
+    print(msg)
+
+
+def _family_rollout(model, dev, label: str) -> dict[str, int]:
+    """The model's imagination at B=8 T=10 on the card: its rollout launches
+    and the rollout held to the plain transition and its Philox noise
+    (``parity.check_rollout``, phase 3's check), then to the plain route's
+    imagination on the CPU before each row's first near-tie."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from multimodal_mtrssm_tpu_torch.ops.kernels.parity import check_rollout, check_same_rollouts
+
+    cfg = model.cfg
+    B, T, seed = 8, 10, 5
+    rng = np.random.default_rng(SEED + 12)
+    act = torch.tensor(rng.uniform(-1, 1, (B, T, cfg.action_size)).astype(np.float32),
+                       device=dev)
+    frames = [torch.tensor(rng.uniform(-1, 1, (B, 32, 32, 1)).astype(np.float32), device=dev)
+              for _ in range(2 if hasattr(cfg, "audio_encoder") else 1)]
+    g_init = torch.tensor(rng.gumbel(size=(B, cfg.stoch_size)).astype(np.float32), device=dev)
+    with torch.no_grad():
+        init = model.initial_state(*frames, g_init)
+        reset_launch_counts()
+        got = model.rollout_transition(act, init, seed)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        if counts["rollout"] != 1 or sum(counts.values()) != 1:
+            raise RuntimeError(f"{label} imagination launched {counts}")
+        r = check_rollout(model.transition.weights(), act, init.deter, init.stoch, seed,
+                          (got.deter, got.logits, got.stoch), cfg.class_size, cfg.category_size,
+                          TOL, TIE_EPS)
+        plain = type(model)(dataclasses.replace(cfg, use_pallas_train=False))
+        plain.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        ref = plain.rollout_transition(act.cpu(), init.to("cpu"), seed).to(dev)
+        same = check_same_rollouts(got, ref, cfg, seed, TOL, TIE_EPS)
+    print(f"imagination {label} B={B} T={T} on rollout.cu: 1 launch; vs the plain transition "
+          f"max_abs_err {r['max_abs_err']:.3g} (limit {TOL}), {r['compared']:.0%} of blocks "
+          f"resampled; vs the plain route on the CPU max_abs_err {same['max_abs_err']:.3g}, "
+          f"{same['compared']:.0%} of steps before a near-tie")
+    return counts
+
+
+def _fit_family(exp, dev, card: str, label: str) -> tuple[object, dict[str, int]]:
+    """``exp``'s fit (2 epochs × 3 steps at B=8 T=30) on the card: finite
+    metrics, no recurrence kernel of any kind launched. Returns the trained
+    model and the fit's launch counts."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    trainer = exp.build_trainer(device=dev)
+    reset_launch_counts()
+    out = trainer.fit()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    steps = out["global_step"]
+    if steps < 4 or not all(np.isfinite(v) for row in out["history"] for v in row.values()):
+        raise RuntimeError(f"{label} fit: {steps} steps, history {out['history']}")
+    if any(counts[k] for k in ROUTE_KERNELS):
+        raise RuntimeError(f"{label} fit launched a recurrence or rollout kernel: {counts}")
+    print(f"main-path kernel launches, {label} fit, {steps} optimizer steps: {counts}; "
+          f"{out['history'][-1]['train/loss']:.6g} train/loss last epoch; "
+          f"{steps / max(out['train_seconds'], 1e-9):.3f} steps/s | {card}")
+    return trainer.model, counts
+
+
+def drive_other_families(dev, work: Path, card: str) -> dict:
+    """Phase 9: the weighted model and the unimodal RSSM from the YAML
+    (module docstring, 9). Returns the launch counts of their main paths:
+    the fits, the served requests, the imaginations, the fused_enc step."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.data import generate_synthetic_audio_mnist
+    from multimodal_mtrssm_tpu_torch.models import WeightedMoPoEMRSSM
+    from multimodal_mtrssm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from multimodal_mtrssm_tpu_torch.serving import WorldModel
+    from multimodal_mtrssm_tpu_torch.train import AdamW, one_update
+
+    t0 = time.perf_counter()
+    episodes = work / "episodes"
+    generate_synthetic_audio_mnist(episodes, n_episodes=24, seed=SEED)
+    runs: list[dict[str, int]] = []
+
+    # (a) WeightedMoPoE-MRSSM.
+    label = "WeightedMoPoEMRSSM"
+    exp, path = _family_experiment(label, work, episodes)
+    model, counts = _fit_family(exp, dev, card, label)
+    runs.append(counts)
+    _family_step_times(model, dev, card, label)
+    _family_vs_cpu(model, dev, label)
+    served = WorldModel.from_checkpoint(path, Path(exp.trainer.log_dir) / "checkpoints", dev)
+    with torch.no_grad():
+        ctx = drive_server(served.model, served.model.cfg, dev, {"rollout": 2})
+    ctx["server"].stop()
+    if any(ctx["counts"][k] for k in ROUTE_KERNELS if k != "rollout"):
+        raise RuntimeError(f"{label} serving launched a recurrence kernel: {ctx['counts']}")
+    runs += [ctx["counts"], _family_rollout(served.model, dev, label)]
+    try:
+        WeightedMoPoEMRSSM(dataclasses.replace(model.cfg, use_pallas_train=True))
+    except ValueError as e:
+        print(f"{label} use_pallas_train=True refused: {e}")
+    else:
+        raise RuntimeError(f"{label} took use_pallas_train=True")
+    fused, _ = _family_experiment(label, work / "fused", episodes, conv_layout="fused_enc")
+    fmodel = fused.model.to(dev)
+    fmodel.load_state_dict(model.state_dict())
+    batch, _ = _family_batch(np.random.default_rng(SEED + 9), fmodel)
+    reset_launch_counts()
+    one_update(fmodel, AdamW(fmodel.parameters()), tuple(x.to(dev) for x in batch),
+               torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts["fused_encoder_fwd"] < 2 or counts["fused_encoder_bwd"] != 2 or any(
+            counts[k] for k in ROUTE_KERNELS):
+        raise RuntimeError(f"{label} fused_enc step launched {counts}")
+    print(f"main-path kernel launches, {label}(conv_layout=fused_enc) train step B=8 T=30: "
+          f"{counts}")
+    runs.append(counts)
+    _family_step_times(fmodel, dev, card, f"{label}(conv_layout=fused_enc)")
+
+    # (b) the unimodal RSSM on the vision stream.
+    label = "RSSM(modality=vision)"
+    exp, _ = _family_experiment("RSSM", work, episodes)
+    model, counts = _fit_family(exp, dev, card, label)
+    runs.append(counts)
+    _family_step_times(model, dev, card, label)
+    _family_vs_cpu(model, dev, label)
+    runs.append(_family_rollout(model, dev, label))
+    print(f"phase 9: {time.perf_counter() - t0:.1f} s")
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
+
+
 # The learning demonstration's long runs (--learning-demo): each is one
 # process of `python -m <argv>` with its own --workdir, started together on
 # the one card. The demo at the JAX script's decisive flags, 5 seeds of each
@@ -4137,12 +4416,14 @@ def _main(work: Path) -> int:
     runs.append(drive_plain_route(dev, card))
     runs.append(drive_precision(dev, work / "precision", card))
     runs.append(drive_learning_path(dev, work / "learning"))
+    # Phase 9: the weighted and unimodal families from the YAML.
+    runs.append(drive_other_families(dev, work / "families", card))
 
     ptxas_report(ptxas)
     launches = {k: sum(run.get(k, 0) for run in runs) for k in runs[0]}
     print("main-path launches, serving + training of the four configurations, resume, the "
           "train command and evaluation of the first two, the fused decoder path, the "
-          f"cross-modal run and phase 8: {launches}")
+          f"cross-modal run and phases 8 and 9: {launches}")
     pkg = "multimodal_mtrssm_tpu_torch"
     pallas = "multimodal_mtrssm_tpu/ops/pallas"
     meta = {

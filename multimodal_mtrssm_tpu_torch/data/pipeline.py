@@ -34,9 +34,16 @@ epoch is the whole epoch's tail.
 ``train_batches`` takes a ``skip`` for a mid-epoch resume: the batches
 after it, their noise and their drops are those of the whole epoch.
 
+``modality``: ``"multimodal"`` serves the 6-tuple; ``"audio"`` or
+``"vision"`` serves the unimodal RSSM's 4-tuple (action_input, obs_input,
+action_target, obs_target), as JAX does (``data/pipeline.py:224-240``):
+only the served streams are gathered, noised (each with its stream's own
+seed, ``k`` as above) and counted in ``batch_nbytes``. A static
+``drop_modality`` acts only on a served stream; ``"random"`` needs both
+and is refused otherwise.
+
 Not ported here: ``native/fastbatch.cc``, the device-resident mode and the
-pinned-memory prefetch (host speed: the ROADMAP speed queue), and unimodal
-batches (``modality``, with the unimodal models: queue 1 item 10).
+pinned-memory prefetch (host speed: the ROADMAP speed queue).
 """
 
 from __future__ import annotations
@@ -62,6 +69,7 @@ from multimodal_mtrssm_tpu_torch.data.transforms import (
 Batch = tuple[torch.Tensor, ...]
 HostBatch = tuple[np.ndarray, ...]
 DROPS = (None, "audio", "vision", "random")
+MODALITIES = ("multimodal", "audio", "vision")
 
 
 @dataclasses.dataclass
@@ -79,6 +87,9 @@ class DataModuleConfig:
     # None, "audio" or "vision" (ZeroOut that input stream), or "random"
     # (per train sample: both, audio dropped or vision dropped, a third each).
     drop_modality: str | None = None
+    # "multimodal": 6-tuple batches; "audio" or "vision": the unimodal
+    # 4-tuple (action_in, obs_in, action_tgt, obs_tgt).
+    modality: str = "multimodal"
     # False: the ragged tail batch trains and validates too (reference
     # DataLoader drop_last=False).
     drop_last: bool = False
@@ -94,6 +105,11 @@ class DataModuleConfig:
     def __post_init__(self):
         if self.drop_modality not in DROPS:
             raise ValueError(f"drop_modality={self.drop_modality!r} not in {DROPS}")
+        if self.modality not in MODALITIES:
+            raise ValueError(f"modality={self.modality!r} not in {MODALITIES}")
+        if self.drop_modality == "random" and self.modality != "multimodal":
+            raise ValueError(f"drop_modality='random' needs both streams; modality="
+                             f"{self.modality!r} serves one")
 
 
 def _is_reference_pt_layout(d: Path) -> bool:
@@ -187,6 +203,18 @@ class EpisodeDataModule:
     def val_batch_size(self) -> int:
         return max(1, min(self.cfg.batch_size, self.n_val)) if self.n_val else 0
 
+    def _streams(self) -> tuple[str, ...]:
+        """The streams the configured modality serves, in batch order."""
+        m = self.cfg.modality
+        return ep.EPISODE_KEYS if m == "multimodal" else ("action", m)
+
+    def batch_nbytes(self, bs: int) -> int:
+        """float32 bytes of one batch of ``bs`` episodes, inputs and
+        targets, of the streams the modality serves."""
+        self._require_setup()
+        per_frame = sum(int(np.prod(self._arrays[s].shape[2:])) for s in self._streams())
+        return 2 * bs * self.cfg.sequence_length * per_frame * 4
+
     def _gather(self, stream: str, idx: np.ndarray, k: int, rng: np.random.Generator | None,
                 seed: int) -> tuple[np.ndarray, np.ndarray]:
         """One stream's (input, target) for episodes ``idx``: the input
@@ -217,17 +245,18 @@ class EpisodeDataModule:
 
     def _make_batch(self, idx: np.ndarray, rng: np.random.Generator | None,
                     train: bool = False) -> HostBatch:
-        """The 6-tuple of numpy arrays: the inputs noised and dropped as the
-        module docstring says, the targets clean. With ``rng`` a batch
+        """The 6-tuple (or the unimodal 4-tuple) of numpy arrays: the inputs
+        noised and dropped as the module docstring says, the targets clean. With ``rng`` a batch
         first draws one noise seed (in memory only where ``noise_std > 0``);
         a ``train`` batch under ``drop_modality="random"`` then draws each
         sample's fate."""
         cfg = self.cfg
         draws = rng is not None and (self._raw or cfg.noise_std > 0)
         seed = int(rng.integers(0, 2**62)) if draws else 0
-        outs = {s: self._gather(s, idx, k, rng, seed) for k, s in enumerate(ep.EPISODE_KEYS)}
+        streams = self._streams()
+        outs = {s: self._gather(s, idx, ep.EPISODE_KEYS.index(s), rng, seed) for s in streams}
         drop = cfg.drop_modality
-        if drop in ("audio", "vision"):
+        if drop in ("audio", "vision") and drop in outs:  # a served stream only
             outs[drop] = (np.full_like(outs[drop][0], -1.0), outs[drop][1])
         elif drop == "random" and train:
             choice = rng.integers(0, 3, size=len(idx))
@@ -235,7 +264,7 @@ class EpisodeDataModule:
                 x, target = outs[s]
                 sel = (choice == k).reshape((-1,) + (1,) * (x.ndim - 1))
                 outs[s] = (np.where(sel, -1.0, x).astype(np.float32), target)
-        inputs, targets = zip(*(outs[s] for s in ep.EPISODE_KEYS))
+        inputs, targets = zip(*(outs[s] for s in streams))
         return (*inputs, *targets)
 
     def _batched_indices(self, idx: np.ndarray, bs: int) -> list[np.ndarray]:

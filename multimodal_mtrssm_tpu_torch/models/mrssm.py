@@ -20,10 +20,11 @@ plus the balanced KL (``models/mrssm.py:597-642``).
 from __future__ import annotations
 
 import dataclasses
-from collections.abc import Mapping
+from collections.abc import Callable, Mapping
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from multimodal_mtrssm_tpu_torch.models.state import State
 from multimodal_mtrssm_tpu_torch.nn.conv import (
@@ -329,6 +330,26 @@ class MoPoEMRSSM(nn.Module):
             cast_conv_out(cfg, (a_emb[:, 0] + v_emb[:, 0]) / 2.0), gumbels[0])
         posterior, prior = self._rollout_from_embeds(action_in, a_emb, v_emb, init, *gumbels[1:])
         return init, posterior, prior, gumbels
+
+
+def run_steps(step: Callable, carry: tuple[torch.Tensor, ...], xs: tuple[torch.Tensor, ...],
+              remat: bool = False) -> tuple[torch.Tensor, ...]:
+    """A step loop over time-major ``xs`` (each ``[T, ...]``), the plain
+    PyTorch form of JAX's ``lax.scan``: ``step(carry, x_t) → (carry, ys)``,
+    and the ``ys`` of every step stacked on axis 1 (``[B, T, ...]``). With
+    ``remat`` each step runs under ``torch.utils.checkpoint`` and is
+    recomputed in the backward, as JAX's ``jax.checkpoint`` of the step."""
+    n = len(carry)
+    outs = []
+    for t in range(xs[0].shape[0]):
+        x_t = tuple(x[t] for x in xs)
+        if remat:
+            carry, ys = checkpoint(lambda *a: step(a[:n], a[n:]), *carry, *x_t,
+                                   use_reentrant=False)
+        else:
+            carry, ys = step(carry, x_t)
+        outs.append(ys)
+    return tuple(torch.stack(seq, 1) for seq in zip(*outs))
 
 
 def check_precision_fields(cfg) -> None:

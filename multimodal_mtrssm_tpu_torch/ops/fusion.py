@@ -23,9 +23,17 @@ def poe_fuse_log_probs(audio_logits: torch.Tensor, vision_logits: torch.Tensor) 
     return F.log_softmax(audio_logits.float(), dim=-1) + F.log_softmax(vision_logits.float(), dim=-1)
 
 
-def mopoe_mix_log_probs(audio_logits: torch.Tensor, vision_logits: torch.Tensor) -> torch.Tensor:
-    """Equal-weight MoE ``logsumexp`` over the subsets {A}, {V}, {A+V}."""
+def mopoe_mix_log_probs(audio_logits: torch.Tensor, vision_logits: torch.Tensor,
+                        log_weights: torch.Tensor | None = None) -> torch.Tensor:
+    """MoE ``logsumexp`` over the subsets {A}, {V}, {A+V}: equal weights, or
+    the log-space per-subset weights ``log_weights`` ``[..., 3]``
+    (``WeightedMoPoEMRSSM``'s learned ones), broadcast over the logits'
+    batch dims. The one home of the mixture for every model that mixes."""
     a = F.log_softmax(audio_logits.float(), dim=-1)
     v = F.log_softmax(vision_logits.float(), dim=-1)
-    stacked = torch.stack([a, v, a + v], dim=-2) + LOG_THIRD
+    stacked = torch.stack([a, v, a + v], dim=-2)
+    if log_weights is None:
+        stacked = stacked + LOG_THIRD
+    else:
+        stacked = stacked + log_weights.float()[..., None]
     return torch.logsumexp(stacked, dim=-2)

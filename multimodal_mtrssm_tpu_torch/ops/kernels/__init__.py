@@ -159,8 +159,9 @@ def resolve_train_kernel_mode(value: bool | str | None, family: str = "mrssm") -
         return "kernel"
     if value == "stacked":
         if family != "mrssm":
-            raise ValueError("use_pallas_train='stacked' is MRSSM-only (the MT kernel has no "
-                             "stacked-layout variant); use 'auto'/True for MMTRSSM")
+            raise ValueError(f"use_pallas_train='stacked' is MRSSM-only (the {family.upper()} "
+                             "family has no stacked-layout kernel); use 'auto'/True for "
+                             f"{family.upper()}")
         return "stacked"
     if value in _JAX_DEBUG_TRAIN_MODES:
         raise ValueError(f"use_pallas_train={value!r} is not supported by the port: it runs the "

@@ -11,9 +11,10 @@
 - ``WorldModel.from_checkpoint``: a YAML config (or a model config) and a
   run's checkpoints directory → a ready model.
 
-Either family: ``MoPoEMRSSM`` (``State`` latents) or the hierarchical
-``MoPoEMMTRSSM`` (``MTState``, whose integrators make a chained imagine
-exact). An integer seed takes the place of the JAX key. Observe draws its
+A multimodal family: ``MoPoEMRSSM`` and ``WeightedMoPoEMRSSM`` (``State``
+latents) or the hierarchical ``MoPoEMMTRSSM`` (``MTState``, whose
+integrators make a chained imagine exact); the unimodal ``RSSM`` is
+refused. An integer seed takes the place of the JAX key. Observe draws its
 Gumbel noise (``model.draw_noise``) from a CPU ``torch.Generator`` seeded
 with it and moves the noise to the device; imagine keys the rollout
 kernel's Philox stream with it. Either way a seed gives the same trajectory
@@ -55,8 +56,9 @@ class WorldModel:
         # would bind its noise to the vision frames (JAX serving.py:46-60).
         if len(inspect.signature(model.initial_state).parameters) < 3:
             raise TypeError(
-                f"WorldModel serves the multimodal families (MoPoEMRSSM / MoPoEMMTRSSM); got "
-                f"{type(model).__name__}, whose initial_state takes a single observation")
+                f"WorldModel serves the multimodal families (MoPoEMRSSM / MoPoEMMTRSSM / "
+                f"WeightedMoPoEMRSSM); got {type(model).__name__}, whose initial_state takes a "
+                "single observation: call the unimodal model's rollout methods directly")
         self.device = require_device(device, "WorldModel")
         self.model = model.to(self.device).eval()
 

@@ -3,17 +3,21 @@
 Reads the reference's LightningCLI schema (``class_path``/``init_args``
 nodes; the shipped ``configs/*.yaml`` use it) into the port's dataclasses:
 
-- ``model`` → ``MRSSMConfig`` / ``MMTRSSMConfig`` and the model, with the
-  data section's ``GaussianNoise`` input transforms moved into the model's
-  ``input_noise_std`` (added on the device in ``shared_step``) and the
+- ``model`` → ``MRSSMConfig`` / ``WeightedMRSSMConfig`` / ``MMTRSSMConfig``
+  / ``RSSMConfig`` and the model (by ``class_path``: ``MoPoEMRSSM``,
+  ``WeightedMoPoEMRSSM``, ``MoPoEMMTRSSM``, ``RSSM``), with the data
+  section's ``GaussianNoise`` input transforms moved into the model's
+  ``input_noise_std`` (added on the device in ``shared_step``; the unimodal
+  RSSM takes the action stream's and the ``modality`` stream's) and the
   pipeline's own noise 0, as JAX does; ``trainer.precision`` containing 16
   (Lightning's ``16-mixed``) sets the model's ``conv_dtype`` to bf16, as
   JAX's ``train/config.py:192-202`` does: bf16 conv stacks, the recurrence
-  and the ELBO in float32. The port also reads ``remat`` and
-  ``scan_unroll`` from the model's ``init_args``;
+  and the ELBO in float32 (RSSM, which has no ``conv_dtype``, stays in
+  float32, as in JAX). The port also reads ``remat`` and ``scan_unroll``
+  from the model's ``init_args``;
 - ``optimizer`` / ``lr_scheduler`` / ``trainer`` (and its callbacks) →
   ``TrainerConfig``;
-- ``data`` → ``DataModuleConfig`` (``drop_modality``, and each
+- ``data`` → ``DataModuleConfig`` (``drop_modality``, ``modality``, and each
   ``*_preprocess`` node that names another transform than the pipeline's
   default as that transform, ``data.transforms.TRANSFORMS``);
 - the viz callback → ``VizConfig``; ``seed_everything`` → the seeds.
@@ -22,8 +26,7 @@ A data or trainer field that the port cannot honour yet is not dropped and
 does not fail the load (so that serving, ``WorldModel.from_checkpoint``,
 reads every config): it waits in ``Experiment.pending`` and
 ``Experiment.build_datamodule`` / ``build_trainer`` raise, naming it and the
-ROADMAP item that ports it. The weighted and unimodal models (ROADMAP queue
-1 item 10) raise at load. PyYAML is imported only to read a file; a model
+ROADMAP item that ports it. PyYAML is imported only to read a file; a model
 config object needs none, and :func:`make_experiment` builds an
 ``Experiment`` from one. ``Experiment.build_trainer`` moves the model to
 the card and trains there unless the caller asks for the CPU.
@@ -41,10 +44,14 @@ import torch
 from multimodal_mtrssm_tpu_torch.data.pipeline import DataModuleConfig, EpisodeDataModule
 from multimodal_mtrssm_tpu_torch.data.transforms import TRANSFORMS, Compose
 from multimodal_mtrssm_tpu_torch.models import (
+    RSSM,
     MMTRSSMConfig,
     MoPoEMMTRSSM,
     MoPoEMRSSM,
     MRSSMConfig,
+    RSSMConfig,
+    WeightedMoPoEMRSSM,
+    WeightedMRSSMConfig,
     WorldModelNet,
 )
 from multimodal_mtrssm_tpu_torch.nn.conv import DecoderConfig, EncoderConfig
@@ -109,7 +116,7 @@ class Experiment:
 def make_experiment(model_config: Any, trainer: TrainerConfig | None = None,
                     data: DataModuleConfig | None = None) -> Experiment:
     """An :class:`Experiment` without a YAML file, hence without PyYAML:
-    the model of ``model_config`` (an ``MRSSMConfig`` / ``MMTRSSMConfig``),
+    the model of ``model_config`` (a config of any family),
     ``trainer`` and ``data`` (their defaults when None). The data
     pipeline adds no noise: the model's ``input_noise_std`` does, as a
     config read from YAML arranges."""
@@ -266,14 +273,13 @@ def _data_config(raw: dict, dconf: dict, seq_len: int, pending: dict) -> DataMod
         node = dconf.get(key)
         if node and (_class_name(node) or default) != default:
             transforms[field] = _build_transform(node)
-    if dconf.get("modality", "multimodal") != "multimodal":
-        pending["modality"] = (dconf["modality"], f"unimodal batches, {_ITEM} 10")
     if dconf.get("device_resident", False):
         pending["device_resident"] = (dconf["device_resident"], f"host speed, moved from {_ITEM} "
                                       "7 to the ROADMAP speed queue")
     audio_pre = _init_args(dconf.get("audio_observation_preprocess"))
     return DataModuleConfig(
         drop_modality=dconf.get("drop_modality"),
+        modality=dconf.get("modality", "multimodal"),
         **transforms,
         data_dir=dconf.get("data_dir", f"data/{dconf.get('data_name', 'audio_mnist')}"),
         batch_size=int(dconf.get("batch_size", 8)),
@@ -342,16 +348,22 @@ def load_experiment(path: str | Path, overrides: dict | None = None) -> Experime
     elif "MRSSM" in model_cls or not model_cls:
         model = _build_mrssm(margs, noise_std)
     elif "RSSM" in model_cls:
-        model = _build_unimodal_rssm(margs, noise_std)
+        # The unimodal model takes (action, obs) stds; the obs stream is the
+        # modality's (JAX config.py:183-187).
+        stds3 = noise_std if isinstance(noise_std, tuple) else (noise_std,) * 3
+        obs_std = stds3[2] if dconf.get("modality") == "vision" else stds3[1]
+        model = _build_unimodal_rssm(
+            margs, stds3[0] if stds3[0] == obs_std else (stds3[0], obs_std))
     else:
         raise ValueError(f"unknown model class_path: {model_node.get('class_path')}")
     data_pending: dict[str, tuple[Any, str]] = {}
     trainer_pending: dict[str, tuple[Any, str]] = {}
     data = _data_config(raw, dconf, seq_len, data_pending)
     trainer = _trainer_config(raw, trainer_pending)
-    # Lightning's 16-mixed is bf16 conv stacks with a float32 recurrence.
+    # Lightning's 16-mixed is bf16 conv stacks with a float32 recurrence; the
+    # unimodal RSSM has no conv dtype and stays in float32, as in JAX.
     if "16" in str(raw.get("trainer", {}).get("precision", "32")).lower() \
-            and model.cfg.conv_dtype is None:
+            and getattr(model.cfg, "conv_dtype", False) is None:
         model = type(model)(dataclasses.replace(model.cfg, conv_dtype=torch.bfloat16))
     viz_args = _find_callback(raw.get("trainer", {}).get("callbacks", []), "Output")
     viz = VizConfig(
@@ -368,15 +380,20 @@ def load_experiment(path: str | Path, overrides: dict | None = None) -> Experime
 
 def build_model(config: Any) -> WorldModelNet:
     """The model of ``config``: a YAML path (:func:`load_experiment`) or an
-    ``MRSSMConfig`` / ``MMTRSSMConfig``."""
+    ``MRSSMConfig`` / ``WeightedMRSSMConfig`` / ``MMTRSSMConfig`` /
+    ``RSSMConfig``."""
     if isinstance(config, (str, Path)):
         return load_experiment(config).model
     if isinstance(config, MMTRSSMConfig):
         return MoPoEMMTRSSM(config)
+    if isinstance(config, WeightedMRSSMConfig):
+        return WeightedMoPoEMRSSM(config)
     if isinstance(config, MRSSMConfig):
         return MoPoEMRSSM(config)
-    raise TypeError(f"expected a YAML path, MRSSMConfig or MMTRSSMConfig, got "
-                    f"{type(config).__name__}")
+    if isinstance(config, RSSMConfig):
+        return RSSM(config)
+    raise TypeError(f"expected a YAML path, MRSSMConfig, WeightedMRSSMConfig, MMTRSSMConfig or "
+                    f"RSSMConfig, got {type(config).__name__}")
 
 
 def _build_mrssm(margs: dict, noise_std: float | tuple = 0.1) -> MoPoEMRSSM:
@@ -416,12 +433,42 @@ def _scan_fields(margs: dict) -> dict:
     return {"remat": margs.get("remat", False), "scan_unroll": margs.get("scan_unroll", 1)}
 
 
-def _build_weighted_mrssm(margs: dict, noise_std: float | tuple = 0.1):
-    raise NotImplementedError(f"WeightedMoPoEMRSSM is not ported yet ({_ITEM} 10)")
+def _build_weighted_mrssm(margs: dict, noise_std: float | tuple = 0.1) -> WeightedMoPoEMRSSM:
+    """``_build_mrssm``'s config and ``moe_weight_head.num_cells`` (JAX
+    ``config.py:306-321``)."""
+    base = _build_mrssm(margs, noise_std).cfg
+    cfg = WeightedMRSSMConfig(
+        **{f.name: getattr(base, f.name) for f in dataclasses.fields(base)},
+        weight_head_cells=int(_init_args(margs.get("moe_weight_head")).get("num_cells", 32)))
+    return WeightedMoPoEMRSSM(cfg)
 
 
-def _build_unimodal_rssm(margs: dict, noise_std: float | tuple = 0.1):
-    raise NotImplementedError(f"the unimodal RSSM is not ported yet ({_ITEM} 10)")
+def _build_unimodal_rssm(margs: dict, noise_std: float | tuple = 0.0) -> RSSM:
+    """JAX ``config.py:324-350``: ``representation``, ``encoder`` and
+    ``decoder`` fall back to the ``audio_*`` nodes."""
+    rep = _init_args(margs.get("representation") or margs.get("audio_representation"))
+    trans = _init_args(margs.get("transition"))
+    dist = rep.get("distribution_config", [4, 4])
+    deter = int(rep.get("deterministic_size", 32))
+    feature = deter + int(dist[0]) * int(dist[1])
+    cfg = RSSMConfig(
+        deterministic_size=deter,
+        hidden_size=int(rep.get("hidden_size", 32)),
+        obs_embed_size=int(rep.get("obs_embed_size", 64)),
+        class_size=int(dist[0]),
+        category_size=int(dist[1]),
+        action_size=int(trans.get("action_size", 6)),
+        activation_name=rep.get("activation_name", "ELU"),
+        init_proj_cells=int(_init_args(margs.get("init_proj")).get("num_cells", 200)),
+        kl_coeff=float(margs.get("kl_coeff", 1.0)),
+        use_kl_balancing=bool(margs.get("use_kl_balancing", True)),
+        input_noise_std=noise_std,
+        remat=margs.get("remat", False),
+        use_pallas_train=margs.get("use_pallas_train", "auto"),
+        encoder=_encoder_cfg(margs.get("encoder") or margs.get("audio_encoder")),
+        decoder=_decoder_cfg(margs.get("decoder") or margs.get("audio_decoder"), feature),
+    )
+    return RSSM(cfg)
 
 
 def _build_mmtrssm(margs: dict, noise_std: float | tuple = 0.1) -> MoPoEMMTRSSM:

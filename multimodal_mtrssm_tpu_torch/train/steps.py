@@ -27,7 +27,7 @@ def fold(seed: int, *path: int) -> int:
 
 def one_update(model: WorldModelNet, optimizer: AdamW, batch: Batch,
                generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
-    """One optimizer step on ``batch``: the ELBO (of either family), its
+    """One optimizer step on ``batch``: the ELBO (of any family), its
     gradient, the update. Returns the step's metrics (detached, on the
     device)."""
     optimizer.zero_grad()

@@ -166,9 +166,10 @@ class _EpochProgress:
 
 
 class Trainer:
-    """Epoch-driven trainer for either family, ``MoPoEMRSSM`` or
-    ``MoPoEMMTRSSM``, on the device its parameters are on (CUDA: the
-    family's recurrence kernels; CPU: their plain versions). It calls only
+    """Epoch-driven trainer for any family (``MoPoEMRSSM``,
+    ``WeightedMoPoEMRSSM``, ``MoPoEMMTRSSM``, the unimodal ``RSSM`` on
+    4-tuple batches), on the device its parameters are on (CUDA: the
+    family's kernels; CPU: their plain versions). It calls only
     the model's ``init``, ``shared_step``, ``parameters`` and
     ``state_dict``, and logs every metric ``shared_step`` returns.
 

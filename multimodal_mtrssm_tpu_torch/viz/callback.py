@@ -7,8 +7,9 @@ Every ``every_n_epochs`` epochs, epoch 0 skipped (reference
 batches are reconstructed as one batch (one recurrence and one rollout
 launch a stage) and drawn into ``log_dir/viz/epoch_NNNN/{train,val}/
 episode_i.gif``; at the end of the fit the same with the best weights into
-``viz/final_best`` (reference ``callback.py:194-210``). Each GIF's path is
-logged to the run's metrics JSONL (JAX mirrors it to W&B, not ported).
+``viz/final_best`` (reference ``callback.py:194-210``). A unimodal run's
+4-tuple batches render nothing. Each GIF's path is logged to the run's
+metrics JSONL (JAX mirrors it to W&B, not ported).
 """
 
 from __future__ import annotations
@@ -46,9 +47,13 @@ class LogRSSMOutput:
 
     def _collect_stage_batch(self, trainer: Any, stage: str) -> tuple[np.ndarray, ...] | None:
         """The first ≤ 7 episodes of a stage's host batches (epoch 0's
-        order), as one batch; None where the stage has none."""
+        order), as one batch; None where the stage has none, and for
+        unimodal 4-tuple batches: the GIF grid draws both modalities (JAX
+        ``viz/callback.py:61-62``)."""
         parts, have = [], 0
         for batch in trainer.dm.host_batches(stage):
+            if len(batch) != 6:
+                return None
             parts.append(batch)
             have += batch[0].shape[0]
             if have >= MAX_EPISODES:

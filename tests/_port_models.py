@@ -178,3 +178,87 @@ def params_from_port(jmodel, port, export):
     return jax.tree_util.tree_unflatten(tree, [
         jnp.asarray(part.reshape(x.shape)) for part, x in
         zip(np.split(flat, np.cumsum(sizes)[:-1]), leaves)])
+
+
+# ---- the weighted and unimodal families -------------------------------------------------
+
+
+def export_weighted_state_dict(params) -> dict:
+    """JAX WeightedMoPoEMRSSM params → the port's state dict: MoPoE-MRSSM's
+    (``export_reference_state_dict``) and ``moe_weight_head``."""
+    from multimodal_mtrssm_tpu.train.torch_export import _export_mlp, export_reference_state_dict
+
+    sd = export_reference_state_dict(params)
+    _export_mlp(sd, "moe_weight_head", params["moe_weight_head"])
+    return sd
+
+
+def export_rssm_state_dict(params) -> dict:
+    """JAX RSSM params → the port's state dict, from JAX's own export
+    helpers: ``transition.*``, ``representation.*``, the encoder (its head's
+    rows in torch's CHW order), the decoder and ``init_proj``."""
+    import numpy as np
+
+    from multimodal_mtrssm_tpu.train.torch_export import _export_conv_component, _export_mlp
+
+    f32 = lambda x: np.asarray(x, np.float32)  # noqa: E731
+    sd: dict = {}
+    gru = params["transition"]["gru"]
+    sd["transition.rnn_cell.weight_ih"] = f32(gru["w_ih"]).T
+    sd["transition.rnn_cell.weight_hh"] = f32(gru["w_hh"]).T
+    sd["transition.rnn_cell.bias_ih"] = f32(gru["b_ih"])
+    sd["transition.rnn_cell.bias_hh"] = f32(gru["b_hh"])
+    for name in ("action_state_projector", "rnn_to_prior_projector"):
+        _export_mlp(sd, f"transition.{name}", params["transition"][name])
+    _export_mlp(sd, "representation.rnn_to_post_projector", params["representation"])
+    _export_mlp(sd, "init_proj", params["init_proj"])
+    _export_conv_component(sd, "encoder", params["encoder"], encoder_head=True)
+    _export_conv_component(sd, "decoder", params["decoder"])
+    return sd
+
+
+@functools.lru_cache(maxsize=None)
+def variant_family(name: str, input_noise_std=0.0):
+    """A small ``"weighted"`` (WeightedMoPoE-MRSSM) or ``"rssm"`` model in
+    both packages on the port's seeded torch init (``params_from_port``),
+    with ``scan_family``'s narrow decoders and ``input_noise_std``: the JAX
+    model, its params, the port model (eval mode) and the exporter."""
+    import torch
+
+    from conftest import small_encoder_config
+    from multimodal_mtrssm_tpu.models.rssm import RSSM as JaxRSSM
+    from multimodal_mtrssm_tpu.models.rssm import RSSMConfig as JaxRSSMConfig
+    from multimodal_mtrssm_tpu.models.weighted_mopoe import (
+        WeightedMoPoEMRSSM as JaxWeighted,
+        WeightedMRSSMConfig as JaxWeightedConfig,
+    )
+    from multimodal_mtrssm_tpu.nn.conv import DecoderConfig as JaxDecoderConfig
+
+    from multimodal_mtrssm_tpu_torch.models import (
+        RSSM,
+        RSSMConfig,
+        WeightedMoPoEMRSSM,
+        WeightedMRSSMConfig,
+    )
+    from multimodal_mtrssm_tpu_torch.nn.conv import DecoderConfig
+
+    enc = small_encoder_config()
+    penc = EncoderConfig(**dataclasses.asdict(enc))
+    dec = dict(in_features=48, linear_sizes=(32, 256), conv_in_shape=(16, 4, 4),
+               channels=(8, 4, 1), num_residual_blocks=0)
+    jdec, pdec = JaxDecoderConfig(**dec), DecoderConfig(**dec)
+    common = dict(init_proj_cells=32, input_noise_std=input_noise_std)
+    if name == "weighted":
+        jmodel = JaxWeighted(JaxWeightedConfig(audio_encoder=enc, vision_encoder=enc,
+                                               audio_decoder=jdec, vision_decoder=jdec,
+                                               use_pallas_train=False, **common))
+        port = WeightedMoPoEMRSSM(WeightedMRSSMConfig(
+            audio_encoder=penc, vision_encoder=penc, audio_decoder=pdec, vision_decoder=pdec,
+            **common))
+        export = export_weighted_state_dict
+    else:
+        jmodel = JaxRSSM(JaxRSSMConfig(encoder=enc, decoder=jdec, **common))
+        port = RSSM(RSSMConfig(encoder=penc, decoder=pdec, **common))
+        export = export_rssm_state_dict
+    port.init(torch.Generator().manual_seed(9))
+    return jmodel, params_from_port(jmodel, port, export), port.eval(), export

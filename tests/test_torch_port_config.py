@@ -136,12 +136,42 @@ def test_unsupported_trainer_fields_wait_for_the_trainer(override, field, item, 
     assert getattr(trainer.cfg, field) == value
 
 
-@pytest.mark.parametrize("class_path", ["multimodal_mtrssm_tpu.models.WeightedMoPoEMRSSM",
-                                        "multimodal_mtrssm_tpu.models.RSSM"])
-def test_weighted_and_unimodal_models_raise(class_path):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        load_experiment(REPO / "configs" / "mopoe_mrssm.yaml",
-                        {"model": {"class_path": class_path}})
+@pytest.mark.parametrize("family,override", [
+    ("WeightedMoPoEMRSSM", {}),
+    ("RSSM", {"data": {"init_args": {"config": {"modality": "vision"}}}})])
+def test_weighted_and_unimodal_models_load_as_jax(family, override):
+    """``configs/mopoe_mrssm.yaml`` with ``class_path`` swapped (the unimodal
+    RSSM at ``modality: vision``) builds the port's model of that family:
+    its config equals JAX's field for field (the port's own
+    ``use_pallas_train`` aside; ``compute_dtype`` float32 in both), its
+    parameter count and state-dict keys JAX's, and nothing waits."""
+    from _port_models import export_rssm_state_dict, export_weighted_state_dict
+
+    path = REPO / "configs" / "mopoe_mrssm.yaml"
+    over = {"model": {"class_path": f"multimodal_mtrssm_tpu.models.{family}"}, **override}
+    ours, theirs = load_experiment(path, over), jax_load_experiment(path, over)
+    assert type(ours.model).__name__ == type(theirs.model).__name__ == family
+    assert ours.pending == {}
+    cfg = ours.model.cfg
+    if family == "RSSM":
+        assert cfg.compute_dtype == torch.float32 and theirs.model.cfg.compute_dtype.__name__ \
+            == "float32"
+        assert ours.data.modality == theirs.data.modality == "vision"
+        cfg = dataclasses.replace(cfg, use_pallas_train="auto")
+        fields = [f for f in dataclasses.fields(cfg)
+                  if f.name not in ("compute_dtype", "use_pallas_train")]
+        for f in fields:
+            ours_v, theirs_v = getattr(cfg, f.name), getattr(theirs.model.cfg, f.name)
+            if dataclasses.is_dataclass(ours_v):
+                _same_fields(ours_v, theirs_v, f"RSSM.{f.name}")
+            else:
+                assert ours_v == theirs_v, (f.name, ours_v, theirs_v)
+    else:
+        _same_fields(cfg, theirs.model.cfg, family)
+    params = theirs.model.init(jax.random.PRNGKey(0))
+    assert count_params(ours.model) == jax_count_params(params)
+    export = export_rssm_state_dict if family == "RSSM" else export_weighted_state_dict
+    assert set(ours.model.state_dict()) == set(export(params))
 
 
 def test_build_trainer_on_a_supported_config(tmp_path):

@@ -104,7 +104,8 @@ def test_preprocess_nodes_build_the_transforms_jax_builds():
     """A data section's ``*_preprocess`` nodes that name another transform
     than the pipeline's default become that transform (a ``Compose`` of
     them too), as JAX builds them: the same arrays out; nothing waits.
-    ``modality`` and ``device_resident`` still wait, naming where they go."""
+    ``modality`` builds its config; ``device_resident`` still waits, naming
+    where it goes."""
     nodes = {"action_preprocess": {"class_path": "multimodal_rssm.models.transform.RemoveDim",
                                    "init_args": {"axis": 1, "indices_to_remove": [0]}},
              "audio_observation_preprocess": {"init_args": {"min_value": -60.0,
@@ -123,10 +124,13 @@ def test_preprocess_nodes_build_the_transforms_jax_builds():
     for field in ("action_preprocess", "vision_preprocess"):
         np.testing.assert_array_equal(getattr(ours.data, field)(x), getattr(theirs.data, field)(x))
     assert isinstance(ours.data.vision_preprocess, transforms.Compose)
-    for node, field, where in (({"modality": "audio"}, "modality", "item 10"),
-                               ({"device_resident": True}, "device_resident", "speed queue")):
-        exp = config_mod.load_experiment(path, {"data": {"init_args": {"config": node}}})
-        assert field in exp.pending["data"] and where in exp.pending["data"][field][1]
+    exp = config_mod.load_experiment(path, {"data": {"init_args": {"config": {
+        "modality": "audio"}}}})
+    assert exp.pending == {} and exp.data.modality == "audio"
+    assert exp.build_datamodule().cfg.modality == "audio"
+    exp = config_mod.load_experiment(path, {"data": {"init_args": {"config": {
+        "device_resident": True}}}})
+    assert "speed queue" in exp.pending["data"]["device_resident"][1]
     with pytest.raises(ValueError, match="unknown transform"):
         config_mod.load_experiment(path, {"data": {"init_args": {"config": {
             "audio_observation_preprocess": {"class_path": "Spectrogram"}}}}})

@@ -1809,3 +1809,128 @@ def test_16_mixed_train_step_on_the_card_matches_the_cpu(cuda_device, family, cf
     near-ties of 1e-2 are skipped for the next seed."""
     _train_step_card_vs_cpu(family, cfg_cls(conv_dtype=torch.bfloat16), cuda_device,
                             tie_eps=1e-2, rtol=1e-2, rel=5e-2, shape=(2, 5), seeds=30)
+
+
+# ---- the weighted and unimodal families --------------------------------------------------
+
+
+def _family_case(model, seed: int, B: int = 4, T: int = 10):
+    """A batch of ``model``'s family (the unimodal RSSM's 4-tuple) and its
+    noise, CPU tensors made by numpy from ``seed``."""
+    rng = np.random.default_rng(seed)
+    act = rng.uniform(-1, 1, (B, T, 6)).astype(np.float32)
+    frames = [rng.uniform(-1, 1, (B, T, 32, 32, 1)).astype(np.float32)
+              for _ in range(2 if hasattr(model.cfg, "audio_encoder") else 1)]
+    batch = tuple(torch.from_numpy(x) for x in (act, *frames, act, *frames))
+    noise = {k: torch.from_numpy(rng.gumbel(size=s).astype(np.float32))
+             for k, s in model.noise_shapes(B, T).items()}
+    noise["input"] = tuple(torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
+                           for x in batch[:len(batch) // 2])
+    return batch, noise
+
+
+def _family_step_card_vs_cpu(cpu, dev) -> None:
+    """``parity.check_train_step`` of ``cpu``'s copy on the card against it,
+    on the first seed without Gumbel near-ties; no recurrence kernel."""
+    card = type(cpu)(cpu.cfg).to(dev)
+    card.load_state_dict(cpu.state_dict())
+    for seed in range(10):
+        batch, noise = _family_case(cpu, seed)
+        if parity.train_step_near_ties(cpu, batch, noise) == 0:
+            break
+    kernels.reset_launch_counts()
+    on_card = (tuple(x.to(dev) for x in batch),
+               {k: v.to(dev) if k != "input" else tuple(x.to(dev) for x in v)
+                for k, v in noise.items()})
+    parity.check_train_step(card, cpu, on_card, (batch, noise))
+    assert _no_launches()
+
+
+@pytest.mark.gpu
+def test_weighted_observe_and_shared_step_on_the_card_match_the_cpu(cuda_device):
+    """WeightedMoPoE-MRSSM on its step loop: ``WorldModel.observe`` on the
+    card against the CPU (deters, logits and weights within 1e-4,
+    categories equal, before each row's first near-tie), the weights
+    summing to 1 within 1e-5; a train step within 2e-5 / 3e-4 × scale. No
+    recurrence kernel runs."""
+    from multimodal_mtrssm_tpu_torch.models import WeightedMoPoEMRSSM
+    from multimodal_mtrssm_tpu_torch.serving import WorldModel
+
+    cpu = WeightedMoPoEMRSSM().init(torch.Generator().manual_seed(3))
+    card = WorldModel(WeightedMoPoEMRSSM(cpu.cfg), cuda_device)
+    card.model.load_state_dict(cpu.state_dict())
+    batch, noise = _family_case(cpu, 11, B=8, T=30)
+    kernels.reset_launch_counts()
+    outs = []
+    for m, dev in ((card.model, cuda_device), (cpu, torch.device("cpu"))):
+        with torch.no_grad():
+            obs = [x.to(dev) for x in batch[1:3]]
+            g = [noise[k].to(dev) for k in ("g_init", "g_prior", "g_post")]
+            init = m.initial_state(obs[0][:, 0], obs[1][:, 0], g[0])
+            post, prior, w = m.rollout_representation_with_weights(batch[0].to(dev), *obs, init,
+                                                                   g[1], g[2])
+        outs.append(([post.deter, post.logits, post.stoch.round(), prior.logits,
+                      prior.stoch.round(), w], init, post, prior, g))
+    assert _no_launches()
+    (got, *_), (ref, init, post, prior, g) = outs
+    assert float((got[5].sum(-1) - 1).abs().max()) <= 1e-5
+    tm = lambda x: x.transpose(0, 1)  # noqa: E731
+    first = parity.first_near_tie([(post.logits + tm(g[2]), C, K),
+                                   (prior.logits + tm(g[1]), C, K)])
+    first = torch.where(parity.first_near_tie([((init.logits + g[0])[:, None], C, K)]) == 0,
+                        0, first)
+    parity.check_same_trajectories([x.cpu() for x in got], ref, (2, 4), first, 1e-4)
+    _family_step_card_vs_cpu(cpu, cuda_device)
+
+
+@pytest.mark.gpu
+def test_rssm_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """The unimodal RSSM's step loop on the card: a train step on a
+    4-tuple batch against the CPU within 2e-5 / 3e-4 × scale."""
+    from multimodal_mtrssm_tpu_torch.models import RSSM
+
+    _family_step_card_vs_cpu(RSSM().init(torch.Generator().manual_seed(4)), cuda_device)
+
+
+@pytest.mark.gpu
+def test_rssm_imagination_runs_on_the_rollout_kernel(cuda_device):
+    """RSSM imagination on a CUDA model launches ``rollout.cu`` once, held
+    to the plain transition and its Philox noise (``parity.check_rollout``)
+    and to the plain route's rollout on the same noise; the plain route by
+    name launches nothing."""
+    from multimodal_mtrssm_tpu_torch.models import RSSM, RSSMConfig
+
+    model = RSSM().init(torch.Generator().manual_seed(5)).to(cuda_device)
+    plain = RSSM(RSSMConfig(use_pallas_train=False)).to(cuda_device)
+    plain.load_state_dict(model.state_dict())
+    rng = np.random.default_rng(6)
+    B, T, seed = 8, 10, 7
+    act = torch.tensor(rng.uniform(-1, 1, (B, T, 6)).astype(np.float32), device=cuda_device)
+    obs0 = torch.tensor(rng.uniform(-1, 1, (B, 32, 32, 1)).astype(np.float32), device=cuda_device)
+    g = torch.tensor(rng.gumbel(size=(B, C * K)).astype(np.float32), device=cuda_device)
+    with torch.no_grad():
+        init = model.initial_state(obs0, g)
+        kernels.reset_launch_counts()
+        got = model.rollout_transition(act, init, seed)
+        assert kernels.launch_counts()["rollout"] == 1
+        parity.check_rollout(model.transition.weights(), act, init.deter, init.stoch, seed,
+                             (got.deter, got.logits, got.stoch), C, K)
+        kernels.reset_launch_counts()
+        ref = plain.rollout_transition(act, init, seed)
+        assert _no_launches()
+    parity.check_same_rollouts(got, ref, model.cfg, seed)
+
+
+@pytest.mark.gpu
+def test_weighted_refuses_use_pallas_train_on_a_cuda_model(cuda_device):
+    """``use_pallas_train=True`` and ``"stacked"`` are refused; at
+    ``"auto"`` a CUDA model imagines on the rollout kernel."""
+    from multimodal_mtrssm_tpu_torch.models import WeightedMoPoEMRSSM, WeightedMRSSMConfig
+
+    for value in (True, "stacked"):
+        with pytest.raises(ValueError, match="1/3"):
+            WeightedMoPoEMRSSM(WeightedMRSSMConfig(use_pallas_train=value)).to(cuda_device)
+    model = WeightedMoPoEMRSSM().init(torch.Generator().manual_seed(8)).to(cuda_device)
+    kernels.reset_launch_counts()
+    _rollouts(model, cuda_device)
+    assert kernels.launch_counts()["rollout"] == 1
