@@ -210,6 +210,26 @@ first two configurations' latent features.
    on ``rollout.cu`` held to the plain rollout and to the plain route's on
    the CPU.
 
+10. After phase 9, data-parallel training on ``torch.distributed``
+    (``drive_distributed``), TF32 off: (a) on an NCCL process group of one
+    rank, ``Trainer.fit`` of ``MRSSMConfig()`` with ``zero1``, 2 × 3 steps
+    at B=8 T=30 on 24 synthetic episodes under deterministic cuDNN, its
+    weights against phase 4b's uninterrupted fit within 3e-4 × scale
+    (bit-identical or not printed); (b) ``dryrun_multichip(2)`` and
+    ``dryrun_multichip(4)`` on the card with gloo ranks sharing it (NCCL
+    refuses two ranks on one device): both families at the reference
+    config, the hybrid ``(dcn, data)`` check at 4, each rank's recurrence
+    kernels launched every step; (c) a 2-rank gloo fit of
+    ``MMTRSSMConfig(conv_layout="fused_enc")`` with ``zero1``: the fused
+    encoder and recurrence kernels launched every step on each rank, the
+    history within 1e-4 relative and the weights within 3e-4 × scale of
+    the 1-process fit; (d) ms a step of ``MRSSMConfig()`` at a global B=8
+    T=30 at 1 process and NCCL W=1 (in turns: 1 process, NCCL W=1, NCCL
+    W=1, 1 process) and gloo W=2 and 4, the gradient all-reduce's and the
+    ZeRO-1 all-gather's ms a step (CUDA events, and the host's time inside
+    each call) and the busy share (``torch.profiler``). NCCL across two
+    cards is not on this one-card machine.
+
 ``python3 chip_smoke.py --learning-demo`` runs only the learning
 demonstration's long runs (``learning_demo_phase``: ``demo_e2e`` at the JAX
 script's decisive flags, 5 seeds a family, ``crossmodal_e2e`` at 100 epochs
@@ -219,7 +239,8 @@ and metrics under ``runs/learning_demo`` (or the directory given after the
 flag), with no contract lines.
 
 Each configuration's serving and training run, phase 3b's coalesced
-requests, phases 4b, 4c, 6, each part of 7, 8 and 9, and the decoder's path
+requests, phases 4b, 4c, 6, each part of 7, 8, 9 and 10 (each rank's own
+counts, summed), and the decoder's path
 (``fused_decoder_apply`` on both decoders of the first two configurations'
 observed features at B=8 T=30, forward and a ``gaussian_nll`` backward), is
 driven with every launch count set to 0 just before it and read just after.
@@ -2931,7 +2952,7 @@ def drive_resume(cfg, dev, run_dir: Path) -> dict:
         counts = launch_counts()
         print(f"profile {label}: epoch 0 traced ({trace.stat().st_size} bytes); main-path kernel "
               f"launches of the resume phase: {counts}")
-    return {"counts": counts}
+    return {"counts": counts, "ref": r["ref"].model}
 
 
 def drive_train_command(cfg, dev, run_dir: Path) -> dict:
@@ -4172,6 +4193,272 @@ def drive_other_families(dev, work: Path, card: str) -> dict:
     return {k: sum(r[k] for r in runs) for k in runs[0]}
 
 
+# ---- phase 10: data-parallel training on torch.distributed -------------------------------------
+
+DP_WORLDS = (2, 4)  # gloo ranks sharing the one card (NCCL refuses two ranks on one device)
+DP_HISTORY_RTOL = 1e-4  # a 2-rank fit's epoch means against the 1-process fit's
+
+
+class _CollectiveTimer:
+    """Phase 10 (d)'s timer of ``torch.distributed.all_reduce`` and
+    ``all_gather``: inside ``with``, both are patched to record CUDA events
+    around each call on a CUDA device (its device time) and the host clock
+    (how long it held the host); the patch is undone on exit. :meth:`ms`
+    and :meth:`host_ms` read each name's mean ms a call."""
+
+    NAMES = ("all_reduce", "all_gather")
+
+    def __init__(self, device):
+        self.device = device
+        self._events: dict[str, list] = {}
+        self._host: dict[str, list[float]] = {}
+        self._real: dict = {}
+
+    def _timed(self, name: str, fn):
+        import torch
+
+        def timed(*args, **kwargs):
+            events = None
+            if self.device.type == "cuda":
+                events = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
+                events[0].record()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self._host.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+            if events is not None:
+                events[1].record()
+                self._events.setdefault(name, []).append(events)
+            return out
+
+        return timed
+
+    def __enter__(self) -> "_CollectiveTimer":
+        import torch.distributed as dist
+
+        for name in self.NAMES:
+            self._real[name] = getattr(dist, name)
+            setattr(dist, name, self._timed(name, self._real[name]))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        import torch.distributed as dist
+
+        for name, fn in self._real.items():
+            setattr(dist, name, fn)
+
+    def host_ms(self) -> dict[str, float]:
+        return {name: sum(t) / len(t) for name, t in self._host.items()}
+
+    def ms(self) -> dict[str, float]:
+        """Device ms between the CUDA events, or the host clock's without them."""
+        import torch
+
+        out = self.host_ms()
+        if self._events:
+            torch.cuda.synchronize()
+        for name, calls in self._events.items():
+            out[name] = sum(a.elapsed_time(b) for a, b in calls) / len(calls)
+        return out
+
+
+def _dp_step_rank(device, reps: int = 10, use_mesh: bool = True) -> dict:
+    """Phase 10 (d), a rank's side (the 1-process and NCCL W=1 cases run it
+    in this process): ``MRSSMConfig()`` train steps at a global B=8 T=30,
+    each rank on its rows with ZeRO-1 on a mesh (none without a process
+    group or ``use_mesh``): the CUDA-event median ms a step, the
+    optimizer's all-reduce and all-gather ms a step (:class:`_CollectiveTimer`),
+    the device ms a step (``torch.profiler``) and the rank's kernel
+    launches a step."""
+    import itertools
+
+    import torch
+    import torch.distributed as dist
+
+    from multimodal_mtrssm_tpu_torch.models import MoPoEMRSSM, MRSSMConfig
+    from multimodal_mtrssm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from multimodal_mtrssm_tpu_torch.parallel.mesh import make_mesh, mesh_rows, replicate
+    from multimodal_mtrssm_tpu_torch.train import AdamW, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh() if use_mesh and dist.is_initialized() else None
+    model = replicate(MoPoEMRSSM(MRSSMConfig()).init(torch.Generator().manual_seed(0))
+                      .to(device), mesh)
+    batch, _ = _train_batch(np.random.default_rng(SEED + 8), 8, 30, model)
+    lo, hi = mesh_rows(8, mesh)
+    local = tuple(x[lo:hi].to(device) for x in batch)
+    opt = AdamW(model.parameters(), mesh=mesh, zero1=mesh is not None)
+    train_step = make_train_step(model, opt)
+    steps = itertools.count()
+    rows = (lo, hi, 8) if mesh is not None else None
+    step = lambda: train_step(local, SEED, next(steps), rows)  # noqa: E731
+    ms = _median_ms(step, reps, warmup=3)
+    with _CollectiveTimer(torch.device(device)) as timer:
+        for _ in range(reps):
+            step()
+    collectives, host = timer.ms(), timer.host_ms()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    step()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    device_ms = _device_ms(step, "", reps=5)
+    return {"ms": ms, "collectives": collectives, "host_collectives": host,
+            "device_ms": device_ms, "rows": hi - lo, "launches": launches}
+
+
+def _print_dp_time(name: str, t: dict, card: str) -> None:
+    """One line of :func:`_dp_step_rank`'s numbers (rank 0's)."""
+    dev_ms = t["device_ms"]
+    busy = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms ({dev_ms / t['ms']:.1%} busy)"
+    coll = ", ".join(f"{k} {v:.4f} ms (host {t['host_collectives'][k]:.4f})"
+                     for k, v in t["collectives"].items()) or "none"
+    zero1 = "" if not t["collectives"] else ", ZeRO-1"
+    print(f"time distributed MRSSMConfig() train step, global B=8 T=30, {name} (rank 0: "
+          f"{t['rows']} rows{zero1}): {t['ms']:.4f} ms a step; collectives a step: {coll}; "
+          f"device {busy}; launches a step {t['launches']['recurrence_fwd']} fwd, "
+          f"{t['launches']['recurrence_bwd']} bwd | {card}")
+
+
+def _dp_fit_rank(device, episodes: str, run_dir: str) -> dict:
+    """Phase 10 (c), a rank's side: ``Trainer.fit`` of
+    ``MMTRSSMConfig(conv_layout="fused_enc")`` with ``zero1``, 2 × 3 steps
+    at a global B=8 T=30 under deterministic cuDNN: the history, the
+    weights (on the CPU), the optimizer steps and the rank's launches."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.models import MMTRSSMConfig
+    from multimodal_mtrssm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with _deterministic_cudnn():
+        trainer = _fit_maker(MMTRSSMConfig(conv_layout="fused_enc"), device, Path(episodes),
+                             Path(run_dir))("dp", zero1=True)
+        reset_launch_counts()
+        out = trainer.fit()
+        torch.cuda.synchronize()
+    return {"history": out["history"], "steps": out["opt_state"]["count"],
+            "weights": {k: v.cpu() for k, v in trainer.model.state_dict().items()},
+            "launches": launch_counts()}
+
+
+def _history_err(rows, ref) -> float:
+    """The largest relative difference of two fits' ``train/`` and ``val/``
+    epoch means."""
+    return max(abs(r[k] - w[k]) / max(abs(w[k]), 1e-12) for r, w in zip(rows, ref, strict=True)
+               for k in w if k.startswith(("train/", "val/")))
+
+
+def _state_err(state: dict, ref) -> float:
+    """``_weights_close``'s error of a state dict (on the CPU) against a model."""
+    return max(float((state[k] - v.cpu()).abs().max()) / max(1.0, float(v.abs().max()))
+               for k, v in ref.state_dict().items())
+
+
+def drive_distributed(dev, work: Path, card: str, ref_model) -> dict:
+    """Phase 10 (module docstring, 10): (a) ``Trainer.fit`` of
+    ``MRSSMConfig()`` with ``zero1`` on an NCCL process group of one rank
+    against phase 4b's uninterrupted fit (``ref_model``); (b) the dry run
+    at 2 and 4 gloo ranks on the card; (c) a 2-rank gloo fit of
+    ``MMTRSSMConfig(conv_layout="fused_enc")`` with ``zero1`` against the
+    1-process fit; (d) ms a step at 1 process, NCCL W=1 and gloo W=2 and 4,
+    the collectives' ms and the busy share. Returns the launch counts of
+    every rank's main path, summed."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from multimodal_mtrssm_tpu_torch.data import generate_synthetic_audio_mnist
+    from multimodal_mtrssm_tpu_torch.dryrun import dryrun_multichip
+    from multimodal_mtrssm_tpu_torch.models import MMTRSSMConfig, MRSSMConfig
+    from multimodal_mtrssm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from multimodal_mtrssm_tpu_torch.parallel.spawn import spawn
+
+    t0 = time.perf_counter()
+    episodes = work / "episodes"
+    generate_synthetic_audio_mnist(episodes, n_episodes=24, seed=SEED)
+    runs: list[dict[str, int]] = []
+
+    # (a) NCCL at world size 1: the production backend's init and collectives.
+    dist.init_process_group("nccl", init_method=f"file://{work / 'nccl-store'}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=300))
+    try:
+        with _deterministic_cudnn():
+            trainer = _fit_maker(MRSSMConfig(), dev, episodes, work)("nccl1", zero1=True)
+            reset_launch_counts()
+            out = trainer.fit()
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        if trainer.mesh is None or trainer.mesh.world != 1 or dist.get_backend() != "nccl":
+            raise RuntimeError(f"NCCL W=1 fit trained on {trainer.mesh}")
+        if counts["recurrence_bwd"] != 6 or out["opt_state"]["count"] != 6:
+            raise RuntimeError(f"NCCL W=1 fit: {out['opt_state']['count']} steps, {counts}")
+        err, same = _weights_close(trainer.model, ref_model)
+        if not err <= WEIGHT_TOL:
+            raise RuntimeError(f"NCCL W=1 fit differs from phase 4b's by {err:.3g} x scale")
+        runs.append(counts)
+        print(f"distributed (a) NCCL world 1, MRSSMConfig() zero1 fit 2 x 3 steps: weights vs "
+              f"phase 4b's uninterrupted fit: max err {err:.3g} x scale (limit {WEIGHT_TOL}), "
+              f"bit-identical: {'yes' if same else 'no'}; launches {counts}")
+        # (d), in turns: the mesh off and on, on the same process group.
+        times = [(name, _dp_step_rank(dev, use_mesh=name != "1 process"))
+                 for name in ("1 process", "NCCL W=1", "NCCL W=1", "1 process")]
+    finally:
+        dist.destroy_process_group()
+
+    # (b) the dry run: both families at the reference config on gloo ranks.
+    for n in DP_WORLDS:
+        results = dryrun_multichip(n, device="cuda", backend="gloo")
+        for rank, r in enumerate(results):
+            c = r["launches"]
+            if min(c["recurrence_bwd"], c["mt_recurrence_bwd"]) != (3 if n >= 4 else 2):
+                raise RuntimeError(f"dryrun_multichip({n}) rank {rank} launched {c}")
+            runs.append(c)
+        print(f"distributed (b) dryrun_multichip({n}, cuda, gloo): per-rank launches "
+              f"{[r['launches'] for r in results]}")
+
+    # (c) 2 gloo ranks: the MMTRSSM fit at fused_enc, against 1 process.
+    cfg = MMTRSSMConfig(conv_layout="fused_enc")
+    with _deterministic_cudnn():
+        one = _fit_maker(cfg, dev, episodes, work)("fe1", zero1=True)
+        reset_launch_counts()
+        one_out = one.fit()
+        torch.cuda.synchronize()
+        runs.append(launch_counts())
+    ranks = spawn("chip_smoke:_dp_fit_rank", 2, "cuda", backend="gloo",
+                  kwargs={"episodes": str(episodes), "run_dir": str(work / "dp2")},
+                  timeout_s=900, group_timeout_s=600)
+    for rank, r in enumerate(ranks):
+        c = r["launches"]
+        if r["steps"] != 6 or c["mt_recurrence_bwd"] != 6 or c["fused_encoder_bwd"] != 12 \
+                or c["mt_recurrence_fwd"] < 6 or c["fused_encoder_fwd"] < 12:
+            raise RuntimeError(f"2-rank fit rank {rank}: {r['steps']} steps, launches {c}")
+        runs.append(c)
+    h_err = _history_err(ranks[0]["history"], one_out["history"])
+    w_err = _state_err(ranks[0]["weights"], one.model)
+    same = all(torch.equal(ranks[0]["weights"][k], ranks[1]["weights"][k])
+               for k in ranks[0]["weights"])
+    if not (h_err <= DP_HISTORY_RTOL and w_err <= WEIGHT_TOL and same):
+        raise RuntimeError(f"2-rank fit vs 1 process: history {h_err:.3g}, weights "
+                           f"{w_err:.3g} x scale, ranks alike {same}")
+    print(f"distributed (c) 2 gloo ranks on cuda:0, {_label(cfg)} zero1 fit 2 x 3 steps: "
+          f"history vs the 1-process fit max rel err {h_err:.3g} (limit {DP_HISTORY_RTOL}), "
+          f"weights {w_err:.3g} x scale (limit {WEIGHT_TOL}), both ranks' weights "
+          f"bit-identical; per-rank launches {[r['launches'] for r in ranks]}")
+
+    # (d) ms a step.
+    for n in DP_WORLDS:
+        times.append((f"gloo W={n}", spawn("chip_smoke:_dp_step_rank", n, "cuda",
+                                           backend="gloo", timeout_s=600,
+                                           group_timeout_s=300)[0]))
+    for name, t in times:
+        _print_dp_time(name, t, card)
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    return {k: sum(r.get(k, 0) for r in runs) for k in runs[0]}
+
+
 # The learning demonstration's long runs (--learning-demo): each is one
 # process of `python -m <argv>` with its own --workdir, started together on
 # the one card. The demo at the JAX script's decisive flags, 5 seeds of each
@@ -4418,12 +4705,14 @@ def _main(work: Path) -> int:
     runs.append(drive_learning_path(dev, work / "learning"))
     # Phase 9: the weighted and unimodal families from the YAML.
     runs.append(drive_other_families(dev, work / "families", card))
+    # Phase 10: data-parallel training on torch.distributed.
+    runs.append(drive_distributed(dev, work / "distributed", card, resume["ref"]))
 
     ptxas_report(ptxas)
     launches = {k: sum(run.get(k, 0) for run in runs) for k in runs[0]}
     print("main-path launches, serving + training of the four configurations, resume, the "
           "train command and evaluation of the first two, the fused decoder path, the "
-          f"cross-modal run and phases 8 and 9: {launches}")
+          f"cross-modal run and phases 8, 9 and 10: {launches}")
     pkg = "multimodal_mtrssm_tpu_torch"
     pallas = "multimodal_mtrssm_tpu/ops/pallas"
     meta = {

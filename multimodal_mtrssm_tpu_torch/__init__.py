@@ -12,7 +12,9 @@ multimodal_mtrssm_tpu_torch serve``), the YAML configs
 (``train.config.load_experiment``), training (``train.Trainer`` on
 ``data.EpisodeDataModule``: the ELBO, AdamW, checkpoints, exact resume,
 preemption, accumulation, K-step chunks; ``train-mopoe-mrssm``,
-``train-mopoe-mmtrssm``) and the word-transition evaluation
+``train-mopoe-mmtrssm``; data parallel on ``torch.distributed``,
+``parallel`` and ``dryrun``, launched by ``torchrun``) and the
+word-transition evaluation
 (``evaluation``; ``evaluate-word-transitions``), with
 hand-written CUDA kernels for the representation recurrences (forward and
 BPTT backward), the imagination rollouts and the fused conv stacks

@@ -33,6 +33,7 @@ from torch import nn
 
 from multimodal_mtrssm_tpu_torch.models.mrssm import (
     Representation,
+    Rows,
     add_input_noise,
     check_precision_fields,
     decode_pair,
@@ -230,10 +231,13 @@ class MoPoEMMTRSSM(nn.Module):
 
     def draw_noise(self, B: int, T: int, generator: torch.Generator | None = None,
                    device: torch.device | str | None = None,
-                   given: Mapping[str, torch.Tensor] | None = None) -> dict[str, torch.Tensor]:
+                   given: Mapping[str, torch.Tensor] | None = None,
+                   rows: Rows | None = None) -> dict[str, torch.Tensor]:
         """The observe path's noise (:meth:`noise_shapes`): each tensor of
-        ``given`` as it is, the rest drawn from ``generator`` in order."""
-        return draw_gumbels(self.noise_shapes(B, T), generator, device, given)
+        ``given`` as it is, the rest drawn from ``generator`` in order; with
+        ``rows`` drawn at the global batch and cut to them (``draw_gumbels``)."""
+        return draw_gumbels(self.noise_shapes(rows[2] if rows else B, T), generator, device,
+                            given, rows)
 
     def observe(self, actions: torch.Tensor, audio_obs: torch.Tensor, vision_obs: torch.Tensor,
                 noise: Mapping[str, torch.Tensor]) -> tuple[MTState, MTState]:
@@ -321,7 +325,8 @@ class MoPoEMMTRSSM(nn.Module):
 
     def shared_step(self, batch: tuple[torch.Tensor, ...],
                     noise: Mapping[str, torch.Tensor | tuple[torch.Tensor, ...]] | None = None,
-                    generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
+                    generator: torch.Generator | None = None,
+                    rows: Rows | None = None) -> dict[str, torch.Tensor]:
         """The dual-KL ELBO of one batch (reference ``core.py:563-606``).
 
         ``batch`` is the 6-tuple (action_input, audio_in, vision_in,
@@ -330,11 +335,13 @@ class MoPoEMMTRSSM(nn.Module):
         :meth:`noise_shapes` and ``input``, three standard-normal tensors
         shaped like the input streams (used where ``input_noise_std`` > 0);
         what it does not give is drawn from ``generator`` (a generator on the
-        model's device; torch's default generator of that device if None).
-        Returns ``loss``, ``recon``, ``recon/audio``, ``recon/vision``,
-        ``kl`` (the lower layer's) and ``kl_h``."""
+        model's device; torch's default generator of that device if None),
+        at the global batch where ``rows`` gives the batch's rows of one
+        (``MoPoEMRSSM.shared_step``). Returns ``loss``, ``recon``,
+        ``recon/audio``, ``recon/vision``, ``kl`` (the lower layer's) and
+        ``kl_h``."""
         cfg = self.cfg
-        _, posterior, prior, _ = self._observe_batch(batch, noise or {}, generator)
+        _, posterior, prior, _ = self._observe_batch(batch, noise or {}, generator, rows)
         losses = self.compute_reconstruction_loss(
             self.decode_state(posterior), {"recon/audio": batch[4], "recon/vision": batch[5]})
         # Each KL summed over time, then the batch mean.
@@ -348,16 +355,16 @@ class MoPoEMMTRSSM(nn.Module):
         return losses
 
     def _observe_batch(self, batch: tuple[torch.Tensor, ...], noise: Mapping,
-                       generator: torch.Generator | None
+                       generator: torch.Generator | None, rows: Rows | None = None
                        ) -> tuple[MTState, MTState, MTState, dict[str, torch.Tensor]]:
         """``shared_step``'s filtering half: input noise, one encoder pass
         that serves the initial state (frame 0) and the recurrence, as in
         the JAX package. Returns ``(initial, posterior, prior, gumbels)``."""
         action_in, audio_in, vision_in = batch[:3]
         B, T = action_in.shape[:2]
-        gumbels = self.draw_noise(B, T, generator, action_in.device, noise)
+        gumbels = self.draw_noise(B, T, generator, action_in.device, noise, rows)
         action_in, audio_in, vision_in = add_input_noise(
-            self.cfg.input_noise_std, (action_in, audio_in, vision_in), noise, generator)
+            self.cfg.input_noise_std, (action_in, audio_in, vision_in), noise, generator, rows)
         a_emb, v_emb = self.encode_embeds(audio_in, vision_in)
         init = self.initial_state_from_embed(
             cast_conv_out(self.cfg, (a_emb[:, 0] + v_emb[:, 0]) / 2.0), gumbels["g_init_h"],

@@ -53,6 +53,9 @@ from multimodal_mtrssm_tpu_torch.ops.kernels import (
 )
 from multimodal_mtrssm_tpu_torch.ops.likelihood import gaussian_nll
 
+# A data-parallel rank's rows ``(lo, hi, n)`` of a global batch of ``n`` rows.
+Rows = tuple[int, int, int]
+
 
 @dataclasses.dataclass(frozen=True)
 class MRSSMConfig:
@@ -205,10 +208,13 @@ class MoPoEMRSSM(nn.Module):
 
     def draw_noise(self, B: int, T: int, generator: torch.Generator | None = None,
                    device: torch.device | str | None = None,
-                   given: Mapping[str, torch.Tensor] | None = None) -> dict[str, torch.Tensor]:
+                   given: Mapping[str, torch.Tensor] | None = None,
+                   rows: Rows | None = None) -> dict[str, torch.Tensor]:
         """The observe path's noise (:meth:`noise_shapes`): each tensor of
-        ``given`` as it is, the rest drawn from ``generator`` in order."""
-        return draw_gumbels(self.noise_shapes(B, T), generator, device, given)
+        ``given`` as it is, the rest drawn from ``generator`` in order; with
+        ``rows`` drawn at the global batch and cut to them (:func:`draw_gumbels`)."""
+        return draw_gumbels(self.noise_shapes(rows[2] if rows else B, T), generator, device,
+                            given, rows)
 
     def observe(self, actions: torch.Tensor, audio_obs: torch.Tensor, vision_obs: torch.Tensor,
                 noise: Mapping[str, torch.Tensor]) -> tuple[State, State]:
@@ -289,7 +295,8 @@ class MoPoEMRSSM(nn.Module):
 
     def shared_step(self, batch: tuple[torch.Tensor, ...],
                     noise: dict[str, torch.Tensor | tuple[torch.Tensor, ...]] | None = None,
-                    generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
+                    generator: torch.Generator | None = None,
+                    rows: Rows | None = None) -> dict[str, torch.Tensor]:
         """The ELBO of one batch (reference ``core.py:187-221``).
 
         ``batch`` is the 6-tuple (action_input, audio_in, vision_in,
@@ -299,9 +306,13 @@ class MoPoEMRSSM(nn.Module):
         standard-normal tensors shaped like the input streams (used where
         ``input_noise_std`` > 0); what it does not give is drawn from
         ``generator`` (a generator on the model's device; torch's default
-        generator of that device if None). Returns ``loss``, ``recon``,
+        generator of that device if None). With ``rows`` (``(lo, hi, n)``:
+        ``batch`` is rows ``[lo, hi)`` of a global batch of ``n``, as a
+        data-parallel rank holds it) what is drawn is drawn at ``n`` rows in
+        the same order and cut to the batch's, so the noise is the global
+        batch's whatever the world size. Returns ``loss``, ``recon``,
         ``recon/audio``, ``recon/vision`` and ``kl``."""
-        _, posterior, prior, _ = self._observe_batch(batch, noise or {}, generator)
+        _, posterior, prior, _ = self._observe_batch(batch, noise or {}, generator, rows)
         losses = self.compute_reconstruction_loss(
             self.decode_state(posterior), {"recon/audio": batch[4], "recon/vision": batch[5]})
         # KL summed over time, then the batch mean (reference core.py:212-218).
@@ -312,7 +323,7 @@ class MoPoEMRSSM(nn.Module):
         return losses
 
     def _observe_batch(self, batch: tuple[torch.Tensor, ...], noise: dict,
-                       generator: torch.Generator | None
+                       generator: torch.Generator | None, rows: Rows | None = None
                        ) -> tuple[State, State, State, tuple[torch.Tensor, ...]]:
         """``shared_step``'s filtering half: input noise, one encoder pass
         that serves the initial state (frame 0) and the recurrence, as in
@@ -322,9 +333,9 @@ class MoPoEMRSSM(nn.Module):
         action_in, audio_in, vision_in = batch[:3]
         dev = action_in.device
         B, T = action_in.shape[:2]
-        gumbels = tuple(self.draw_noise(B, T, generator, dev, noise).values())
+        gumbels = tuple(self.draw_noise(B, T, generator, dev, noise, rows).values())
         action_in, audio_in, vision_in = add_input_noise(
-            cfg.input_noise_std, (action_in, audio_in, vision_in), noise, generator)
+            cfg.input_noise_std, (action_in, audio_in, vision_in), noise, generator, rows)
         a_emb, v_emb = self.encode_embeds(audio_in, vision_in)
         init = self.initial_state_from_embed(
             cast_conv_out(cfg, (a_emb[:, 0] + v_emb[:, 0]) / 2.0), gumbels[0])
@@ -386,13 +397,25 @@ def decode_pair(model: nn.Module, feature: torch.Tensor) -> dict[str, torch.Tens
 
 def draw_gumbels(shapes: Mapping[str, tuple[int, ...]], generator: torch.Generator | None,
                  device: torch.device | str | None,
-                 given: Mapping[str, torch.Tensor] | None = None) -> dict[str, torch.Tensor]:
+                 given: Mapping[str, torch.Tensor] | None = None,
+                 rows: Rows | None = None) -> dict[str, torch.Tensor]:
     """Gumbel noise for each named shape: ``given[name]`` where it is given,
     else drawn from ``generator`` (on its device; torch's default generator
-    of ``device`` if None), in the order of ``shapes``."""
+    of ``device`` if None), in the order of ``shapes``. With ``rows``
+    (``(lo, hi, n)``) the shapes are a global batch of ``n`` rows: each
+    draw keeps rows ``[lo, hi)`` of its batch axis, the second from last
+    (``[B, S]``, ``[T, B, S]``); ``given`` tensors are the rows' already."""
     given = given or {}
-    return {k: given[k] if k in given else gumbel_noise(shape, generator, device)
-            for k, shape in shapes.items()}
+    out = {}
+    for k, shape in shapes.items():
+        if k in given:
+            out[k] = given[k]
+        elif rows is None:
+            out[k] = gumbel_noise(shape, generator, device)
+        else:
+            lo, hi, _ = rows
+            out[k] = gumbel_noise(shape, generator, device).narrow(-2, lo, hi - lo).contiguous()
+    return out
 
 
 def _stream_stds(std: float | tuple[float, ...]) -> tuple[float, ...]:
@@ -403,15 +426,19 @@ def _stream_stds(std: float | tuple[float, ...]) -> tuple[float, ...]:
 
 
 def add_input_noise(std: float | tuple[float, ...], streams: tuple[torch.Tensor, ...],
-                    noise: Mapping, generator: torch.Generator | None) -> tuple[torch.Tensor, ...]:
+                    noise: Mapping, generator: torch.Generator | None,
+                    rows: Rows | None = None) -> tuple[torch.Tensor, ...]:
     """``x + std * n`` per input stream (action, audio, vision; reference
     ``transform.py:55-72``, applied on the device as the JAX package does):
     ``n`` is ``noise["input"]`` where given, else standard normals from
-    ``generator``; a std of 0 leaves its stream clean, and with every std 0
-    nothing is drawn."""
+    ``generator`` (with ``rows``, ``(lo, hi, n)``, drawn at ``n`` rows and
+    cut to rows ``[lo, hi)``); a std of 0 leaves its stream clean, and with
+    every std 0 nothing is drawn."""
     stds = _stream_stds(std)
     if not any(s > 0 for s in stds):
         return streams
+    lo, hi, total = rows or (0, streams[0].shape[0], streams[0].shape[0])
     normals = noise.get("input") or tuple(
-        torch.randn(x.shape, generator=generator, device=x.device) for x in streams)
+        torch.randn((total, *x.shape[1:]), generator=generator, device=x.device)[lo:hi]
+        for x in streams)
     return tuple(x if s == 0 else x + s * n for s, n, x in zip(stds, normals, streams))

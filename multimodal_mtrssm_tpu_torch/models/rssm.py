@@ -28,6 +28,7 @@ from torch import nn
 from multimodal_mtrssm_tpu_torch.models.mrssm import (
     MoPoEMRSSM,
     Representation,
+    Rows,
     add_input_noise,
     run_steps,
 )
@@ -174,17 +175,20 @@ class RSSM(nn.Module):
     # ---- the ELBO -----------------------------------------------------------
     def shared_step(self, batch: tuple[torch.Tensor, ...],
                     noise: dict[str, torch.Tensor | tuple[torch.Tensor, ...]] | None = None,
-                    generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
+                    generator: torch.Generator | None = None,
+                    rows: Rows | None = None) -> dict[str, torch.Tensor]:
         """The ELBO of one 4-tuple batch ``(action_input, obs_input,
         action_target, obs_target)`` (JAX ``rssm.py:190-213``): input noise
         on the two input streams, one encoder pass that serves the initial
         state (frame 0) and the recurrence, the Gaussian NLL (event_ndims=3)
         and the balanced KL. ``noise`` may give ``g_init``, ``g_prior``,
         ``g_post`` and ``input`` (two standard-normal tensors shaped like
-        the input streams); the rest is drawn from ``generator``. Returns
-        ``loss``, ``recon`` and ``kl``."""
+        the input streams); the rest is drawn from ``generator``, at the
+        global batch where ``rows`` gives the batch's rows of one
+        (``MoPoEMRSSM.shared_step``). Returns ``loss``, ``recon`` and
+        ``kl``."""
         cfg = self.cfg
-        _, posterior, prior, _ = self._observe_batch(batch, noise or {}, generator)
+        _, posterior, prior, _ = self._observe_batch(batch, noise or {}, generator, rows)
         recon = gaussian_nll(self.decode_state(posterior)["recon"], batch[3], 3)
         kl_bt = kl_balanced(self._dist(posterior.logits), self._dist(prior.logits),
                             use_balancing=cfg.use_kl_balancing)
@@ -192,16 +196,16 @@ class RSSM(nn.Module):
         return {"recon": recon, "kl": kl, "loss": recon + kl}
 
     def _observe_batch(self, batch: tuple[torch.Tensor, ...], noise: dict,
-                       generator: torch.Generator | None
+                       generator: torch.Generator | None, rows: Rows | None = None
                        ) -> tuple[State, State, State, tuple[torch.Tensor, ...]]:
         """``shared_step``'s filtering half, as MoPoE-MRSSM's: input noise,
         one encoder pass for the initial state and the recurrence. Returns
         ``(initial, posterior, prior, (g_init, g_prior, g_post))``."""
         action_in, obs_in = batch[:2]
         B, T = action_in.shape[:2]
-        gumbels = tuple(self.draw_noise(B, T, generator, action_in.device, noise).values())
+        gumbels = tuple(self.draw_noise(B, T, generator, action_in.device, noise, rows).values())
         action_in, obs_in = add_input_noise(self.cfg.input_noise_std, (action_in, obs_in), noise,
-                                            generator)
+                                            generator, rows)
         embed = self.encode_observation(obs_in)
         init = self.initial_state_from_embed(embed[:, 0], gumbels[0])
         posterior, prior = self._rollout_from_embed(action_in, embed, init, *gumbels[1:])

@@ -28,9 +28,12 @@ def _cpu(x: Any) -> Any:
 class CheckpointManager:
     """Named checkpoints in one directory."""
 
-    def __init__(self, directory: str | Path):
+    def __init__(self, directory: str | Path, create: bool = True):
+        """``create``: make the directory now (a data-parallel run's other
+        ranks only read it)."""
         self.dir = Path(directory).resolve()
-        self.dir.mkdir(parents=True, exist_ok=True)
+        if create:
+            self.dir.mkdir(parents=True, exist_ok=True)
 
     def path(self, name: str) -> Path:
         """The ``.ckpt`` file of checkpoint ``name``."""
@@ -72,13 +75,16 @@ class CheckpointManager:
         load_reference_state_dict(model, ckpt["state_dict"])
         return self.aux(name)
 
-    def save(self, name: str, model: nn.Module, optimizer: AdamW | None = None,
+    def save(self, name: str, model: nn.Module, optimizer: AdamW | dict | None = None,
              aux: dict[str, Any] | None = None) -> Path:
-        """Write the model's weights (and the optimizer's state, if given)
-        under ``name``, replacing any earlier one atomically."""
+        """Write the model's weights (and the optimizer's state, if given:
+        the optimizer or its ``state_dict()``) under ``name``, replacing any
+        earlier one atomically."""
         ckpt: dict[str, Any] = {"state_dict": {k: _cpu(v) for k, v in model.state_dict().items()}}
         if optimizer is not None:
-            ckpt["optimizer"] = {k: _cpu(v) for k, v in optimizer.state_dict().items()}
+            state = optimizer if isinstance(optimizer, dict) else optimizer.state_dict()
+            ckpt["optimizer"] = {k: _cpu(v) for k, v in state.items()}
+        self.dir.mkdir(parents=True, exist_ok=True)
         path = self.path(name)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         torch.save(ckpt, tmp)

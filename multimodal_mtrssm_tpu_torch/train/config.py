@@ -293,9 +293,6 @@ def _data_config(raw: dict, dconf: dict, seq_len: int, pending: dict) -> DataMod
 
 def _trainer_config(raw: dict, pending: dict) -> TrainerConfig:
     trainer_node = raw.get("trainer", {})
-    for key, default, item in (("zero1", False, 11), ("dcn_size", None, 11)):
-        if trainer_node.get(key, default) != default:
-            pending[key] = (trainer_node[key], f"{_ITEM} {item}")
     if raw.get("use_wandb", False):
         pending["use_wandb"] = (raw["use_wandb"], "W&B is not ported: JSONL metrics are the record")
     callbacks = trainer_node.get("callbacks", [])
@@ -323,6 +320,8 @@ def _trainer_config(raw: dict, pending: dict) -> TrainerConfig:
         wandb_project=logger_args.get("project"),
         lr_scheduler=_scheduler_spec(raw.get("lr_scheduler")),
         accumulate_grad_batches=int(trainer_node.get("accumulate_grad_batches", 1)),
+        zero1=bool(trainer_node.get("zero1", False)),
+        dcn_size=trainer_node.get("dcn_size"),
         steps_per_dispatch=(
             spd if (spd := trainer_node.get("steps_per_dispatch", "auto")) == "auto" else int(spd)),
     )

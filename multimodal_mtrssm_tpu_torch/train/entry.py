@@ -9,6 +9,15 @@ takes an ``Experiment`` built without PyYAML (``train.config.
 make_experiment``), which then stands in for the config file. As JAX's
 command does, it attaches the rollout-GIF callback of the experiment's
 ``VizConfig`` (``viz.callback.make_viz_callback``).
+
+Under ``torchrun`` (``WORLD_SIZE`` in the environment) each process joins
+the process group (``parallel.mesh.init_from_env``: NCCL on the card,
+``--device cuda`` meaning ``cuda:LOCAL_RANK``; gloo on the CPU), rank 0
+writes the ``--synthetic`` episodes and builds the CUDA kernels while the
+others wait, and the trainer trains data-parallel::
+
+    torchrun --standalone --nproc_per_node=N -m multimodal_mtrssm_tpu_torch \
+        train-mopoe-mrssm -c configs/mopoe_mrssm.yaml
 """
 
 from __future__ import annotations
@@ -38,10 +47,14 @@ def run_training(default_config: str | Path, argv: list[str] | None = None,
     parser.add_argument("--synthetic", type=int, metavar="N", default=None,
                         help="generate N synthetic episodes into --data-dir first")
     parser.add_argument("--device", default="cuda",
-                        help="device to train on: 'cuda' (the default) or 'cpu'")
+                        help="device to train on: 'cuda' (the default; cuda:LOCAL_RANK under "
+                             "torchrun) or 'cpu'")
     args = parser.parse_args(argv)
 
+    import torch.distributed as dist
+
     from multimodal_mtrssm_tpu_torch.data import generate_synthetic_audio_mnist
+    from multimodal_mtrssm_tpu_torch.parallel.mesh import init_from_env
     from multimodal_mtrssm_tpu_torch.train.config import load_experiment
     from multimodal_mtrssm_tpu_torch.viz.callback import make_viz_callback
 
@@ -52,11 +65,21 @@ def run_training(default_config: str | Path, argv: list[str] | None = None,
         exp.data.data_dir = args.data_dir
     if args.log_dir is not None:
         exp.trainer.log_dir = args.log_dir
-    if args.synthetic:
-        generate_synthetic_audio_mnist(exp.data.data_dir, n_episodes=args.synthetic)
-    trainer = exp.build_trainer(device=args.device)
+    device = init_from_env(args.device)
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+    if rank0:
+        if args.synthetic:
+            generate_synthetic_audio_mnist(exp.data.data_dir, n_episodes=args.synthetic)
+        if device.type == "cuda" and dist.is_initialized():
+            from multimodal_mtrssm_tpu_torch.ops.kernels.build import load_library
+
+            load_library()  # built once; the other ranks load it after the barrier
+    if dist.is_initialized():
+        dist.barrier()
+    trainer = exp.build_trainer(device=device)
     trainer.callbacks.append(make_viz_callback(exp))
     out = trainer.fit(resume=args.resume)
-    print(f"done: best val/loss = {out['best_val']:.4f} over {len(out['history'])} epochs "
-          f"(log_dir={exp.trainer.log_dir})")
+    if rank0:
+        print(f"done: best val/loss = {out['best_val']:.4f} over {len(out['history'])} epochs "
+              f"(log_dir={exp.trainer.log_dir})")
     return out

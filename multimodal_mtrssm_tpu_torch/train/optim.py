@@ -7,6 +7,15 @@ decoupled weight decay, in f32 and in the same order of operations. The JAX
 package runs this in XLA, not in a Pallas kernel, so here it is plain torch
 ops (a handful of launches over one vector). The schedulers and early
 stopping are host-side state, stepped once per epoch on ``val/loss``.
+
+On a data-parallel mesh (``parallel.mesh``) the flat gradient is summed
+over every rank by one ``all_reduce`` (each rank's share already weighted by
+its rows), and with ``zero1`` the moments are JAX's ``shard_pad`` layout
+(its lines 74-110): the flat vector padded to a multiple of the ``data``
+axis, each rank holding its slice of m and v, updating that slice, and
+``all_gather``-ing the parameter step within its ``data`` group. The clip
+reads the whole, already-summed gradient, so the update equals the
+replicated one element for element.
 """
 
 from __future__ import annotations
@@ -17,23 +26,35 @@ from typing import Iterable
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from multimodal_mtrssm_tpu_torch.parallel.mesh import Mesh, ici_size
 
 
 class AdamW:
     """AdamW with global-norm gradient clipping over a fixed parameter list;
-    ``lr`` may be changed between steps (:func:`set_learning_rate`)."""
+    ``lr`` may be changed between steps (:func:`set_learning_rate`).
+
+    ``mesh``: sum the gradient over its ranks before the clip. ``zero1``
+    (with a mesh): keep only this rank's slice of the padded moments."""
 
     def __init__(self, params: Iterable[torch.Tensor], learning_rate: float = 1e-3,
                  grad_clip: float = 10.0, weight_decay: float = 0.01, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8):
+                 b2: float = 0.999, eps: float = 1e-8, mesh: Mesh | None = None,
+                 zero1: bool = False):
         self.params = list(params)
         self.lr = learning_rate
         self.grad_clip, self.weight_decay = grad_clip, weight_decay
         self.b1, self.b2, self.eps = b1, b2, eps
-        n = sum(p.numel() for p in self.params)
+        self.mesh = mesh
+        self.n = sum(p.numel() for p in self.params)
+        # ZeRO-1: ``shards`` slices of ``shard`` entries, this rank's at ``lo``.
+        self.shards = ici_size(mesh) if zero1 and mesh is not None else 1
+        self.shard = -(-self.n // self.shards)
+        self.lo = mesh.data_rank * self.shard if self.shards > 1 else 0
         dev = self.params[0].device
-        self.m = torch.zeros(n, dtype=torch.float32, device=dev)
-        self.v = torch.zeros(n, dtype=torch.float32, device=dev)
+        self.m = torch.zeros(self.shard, dtype=torch.float32, device=dev)
+        self.v = torch.zeros(self.shard, dtype=torch.float32, device=dev)
         self.count = 0
 
     def zero_grad(self) -> None:
@@ -41,15 +62,32 @@ class AdamW:
         for p in self.params:
             p.grad = None
 
+    def _slice(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of a flat ``[n]`` vector, zero-padded as JAX pads."""
+        if self.shards == 1:
+            return x
+        return torch.nn.functional.pad(x, (0, self.shard * self.shards - self.n))[
+            self.lo:self.lo + self.shard]
+
+    def _gather(self, part: torch.Tensor) -> torch.Tensor:
+        """The whole ``[n]`` vector of every rank's slice (the ``data`` group's)."""
+        if self.shards == 1:
+            return part
+        parts = [torch.empty_like(part) for _ in range(self.shards)]
+        dist.all_gather(parts, part.contiguous(), group=self.mesh.data_group)
+        return torch.cat(parts)[:self.n]
+
     @torch.no_grad()
     def step(self) -> None:
         """One update from the parameters' ``.grad`` (a missing grad is 0)."""
         g = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1).float()
                        for p in self.params])
+        if self.mesh is not None:
+            dist.all_reduce(g)
         p = torch.cat([p.reshape(-1) for p in self.params])
         f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=g.device)  # noqa: E731
         norm = torch.sqrt(torch.sum(g * g))
-        g = g * torch.clamp(f32(self.grad_clip) / (norm + 1e-12), max=1.0)
+        g = self._slice(g * torch.clamp(f32(self.grad_clip) / (norm + 1e-12), max=1.0))
         self.count += 1
         # 1 - b is taken in double precision, as the JAX package's Python
         # floats are; b ** t in f32, as its weak-typed scalars are.
@@ -58,28 +96,32 @@ class AdamW:
         self.v = b2 * self.v + f32(1.0 - self.b2) * g * g
         mh = self.m / (1.0 - b1 ** t)
         vh = self.v / (1.0 - b2 ** t)
-        step = -f32(self.lr) * (mh / (torch.sqrt(vh) + self.eps) + self.weight_decay * p)
+        step = -f32(self.lr) * (mh / (torch.sqrt(vh) + self.eps) + self.weight_decay * self._slice(p))
+        step = self._gather(step)
         torch._foreach_add_(self.params, [s.view_as(q) for s, q in
                                           zip(step.split([q.numel() for q in self.params]),
                                               self.params)])
 
     def state_dict(self) -> dict:
-        """Moments, step count and learning rate."""
-        return {"m": self.m, "v": self.v, "count": self.count, "lr": self.lr}
+        """Moments (whole: under ZeRO-1 every rank of the ``data`` group
+        gathers them, so every rank must call this), step count and
+        learning rate."""
+        return {"m": self._gather(self.m), "v": self._gather(self.v), "count": self.count,
+                "lr": self.lr}
 
     def load_state_dict(self, state: dict) -> "AdamW":
-        """Restore :meth:`state_dict`'s moments (flat, in this optimizer's
-        parameter order), step count and learning rate, on the parameters'
-        device. Raises when the moments do not fit the parameters."""
-        n = self.m.numel()
+        """Restore :meth:`state_dict`'s moments (flat, whole, in this
+        optimizer's parameter order; under ZeRO-1 this rank keeps its
+        slice), step count and learning rate, on the parameters' device.
+        Raises when the moments do not fit the parameters."""
         moments = {}
         for k in ("m", "v"):
             x = state[k]
             x = (x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))).reshape(-1)
-            if x.numel() != n:
+            if x.numel() != self.n:
                 raise ValueError(f"optimizer state {k!r} has {x.numel()} entries, the "
-                                 f"parameters {n}")
-            moments[k] = x.to(self.m.device, torch.float32).clone()
+                                 f"parameters {self.n}")
+            moments[k] = self._slice(x.to(self.m.device, torch.float32)).clone()
         self.m, self.v = moments["m"], moments["v"]
         self.count = int(state["count"])
         self.lr = float(state["lr"])

@@ -14,7 +14,21 @@ resumes mid-epoch or at an epoch boundary, or warm-starts from weights
 alone; ``profile_epoch`` traces one epoch with ``torch.profiler``;
 callbacks run after each epoch and at the end, with the ``best`` weights.
 An integer ``steps_per_dispatch`` is accepted and trains batch by batch
-(:class:`TrainerConfig`). ``zero1``, ``dcn_size`` and ``use_wandb`` raise when set.
+(:class:`TrainerConfig`). ``use_wandb`` raises when set.
+
+Data parallel (JAX ``trainer.py:180-257``): where a ``torch.distributed``
+process group is up (``parallel.mesh.init_from_env``), the trainer builds
+its mesh from ``dcn_size`` (``make_hybrid_mesh``: flat on one node unless
+``dcn_size`` says otherwise) and shards the optimizer's moments over its
+``data`` axis with ``zero1``. Each rank trains on its rows of every batch
+(``parallel.mesh.shard_rows``), the noise drawn at the global batch
+(``shared_step``'s ``rows``), the gradient summed over the ranks; the epoch's
+sums are all-reduced once an epoch, so every rank takes the same scheduler,
+early-stop, divergence and checkpoint decisions, and a SIGTERM on any rank
+stops every rank after the same step. Rank 0 alone writes checkpoints,
+metrics, charts and runs the callbacks. Unlike JAX, which trims its mesh to
+the devices that divide the batch, a configured batch size the world does
+not divide raises: a process group cannot shrink.
 """
 
 from __future__ import annotations
@@ -25,13 +39,25 @@ import dataclasses
 import math
 import signal
 import time
+import warnings
 from pathlib import Path
-from typing import Any, Iterator
+from typing import Any, Iterable, Iterator
 
 import torch
+import torch.distributed as dist
 
 from multimodal_mtrssm_tpu_torch.data.pipeline import EpisodeDataModule
 from multimodal_mtrssm_tpu_torch.models import WorldModelNet
+from multimodal_mtrssm_tpu_torch.parallel.mesh import (
+    Mesh,
+    agree,
+    barrier,
+    make_hybrid_mesh,
+    make_mesh,
+    mesh_rows,
+    replicate,
+    shard_rows,
+)
 from multimodal_mtrssm_tpu_torch.train.checkpoint import CheckpointManager
 from multimodal_mtrssm_tpu_torch.train.metrics import MetricLogger
 from multimodal_mtrssm_tpu_torch.train.optim import (
@@ -42,8 +68,11 @@ from multimodal_mtrssm_tpu_torch.train.optim import (
     set_learning_rate,
 )
 from multimodal_mtrssm_tpu_torch.train.steps import (
+    Batch,
+    Rows,
     apply_accumulated,
     fold,
+    local_step,
     make_grad_step,
     make_train_step,
 )
@@ -56,17 +85,28 @@ _RESEED = 9973
 
 
 class _PreemptionGuard:
-    """SIGTERM sets ``flagged``; the fit loop polls it after each batch
-    and saves an exact-resume ``last`` checkpoint. The previous
-    handler is restored on exit; off the main thread (where no handler can
-    be installed) the guard does nothing."""
+    """SIGTERM sets ``flagged``, and nothing clears it; the fit loop polls
+    after each batch (:meth:`poll`) and saves an exact-resume ``last``
+    checkpoint once ``stop`` is set. ``stop`` is the flag agreed over the
+    ranks, latched: every branch of the loop reads it, never the raw flag,
+    so a signal that lands between two polls, or while a rank waits in
+    one, stops every rank at the same poll. The previous handler is
+    restored on exit; off the main thread (where no handler can be
+    installed) the guard does nothing."""
 
     def __init__(self):
         self.flagged = False
+        self.stop = False
         self._prev = None
         # signal.signal returns None both on failure and for a handler set
         # outside Python, so whether one was installed is kept apart.
         self._installed = False
+
+    def poll(self, mesh: Mesh | None) -> bool:
+        """Whether a SIGTERM has reached any rank by this poll, the same on
+        every rank (``agree``); once True it stays True."""
+        self.stop = self.stop or agree(self.flagged, mesh)
+        return self.stop
 
     def __enter__(self) -> "_PreemptionGuard":
         def handler(signum, frame):
@@ -123,11 +163,10 @@ class TrainerConfig:
     halt_on_non_finite: bool = True
 
     def __post_init__(self):
-        unsupported = {"zero1": self.zero1, "dcn_size": self.dcn_size is not None,
-                       "use_wandb": self.use_wandb}
-        bad = [k for k, v in unsupported.items() if v]
-        if bad:
-            raise ValueError(f"TrainerConfig fields not supported by the port yet: {bad}")
+        if self.use_wandb:
+            raise ValueError("TrainerConfig fields not supported by the port yet: ['use_wandb']")
+        if self.dcn_size is not None and int(self.dcn_size) < 1:
+            raise ValueError(f"dcn_size must be >= 1, got {self.dcn_size}")
         if int(self.accumulate_grad_batches) < 1:
             raise ValueError(f"accumulate_grad_batches must be >= 1, got "
                              f"{self.accumulate_grad_batches}")
@@ -186,13 +225,74 @@ class Trainer:
         self.cfg = config or TrainerConfig()
         self.callbacks = list(callbacks or [])
         self.device = next(model.parameters()).device
-        self.ckpt = CheckpointManager(Path(self.cfg.log_dir) / "checkpoints")
+        self.mesh: Mesh | None = _trainer_mesh(self.cfg)
+        self.rank0 = self.mesh is None or self.mesh.rank == 0
+        self._check_batches()
+        self.ckpt = CheckpointManager(Path(self.cfg.log_dir) / "checkpoints", create=self.rank0)
         self.logger: MetricLogger | None = None
 
     def _optimizer(self) -> AdamW:
         c = self.cfg
         return AdamW(self.model.parameters(), c.learning_rate, c.grad_clip, c.weight_decay,
-                     c.adam_b1, c.adam_b2, c.adam_eps)
+                     c.adam_b1, c.adam_b2, c.adam_eps, mesh=self.mesh, zero1=c.zero1)
+
+    def _say(self, text: str) -> None:
+        if self.rank0:
+            print(text)
+
+    def _check_batches(self) -> None:
+        """Raise where the world does not divide the configured batch size
+        (JAX trims its mesh instead; a process group cannot shrink). A
+        ragged tail, or a split smaller than a batch, splits unevenly over
+        the ranks and stays exact (``shared_step``'s ``rows``)."""
+        if self.mesh is None:
+            return
+        bs, world = self.dm.cfg.batch_size, self.mesh.world
+        if bs % world:
+            fits = max(w for w in range(1, world + 1) if bs % w == 0)
+            raise ValueError(f"batch size {bs} is not divisible by the world size {world}; the "
+                             f"largest world that divides it is {fits}")
+
+    def _local(self, batches: Iterable[Batch]) -> Iterator[tuple[Batch, Rows | None, int]]:
+        """Each batch as this rank trains on it, with its rows ``(lo, hi, n)``
+        of the global batch (None on one process) and their count. On a
+        mesh ``batches`` are on the CPU and only the rank's rows move."""
+        for batch in batches:
+            if self.mesh is None:
+                yield batch, None, batch[0].shape[0]
+                continue
+            n = batch[0].shape[0]
+            lo, hi = mesh_rows(n, self.mesh)
+            yield tuple(x.to(self.device) for x in shard_rows(batch, self.mesh)), (lo, hi, n), hi - lo
+
+    def _batch_device(self) -> torch.device:
+        return torch.device("cpu") if self.mesh is not None else self.device
+
+    def _reduce(self, sums: dict[str, Any], n: int) -> tuple[dict[str, float], int]:
+        """Sample-weighted sums and their row count over every rank (one
+        all-reduce, in float64), as host numbers. The keys are rank 0's,
+        which holds rows of every batch that any rank does."""
+        if self.mesh is None:
+            return {k: float(v) for k, v in sums.items()}, n
+        keys = [list(sums)]
+        dist.broadcast_object_list(keys, src=0, group=self.mesh.host_group)
+        vec = torch.tensor([0.0] * (len(keys[0]) + 1), dtype=torch.float64, device=self.device)
+        for i, k in enumerate(keys[0]):
+            if k in sums:
+                vec[i] = torch.as_tensor(sums[k], device=self.device).double()
+        vec[-1] = float(n)
+        dist.all_reduce(vec)
+        out = vec.tolist()
+        return dict(zip(keys[0], out[:-1])), int(round(out[-1]))
+
+    def _save(self, name: str, model: WorldModelNet, optimizer: AdamW | None,
+              aux: dict) -> None:
+        """A checkpoint written by rank 0: the moments are gathered on every
+        rank first (ZeRO-1), the other ranks wait for the write."""
+        state = optimizer.state_dict() if optimizer is not None else None
+        if self.rank0:
+            self.ckpt.save(name, model, state, aux)
+        barrier(self.mesh)
 
     def _resume_source(self, resume: bool,
                        resume_from: str | Path | None) -> tuple[CheckpointManager, str] | None:
@@ -219,7 +319,7 @@ class Trainer:
     def _profile(self, epoch: int) -> Iterator[None]:
         """Trace epoch ``profile_epoch`` with ``torch.profiler`` (the card's
         kernels too, on CUDA) into ``<log_dir>/profile``."""
-        if self.cfg.profile_epoch is None or epoch != self.cfg.profile_epoch:
+        if self.cfg.profile_epoch is None or epoch != self.cfg.profile_epoch or not self.rank0:
             yield
             return
         from torch.profiler import ProfilerActivity, profile
@@ -252,7 +352,7 @@ class Trainer:
         (batches trained) and ``train_seconds`` (wall time of the training
         loops, validation excluded)."""
         cfg, model = self.cfg, self.model
-        model.init(torch.Generator().manual_seed(cfg.seed))
+        replicate(model.init(torch.Generator().manual_seed(cfg.seed)), self.mesh)
         optimizer = self._optimizer()
         scheduler = make_scheduler(cfg.lr_scheduler or {
             "kind": "plateau", "factor": cfg.plateau_factor, "patience": cfg.plateau_patience,
@@ -270,13 +370,13 @@ class Trainer:
             except Exception as exc:  # noqa: BLE001 — any failed restore is reported
                 if resume_from is None:
                     raise
-                print(f"full-state restore failed ({type(exc).__name__}: {exc}); falling back "
-                      "to a params-only warm start")
+                self._say(f"full-state restore failed ({type(exc).__name__}: {exc}); falling "
+                          "back to a params-only warm start")
                 aux = mgr.restore_params(name, model)
                 has_full = False
             if not has_full:
                 optimizer = self._optimizer()
-                print(f"warm start: weights from {mgr.path(name)}")
+                self._say(f"warm start: weights from {mgr.path(name)}")
             else:
                 scheduler = scheduler_from_state_dict(aux["scheduler"])
                 early_stop = EarlyStopping.from_state_dict(aux["early_stop"])
@@ -301,12 +401,12 @@ class Trainer:
         def save_last(epoch_: int, step_: int, name: str = "last", **extra) -> None:
             """Every full-state save (``last``, mid-epoch, ``diverged``)
             writes this one aux shape, which the resume path reads."""
-            self.ckpt.save(name, model, optimizer, {
+            self._save(name, model, optimizer, {
                 "epoch": epoch_, "global_step": step_, "best_val": best_val,
                 "seed_base": seed_base, "scheduler": scheduler.state_dict(),
                 "early_stop": early_stop.state_dict(), **extra})
 
-        logger = self.logger = MetricLogger(cfg.log_dir)
+        logger = self.logger = MetricLogger(cfg.log_dir) if self.rank0 else None
         preempt = _PreemptionGuard()
         try:
             with preempt:
@@ -317,27 +417,31 @@ class Trainer:
                         if resume_mid is not None:
                             prog = _EpochProgress.resumed(resume_mid, accum)
                             resume_mid = None
+                            if not self.rank0:  # rank 0 carries the saved global sums
+                                prog.sums, prog.n_train = {}, 0
                         else:
                             prog = _EpochProgress()
                         model.train()
                         global_step = self._train_epoch(epoch, epoch_seed, global_step, prog,
                                                         train_step, grad_step, optimizer,
                                                         preempt)
-                        if preempt.flagged:
+                        if preempt.stop:
                             # After the last applied step: a partial window is dropped.
                             optimizer.zero_grad()
+                            prog.sums, prog.n_train = self._reduce(prog.sums, prog.n_train)
                             save_last(epoch, global_step - prog.window, **prog.aux(accum))
-                            print(f"preemption: saved a mid-epoch resume checkpoint (epoch "
-                                  f"{epoch}, {prog.items_done} batches applied), stopping")
+                            self._say(f"preemption: saved a mid-epoch resume checkpoint (epoch "
+                                      f"{epoch}, {prog.items_done} batches applied), stopping")
                             break
-                        row = {f"train/{k}": float(v) / max(prog.n_train, 1)
-                               for k, v in prog.sums.items()}
+                        sums, n_train = self._reduce(prog.sums, prog.n_train)
+                        row = {f"train/{k}": v / max(n_train, 1) for k, v in sums.items()}
                         epoch_time = time.perf_counter() - t0  # float() waited for the device
                         train_seconds += epoch_time
                         row.update(self._validate(epoch_seed, val_gen))
                         row.update({"epoch": epoch, "lr": scheduler.lr,
-                                    "seq_per_sec": prog.n_train / max(epoch_time, 1e-9)})
-                        logger.log(row, step=epoch)
+                                    "seq_per_sec": n_train / max(epoch_time, 1e-9)})
+                        if logger is not None:
+                            logger.log(row, step=epoch)
                         history.append(row)
 
                         bad = [k for k, v in row.items()
@@ -348,39 +452,41 @@ class Trainer:
                                       if self.ckpt.exists("last") else
                                       "restart with a lower learning rate (no 'last' "
                                       "checkpoint exists yet)")
-                            print(f"divergence: non-finite metrics {bad} at epoch {epoch}; "
-                                  f"saved 'diverged' and halting; {advice}")
+                            self._say(f"divergence: non-finite metrics {bad} at epoch {epoch}; "
+                                      f"saved 'diverged' and halting; {advice}")
                             break
                         monitored = row.get("val/loss", row.get("train/loss", float("inf")))
                         set_learning_rate(optimizer, scheduler.step(monitored))
                         if monitored < best_val:
                             best_val = monitored
-                            self.ckpt.save("best", model,
-                                           aux={"epoch": epoch, "val_loss": monitored})
+                            self._save("best", model, None,
+                                       {"epoch": epoch, "val_loss": monitored})
                         if ((epoch + 1) % cfg.checkpoint_every_n_epochs == 0
                                 or epoch == cfg.max_epochs - 1):
                             save_last(epoch, global_step)
-                        for cb in self.callbacks:
+                        for cb in self.callbacks if self.rank0 else ():
                             cb(self, epoch, model, row)
                         if early_stop.step(monitored):
                             save_last(epoch, global_step)
                             break
-                        if preempt.flagged:
+                        if preempt.poll(self.mesh):
                             # SIGTERM during validation or the callbacks: the epoch
                             # is whole, so resume at the next one.
                             save_last(epoch, global_step)
-                            print(f"preemption: saved a resume checkpoint after epoch {epoch}, "
-                                  "stopping")
+                            self._say(f"preemption: saved a resume checkpoint after epoch {epoch}, "
+                                      "stopping")
                             break
-            for cb in self.callbacks:
+            for cb in self.callbacks if self.rank0 else ():
                 hook = getattr(cb, "on_train_end", None)
                 if hook is not None:
                     hook(self, self.load_best_params(model))
-            _render_charts(logger)
+            if logger is not None:
+                _render_charts(logger)
         finally:
-            logger.close()
+            if logger is not None:
+                logger.close()
         return {"params": model.state_dict(), "opt_state": optimizer.state_dict(),
-                "history": history, "best_val": best_val, "preempted": preempt.flagged,
+                "history": history, "best_val": best_val, "preempted": preempt.stop,
                 "global_step": global_step, "train_seconds": train_seconds}
 
     def _train_epoch(self, epoch: int, seed: int, step: int, prog: _EpochProgress,
@@ -391,28 +497,29 @@ class Trainer:
         ``fold(seed, step)`` at each batch's global step; updates ``prog``
         and returns the global step after it."""
         accum = self.cfg.accumulate_grad_batches
-        skip = prog.items_done
+        batches = self._local(self.dm.train_batches(epoch, self._batch_device(),
+                                                    skip=prog.items_done))
         if accum == 1:
-            for batch in self.dm.train_batches(epoch, self.device, skip=skip):
-                _accumulate(prog.sums, train_step(batch, seed, step), batch[0].shape[0])
-                prog.n_train += batch[0].shape[0]
+            for batch, rows, k in batches:
+                _accumulate(prog.sums, train_step(batch, seed, step, rows), k)
+                prog.n_train += k
                 step += 1
                 prog.items_done += 1
-                if preempt.flagged:
+                if preempt.poll(self.mesh):
                     break
             return step
         # A window's metrics count once its step applies, so a preempted
         # partial window is replayed, not counted twice.
         window: list[tuple[dict, int]] = []
-        for batch in self.dm.train_batches(epoch, self.device, skip=skip):
-            window.append((grad_step(batch, seed, step), batch[0].shape[0]))
+        for batch, rows, k in batches:
+            window.append((grad_step(batch, seed, step, rows), k))
             step += 1
             if len(window) == accum:
                 _apply_window(optimizer, window, prog)
                 window = []
-            if preempt.flagged:
+            if preempt.poll(self.mesh):
                 break
-        if window and not preempt.flagged:
+        if window and not preempt.stop:
             # The epoch's leftover window steps too (Lightning).
             _apply_window(optimizer, window, prog)
             window = []
@@ -422,16 +529,17 @@ class Trainer:
     @torch.no_grad()
     def _validate(self, seed: int, generator: torch.Generator) -> dict[str, float]:
         """The ``val/`` means of the validation batches, batch i's noise from
-        ``fold(seed, 0x5EED, i)``."""
+        ``fold(seed, 0x5EED, i)`` (drawn at the global batch on a mesh)."""
         self.model.eval()
         sums: dict[str, Any] = {}
         n = 0
-        for i, batch in enumerate(self.dm.val_batches(self.device)):
+        for i, (batch, rows, k) in enumerate(self._local(self.dm.val_batches(
+                self._batch_device()))):
             generator.manual_seed(fold(seed, _VAL, i))
-            _accumulate(sums, self.model.shared_step(batch, generator=generator),
-                        batch[0].shape[0])
-            n += batch[0].shape[0]
-        return {f"val/{k}": float(v) / max(n, 1) for k, v in sums.items()}
+            _accumulate(sums, local_step(self.model, batch, rows, generator) or {}, k)
+            n += k
+        sums, n = self._reduce(sums, n)
+        return {f"val/{k}": v / max(n, 1) for k, v in sums.items()}
 
     def load_best_params(self, model: WorldModelNet) -> WorldModelNet:
         """A copy of ``model`` holding the ``best`` checkpoint's weights
@@ -443,6 +551,35 @@ class Trainer:
             return best
         except (OSError, RuntimeError, ValueError, KeyError):
             return model
+
+
+def _trainer_mesh(cfg: TrainerConfig) -> Mesh | None:
+    """The trainer's mesh over the process group, None without one. As
+    JAX's trainer does, ``dcn_size`` above the device (here rank) count
+    warns and trains on a flat mesh, and a detected node layout that a
+    hybrid mesh cannot take falls back to a flat one; an explicit
+    ``dcn_size`` that does not divide the world raises."""
+    dcn = cfg.dcn_size
+    initialized = dist.is_available() and dist.is_initialized()
+    world = dist.get_world_size() if initialized else 1
+    if dcn is not None and world < dcn:
+        warnings.warn(f"dcn_size={dcn} exceeds the {world} rank(s); training on a flat data "
+                      "mesh", stacklevel=3)
+        dcn = None
+    if not initialized:
+        return None
+    if dcn is not None:
+        mesh = make_hybrid_mesh(dcn)
+    else:
+        try:
+            mesh = make_hybrid_mesh(None)
+        except ValueError as exc:
+            warnings.warn(f"{exc}; using a flat data mesh instead of a hybrid (dcn, data) "
+                          "mesh", stacklevel=3)
+            mesh = make_mesh()
+    if mesh.rank == 0:
+        print("trainer mesh: " + " × ".join(f"{n} {a}" for a, n in mesh.shape.items()))
+    return mesh
 
 
 def _accumulate(acc: dict[str, Any], metrics: dict[str, torch.Tensor], weight: int) -> None:

@@ -105,14 +105,16 @@ def test_drop_modality_waits_for_the_datamodule(tmp_path):
     ({"trainer": {"steps_per_dispatch": 8}}, "steps_per_dispatch", "item 4"),
     ({"trainer": {"precision": "16-mixed"}}, "precision", "item 8"),
     ({"trainer": {"zero1": True}}, "zero1", "item 11"),
+    ({"trainer": {"zero1": True, "dcn_size": 2}}, "dcn_size", "item 11"),
     ({"data": {"init_args": {"config": {"device_resident": True}}}}, "device_resident", "item 7"),
 ])
 def test_unsupported_trainer_fields_wait_for_the_trainer(override, field, item, tmp_path):
     """Fields of later items raise at ``build_trainer``; item 4's (gradient
-    accumulation, ``steps_per_dispatch``) are read into ``TrainerConfig``
-    as JAX reads them and ``build_trainer`` returns a trainer that takes
-    them; item 8's ``precision: 16-mixed`` is the model's bf16 conv dtype,
-    as JAX maps it, and nothing waits."""
+    accumulation, ``steps_per_dispatch``) and item 11's (``zero1``,
+    ``dcn_size``) are read into ``TrainerConfig`` as JAX reads them and
+    ``build_trainer`` returns a trainer that takes them; item 8's
+    ``precision: 16-mixed`` is the model's bf16 conv dtype, as JAX maps it,
+    and nothing waits."""
     exp = load_experiment(REPO / "configs" / "mopoe_mrssm.yaml", override)
     assert isinstance(exp.model, MoPoEMRSSM)
     if item == "item 8":
@@ -123,7 +125,7 @@ def test_unsupported_trainer_fields_wait_for_the_trainer(override, field, item, 
         exp.build_trainer(datamodule=EpisodeDataModule(DataModuleConfig(
             data_dir=str(tmp_path / "none"))), device="cpu")
         return
-    if item != "item 4":
+    if item not in ("item 4", "item 11"):
         with pytest.raises(NotImplementedError, match=f"{field}=.*{item}"):
             exp.build_trainer(device="cpu")
         return

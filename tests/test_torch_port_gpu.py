@@ -1934,3 +1934,68 @@ def test_weighted_refuses_use_pallas_train_on_a_cuda_model(cuda_device):
     kernels.reset_launch_counts()
     _rollouts(model, cuda_device)
     assert kernels.launch_counts()["rollout"] == 1
+
+
+# ---- data parallel on torch.distributed --------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("zero1", [False, True])
+def test_nccl_world_of_one_step_is_the_single_process_step(cuda_device, zero1, tmp_path,
+                                                           monkeypatch):
+    """A train step of ``MRSSMConfig()`` at B=8 T=30 on an NCCL process
+    group of one rank (the production backend: its init, the gradient's
+    all-reduce, the global noise draw), with and without ZeRO-1, equals the
+    non-distributed step bit for bit under deterministic cuDNN."""
+    import datetime
+
+    import torch.distributed as dist
+
+    import _port_dist as side
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    kw = dict(family="mrssm", B=8, full=True, frames_T=30, zero1=zero1)
+    alone = side.step_task(cuda_device, **kw)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        assert dist.get_backend() == "nccl"
+        grouped = side.step_task(cuda_device, **kw)
+    finally:
+        dist.destroy_process_group()
+    assert grouped["loss"] == alone["loss"]
+    assert grouped["launches"]["recurrence_fwd"] == grouped["launches"]["recurrence_bwd"] == 1
+    for part in ("grads", "weights"):
+        for k, v in alone[part].items():
+            np.testing.assert_array_equal(grouped[part][k], v, err_msg=f"{part} {k}")
+
+
+@pytest.mark.gpu
+def test_two_gloo_ranks_on_one_card_match_one_process(cuda_device, tmp_path):
+    """Two ranks sharing the card over gloo (NCCL refuses two ranks on one
+    device): the data-parallel step of ``MRSSMConfig()`` at a global B=8
+    T=30, each rank's 4 rows on the kernels, equals the one-process step
+    within the phase-4 bounds (the loss within 2e-5, the gradient within
+    3e-4 × scale); each rank launches the recurrence forward and backward
+    once."""
+    from pathlib import Path
+
+    import _port_dist as side
+    from multimodal_mtrssm_tpu_torch.ops.kernels import build
+    from multimodal_mtrssm_tpu_torch.parallel.spawn import spawn
+
+    build.load_library()  # built once, before the ranks load it
+    kw = dict(family="mrssm", B=8, full=True, frames_T=30)
+    ranks = spawn("_port_dist:run_tasks", 2, "cuda", backend="gloo",
+                  kwargs={"tasks": [("step_task", kw)]}, timeout_s=600, workdir=tmp_path,
+                  paths=(str(Path(__file__).resolve().parent),), group_timeout_s=300)
+    ref = side.step_task(cuda_device, **kw)
+    got = [r[0] for r in ranks]
+    assert [r["rows"] for r in got] == [(0, 4), (4, 8)]
+    for r in got:
+        assert r["launches"]["recurrence_fwd"] == r["launches"]["recurrence_bwd"] == 1
+        np.testing.assert_allclose(r["loss"], ref["loss"], rtol=2e-5)
+        scale = max(1.0, max(float(np.abs(g).max()) for g in ref["grads"].values()))
+        for k, g in ref["grads"].items():
+            np.testing.assert_allclose(r["grads"][k], g, rtol=0, atol=3e-4 * scale, err_msg=k)

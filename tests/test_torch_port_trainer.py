@@ -12,6 +12,7 @@ held to JAX's with that build switched off.
 
 import dataclasses
 import json
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -241,17 +242,23 @@ def test_trainer_fit_returns_the_jax_keys(tmp_path):
                                          ("accumulate_grad_batches", 2), ("steps_per_dispatch", 4),
                                          ("profile_epoch", 0), ("use_wandb", True)])
 def test_trainer_refuses_unsupported_fields(field, value, tmp_path):
-    """``zero1``, ``dcn_size`` and ``use_wandb`` still raise; gradient
-    accumulation, an integer ``steps_per_dispatch`` and ``profile_epoch``
+    """``use_wandb`` still raises; gradient accumulation, an integer
+    ``steps_per_dispatch``, ``profile_epoch``, ``zero1`` and ``dcn_size``
     are honoured: a one-epoch fit steps once a window, trains batch by
-    batch at any K, or writes a trace."""
-    if field in ("zero1", "dcn_size", "use_wandb"):
+    batch at any K, writes a trace, or trains on one process (ZeRO-1 of one
+    shard is the replicated optimizer; ``dcn_size`` above the one rank
+    warns and trains flat, as JAX's trainer does on one device)."""
+    if field == "use_wandb":
         with pytest.raises(ValueError, match=field):
             TrainerConfig(**{field: value})
         return
     dm, _ = _datamodules(tmp_path, noise_std=0.0)
-    trainer = Trainer(_small_model(), dm, TrainerConfig(max_epochs=1, log_dir=str(tmp_path / "run"),
-                                                        **{field: value}))
+    with warnings.catch_warnings(record=True) as said:
+        warnings.simplefilter("always")
+        trainer = Trainer(_small_model(), dm, TrainerConfig(
+            max_epochs=1, log_dir=str(tmp_path / "run"), **{field: value}))
+    assert any("flat data mesh" in str(w.message) for w in said) == (field == "dcn_size")
+    assert trainer.mesh is None
     out = trainer.fit()
     assert out["global_step"] == 3 and np.isfinite(out["history"][0]["train/loss"])
     # 3 batches: windows of 2 and the leftover 1 take 2 optimizer steps.
