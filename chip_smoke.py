@@ -38,7 +38,7 @@ decoder (``fused_decoder_apply``), which no model config selects, on the
 first two configurations' latent features.
 
 0. Device: prints the card's name and power limit, turns TF32 off.
-1. Build: compiles the fourteen kernels from ``multimodal_mtrssm_tpu_torch/csrc``
+1. Build: compiles the sixteen kernels from ``multimodal_mtrssm_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel).
 2. Kernel checks, each kernel against its plain PyTorch version on the card:
    the MRSSM recurrence forward at B=8 T=30, B=128 T=30 and B=3 T=7, the MT
@@ -230,6 +230,33 @@ first two configurations' latent features.
     each call) and the busy share (``torch.profiler``). NCCL across two
     cards is not on this one-card machine.
 
+11. After phase 10, full-model bf16 and the bf16 fused decoder, TF32 off:
+    (a) ``fused_decoder_apply`` on phase 5's observed features cast to
+    bf16 (both decoders of both families, B=8 T=30, forward and a
+    ``gaussian_nll`` backward): each bf16 decoder kernel once a decoder
+    and nothing else; the bf16 kernels at N=240 and 3840, 48- and 96-wide
+    features, against the plain bf16 versions (forward 1e-2 × scale and
+    within 0.1 of the f32 kernel, backward 2e-2 × scale per tensor, two
+    launches bit-identical), their CUDA-event and device ms beside the
+    plain versions, the f32 kernels and cuDNN's ``Decoder`` on bf16
+    features, their bound at the bf16 peak; (b) ``MRSSMConfig`` and
+    ``MMTRSSMConfig`` at ``compute_dtype=torch.bfloat16`` and
+    ``use_pallas_train=False``, at nhwc and fused_enc: ``"auto"`` refused
+    naming the plain route; a fit of 2 × 3 steps at B=8 T=30 on 24
+    synthetic episodes launching no recurrence or rollout kernel (at
+    fused_enc only the bf16 encoder kernels, twice a step each way); the
+    carries bf16, the logits f32; a train step card vs CPU on the steps
+    before the first Gumbel near-tie of 1e-2, at least half of them, within
+    1e-2 of the loss and 5e-2 × scale, the gradients float32 and finite;
+    the step's CUDA-event ms, device ms and busy share, beside the f32
+    plain route's; (c) the weighted model and ``RSSM`` (vision) from the
+    YAML at bf16, a fit each; (d) the MRSSM nhwc and the weighted fits'
+    checkpoints served (``WorldModel.from_checkpoint`` on their configs):
+    float32 states and frames out of an observe, ``/observe`` and two
+    ``/imagine`` through ``InferenceServer`` against the CPU path, the
+    weighted model's imagination on ``rollout.cu`` held to the plain
+    rollout (``parity.check_rollout``).
+
 ``python3 chip_smoke.py --learning-demo`` runs only the learning
 demonstration's long runs (``learning_demo_phase``: ``demo_e2e`` at the JAX
 script's decisive flags, 5 seeds a family, ``crossmodal_e2e`` at 100 epochs
@@ -239,12 +266,12 @@ and metrics under ``runs/learning_demo`` (or the directory given after the
 flag), with no contract lines.
 
 Each configuration's serving and training run, phase 3b's coalesced
-requests, phases 4b, 4c, 6, each part of 7, 8, 9 and 10 (each rank's own
-counts, summed), and the decoder's path
+requests, phases 4b, 4c, 6, each part of 7, 8, 9, 10 (each rank's own
+counts, summed) and 11, and the decoder's path
 (``fused_decoder_apply`` on both decoders of the first two configurations'
 observed features at B=8 T=30, forward and a ``gaussian_nll`` backward), is
 driven with every launch count set to 0 just before it and read just after.
-Then one JSON line with the fourteen kernels, the card's name and power
+Then one JSON line with the sixteen kernels, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -1670,9 +1697,11 @@ def _label(cfg) -> str:
             if hasattr(cfg, "weight_head_cells") else "RSSM" if hasattr(cfg, "encoder")
             else "MoPoEMRSSM")
     opts = [f"{k}={getattr(cfg, k)}" for k in ("conv_layout", "use_pallas_train")
-            if getattr(cfg, k) != "auto"]
+            if getattr(cfg, k, "auto") != "auto"]
     if getattr(cfg, "conv_dtype", None) is not None:
         opts.append("conv_dtype=bfloat16")
+    if str(getattr(cfg, "compute_dtype", "torch.float32")) != "torch.float32":
+        opts.append("compute_dtype=bfloat16")
     return name + (f"({', '.join(opts)})" if opts else "")
 
 
@@ -1992,7 +2021,8 @@ def _device_breakdown(fn, keys, reps: int = 10) -> dict[str, float | None]:
     prof = profile(activities=[ProfilerActivity.CUDA])
     try:
         prof.start()
-    except RuntimeError:
+    except RuntimeError as e:
+        print(f"torch.profiler did not start: {e}")
         return dict.fromkeys(keys)
     try:
         for _ in range(reps):
@@ -2002,7 +2032,8 @@ def _device_breakdown(fn, keys, reps: int = 10) -> dict[str, float | None]:
         try:
             prof.stop()
             events = prof.key_averages()
-        except RuntimeError:
+        except RuntimeError as e:
+            print(f"torch.profiler did not stop: {e}")
             events = []
     out: dict[str, float | None] = {}
     for key in keys:
@@ -2045,7 +2076,8 @@ PTXAS_SOURCES = ("fused_encoder_fwd.cu", "fused_encoder_bwd.cu", "fused_decoder_
                  "fused_decoder_bwd.cu", "recurrence_bwd.cu", "recurrence_mt_bwd.cu",
                  "recurrence_stacked_bwd.cu", "recurrence_mt_fwd.cu", "recurrence_fwd.cu",
                  "rollout.cu", "rollout_mt.cu", "fused_encoder_bf16_fwd.cu",
-                 "fused_encoder_bf16_bwd.cu")
+                 "fused_encoder_bf16_bwd.cu", "fused_decoder_bf16_fwd.cu",
+                 "fused_decoder_bf16_bwd.cu")
 
 
 def start_ptxas_report(sources=PTXAS_SOURCES) -> list[subprocess.Popen]:
@@ -2083,12 +2115,17 @@ def ptxas_report(procs: list[subprocess.Popen], sources=PTXAS_SOURCES) -> None:
         name = None
         for line in out.splitlines():
             if "Compiling entry function" in line:
+                entry = line.split("'")[1]
                 m = re.search(r"((?:en|de)coder_[a-z0-9_]*kernel|"
                               r"(?:mt_)?recurrence_(?:bwd|fwd)_[a-z_]*kernel|"
                               r"(?:mt_)?rollout_[a-z_]*kernel|"
-                              r"stacked_[a-z_]*kernel|reduce_(?:weight|stacked)_grads)",
-                              line.split("'")[1])
-                name = m.group(1) if m and m.group(1) not in seen else None
+                              r"stacked_[a-z_]*kernel|reduce_(?:weight|stacked)_grads)", entry)
+                # Without the source's own prefix (an anonymous namespace's
+                # mangled name); the decoder's kernels are templates on
+                # their element type.
+                kernel = re.sub(r"^[a-z0-9_]*_cu_[0-9a-f]{8}\d*", "", m.group(1)) if m else ""
+                tag = "<bf16>" if "kernelI13__nv_bfloat16" in entry else ""
+                name = kernel + tag if m and kernel + tag not in seen else None
                 if name:
                     seen.add(name)
             elif name and ("stack frame" in line or "Used" in line):
@@ -4532,6 +4569,397 @@ def learning_demo_phase(out: Path = LEARNING_OUT) -> int:
     return 0
 
 
+# ---- phase 11: full-model bf16 and the bf16 fused decoder ------------------------------------
+
+# The device kernels of one fused_decoder_bf16_backward_cuda call: the f32
+# decoder's, instantiated at bf16, then the rounding of the gradients (a
+# forward call's are DECODER_FWD_KERNELS, at bf16).
+DECODER_BF16_BWD_KERNELS = {**DECODER_BWD_KERNELS, "rounding to bf16": "decoder_bf16_round_kernel"}
+# Full-model bf16 against the CPU: the steps of a row before the first Gumbel
+# near-tie of MIXED_TIE are compared (bf16 moves the logits by ~1e-3), at
+# least MIN_COMPARED of them.
+FULL_BF16_SHAPE = (2, 10)
+
+
+def _bf16_decoder_case(label: str, model, feats, name: str = "audio") -> dict:
+    """The model's ``name`` decoder at bf16: its f32 and bf16 weights, the
+    observed f32 features and their bf16 cast, and a bf16 cotangent of the
+    frames made by numpy."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels import fused_conv
+
+    dec = getattr(model, f"{name}_decoder")
+    w32 = [t.detach() for t in fused_conv.decoder_weights(dec)]
+    N = feats.shape[0]
+    rng = np.random.default_rng(SEED + 19 + N + feats.shape[1])
+    g = torch.tensor(rng.standard_normal((N, 32, 32, 1)).astype(np.float32), device=feats.device)
+    return {"label": label, "dec": dec, "w32": w32, "w": [t.to(torch.bfloat16) for t in w32],
+            "f32": feats, "feats": feats.to(torch.bfloat16), "g": g.to(torch.bfloat16)}
+
+
+def drive_decoder_bf16(cases, dev) -> dict:
+    """Phase 11(a)'s path: ``fused_decoder_apply`` on both decoders of each
+    model over its observed features cast to bf16 (``cases``: phase 5's, at
+    B=8 T=30), forward and a ``gaussian_nll`` backward to the features and
+    every parameter, with every launch count set to 0 just before and read
+    just after: each bf16 decoder kernel once a decoder and nothing else,
+    bf16 frames and features' cotangent, float32 parameter gradients."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels import (
+        fused_decoder_apply,
+        launch_counts,
+        reset_launch_counts,
+    )
+    from multimodal_mtrssm_tpu_torch.ops.likelihood import gaussian_nll
+
+    rng = np.random.default_rng(SEED + 20)
+    targets = [torch.tensor(rng.uniform(-1, 1, (feats.shape[0], 32, 32, 1)).astype(np.float32),
+                            device=dev) for *_, feats in cases for _ in range(2)]
+    n = 0
+    reset_launch_counts()
+    for label, model, _, feats in cases:
+        for name in ("audio", "vision"):
+            dec = getattr(model, f"{name}_decoder")
+            x = feats.to(torch.bfloat16).requires_grad_()
+            with torch.enable_grad():
+                frames = fused_decoder_apply(dec, x)
+                dx, *dw = torch.autograd.grad(gaussian_nll(frames, targets[n], 3),
+                                              [x, *dec.parameters()])
+            n += 1
+            if frames.dtype != torch.bfloat16 or dx.dtype != torch.bfloat16 or not all(
+                    g.dtype == torch.float32 and bool(g.isfinite().all()) for g in dw):
+                raise RuntimeError(f"bf16 decoder path {label} {name}: frames {frames.dtype}, "
+                                   f"features' cotangent {dx.dtype}, parameter gradients "
+                                   f"{sorted({str(g.dtype) for g in dw})}")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {"fused_decoder_fwd_bf16": n, "fused_decoder_bwd_bf16": n}
+    print(f"main-path kernel launches, bf16 fused decoder path (both decoders of "
+          f"{' and '.join(c[0] for c in cases)} on their observed features cast to bf16, B=8 "
+          f"T=30, forward and gaussian_nll backward): {counts}")
+    if {k: v for k, v in counts.items() if v} != want:
+        raise RuntimeError(f"the bf16 decoder path launched {counts}, expected {want}")
+    return counts
+
+
+def check_decoder_bf16(cases: list[dict]) -> dict[str, dict]:
+    """Phase 11(a), bf16 fused decoder per case (N=240 and 3840, 48- and
+    96-wide features): the forward kernel against the plain bf16 version
+    (BF16_FWD_TOL × scale) and the f32 kernel on the f32 features and
+    weights (BF16_VS_F32), the backward (every weight gradient and the
+    features') against the plain bf16 backward (BF16_BWD_TOL × scale per
+    tensor); two launches of each bit-identical."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels import fused_conv
+    from multimodal_mtrssm_tpu_torch.ops.kernels.parity import ParityError, check_gradients
+
+    fwd, bwd = fused_conv.fused_decoder_bf16_forward_cuda, fused_conv.fused_decoder_bf16_backward_cuda
+    fwd_err = bwd_err = 0.0
+    for c in cases:
+        cfg, w, x, g = c["dec"].cfg, c["w"], c["feats"], c["g"]
+        where = f"{c['label']} audio N={x.shape[0]} F={x.shape[1]}"
+        got, again = fwd(w, cfg, x), fwd(w, cfg, x)
+        plain = fused_conv.fused_decoder_plain(w, cfg, x).float()
+        f32 = fused_conv.fused_decoder_forward_cuda(c["w32"], cfg, c["f32"])
+        scale = max(1.0, float(plain.abs().max()))
+        err, err32 = (float((got.float() - ref).abs().max()) for ref in (plain, f32))
+        if not (err <= BF16_FWD_TOL * scale and err32 <= BF16_VS_F32 and torch.equal(got, again)):
+            raise ParityError(f"fused_decoder_fwd_bf16 {where}: {err:.3g} vs plain (limit "
+                              f"{BF16_FWD_TOL} x {scale:.3g}), {err32:.3g} vs f32 (limit "
+                              f"{BF16_VS_F32}), or two launches differ")
+        dx, dw = bwd(w, cfg, x, g, True)
+        dx2, dw2 = bwd(w, cfg, x, g, True)
+        ref_dx, ref_dw = fused_conv.fused_decoder_backward_plain(w, cfg, x, g, True)
+        got_b = [t.float() for t in (*dw, dx)]
+        ref_b = [t.float() for t in (*ref_dw, ref_dx)]
+        scaled = check_gradients(got_b, ref_b, BF16_BWD_TOL)
+        if not all(torch.equal(a, b) for a, b in zip([*dw, dx], [*dw2, dx2])):
+            raise ParityError(f"fused_decoder_bwd_bf16 {where}: two launches differ")
+        berr = max(float((a - b).abs().max()) for a, b in zip(got_b, ref_b))
+        print(f"check fused_decoder_fwd_bf16 {where}: max_abs_err={err:.3g} vs plain bf16 (limit "
+              f"{BF16_FWD_TOL} x {scale:.3g}), {err32:.3g} vs the f32 kernel (limit "
+              f"{BF16_VS_F32}); fused_decoder_bwd_bf16: max_abs_err={berr:.3g} max_err/scale="
+              f"{scaled:.3g} vs the plain bf16 backward (limit {BF16_BWD_TOL}); two launches of "
+              "each bit-identical")
+        fwd_err, bwd_err = max(fwd_err, err), max(bwd_err, berr)
+    return {"fused_decoder_fwd_bf16": {"max_abs_err": fwd_err},
+            "fused_decoder_bwd_bf16": {"max_abs_err": bwd_err}}
+
+
+def decoder_bf16_timings(cases: list[dict], dev, card: str) -> tuple[dict, dict, dict]:
+    """Phase 11(a) timings per case: the bf16 decoder kernels against their
+    plain bf16 versions, beside the f32 kernels (on the f32 features and
+    weights) and the cuDNN ``Decoder`` on the bf16 features (forward, and
+    forward + backward to the features and every parameter), CUDA-event ms
+    a call and the device ms of each kernel of a forward and of a backward
+    call (``torch.profiler``); the bound at the bf16 peak. Returns the first
+    case's times, library times and bounds, for the kernels line."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels import fused_conv
+
+    fwd, bwd = fused_conv.fused_decoder_bf16_forward_cuda, fused_conv.fused_decoder_bf16_backward_cuda
+    main_t: dict[str, tuple[float, float]] = {}
+    library: dict[str, float] = {}
+    bounds: dict[str, dict] = {}
+    for c in cases:
+        dec, w, x, g, w32, f32 = c["dec"], c["w"], c["feats"], c["g"], c["w32"], c["f32"]
+        cfg, N = dec.cfg, x.shape[0]
+        k_ms = _median_ms(lambda: fwd(w, cfg, x), 20)
+        p_ms = _median_ms(lambda: fused_conv.fused_decoder_plain(w, cfg, x), 10)
+        f_ms = _median_ms(lambda: fused_conv.fused_decoder_forward_cuda(w32, cfg, f32), 20)
+        l_ms = _median_ms(lambda: dec(x), 20)
+        kb_ms = _median_ms(lambda: bwd(w, cfg, x, g, True), 10)
+        pb_ms = _median_ms(lambda: fused_conv.fused_decoder_backward_plain(w, cfg, x, g, True), 5)
+        fb_ms = _median_ms(lambda: fused_conv.fused_decoder_backward_cuda(
+            w32, cfg, f32, g.float(), True), 10)
+        xg, params = x.clone().requires_grad_(), list(dec.parameters())
+        with torch.enable_grad():
+            lb_ms = _median_ms(lambda: torch.autograd.grad(dec(xg), [xg, *params], g), 10)
+        what = f"{c['label']} N={N} F={cfg.in_features}"
+        fwd_parts = _device_breakdown(lambda: fwd(w, cfg, x), tuple(DECODER_FWD_KERNELS.values()))
+        if not any(fwd_parts.values()):
+            # A window that saw no kernel at all (phase 11's forward windows
+            # did so in one run, and not alone): once more, 50 calls.
+            print(f"fused_decoder_fwd_bf16 {what}: the profiler saw no kernel in 10 calls; "
+                  "taking 50")
+            fwd_parts = _device_breakdown(lambda: fwd(w, cfg, x),
+                                          tuple(DECODER_FWD_KERNELS.values()), 50)
+        _print_breakdown(f"fused_decoder_fwd_bf16 {what}", fwd_parts, DECODER_FWD_KERNELS, card)
+        bwd_parts = _device_breakdown(lambda: bwd(w, cfg, x, g, True),
+                                      tuple(DECODER_BF16_BWD_KERNELS.values()))
+        _print_breakdown(f"fused_decoder_bwd_bf16 {what}", bwd_parts, DECODER_BF16_BWD_KERNELS,
+                         card)
+        macs = _decoder_macs(cfg) * N
+        b_fwd = _bound(2 * macs, _nbytes(w, x) + 2 * g.numel(), PEAK_BF16_FLOPS)
+        # Recompute, feature and input cotangents, weight gradients.
+        b_bwd = _bound(6 * macs, 2 * _nbytes(w, x) + _nbytes(g), PEAK_BF16_FLOPS)
+        print(f"time fused_decoder_fwd_bf16 {what}: kernel {k_ms:.4f} ms, plain bf16 {p_ms:.4f} "
+              f"ms, the f32 kernel {f_ms:.4f} ms, cuDNN Decoder on bf16 features {l_ms:.4f} ms, "
+              f"bound {b_fwd['bound_ms']:.6f} ms ({b_fwd['bound_by']}); fused_decoder_bwd_bf16 "
+              f"(recompute, feature and weight gradients): kernel {kb_ms:.4f} ms, plain bf16 "
+              f"{pb_ms:.4f} ms, the f32 kernels {fb_ms:.4f} ms, cuDNN Decoder bf16 forward + "
+              f"backward {lb_ms:.4f} ms, bound {b_bwd['bound_ms']:.6f} ms ({b_bwd['bound_by']}) | "
+              f"{card}")
+        if "fused_decoder_fwd_bf16" not in main_t:
+            main_t["fused_decoder_fwd_bf16"] = (k_ms, p_ms)
+            main_t["fused_decoder_bwd_bf16"] = (kb_ms, pb_ms)
+            library["fused_decoder_fwd_bf16"], library["fused_decoder_bwd_bf16"] = l_ms, lb_ms
+            bounds["fused_decoder_fwd_bf16"], bounds["fused_decoder_bwd_bf16"] = b_fwd, b_bwd
+    return main_t, library, bounds
+
+
+def _cut_steps(batch: tuple, noise: dict, steps: int) -> tuple[tuple, dict]:
+    """A batch and its noise cut to their first ``steps`` steps: the
+    initial samples' noise whole, the sites' ``[T, B, ·]`` and the input
+    normals' ``[B, T, ·]`` cut on their time axis."""
+    def cut(k, v):
+        if k == "input":
+            return tuple(x[:, :steps].contiguous() for x in v)
+        return v if k.startswith("g_init") else v[:steps].contiguous()
+
+    return (tuple(x[:, :steps].contiguous() for x in batch),
+            {k: cut(k, v) for k, v in noise.items()})
+
+
+def _first_tied_step(model, batch: tuple, noise: dict, tie_eps: float) -> int:
+    """The first step at which any row of ``model``'s ``shared_step`` on
+    ``batch`` and ``noise`` samples a block whose top two Gumbel scores lie
+    within ``tie_eps`` (``parity.first_near_tie`` over every sample site
+    that feeds the loss; 0 where an initial sample has one; T where none
+    has)."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.models.state import MTState
+    from multimodal_mtrssm_tpu_torch.ops.kernels.parity import first_near_tie, near_ties
+
+    with torch.no_grad():
+        init, post, prior, g = model._observe_batch(batch, noise, None)
+    cfg = model.cfg
+    tm = lambda x: x.transpose(0, 1)  # noqa: E731
+    if isinstance(init, MTState):
+        ls, hs = (cfg.ls_class, cfg.ls_category), (cfg.hs_class, cfg.hs_category)
+        sites = [(post.logits_l + tm(g["g_lpost"]), *ls), (prior.logits_l + tm(g["g_lprior"]), *ls),
+                 (post.logits_h + tm(g["g_hpost"]), *hs), (prior.logits_h + tm(g["g_hprior"]), *hs)]
+        init_sites = [(init.logits_h + g["g_init_h"], *hs), (init.logits_l + g["g_init_l"], *ls)]
+    else:
+        C, K = cfg.class_size, cfg.category_size
+        sites = [(post.logits + tm(g[2]), C, K), (prior.logits + tm(g[1]), C, K)]
+        init_sites = [(init.logits + g[0], C, K)]
+    if any(bool(near_ties(s, c, k, tie_eps).any()) for s, c, k in init_sites):
+        return 0
+    return int(first_near_tie(sites, tie_eps).min())
+
+
+def _full_bf16_vs_cpu(model, dev, label: str) -> None:
+    """One train step of the bf16 ``model`` on the card against its CPU copy
+    (``parity.check_train_step`` at the bf16 bounds MIXED_RTOL, MIXED_REL)
+    at FULL_BF16_SHAPE, on the steps before the first Gumbel near-tie of
+    MIXED_TIE of the first seed where those are at least MIN_COMPARED of
+    them; the card's gradients float32 and finite."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels.parity import check_train_step, train_step_grads
+
+    cpu = type(model)(model.cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    B, T = FULL_BF16_SHAPE
+    for seed in range(SEED + 50, SEED + 80):
+        batch, noise = _train_batch(np.random.default_rng(seed), B, T, cpu)
+        steps = _first_tied_step(cpu, batch, noise, MIXED_TIE)
+        if steps >= MIN_COMPARED * T:
+            break
+    else:
+        raise RuntimeError(f"{label}: no seed with {MIN_COMPARED} of the steps before a near-tie")
+    batch, noise = _cut_steps(batch, noise, steps)
+    on_card = (tuple(x.to(dev) for x in batch), _noise_to(noise, dev))
+    _, grads = train_step_grads(model, *on_card)
+    if not all(g.dtype == torch.float32 and bool(g.isfinite().all()) for g in grads.values()):
+        raise RuntimeError(f"{label}: gradients not all float32 and finite")
+    r = check_train_step(model, cpu, on_card, (batch, noise), MIXED_RTOL, MIXED_REL)
+    print(f"train step card vs CPU {label} B={B} T={steps} (seed {seed}: {steps} of {T} steps "
+          f"before the first near-tie of {MIXED_TIE}): loss err/loss "
+          f"{max(r['loss_rel_errs'].values()):.3g} (limit {MIXED_RTOL}), grad max_abs_err "
+          f"{r['grad_max_abs_err']:.3g} (limit {MIXED_REL} x {r['grad_scale']:.4g}); gradients "
+          "float32 and finite")
+
+
+def _state_dtypes(model, dev, label: str) -> None:
+    """The carries of a bf16 ``shared_step``'s filtering in bf16, its logits
+    and samples in float32."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.models.state import MTState
+
+    batch, noise = _train_batch(np.random.default_rng(SEED + 5), 8, 30, model)
+    with torch.no_grad():
+        _, post, prior, _ = model._observe_batch(tuple(x.to(dev) for x in batch),
+                                                 _noise_to(noise, dev), None)
+    if isinstance(post, MTState):
+        carries = (post.deter_h, post.deter_l, post.hidden_h, post.hidden_l)
+        floats = (post.logits_h, post.logits_l, prior.logits_h, prior.logits_l, post.stoch_l)
+    else:
+        carries, floats = (post.deter,), (post.logits, prior.logits, post.stoch, prior.stoch)
+    if not (all(x.dtype == torch.bfloat16 for x in carries) and
+            all(x.dtype == torch.float32 for x in floats)):
+        raise RuntimeError(f"{label}: carries {[x.dtype for x in carries]}, logits and samples "
+                           f"{[x.dtype for x in floats]}")
+    print(f"{label}: the carries bf16, the logits and samples float32")
+
+
+def drive_full_bf16(dev, work: Path, card: str) -> dict:
+    """Phase 11(b)-(d): full-model bf16 (module docstring, 11). Returns the
+    launch counts of the fits, the served requests and the imagination."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.data import (
+        DataModuleConfig,
+        EpisodeDataModule,
+        generate_synthetic_audio_mnist,
+    )
+    from multimodal_mtrssm_tpu_torch.models import (
+        MMTRSSMConfig,
+        MoPoEMMTRSSM,
+        MoPoEMRSSM,
+        MRSSMConfig,
+    )
+    from multimodal_mtrssm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from multimodal_mtrssm_tpu_torch.serving import WorldModel
+    from multimodal_mtrssm_tpu_torch.train import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    bf16 = torch.bfloat16
+    episodes = work / "episodes"
+    generate_synthetic_audio_mnist(episodes, n_episodes=24, seed=SEED)
+    dm = EpisodeDataModule(DataModuleConfig(data_dir=str(episodes), batch_size=8,
+                                            sequence_length=30, noise_std=0.0, seed=SEED))
+    dm.setup()
+    runs: list[dict[str, int]] = []
+    fits: dict[str, tuple] = {}
+    # (b) both families at nhwc and fused_enc, on the plain route.
+    for family, cfg_cls in ((MoPoEMRSSM, MRSSMConfig), (MoPoEMMTRSSM, MMTRSSMConfig)):
+        for layout in ("nhwc", "fused_enc"):
+            cfg = cfg_cls(compute_dtype=bf16, use_pallas_train=False, conv_layout=layout)
+            label = _label(cfg)
+            try:
+                family(dataclasses.replace(cfg, use_pallas_train="auto"))
+            except ValueError as e:
+                if "use_pallas_train=False" not in str(e):
+                    raise
+                print(f"{label}: use_pallas_train='auto' refused: {e}")
+            else:
+                raise RuntimeError(f"{label}: use_pallas_train='auto' taken at bf16")
+            model = family(cfg).init(torch.Generator().manual_seed(SEED)).to(dev)
+            log_dir = work / f"{family.__name__}_{layout}"
+            trainer = Trainer(model, dm, TrainerConfig(max_epochs=2, seed=SEED,
+                                                       log_dir=str(log_dir)))
+            reset_launch_counts()
+            out = trainer.fit()
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            steps = out["global_step"]
+            if steps < 4 or not all(np.isfinite(v) for row in out["history"] for v in row.values()):
+                raise RuntimeError(f"{label} fit: {steps} steps, history {out['history']}")
+            enc = (counts["fused_encoder_fwd_bf16"], counts["fused_encoder_bwd_bf16"])
+            others = {k: v for k, v in counts.items() if v and k not in (
+                "fused_encoder_fwd_bf16", "fused_encoder_bwd_bf16")}
+            want = 2 * steps if layout == "fused_enc" else 0
+            if others or enc[1] != want or enc[0] < want or (want == 0 and enc[0]):
+                raise RuntimeError(f"{label} fit: launches {counts} over {steps} steps")
+            print(f"main-path kernel launches, {label} fit, {steps} optimizer steps: {counts}; "
+                  f"{out['history'][-1]['train/loss']:.6g} train/loss last epoch; "
+                  f"{steps / max(out['train_seconds'], 1e-9):.3f} steps/s | {card}")
+            runs.append(counts)
+            _state_dtypes(model, dev, label)
+            _full_bf16_vs_cpu(model, dev, label)
+            _family_step_times(model, dev, card, label)
+            f32 = family(dataclasses.replace(cfg, compute_dtype=torch.float32)).to(dev)
+            f32.load_state_dict(model.state_dict())
+            _family_step_times(f32, dev, card, _label(f32.cfg))
+            fits[label] = (cfg, log_dir / "checkpoints")
+    # (c) the weighted and unimodal families at bf16, from the YAML.
+    for name in ("WeightedMoPoEMRSSM", "RSSM"):
+        exp, _ = _family_experiment(name, work / "families", episodes)
+        exp.model = type(exp.model)(dataclasses.replace(exp.model.cfg, compute_dtype=bf16))
+        label = _label(exp.model.cfg)
+        model, counts = _fit_family(exp, dev, card, label)
+        runs.append(counts)
+        fits[name] = (model.cfg, Path(exp.trainer.log_dir) / "checkpoints")
+    # (d) bf16-config checkpoints served: MRSSM on the plain route, the
+    # weighted model with imagination on rollout.cu.
+    for key, need in ((_label(MRSSMConfig(compute_dtype=bf16, use_pallas_train=False,
+                                          conv_layout="nhwc")), {}),
+                      ("WeightedMoPoEMRSSM", {"rollout": 2})):
+        cfg, ckpt = fits[key]
+        served = WorldModel.from_checkpoint(cfg, ckpt, dev)
+        label = _label(served.model.cfg)
+        rng = np.random.default_rng(SEED + 21)
+        obs = [rng.uniform(-1, 1, (2, 5, *s)).astype(np.float32) for s in
+               ((cfg.action_size,), (32, 32, 1), (32, 32, 1))]
+        with torch.no_grad():
+            post, _ = served.observe(*obs, seed=3)
+            frames = served.decode(post)
+            if post.deter.dtype != torch.float32 or any(
+                    v.dtype != torch.float32 for v in frames.values()):
+                raise RuntimeError(f"{label} served: deter {post.deter.dtype}, frames "
+                                   f"{[v.dtype for v in frames.values()]}")
+            ctx = drive_server(served.model, served.model.cfg, dev, need)
+            ctx["server"].stop()
+            bad = {k: v for k, v in ctx["counts"].items() if v and k not in need}
+            if bad:
+                raise RuntimeError(f"{label} serving launched {bad}")
+            runs.append(ctx["counts"])
+            if need:
+                runs.append(_family_rollout(served.model, dev, label))
+        print(f"{label} served from its checkpoint: float32 frames in, float32 states and "
+              "frames out")
+    print(f"phase 11 (b)-(d): {time.perf_counter() - t0:.1f} s")
+    return {k: sum(r.get(k, 0) for r in runs) for k in runs[0]}
+
+
 def main() -> int:
     """Every phase; the fit runs' episodes and checkpoints live in a
     temporary directory removed at the end."""
@@ -4707,12 +5135,27 @@ def _main(work: Path) -> int:
     runs.append(drive_other_families(dev, work / "families", card))
     # Phase 10: data-parallel training on torch.distributed.
     runs.append(drive_distributed(dev, work / "distributed", card, resume["ref"]))
+    # Phase 11: the bf16 fused decoder on its own path (phase 5's observed
+    # features cast to bf16), then full-model bf16 in every family.
+    runs.append(drive_decoder_bf16(cases, dev))
+    with torch.no_grad():
+        big_mt = _observed_features(mt_model, mt_cfg, dev, *DECODER_SHAPES[1])[1]
+        bf_cases = [_bf16_decoder_case(cases[0][0], model, cases[0][3]),
+                    _bf16_decoder_case(cases[1][0], mt_model, cases[1][3]),
+                    _bf16_decoder_case(big["label"], model, big["feats"]),
+                    _bf16_decoder_case(cases[1][0], mt_model, big_mt)]
+        checks.update(check_decoder_bf16(bf_cases))
+        dbf_times, dbf_library, dbf_bounds = decoder_bf16_timings(bf_cases, dev, card)
+    times.update(dbf_times)
+    bounds.update(dbf_bounds)
+    library.update(dbf_library)
+    runs.append(drive_full_bf16(dev, work / "full_bf16", card))
 
     ptxas_report(ptxas)
     launches = {k: sum(run.get(k, 0) for run in runs) for k in runs[0]}
     print("main-path launches, serving + training of the four configurations, resume, the "
           "train command and evaluation of the first two, the fused decoder path, the "
-          f"cross-modal run and phases 8, 9 and 10: {launches}")
+          f"cross-modal run and phases 8, 9, 10 and 11: {launches}")
     pkg = "multimodal_mtrssm_tpu_torch"
     pallas = "multimodal_mtrssm_tpu/ops/pallas"
     meta = {
@@ -4739,6 +5182,11 @@ def _main(work: Path) -> int:
         "fused_encoder_fwd_bf16": (f"{pkg}/csrc/fused_encoder_bf16_fwd.cu",
                                    f"{pallas}/fused_conv.py:455"),
         "fused_encoder_bwd_bf16": (f"{pkg}/csrc/fused_encoder_bf16_bwd.cu",
+                                   f"{pallas}/fused_conv.py:461"),
+        # The decoder's TPU kernels at dtype=bfloat16 (fused_conv.py:766 on bf16 features).
+        "fused_decoder_fwd_bf16": (f"{pkg}/csrc/fused_decoder_bf16_fwd.cu",
+                                   f"{pallas}/fused_conv.py:455"),
+        "fused_decoder_bwd_bf16": (f"{pkg}/csrc/fused_decoder_bf16_bwd.cu",
                                    f"{pallas}/fused_conv.py:461"),
     }
     missing = [name for name in meta if launches[name] < 1]

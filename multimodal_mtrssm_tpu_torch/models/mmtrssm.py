@@ -35,6 +35,7 @@ from multimodal_mtrssm_tpu_torch.models.mrssm import (
     Representation,
     Rows,
     add_input_noise,
+    check_compute_route,
     check_precision_fields,
     decode_pair,
     draw_gumbels,
@@ -103,10 +104,12 @@ class MMTRSSMConfig:
     # kernels; "auto", "nhwc" and "s2d" the canonical cuDNN layout.
     conv_layout: str = "auto"
     # As MRSSMConfig's: remat (both routes recompute a step from the saved
-    # carries already), scan_unroll (accepted and unused) and conv_dtype
-    # (None or torch.bfloat16, trainer.precision 16-mixed).
+    # carries already), scan_unroll (accepted and unused), compute_dtype
+    # (float32, or torch.bfloat16 on the plain route) and conv_dtype (None
+    # or torch.bfloat16, trainer.precision 16-mixed).
     remat: bool = False
     scan_unroll: int = 1
+    compute_dtype: torch.dtype = torch.float32
     conv_dtype: torch.dtype | None = None
 
     def __post_init__(self):
@@ -147,7 +150,9 @@ class MoPoEMMTRSSM(nn.Module):
         cfg = self.cfg = config or MMTRSSMConfig()
         self.fused_enc = resolve_conv_layout(
             cfg.conv_layout, (cfg.audio_encoder, cfg.vision_encoder)) == "fused_enc"
-        self.plain = resolve_train_kernel_mode(cfg.use_pallas_train, "mmtrssm") == "plain"
+        mode = resolve_train_kernel_mode(cfg.use_pallas_train, "mmtrssm")
+        check_compute_route(cfg, mode)
+        self.plain = mode == "plain"
         A, E, act = cfg.action_size, cfg.obs_embed_size, cfg.activation_name
         HD, LD, HS, LS, C = cfg.hd_dim, cfg.ld_dim, cfg.hs_dim, cfg.ls_dim, cfg.prior_cells
         self.l_rnn = MTRNN(A + LS + HS, LD, cfg.l_tau)
@@ -363,8 +368,8 @@ class MoPoEMMTRSSM(nn.Module):
         action_in, audio_in, vision_in = batch[:3]
         B, T = action_in.shape[:2]
         gumbels = self.draw_noise(B, T, generator, action_in.device, noise, rows)
-        action_in, audio_in, vision_in = add_input_noise(
-            self.cfg.input_noise_std, (action_in, audio_in, vision_in), noise, generator, rows)
+        action_in, audio_in, vision_in = (x.to(self.cfg.compute_dtype) for x in add_input_noise(
+            self.cfg.input_noise_std, (action_in, audio_in, vision_in), noise, generator, rows))
         a_emb, v_emb = self.encode_embeds(audio_in, vision_in)
         init = self.initial_state_from_embed(
             cast_conv_out(self.cfg, (a_emb[:, 0] + v_emb[:, 0]) / 2.0), gumbels["g_init_h"],

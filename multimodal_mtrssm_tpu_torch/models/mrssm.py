@@ -43,6 +43,7 @@ from multimodal_mtrssm_tpu_torch.ops.distributions import (
     st_sample,
 )
 from multimodal_mtrssm_tpu_torch.ops.kernels import (
+    PLAIN_ROUTE,
     Seed,
     fused_encoder_apply,
     fused_rollout_transition,
@@ -99,9 +100,17 @@ class MRSSMConfig:
     remat: bool = False
     # JAX's lax.scan unroll factor: accepted and unused (no scan here).
     scan_unroll: int = 1
-    # The conv stacks' dtype: None (float32) or torch.bfloat16, which
-    # trainer.precision 16-mixed selects: bf16 encoders and decoders, the
-    # recurrence and the ELBO in float32 (nn.conv.cast_conv_in/out).
+    # The model's dtype, float32 or torch.bfloat16 (JAX's compute_dtype):
+    # at bf16 shared_step casts its three input streams to bf16, so the
+    # encoders, the recurrence and the decoders run in bf16 on float32
+    # masters, with fusion, sampling, the KL and the NLL in float32. No
+    # kernel computes a bf16 recurrence (JAX gates its kernel off), so bf16
+    # needs use_pallas_train=False or None, the plain route. Serving
+    # observes float32 frames in float32, as JAX's WorldModel does.
+    compute_dtype: torch.dtype = torch.float32
+    # The conv stacks' dtype: None (the compute dtype) or torch.bfloat16,
+    # which trainer.precision 16-mixed selects: bf16 encoders and decoders,
+    # their outputs cast back to the compute dtype (nn.conv.cast_conv_in/out).
     conv_dtype: torch.dtype | None = None
     # "fused_enc": both encoders run the fused encoder kernels, and
     # construction raises if an encoder is not eligible; "auto", "nhwc" and
@@ -140,12 +149,18 @@ class Representation(nn.Module):
 class MoPoEMRSSM(nn.Module):
     """Multimodal RSSM with a MoPoE posterior over audio and vision."""
 
+    # Whether use_pallas_train "auto"/True trains on the recurrence kernels
+    # (and so refuses a bf16 compute dtype): not the weighted model's.
+    trains_on_kernels = True
+
     def __init__(self, config: MRSSMConfig | None = None):
         super().__init__()
         cfg = self.cfg = config or MRSSMConfig()
         self.fused_enc = resolve_conv_layout(
             cfg.conv_layout, (cfg.audio_encoder, cfg.vision_encoder)) == "fused_enc"
         mode = resolve_train_kernel_mode(cfg.use_pallas_train, "mrssm")
+        if self.trains_on_kernels:
+            check_compute_route(cfg, mode)
         self.stacked, self.plain = mode == "stacked", mode == "plain"
         S, D, H, E = cfg.stoch_size, cfg.deterministic_size, cfg.hidden_size, cfg.obs_embed_size
         self.transition = Transition(cfg.action_size, S, H, D, cfg.activation_name)
@@ -334,8 +349,8 @@ class MoPoEMRSSM(nn.Module):
         dev = action_in.device
         B, T = action_in.shape[:2]
         gumbels = tuple(self.draw_noise(B, T, generator, dev, noise, rows).values())
-        action_in, audio_in, vision_in = add_input_noise(
-            cfg.input_noise_std, (action_in, audio_in, vision_in), noise, generator, rows)
+        action_in, audio_in, vision_in = (x.to(cfg.compute_dtype) for x in add_input_noise(
+            cfg.input_noise_std, (action_in, audio_in, vision_in), noise, generator, rows))
         a_emb, v_emb = self.encode_embeds(audio_in, vision_in)
         init = self.initial_state_from_embed(
             cast_conv_out(cfg, (a_emb[:, 0] + v_emb[:, 0]) / 2.0), gumbels[0])
@@ -364,7 +379,8 @@ def run_steps(step: Callable, carry: tuple[torch.Tensor, ...], xs: tuple[torch.T
 
 
 def check_precision_fields(cfg) -> None:
-    """Either family's ``remat``, ``scan_unroll`` and ``conv_dtype``."""
+    """Either family's ``remat``, ``scan_unroll``, ``compute_dtype`` and
+    ``conv_dtype``."""
     if not isinstance(cfg.remat, bool):
         raise ValueError(f"remat must be a bool, got {cfg.remat!r}")
     if isinstance(cfg.scan_unroll, bool) or not isinstance(cfg.scan_unroll, int) \
@@ -372,6 +388,20 @@ def check_precision_fields(cfg) -> None:
         raise ValueError(f"scan_unroll must be an int >= 1, got {cfg.scan_unroll!r}")
     if cfg.conv_dtype not in (None, torch.bfloat16):
         raise ValueError(f"conv_dtype must be None or torch.bfloat16, got {cfg.conv_dtype!r}")
+    if cfg.compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("compute_dtype must be torch.float32 or torch.bfloat16, got "
+                         f"{cfg.compute_dtype!r}")
+
+
+def check_compute_route(cfg, mode: str) -> None:
+    """Refuse a bf16 ``compute_dtype`` on the recurrence kernels (``mode``
+    "kernel" or "stacked"): they compute in float32, and JAX's silent switch
+    to its scan is a plain path the caller did not name."""
+    if cfg.compute_dtype != torch.float32 and mode != "plain":
+        raise ValueError(
+            f"compute_dtype={cfg.compute_dtype} runs the recurrence in bf16, which no kernel "
+            f"computes (use_pallas_train={cfg.use_pallas_train!r} selects the float32 "
+            f"recurrence kernels): {PLAIN_ROUTE}")
 
 
 def encode_pair(model: nn.Module, audio_obs: torch.Tensor,
@@ -389,7 +419,8 @@ def encode_pair(model: nn.Module, audio_obs: torch.Tensor,
 
 def decode_pair(model: nn.Module, feature: torch.Tensor) -> dict[str, torch.Tensor]:
     """Both decoders of either family on ``[..., feature]``, through the
-    conv-dtype casts: float32 NHWC frames."""
+    conv-dtype casts: NHWC frames in the feature's dtype (float32 from
+    serving, the compute dtype in ``shared_step``)."""
     x = cast_conv_in(model.cfg, feature)
     return {"recon/audio": cast_conv_out(model.cfg, model.audio_decoder(x)),
             "recon/vision": cast_conv_out(model.cfg, model.vision_decoder(x))}

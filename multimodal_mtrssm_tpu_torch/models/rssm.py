@@ -64,7 +64,11 @@ class RSSMConfig:
     remat: bool = False
     encoder: EncoderConfig = dataclasses.field(default_factory=EncoderConfig)
     decoder: DecoderConfig | None = None
-    # float32 only: full-model bf16 is not ported (ROADMAP queue 1 item 8).
+    # float32 or torch.bfloat16 (JAX's compute_dtype): at bf16 shared_step
+    # casts its two input streams to bf16, so the encoder, the step loop and
+    # the decoder run in bf16 on float32 masters, the sampling, KL and NLL
+    # in float32. No kernel computes the step loop, so "auto" needs no
+    # refusal; imagination from served (float32) states is unchanged.
     compute_dtype: torch.dtype = torch.float32
     # Imagination's route: "auto" or True, the rollout kernel; False or
     # None, the plain rollout on any device. "stacked" raises.
@@ -73,9 +77,9 @@ class RSSMConfig:
     def __post_init__(self):
         if not isinstance(self.remat, bool):
             raise ValueError(f"remat must be a bool, got {self.remat!r}")
-        if self.compute_dtype != torch.float32:
-            raise ValueError(f"compute_dtype must be torch.float32, got {self.compute_dtype!r}: "
-                             "full-model bf16 is not ported (ROADMAP queue 1 item 8)")
+        if self.compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError("compute_dtype must be torch.float32 or torch.bfloat16, got "
+                             f"{self.compute_dtype!r}")
         resolve_train_kernel_mode(self.use_pallas_train, "rssm")
 
     @property
@@ -158,12 +162,13 @@ class RSSM(nn.Module):
             prior_stoch = st_sample(prior_logits, gp, cfg.class_size, cfg.category_size)
             post_logits = head(torch.cat([deter, emb_t], -1))
             post_stoch = st_sample(post_logits, gq, cfg.class_size, cfg.category_size)
-            return (deter, post_stoch), (deter, prior_logits, prior_stoch, post_logits,
-                                         post_stoch)
+            # The f32 sample carried in the deter's dtype (JAX rssm.py:155).
+            return (deter, post_stoch.to(deter.dtype)), (deter, prior_logits, prior_stoch,
+                                                         post_logits, post_stoch)
 
         xs = (actions.transpose(0, 1), embed.transpose(0, 1), g_prior, g_post)
         deter, prior_logits, prior_stoch, post_logits, post_stoch = run_steps(
-            step, (prev_state.deter, prev_state.stoch), xs, cfg.remat)
+            step, (prev_state.deter, prev_state.stoch.to(prev_state.deter.dtype)), xs, cfg.remat)
         posterior = State(deter=deter, stoch=post_stoch, logits=post_logits)
         prior = State(deter=deter, stoch=prior_stoch, logits=prior_logits)
         return posterior, prior
@@ -204,8 +209,8 @@ class RSSM(nn.Module):
         action_in, obs_in = batch[:2]
         B, T = action_in.shape[:2]
         gumbels = tuple(self.draw_noise(B, T, generator, action_in.device, noise, rows).values())
-        action_in, obs_in = add_input_noise(self.cfg.input_noise_std, (action_in, obs_in), noise,
-                                            generator, rows)
+        action_in, obs_in = (x.to(self.cfg.compute_dtype) for x in add_input_noise(
+            self.cfg.input_noise_std, (action_in, obs_in), noise, generator, rows))
         embed = self.encode_observation(obs_in)
         init = self.initial_state_from_embed(embed[:, 0], gumbels[0])
         posterior, prior = self._rollout_from_embed(action_in, embed, init, *gumbels[1:])

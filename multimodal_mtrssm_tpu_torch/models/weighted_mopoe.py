@@ -44,6 +44,10 @@ class WeightedMRSSMConfig(MRSSMConfig):
 class WeightedMoPoEMRSSM(MoPoEMRSSM):
     """MoPoE-MRSSM with a learned 3-way subset-mixture weight head."""
 
+    # It trains on its step loop whatever use_pallas_train says, so a bf16
+    # compute dtype is taken at "auto" too.
+    trains_on_kernels = False
+
     def __init__(self, config: WeightedMRSSMConfig | None = None):
         cfg = config or WeightedMRSSMConfig()
         v = cfg.use_pallas_train
@@ -86,14 +90,15 @@ class WeightedMoPoEMRSSM(MoPoEMRSSM):
             v_logits = heads[1](torch.cat([deter, v_t], -1))
             mixed, weights = self._posterior_mix(deter, a_logits, v_logits)
             post_stoch = st_sample(mixed, gq, cfg.class_size, cfg.category_size)
-            return (deter, post_stoch), (deter, prior_logits, prior_stoch, mixed, post_stoch,
-                                         weights)
+            # The f32 sample carried in the deter's dtype (JAX mrssm.py:403).
+            return (deter, post_stoch.to(deter.dtype)), (deter, prior_logits, prior_stoch, mixed,
+                                                         post_stoch, weights)
 
         tm = lambda x: x.transpose(0, 1)  # noqa: E731
         xs = (tm(actions), tm(cast_conv_out(cfg, a_emb)), tm(cast_conv_out(cfg, v_emb)),
               g_prior, g_post)
         deter, prior_logits, prior_stoch, mixed, post_stoch, weights = run_steps(
-            step, (prev_state.deter, prev_state.stoch), xs, cfg.remat)
+            step, (prev_state.deter, prev_state.stoch.to(prev_state.deter.dtype)), xs, cfg.remat)
         posterior = State(deter=deter, stoch=post_stoch, logits=mixed)
         prior = State(deter=deter, stoch=prior_stoch, logits=prior_logits)
         return posterior, prior, weights

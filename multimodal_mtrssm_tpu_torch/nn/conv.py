@@ -15,14 +15,16 @@ Module names follow the slot paths ``train/torch_export.py`` writes
 order, torch's own, which is the order the exporter permutes the head
 weights into.
 
-Mixed precision (``trainer.precision: 16-mixed``, a model's ``conv_dtype``
-bf16): :func:`cast_conv_in` and :func:`cast_conv_out` are the one pair of
-casts every encoder and decoder call site of both families goes through
+Precision: :func:`cast_conv_in` and :func:`cast_conv_out` are the one pair
+of casts every encoder and decoder call site of both families goes through
 (JAX ``nn/conv.py:45-59``). The stacks run in their input's dtype: the
 parameters stay float32 masters and are cast inside each layer, so their
-gradients reach them in float32. Nothing else of the model changes dtype:
-the recurrence and the ELBO stay float32 (no ``torch.autocast``, which
-would cast the recurrence's linears too).
+gradients reach them in float32. A model's ``conv_dtype`` bf16
+(``trainer.precision: 16-mixed``) runs the stacks in bf16 and casts their
+outputs back to the model's ``compute_dtype``; with ``conv_dtype`` None the
+stacks run in the dtype they are given, the ``compute_dtype`` to which
+``shared_step`` casts its inputs (float32, or bf16 for a full-bf16 model).
+No ``torch.autocast``, which would cast the recurrence's linears too.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from multimodal_mtrssm_tpu_torch.nn.core import Act, activation
+from multimodal_mtrssm_tpu_torch.nn.core import Act, Linear, activation
 
 
 def cast_conv_in(model_cfg: object, x: torch.Tensor) -> torch.Tensor:
@@ -44,10 +46,10 @@ def cast_conv_in(model_cfg: object, x: torch.Tensor) -> torch.Tensor:
 
 
 def cast_conv_out(model_cfg: object, x: torch.Tensor) -> torch.Tensor:
-    """A conv stack's output back in float32, the model's compute dtype
-    (unchanged when ``conv_dtype`` is None)."""
+    """A conv stack's output back in the model's ``compute_dtype`` (float32
+    where the config has none; unchanged when ``conv_dtype`` is None)."""
     cd = getattr(model_cfg, "conv_dtype", None)
-    return x if cd is None else x.to(torch.float32)
+    return x if cd is None else x.to(getattr(model_cfg, "compute_dtype", torch.float32))
 
 
 def coord_linspace(n: int, dtype: torch.dtype, device: torch.device | str) -> torch.Tensor:
@@ -70,11 +72,6 @@ def _deconv(m: nn.ConvTranspose2d, x: torch.Tensor) -> torch.Tensor:
     """``m(x)`` in ``x``'s dtype, the float32 parameters cast to it."""
     return F.conv_transpose2d(x, m.weight.to(x.dtype), m.bias.to(x.dtype), m.stride, m.padding,
                               m.output_padding, m.groups, m.dilation)
-
-
-def _linear(m: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """``m(x)`` in ``x``'s dtype, the float32 parameters cast to it."""
-    return F.linear(x, m.weight.to(x.dtype), m.bias.to(x.dtype))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,7 +165,7 @@ class Encoder(nn.Module):
             in_ch, cfg.residual_output_size, cfg.num_residual_blocks, cfg.residual_intermediate_size)
         h, w = cfg.spatial_out()
         dims = [h * w * in_ch, *cfg.linear_sizes]
-        self.linears = nn.ModuleList(nn.Linear(dims[i], dims[i + 1]) for i in range(len(dims) - 1))
+        self.linears = nn.ModuleList(Linear(dims[i], dims[i + 1]) for i in range(len(dims) - 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Encode NHWC frames ``[..., H, W, C]`` → ``[..., out_dim]``."""
@@ -192,7 +189,7 @@ class Encoder(nn.Module):
             x = block(x, act)
         x = x.flatten(1)
         for i, lin in enumerate(self.linears):
-            x = _linear(lin, x)
+            x = lin(x)
             if i < len(self.linears) - 1:
                 x = act(x)
         x = activation(cfg.out_activation_name)(x)
@@ -206,7 +203,7 @@ class Decoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         dims = [cfg.in_features, *cfg.linear_sizes]
-        self.linears = nn.ModuleList(nn.Linear(dims[i], dims[i + 1]) for i in range(len(dims) - 1))
+        self.linears = nn.ModuleList(Linear(dims[i], dims[i + 1]) for i in range(len(dims) - 1))
         self.res_proj, self.res_blocks, c_in = _residual_stack(
             cfg.conv_in_shape[0], cfg.residual_input_size, cfg.num_residual_blocks,
             cfg.residual_intermediate_size)
@@ -224,7 +221,7 @@ class Decoder(nn.Module):
         lead = x.shape[:-1]
         x = x.reshape(-1, x.shape[-1])
         for lin in self.linears:
-            x = act(_linear(lin, x))
+            x = act(lin(x))
         x = x.reshape(-1, *cfg.conv_in_shape)
         if self.res_proj is not None:
             x = act(_conv(self.res_proj, x))

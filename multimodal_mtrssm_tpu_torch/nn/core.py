@@ -7,6 +7,11 @@ Module and parameter names follow the reference Lightning checkpoints that
 (``[3D, in]``, gate order r, z, n), which is ``nn.GRUCell``'s own; the
 MTRNN cell holds its ``_d2h`` and ``_input2h`` Linears under the reference's
 names (``mopoe_mmtrssm/core.py:36-37``).
+
+Every layer runs in its input's dtype, the float32 parameters cast to it at
+use (JAX ``dense_apply``, ``gru_apply``): a model at ``compute_dtype``
+bf16 keeps float32 masters whose gradients reach them in float32. At
+float32 the casts are no-ops.
 """
 
 from __future__ import annotations
@@ -56,6 +61,19 @@ class Activation(nn.Module):
         return self.fn(x)
 
 
+def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
+    """``F.linear`` in ``x``'s dtype, ``w`` and ``b`` cast to it."""
+    return F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` in its input's dtype (:func:`linear`)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``x @ weightᵀ + bias`` in ``x``'s dtype."""
+        return linear(x, self.weight, self.bias)
+
+
 def mlp(in_dim: int, out_dim: int, num_cells: int, depth: int = 1, act: str = "ELU",
         activate_last: bool = False) -> nn.Sequential:
     """torchrl ``MLP`` contract: ``depth`` hidden layers of ``num_cells``, the
@@ -63,7 +81,7 @@ def mlp(in_dim: int, out_dim: int, num_cells: int, depth: int = 1, act: str = "E
     dims = [in_dim] + [num_cells] * depth + [out_dim]
     layers: list[nn.Module] = []
     for i in range(len(dims) - 1):
-        layers.append(nn.Linear(dims[i], dims[i + 1]))
+        layers.append(Linear(dims[i], dims[i + 1]))
         if i < len(dims) - 2 or activate_last:
             layers.append(Activation(act))
     return nn.Sequential(*layers)
@@ -73,8 +91,8 @@ def gru_cell(x: torch.Tensor, h: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.T
              b_ih: torch.Tensor, b_hh: torch.Tensor) -> torch.Tensor:
     """One GRU step, torch ``nn.GRUCell`` equations: ``n = tanh(gi_n + r * gh_n)``,
     ``h' = (1 - z) * n + z * h``."""
-    gi = F.linear(x, w_ih, b_ih)
-    gh = F.linear(h, w_hh, b_hh)
+    gi = linear(x, w_ih, b_ih)
+    gh = linear(h, w_hh, b_hh)
     i_r, i_z, i_n = gi.chunk(3, dim=-1)
     h_r, h_z, h_n = gh.chunk(3, dim=-1)
     r = torch.sigmoid(i_r + h_r)
@@ -86,7 +104,7 @@ def gru_cell(x: torch.Tensor, h: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.T
 def two_layer(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
               b2: torch.Tensor, act: Act) -> torch.Tensor:
     """A depth-1 MLP on raw weights: ``linear(act(linear(x)))``."""
-    return F.linear(act(F.linear(x, w1, b1)), w2, b2)
+    return linear(act(linear(x, w1, b1)), w2, b2)
 
 
 def transition_step(weights: tuple[torch.Tensor, ...], action: torch.Tensor,
@@ -116,7 +134,7 @@ def mtrnn_step(weights: tuple[torch.Tensor, ...], x: torch.Tensor, prev_d: torch
         raise ValueError("tau must be greater than 1.0")  # reference core.py:34
     wd, bd, wi, bi = weights
     inv_tau = 1.0 / tau
-    new_hidden = (1.0 - inv_tau) * hidden + (F.linear(prev_d, wd, bd) + F.linear(x, wi, bi)) * inv_tau
+    new_hidden = (1.0 - inv_tau) * hidden + (linear(prev_d, wd, bd) + linear(x, wi, bi)) * inv_tau
     return torch.tanh(new_hidden), new_hidden
 
 

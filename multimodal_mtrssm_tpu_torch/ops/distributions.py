@@ -5,7 +5,8 @@ parameterised by flat logits ``[..., class_size * category_size]``. Sampling
 is Gumbel-argmax from a GIVEN noise tensor, so two implementations fed the
 same noise draw the same sample: the first index wins a tie, as in the JAX
 kernels' ``rollout.onehot_blocks``. The KL (plain and DreamerV2-balanced,
-α 0.8), log-probabilities and entropy are the ELBO's; all of it runs in f32.
+α 0.8), log-probabilities and entropy are the ELBO's; all of it runs in f32,
+bf16 logits included (the f32 islands of a full-bf16 model).
 """
 
 from __future__ import annotations
@@ -21,6 +22,12 @@ KL_BALANCE_ALPHA = 0.8
 
 def _blocks(x: torch.Tensor, class_size: int, category_size: int) -> torch.Tensor:
     return x.reshape(*x.shape[:-1], class_size, category_size)
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32 where it is narrower (the bf16 logits of a full-bf16
+    model), else as it is (float32; float64 in the tests' references)."""
+    return x.float() if x.dtype.itemsize < 4 else x
 
 
 def block_probs(logits: torch.Tensor, class_size: int, category_size: int) -> torch.Tensor:
@@ -49,7 +56,9 @@ def st_sample(
     The value's association is kept as written: ``(1 + p) - p`` is not
     always exactly 1 in f32, and the JAX package computes it in this order.
     ``x.detach() + (p - p.detach())`` adds an exact 0.0 to that value and
-    routes the gradient through ``p``."""
+    routes the gradient through ``p``. Runs in f32 whatever the logits'
+    dtype (JAX ``MultiOneHot.rsample``)."""
+    logits = at_least_f32(logits)
     onehot = onehot_blocks(logits + gumbel, class_size, category_size)
     p = block_probs(logits, class_size, category_size)
     return ((onehot + p) - p).detach() + (p - p.detach())
@@ -84,11 +93,11 @@ class MultiOneHot:
 
     def probs(self) -> torch.Tensor:
         """Per-block probabilities, flat ``[..., class*category]``."""
-        return block_probs(self.logits, self.class_size, self.category_size)
+        return block_probs(at_least_f32(self.logits), self.class_size, self.category_size)
 
     def mode(self) -> torch.Tensor:
         """Most likely one-hot blocks (first index on ties)."""
-        return onehot_blocks(self.logits, self.class_size, self.category_size)
+        return onehot_blocks(at_least_f32(self.logits), self.class_size, self.category_size)
 
     def sample(self, gumbel: torch.Tensor) -> torch.Tensor:
         """Straight-through sample from the given Gumbel noise."""

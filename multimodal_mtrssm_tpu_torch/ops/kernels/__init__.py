@@ -42,7 +42,10 @@ Kernels (sources in ``csrc/``, built at first use by :mod:`.build`):
   tile of frames and its VJP (``fused_decoder_apply``, a public function
   that no model config selects, as in JAX), replacing the same
   ``fused_conv.py::_fwd_kernel`` and ``::_bwd_kernel`` as
-  ``fused_decoder_apply`` reaches them.
+  ``fused_decoder_apply`` reaches them;
+- ``fused_decoder_fwd_bf16`` / ``fused_decoder_bwd_bf16``: the same decoder
+  on bf16 features, replacing the same two TPU kernels at
+  ``dtype=bfloat16``.
 """
 
 from __future__ import annotations
@@ -67,6 +70,7 @@ from multimodal_mtrssm_tpu_torch.ops.kernels.fused_conv import (
     fused_encoder_apply,
     resolve_conv_layout,
 )
+from multimodal_mtrssm_tpu_torch.ops.kernels.recurrence import PLAIN_ROUTE
 from multimodal_mtrssm_tpu_torch.ops.kernels.recurrence_mt import MT_SPEC, MTSpec
 from multimodal_mtrssm_tpu_torch.ops.kernels.rollout import Seed, philox_gumbel
 from multimodal_mtrssm_tpu_torch.ops.kernels.rollout_mt import philox_mt_gumbel
@@ -85,7 +89,9 @@ LAUNCH_COUNTERS = {"recurrence_fwd": (recurrence, "launches"),
                    "fused_decoder_fwd": (fused_conv, "dec_launches"),
                    "fused_decoder_bwd": (fused_conv, "dec_bwd_launches"),
                    "fused_encoder_fwd_bf16": (fused_conv, "bf16_launches"),
-                   "fused_encoder_bwd_bf16": (fused_conv, "bf16_bwd_launches")}
+                   "fused_encoder_bwd_bf16": (fused_conv, "bf16_bwd_launches"),
+                   "fused_decoder_fwd_bf16": (fused_conv, "dec_bf16_launches"),
+                   "fused_decoder_bwd_bf16": (fused_conv, "dec_bf16_bwd_launches")}
 
 # use_pallas_train values of the JAX package that the port refuses: JAX's
 # debug and test modes.
@@ -233,6 +239,7 @@ def reset_launch_counts() -> None:
 __all__ = [
     "LAUNCH_COUNTERS",
     "MTSpec",
+    "PLAIN_ROUTE",
     "Seed",
     "fused_decoder_applicable",
     "fused_decoder_apply",

@@ -25,10 +25,10 @@ SOURCES = ("recurrence_fwd.cu", "recurrence_bwd.cu", "rollout.cu", "recurrence_m
            "recurrence_mt_bwd.cu", "rollout_mt.cu", "recurrence_stacked_fwd.cu",
            "recurrence_stacked_bwd.cu", "fused_encoder_fwd.cu", "fused_encoder_bwd.cu",
            "fused_decoder_fwd.cu", "fused_decoder_bwd.cu", "fused_encoder_bf16_fwd.cu",
-           "fused_encoder_bf16_bwd.cu")
+           "fused_encoder_bf16_bwd.cu", "fused_decoder_bf16_fwd.cu", "fused_decoder_bf16_bwd.cu")
 HEADERS = ("mrssm_common.cuh", "conv_common.cuh", "chain_common.cuh", "forward_chain.cuh",
            "stack_map.cuh", "dense_grads.cuh", "fused_encoder.cuh", "fused_decoder.cuh",
-           "fused_encoder_bf16.cuh")
+           "fused_encoder_bf16.cuh", "fused_decoder_bf16.cuh")
 # Hopper only (sm_90a); no --use_fast_math, so expf/logf/tanhf stay accurate
 # and the straight-through value (onehot + p) - p is not reassociated.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -94,6 +94,8 @@ _SIGNATURES = {
     "fused_decoder_sizes": (_I, [DecDims, _P]),
     "fused_decoder_forward": (_I, [_P, _I, _P, _P, _P, DecDims, _P]),
     "fused_decoder_backward": (_I, [_P, _I] + [_P] * 8 + [DecDims, _P]),
+    "fused_decoder_bf16_forward": (_I, [_P, _I, _P, _P, _P, DecDims, _P]),
+    "fused_decoder_bf16_backward": (_I, [_P, _I] + [_P] * 10 + [DecDims, _P]),
     "mrssm_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -1,5 +1,5 @@
 """Kernels 8-11: the whole conv encoder, and the whole conv decoder, each in
-one kernel per tile of frames.
+one kernel per tile of frames, at f32 and at bf16.
 
 Port of the encoder entry of ``multimodal_mtrssm_tpu/ops/pallas/fused_conv.py``
 (``fused_encoder_applicable`` ``:136``, ``_plan`` ``:151``,
@@ -97,6 +97,19 @@ NHWC frames ``[N, 32, 32, 1]``.
   passes' first forms: ~7.3) and ~14.9 ms at N=3840 (~108), below the cuDNN
   ``Decoder``'s forward + backward; ``PERF.md`` §6.
 
+bf16 features take the bf16 decoder kernels, JAX's ``_fwd_kernel``/
+``_bwd_kernel`` at ``dtype=bfloat16`` as ``fused_decoder_apply`` reaches
+them (``:781``): ``fused_decoder_fwd_bf16`` and ``fused_decoder_bwd_bf16``
+(``csrc/fused_decoder_bf16_{fwd,bwd}.cu``, design notes in
+``csrc/fused_decoder_bf16.cuh``), the f32 decoder's kernels instantiated
+at bf16: bf16 features, weights and frames in device memory, every
+layer's output rounded to bf16 after its f32 sums, bias and activation,
+the backward's cotangents and sums in f32, the features' cotangent and the
+weight gradients rounded to bf16 at the end. :func:`fused_decoder_plain`
+and :func:`fused_decoder_backward_plain` round alike on bf16 input. It is
+a right kernel, not a fast one: the f32 kernels' CUDA-core FMAs on bf16
+values (``PERF.md`` §6).
+
 JAX's decoder operators (``build_decoder_operators`` ``:686``,
 ``_deconv_superrow_maps`` ``:615``, ``superrow_decoder_xla`` ``:752``) are
 the same 128-lane TPU layout and are not ported, nor are the ``tile``,
@@ -140,9 +153,12 @@ launches = 0
 bwd_launches = 0
 dec_launches = 0
 dec_bwd_launches = 0
-# The bf16 encoder kernels' launches, forward and backward.
+# The bf16 encoder kernels' launches, forward and backward, and the bf16
+# decoder kernels'.
 bf16_launches = 0
 bf16_bwd_launches = 0
+dec_bf16_launches = 0
+dec_bf16_bwd_launches = 0
 
 
 def fused_encoder_applicable(cfg: EncoderConfig) -> bool:
@@ -683,32 +699,67 @@ def decoder_weight_shapes(cfg: DecoderConfig) -> list[tuple[int, ...]]:
     return shapes
 
 
-def fused_decoder_plain(weights: Sequence[torch.Tensor], cfg: DecoderConfig,
-                        feats: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the decoder's forward kernel: features
-    ``[N, F]`` → NHWC frames ``[N, 32, 32, 1]`` on :func:`decoder_weights`'
-    tensors, ELU as ``exp(x) - 1``."""
+class _RoundedTanh(torch.autograd.Function):
+    """Tanh in float32, its output rounded to bf16; the backward takes the
+    derivative from the rounded output, ``1 - o²`` (JAX ``_act_deriv``), and
+    passes the rounding straight through (the decoder's last layer)."""
+
+    @staticmethod
+    def forward(ctx, pre: torch.Tensor) -> torch.Tensor:
+        out = _round_bf16(torch.tanh(pre))
+        ctx.save_for_backward(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        (out,) = ctx.saved_tensors
+        return g * (1.0 - out * out)
+
+
+def _decoder_walk(weights: Sequence[torch.Tensor], cfg: DecoderConfig, feats: torch.Tensor,
+                  act, out_act) -> torch.Tensor:
+    """The decoder's layers in the kernels' order on ``[N, F]`` features,
+    each hidden layer through ``act``, the last through ``out_act``; NCHW
+    out."""
     it = iter(weights)
-    x = _elu(F.linear(feats, next(it), next(it)))
-    x = _elu(F.linear(x, next(it), next(it))).reshape(-1, *cfg.conv_in_shape)
+    x = act(F.linear(feats, next(it), next(it)))
+    x = act(F.linear(x, next(it), next(it))).reshape(-1, *cfg.conv_in_shape)
     if _has_res_proj(cfg):
-        x = _elu(F.conv2d(x, next(it), next(it)))
+        x = act(F.conv2d(x, next(it), next(it)))
     for _ in range(cfg.num_residual_blocks):
-        t = _elu(F.conv2d(x, next(it), next(it), padding=1))
-        x = _elu(x + F.conv2d(t, next(it), next(it), padding=1))
+        t = act(F.conv2d(x, next(it), next(it), padding=1))
+        x = act(x + F.conv2d(t, next(it), next(it), padding=1))
     last = len(cfg.channels) - 1
     for i, (s, p, op) in enumerate(zip(cfg.strides, cfg.paddings, cfg.output_paddings)):
         x = F.conv_transpose2d(x, next(it), next(it), stride=s, padding=p, output_padding=op)
-        x = torch.tanh(x) if i == last else _elu(x)
-    return x.permute(0, 2, 3, 1)
+        x = out_act(x) if i == last else act(x)
+    return x
+
+
+def fused_decoder_plain(weights: Sequence[torch.Tensor], cfg: DecoderConfig,
+                        feats: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the decoder's forward kernels: features
+    ``[N, F]`` → NHWC frames ``[N, 32, 32, 1]`` on :func:`decoder_weights`'
+    tensors, ELU as ``exp(x) - 1``, in ``feats``' dtype. On bf16 features
+    (and bf16 weights) it computes as the bf16 kernels do, JAX's
+    ``_layer_fwd`` at bf16: float32 sums of the bf16 values, the bias and
+    the activation in float32, each layer's output rounded to bf16."""
+    if feats.dtype == torch.bfloat16:
+        out = _decoder_walk([t.float() for t in weights], cfg, feats.float(), _RoundedElu.apply,
+                            _RoundedTanh.apply)
+        return out.permute(0, 2, 3, 1).to(torch.bfloat16)
+    return _decoder_walk(weights, cfg, feats, _elu, torch.tanh).permute(0, 2, 3, 1)
 
 
 def fused_decoder_backward_plain(weights: Sequence[torch.Tensor], cfg: DecoderConfig,
                                  feats: torch.Tensor, g: torch.Tensor, want_dx: bool,
                                  ) -> tuple[torch.Tensor | None, tuple[torch.Tensor, ...]]:
-    """Plain PyTorch version of the decoder's backward kernel: an autograd
+    """Plain PyTorch version of the decoder's backward kernels: an autograd
     replay of :func:`fused_decoder_plain` under the cotangent ``g`` of the
-    frames. Returns ``(d_feats or None, weight grads)``."""
+    frames. Returns ``(d_feats or None, weight grads)``, in ``feats``' dtype
+    (bf16: the activation derivatives from the rounded outputs, float32
+    cotangents and sums through the whole stack, each gradient rounded to
+    bf16 once at the end)."""
     with torch.enable_grad():
         w = [t.detach().requires_grad_() for t in weights]
         xs = feats.detach().requires_grad_(want_dx)
@@ -736,15 +787,17 @@ def _dec_frames_shape(cfg: DecoderConfig) -> tuple[int, int, int]:
 
 
 def _check_dec(weights: Sequence[torch.Tensor], cfg: DecoderConfig, feats: torch.Tensor,
-               extra: dict[str, tuple[torch.Tensor, tuple[int, ...]]] | None = None) -> None:
-    """Device, dtype, shape and contiguity checks of a decoder kernel launch."""
+               extra: dict[str, tuple[torch.Tensor, tuple[int, ...]]] | None = None,
+               dtype: torch.dtype = torch.float32) -> None:
+    """Device, dtype (``dtype``), shape and contiguity checks of a decoder
+    kernel launch."""
     if not fused_decoder_applicable(cfg):
         raise ValueError(f"the fused decoder kernels do not take this decoder: {cfg}")
     if feats.ndim != 2 or feats.shape[1] != cfg.in_features:
         raise ValueError(f"the fused decoder takes [N, {cfg.in_features}] features, "
                          f"got {tuple(feats.shape)}")
     _check_tensors(weights, decoder_weight_shapes(cfg), "decoder",
-                   {"feats": (feats, tuple(feats.shape)), **(extra or {})})
+                   {"feats": (feats, tuple(feats.shape)), **(extra or {})}, dtype)
 
 
 def fused_decoder_forward_cuda(weights: Sequence[torch.Tensor], cfg: DecoderConfig,
@@ -811,6 +864,80 @@ def fused_decoder_backward_cuda(weights: Sequence[torch.Tensor], cfg: DecoderCon
     return dx, grads
 
 
+def fused_decoder_bf16_forward_cuda(weights: Sequence[torch.Tensor], cfg: DecoderConfig,
+                                    feats: torch.Tensor) -> torch.Tensor:
+    """Launch the bf16 decoder's forward kernels (``csrc/fused_decoder_bf16_fwd.cu``):
+    bf16 ``[N, F]`` features and bf16 weights → bf16 ``[N, 32, 32, 1]``
+    frames, as :func:`fused_decoder_plain` computes them on bf16 input.
+    Raises on any input it does not take."""
+    global dec_bf16_launches
+    from multimodal_mtrssm_tpu_torch.ops.kernels import build
+
+    _check_dec(weights, cfg, feats, dtype=torch.bfloat16)
+    out = feats.new_empty((feats.shape[0], *_dec_frames_shape(cfg)))
+    if feats.shape[0] == 0:
+        return out
+    lib = build.load_library()
+    dims = _dec_dims(cfg, feats.shape[0])
+    ptrs = (ctypes.c_void_p * len(weights))(*(t.data_ptr() for t in weights))
+    with torch.cuda.device(feats.device):
+        packed = torch.empty(_sizes(lib.fused_decoder_sizes, dims, "decoder")[5],
+                             dtype=torch.float32, device=feats.device)
+        stream = torch.cuda.current_stream(feats.device).cuda_stream
+        err = lib.fused_decoder_bf16_forward(ctypes.cast(ptrs, ctypes.c_void_p), len(weights),
+                                             feats.data_ptr(), packed.data_ptr(), out.data_ptr(),
+                                             dims, stream)
+    build.check(err)
+    dec_bf16_launches += 1
+    return out
+
+
+def fused_decoder_bf16_backward_cuda(weights: Sequence[torch.Tensor], cfg: DecoderConfig,
+                                     feats: torch.Tensor, g: torch.Tensor, want_dx: bool,
+                                     ) -> tuple[torch.Tensor | None, tuple[torch.Tensor, ...]]:
+    """Launch the bf16 decoder's backward kernels (``csrc/fused_decoder_bf16_bwd.cu``):
+    the bf16 forward recomputing and recording every layer's rounded
+    output, the f32 decoder's cotangent and weight-gradient passes on those
+    records, and the rounding of the features' cotangent and the weight
+    gradients to bf16. Same contract as :func:`fused_decoder_backward_plain`
+    on bf16 input. Its device-memory scratch is the f32 backward's (records,
+    partial gradients, packed weights), and the float32 gradients and
+    features' cotangent before their rounding."""
+    global dec_bf16_bwd_launches
+    from multimodal_mtrssm_tpu_torch.ops.kernels import build
+
+    N = feats.shape[0]
+    _check_dec(weights, cfg, feats, {"g": (g, (N, *_dec_frames_shape(cfg)))}, torch.bfloat16)
+    dx = torch.zeros_like(feats) if want_dx else None
+    if N == 0:
+        return dx, tuple(torch.zeros_like(t) for t in weights)
+    lib = build.load_library()
+    dims = _dec_dims(cfg, N)
+    ptrs = (ctypes.c_void_p * len(weights))(*(t.data_ptr() for t in weights))
+    with torch.cuda.device(feats.device):
+        stash, dstash, n_grad, chunks, n_packed = _sizes(lib.fused_decoder_sizes, dims,
+                                                         "decoder")[:5]
+        if n_grad != sum(t.numel() for t in weights):
+            raise RuntimeError(f"the kernel's gradient layout ({n_grad} floats) does not match "
+                               "the decoder's tensors")
+        d_flat = feats.new_empty(n_grad)
+        grads = tuple(v.view(t.shape) for v, t in
+                      zip(d_flat.split([t.numel() for t in weights]), weights))
+        # Records, partial gradients, the float32 gradients and features'
+        # cotangent, packed weights; each 16-byte aligned.
+        spans = [-(-n // 4) * 4 for n in (N * stash, N * dstash, chunks * n_grad, n_grad,
+                                          N * cfg.in_features, n_packed)]
+        scratch = torch.empty(sum(spans), dtype=torch.float32, device=feats.device)
+        offs = [scratch.data_ptr() + 4 * sum(spans[:i]) for i in range(len(spans))]
+        stream = torch.cuda.current_stream(feats.device).cuda_stream
+        err = lib.fused_decoder_bf16_backward(
+            ctypes.cast(ptrs, ctypes.c_void_p), len(weights), feats.data_ptr(), g.data_ptr(),
+            None if dx is None else dx.data_ptr(), d_flat.data_ptr(), *offs, dims, stream)
+    build.check(err)
+    dec_bf16_bwd_launches += 1
+    return dx, grads
+
+
 def fused_decoder_apply(decoder: Decoder, feats: torch.Tensor) -> torch.Tensor:
     """The decoder on features ``[..., F]`` → NHWC frames ``[..., 32, 32,
     1]`` through the fused kernels (CUDA tensors) or their plain versions
@@ -826,9 +953,18 @@ def fused_decoder_apply(decoder: Decoder, feats: torch.Tensor) -> torch.Tensor:
                          f"got {tuple(feats.shape)}")
     if feats.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no fused decoder route for device {feats.device}")
-    ops = ((fused_decoder_forward_cuda, fused_decoder_backward_cuda)
-           if feats.device.type == "cuda" else (fused_decoder_plain, fused_decoder_backward_plain))
+    if feats.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the fused decoder kernels take float32 or bfloat16 features, got "
+                         f"{feats.dtype}")
+    if feats.device.type == "cpu":
+        ops = (fused_decoder_plain, fused_decoder_backward_plain)
+    elif feats.dtype == torch.bfloat16:
+        ops = (fused_decoder_bf16_forward_cuda, fused_decoder_bf16_backward_cuda)
+    else:
+        ops = (fused_decoder_forward_cuda, fused_decoder_backward_cuda)
     lead = feats.shape[:-1]
     flat = feats.reshape(-1, cfg.in_features).contiguous()
-    out = FusedStackFunction.apply(ops, cfg, flat, *decoder_weights(decoder))
+    # bf16 features take the float32 master weights cast inside the stack.
+    weights = (w.to(feats.dtype) for w in decoder_weights(decoder))
+    out = FusedStackFunction.apply(ops, cfg, flat, *weights)
     return out.reshape(*lead, *out.shape[1:])

@@ -46,7 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from multimodal_mtrssm_tpu_torch.nn.core import Act, gru_cell, transition_step, two_layer
-from multimodal_mtrssm_tpu_torch.ops.distributions import block_probs, st_sample
+from multimodal_mtrssm_tpu_torch.ops.distributions import at_least_f32, block_probs, st_sample
 from multimodal_mtrssm_tpu_torch.ops.fusion import mopoe_mix_log_probs
 
 N_WEIGHTS = 20
@@ -81,17 +81,25 @@ def recurrence_forward_plain(
     tensors of ``MoPoEMRSSM.representation_weights`` in torch layout.
 
     Returns ``(deter, prior_logits, prior_stoch, mixed_logits, post_stoch)``,
-    each ``[T, B, ·]``."""
-    deter, stoch = init_deter, init_stoch
+    each ``[T, B, ·]``.
+
+    The carry runs in ``init_deter``'s dtype, the layers in their inputs'
+    (bf16 for a full-bf16 model): the logits leave each step in f32 for the
+    f32 islands (fusion, sampling), and the f32 sample is cast to the
+    carry's dtype, as JAX's scan does (``models/mrssm.py:388-417``)."""
+    deter = init_deter
+    stoch = init_stoch.to(deter.dtype)
     outs: list[tuple[torch.Tensor, ...]] = []
     for t in range(actions.shape[0]):
         deter, prior_logits = transition_step(weights[:12], actions[t], stoch, deter, act)
+        prior_logits = at_least_f32(prior_logits)
         prior_stoch = st_sample(prior_logits, g_prior[t], class_size, category_size)
         a_logits = two_layer(torch.cat([deter, a_emb[t]], dim=-1), *weights[12:16], act)
         v_logits = two_layer(torch.cat([deter, v_emb[t]], dim=-1), *weights[16:20], act)
         mixed = mopoe_mix_log_probs(a_logits, v_logits)
-        stoch = st_sample(mixed, g_post[t], class_size, category_size)
-        outs.append((deter, prior_logits, prior_stoch, mixed, stoch))
+        post_stoch = st_sample(mixed, g_post[t], class_size, category_size)
+        outs.append((deter, prior_logits, prior_stoch, mixed, post_stoch))
+        stoch = post_stoch.to(deter.dtype)
     return tuple(torch.stack(seq) for seq in zip(*outs))
 
 
@@ -181,6 +189,8 @@ def recurrence_backward_plain(
     chaining the deter recurrence from ``prev_deter[0]`` and teacher-forcing
     each posterior sample's value from the record
     (``stored.detach() + (p - p.detach())``), and takes ``autograd.grad``.
+    The float32 sample enters the step in the carry's dtype, as in the
+    forward, so a bf16 forward's float32 parameters get float32 gradients.
 
     Returns the 20 weight grads (torch layout), then ``d_actions``,
     ``d_a_emb``, ``d_v_emb`` ``[T, B, ·]``, ``d_init_deter`` and
@@ -199,7 +209,9 @@ def recurrence_backward_plain(
         outputs: list[torch.Tensor] = []
         cots: list[torch.Tensor] = []
         for t in range(T):
-            deter, prior_logits = transition_step(w[:12], xs[0][t], stoch, deter, act)
+            deter, prior_logits = transition_step(w[:12], xs[0][t], stoch.to(deter.dtype), deter,
+                                                  act)
+            prior_logits = at_least_f32(prior_logits)
             a_logits = two_layer(torch.cat([deter, xs[1][t]], dim=-1), *w[12:16], act)
             v_logits = two_layer(torch.cat([deter, xs[2][t]], dim=-1), *w[16:20], act)
             mixed = mopoe_mix_log_probs(a_logits, v_logits)

@@ -47,7 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from multimodal_mtrssm_tpu_torch.nn.core import Act, mtrnn_step, two_layer
-from multimodal_mtrssm_tpu_torch.ops.distributions import block_probs, st_sample
+from multimodal_mtrssm_tpu_torch.ops.distributions import at_least_f32, block_probs, st_sample
 from multimodal_mtrssm_tpu_torch.ops.fusion import mopoe_mix_log_probs
 from multimodal_mtrssm_tpu_torch.ops.kernels.recurrence import (
     DW_CHUNK,
@@ -132,18 +132,23 @@ def _mt_step(w: Sequence[torch.Tensor], action: torch.Tensor, a_emb: torch.Tenso
     """One hierarchical step (``train_step_mt._mt_forward_step``) on the 28
     weights; ``sample(logits, site, class, category)`` draws the four
     sites (0 l-prior, 1 l-posterior, 2 h-prior, 3 h-posterior). Returns the
-    12 outputs."""
+    12 outputs.
+
+    The deter and integrator carries run in their own dtype (bf16 for a
+    full-bf16 model) and the f32 stoch samples enter in it; the logits leave
+    in f32 for the f32 islands, as JAX's scan (``models/mmtrssm.py:340-353``)."""
     hd0, ld0, hs0, ls0, hidh0, hidl0 = carry
+    hs0, ls0 = hs0.to(ld0.dtype), ls0.to(ld0.dtype)
     lc, lk, hc, hk = spec.ls_class, spec.ls_category, spec.hs_class, spec.hs_category
     l_deter, hid_l = mtrnn_step(w[0:4], torch.cat([action, ls0, hs0], -1), ld0, hidl0,
                                 spec.l_tau)
-    lp_logits = two_layer(l_deter, *w[8:12], act)
+    lp_logits = at_least_f32(two_layer(l_deter, *w[8:12], act))
     a_logits = two_layer(torch.cat([l_deter, a_emb], -1), *w[20:24], act)
     v_logits = two_layer(torch.cat([l_deter, v_emb], -1), *w[24:28], act)
     mixed = mopoe_mix_log_probs(a_logits, v_logits)
     h_deter, hid_h = mtrnn_step(w[4:8], hs0, hd0, hidh0, spec.h_tau)
-    hp_logits = two_layer(h_deter, *w[12:16], act)
-    hq_logits = two_layer(torch.cat([l_deter, h_deter], -1), *w[16:20], act)
+    hp_logits = at_least_f32(two_layer(h_deter, *w[12:16], act))
+    hq_logits = at_least_f32(two_layer(torch.cat([l_deter, h_deter], -1), *w[16:20], act))
     return (h_deter, l_deter, hid_h, hid_l,
             lp_logits, sample(lp_logits, 0, lc, lk), mixed, sample(mixed, 1, lc, lk),
             hp_logits, sample(hp_logits, 2, hc, hk), hq_logits, sample(hq_logits, 3, hc, hk))
@@ -797,8 +802,12 @@ class MTRecurrenceFunction(torch.autograd.Function):
         init6, seqs6, weights = saved[3:9], saved[9:15], saved[15:]
         dims = mt_out_dims(init6[0].shape[-1], init6[1].shape[-1], ctx.spec)
         T, B = actions.shape[:2]
-        gouts = tuple(actions.new_zeros((T, B, d)) if g is None else g.contiguous()
-                      for g, d in zip(gouts, dims))
+        # The carries' cotangents in the carries' dtype, the logits' and
+        # samples' (outputs 4-11) in at least f32.
+        wide = torch.promote_types(actions.dtype, torch.float32)
+        gouts = tuple(g.contiguous() if g is not None else actions.new_zeros(
+            (T, B, d), dtype=actions.dtype if i < 4 else wide)
+            for i, (g, d) in enumerate(zip(gouts, dims)))
         args = (weights, actions, a_emb, v_emb, shift_carries(init6, seqs6), gouts, ctx.spec)
         if ctx.act is None:
             grads = mt_recurrence_backward_cuda(*args)

@@ -103,11 +103,13 @@ def jax_scan_gumbels(key, cfg, B: int, T: int) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def scan_family(name: str, activation: str = "ELU", conv_dtype: str | None = None):
+def scan_family(name: str, activation: str = "ELU", conv_dtype: str | None = None,
+                compute_dtype: str = "float32"):
     """``family``'s small models on JAX's XLA scan (``use_pallas_train=
     False``) and the port's plain route, with ``activation`` in the
-    recurrence and ``conv_dtype`` (None or "bfloat16") in the conv stacks;
-    the same weights (eval mode)."""
+    recurrence, ``conv_dtype`` (None or "bfloat16") in the conv stacks and
+    ``compute_dtype`` ("float32" or "bfloat16") in the model; the same
+    weights (eval mode)."""
     import torch
 
     from conftest import small_encoder_config
@@ -135,21 +137,22 @@ def scan_family(name: str, activation: str = "ELU", conv_dtype: str | None = Non
     common = dict(init_proj_cells=32, activation_name=activation, use_pallas_train=False)
     jdt = None if conv_dtype is None else getattr(jnp, conv_dtype)
     pdt = None if conv_dtype is None else getattr(torch, conv_dtype)
+    jcd, pcd = getattr(jnp, compute_dtype), getattr(torch, compute_dtype)
     if name == "mmtrssm":
         jmodel = JaxMoPoEMMTRSSM(JaxMMTRSSMConfig(
             audio_encoder=enc, vision_encoder=enc, audio_decoder=jdec, vision_decoder=jdec,
-            conv_dtype=jdt, **common))
+            conv_dtype=jdt, compute_dtype=jcd, **common))
         port = MoPoEMMTRSSM(MMTRSSMConfig(
             audio_encoder=penc, vision_encoder=penc, audio_decoder=pdec, vision_decoder=pdec,
-            input_noise_std=0.0, conv_dtype=pdt, **common))
+            input_noise_std=0.0, conv_dtype=pdt, compute_dtype=pcd, **common))
         export = export_reference_mmtrssm_state_dict
     else:
         jmodel = JaxMoPoEMRSSM(JaxMRSSMConfig(
             audio_encoder=enc, vision_encoder=enc, audio_decoder=jdec, vision_decoder=jdec,
-            conv_dtype=jdt, **common))
+            conv_dtype=jdt, compute_dtype=jcd, **common))
         port = MoPoEMRSSM(MRSSMConfig(
             audio_encoder=penc, vision_encoder=penc, audio_decoder=pdec, vision_decoder=pdec,
-            input_noise_std=0.0, conv_dtype=pdt, **common))
+            input_noise_std=0.0, conv_dtype=pdt, compute_dtype=pcd, **common))
         export = export_reference_state_dict
     port.init(torch.Generator().manual_seed(9))
     return jmodel, params_from_port(jmodel, port, export), port.eval(), export
@@ -218,11 +221,12 @@ def export_rssm_state_dict(params) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def variant_family(name: str, input_noise_std=0.0):
+def variant_family(name: str, input_noise_std=0.0, compute_dtype: str = "float32"):
     """A small ``"weighted"`` (WeightedMoPoE-MRSSM) or ``"rssm"`` model in
     both packages on the port's seeded torch init (``params_from_port``),
-    with ``scan_family``'s narrow decoders and ``input_noise_std``: the JAX
-    model, its params, the port model (eval mode) and the exporter."""
+    with ``scan_family``'s narrow decoders, ``input_noise_std`` and
+    ``compute_dtype``: the JAX model, its params, the port model (eval
+    mode) and the exporter."""
     import torch
 
     from conftest import small_encoder_config
@@ -248,17 +252,19 @@ def variant_family(name: str, input_noise_std=0.0):
                channels=(8, 4, 1), num_residual_blocks=0)
     jdec, pdec = JaxDecoderConfig(**dec), DecoderConfig(**dec)
     common = dict(init_proj_cells=32, input_noise_std=input_noise_std)
+    jcd, pcd = getattr(jnp, compute_dtype), getattr(torch, compute_dtype)
     if name == "weighted":
         jmodel = JaxWeighted(JaxWeightedConfig(audio_encoder=enc, vision_encoder=enc,
                                                audio_decoder=jdec, vision_decoder=jdec,
-                                               use_pallas_train=False, **common))
+                                               use_pallas_train=False, compute_dtype=jcd,
+                                               **common))
         port = WeightedMoPoEMRSSM(WeightedMRSSMConfig(
             audio_encoder=penc, vision_encoder=penc, audio_decoder=pdec, vision_decoder=pdec,
-            **common))
+            compute_dtype=pcd, **common))
         export = export_weighted_state_dict
     else:
-        jmodel = JaxRSSM(JaxRSSMConfig(encoder=enc, decoder=jdec, **common))
-        port = RSSM(RSSMConfig(encoder=penc, decoder=pdec, **common))
+        jmodel = JaxRSSM(JaxRSSMConfig(encoder=enc, decoder=jdec, compute_dtype=jcd, **common))
+        port = RSSM(RSSMConfig(encoder=penc, decoder=pdec, compute_dtype=pcd, **common))
         export = export_rssm_state_dict
     port.init(torch.Generator().manual_seed(9))
     return jmodel, params_from_port(jmodel, port, export), port.eval(), export

@@ -47,13 +47,16 @@ CONFIGS = {"mopoe_mrssm": 1_734_842, "mopoe_mmtrssm": 1_747_386,
 
 def _same_fields(port_cfg, jax_cfg, where: str) -> None:
     """Every field of the port's config dataclass equals JAX's field of the
-    same name (nested encoder and decoder configs field for field)."""
+    same name (nested encoder and decoder configs field for field; the
+    compute dtype, torch's and JAX's, by name)."""
     for f in dataclasses.fields(port_cfg):
         ours, theirs = getattr(port_cfg, f.name), getattr(jax_cfg, f.name)
         if dataclasses.is_dataclass(ours):
             _same_fields(ours, theirs, f"{where}.{f.name}")
-        else:
-            assert ours == theirs, (where, f.name, ours, theirs)
+            continue
+        if f.name == "compute_dtype":
+            ours, theirs = str(ours).removeprefix("torch."), jax.numpy.dtype(theirs).name
+        assert ours == theirs, (where, f.name, ours, theirs)
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))

@@ -1999,3 +1999,115 @@ def test_two_gloo_ranks_on_one_card_match_one_process(cuda_device, tmp_path):
         scale = max(1.0, max(float(np.abs(g).max()) for g in ref["grads"].values()))
         for k, g in ref["grads"].items():
             np.testing.assert_allclose(r["grads"][k], g, rtol=0, atol=3e-4 * scale, err_msg=k)
+
+
+# ---- full-model bf16 and the bf16 fused decoder -------------------------------------------
+
+
+def decoder_f32_digest(dev) -> str:
+    """The digest of the f32 fused decoder's frames, features' cotangent and
+    weight gradients on the MRSSM vision decoder at N=240 (seeded features
+    and cotangent)."""
+    dec = _decoder("mrssm", dev)
+    w = [t.detach() for t in fused_conv.decoder_weights(dec)]
+    rng = np.random.default_rng(240)
+    feats = torch.tensor(rng.standard_normal((240, 48)).astype(np.float32), device=dev)
+    g = torch.tensor(rng.standard_normal((240, 32, 32, 1)).astype(np.float32), device=dev)
+    with torch.no_grad():
+        out = fused_conv.fused_decoder_forward_cuda(w, dec.cfg, feats)
+        dx, dw = fused_conv.fused_decoder_backward_cuda(w, dec.cfg, feats, g, True)
+    return _digest([out, dx, *dw])
+
+
+# decoder_f32_digest on an NVIDIA H100 80GB HBM3, taken on the f32 decoder
+# kernels as they stood before they became templates on their element type
+# (the same digest on both trees, in one call).
+DECODER_F32_DIGEST = "4dfd3336f064fb4b83f68c02967d1bbca5e4a459a917f316840f62f113c08ec1"
+
+
+@pytest.mark.gpu
+def test_fused_decoder_f32_bits_unchanged_by_the_bf16_kernels(cuda_device):
+    assert decoder_f32_digest(cuda_device) == DECODER_F32_DIGEST
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family,N", [("mrssm", 240), ("mmtrssm", 240), ("mrssm", 241),
+                                      ("mmtrssm", 7), ("mrssm", 1), ("mrssm", 3840)])
+def test_fused_decoder_bf16_kernels_match_plain(cuda_device, family, N):
+    """The bf16 decoder's forward against the plain bf16 version within
+    1e-2 × scale and the f32 kernels within 0.1; its backward (every weight
+    gradient and the features', bf16) against the plain bf16 backward within
+    2e-2 × scale per tensor; two launches bit-identical, and the backward
+    without the features' cotangent gives the same weight-gradient bits.
+    N=1, 7 and 241 leave a ragged tile of 2 frames a block."""
+    dec = _decoder(family, cuda_device)
+    w32 = [t.detach() for t in fused_conv.decoder_weights(dec)]
+    w = [t.to(torch.bfloat16) for t in w32]
+    rng = np.random.default_rng(N)
+    f32 = torch.tensor(rng.standard_normal((N, dec.cfg.in_features)).astype(np.float32),
+                       device=cuda_device)
+    feats = f32.to(torch.bfloat16)
+    g = torch.tensor(rng.standard_normal((N, 32, 32, 1)).astype(np.float32),
+                     device=cuda_device).to(torch.bfloat16)
+    with torch.no_grad():
+        got = fused_conv.fused_decoder_bf16_forward_cuda(w, dec.cfg, feats)
+        again = fused_conv.fused_decoder_bf16_forward_cuda(w, dec.cfg, feats)
+        ref32 = fused_conv.fused_decoder_forward_cuda(w32, dec.cfg, f32)
+        dx, dw = fused_conv.fused_decoder_bf16_backward_cuda(w, dec.cfg, feats, g, True)
+        dx2, dw2 = fused_conv.fused_decoder_bf16_backward_cuda(w, dec.cfg, feats, g, True)
+        none, dw3 = fused_conv.fused_decoder_bf16_backward_cuda(w, dec.cfg, feats, g, False)
+        plain = fused_conv.fused_decoder_plain(w, dec.cfg, feats)
+    ref_dx, ref_dw = fused_conv.fused_decoder_backward_plain(w, dec.cfg, feats, g, True)
+    assert got.dtype == dx.dtype == torch.bfloat16 and all(t.dtype == torch.bfloat16 for t in dw)
+    assert _scaled_err(got.float(), plain.float()) <= BF16_FWD_TOL
+    assert float((got.float() - ref32).abs().max()) <= BF16_VS_F32
+    parity.check_gradients([t.float() for t in (*dw, dx)], [t.float() for t in (*ref_dw, ref_dx)],
+                           BF16_BWD_TOL)
+    assert torch.equal(got, again)
+    assert all(torch.equal(a, b) for a, b in zip([*dw, dx], [*dw2, dx2]))
+    assert none is None and all(torch.equal(a, b) for a, b in zip(dw, dw3))
+
+
+@pytest.mark.gpu
+def test_fused_decoder_apply_on_bf16_features_launches_the_bf16_kernels(cuda_device):
+    """bf16 features through ``fused_decoder_apply``: a forward and its
+    backward launch each bf16 decoder kernel once and nothing else, bf16
+    frames out, the float32 parameters' gradients in float32; the bf16
+    wrappers refuse float32 features."""
+    dec = _decoder("mmtrssm", cuda_device)
+    feats = torch.randn(2, 3, 96, device=cuda_device).to(torch.bfloat16).requires_grad_()
+    kernels.reset_launch_counts()
+    frames = kernels.fused_decoder_apply(dec, feats)
+    frames.float().square().sum().backward()
+    assert frames.shape == (2, 3, 32, 32, 1) and frames.dtype == torch.bfloat16
+    assert feats.grad is not None and feats.grad.dtype == torch.bfloat16
+    assert all(p.grad.dtype == torch.float32 and bool(p.grad.isfinite().all())
+               for p in dec.parameters())
+    assert kernels.launch_counts() == {**dict.fromkeys(kernels.LAUNCH_COUNTERS, 0),
+                                      "fused_decoder_fwd_bf16": 1, "fused_decoder_bwd_bf16": 1}
+    w = [t.detach().to(torch.bfloat16) for t in fused_conv.decoder_weights(dec)]
+    with pytest.raises(ValueError, match="dtype"):
+        fused_conv.fused_decoder_bf16_forward_cuda(w, dec.cfg, torch.zeros(2, 96,
+                                                                           device=cuda_device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family,cfg_cls,layout", [
+    (MoPoEMRSSM, MRSSMConfig, "nhwc"), (MoPoEMRSSM, MRSSMConfig, "fused_enc"),
+    (MoPoEMMTRSSM, MMTRSSMConfig, "nhwc"), (MoPoEMMTRSSM, MMTRSSMConfig, "fused_enc")])
+def test_full_bf16_train_step_on_the_card_matches_the_cpu(cuda_device, family, cfg_cls, layout):
+    """A train step at ``compute_dtype=torch.bfloat16`` on the plain route
+    (the bf16 recurrence, cuDNN's or the bf16 fused encoder's convs in
+    bf16) against the CPU route, as ``parity.check_train_step`` with the
+    bf16 bounds: loss terms within 1e-2 of the loss, gradients 5e-2 × scale;
+    Gumbel near-ties of 1e-2 skipped for the next seed. No recurrence or
+    rollout kernel, and at fused_enc the bf16 encoder kernels alone; the
+    default ``"auto"`` refused, naming the plain route."""
+    cfg = cfg_cls(compute_dtype=torch.bfloat16, use_pallas_train=False, conv_layout=layout)
+    _train_step_card_vs_cpu(family, cfg, cuda_device, tie_eps=1e-2, rtol=1e-2, rel=5e-2,
+                            shape=(2, 5), seeds=30)
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    bf16_enc = {"fused_encoder_fwd_bf16", "fused_encoder_bwd_bf16"}
+    assert set(counts) == (bf16_enc if layout == "fused_enc" else set()), counts
+    with pytest.raises(ValueError, match="use_pallas_train=False"):
+        family(cfg_cls(compute_dtype=torch.bfloat16))

@@ -142,8 +142,9 @@ def test_rssm_config_refusals_and_routes():
     assert not RSSM(RSSMConfig()).plain
     with pytest.raises(ValueError, match="MRSSM-only"):
         RSSMConfig(use_pallas_train="stacked")
-    with pytest.raises(ValueError, match="item 8"):
-        RSSMConfig(compute_dtype=torch.bfloat16)
+    assert RSSMConfig(compute_dtype=torch.bfloat16).compute_dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="compute_dtype"):
+        RSSMConfig(compute_dtype=torch.float16)
     with pytest.raises(ValueError, match="remat"):
         RSSMConfig(remat="yes")
 

@@ -163,6 +163,8 @@ def test_default_config_is_the_reference_yaml():
             ours, theirs = getattr(cfg, f.name), getattr(jcfg, f.name)
         if dataclasses.is_dataclass(ours):
             ours, theirs = dataclasses.asdict(ours), dataclasses.asdict(theirs)
+        if f.name == "compute_dtype":  # torch's and JAX's dtypes, by name
+            ours, theirs = str(ours).removeprefix("torch."), jnp.dtype(theirs).name
         assert ours == theirs, f.name
     assert cfg.input_noise_std == 0.1 and cfg.feature_size == 96
     port, jmodel = MoPoEMMTRSSM(cfg), JaxMoPoEMMTRSSM(jcfg)

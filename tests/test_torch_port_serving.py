@@ -128,6 +128,8 @@ def test_default_config_is_the_reference_yaml():
             ours, theirs = getattr(cfg, f.name), getattr(jcfg, f.name)
         if dataclasses.is_dataclass(ours):
             ours, theirs = dataclasses.asdict(ours), dataclasses.asdict(theirs)
+        if f.name == "compute_dtype":  # torch's and JAX's dtypes, by name
+            ours, theirs = str(ours).removeprefix("torch."), jnp.dtype(theirs).name
         assert ours == theirs, f.name
     port, jmodel = MoPoEMRSSM(cfg), JaxMoPoEMRSSM(jcfg)
     assert count_params(port) == jax_count_params(jax.eval_shape(jmodel.init,
