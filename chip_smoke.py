@@ -26,7 +26,13 @@ tree, this tree, parent, each in a process of its own
 the bf16 encoder kernels (clock64 at each weight slice and each
 weight-gradient block; the forward also without its tensor-core products,
 and without its ldmatrix loads) and prints where a block's cycles go
-(``bf16_stamps_phase``).
+(``bf16_stamps_phase``). ``--bf16-decoder [PARENT]`` does the same for the
+bf16 fused decoder kernels (call and device ms of each pass at N=240 and
+3840, 48- and 96-wide features, beside the cuDNN ``Decoder`` on the same
+bf16 features, and each kernel's tensor-core instructions in the built
+library; ``bf16_decoder_phase``), and ``--bf16-decoder-racecheck`` runs
+compute-sanitizer's racecheck and synccheck over one launch of each
+(``bf16_decoder_racecheck``).
 Four configurations go through the serving and training phases, each with
 seeded random weights (no trained checkpoint or dataset on the machine;
 the shapes and the path are the real ones): MoPoE-MRSSM (``MRSSMConfig()``),
@@ -239,7 +245,8 @@ first two configurations' latent features.
     within 0.1 of the f32 kernel, backward 2e-2 × scale per tensor, two
     launches bit-identical), their CUDA-event and device ms beside the
     plain versions, the f32 kernels and cuDNN's ``Decoder`` on bf16
-    features, their bound at the bf16 peak; (b) ``MRSSMConfig`` and
+    features, their bound at the bf16 peak (a profiler window that sees
+    none of the forward's kernels prints what it saw); (b) ``MRSSMConfig`` and
     ``MMTRSSMConfig`` at ``compute_dtype=torch.bfloat16`` and
     ``use_pallas_train=False``, at nhwc and fused_enc: ``"auto"`` refused
     naming the plain route; a fit of 2 × 3 steps at B=8 T=30 on 24
@@ -255,7 +262,10 @@ first two configurations' latent features.
     float32 states and frames out of an observe, ``/observe`` and two
     ``/imagine`` through ``InferenceServer`` against the CPU path, the
     weighted model's imagination on ``rollout.cu`` held to the plain
-    rollout (``parity.check_rollout``).
+    rollout (``parity.check_rollout``). After phase 11, every pass of
+    both bf16 stacks (forward, cotangent, weight gradients) holds
+    ``HMMA.16816.F32.BF16`` instructions in the built library
+    (``cuobjdump -sass``).
 
 ``python3 chip_smoke.py --learning-demo`` runs only the learning
 demonstration's long runs (``learning_demo_phase``: ``demo_e2e`` at the JAX
@@ -2008,11 +2018,16 @@ def _device_ms(fn, key: str, reps: int = 10) -> float | None:
     return _device_breakdown(fn, (key,), reps)[key]
 
 
-def _device_breakdown(fn, keys, reps: int = 10) -> dict[str, float | None]:
+def _device_breakdown(fn, keys, reps: int = 10, seen: list | None = None,
+                      ) -> dict[str, float | None]:
     """Device ms a call of ``fn`` spends in the kernels whose names hold each
     of ``keys``, from one ``torch.profiler`` window of ``reps`` calls; None
     for a key the profiler did not see (or where it does not start or
-    stop). Errors of ``fn`` itself propagate."""
+    stop). A key seen fewer times than ``reps`` is printed: late in a long
+    process the profiler loses device records (the launches are all there),
+    so such a window reads low. ``seen``, where given, receives (name,
+    count, device ms) of every event the window holds. Errors of ``fn``
+    itself propagate."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2035,10 +2050,15 @@ def _device_breakdown(fn, keys, reps: int = 10) -> dict[str, float | None]:
         except RuntimeError as e:
             print(f"torch.profiler did not stop: {e}")
             events = []
+    if seen is not None:
+        seen.extend((e.key[:60], e.count, round(_self_device_us(e) / 1e3, 4)) for e in events)
     out: dict[str, float | None] = {}
     for key in keys:
-        total = sum(_self_device_us(e) for e in events if key in e.key)
+        hit = [e for e in events if key in e.key and _self_device_us(e) > 0]
+        total, count = sum(_self_device_us(e) for e in hit), sum(e.count for e in hit)
         out[key] = total / reps / 1e3 if total > 0 else None
+        if 0 < count < reps:
+            print(f"torch.profiler: {key} seen {count} times in a window of {reps} calls")
     return out
 
 
@@ -2121,11 +2141,9 @@ def ptxas_report(procs: list[subprocess.Popen], sources=PTXAS_SOURCES) -> None:
                               r"(?:mt_)?rollout_[a-z_]*kernel|"
                               r"stacked_[a-z_]*kernel|reduce_(?:weight|stacked)_grads)", entry)
                 # Without the source's own prefix (an anonymous namespace's
-                # mangled name); the decoder's kernels are templates on
-                # their element type.
+                # mangled name).
                 kernel = re.sub(r"^[a-z0-9_]*_cu_[0-9a-f]{8}\d*", "", m.group(1)) if m else ""
-                tag = "<bf16>" if "kernelI13__nv_bfloat16" in entry else ""
-                name = kernel + tag if m and kernel + tag not in seen else None
+                name = kernel if m and kernel not in seen else None
                 if name:
                     seen.add(name)
             elif name and ("stack frame" in line or "Used" in line):
@@ -2722,6 +2740,447 @@ def bf16_stamps_phase() -> int:
                 if proc.returncode != 0:
                     raise RuntimeError(f"--bf16-encoder-stamps-at ({variant}) exited "
                                        f"{proc.returncode}")
+
+    return _timing_mode(run, ())
+
+
+# --bf16-decoder: the bf16 fused decoder kernels, this tree's and a parent's.
+DEC_BF16_SOURCES = ("fused_decoder_bf16_fwd.cu", "fused_decoder_bf16_bwd.cu")
+DEC_BF16_RESULT = "bf16-decoder result "  # a --bf16-decoder-at turn's last line: its JSON
+DEC_BF16_FRAMES = (240, 3840)
+
+
+def _dec_bf16_kernel_names() -> tuple[dict[str, str], dict[str, str]]:
+    """The bf16 decoder's forward and backward kernels as the imported
+    package names them: this tree's, or those of the first bf16 decoder
+    (the f32 decoder's kernels at bf16, in an archive timed by
+    ``--bf16-decoder``)."""
+    from multimodal_mtrssm_tpu_torch.ops.kernels import build
+
+    src = (build.CSRC / "fused_decoder_bf16_bwd.cu").read_text()
+    if DECODER_BF16_BWD_KERNELS["cotangent pass"] in src:
+        return DECODER_BF16_FWD_KERNELS, DECODER_BF16_BWD_KERNELS
+    return DECODER_FWD_KERNELS, DECODER_BF16_BWD_KERNELS_FIRST
+
+
+def bf16_decoder_at(root: Path) -> int:
+    """``--bf16-decoder-at ROOT``: one turn of ``--bf16-decoder`` on the
+    package under ROOT, imported ahead of this tree's: the bf16 decoder
+    kernels on the MRSSM and MMTRSSM vision decoders (48- and 96-wide
+    features, seeded weights, numpy features and cotangent) at N=240 and
+    3840: CUDA-event ms a forward and a backward call, each kernel's device
+    ms a call (``torch.profiler``), and the cuDNN ``Decoder`` on the same
+    bf16 features (forward, and forward + backward to the features and
+    every parameter; CUDA-event and device ms); then the result as one JSON
+    line."""
+    sys.path.insert(0, str(root.resolve()))
+    from multimodal_mtrssm_tpu_torch.ops.kernels import build
+
+    if root.resolve() not in Path(build.__file__).resolve().parents:
+        raise RuntimeError(f"--bf16-decoder-at {root}: imported {build.__file__} instead")
+
+    def run(dev, card):
+        import torch
+
+        from multimodal_mtrssm_tpu_torch.models import (
+            MMTRSSMConfig,
+            MoPoEMMTRSSM,
+            MoPoEMRSSM,
+            MRSSMConfig,
+        )
+        from multimodal_mtrssm_tpu_torch.ops.kernels import fused_conv
+
+        build.load_library()
+        print(f"build: {build.build_seconds:.2f} s ({build.library_path()})", flush=True)
+        fwd_names, bwd_names = _dec_bf16_kernel_names()
+        record: dict[str, dict] = {}
+        for family, cfg in ((MoPoEMRSSM, MRSSMConfig()), (MoPoEMMTRSSM, MMTRSSMConfig())):
+            dec = _seeded(family, cfg, dev).vision_decoder
+            w = [t.detach().to(torch.bfloat16) for t in fused_conv.decoder_weights(dec)]
+            params = list(dec.parameters())
+            for N in DEC_BF16_FRAMES:
+                rng = np.random.default_rng(N)
+                x = torch.tensor(rng.standard_normal((N, dec.cfg.in_features)).astype(np.float32),
+                                 device=dev).to(torch.bfloat16)
+                g = torch.tensor(rng.standard_normal((N, 32, 32, 1)).astype(np.float32),
+                                 device=dev).to(torch.bfloat16)
+                fwd = lambda: fused_conv.fused_decoder_bf16_forward_cuda(  # noqa: E731
+                    w, dec.cfg, x)
+                bwd = lambda: fused_conv.fused_decoder_bf16_backward_cuda(  # noqa: E731
+                    w, dec.cfg, x, g, True)
+                xg = x.clone().requires_grad_()
+                lib_fb = lambda: torch.autograd.grad(dec(xg), [xg, *params], g)  # noqa: E731
+                with torch.no_grad():
+                    k_ms, kb_ms = _median_ms(fwd, 20), _median_ms(bwd, 10)
+                    l_ms = _median_ms(lambda: dec(x), 20)
+                    fparts = _device_breakdown(fwd, tuple(fwd_names.values()))
+                    bparts = _device_breakdown(bwd, tuple(bwd_names.values()))
+                    l_dev = _device_breakdown(lambda: dec(x), ("",))[""]
+                with torch.enable_grad():
+                    lb_ms = _median_ms(lib_fb, 10)
+                    lb_dev = _device_breakdown(lib_fb, ("",))[""]
+                what = f"{_label(cfg)} N={N} F={dec.cfg.in_features}"
+                _print_breakdown(f"fused_decoder_fwd_bf16 {what}", fparts, fwd_names, card)
+                _print_breakdown(f"fused_decoder_bwd_bf16 {what}", bparts, bwd_names, card)
+                fseen = [v for v in fparts.values() if v is not None]
+                bseen = [v for v in bparts.values() if v is not None]
+                record[what] = {
+                    "fwd_ms": k_ms, "bwd_ms": kb_ms,
+                    "fwd_device_ms": sum(fseen) if fseen else None,
+                    "bwd_device_ms": sum(bseen) if bseen else None,
+                    "fwd_parts": {k: fparts[v] for k, v in fwd_names.items()},
+                    "bwd_parts": {k: bparts[v] for k, v in bwd_names.items()},
+                    "cudnn_fwd_ms": l_ms, "cudnn_fwd_device_ms": l_dev,
+                    "cudnn_fwd_bwd_ms": lb_ms, "cudnn_fwd_bwd_device_ms": lb_dev}
+                print(f"time bf16 decoder {what}: forward call {k_ms:.4f} ms, backward call "
+                      f"{kb_ms:.4f} ms (CUDA events); cuDNN Decoder on bf16 features forward "
+                      f"{l_ms:.4f} ms (device {l_dev}), forward + backward {lb_ms:.4f} ms "
+                      f"(device {lb_dev}) | {card}", flush=True)
+        print(DEC_BF16_RESULT + json.dumps(record), flush=True)
+
+    return _timing_mode(run, ())
+
+
+def bf16_decoder_phase(parent: Path | None = None) -> int:
+    """``--bf16-decoder [PARENT]``: ``bf16_decoder_at`` on this tree, in a
+    process of its own, beside ``ptxas``'s report of the bf16 decoder's
+    sources and the tensor-core instructions of its kernels
+    (``hmma_report``); with PARENT (an unpacked ``git archive`` of another
+    commit) in turns parent, this tree, this tree, parent, then each pass's
+    device ms a call against the parent's and cuDNN's (means of the
+    turns)."""
+    here = Path(__file__).resolve().parent
+
+    def run(dev, card):
+        from multimodal_mtrssm_tpu_torch.ops.kernels import build
+
+        roots = [parent, here, here, parent] if parent is not None else [here]
+        turns: dict[str, list[dict]] = {"parent": [], "change": []}
+        for root in roots:
+            label = "parent" if root == parent else "change"
+            print(f"---- --bf16-decoder turn: {label} ({root})", flush=True)
+            proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                     "--bf16-decoder-at", str(root)], stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            _CHILDREN.append(proc)
+            result = None
+            for line in proc.stdout:
+                print(line, end="", flush=True)
+                if line.startswith(DEC_BF16_RESULT):
+                    result = json.loads(line[len(DEC_BF16_RESULT):])
+            if proc.wait() != 0 or result is None:
+                raise RuntimeError(f"--bf16-decoder-at {root} exited {proc.returncode}")
+            turns[label].append(result)
+        build.load_library()
+        hmma_report(DECODER_BF16_HMMA)
+
+        def mean(label, get):
+            vals = [get(r) for r in turns[label]]
+            return None if not vals or None in vals else float(np.mean(vals))
+
+        for what in turns["change"][0]:
+            for key in ("fwd", "bwd"):
+                row = {label: mean(label, lambda r: r[what][f"{key}_device_ms"])
+                       for label in turns}
+                calls = {label: mean(label, lambda r: r[what][f"{key}_ms"]) for label in turns}
+                lib = "cudnn_fwd" if key == "fwd" else "cudnn_fwd_bwd"
+                cudnn = {label: mean(label, lambda r: r[what][f"{lib}_ms"]) for label in turns}
+                ratio = ("not measured" if None in row.values() else
+                         f"{row['change'] / row['parent']:.4f}")
+                print(f"fused_decoder_{key}_bf16 {what}: device {row['change']} ms a call, call "
+                      f"{calls['change']} ms (means of the turns); parent device {row['parent']}, "
+                      f"call {calls['parent']}; change / parent {ratio}; cuDNN Decoder "
+                      f"{'forward' if key == 'fwd' else 'forward + backward'} {cudnn} ms | "
+                      f"{card}")
+
+    return _timing_mode(run, DEC_BF16_SOURCES)
+
+
+def bf16_decoder_once() -> int:
+    """``--bf16-decoder-once``: each bf16 decoder kernel once at N=3 on the
+    MRSSM vision decoder (seeded weights, numpy features and cotangent),
+    synchronised: the program ``--bf16-decoder-racecheck`` hands
+    compute-sanitizer. Refuses to run without a card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
+        return 2
+    from multimodal_mtrssm_tpu_torch.models import MoPoEMRSSM, MRSSMConfig
+    from multimodal_mtrssm_tpu_torch.ops.kernels import fused_conv
+
+    dev = torch.device("cuda", 0)
+    dec = _seeded(MoPoEMRSSM, MRSSMConfig(), dev).vision_decoder
+    w = [t.detach().to(torch.bfloat16) for t in fused_conv.decoder_weights(dec)]
+    rng = np.random.default_rng(3)
+    x = torch.tensor(rng.standard_normal((3, dec.cfg.in_features)).astype(np.float32),
+                     device=dev).to(torch.bfloat16)
+    g = torch.tensor(rng.standard_normal((3, 32, 32, 1)).astype(np.float32),
+                     device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        fused_conv.fused_decoder_bf16_forward_cuda(w, dec.cfg, x)
+        fused_conv.fused_decoder_bf16_backward_cuda(w, dec.cfg, x, g, True)
+    torch.cuda.synchronize()
+    print("bf16 decoder kernels launched once each at N=3")
+    return 0
+
+
+def bf16_decoder_racecheck() -> int:
+    """``--bf16-decoder-racecheck``: compute-sanitizer's racecheck and
+    synccheck over ``--bf16-decoder-once`` (the bf16 decoder kernels'
+    shared-memory double buffers and barriers), each tool's report lines
+    printed; non-zero where the toolkit lacks the tool or a tool exits
+    non-zero (a hazard, or a device the tool refuses)."""
+    from multimodal_mtrssm_tpu_torch.ops.kernels import build
+
+    tool = Path(build.nvcc()).parent / "compute-sanitizer"
+    if not tool.is_file():
+        print(f"compute-sanitizer: not shipped ({tool})")
+        return 1
+    code = 0
+    for name, extra in (("racecheck", ["--racecheck-report", "all"]), ("synccheck", [])):
+        proc = subprocess.run([str(tool), "--tool", name, *extra, sys.executable,
+                               str(Path(__file__).resolve()), "--bf16-decoder-once"],
+                              capture_output=True, text=True, timeout=900, check=False)
+        lines = [ln.strip("= ") for ln in (proc.stdout + proc.stderr).splitlines()
+                 if ln.startswith("=========") and ln.strip("= ")]
+        print(f"compute-sanitizer --tool {name} over --bf16-decoder-once: exit "
+              f"{proc.returncode}; " + " | ".join(lines[-6:]))
+        code = code or proc.returncode
+    return code
+
+
+# The kernels hmma_report looks for: the bf16 decoder's forward, cotangent
+# and weight-gradient passes, and the bf16 encoder's.
+DECODER_BF16_HMMA = ("decoder_bf16_tc_fwd_kernel", "decoder_bf16_tc_dx_kernel",
+                     "decoder_bf16_tc_dw_kernel")
+ENCODER_BF16_HMMA = ("encoder_bf16_tc_fwd_kernel", "encoder_bf16_tc_dx_kernel",
+                     "encoder_bf16_tc_dw_kernel")
+
+
+def hmma_report(kernels) -> dict[str, int | None]:
+    """The bf16 tensor-core instructions (``HMMA.16816.F32.BF16``) in each
+    of ``kernels`` (substrings of their mangled names) in the built
+    library's SASS (``cuobjdump -sass``), printed; None for each where
+    ``cuobjdump`` is missing or fails (a measurement: "not measured")."""
+    from multimodal_mtrssm_tpu_torch.ops.kernels import build
+
+    counts: dict[str, int | None] = dict.fromkeys(kernels)
+    tool = Path(build.nvcc()).parent / "cuobjdump"
+    try:
+        sass = subprocess.run([str(tool), "-sass", str(build.library_path())],
+                              capture_output=True, text=True, timeout=300, check=True).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        print(f"cuobjdump -sass: not measured ({e})")
+        return counts
+    counts = dict.fromkeys(kernels, 0)
+    current = None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            current = next((k for k in kernels if k in line), None)
+        elif current is not None and "HMMA.16816.F32.BF16" in line:
+            counts[current] += 1
+    print("cuobjdump -sass, HMMA.16816.F32.BF16 instructions (every instantiation): "
+          + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    return counts
+
+
+# --bf16-decoder-stamps: global-timer stamps (ns, comparable across SMs) in a
+# copy of the bf16 decoder kernels. Each edit is (source, anchor,
+# replacement); a missing anchor fails the mode. Thread 0 stamps: in blocks
+# 100-107 of the forward, each slice's wait for its weights and its products
+# and epilogue; in the first 4096 blocks of the cotangent pass, each slice's
+# start; in every weight-gradient block its start, end, layer, class and
+# stages, and in chunk 0's blocks each stage's load issue, wait and
+# products.
+_DEC_STAMP_GTIME = ("__device__ __forceinline__ long long gtime() { long long t; "
+                    "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t)); return t; }\n")
+_DEC_STAMP_EDITS = [
+    ("fused_decoder_bf16.cuh", "namespace fdbf {\n\nusing namespace bmma;\n",
+     "namespace fdbf {\n\nusing namespace bmma;\n__device__ long long g_fw[8][128][3];\n"
+     "__device__ int g_fwl[128];\n__device__ long long g_dw[65536][5];\n"
+     "__device__ long long g_st[128][192];\n__device__ long long g_dx[4096][128];\n"
+     "__device__ int g_dxl[128];\n" + _DEC_STAMP_GTIME),
+    ("fused_decoder_bf16.cuh", "    fconv::mbar_wait(&bar[i & 1], (i >> 1) & 1);\n\n    int cls;\n",
+     "    long long* fw = tid == 0 && blockIdx.x >= 100 && blockIdx.x < 108 && i < 128\n"
+     "                        ? g_fw[blockIdx.x - 100][i] : nullptr;\n"
+     "    if (fw) fw[0] = gtime();\n    fconv::mbar_wait(&bar[i & 1], (i >> 1) & 1);\n"
+     "    if (fw) { fw[1] = gtime(); g_fwl[i] = sl.layer; }\n\n    int cls;\n"),
+    ("fused_decoder_bf16.cuh", "    schedule(sl, tasks, acc, red, run, emit);\n    __syncthreads();  "
+     "// the GEMM's outputs",
+     "    schedule(sl, tasks, acc, red, run, emit);\n    if (fw) fw[2] = gtime();\n"
+     "    __syncthreads();  // the GEMM's outputs"),
+    ("fused_decoder_bf16_bwd.cu",
+     "    fconv::mbar_wait(&bar[i & 1], (i >> 1) & 1);\n\n    const int l = sl.layer;\n",
+     "    fconv::mbar_wait(&bar[i & 1], (i >> 1) & 1);\n"
+     "    if (tid == 0 && blockIdx.x < 4096 && i < 127) {\n      g_dx[blockIdx.x][i] = gtime();\n"
+     "      if (blockIdx.x == 0) g_dxl[i] = sl.layer;\n    }\n\n    const int l = sl.layer;\n"),
+    ("fused_decoder_bf16_bwd.cu", "    sl = next_slice(P, 1, sl, stop);\n  }\n}\n",
+     "    sl = next_slice(P, 1, sl, stop);\n  }\n"
+     "  if (tid == 0 && blockIdx.x < 4096) g_dx[blockIdx.x][127] = gtime();\n}\n"),
+    ("fused_decoder_bf16_bwd.cu",
+     "  const Plan& P = shared_plan(Pp, sP);\n  bf16* zero = reinterpret_cast<bf16*>(smem);\n",
+     "  const Plan& P = shared_plan(Pp, sP);\n  const long long t_start = gtime();\n"
+     "  bf16* zero = reinterpret_cast<bf16*>(smem);\n"),
+    ("fused_decoder_bf16_bwd.cu", "  load(0);\n  for (int st = 0; st < stages; ++st) {\n"
+     "    if (st + 1 < stages) {\n      load(st + 1);\n",
+     "  long long* stp = chunk_i == 0 && tid == 0 && tile < 128 ? g_st[tile] : nullptr;\n"
+     "  load(0);\n  for (int st = 0; st < stages; ++st) {\n    const long long ta = gtime();\n"
+     "    if (st + 1 < stages) {\n      load(st + 1);\n"
+     "      if (stp && st < 64) stp[3 * st] = gtime() - ta;\n"),
+    ("fused_decoder_bf16_bwd.cu", "    __syncthreads();  // stage st is in place\n",
+     "    __syncthreads();  // stage st is in place\n"
+     "    if (stp && st < 64) stp[3 * st + 1] = gtime() - ta;\n"),
+    ("fused_decoder_bf16_bwd.cu", "    __syncthreads();  // stage st's buffer is free for stage st + 2\n",
+     "    if (stp && st < 64) stp[3 * st + 2] = gtime() - ta;\n"
+     "    __syncthreads();  // stage st's buffer is free for stage st + 2\n"),
+    ("fused_decoder_bf16_bwd.cu", "  if (split != 0) return;\n  // Gradient elements",
+     "  if (tid == 0 && blockIdx.y * gridDim.x + blockIdx.x < 65536) {\n"
+     "    long long* r = g_dw[blockIdx.y * gridDim.x + blockIdx.x];\n"
+     "    r[0] = t_start;\n    r[1] = gtime();\n    r[2] = l;\n    r[3] = rows ? cls : 4;\n"
+     "    r[4] = stages;\n  }\n  if (split != 0) return;\n  // Gradient elements"),
+]
+# Each source's own copy of the arrays (a __device__ array in a header is one
+# a translation unit): the forward's from fused_decoder_bf16_fwd.cu, the
+# backward passes' from fused_decoder_bf16_bwd.cu. Array `which` of
+# _DEC_STAMP_ARRAYS into `out`.
+_DEC_STAMP_ARRAYS = ("g_fw", "g_fwl", "g_dw", "g_st", "g_dx", "g_dxl")
+_DEC_STAMP_ENTRIES = {
+    src: (f'extern "C" int dbg_dec_stamps_{tag}(int which, void* out) {{\n'
+          + "".join(f"  if (which == {i}) return (int)cudaMemcpyFromSymbol(out, fdbf::{v}, "
+                    f"sizeof(fdbf::{v}));\n" for i, v in enumerate(_DEC_STAMP_ARRAYS))
+          + "  return -1;\n}\n")
+    for src, tag in (("fused_decoder_bf16_fwd.cu", "fwd"), ("fused_decoder_bf16_bwd.cu", "bwd"))}
+
+
+def _dec_stamped_copy(dst: Path) -> None:
+    """This tree's port package and configs copied under ``dst``, its bf16
+    decoder kernels stamped (``_DEC_STAMP_EDITS``)."""
+    import shutil
+
+    here = Path(__file__).resolve().parent
+    shutil.copytree(here / "multimodal_mtrssm_tpu_torch", dst / "multimodal_mtrssm_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copytree(here / "configs", dst / "configs")
+    csrc = dst / "multimodal_mtrssm_tpu_torch" / "csrc"
+    for name, old, new in _DEC_STAMP_EDITS:
+        text = (csrc / name).read_text()
+        if old not in text:
+            raise RuntimeError(f"--bf16-decoder-stamps: {name} lacks {old[:60]!r}")
+        (csrc / name).write_text(text.replace(old, new, 1))
+    for name, entry in _DEC_STAMP_ENTRIES.items():
+        (csrc / name).write_text((csrc / name).read_text() + entry)
+
+
+def bf16_decoder_stamps_at(root: Path) -> int:
+    """``--bf16-decoder-stamps-at ROOT``: the stamped kernels under ROOT on
+    the MRSSM vision decoder at N=3840 (and the forward's at N=240): a
+    forward's slices (weights' wait, products and epilogue, by GEMM), the
+    cotangent pass's µs a block by layer, the weight-gradient blocks by
+    layer and class (count, µs mean and max, stages, the span), and chunk
+    0's stages (load issue, wait, products) by layer."""
+    import ctypes
+    from collections import defaultdict
+
+    sys.path.insert(0, str(root.resolve()))
+    from multimodal_mtrssm_tpu_torch.ops.kernels import build, fused_conv
+
+    if root.resolve() not in Path(build.__file__).resolve().parents:
+        raise RuntimeError(f"--bf16-decoder-stamps-at {root}: imported {build.__file__} instead")
+
+    def run(dev, card):
+        import torch
+
+        from multimodal_mtrssm_tpu_torch.models import MoPoEMRSSM, MRSSMConfig
+
+        lib = build.load_library()
+        for tag in ("fwd", "bwd"):
+            getattr(lib, f"dbg_dec_stamps_{tag}").argtypes = [ctypes.c_int, ctypes.c_void_p]
+
+        def read(name, shape, dtype=np.int64):
+            buf = np.zeros(shape, dtype)
+            tag = "fwd" if name.startswith("g_fw") else "bwd"
+            build.check(getattr(lib, f"dbg_dec_stamps_{tag}")(_DEC_STAMP_ARRAYS.index(name),
+                                                                buf.ctypes.data))
+            return buf
+
+        dec = _seeded(MoPoEMRSSM, MRSSMConfig(), dev).vision_decoder
+        w = [t.detach().to(torch.bfloat16) for t in fused_conv.decoder_weights(dec)]
+        dims = fused_conv._dec_dims(dec.cfg, 3840)
+        for N in (240, 3840):
+            rng = np.random.default_rng(N)
+            x = torch.tensor(rng.standard_normal((N, dec.cfg.in_features)).astype(np.float32),
+                             device=dev).to(torch.bfloat16)
+            g = torch.tensor(rng.standard_normal((N, 32, 32, 1)).astype(np.float32),
+                             device=dev).to(torch.bfloat16)
+            with torch.no_grad():
+                for _ in range(3):
+                    fused_conv.fused_decoder_bf16_forward_cuda(w, dec.cfg, x)
+                torch.cuda.synchronize()
+                fw, fwl = read("g_fw", (8, 128, 3)), read("g_fwl", 128, np.int32)
+                n = int((fw[0, :, 2] > 0).sum())
+                wait, work = (fw[:, :n, 1] - fw[:, :n, 0]) / 1e3, (fw[:, :n, 2] - fw[:, :n, 1]) / 1e3
+                per: dict = defaultdict(lambda: [0, 0.0, 0.0])
+                for i in range(n):
+                    v = per[int(fwl[i])]
+                    v[0] += 1
+                    v[1] += float(wait[:, i].mean())
+                    v[2] += float(work[:, i].mean())
+                print(f"stamped forward N={N}, blocks 100-107: {n} slices, a block "
+                      f"{float(((fw[:, n - 1, 2] - fw[:, 0, 0]) / 1e3).mean()):.1f} us: weights' "
+                      f"wait {float(wait.mean(0).sum()):.1f}, products and epilogue "
+                      f"{float(work.mean(0).sum()):.1f}; by GEMM (slices, wait, work us): "
+                      + ", ".join(f"{k}: {v[0]}, {v[1]:.1f}, {v[2]:.1f}"
+                                  for k, v in sorted(per.items())) + f" | {card}")
+                if N != 3840:
+                    continue
+                for _ in range(3):
+                    fused_conv.fused_decoder_bf16_backward_cuda(w, dec.cfg, x, g, True)
+                torch.cuda.synchronize()
+            dx, dxl = read("g_dx", (4096, 128)), read("g_dxl", 128, np.int32)
+            nb = min(4096, -(-N // 2))
+            ns = int(np.argmax(dx[0, :127] == 0)) if (dx[0, :127] == 0).any() else 127
+            by: dict = defaultdict(float)
+            for i in range(ns):
+                nxt = dx[:nb, i + 1] if i + 1 < ns else dx[:nb, 127]
+                by[int(dxl[i])] += float(np.mean(nxt - dx[:nb, i])) / 1e3
+            print(f"stamped cotangent pass N={N}: {ns} slices, a block "
+                  f"{float(np.mean(dx[:nb, 127] - dx[:nb, 0])) / 1e3:.1f} us, span "
+                  f"{(dx[:nb, 127].max() - dx[:nb, 0].min()) / 1e3:.1f} us; us a block by layer: "
+                  + ", ".join(f"{k} {v:.1f}" for k, v in sorted(by.items())) + f" | {card}")
+            dw = read("g_dw", (65536, 5))
+            dw = dw[dw[:, 1] > 0]
+            t0 = dw[:, 0].min()
+            print(f"stamped weight-gradient pass N={N}: {len(dw)} blocks, span "
+                  f"{(dw[:, 1].max() - t0) / 1e3:.1f} us | {card}")
+            for (layer, cls) in sorted({(int(r[2]), int(r[3])) for r in dw}):
+                rs = dw[(dw[:, 2] == layer) & (dw[:, 3] == cls)]
+                d = (rs[:, 1] - rs[:, 0]) / 1e3
+                print(f"  layer {layer} {'bias' if cls == 4 else f'class {cls}'}: {len(rs)} "
+                      f"blocks, us mean {d.mean():.1f} max {d.max():.1f}, {rs[0, 4]} stages")
+            st = read("g_st", (128, 192)).reshape(128, 64, 3)
+            print("  chunk 0's stages by tile, ns mean: load issue, + wait, + products")
+            for t in range(fused_conv.bf16_sizes(lib, dims)["dw_tiles"]):
+                k = int((st[t, :, 2] > 0).sum())
+                if k:
+                    print(f"    tile {t}: {k} stages, {st[t, :k, 0].mean():.0f}, "
+                          f"{st[t, :k, 1].mean():.0f}, {st[t, :k, 2].mean():.0f}")
+
+    return _timing_mode(run, ())
+
+
+def bf16_decoder_stamps_phase() -> int:
+    """``--bf16-decoder-stamps``: ``bf16_decoder_stamps_at`` on a stamped copy
+    of this tree's kernels (under a temporary directory), in a process of
+    its own."""
+
+    def run(dev, card):
+        with tempfile.TemporaryDirectory() as tmp:
+            _dec_stamped_copy(Path(tmp))
+            proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                                   "--bf16-decoder-stamps-at", tmp], check=False)
+            if proc.returncode != 0:
+                raise RuntimeError(f"--bf16-decoder-stamps-at exited {proc.returncode}")
 
     return _timing_mode(run, ())
 
@@ -4571,10 +5030,19 @@ def learning_demo_phase(out: Path = LEARNING_OUT) -> int:
 
 # ---- phase 11: full-model bf16 and the bf16 fused decoder ------------------------------------
 
-# The device kernels of one fused_decoder_bf16_backward_cuda call: the f32
-# decoder's, instantiated at bf16, then the rounding of the gradients (a
-# forward call's are DECODER_FWD_KERNELS, at bf16).
-DECODER_BF16_BWD_KERNELS = {**DECODER_BWD_KERNELS, "rounding to bf16": "decoder_bf16_round_kernel"}
+# The device kernels of one fused_decoder_bf16_forward_cuda call and of one
+# fused_decoder_bf16_backward_cuda call, which recomputes through the
+# forward's; and the first bf16 decoder's (the f32 decoder's kernels at
+# bf16, then the rounding of the gradients), which --bf16-decoder times in a
+# parent archive.
+DECODER_BF16_FWD_KERNELS = {"pack": "decoder_bf16_tc_pack_kernel",
+                            "forward": "decoder_bf16_tc_fwd_kernel"}
+DECODER_BF16_BWD_KERNELS = {**DECODER_BF16_FWD_KERNELS,
+                            "cotangent pass": "decoder_bf16_tc_dx_kernel",
+                            "weight-gradient pass": "decoder_bf16_tc_dw_kernel",
+                            "reduce": "decoder_bf16_tc_reduce_kernel"}
+DECODER_BF16_BWD_KERNELS_FIRST = {**DECODER_BWD_KERNELS,
+                                  "rounding to bf16": "decoder_bf16_round_kernel"}
 # Full-model bf16 against the CPU: the steps of a row before the first Gumbel
 # near-tie of MIXED_TIE are compared (bf16 moves the logits by ~1e-3), at
 # least MIN_COMPARED of them.
@@ -4720,15 +5188,18 @@ def decoder_bf16_timings(cases: list[dict], dev, card: str) -> tuple[dict, dict,
         with torch.enable_grad():
             lb_ms = _median_ms(lambda: torch.autograd.grad(dec(xg), [xg, *params], g), 10)
         what = f"{c['label']} N={N} F={cfg.in_features}"
-        fwd_parts = _device_breakdown(lambda: fwd(w, cfg, x), tuple(DECODER_FWD_KERNELS.values()))
+        seen: list = []
+        fwd_parts = _device_breakdown(lambda: fwd(w, cfg, x),
+                                      tuple(DECODER_BF16_FWD_KERNELS.values()), seen=seen)
         if not any(fwd_parts.values()):
-            # A window that saw no kernel at all (phase 11's forward windows
-            # did so in one run, and not alone): once more, 50 calls.
-            print(f"fused_decoder_fwd_bf16 {what}: the profiler saw no kernel in 10 calls; "
-                  "taking 50")
+            # Full runs' windows can lose every device record (the launches
+            # are there, _device_breakdown): once more, 50 calls.
+            print(f"fused_decoder_fwd_bf16 {what}: the profiler saw none of its kernels in 10 "
+                  f"calls; it saw {seen or 'no event'}; taking 50")
             fwd_parts = _device_breakdown(lambda: fwd(w, cfg, x),
-                                          tuple(DECODER_FWD_KERNELS.values()), 50)
-        _print_breakdown(f"fused_decoder_fwd_bf16 {what}", fwd_parts, DECODER_FWD_KERNELS, card)
+                                          tuple(DECODER_BF16_FWD_KERNELS.values()), 50)
+        _print_breakdown(f"fused_decoder_fwd_bf16 {what}", fwd_parts, DECODER_BF16_FWD_KERNELS,
+                         card)
         bwd_parts = _device_breakdown(lambda: bwd(w, cfg, x, g, True),
                                       tuple(DECODER_BF16_BWD_KERNELS.values()))
         _print_breakdown(f"fused_decoder_bwd_bf16 {what}", bwd_parts, DECODER_BF16_BWD_KERNELS,
@@ -5150,6 +5621,10 @@ def _main(work: Path) -> int:
     bounds.update(dbf_bounds)
     library.update(dbf_library)
     runs.append(drive_full_bf16(dev, work / "full_bf16", card))
+    # Every pass of both bf16 stacks on the tensor cores.
+    hmma = hmma_report(DECODER_BF16_HMMA + ENCODER_BF16_HMMA)
+    if any(v == 0 for v in hmma.values()):
+        raise RuntimeError(f"a bf16 kernel has no HMMA.16816.F32.BF16 instruction: {hmma}")
 
     ptxas_report(ptxas)
     launches = {k: sum(run.get(k, 0) for run in runs) for k in runs[0]}
@@ -5216,7 +5691,10 @@ if __name__ == "__main__":
                  "--recurrence-fwd": recurrence_fwd_phase, "--rollout": rollout_phase,
                  "--stacked-recurrence-bwd": stacked_recurrence_bwd_phase,
                  "--learning-demo": learning_demo_phase, "--bf16-encoder": bf16_encoder_phase,
-                 "--bf16-encoder-stamps": bf16_stamps_phase}
+                 "--bf16-encoder-stamps": bf16_stamps_phase, "--bf16-decoder": bf16_decoder_phase,
+                 "--bf16-decoder-once": bf16_decoder_once,
+                 "--bf16-decoder-racecheck": bf16_decoder_racecheck,
+                 "--bf16-decoder-stamps": bf16_decoder_stamps_phase}
         if sys.argv[1:2] == ["--learning-demo"] and len(sys.argv) > 2:
             code = learning_demo_phase(Path(sys.argv[2]))
         elif sys.argv[1:2] == ["--bf16-encoder"] and len(sys.argv) > 2:
@@ -5225,6 +5703,12 @@ if __name__ == "__main__":
             code = bf16_encoder_at(Path(sys.argv[2]))
         elif sys.argv[1:2] == ["--bf16-encoder-stamps-at"] and len(sys.argv) > 2:
             code = bf16_stamps_at(Path(sys.argv[2]))
+        elif sys.argv[1:2] == ["--bf16-decoder"] and len(sys.argv) > 2:
+            code = bf16_decoder_phase(Path(sys.argv[2]).resolve())
+        elif sys.argv[1:2] == ["--bf16-decoder-at"] and len(sys.argv) > 2:
+            code = bf16_decoder_at(Path(sys.argv[2]))
+        elif sys.argv[1:2] == ["--bf16-decoder-stamps-at"] and len(sys.argv) > 2:
+            code = bf16_decoder_stamps_at(Path(sys.argv[2]))
         else:
             code = modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes else main()
     finally:

@@ -1,14 +1,9 @@
 // Shared code of the fused decoder kernels (fused_decoder_fwd.cu,
-// fused_decoder_bwd.cu, and at bf16 fused_decoder_bf16_fwd.cu and
-// fused_decoder_bf16_bwd.cu): the layer plan, the packing of the weights, the
+// fused_decoder_bwd.cu): the layer plan, the packing of the weights and the
 // forward, which the backward also launches to recompute and record the
-// activations, and the backward's passes (fused_decoder_bwd.cu says how they
-// work). What the decoder shares with the encoder (slices forward and
+// activations. What the decoder shares with the encoder (slices forward and
 // transposed, the bulk copy, the micro-kernel, the weight-gradient pass) is
-// in conv_common.cuh. The kernels that read or write device memory in the
-// decoder's element type T are templates: T = float, or T = bf16
-// (fused_decoder_bf16.cuh), whose forward rounds every layer's output to
-// bf16; inside, both compute in f32.
+// in conv_common.cuh.
 //
 // The decoder is a chain of three kinds of layer, each reading its torch
 // weight in its own layout (weight_index):
@@ -59,43 +54,12 @@
 // (megabytes) resident in VMEM; here one slice of one layer is resident.
 #pragma once
 
-#include <cuda_bf16.h>
-
 #include <algorithm>
 
 #include "conv_common.cuh"
 #include "mrssm_common.cuh"
 
 namespace fdec {
-
-// The element type T of the features, weights, frames and gradients in
-// device memory: its value as f32 (exact for bf16), a layer's f32 output as
-// the forward keeps it (rounded to T: a bf16 layer's output is a bf16 value
-// held in f32, so the next layer's products of two bf16 values are exact in
-// f32), and an f32 value stored as T.
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <class T>
-__device__ __forceinline__ float round_to(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-template <class T>
-__device__ __forceinline__ T store_as(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 store_as<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-// Element i of weight tensor t, as f32.
-template <class T>
-__device__ __forceinline__ float weight_at(const mrssm::WeightPtrs& w, int t, size_t i) {
-  return widen(reinterpret_cast<const T*>(w.p[t])[i]);
-}
 
 using fconv::padded_k;
 using fconv::Slice;
@@ -297,10 +261,9 @@ inline bool make_plan(const DecDims& d, Plan* out) {
 namespace {
 
 // Pack every slice of the torch-layout weights (Slice, [Co][tap][Ci], taps
-// in torch_tap's order) as f32: blockIdx.y is the layer, whose slices the
-// block walks in order, one thread per packed float, zeros past a chunk's
+// in torch_tap's order): blockIdx.y is the layer, whose slices the block
+// walks in order, one thread per packed float, zeros past a chunk's
 // channels and in the row padding.
-template <class T>
 __global__ void decoder_pack_kernel(mrssm::WeightPtrs w, Plan P, float* __restrict__ packed) {
   const int l = blockIdx.y;
   const Layer& L = P.L[l];
@@ -312,7 +275,7 @@ __global__ void decoder_pack_kernel(mrssm::WeightPtrs w, Plan P, float* __restri
       float v = 0.f;
       if (r < sl.cw && col < cols) {
         const int t = col / L.Ci, ci = col - t * L.Ci;
-        v = weight_at<T>(w, 2 * l, weight_index(L, ci, sl.co0 + r, torch_tap(L, sl.t0 + t)));
+        v = w.p[2 * l][weight_index(L, ci, sl.co0 + r, torch_tap(L, sl.t0 + t))];
       }
       packed[sl.off + e] = v;
     }
@@ -324,13 +287,13 @@ __global__ void decoder_pack_kernel(mrssm::WeightPtrs w, Plan P, float* __restri
 // frame and J output channels of the slice's chunk, on the slice in shared
 // memory at WB. The epilogue adds the bias (per element for the unflatten)
 // and applies ELU, act(x + conv(t)) in place on the residual stream, or the
-// last layer's Tanh, rounds the result to T, and writes the output buffer,
-// the record (`stash`) and the frames (`out`, the last layer).
-template <int J, class T>
+// last layer's Tanh, and writes the output buffer, the record (`stash`) and
+// the frames (`out`, the last layer).
+template <int J>
 __device__ __forceinline__ void forward_slice(const Plan& P, const Slice& sl,
                                               const float* __restrict__ WB, float* const* buf,
                                               const float* __restrict__ bias, float* part,
-                                              T* __restrict__ out,
+                                              float* __restrict__ out,
                                               float* __restrict__ stash, int n0, int nf,
                                               float (&acc)[kFrames][J]) {
   constexpr int F = kFrames;
@@ -387,11 +350,11 @@ __device__ __forceinline__ void forward_slice(const Plan& P, const Slice& sl,
     const int q = oy * L.Wo + ox;
     v += bias[L.bias_off + (L.kind == kUnflatten ? co * HWo + q : co)];
     float* o = ob + f * obsz + q * L.Co + co;
-    const float r = round_to<T>(L.act == kTanh ? tanhf(v) : mrssm::elu(L.residual ? *o + v : v));
+    const float r = L.act == kTanh ? tanhf(v) : mrssm::elu(L.residual ? *o + v : v);
     *o = r;
     if (f < nf) {
       if (stash != nullptr) stash[(size_t)(n0 + f) * P.stash + L.out_off + q * L.Co + co] = r;
-      if (last && out != nullptr) out[((size_t)(n0 + f) * HWo + q) * L.Co + co] = store_as<T>(r);
+      if (last && out != nullptr) out[((size_t)(n0 + f) * HWo + q) * L.Co + co] = r;
     }
   };
   fconv::slice_tasks<F, J, kThreads>(sl, HWo * G, G, L.Ci, vec ? 4 : 1, part, run, emit, acc);
@@ -406,10 +369,9 @@ __device__ __forceinline__ void forward_slice(const Plan& P, const Slice& sl,
 // shared memory leaves one block an SM, so the launch bounds say so: with
 // the thread count alone ptxas caps a thread at 128 registers and spills
 // (108 bytes); with one block it takes 158 and none (PERF.md §6).
-template <class T>
 __global__ void __launch_bounds__(kThreads, 1)
-decoder_fwd_kernel(mrssm::WeightPtrs w, Plan P, const T* __restrict__ feats,
-                   const float* __restrict__ packed, T* __restrict__ out,
+decoder_fwd_kernel(mrssm::WeightPtrs w, Plan P, const float* __restrict__ feats,
+                   const float* __restrict__ packed, float* __restrict__ out,
                    float* __restrict__ stash, int N) {
   constexpr int F = kFrames;
   extern __shared__ __align__(16) float smem[];
@@ -437,7 +399,7 @@ decoder_fwd_kernel(mrssm::WeightPtrs w, Plan P, const T* __restrict__ feats,
   // The features (zeros past N) and their record; every bias.
   for (int i = tid; i < F * P.F; i += kThreads) {
     const int f = i / P.F, j = i - f * P.F;
-    const float v = f < nf ? widen(feats[(size_t)(n0 + f) * P.F + j]) : 0.f;
+    const float v = f < nf ? feats[(size_t)(n0 + f) * P.F + j] : 0.f;
     buf[0][f * P.bsz[0] + j] = v;
     if (stash != nullptr && f < nf) stash[(size_t)(n0 + f) * P.stash + j] = v;
   }
@@ -445,7 +407,7 @@ decoder_fwd_kernel(mrssm::WeightPtrs w, Plan P, const T* __restrict__ feats,
     const Layer& L = P.L[l];
     const int size = bias_size(L);
     for (int c = tid; c < (size + 3) / 4 * 4; c += kThreads) {
-      bias[L.bias_off + c] = c < size ? weight_at<T>(w, 2 * l + 1, c) : 0.f;
+      bias[L.bias_off + c] = c < size ? w.p[2 * l + 1][c] : 0.f;
     }
   }
   __syncthreads();  // the mbarriers are initialised before any thread waits on them
@@ -457,9 +419,9 @@ decoder_fwd_kernel(mrssm::WeightPtrs w, Plan P, const T* __restrict__ feats,
     fconv::mbar_wait(&bar[i & 1], (i >> 1) & 1);
     __syncthreads();  // slice i and the previous layer's outputs are in place
     if (P.L[sl.layer].Co == 1) {
-      forward_slice<1, T>(P, sl, WB[i & 1], buf, bias, part, out, stash, n0, nf, acc1);
+      forward_slice<1>(P, sl, WB[i & 1], buf, bias, part, out, stash, n0, nf, acc1);
     } else {
-      forward_slice<4, T>(P, sl, WB[i & 1], buf, bias, part, out, stash, n0, nf, acc);
+      forward_slice<4>(P, sl, WB[i & 1], buf, bias, part, out, stash, n0, nf, acc);
     }
     __syncthreads();  // slice i's buffer is free for slice i + 2
     sl = next;
@@ -467,195 +429,18 @@ decoder_fwd_kernel(mrssm::WeightPtrs w, Plan P, const T* __restrict__ feats,
 }
 
 // Pack the weights, then run the forward (decoder_fwd_kernel) on `stream`.
-template <class T>
-cudaError_t launch_forward(const mrssm::WeightPtrs& w, const Plan& P, const T* feats,
-                           float* packed, T* out, float* stash, int N, cudaStream_t stream) {
-  decoder_pack_kernel<T><<<dim3(8, P.n), 256, 0, stream>>>(w, P, packed);
+inline cudaError_t launch_forward(const mrssm::WeightPtrs& w, const Plan& P, const float* feats,
+                                  float* packed, float* out, float* stash, int N,
+                                  cudaStream_t stream) {
+  decoder_pack_kernel<<<dim3(8, P.n), 256, 0, stream>>>(w, P, packed);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(decoder_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(decoder_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)P.fsmem);
   if (err != cudaSuccess) return err;
-  decoder_fwd_kernel<T><<<(N + kFrames - 1) / kFrames, kThreads, P.fsmem, stream>>>(
+  decoder_fwd_kernel<<<(N + kFrames - 1) / kFrames, kThreads, P.fsmem, stream>>>(
       w, P, feats, packed, out, stash, N);
   return cudaGetLastError();
-}
-
-// ---- the backward's passes (fused_decoder_bwd.cu's header says how they work) ----
-
-// The torch tap of a transposed slice's tap t: a conv's flipped in space,
-// the other kinds' as they are.
-__host__ __device__ __forceinline__ int tslice_tap(const Layer& L, int t) {
-  return L.kind == kConv ? L.k * L.k - 1 - t : t;
-}
-
-// Pack every transposed slice of the torch-layout weights as f32:
-// blockIdx.y is the layer, whose slices the block walks in order, one
-// thread per packed float, zeros past a chunk's rows and in the row padding.
-template <class T>
-__global__ void decoder_bwd_pack_kernel(mrssm::WeightPtrs w, Plan P, float* __restrict__ packed) {
-  const int l = blockIdx.y;
-  const Layer& L = P.L[l];
-  for (Slice sl = fconv::make_tslice(P, l, 0, 0, L.bpk); sl.layer == l;
-       sl = fconv::next_tslice(P, sl, 0)) {
-    const int cols = (sl.t1 - sl.t0) * L.Co, n = fconv::slice_floats(sl);
-    for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n; e += gridDim.x * blockDim.x) {
-      const int r = e / sl.sp, col = e - r * sl.sp;
-      float v = 0.f;
-      if (r < sl.cw && col < cols) {
-        const int t = col / L.Co, co = col - t * L.Co;
-        v = weight_at<T>(w, 2 * l, weight_index(L, sl.co0 + r, co, tslice_tap(L, sl.t0 + t)));
-      }
-      packed[sl.off + e] = v;
-    }
-  }
-}
-
-// What the shared cotangent pass (fconv::cotangent_pass) needs of the
-// decoder: the frames' cotangent g [N, 32, 32, 1] (in T) times the last
-// layer's Tanh derivative seeds it; input positions go row-major; a task's
-// tap reads the unflatten's output position t, a transposed conv's output i·s
-// − p + t, a conv's (stride 1, taps flipped) output i − (k − 1 − p) + t; the
-// activation derivative from the recorded output o, as
-// fused_conv.py::_act_deriv: ELU 1 or o + 1, Tanh 1 − o².
-template <class T>
-struct DecoderCotangents {
-  const T* g;
-  const float* stash;
-  __device__ static float deriv(const Layer& L, float o) {
-    return L.act == kTanh ? 1.f - o * o : (o > 0.f ? 1.f : o + 1.f);
-  }
-  __device__ float seed(const Plan& P, int n, int j) const {
-    const Layer& last = P.L[P.n - 1];
-    const float o = stash[(size_t)n * P.stash + last.out_off + j];
-    return widen(g[(size_t)n * last.Ho * last.Wo * last.Co + j]) * deriv(last, o);
-  }
-  __device__ static void in_position(const Layer& L, int pos, int& iy, int& ix) {
-    iy = pos / L.Wi;
-    ix = pos - iy * L.Wi;
-  }
-  __device__ static int walk(const Layer& L, int iy, int ix, int tap) {
-    if (L.kind == kUnflatten) return tap;
-    const int sh = L.kind == kDeconv ? L.p : L.k - 1 - L.p;
-    const int ky = tap / L.k, kx = tap - ky * L.k;
-    const int oy = iy * L.s - sh + ky, ox = ix * L.s - sh + kx;
-    return oy < 0 || oy >= L.Ho || ox < 0 || ox >= L.Wo ? -1 : oy * L.Wo + ox;
-  }
-};
-
-// The cotangent pass over a tile of kFrames frames. g [N, 32, 32, 1] is the
-// frames' cotangent; dfeats [N, F] (f32), or null for no feature gradient
-// (then the walk stops after layer 1, whose epilogue records layer 0's
-// pre-activation cotangent). `tpacked` holds the transposed slices as
-// decoder_bwd_pack_kernel wrote them. One block an SM, as its shared memory
-// leaves it, so the launch bounds say so, as the encoder's cotangent pass,
-// which spills at the 128 registers of the thread count alone (this one
-// takes 128 and spills none).
-template <class T>
-__global__ void __launch_bounds__(kThreads, 1)
-decoder_bwd_dx_kernel(Plan P, const T* __restrict__ g, float* __restrict__ dfeats,
-                      const float* __restrict__ stash, float* __restrict__ dstash,
-                      const float* __restrict__ tpacked, int N) {
-  extern __shared__ __align__(16) float smem[];
-  fconv::cotangent_pass<kFrames, kThreads>(P, P.bsz, DecoderCotangents<T>{g, stash}, stash,
-                                           dstash, tpacked, dfeats, N, smem);
-}
-
-// What the shared weight-gradient block (fconv::weight_grad_block) needs of
-// a decoder layer: a transposed conv and the unflatten walk their inputs;
-// the bias of a conv comes from its tap (p, p), of a transposed conv from its
-// tap (1, 1) by 2×2 output blocks, of the unflatten from each tap; the
-// offsets in grad_dims' layout below.
-struct DecoderGrads {
-  __device__ static bool swap(const Layer& L) { return L.kind != kConv; }
-  __device__ static int bias(const Layer& L, int tap) {
-    if (L.kind == kUnflatten) return fconv::kTapBias;
-    if (tap != L.p * L.k + L.p) return fconv::kNoBias;
-    return L.kind == kDeconv ? fconv::kQuadBias : fconv::kTapBias;
-  }
-  __device__ static int weight(const Layer& L, int ci, int co, int tap) {
-    const int kk = L.k * L.k;
-    if (L.kind == kConv) return (ci * kk + tap) * L.Co + co;
-    if (L.kind == kDeconv) return (co * kk + tap) * L.Ci + ci;
-    return (ci * L.Co + co) * kk + tap;
-  }
-  __device__ static int bias_at(const Layer& L, int co, int tap) {
-    return L.kind == kUnflatten ? co * L.k * L.k + tap : co;
-  }
-};
-
-// Weight and bias gradients of one tile (fconv::dw_tiles) and one chunk of
-// frames, as fconv::weight_grad_block forms them from the f32 records. Two
-// blocks an SM (two 48 KB staging buffers each), as the encoder's: ptxas
-// caps a thread at 128 registers and spills 8 bytes (PERF.md §6). A
-// template on the layer policy only so that the sources that never launch
-// it (the forwards) do not compile it.
-template <class Grads>
-__global__ void __launch_bounds__(kThreads, 2)
-decoder_bwd_dw_kernel(Plan P, mrssm::WeightDims gd, const float* __restrict__ stash,
-                      const float* __restrict__ dstash, float* __restrict__ partial, int N,
-                      int chunk) {
-  extern __shared__ __align__(16) float smem[];
-  fconv::weight_grad_block<kThreads, Grads>(P, gd, stash, dstash, partial, N, chunk, smem);
-}
-
-// The gradient layout: per layer its weight as [in, out] and its bias as
-// [1, out], back to back in layer order, where reduce_weight_grads' write
-// of element (k, o) to o·in + k is the torch layout: a conv's [Co, Ci·k·k]
-// is (in Ci·k·k, out Co); a transposed conv's [Ci, Co·k·k] is (in Co·k·k,
-// out Ci); the unflatten's [Co·k·k, Ci] is (in Ci, out Co·k·k).
-inline mrssm::WeightDims grad_dims(const Plan& P) {
-  int in[mrssm::kMaxWeights], out[mrssm::kMaxWeights];
-  for (int l = 0; l < P.n; ++l) {
-    const Layer& L = P.L[l];
-    const int kk = L.k * L.k;
-    if (L.kind == kConv) {
-      in[2 * l] = L.Ci * kk; out[2 * l] = L.Co; out[2 * l + 1] = L.Co;
-    } else if (L.kind == kDeconv) {
-      in[2 * l] = L.Co * kk; out[2 * l] = L.Ci; out[2 * l + 1] = L.Co;
-    } else {
-      in[2 * l] = L.Ci; out[2 * l] = L.Co * kk; out[2 * l + 1] = L.Co * kk;
-    }
-    in[2 * l + 1] = 1;
-  }
-  return mrssm::weight_dims(in, out, 2 * P.n);
-}
-
-// The backward on `stream` (fused_decoder_bwd.cu's steps 1-5): the forward
-// recording every layer's output in `stash`, the transposed pack, the
-// cotangent pass (dfeats, f32, where not null), the weight-gradient pass
-// into `partial` and its fixed-order reduction into d_weights (f32, torch
-// layout). feats and g in T; stash, dstash, partial and packed as
-// fused_decoder_sizes sizes them.
-template <class T>
-cudaError_t launch_backward(const mrssm::WeightPtrs& w, const Plan& P, const DecDims& d,
-                            const T* feats, const T* g, float* dfeats, float* d_weights,
-                            float* stash, float* dstash, float* partial, float* packed,
-                            cudaStream_t s) {
-  cudaError_t err = launch_forward<T>(w, P, feats, packed, nullptr, stash, d.N, s);
-  if (err != cudaSuccess) return err;
-  float* tpacked = packed + P.packed;
-  decoder_bwd_pack_kernel<T><<<dim3(8, P.n), 256, 0, s>>>(w, P, tpacked);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(decoder_bwd_dx_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P.bsmem);
-  if (err != cudaSuccess) return err;
-  const int blocks = (d.N + kFrames - 1) / kFrames;
-  decoder_bwd_dx_kernel<T><<<blocks, kThreads, P.bsmem, s>>>(P, g, dfeats, stash, dstash,
-                                                             tpacked, d.N);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(decoder_bwd_dw_kernel<DecoderGrads>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P.dwsmem);
-  if (err != cudaSuccess) return err;
-  const mrssm::WeightDims gd = grad_dims(P);
-  const int chunks = (d.N + d.chunk - 1) / d.chunk;
-  decoder_bwd_dw_kernel<DecoderGrads><<<dim3(fconv::dw_blocks(P), chunks), kThreads, P.dwsmem,
-                                         s>>>(P, gd, stash, dstash, partial, d.N, d.chunk);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return mrssm::reduce_weight_grads_launch(partial, chunks, gd, d_weights, s);
 }
 
 }  // namespace

@@ -48,9 +48,8 @@ int fused_decoder_forward(const void* const* weights, int n_weights, const float
                           float* packed, float* out, fdec::DecDims d, void* stream) {
   fdec::Plan P;
   if (!fdec::make_plan(d, &P) || n_weights != 2 * P.n) return (int)cudaErrorInvalidValue;
-  return (int)fdec::launch_forward<float>(mrssm::weight_ptrs(weights, n_weights), P, feats,
-                                          packed, out, nullptr, d.N,
-                                          static_cast<cudaStream_t>(stream));
+  return (int)fdec::launch_forward(mrssm::weight_ptrs(weights, n_weights), P, feats, packed, out,
+                                   nullptr, d.N, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -23,9 +23,10 @@
 // the tensor cores, and the latency of a chain of small products per tile
 // of frames, not HBM. Every layer of all three passes is an implicit GEMM
 // on mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 (inline PTX, A
-// and B fragments from ldmatrix): a bf16 product is exact and the tensor
-// core sums in f32, so the kernels keep the plain version's numerics up to
-// the order of the sums. mma.sync rather than wgmma: the 4×4 layers give
+// and B fragments from ldmatrix; these pieces, the weight slices and the
+// task schedule are in bf16_mma.cuh, shared with the bf16 decoder): a bf16
+// product is exact and the tensor core sums in f32, so the kernels keep the
+// plain version's numerics up to the order of the sums. mma.sync rather than wgmma: the 4×4 layers give
 // 16 rows a frame, and wgmma's 64-row tiles would need 4 frames a block,
 // leaving half the card idle at N=240. Measured on the card (clock64
 // stamps, PERF.md §6), the blocks are busy in their slices' products and
@@ -95,17 +96,15 @@
 
 #include <algorithm>
 
-#include "conv_common.cuh"
+#include "bf16_mma.cuh"
 
 namespace fbf {
 
 typedef __nv_bfloat16 bf16;
+using namespace bmma;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxLayers = 14;
 constexpr int kMaxFrames = 2;      // frames a block of the forward and the cotangent pass
-constexpr int kSlots = 2;          // tasks a warp holds across a chunk's slices
 constexpr int kSliceCap = 16384;   // bytes of a weight-slice buffer, unless a layer needs more
 constexpr int kStageCap = 57344;   // bytes of a weight-gradient staging buffer, where they fit
 constexpr int kDwRows = 12;        // m-tiles of a weight-gradient block, at most
@@ -118,17 +117,6 @@ enum Mode { kElu = 0, kResidual = 1, kHead = 2 };
 // a chunk of the weight-gradient pass.
 struct EncDims {
   int N, H, W, C0, coord, ch0, ch1, ch2, res_out, res_mid, n_res, out_dim, frames, chunk;
-};
-
-// How a GEMM direction cuts a layer's packed weights: R rows (output
-// channels forward, input channels transposed; a multiple of 16) of KS
-// k-steps, in chunks of cw rows, each in nsl slices of ks k-steps (the last
-// may be shorter), at `off` (bf16 elements) in the packed weights. A row of
-// a slice of j k-steps is j·16 + 8 elements. mt m-tiles a tile of frames,
-// in nmg groups of mgt, no more than the warps hold at once: a chunk's
-// slices stream once for each group.
-struct Cut {
-  int R, KS, cw, ks, nsl, off, mt, mgt, nmg;
 };
 
 struct Layer {
@@ -168,6 +156,9 @@ struct Plan {
   int sbuf;        // floats a frame of its residual-skip buffer
   int cap;         // bytes of a weight-slice buffer
   size_t fsmem, bsmem, wsmem;
+
+  __host__ __device__ Cut cut(int dir, int l) const { return L[l].c[dir]; }
+  __host__ __device__ int count(int) const { return n; }
 };
 
 struct WeightPtrs {
@@ -187,24 +178,6 @@ __host__ __device__ __forceinline__ int r16(int c) { return (c + 15) / 16 * 16; 
 __host__ __device__ __forceinline__ int in_map(const Plan& P, int l) {
   const Layer& L = P.L[l];
   return L.pair ? (L.Hi + 2) * (L.Wi + 2) * 4 : L.Hi * L.Wi * (L.C16i + 8);
-}
-
-// Cut a direction's weights (see Cut) under `cap` bytes a slice.
-inline bool make_cut(Cut& c, int R, int KS, int mt, int cap, int& packed) {
-  c.R = R;
-  c.KS = KS;
-  c.mt = mt;
-  c.mgt = std::min(mt, kWarps * kSlots);
-  c.nmg = (mt + c.mgt - 1) / c.mgt;
-  c.cw = std::min(R, 16 * (kWarps * kSlots / c.mgt));
-  c.cw = std::min(c.cw, cap / 48 / 16 * 16);  // rows of one k-step (24 elements) fit
-  const int ksmax = (cap / (2 * c.cw) - 8) / 16;
-  if (c.cw < 16 || ksmax < 1) return false;
-  c.ks = (KS + (KS + ksmax - 1) / ksmax - 1) / ((KS + ksmax - 1) / ksmax);
-  c.nsl = (KS + c.ks - 1) / c.ks;
-  c.off = packed;
-  packed += R * (KS * 16 + 8 * c.nsl);
-  return true;
 }
 
 // The weight-gradient pass's tiling of layer L (see Layer): the largest
@@ -325,13 +298,7 @@ inline bool make_plan(const EncDims& d, Plan* out) {
            make_cut(L.c[1], L.C16i, L.k * L.k * L.C16o / 16, mtb, p.cap, p.packed);
     }
     if (!ok) return false;
-    p.slices[0] = p.slices[1] = 0;
-    for (int l = 0; l < p.n; ++l) {
-      for (int dir = 0; dir < 2; ++dir) {
-        const Cut& c = p.L[l].c[dir];
-        p.slices[dir] += ((c.R + c.cw - 1) / c.cw) * c.nmg * c.nsl;
-      }
-    }
+    count_slices(p);
     p.fsmem = 32 + (size_t)F * 2 * (p.fbuf[0] + p.fbuf[1]) + 2 * (size_t)p.cap + 4 * kRedFloats;
     // The cotangent pass's maps: in shared memory while they fit, the
     // largest read from the record where they do not.
@@ -387,114 +354,7 @@ inline bool make_plan(const EncDims& d, Plan* out) {
   return false;
 }
 
-// ---- weight slices -------------------------------------------------------------------------
-
-// A slice of a direction's packed weights: layer, chunk, m-group and slice
-// index, rows [r0, r0 + cw), k-steps [s0, s1), at `off`; first and last of
-// its chunk's pass for the group; the group's m-tiles [m0, m0 + mtg).
-struct Slice {
-  int layer, chunk, mg, j, r0, cw, s0, s1, off, first, last, m0, mtg;
-};
-
-__host__ __device__ __forceinline__ Slice make_slice(const Plan& P, int dir, int l, int chunk,
-                                                    int mg, int j) {
-  const Cut& c = P.L[l].c[dir];
-  Slice s;
-  s.layer = l;
-  s.chunk = chunk;
-  s.mg = mg;
-  s.j = j;
-  s.m0 = mg * c.mgt;
-  s.mtg = c.mt - s.m0 < c.mgt ? c.mt - s.m0 : c.mgt;
-  s.r0 = chunk * c.cw;
-  s.cw = c.R - s.r0 < c.cw ? c.R - s.r0 : c.cw;
-  s.s0 = j * c.ks;
-  s.s1 = c.KS - s.s0 < c.ks ? c.KS : s.s0 + c.ks;
-  s.off = c.off + s.r0 * (c.KS * 16 + c.nsl * 8) + s.cw * j * (c.ks * 16 + 8);
-  s.first = j == 0;
-  s.last = s.s1 == c.KS;
-  return s;
-}
-
-// The slice after s in its direction's order (the forward's layers up, the
-// transposed ones down to `stop`); its layer is -1 past the end.
-__host__ __device__ __forceinline__ Slice next_slice(const Plan& P, int dir, const Slice& s,
-                                                    int stop) {
-  const Cut& c = P.L[s.layer].c[dir];
-  if (!s.last) return make_slice(P, dir, s.layer, s.chunk, s.mg, s.j + 1);
-  if (s.mg + 1 < c.nmg) return make_slice(P, dir, s.layer, s.chunk, s.mg + 1, 0);
-  if (s.r0 + s.cw < c.R) return make_slice(P, dir, s.layer, s.chunk + 1, 0, 0);
-  const int nl = dir == 0 ? s.layer + 1 : s.layer - 1;
-  if (dir == 0 ? nl < P.n : nl >= stop) return make_slice(P, dir, nl, 0, 0, 0);
-  Slice end = s;
-  end.layer = -1;
-  return end;
-}
-
-__host__ __device__ __forceinline__ int slice_bytes(const Slice& s) {
-  return s.cw * ((s.s1 - s.s0) * 16 + 8) * 2;
-}
-
 namespace {
-
-__device__ __forceinline__ float elu(float x) { return x > 0.f ? x : expf(x) - 1.f; }
-__device__ __forceinline__ float f32(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ bf16 rn(float v) { return __float2bfloat16_rn(v); }
-
-// ---- tensor-core primitives -----------------------------------------------------------------
-
-__device__ __forceinline__ unsigned saddr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void ldsm4(unsigned (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-__device__ __forceinline__ void ldsm4t(unsigned (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-__device__ __forceinline__ float2 lds64(unsigned addr) {
-  float2 v;
-  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr));
-  return v;
-}
-// c += a · b on the tensor cores: a a 16×16 bf16 fragment, b 16×8, c 16×8 f32.
-__device__ __forceinline__ void mma(float* c, const unsigned (&a)[4], unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ unsigned pack2(__nv_bfloat162 v) {
-  return *reinterpret_cast<unsigned*>(&v);
-}
-// The two bf16 terms of a pair of f32 cotangents: hi = bf16(d), lo = bf16(d - hi).
-__device__ __forceinline__ void split2(float2 d, unsigned& hi, unsigned& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(d.x, d.y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = pack2(h);
-  lo = pack2(__floats2bfloat162_rn(d.x - hf.x, d.y - hf.y));
-}
-
-// The plan, copied into shared memory by the block: the kernels read its
-// layer table at the layer at hand, which from the parameter space is a
-// dependent constant-cache load a field.
-__device__ __forceinline__ const Plan& shared_plan(const Plan& Pp, Plan& sP) {
-  const int* src = reinterpret_cast<const int*>(&Pp);
-  int* dst = reinterpret_cast<int*>(&sP);
-  for (int i = threadIdx.x; i < (int)(sizeof(Plan) / 4); i += kThreads) dst[i] = src[i];
-  __syncthreads();
-  return sP;
-}
-
-// Thread 0 starts slice s of direction `dir` into buffer `dst` on `bar`.
-__device__ __forceinline__ void load_slice(const Slice& s, const bf16* packed, bf16* dst,
-                                           unsigned long long* bar) {
-  fconv::bulk_load(reinterpret_cast<float*>(dst), reinterpret_cast<const float*>(packed + s.off),
-                   slice_bytes(s), bar);
-}
 
 // Pack one weight slice a block (blockIdx.x walks the forward slices, then
 // the transposed ones): a forward row is an output channel, its k-step s a
@@ -539,60 +399,6 @@ encoder_bf16_tc_pack_kernel(WeightPtrs w, Plan P, bf16* __restrict__ packed) {
     bf16 v = rn(0.f);
     if (co < L.Co && ci < L.Ci) v = W[((size_t)co * L.Ci + ci) * kk + tap];
     packed[s.off + e] = v;
-  }
-}
-
-// A slice's tasks on the block's warps: the tasks (m-tile, n-pair) of its
-// m-group. run(task, ka, kb, a) adds k-steps [ka, kb) of a task to its 8
-// sums a; emit(task, a) is its epilogue. A warp holds tasks warp + 8t
-// (t < kSlots) across the group's slices; with fewer than 8 tasks the
-// S = 8 / tasks warps of a task split each slice's k-steps, and at the
-// group's last slice the sums of splits 1.. S-1 are added to split 0's in
-// order through `red`.
-template <class Run, class Emit>
-__device__ __forceinline__ void schedule(const Slice& sl, int tasks, float (&acc)[kSlots][8],
-                                         float* red, Run run, Emit emit) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int S = tasks >= kWarps ? 1 : kWarps / tasks;
-  const int split = S == 1 ? 0 : warp / tasks;
-  if (sl.first) {
-#pragma unroll
-    for (int t = 0; t < kSlots; ++t) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[t][e] = 0.f;
-    }
-  }
-#pragma unroll
-  for (int t = 0; t < kSlots; ++t) {
-    const int task = S == 1 ? warp + kWarps * t : (t == 0 ? warp % tasks : tasks);
-    if (task < tasks && split < S) {
-      const int n = sl.s1 - sl.s0;
-      run(task, sl.s0 + n * split / S, sl.s0 + n * (split + 1) / S, acc[t]);
-    }
-  }
-  if (!sl.last) return;
-  if (S == 1) {
-#pragma unroll
-    for (int t = 0; t < kSlots; ++t) {
-      if (warp + kWarps * t < tasks) emit(warp + kWarps * t, acc[t]);
-    }
-    return;
-  }
-  if (split > 0 && split < S) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      red[(((split - 1) * tasks + warp % tasks) * 8 + e) * 32 + lane] = acc[0][e];
-    }
-  }
-  __syncthreads();
-  if (split == 0) {
-    for (int q = 1; q < S; ++q) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        acc[0][e] += red[(((q - 1) * tasks + warp) * 8 + e) * 32 + lane];
-      }
-    }
-    emit(warp, acc[0]);
   }
 }
 

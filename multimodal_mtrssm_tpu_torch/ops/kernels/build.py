@@ -28,7 +28,7 @@ SOURCES = ("recurrence_fwd.cu", "recurrence_bwd.cu", "rollout.cu", "recurrence_m
            "fused_encoder_bf16_bwd.cu", "fused_decoder_bf16_fwd.cu", "fused_decoder_bf16_bwd.cu")
 HEADERS = ("mrssm_common.cuh", "conv_common.cuh", "chain_common.cuh", "forward_chain.cuh",
            "stack_map.cuh", "dense_grads.cuh", "fused_encoder.cuh", "fused_decoder.cuh",
-           "fused_encoder_bf16.cuh", "fused_decoder_bf16.cuh")
+           "bf16_mma.cuh", "fused_encoder_bf16.cuh", "fused_decoder_bf16.cuh")
 # Hopper only (sm_90a); no --use_fast_math, so expf/logf/tanhf stay accurate
 # and the straight-through value (onehot + p) - p is not reassociated.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -59,9 +59,10 @@ class EncDims(ctypes.Structure):
 
 
 class DecDims(ctypes.Structure):
-    """``fdec::DecDims`` of ``csrc/fused_decoder.cuh``, field for field: the
-    fused decoder's frame count, feature width and layer widths, frames per
-    block, and frames per chunk of its weight-gradient pass."""
+    """``fdec::DecDims`` of ``csrc/fused_decoder.cuh`` (and ``fdbf::DecDims``
+    of ``csrc/fused_decoder_bf16.cuh``), field for field: the fused
+    decoder's frame count, feature width and layer widths, frames per block,
+    and frames per chunk of its weight-gradient pass."""
 
     _fields_ = [(name, ctypes.c_int) for name in (
         "N", "F", "lin0", "c0", "h0", "w0", "res_in", "res_mid", "n_res", "ch0", "ch1", "ch2",
@@ -94,8 +95,9 @@ _SIGNATURES = {
     "fused_decoder_sizes": (_I, [DecDims, _P]),
     "fused_decoder_forward": (_I, [_P, _I, _P, _P, _P, DecDims, _P]),
     "fused_decoder_backward": (_I, [_P, _I] + [_P] * 8 + [DecDims, _P]),
+    "fused_decoder_bf16_sizes": (_I, [DecDims, _P]),
     "fused_decoder_bf16_forward": (_I, [_P, _I, _P, _P, _P, DecDims, _P]),
-    "fused_decoder_bf16_backward": (_I, [_P, _I] + [_P] * 10 + [DecDims, _P]),
+    "fused_decoder_bf16_backward": (_I, [_P, _I] + [_P] * 8 + [DecDims, _P]),
     "mrssm_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -101,14 +101,18 @@ bf16 features take the bf16 decoder kernels, JAX's ``_fwd_kernel``/
 ``_bwd_kernel`` at ``dtype=bfloat16`` as ``fused_decoder_apply`` reaches
 them (``:781``): ``fused_decoder_fwd_bf16`` and ``fused_decoder_bwd_bf16``
 (``csrc/fused_decoder_bf16_{fwd,bwd}.cu``, design notes in
-``csrc/fused_decoder_bf16.cuh``), the f32 decoder's kernels instantiated
-at bf16: bf16 features, weights and frames in device memory, every
-layer's output rounded to bf16 after its f32 sums, bias and activation,
-the backward's cotangents and sums in f32, the features' cotangent and the
-weight gradients rounded to bf16 at the end. :func:`fused_decoder_plain`
-and :func:`fused_decoder_backward_plain` round alike on bf16 input. It is
-a right kernel, not a fast one: the f32 kernels' CUDA-core FMAs on bf16
-values (``PERF.md`` §6).
+``csrc/fused_decoder_bf16.cuh``), on the tensor cores as the bf16
+encoder's: every GEMM of the forward, the cotangent pass and the
+weight-gradient pass on ``mma.sync`` bf16 instructions (the pieces of
+``csrc/bf16_mma.cuh``), a tile of 2 frames a block with its bf16 maps in
+shared memory, each transposed conv as four output-parity class GEMMs.
+bf16 features, weights and frames in device memory; every layer's output
+rounded to bf16 after its f32 sums, bias and activation; the backward's
+cotangents in f32 (split into two bf16 terms as tensor-core operands:
+:func:`split_bf16`), the features' cotangent and the weight gradients
+rounded to bf16 at the end. :func:`fused_decoder_plain` and
+:func:`fused_decoder_backward_plain` round alike on bf16 input
+(``PERF.md`` §6 has the kernels' times).
 
 JAX's decoder operators (``build_decoder_operators`` ``:686``,
 ``_deconv_superrow_maps`` ``:615``, ``superrow_decoder_xla`` ``:752``) are
@@ -491,19 +495,27 @@ def fused_encoder_backward_cuda(weights: Sequence[torch.Tensor], cfg: EncoderCon
 
 
 def bf16_sizes(lib, dims) -> dict[str, int]:
-    """The bf16 kernels' sizes (``fused_encoder_bf16_sizes``): ``stash``
-    (bf16 elements a frame of the activation record), ``dpre`` (floats a
-    frame of the pre-activation cotangent record), ``grads``, ``slots`` (the
-    weight-gradient pass's partial sums, ``grads`` floats each: its frame
-    chunks, and room for the first layers' parts of a chunk),
-    ``packed`` (bf16 elements, both directions), the frames a block of the
-    forward (``fwd_frames``) and of the cotangent pass (``bwd_frames``), and
-    the tiles of the weight-gradient pass (``dw_tiles``). Raises where the
-    plan does not fit a block."""
+    """The bf16 kernels' sizes, the encoder's (``fused_encoder_bf16_sizes``,
+    ``EncDims``) or the decoder's (``fused_decoder_bf16_sizes``,
+    ``DecDims``): ``stash`` (bf16 elements a frame of the activation
+    record), ``dpre`` (floats a frame of the pre-activation cotangent
+    record, two bf16 terms each), ``grads``, ``slots`` (the weight-gradient
+    pass's partial sums, ``grads`` floats each: its frame chunks, and for
+    the encoder room for the first layers' parts of a chunk), ``packed``
+    (bf16 elements, both directions), the frames a block of the forward
+    (``fwd_frames``) and of the cotangent pass (``bwd_frames``), and the
+    tiles of the weight-gradient pass (``dw_tiles``). Raises where the plan
+    does not fit a block."""
+    from multimodal_mtrssm_tpu_torch.ops.kernels.build import DecDims
+
+    dec = isinstance(dims, DecDims)
+    query = lib.fused_decoder_bf16_sizes if dec else lib.fused_encoder_bf16_sizes
     out = (ctypes.c_longlong * 8)()
-    if lib.fused_encoder_bf16_sizes(dims, ctypes.cast(out, ctypes.c_void_p)) != 0:
-        raise ValueError("the bf16 fused encoder kernels' shared memory does not fit one frame "
-                         "for these widths; conv_layout='nhwc' runs the encoders on cuDNN")
+    if query(dims, ctypes.cast(out, ctypes.c_void_p)) != 0:
+        hint = ("the Decoder module runs it on cuDNN" if dec else
+                "conv_layout='nhwc' runs the encoders on cuDNN")
+        raise ValueError(f"the bf16 fused {'decoder' if dec else 'encoder'} kernels' shared "
+                         f"memory does not fit one frame for these widths; {hint}")
     return dict(zip(("stash", "dpre", "grads", "slots", "packed", "fwd_frames", "bwd_frames",
                      "dw_tiles"), (int(v) for v in out)))
 
@@ -881,8 +893,7 @@ def fused_decoder_bf16_forward_cuda(weights: Sequence[torch.Tensor], cfg: Decode
     dims = _dec_dims(cfg, feats.shape[0])
     ptrs = (ctypes.c_void_p * len(weights))(*(t.data_ptr() for t in weights))
     with torch.cuda.device(feats.device):
-        packed = torch.empty(_sizes(lib.fused_decoder_sizes, dims, "decoder")[5],
-                             dtype=torch.float32, device=feats.device)
+        packed = feats.new_empty(bf16_sizes(lib, dims)["packed"])
         stream = torch.cuda.current_stream(feats.device).cuda_stream
         err = lib.fused_decoder_bf16_forward(ctypes.cast(ptrs, ctypes.c_void_p), len(weights),
                                              feats.data_ptr(), packed.data_ptr(), out.data_ptr(),
@@ -895,14 +906,16 @@ def fused_decoder_bf16_forward_cuda(weights: Sequence[torch.Tensor], cfg: Decode
 def fused_decoder_bf16_backward_cuda(weights: Sequence[torch.Tensor], cfg: DecoderConfig,
                                      feats: torch.Tensor, g: torch.Tensor, want_dx: bool,
                                      ) -> tuple[torch.Tensor | None, tuple[torch.Tensor, ...]]:
-    """Launch the bf16 decoder's backward kernels (``csrc/fused_decoder_bf16_bwd.cu``):
-    the bf16 forward recomputing and recording every layer's rounded
-    output, the f32 decoder's cotangent and weight-gradient passes on those
-    records, and the rounding of the features' cotangent and the weight
-    gradients to bf16. Same contract as :func:`fused_decoder_backward_plain`
-    on bf16 input. Its device-memory scratch is the f32 backward's (records,
-    partial gradients, packed weights), and the float32 gradients and
-    features' cotangent before their rounding."""
+    """Launch the bf16 decoder's backward kernels (``csrc/fused_decoder_bf16_bwd.cu``:
+    the packing and the recomputing forward, the cotangent pass, the
+    weight-gradient pass and its fixed-order reduction); same contract as
+    :func:`fused_decoder_backward_plain` on bf16 input: the bf16 features'
+    cotangent (when asked) and bf16 weight gradients. Its device-memory
+    scratch at the reference widths (48-wide features): 17,520 bf16
+    activations and 24,640 floats of split cotangents a frame (~134 KB: ~32
+    MB at N=240, ~513 MB at N=3840), ≤ 16 frame chunks × 553,905 partial
+    gradient floats up to N=4096 (≤ 35 MB), and 1,260,800 bf16 of packed
+    weights (~2.5 MB)."""
     global dec_bf16_bwd_launches
     from multimodal_mtrssm_tpu_torch.ops.kernels import build
 
@@ -915,24 +928,23 @@ def fused_decoder_bf16_backward_cuda(weights: Sequence[torch.Tensor], cfg: Decod
     dims = _dec_dims(cfg, N)
     ptrs = (ctypes.c_void_p * len(weights))(*(t.data_ptr() for t in weights))
     with torch.cuda.device(feats.device):
-        stash, dstash, n_grad, chunks, n_packed = _sizes(lib.fused_decoder_sizes, dims,
-                                                         "decoder")[:5]
-        if n_grad != sum(t.numel() for t in weights):
-            raise RuntimeError(f"the kernel's gradient layout ({n_grad} floats) does not match "
-                               "the decoder's tensors")
-        d_flat = feats.new_empty(n_grad)
+        sz = bf16_sizes(lib, dims)
+        if sz["grads"] != sum(t.numel() for t in weights):
+            raise RuntimeError(f"the kernel's gradient layout ({sz['grads']} elements) does not "
+                               "match the decoder's tensors")
+        d_flat = feats.new_empty(sz["grads"])
         grads = tuple(v.view(t.shape) for v, t in
                       zip(d_flat.split([t.numel() for t in weights]), weights))
-        # Records, partial gradients, the float32 gradients and features'
-        # cotangent, packed weights; each 16-byte aligned.
-        spans = [-(-n // 4) * 4 for n in (N * stash, N * dstash, chunks * n_grad, n_grad,
-                                          N * cfg.in_features, n_packed)]
-        scratch = torch.empty(sum(spans), dtype=torch.float32, device=feats.device)
-        offs = [scratch.data_ptr() + 4 * sum(spans[:i]) for i in range(len(spans))]
+        stash = feats.new_empty(N * sz["stash"])
+        dpre = torch.empty(N * sz["dpre"], dtype=torch.float32, device=feats.device)
+        partial = torch.empty(sz["slots"] * sz["grads"], dtype=torch.float32,
+                              device=feats.device)
+        packed = feats.new_empty(sz["packed"])
         stream = torch.cuda.current_stream(feats.device).cuda_stream
         err = lib.fused_decoder_bf16_backward(
             ctypes.cast(ptrs, ctypes.c_void_p), len(weights), feats.data_ptr(), g.data_ptr(),
-            None if dx is None else dx.data_ptr(), d_flat.data_ptr(), *offs, dims, stream)
+            None if dx is None else dx.data_ptr(), d_flat.data_ptr(), stash.data_ptr(),
+            dpre.data_ptr(), partial.data_ptr(), packed.data_ptr(), dims, stream)
     build.check(err)
     dec_bf16_bwd_launches += 1
     return dx, grads

@@ -2030,17 +2030,29 @@ def test_fused_decoder_f32_bits_unchanged_by_the_bf16_kernels(cuda_device):
     assert decoder_f32_digest(cuda_device) == DECODER_F32_DIGEST
 
 
+# Decoders of the bf16 kernels beyond the two models' (48- and 96-wide
+# features): channel widths that are no multiple of 16 (a 1×1 projection
+# 64 → 40, residual convs 40 ↔ 72, transposed convs to 24 and 12, a first
+# linear of 63), and a 1×1 projection to 32 channels.
+DEC_BF16_VARIANTS = {"not16": {"residual_input_size": 40, "residual_intermediate_size": 72,
+                               "channels": (24, 12, 1), "linear_sizes": (63, 1024)},
+                     "res_proj": {"residual_input_size": 32}}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("family,N", [("mrssm", 240), ("mmtrssm", 240), ("mrssm", 241),
-                                      ("mmtrssm", 7), ("mrssm", 1), ("mrssm", 3840)])
+@pytest.mark.parametrize("family,N", [
+    (family, N) for N in (240, 241, 7, 1, 3840, 3) for family in
+    ("mrssm", "mmtrssm", *DEC_BF16_VARIANTS)])
 def test_fused_decoder_bf16_kernels_match_plain(cuda_device, family, N):
     """The bf16 decoder's forward against the plain bf16 version within
     1e-2 × scale and the f32 kernels within 0.1; its backward (every weight
     gradient and the features', bf16) against the plain bf16 backward within
     2e-2 × scale per tensor; two launches bit-identical, and the backward
     without the features' cotangent gives the same weight-gradient bits.
-    N=1, 7 and 241 leave a ragged tile of 2 frames a block."""
-    dec = _decoder(family, cuda_device)
+    The MRSSM decoder (48-wide features), the MMTRSSM decoder (96-wide) and
+    :data:`DEC_BF16_VARIANTS`; N=1, 3, 7 and 241 leave a ragged tile of 2
+    frames a block (N=241 also a last weight-gradient chunk of one frame)."""
+    dec = _decoder(family, cuda_device, **DEC_BF16_VARIANTS.get(family, {}))
     w32 = [t.detach() for t in fused_conv.decoder_weights(dec)]
     w = [t.to(torch.bfloat16) for t in w32]
     rng = np.random.default_rng(N)
@@ -2066,6 +2078,52 @@ def test_fused_decoder_bf16_kernels_match_plain(cuda_device, family, N):
     assert torch.equal(got, again)
     assert all(torch.equal(a, b) for a, b in zip([*dw, dx], [*dw2, dx2]))
     assert none is None and all(torch.equal(a, b) for a, b in zip(dw, dw3))
+
+
+@pytest.mark.gpu
+def test_fused_decoder_bf16_plan_takes_every_case(cuda_device):
+    """Every decoder of the bf16 cases plans at N=1, 240 and 3840: 2 frames
+    a block of both passes, the packed weights, the tiles of the
+    weight-gradient pass, its frame chunks, and the gradient layout of the
+    decoder's tensors."""
+    from multimodal_mtrssm_tpu_torch.ops.kernels import build
+
+    lib = build.load_library()
+    for family in ("mrssm", "mmtrssm", *DEC_BF16_VARIANTS):
+        dec = _decoder(family, cuda_device, **DEC_BF16_VARIANTS.get(family, {}))
+        for N in (1, 240, 3840):
+            sz = fused_conv.bf16_sizes(lib, fused_conv._dec_dims(dec.cfg, N))
+            assert sz["fwd_frames"] == sz["bwd_frames"] == 2 and sz["dw_tiles"] >= 1
+            assert sz["packed"] > 0 and sz["slots"] == -(-N // fused_conv._dw_chunk(N))
+            assert sz["grads"] == sum(t.numel() for t in fused_conv.decoder_weights(dec))
+
+
+def encoder_bf16_digest(dev) -> str:
+    """The digest of the bf16 fused encoder's embedding, frames' cotangent
+    and weight gradients on the MRSSM audio encoder at N=240 (seeded frames
+    and cotangent), their bf16 bits."""
+    enc = _encoder("model", dev)
+    w = [t.detach().to(torch.bfloat16) for t in fused_conv.encoder_weights(enc)]
+    rng = np.random.default_rng(240)
+    x = torch.tensor(rng.uniform(-1, 1, (240, 32, 32, 1)).astype(np.float32),
+                     device=dev).to(torch.bfloat16)
+    g = torch.tensor(rng.standard_normal((240, enc.cfg.out_dim)).astype(np.float32),
+                     device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        out = fused_conv.fused_encoder_bf16_forward_cuda(w, enc.cfg, x)
+        dx, dw = fused_conv.fused_encoder_bf16_backward_cuda(w, enc.cfg, x, g, True)
+    return _digest([t.view(torch.int16) for t in (out, dx, *dw)])
+
+
+# encoder_bf16_digest on an NVIDIA H100 80GB HBM3, taken on the bf16 encoder
+# kernels as they stood before their tensor-core pieces moved into
+# csrc/bf16_mma.cuh (the same digest on both trees, in one call).
+ENCODER_BF16_DIGEST = "7a9649ad7c2907ed6894bf703c90c35dbe1ebe844d4aad5836e21fafb73de839"
+
+
+@pytest.mark.gpu
+def test_fused_encoder_bf16_bits_unchanged_by_the_shared_header(cuda_device):
+    assert encoder_bf16_digest(cuda_device) == ENCODER_BF16_DIGEST
 
 
 @pytest.mark.gpu
