@@ -201,8 +201,7 @@ first two configurations' latent features.
    off: (a) ``configs/mopoe_mrssm.yaml`` with ``class_path:
    WeightedMoPoEMRSSM`` (its step loop: no recurrence kernel computes
    learned weights) fits 2 epochs × 3 steps at B=8 T=30 with no recurrence
-   launch; a train step's CUDA-event ms, device ms and busy share; one
-   train step card vs CPU (a seed without near-ties, the phase 4 bounds)
+   launch (phase 12 times its step); one train step card vs CPU (a seed without near-ties, the phase 4 bounds)
    and the posterior, prior and subset weights card vs CPU within 1e-4
    before each row's first near-tie (``parity.first_near_tie``), the
    weights summing to 1 within 1e-5; ``/observe`` and two ``/imagine``
@@ -210,9 +209,10 @@ first two configurations' latent features.
    weighted YAML and the fit's checkpoints (a rollout launch an
    ``/imagine``), and its imagination held to the plain rollout
    (``parity.check_rollout``); ``use_pallas_train=True`` refused; a step
-   at ``conv_layout: fused_enc`` launching each fused encoder kernel twice;
-   (b) the same YAML with ``class_path: RSSM`` and ``modality: vision``:
-   the fit, a step's times, a train step card vs CPU, and its imagination
+   at ``conv_layout: fused_enc`` launching each fused encoder kernel twice,
+   and its CUDA-event ms, device ms and busy share; (b) the same YAML with
+   ``class_path: RSSM`` and ``modality: vision``: the fit, a train step
+   card vs CPU, and its imagination
    on ``rollout.cu`` held to the plain rollout and to the plain route's on
    the CPU.
 
@@ -221,17 +221,17 @@ first two configurations' latent features.
     rank, ``Trainer.fit`` of ``MRSSMConfig()`` with ``zero1``, 2 × 3 steps
     at B=8 T=30 on 24 synthetic episodes under deterministic cuDNN, its
     weights against phase 4b's uninterrupted fit within 3e-4 × scale
-    (bit-identical or not printed); (b) ``dryrun_multichip(2)`` and
-    ``dryrun_multichip(4)`` on the card with gloo ranks sharing it (NCCL
-    refuses two ranks on one device): both families at the reference
-    config, the hybrid ``(dcn, data)`` check at 4, each rank's recurrence
+    (bit-identical or not printed); (b) ``dryrun_multichip(4)`` on the
+    card with gloo ranks sharing it (NCCL refuses two ranks on one
+    device): both families at the reference config, flat, ZeRO-1 and the
+    hybrid ``(dcn, data)`` check, each rank's recurrence
     kernels launched every step; (c) a 2-rank gloo fit of
     ``MMTRSSMConfig(conv_layout="fused_enc")`` with ``zero1``: the fused
     encoder and recurrence kernels launched every step on each rank, the
     history within 1e-4 relative and the weights within 3e-4 × scale of
     the 1-process fit; (d) ms a step of ``MRSSMConfig()`` at a global B=8
     T=30 at 1 process and NCCL W=1 (in turns: 1 process, NCCL W=1, NCCL
-    W=1, 1 process) and gloo W=2 and 4, the gradient all-reduce's and the
+    W=1, 1 process) and gloo W=2, the gradient all-reduce's and the
     ZeRO-1 all-gather's ms a step (CUDA events, and the host's time inside
     each call) and the busy share (``torch.profiler``). NCCL across two
     cards is not on this one-card machine.
@@ -255,8 +255,8 @@ first two configurations' latent features.
     carries bf16, the logits f32; a train step card vs CPU on the steps
     before the first Gumbel near-tie of 1e-2, at least half of them, within
     1e-2 of the loss and 5e-2 × scale, the gradients float32 and finite;
-    the step's CUDA-event ms, device ms and busy share, beside the f32
-    plain route's; (c) the weighted model and ``RSSM`` (vision) from the
+    the step's CUDA-event ms, device ms and busy share (phase 12 times
+    the f32 plain route beside MRSSM's nhwc bf16 step); (c) the weighted model and ``RSSM`` (vision) from the
     YAML at bf16, a fit each; (d) the MRSSM nhwc and the weighted fits'
     checkpoints served (``WorldModel.from_checkpoint`` on their configs):
     float32 states and frames out of an observe, ``/observe`` and two
@@ -266,6 +266,30 @@ first two configurations' latent features.
     both bf16 stacks (forward, cotangent, weight gradients) holds
     ``HMMA.16816.F32.BF16`` instructions in the built library
     (``cuobjdump -sass``).
+
+12. After phase 11, K-step dispatch (``drive_kstep``), TF32 off, on 96
+    synthetic episodes at B=8 T=30 (76 train: 9 full batches and a tail;
+    K=auto is 9), for every route that trains on the card (MRSSM nhwc,
+    ``fused_enc`` + ``stacked``, 16-mixed ``fused_enc``, the plain route,
+    full bf16; MMTRSSM nhwc and ``fused_enc``; ``WeightedMoPoEMRSSM`` and
+    ``RSSM`` from the YAML): under deterministic cuDNN, fits of 3 epochs
+    at K=1, at K=auto (each step a replay of the captured step) and
+    device-resident at K=auto, the last two bit for bit the first
+    (weights, epoch rows, global step); the capture's and warm-up's ms,
+    its pool's MB and launches a replay; each fit's steps/s over epochs 2
+    and 3. Then, in a fresh process (``--kstep-probe``: late in a long
+    process the profiler drops device records), for each route on a fresh
+    model: ms a step at K=1 and K=auto, the median and range of 5
+    interleaved turns (K steps a turn; 3 eager steps on the routes with no
+    counted kernel); a profiler window of each, in which every training
+    kernel of ``KSTEP_SIGNATURES`` must be seen exactly as often as the
+    launch counters say, launched by ``cudaGraphLaunch`` in the graphed
+    one, and the replays' counters must be the capture's times K; the
+    device ms, busy share and host launch calls a step. A profiler that
+    fails or keeps no device record fails the phase. Then a zero1 fit of
+    ``MRSSMConfig()`` at K=auto on an NCCL group of one rank (all-reduce
+    and all-gather inside the graph) bit for bit the one-process fit.
+    ``--kstep`` runs this phase alone.
 
 ``python3 chip_smoke.py --learning-demo`` runs only the learning
 demonstration's long runs (``learning_demo_phase``: ``demo_e2e`` at the JAX
@@ -277,7 +301,7 @@ flag), with no contract lines.
 
 Each configuration's serving and training run, phase 3b's coalesced
 requests, phases 4b, 4c, 6, each part of 7, 8, 9, 10 (each rank's own
-counts, summed) and 11, and the decoder's path
+counts, summed), 11 and 12, and the decoder's path
 (``fused_decoder_apply`` on both decoders of the first two configurations'
 observed features at B=8 T=30, forward and a ``gaussian_nll`` backward), is
 driven with every launch count set to 0 just before it and read just after.
@@ -3290,32 +3314,56 @@ FINE_TUNE_EPOCHS = 100
 
 @contextlib.contextmanager
 def _sigterm_after(n: int):
-    """SIGTERM this process right after the n-th train step of a fit (the
-    trainer's preemption guard turns it into a mid-epoch checkpoint)."""
+    """SIGTERM this process right after the n-th train step of a fit, an
+    eager step or a graphed one's replay (the trainer's preemption guard
+    turns it into a mid-epoch checkpoint once the chunk in flight ends)."""
     import os
     import signal
 
+    from multimodal_mtrssm_tpu_torch.train import graph
     from multimodal_mtrssm_tpu_torch.train import trainer as trainer_mod
 
-    real = trainer_mod.make_train_step
+    real, real_replay, calls = trainer_mod.make_train_step, graph.GraphedStep.replay, [0]
+
+    def count() -> None:
+        calls[0] += 1
+        if calls[0] == n:
+            os.kill(os.getpid(), signal.SIGTERM)
 
     def make(*args):
-        step, calls = real(*args), [0]
+        step = real(*args)
 
         def wrapped(*a):
             out = step(*a)
-            calls[0] += 1
-            if calls[0] == n:
-                os.kill(os.getpid(), signal.SIGTERM)
+            count()
             return out
 
         return wrapped
 
-    trainer_mod.make_train_step = make
+    def replay(self, *a):
+        real_replay(self, *a)
+        if self.optimizer is not None:  # a train step's graph
+            count()
+
+    trainer_mod.make_train_step, graph.GraphedStep.replay = make, replay
     try:
         yield
     finally:
-        trainer_mod.make_train_step = real
+        trainer_mod.make_train_step, graph.GraphedStep.replay = real, real_replay
+
+
+def _warmup_launches(trainer) -> dict[str, int]:
+    """The launches a fit's graph warm-ups made (each captured step runs
+    ``WARMUP_STEPS`` times eagerly before its capture): a fit's counts are
+    these, its eager steps' and its replays'."""
+    from multimodal_mtrssm_tpu_torch.train.graph import WARMUP_STEPS
+
+    out: dict[str, int] = {}
+    for chunk in trainer.chunk_steps or ():
+        for step in (chunk.graphs.values() if chunk is not None and chunk.graphs else ()):
+            for k, n in step.launches.items():
+                out[k] = out.get(k, 0) + WARMUP_STEPS * n
+    return out
 
 
 def _weights_close(model, ref) -> tuple[float, bool]:
@@ -3377,8 +3425,10 @@ def preempt_and_resume(make, what: str) -> dict:
         cut = make("cut")
         cut_out = cut.fit()
     aux = cut.ckpt.aux("last")
+    # A graphed chunk (K > 1; epoch 1's first holds steps 3 … 2+K) completes first.
+    spd = cut._resolve_spd()
     if not (cut_out["preempted"] and aux.get("mid_epoch") and aux["epoch"] == 1
-            and aux["global_step"] == RESUME_STEP):
+            and aux["global_step"] == (RESUME_STEP if spd == 1 else 3 + spd)):
         raise RuntimeError(f"{what}: SIGTERM after step {RESUME_STEP} left preempted="
                            f"{cut_out['preempted']} and 'last' {aux}")
     resumed = make("cut")
@@ -3742,6 +3792,21 @@ def _counting_datamodule():
                 self.val_batches_served += 1
                 yield batch
 
+        def _items(self, items, stage: str):
+            """Chunked items (K-step dispatch), each batch of them counted."""
+            for kind, b in items:
+                for batch in ([tuple(x[i] for x in b) for i in range(b[0].shape[0])]
+                              if kind == "scan" else [b]):
+                    self._count(batch, stage)
+                    self.val_batches_served += stage == "val"
+                yield kind, b
+
+        def train_batches_chunked(self, epoch, k, device="cpu", skip=0):
+            return self._items(super().train_batches_chunked(epoch, k, device, skip), "train")
+
+        def val_batches_chunked(self, k, device="cpu"):
+            return self._items(super().val_batches_chunked(k, device), "val")
+
     return CountingDataModule
 
 
@@ -3846,8 +3911,10 @@ def drive_crossmodal(dev, work: Path, test_data: list[dict], card: str) -> dict:
     counts = launch_counts()
     add(counts)
     steps, renders = out["global_step"], 4  # epoch_0001 and final_best, train and val
-    expect = {"recurrence_fwd": steps + dm.val_batches_served + renders,
-              "recurrence_bwd": steps, "rollout": renders}
+    warm = _warmup_launches(trainer)
+    expect = {"recurrence_fwd": steps + dm.val_batches_served + renders
+              + warm.get("recurrence_fwd", 0),
+              "recurrence_bwd": steps + warm.get("recurrence_bwd", 0), "rollout": renders}
     losses = [r[k] for r in out["history"] for k in ("train/loss", "val/loss")]
     if steps != 6 or not all(np.isfinite(losses)) or \
             {k: counts[k] for k in expect} != expect:
@@ -4369,9 +4436,12 @@ def drive_precision(dev, work: Path, card: str) -> dict:
             if not all(np.isfinite(v) for row in out["history"] for v in row.values()):
                 raise RuntimeError(f"{label}: non-finite training metrics")
             enc = (counts["fused_encoder_fwd_bf16"], counts["fused_encoder_bwd_bf16"])
-            want = (2 * steps, 2 * steps) if layout == "fused_enc" else (0, 0)
+            warm = _warmup_launches(trainer)
+            want = (2 * steps, 2 * steps + warm.get("fused_encoder_bwd_bf16", 0)) \
+                if layout == "fused_enc" else (0, 0)
             if (counts["fused_encoder_fwd"] or counts["fused_encoder_bwd"] or
-                    enc[1] != want[1] or enc[0] < want[0] or counts[f"{rec}_bwd"] != steps):
+                    enc[1] != want[1] or enc[0] < want[0]
+                    or counts[f"{rec}_bwd"] != steps + warm.get(f"{rec}_bwd", 0)):
                 raise RuntimeError(f"{label}: launches {counts} over {steps} steps")
             print(f"main-path kernel launches, {label} fit, {steps} optimizer steps: {counts}; "
                   f"{out['history'][-1]['train/loss']:.6g} train/loss last epoch; "
@@ -4483,8 +4553,8 @@ def _family_step_times(model, dev, card: str, label: str) -> dict:
     opt = AdamW(model.parameters())
     gen = torch.Generator(device=dev).manual_seed(SEED)
     step = lambda: one_update(model, opt, batch, gen)  # noqa: E731
-    ms = _median_ms(step, 7, warmup=2)
-    device = _device_ms(step, "", reps=5)
+    ms = _median_ms(step, 5, warmup=1)
+    device = _device_ms(step, "", reps=3)
     busy = "not measured" if device is None else f"{device:.4f} ms ({device / ms:.1%} busy)"
     print(f"time {label} train step B=8 T=30 (forward, backward, AdamW): {ms:.4f} ms, device "
           f"{busy} | {card}")
@@ -4645,8 +4715,7 @@ def drive_other_families(dev, work: Path, card: str) -> dict:
     exp, path = _family_experiment(label, work, episodes)
     model, counts = _fit_family(exp, dev, card, label)
     runs.append(counts)
-    _family_step_times(model, dev, card, label)
-    _family_vs_cpu(model, dev, label)
+    _family_vs_cpu(model, dev, label)  # phase 12 times its step, eager and graphed
     served = WorldModel.from_checkpoint(path, Path(exp.trainer.log_dir) / "checkpoints", dev)
     with torch.no_grad():
         ctx = drive_server(served.model, served.model.cfg, dev, {"rollout": 2})
@@ -4682,8 +4751,7 @@ def drive_other_families(dev, work: Path, card: str) -> dict:
     exp, _ = _family_experiment("RSSM", work, episodes)
     model, counts = _fit_family(exp, dev, card, label)
     runs.append(counts)
-    _family_step_times(model, dev, card, label)
-    _family_vs_cpu(model, dev, label)
+    _family_vs_cpu(model, dev, label)  # phase 12 times its step, eager and graphed
     runs.append(_family_rollout(model, dev, label))
     print(f"phase 9: {time.perf_counter() - t0:.1f} s")
     return {k: sum(r[k] for r in runs) for k in runs[0]}
@@ -4691,7 +4759,9 @@ def drive_other_families(dev, work: Path, card: str) -> dict:
 
 # ---- phase 10: data-parallel training on torch.distributed -------------------------------------
 
-DP_WORLDS = (2, 4)  # gloo ranks sharing the one card (NCCL refuses two ranks on one device)
+# Gloo ranks sharing the one card (NCCL refuses two ranks on one device): the
+# dry run at 4 (flat, ZeRO-1 and hybrid), step times at 2.
+DP_DRYRUN_WORLDS, DP_STEP_WORLDS = (4,), (2,)
 DP_HISTORY_RTOL = 1e-4  # a 2-rank fit's epoch means against the 1-process fit's
 
 
@@ -4856,9 +4926,9 @@ def drive_distributed(dev, work: Path, card: str, ref_model) -> dict:
     """Phase 10 (module docstring, 10): (a) ``Trainer.fit`` of
     ``MRSSMConfig()`` with ``zero1`` on an NCCL process group of one rank
     against phase 4b's uninterrupted fit (``ref_model``); (b) the dry run
-    at 2 and 4 gloo ranks on the card; (c) a 2-rank gloo fit of
+    at 4 gloo ranks on the card; (c) a 2-rank gloo fit of
     ``MMTRSSMConfig(conv_layout="fused_enc")`` with ``zero1`` against the
-    1-process fit; (d) ms a step at 1 process, NCCL W=1 and gloo W=2 and 4,
+    1-process fit; (d) ms a step at 1 process, NCCL W=1 and gloo W=2,
     the collectives' ms and the busy share. Returns the launch counts of
     every rank's main path, summed."""
     import datetime
@@ -4889,7 +4959,8 @@ def drive_distributed(dev, work: Path, card: str, ref_model) -> dict:
             counts = launch_counts()
         if trainer.mesh is None or trainer.mesh.world != 1 or dist.get_backend() != "nccl":
             raise RuntimeError(f"NCCL W=1 fit trained on {trainer.mesh}")
-        if counts["recurrence_bwd"] != 6 or out["opt_state"]["count"] != 6:
+        if counts["recurrence_bwd"] != 6 + _warmup_launches(trainer).get("recurrence_bwd", 0) \
+                or out["opt_state"]["count"] != 6:
             raise RuntimeError(f"NCCL W=1 fit: {out['opt_state']['count']} steps, {counts}")
         err, same = _weights_close(trainer.model, ref_model)
         if not err <= WEIGHT_TOL:
@@ -4905,7 +4976,7 @@ def drive_distributed(dev, work: Path, card: str, ref_model) -> dict:
         dist.destroy_process_group()
 
     # (b) the dry run: both families at the reference config on gloo ranks.
-    for n in DP_WORLDS:
+    for n in DP_DRYRUN_WORLDS:
         results = dryrun_multichip(n, device="cuda", backend="gloo")
         for rank, r in enumerate(results):
             c = r["launches"]
@@ -4945,7 +5016,7 @@ def drive_distributed(dev, work: Path, card: str, ref_model) -> dict:
           f"bit-identical; per-rank launches {[r['launches'] for r in ranks]}")
 
     # (d) ms a step.
-    for n in DP_WORLDS:
+    for n in DP_STEP_WORLDS:
         times.append((f"gloo W={n}", spawn("chip_smoke:_dp_step_rank", n, "cuda",
                                            backend="gloo", timeout_s=600,
                                            group_timeout_s=300)[0]))
@@ -5378,7 +5449,8 @@ def drive_full_bf16(dev, work: Path, card: str) -> dict:
             others = {k: v for k, v in counts.items() if v and k not in (
                 "fused_encoder_fwd_bf16", "fused_encoder_bwd_bf16")}
             want = 2 * steps if layout == "fused_enc" else 0
-            if others or enc[1] != want or enc[0] < want or (want == 0 and enc[0]):
+            warm = _warmup_launches(trainer).get("fused_encoder_bwd_bf16", 0)
+            if others or enc[1] != want + warm or enc[0] < want or (want == 0 and enc[0]):
                 raise RuntimeError(f"{label} fit: launches {counts} over {steps} steps")
             print(f"main-path kernel launches, {label} fit, {steps} optimizer steps: {counts}; "
                   f"{out['history'][-1]['train/loss']:.6g} train/loss last epoch; "
@@ -5386,10 +5458,7 @@ def drive_full_bf16(dev, work: Path, card: str) -> dict:
             runs.append(counts)
             _state_dtypes(model, dev, label)
             _full_bf16_vs_cpu(model, dev, label)
-            _family_step_times(model, dev, card, label)
-            f32 = family(dataclasses.replace(cfg, compute_dtype=torch.float32)).to(dev)
-            f32.load_state_dict(model.state_dict())
-            _family_step_times(f32, dev, card, _label(f32.cfg))
+            _family_step_times(model, dev, card, label)  # phase 12 times the f32 plain route
             fits[label] = (cfg, log_dir / "checkpoints")
     # (c) the weighted and unimodal families at bf16, from the YAML.
     for name in ("WeightedMoPoEMRSSM", "RSSM"):
@@ -5431,6 +5500,425 @@ def drive_full_bf16(dev, work: Path, card: str) -> dict:
     return {k: sum(r.get(k, 0) for r in runs) for k in runs[0]}
 
 
+# ---- phase 12: K-step dispatch -------------------------------------------------------
+
+KSTEP_EPISODES = 96  # 76 train (9 full batches of 8 and a tail of 4), 20 val (2 and 4)
+KSTEP_EPOCHS = 3  # a fit's steps/s is read over its epochs 2 and 3: 20 optimizer steps
+KSTEP_TURNS = 5  # interleaved timing turns of each dispatch
+KSTEP_PLAIN_STEPS = 3  # eager steps a turn on the routes with no counted kernel (~0.2-0.3 s each)
+# The training kernels the profiler names one for one with the launch
+# counters: a device kernel (its exact name) and the counters whose every
+# wrapper call launches it once (a backward recomputes through its forward;
+# the stacked entries run the unstacked recurrence's kernels on packed weights).
+KSTEP_SIGNATURES = {
+    "recurrence_fwd_stages_kernel": ("recurrence_fwd", "stacked_recurrence_fwd"),
+    "recurrence_bwd_chain_kernel": ("recurrence_bwd", "stacked_recurrence_bwd"),
+    "stacked_pack_kernel": ("stacked_recurrence_fwd", "stacked_recurrence_bwd"),
+    "stacked_scatter_kernel": ("stacked_recurrence_bwd",),
+    "mt_recurrence_fwd_stages_kernel": ("mt_recurrence_fwd",),
+    "mt_recurrence_bwd_chain_kernel": ("mt_recurrence_bwd",),
+    "encoder_fwd_kernel": ("fused_encoder_fwd", "fused_encoder_bwd"),
+    "encoder_bwd_dx_kernel": ("fused_encoder_bwd",),
+    "encoder_bf16_tc_fwd_kernel": ("fused_encoder_fwd_bf16", "fused_encoder_bwd_bf16"),
+    "encoder_bf16_tc_dx_kernel": ("fused_encoder_bwd_bf16",),
+}
+# Host-side launch calls, as the profiler names them.
+KSTEP_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                      "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                      "cudaMemsetAsync")
+
+
+def _kstep_routes(work: Path) -> list[tuple[str, object, str]]:
+    """Phase 12's routes: (label, model config, modality) for every family
+    and route that trains on the card."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.models import MMTRSSMConfig, MRSSMConfig
+
+    episodes = work / "yaml-episodes"
+    weighted = _family_experiment("WeightedMoPoEMRSSM", work / "yaml", episodes)[0].model.cfg
+    rssm = _family_experiment("RSSM", work / "yaml", episodes)[0].model.cfg
+    routes = [MRSSMConfig(), MRSSMConfig(conv_layout="fused_enc", use_pallas_train="stacked"),
+              MMTRSSMConfig(), MMTRSSMConfig(conv_layout="fused_enc"),
+              MRSSMConfig(conv_layout="fused_enc", conv_dtype=torch.bfloat16),
+              MRSSMConfig(use_pallas_train=False),
+              MRSSMConfig(use_pallas_train=False, compute_dtype=torch.bfloat16),
+              weighted, rssm]
+    return [(_label(c), c, "vision" if hasattr(c, "encoder") else "multimodal") for c in routes]
+
+
+def _kstep_trainer(cfg, modality: str, dev, episodes: Path, run_dir: Path, **kw):
+    """A fresh ``KSTEP_EPOCHS``-epoch ``Trainer`` of ``cfg`` at B=8 T=30 on
+    ``episodes`` (pipeline noise 0); ``device_resident`` and the trainer's
+    fields in ``kw``."""
+    from multimodal_mtrssm_tpu_torch.data import DataModuleConfig, EpisodeDataModule
+    from multimodal_mtrssm_tpu_torch.models import (
+        RSSM,
+        MMTRSSMConfig,
+        MoPoEMMTRSSM,
+        MoPoEMRSSM,
+        WeightedMoPoEMRSSM,
+        WeightedMRSSMConfig,
+    )
+    from multimodal_mtrssm_tpu_torch.train import Trainer, TrainerConfig
+
+    family = (MoPoEMMTRSSM if isinstance(cfg, MMTRSSMConfig) else WeightedMoPoEMRSSM
+              if isinstance(cfg, WeightedMRSSMConfig) else RSSM if modality == "vision"
+              else MoPoEMRSSM)
+    dm = EpisodeDataModule(DataModuleConfig(
+        data_dir=str(episodes), batch_size=8, sequence_length=30, noise_std=0.0, seed=SEED,
+        modality=modality, device_resident=kw.pop("device_resident", False)))
+    return Trainer(family(cfg).to(dev), dm, TrainerConfig(
+        max_epochs=KSTEP_EPOCHS, seed=SEED, log_dir=str(run_dir), **kw))
+
+
+def _kstep_fit(make, name: str) -> tuple[object, dict, dict[str, int], list[float]]:
+    """``make(name)``'s fit: the trainer, its result, its launch counts and
+    the optimizer steps/s of each epoch after the first."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    trainer = make(name)
+    reset_launch_counts()
+    out = trainer.fit()
+    torch.cuda.synchronize()
+    dm = trainer.dm
+    steps = -(-dm.n_train // dm.train_batch_size)
+    return trainer, out, launch_counts(), [steps * row["seq_per_sec"] / dm.n_train
+                                           for row in out["history"][1:]]
+
+
+def _over_epochs(rates: list[float]) -> float:
+    """Steps/s over equal-step epochs: steps over their summed seconds."""
+    return len(rates) / sum(1 / r for r in rates)
+
+
+def _same_fit(a: tuple, b: tuple) -> bool:
+    """Two fits' weights, epoch rows (but their rates) and steps bit for bit."""
+    rows = lambda out: [{k: v for k, v in r.items() if k != "seq_per_sec"}  # noqa: E731
+                        for r in out["history"]]
+    return (_weights_close(a[0].model, b[0].model)[1] and rows(a[1]) == rows(b[1])
+            and a[1]["global_step"] == b[1]["global_step"])
+
+
+def _graph_pool_bytes(step) -> int | None:
+    """The bytes of the allocator's segments in ``step``'s graph's private
+    pool (None where the allocator's snapshot names no such segment)."""
+    import torch
+
+    pool = tuple(step.graph.pool())
+    sizes = [seg["total_size"] for seg in torch.cuda.memory_snapshot()
+             if tuple(seg.get("segment_pool_id", ())) == pool]
+    return sum(sizes) if sizes else None
+
+
+def _is_kernel(key: str, name: str) -> bool:
+    """Whether a device record's ``key`` names the kernel ``name``: whole,
+    after a namespace or ``void`` and before its template or argument list."""
+    import re
+
+    return re.search(rf"(?:^|[\s:]){name}\s*[<(]", key) is not None
+
+
+def _kstep_window(fn, k: int, what: str) -> dict:
+    """One profiler window (CPU and CUDA) over ``fn``, ``k`` steps, read from
+    its raw records: device ms a step, the host's launch calls a step by
+    name, each signature kernel's count and the host calls that launched it
+    (by correlation id), the launch counters' counts, and the device
+    kernels. The window first runs ``fn`` once unread: the profiler can drop
+    the device records of a window's first milliseconds. The read call is
+    marked; its records are those whose correlation id lies between the
+    first and last CUDA API call made inside the mark. Raises where the
+    profiler fails or keeps no device record of the read call."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with record_function("kstep window"):
+            fn()
+            torch.cuda.synchronize()
+        counted = {c: n for c, n in launch_counts().items() if n}
+        time.sleep(0.05)
+    raw = prof.profiler.kineto_results.events()
+    mark = next(e for e in raw if e.name() == "kstep window")
+    lo, hi = mark.start_ns(), mark.start_ns() + mark.duration_ns()
+    api = [e for e in raw if e.device_type() == DeviceType.CPU and e.name().startswith("cu")
+           and lo <= e.start_ns() <= hi]
+    if not api:
+        raise RuntimeError(f"{what}: the profiler kept no CUDA API call of the window")
+    c_lo, c_hi = min(e.correlation_id() for e in api), max(e.correlation_id() for e in api)
+    device = [e for e in raw if e.device_type() == DeviceType.CUDA
+              and c_lo <= e.correlation_id() <= c_hi]
+    kernels = [e for e in device if not e.name().startswith(("Memset", "Memcpy"))]
+    if not kernels:
+        raise RuntimeError(f"{what}: the profiler kept no device record")
+    host = [e for e in api if e.name() in KSTEP_LAUNCH_CALLS]
+    calls = {e.correlation_id(): e.name() for e in host}
+    names = collections.Counter(e.name() for e in kernels)
+    sig_of = {n: next((s for s in KSTEP_SIGNATURES if _is_kernel(n, s)), None) for n in names}
+    launchers = {sig: collections.Counter() for sig in KSTEP_SIGNATURES}
+    for e in kernels:
+        if sig_of[e.name()] is not None:
+            launchers[sig_of[e.name()]][calls.get(e.correlation_id(), "no host call")] += 1
+    return {"device_ms": sum(e.duration_ns() for e in device) / k / 1e6,
+            "launches": {n: c / k for n, c in collections.Counter(e.name() for e in host).items()},
+            "signatures": {sig: sum(c for n, c in names.items() if sig_of[n] == sig)
+                           for sig in KSTEP_SIGNATURES},
+            "launchers": launchers, "counted": counted, "kernels": names}
+
+
+def _check_window(w: dict, what: str, graphed: bool) -> str:
+    """The window's launch counters against the profiler: each signature
+    kernel seen exactly as often as its counters' launches, each counted
+    launch named by some signature, and in a graphed window every one of
+    them launched by ``cudaGraphLaunch``. Raises on any difference."""
+    counted = w["counted"]
+    unnamed = [c for c in counted if not any(c in via for via in KSTEP_SIGNATURES.values())]
+    if unnamed:
+        raise RuntimeError(f"{what}: counted launches {unnamed} have no signature kernel")
+    out = []
+    for sig, via in KSTEP_SIGNATURES.items():
+        want, seen = sum(counted.get(c, 0) for c in via), w["signatures"][sig]
+        if seen != want:
+            raise RuntimeError(f"{what}: the profiler saw {sig} {seen} times, the counters "
+                               f"say {want} ({counted})")
+        if graphed and dict(w["launchers"][sig]) not in ({}, {"cudaGraphLaunch": want}):
+            raise RuntimeError(f"{what}: {sig} launched by {dict(w['launchers'][sig])}, not "
+                               f"by cudaGraphLaunch alone")
+        if want:
+            out.append(f"{sig} {seen} (counters {want})")
+    return ", ".join(out)
+
+
+def _kstep_probe_route(label: str, cfg, modality: str, dev, episodes: Path, run_dir: Path,
+                       card: str) -> None:
+    """One route's graphed chunk against its eager steps on the same batches
+    of a fresh model: ms a step over ``KSTEP_TURNS`` interleaved turns of
+    each (CUDA events; K steps a turn, ``KSTEP_PLAIN_STEPS`` eagerly where
+    the step launches no counted kernel), then a profiler window of each,
+    held to the counters (:func:`_check_window`), for the device ms, busy
+    share and host launch calls a step."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.train import AdamW, make_train_chunk, make_train_step
+
+    trainer = _kstep_trainer(cfg, modality, dev, episodes, run_dir)
+    trainer.dm.setup()
+    k = trainer._resolve_spd()
+    model = trainer.model
+    model.init(torch.Generator().manual_seed(SEED))
+    kind, chunk = next(trainer.dm.train_batches_chunked(0, k, dev))
+    if kind != "scan":
+        raise RuntimeError(f"{label}: the first item at K={k} is a {kind!r}")
+    train_chunk = make_train_chunk(model, AdamW(model.parameters()))
+    eager_step = make_train_step(model, AdamW(model.parameters()))
+
+    def graphed():
+        train_chunk(chunk, SEED, 0, {})
+
+    with _deterministic_cudnn():  # as the fits that were compared bit for bit
+        graphed()  # the capture
+        per_replay = next(iter(train_chunk.graphs.values())).launches
+        n_eager = k if per_replay else KSTEP_PLAIN_STEPS
+
+        def eager():
+            for i in range(n_eager):
+                eager_step(tuple(x[i] for x in chunk), SEED, i)
+
+        eager()
+        runs = {"K=1": (eager, n_eager), f"K={k}": (graphed, k)}
+        turns: dict[str, list[float]] = {name: [] for name in runs}
+        for t in range(KSTEP_TURNS):
+            for name in (runs if t % 2 == 0 else reversed(runs)):
+                fn, n = runs[name]
+                turns[name].append(_median_ms(fn, 1, warmup=0) / n)
+        windows = {name: _kstep_window(fn, n, f"{label} {name}") for name, (fn, n) in runs.items()}
+    g = windows[f"K={k}"]
+    want = {c: n * k for c, n in per_replay.items()}
+    if g["counted"] != want:
+        raise RuntimeError(f"{label}: {k} replays counted {g['counted']}, the capture {want}")
+    agree = _check_window(g, f"{label} K={k}", graphed=True)
+    agree_eager = _check_window(windows["K=1"], f"{label} K=1", graphed=False)
+    if agree:
+        print(f"kstep {label}: counted kernels inside {k} replays (each launched by "
+              f"cudaGraphLaunch), the profiler's count beside the counters': {agree}; eager "
+              f"{n_eager} steps: {agree_eager}")
+    top = sorted(g["kernels"].items(), key=lambda kv: -kv[1])[:12]
+    print(f"kstep {label}: device kernels of {k} replays: {sum(g['kernels'].values()) / k:.0f} "
+          "a replay; " + ", ".join(f"{key[:48]} x{c / k:g}" for key, c in top))
+    for name, ms in turns.items():
+        w, med = windows[name], float(np.median(ms))
+        print(f"kstep {label} {name}: {med:.4f} ms a step, median of {len(ms)} interleaved turns "
+              f"of {runs[name][1]} steps (range {min(ms):.4f}-{max(ms):.4f}); device "
+              f"{w['device_ms']:.4f} ms (busy {w['device_ms'] / med:.1%}); launch calls a step "
+              f"{ {c: round(v, 2) for c, v in w['launches'].items()} } | {card}")
+
+
+def kstep_probe(work: Path) -> int:
+    """``--kstep-probe WORK``: phase 12's timing turns and profiler windows
+    for every route, in a process of their own (late in a long process the
+    profiler drops device records), on the episodes phase 12 made under
+    ``WORK``. Exits non-zero when a check fails."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels import build
+
+    card = card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.load_library()
+    dev = torch.device("cuda", 0)
+    failed = []
+    for label, cfg, modality in _kstep_routes(work):
+        t0 = time.perf_counter()
+        try:
+            _kstep_probe_route(label, cfg, modality, dev, work / "episodes",
+                               work / "probe" / label, card)
+            print(f"kstep probe {label}: {time.perf_counter() - t0:.1f} s")
+        except Exception as exc:  # noqa: BLE001 — every route runs; the probe fails after
+            import traceback
+
+            traceback.print_exc()
+            failed.append(f"{label}: {type(exc).__name__}: {exc}")
+    if failed:
+        print("kstep probe failed on: " + "; ".join(failed))
+        return 1
+    return 0
+
+
+def drive_kstep(dev, work: Path, card: str) -> dict:
+    """Phase 12 (module docstring, 12): K-step dispatch on every route.
+    Returns the launch counts of the graphed fits."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from multimodal_mtrssm_tpu_torch.data import generate_synthetic_audio_mnist
+
+    t0 = time.perf_counter()
+    episodes = work / "episodes"
+    generate_synthetic_audio_mnist(episodes, n_episodes=KSTEP_EPISODES, seed=SEED)
+    generate_synthetic_audio_mnist(work / "yaml-episodes", n_episodes=24, seed=SEED)
+    runs: list[dict[str, int]] = []
+    failed: list[str] = []
+    for label, cfg, modality in _kstep_routes(work):
+        t_route = time.perf_counter()
+        try:
+            def make(name, cfg=cfg, modality=modality, **kw):
+                return _kstep_trainer(cfg, modality, dev, episodes, work / label / name, **kw)
+
+            with _deterministic_cudnn():
+                eager = _kstep_fit(lambda n: make(n, steps_per_dispatch=1), "k1")
+                auto_fit = _kstep_fit(make, "auto")
+                resident = _kstep_fit(lambda n: make(n, device_resident=True), "auto-resident")
+            trainer = auto_fit[0]
+            spd = trainer._resolve_spd()
+            for other, what in ((auto_fit, f"K=auto ({spd})"), (resident, "device-resident")):
+                if not _same_fit(eager, other):
+                    raise RuntimeError(f"{label}: the {what} fit is not the K=1 fit bit for bit")
+            graphs = trainer.chunk_steps[0].graphs
+            if not graphs:
+                raise RuntimeError(f"{label}: the K={spd} fit captured no graph")
+            step = next(iter(graphs.values()))
+            counts, per_replay = auto_fit[2], step.launches
+            if any(counts[k] < n for k, n in eager[2].items()):
+                raise RuntimeError(f"{label}: launches K=1 {eager[2]}, K={spd} {counts}")
+            runs.append(counts)
+            pool = _graph_pool_bytes(step)
+            print(f"kstep {label}: K={spd} fit ({KSTEP_EPOCHS} epochs x 10 steps, 96 episodes "
+                  f"B=8 T=30) bit for bit the K=1 fit (weights, epoch rows, global_step "
+                  f"{auto_fit[1]['global_step']}), as is the device-resident K={spd} fit; "
+                  f"graph capture {step.capture_s * 1e3:.1f} ms after a "
+                  f"{step.warmup_s * 1e3:.1f} ms warm-up, pool "
+                  + ("not measured" if pool is None else f"{pool / 2**20:.1f} MB")
+                  + f"; launches a replay {per_replay}; fit launches {counts} | {card}")
+            print(f"kstep {label}: fit steps/s over epochs 2-{KSTEP_EPOCHS} (each epoch's), "
+                  f"K=1, K={spd}, device-resident K={spd}: "
+                  + ", ".join(f"{_over_epochs(f[3]):.3f} ({', '.join(f'{r:.3f}' for r in f[3])})"
+                              for f in (eager, auto_fit, resident))
+                  + f"; the three fits {time.perf_counter() - t_route:.1f} s | {card}")
+        except Exception as exc:  # noqa: BLE001 — every route runs; the phase fails after
+            import traceback
+
+            traceback.print_exc()
+            failed.append(f"{label}: {type(exc).__name__}: {exc}")
+
+    # The timing turns and the profiler's kernels against the counters, in a
+    # fresh process: late in a long one the profiler drops device records.
+    probe = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--kstep-probe",
+                            str(work)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                           text=True, timeout=600, cwd=Path(__file__).resolve().parent)
+    print(probe.stdout, end="")
+    if probe.returncode != 0:
+        failed.append(f"the probe process exited {probe.returncode}")
+
+    # The NCCL W=1 graphed fit against one process.
+    from multimodal_mtrssm_tpu_torch.models import MRSSMConfig
+
+    cfg = MRSSMConfig()
+    make = lambda name, **kw: _kstep_trainer(cfg, "multimodal", dev, episodes,  # noqa: E731
+                                             work / "nccl" / name, **kw)
+    try:
+        with _deterministic_cudnn():
+            one = _kstep_fit(lambda n: make(n, zero1=True), "one")
+            dist.init_process_group("nccl", init_method=f"file://{work / 'nccl-store'}", rank=0,
+                                    world_size=1, timeout=datetime.timedelta(seconds=300))
+            try:
+                nccl = _kstep_fit(lambda n: make(n, zero1=True), "nccl")
+                graphed = nccl[0].chunk_steps[0].graphs
+            finally:
+                dist.destroy_process_group()
+        if nccl[0].mesh is None or not graphed:
+            raise RuntimeError(f"the NCCL W=1 fit ran on {nccl[0].mesh}, graphs {graphed}")
+        if not _same_fit(one, nccl):
+            raise RuntimeError("the NCCL W=1 graphed fit is not the one-process fit bit for bit")
+        runs.append(nccl[2])
+        print(f"kstep NCCL world 1, MRSSMConfig() zero1, K={nccl[0]._resolve_spd()}: graphed fit "
+              f"(all-reduce and all-gather captured) bit for bit the one-process fit; steps/s "
+              f"over epochs 2-{KSTEP_EPOCHS} {_over_epochs(nccl[3]):.3f} against "
+              f"{_over_epochs(one[3]):.3f} | {card}")
+    except Exception as exc:  # noqa: BLE001
+        import traceback
+
+        traceback.print_exc()
+        failed.append(f"NCCL W=1: {type(exc).__name__}: {exc}")
+    print(f"phase 12 took {time.perf_counter() - t0:.1f} s")
+    if failed:
+        raise RuntimeError("K-step dispatch failed on: " + "; ".join(failed))
+    return {k: sum(r.get(k, 0) for r in runs) for k in runs[0]} if runs else {}
+
+
+def kstep_phase() -> int:
+    """``--kstep``: only phase 12, K-step dispatch, with its checks."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels import build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
+        return 2
+    card = card_line()
+    print(card)
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.load_library()
+    with tempfile.TemporaryDirectory() as work:
+        drive_kstep(torch.device("cuda", 0), Path(work), card)
+    return 0
+
+
 def main() -> int:
     """Every phase; the fit runs' episodes and checkpoints live in a
     temporary directory removed at the end."""
@@ -5449,6 +5937,10 @@ def _main(work: Path) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    def stamp(what: str) -> None:
+        print(f"chip_smoke: {what} done at {time.perf_counter() - t_start:.1f} s")
 
     from multimodal_mtrssm_tpu_torch.models import (
         MMTRSSMConfig,
@@ -5487,19 +5979,23 @@ def _main(work: Path) -> int:
         bounds = recurrence_bounds(model, cfg, dev)
         other_bounds("MRSSM", ((128, 30),),
                      lambda B, T, roll: recurrence_bounds(model, cfg, dev, B, T, roll))
+    stamp("MRSSM checks, serving and kernel timings")
     training = drive_training(cfg, dev, {"recurrence_fwd": 1, "recurrence_bwd": 1},
                               work / "mrssm")
     times.update(bwd_timings(training["model"], cfg, dev, card))
     step_timings(training["model"], dev, card)
     fit_rate(training, cfg)
     co = serve_trained(cfg, dev, training, card)
+    stamp("MRSSM fit, step timings and coalesced serving")
     resume = drive_resume(cfg, dev, work / "mrssm_resume")
     command = drive_train_command(cfg, dev, work / "mrssm_command")
+    stamp("MRSSM resume and train command")
     eval_inputs = evaluation_inputs(dev, work / "evaluation")
     evaluation = drive_evaluation(cfg, dev, training["checkpoints"], eval_inputs,
                                   work / "mrssm_evaluation", card)
     runs += [ctx["counts"], training["counts"], co, resume["counts"], command["counts"],
              evaluation["counts"]]
+    stamp("MRSSM phases")
 
     # MoPoE-MMTRSSM.
     mt_cfg = MMTRSSMConfig()
@@ -5532,6 +6028,7 @@ def _main(work: Path) -> int:
                                      work / "mmtrssm_evaluation", card)
     runs += [mt_ctx["counts"], mt_training["counts"], mt_co, mt_resume["counts"],
              mt_command["counts"], mt_evaluation["counts"]]
+    stamp("MMTRSSM phases")
 
     # MoPoE-MRSSM on the fused encoder and the stacked recurrence.
     enc_run = {"fused_encoder_fwd": 2, "fused_encoder_bwd": 2}
@@ -5557,6 +6054,7 @@ def _main(work: Path) -> int:
     step_timings(fs_training["model"], dev, card)
     fit_rate(fs_training, fs_cfg)
     runs += [fs_ctx["counts"], fs_training["counts"]]
+    stamp("fused_enc+stacked phases")
 
     # MoPoE-MMTRSSM on the fused encoder.
     fe_cfg = MMTRSSMConfig(conv_layout="fused_enc")
@@ -5569,6 +6067,7 @@ def _main(work: Path) -> int:
     step_timings(fe_training["model"], dev, card)
     fit_rate(fe_training, fe_cfg)
     runs += [fe_ctx["counts"], fe_training["counts"]]
+    stamp("MMTRSSM fused_enc phases")
 
     # The fused decoder (fused_decoder_apply), on the latent features of the
     # first two configurations' observes.
@@ -5585,11 +6084,13 @@ def _main(work: Path) -> int:
     bounds.update(dec_bounds)
     library.update(dec_library)
     runs.append(dec_path["counts"])
+    stamp("decoder phase")
 
     # The cross-modal run: the crossmodal config's fit with the GIF callback,
     # reconstructions of both families, the report, the experiment's entry.
     runs.append(drive_crossmodal(dev, work / "crossmodal", eval_inputs["test_data"],
                                  card)["counts"])
+    stamp("phase 7")
 
     # Phase 8: the bf16 encoder kernels, the plain route by name, 16-mixed
     # from the YAMLs, the learning demonstration's path.
@@ -5599,13 +6100,19 @@ def _main(work: Path) -> int:
     times.update(bf_times)
     bounds.update(bf_bounds)
     library.update(bf_library)
+    stamp("phase 8 bf16 encoder kernels")
     runs.append(drive_plain_route(dev, card))
+    stamp("phase 8 plain route")
     runs.append(drive_precision(dev, work / "precision", card))
+    stamp("phase 8 16-mixed")
     runs.append(drive_learning_path(dev, work / "learning"))
+    stamp("phase 8")
     # Phase 9: the weighted and unimodal families from the YAML.
     runs.append(drive_other_families(dev, work / "families", card))
+    stamp("phase 9")
     # Phase 10: data-parallel training on torch.distributed.
     runs.append(drive_distributed(dev, work / "distributed", card, resume["ref"]))
+    stamp("phase 10")
     # Phase 11: the bf16 fused decoder on its own path (phase 5's observed
     # features cast to bf16), then full-model bf16 in every family.
     runs.append(drive_decoder_bf16(cases, dev))
@@ -5620,7 +6127,12 @@ def _main(work: Path) -> int:
     times.update(dbf_times)
     bounds.update(dbf_bounds)
     library.update(dbf_library)
+    stamp("phase 11 bf16 decoder")
     runs.append(drive_full_bf16(dev, work / "full_bf16", card))
+    stamp("phase 11")
+    # Phase 12: K-step dispatch, the train step as a CUDA graph, on every route.
+    runs.append(drive_kstep(dev, work / "kstep", card))
+    stamp("phase 12")
     # Every pass of both bf16 stacks on the tensor cores.
     hmma = hmma_report(DECODER_BF16_HMMA + ENCODER_BF16_HMMA)
     if any(v == 0 for v in hmma.values()):
@@ -5630,7 +6142,7 @@ def _main(work: Path) -> int:
     launches = {k: sum(run.get(k, 0) for run in runs) for k in runs[0]}
     print("main-path launches, serving + training of the four configurations, resume, the "
           "train command and evaluation of the first two, the fused decoder path, the "
-          f"cross-modal run and phases 8, 9, 10 and 11: {launches}")
+          f"cross-modal run and phases 8 to 12: {launches}")
     pkg = "multimodal_mtrssm_tpu_torch"
     pallas = "multimodal_mtrssm_tpu/ops/pallas"
     meta = {
@@ -5694,7 +6206,7 @@ if __name__ == "__main__":
                  "--bf16-encoder-stamps": bf16_stamps_phase, "--bf16-decoder": bf16_decoder_phase,
                  "--bf16-decoder-once": bf16_decoder_once,
                  "--bf16-decoder-racecheck": bf16_decoder_racecheck,
-                 "--bf16-decoder-stamps": bf16_decoder_stamps_phase}
+                 "--bf16-decoder-stamps": bf16_decoder_stamps_phase, "--kstep": kstep_phase}
         if sys.argv[1:2] == ["--learning-demo"] and len(sys.argv) > 2:
             code = learning_demo_phase(Path(sys.argv[2]))
         elif sys.argv[1:2] == ["--bf16-encoder"] and len(sys.argv) > 2:
@@ -5709,6 +6221,8 @@ if __name__ == "__main__":
             code = bf16_decoder_at(Path(sys.argv[2]))
         elif sys.argv[1:2] == ["--bf16-decoder-stamps-at"] and len(sys.argv) > 2:
             code = bf16_decoder_stamps_at(Path(sys.argv[2]))
+        elif sys.argv[1:2] == ["--kstep-probe"] and len(sys.argv) > 2:
+            code = kstep_probe(Path(sys.argv[2]))
         else:
             code = modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes else main()
     finally:

@@ -42,16 +42,38 @@ seed, ``k`` as above) and counted in ``batch_nbytes``. A static
 ``drop_modality`` acts only on a served stream; ``"random"`` needs both
 and is refused otherwise.
 
-Not ported here: ``native/fastbatch.cc``, the device-resident mode and the
-pinned-memory prefetch (host speed: the ROADMAP speed queue).
+Chunked streams (JAX ``data/pipeline.py:377-483``): ``train_batches_chunked``
+and ``val_batches_chunked`` serve the flat streams' batches, bit for bit and
+in order, as ``("scan", [K, B, ...])`` items of K full batches and
+``("step", batch)`` items for the rest (fewer than K full batches, and the
+ragged tail, which flushes the full ones before it), for the trainer's K-step
+dispatch. A daemon thread assembles the host items two ahead
+(``_prefetch_iter``); the consumer moves each to the device, so no thread but
+the caller's touches the card while it captures a CUDA graph.
+
+``device_resident`` (JAX ``:79-96``, ``:485-651``): the normalised,
+T-sliced streams are uploaded once to the batches' device and every batch is
+gathered there (``index_select``), its input noise drawn on the device from
+a generator seeded ``fold(seed, epoch, j, stream)`` (validation: ``fold(seed,
+987654321, j, stream)``) for the batch's index ``j`` in its epoch, so a
+mid-epoch resume and any K draw the same noise; ``"random"`` drops, drawn
+from ``fold(seed, epoch, j, 3)``, touch training batches only. At
+``noise_std=0`` it serves the host stream's values. Pack mode, or streams
+over ``device_resident_max_bytes``, warn once and stream from the host.
+
+Not ported here: ``native/fastbatch.cc`` and a pinned-memory prefetch
+(host speed: the ROADMAP speed queue).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import queue
+import threading
+import warnings
 from pathlib import Path
-from typing import Callable, Iterator
+from typing import Callable, Iterable, Iterator
 
 import numpy as np
 import torch
@@ -65,10 +87,14 @@ from multimodal_mtrssm_tpu_torch.data.transforms import (
     NormalizeVisionImage,
     affine_of,
 )
+from multimodal_mtrssm_tpu_torch.utils import fold
 
 Batch = tuple[torch.Tensor, ...]
 HostBatch = tuple[np.ndarray, ...]
+Item = tuple[str, Batch]
 DROPS = (None, "audio", "vision", "random")
+# The validation stream's generator path (JAX's and the reference's val loader).
+_VAL_STREAM = 987654321
 MODALITIES = ("multimodal", "audio", "vision")
 
 
@@ -101,6 +127,10 @@ class DataModuleConfig:
     action_preprocess: Callable | None = None
     audio_preprocess: Callable | None = None
     vision_preprocess: Callable | None = None
+    # Upload the normalised streams once and gather every batch on the
+    # batches' device (the module docstring); 8 GB of streams at most.
+    device_resident: bool = False
+    device_resident_max_bytes: int = 8 << 30
 
     def __post_init__(self):
         if self.drop_modality not in DROPS:
@@ -151,6 +181,8 @@ class EpisodeDataModule:
         self._split: tuple[np.ndarray, np.ndarray] | None = None
         self._raw = False  # a pack: raw memmapped streams, normalised per batch
         self._preprocess: dict[str, Callable] = {}
+        self._dev_data: tuple[torch.device, dict[str, torch.Tensor]] | None = None
+        self._dev_warned = False
 
     def setup(self) -> None:
         """Open the data directory's pack, or load and normalise its
@@ -307,6 +339,9 @@ class EpisodeDataModule:
         their draws, or are dropped at the index level when no batch draws
         (JAX ``data/pipeline.py:354-376``)."""
         self._require_setup()
+        if self.device_resident_active():
+            yield from (b for _, b in self.train_batches_chunked(epoch, 1, device, skip))
+            return
         rng, groups = self._train_groups(epoch)
         if skip and not self._batch_consumes_rng(rng):
             groups, skip = groups[skip:], 0
@@ -319,8 +354,167 @@ class EpisodeDataModule:
         """Validation batches in split order, the inputs noised from
         ``default_rng((seed, 987654321))`` (JAX ``data/pipeline.py:653-664``)
         and dropped only by a static ``drop_modality``."""
+        self._require_setup()
+        if self.device_resident_active():
+            yield from (b for _, b in self.val_batches_chunked(1, device))
+            return
         for batch in self.host_batches("val"):
             yield self._to_device(batch, device)
+
+    def train_batches_chunked(self, epoch: int, k: int, device: torch.device | str = "cpu",
+                              skip: int = 0) -> Iterator[Item]:
+        """``train_batches(epoch)``'s batches, bit for bit and in order, as
+        ``("scan", [k, B, ...])`` items of k full batches and ``("step",
+        batch)`` items (:meth:`_grouped_indices`). ``skip`` counts
+        batches, as the trainer's ``items_done`` does (JAX counts chunk
+        items): the first ``skip`` batches make their draws and are dropped,
+        and the rest are grouped anew from there."""
+        self._require_setup()
+        rng, groups = self._train_groups(epoch)
+        bs = self.train_batch_size
+        if self.device_resident_active():
+            return self._device_items(groups, bs, k, device, epoch, skip, train=True)
+        if skip and not self._batch_consumes_rng(rng):
+            return self._host_items(groups[skip:], bs, k, device, rng, 0, train=True)
+        return self._host_items(groups, bs, k, device, rng, skip, train=True)
+
+    def val_batches_chunked(self, k: int, device: torch.device | str = "cpu") -> Iterator[Item]:
+        """``val_batches()``'s batches as :meth:`train_batches_chunked`'s
+        items, k clamped to the full validation batches (JAX
+        ``data/pipeline.py:407-431``: the split is far smaller than the
+        training split that sized k)."""
+        self._require_setup()
+        bs = self.val_batch_size
+        groups = self._batched_indices(self._split[1], bs)
+        k = max(1, min(k, sum(1 for g in groups if len(g) == bs)))
+        if self.device_resident_active():
+            return self._device_items(groups, bs, k, device, _VAL_STREAM, 0, train=False)
+        rng = np.random.default_rng((self.cfg.seed, _VAL_STREAM))
+        return self._host_items(groups, bs, k, device, rng, 0, train=False)
+
+    @staticmethod
+    def _grouped_indices(groups: Iterable[np.ndarray], bs: int,
+                         k: int) -> Iterator[tuple[str, np.ndarray]]:
+        """Full batches gathered into ``("scan", [k, B] indices)`` items; a
+        ragged batch first flushes the pending full ones as ``("step",
+        [B] indices)`` items, so the order is the flat stream's (JAX
+        ``_grouped_indices``)."""
+        pending: list[np.ndarray] = []
+        for g in groups:
+            if len(g) == bs and k > 1:
+                pending.append(g)
+                if len(pending) == k:
+                    yield "scan", np.stack(pending)
+                    pending = []
+            else:
+                yield from (("step", p) for p in pending)
+                pending = []
+                yield "step", g
+        yield from (("step", p) for p in pending)
+
+    def _host_items(self, groups: list[np.ndarray], bs: int, k: int,
+                    device: torch.device | str, rng: np.random.Generator, skip: int,
+                    train: bool) -> Iterator[Item]:
+        """The host path's items: each batch assembled in group order (the
+        flat stream's draws, the first ``skip`` batches drawn and dropped)
+        on a prefetch thread, each item moved to ``device`` here."""
+
+        def assemble() -> Iterator[tuple[str, HostBatch]]:
+            for g in groups[:skip]:
+                self._make_batch(g, rng, train)
+            for kind, idx in self._grouped_indices(groups[skip:], bs, k):
+                if kind == "scan":
+                    parts = [self._make_batch(g, rng, train) for g in idx]
+                    yield kind, tuple(np.stack(xs) for xs in zip(*parts))
+                else:
+                    yield kind, self._make_batch(idx, rng, train)
+
+        for kind, host in _prefetch_iter(assemble()):
+            yield kind, self._to_device(host, device)
+
+    # ---- the device-resident dataset ----------------------------------------
+    def device_resident_active(self) -> bool:
+        """Whether batches are gathered from the device-resident streams:
+        ``device_resident`` is set and neither a pack nor the budget stands
+        in the way (each of those warns once and streams from the host, as
+        JAX does)."""
+        if not self.cfg.device_resident:
+            return False
+        self._require_setup()
+        reason = None
+        if self._raw:
+            reason = "memmapped pack mode keeps raw pages on disk"
+        else:
+            T = self.cfg.sequence_length
+            nbytes = sum(self._arrays[s][:, :T].nbytes for s in self._streams())
+            if nbytes > self.cfg.device_resident_max_bytes:
+                reason = (f"dataset needs {nbytes >> 20} MB resident, over the "
+                          f"{self.cfg.device_resident_max_bytes >> 20} MB budget "
+                          "(device_resident_max_bytes)")
+        if reason is None:
+            return True
+        if not self._dev_warned:
+            warnings.warn(f"device_resident dataset disabled ({reason}); falling back to host "
+                          "streaming", stacklevel=3)
+            self._dev_warned = True
+        return False
+
+    def _device_dataset(self, device: torch.device) -> dict[str, torch.Tensor]:
+        """The served streams' normalised, T-sliced frames on ``device``,
+        uploaded once (again only for another device)."""
+        if self._dev_data is None or self._dev_data[0] != device:
+            T = self.cfg.sequence_length
+            self._dev_data = (device, {s: torch.as_tensor(np.ascontiguousarray(
+                self._arrays[s][:, :T]), device=device) for s in self._streams()})
+        return self._dev_data[1]
+
+    def _device_items(self, groups: list[np.ndarray], bs: int, k: int,
+                      device: torch.device | str, path: int, skip: int,
+                      train: bool) -> Iterator[Item]:
+        """The device-resident path's items, grouped as the host path's;
+        batch j of the stream (``skip`` onwards) draws from ``fold(seed,
+        path, j, ·)`` (``path``: the epoch, or validation's 987654321)."""
+        device = torch.device(device)
+        data = self._device_dataset(device)
+        gen = torch.Generator(device=device)
+        j = skip
+        for kind, idx in self._grouped_indices(groups[skip:], bs, k):
+            rows = np.atleast_2d(idx)
+            batch = self._device_batch(data, rows, path, j, gen, train)
+            yield kind, batch if kind == "scan" else tuple(x[0] for x in batch)
+            j += rows.shape[0]
+
+    def _device_batch(self, data: dict[str, torch.Tensor], rows: np.ndarray, path: int,
+                      j0: int, gen: torch.Generator, train: bool) -> Batch:
+        """``[k, B, ...]`` batches j0 … j0+k-1 gathered from ``data`` at the
+        index matrix ``rows``: inputs noised and dropped, targets clean, in
+        ``_make_batch``'s tuple order."""
+        cfg = self.cfg
+        k, b = rows.shape
+        dev = next(iter(data.values())).device
+        flat = torch.as_tensor(rows.reshape(-1), dtype=torch.int64, device=dev)
+        seed = lambda j, s: fold(cfg.seed, path, j, s)  # noqa: E731
+        outs = {}
+        for s in self._streams():
+            k_s = ep.EPISODE_KEYS.index(s)
+            clean = data[s].index_select(0, flat).view(k, b, *data[s].shape[1:])
+            noised = clean
+            if cfg.noise_std > 0:
+                noise = torch.stack([torch.randn(clean.shape[1:], generator=gen.manual_seed(
+                    seed(j0 + i, k_s)), device=dev) for i in range(k)])
+                noised = clean + cfg.noise_std * noise
+            if cfg.drop_modality == s:
+                noised = torch.full_like(clean, -1.0)
+            outs[s] = (noised, clean)
+        if cfg.drop_modality == "random" and train:
+            choice = torch.stack([torch.randint(0, 3, (b,), generator=gen.manual_seed(
+                seed(j0 + i, 3)), device=dev) for i in range(k)])
+            for code, s in ((1, "audio"), (2, "vision")):
+                x, target = outs[s]
+                sel = (choice == code).view(k, b, *(1,) * (x.ndim - 2))
+                outs[s] = (torch.where(sel, -1.0, x), target)
+        inputs, targets = zip(*(outs[s] for s in self._streams()))
+        return (*inputs, *targets)
 
     def host_batches(self, stage: str, epoch: int = 0) -> Iterator[HostBatch]:
         """Numpy batches of ``stage`` (``"train"``: epoch ``epoch``'s, as
@@ -330,7 +524,7 @@ class EpisodeDataModule:
         if stage == "train":
             rng, groups = self._train_groups(epoch)
         else:
-            rng = np.random.default_rng((self.cfg.seed, 987654321))
+            rng = np.random.default_rng((self.cfg.seed, _VAL_STREAM))
             groups = self._batched_indices(self._split[1], self.val_batch_size)
         return (self._make_batch(g, rng, train=stage == "train") for g in groups)
 
@@ -358,3 +552,52 @@ def _episode_paths(data_dir: Path) -> list[Path]:
             "convert_audio_mnist_npz or convert_reference_processed_dir, or pack them with "
             "data.pack.pack_episodes")
     return paths
+
+
+class _Raise:
+    """A worker thread's exception, carried to the consumer."""
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
+def _prefetch_iter(items: Iterator, depth: int = 2) -> Iterator:
+    """``items`` run on a daemon thread, ``depth`` ahead (JAX
+    ``data/pipeline.py:707-752``). The worker's exception is raised on the
+    consumer, after the items before it; closing the consumer early stops
+    the worker instead of leaving it blocked on a full queue."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    done = object()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker() -> None:
+        try:
+            for item in items:
+                if not put(item):
+                    return
+        except BaseException as exc:  # noqa: BLE001 — raised on the consumer
+            put(_Raise(exc))
+        finally:
+            put(done)
+
+    thread = threading.Thread(target=worker, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is done:
+                return
+            if isinstance(item, _Raise):
+                raise item.exc
+            yield item
+    finally:
+        stop.set()

@@ -236,11 +236,27 @@ def reset_launch_counts() -> None:
         setattr(mod, attr, 0)
 
 
+def set_launch_counts(counts: dict[str, int]) -> None:
+    """Set the launch counts to ``counts`` (:func:`launch_counts`'s form)."""
+    for name, n in counts.items():
+        mod, attr = LAUNCH_COUNTERS[name]
+        setattr(mod, attr, n)
+
+
+def add_launch_counts(counts: dict[str, int]) -> None:
+    """Add ``counts`` to the launch counts: the launches a CUDA graph's
+    replay makes, which no Python wrapper sees (``train/graph.py``)."""
+    for name, n in counts.items():
+        mod, attr = LAUNCH_COUNTERS[name]
+        setattr(mod, attr, getattr(mod, attr) + n)
+
+
 __all__ = [
     "LAUNCH_COUNTERS",
     "MTSpec",
     "PLAIN_ROUTE",
     "Seed",
+    "add_launch_counts",
     "fused_decoder_applicable",
     "fused_decoder_apply",
     "fused_encoder_applicable",
@@ -254,6 +270,7 @@ __all__ = [
     "philox_gumbel",
     "philox_mt_gumbel",
     "reset_launch_counts",
+    "set_launch_counts",
     "resolve_conv_layout",
     "resolve_train_kernel_mode",
 ]

@@ -12,7 +12,12 @@ from multimodal_mtrssm_tpu_torch.train.optim import (
     scheduler_from_state_dict,
     set_learning_rate,
 )
-from multimodal_mtrssm_tpu_torch.train.steps import make_train_step, one_update
+from multimodal_mtrssm_tpu_torch.train.steps import (
+    make_train_chunk,
+    make_train_step,
+    make_val_chunk,
+    one_update,
+)
 from multimodal_mtrssm_tpu_torch.train.trainer import Trainer, TrainerConfig
 from multimodal_mtrssm_tpu_torch.train.weights import (
     load_lightning_checkpoint,
@@ -30,7 +35,9 @@ __all__ = [
     "load_lightning_checkpoint",
     "load_reference_state_dict",
     "make_scheduler",
+    "make_train_chunk",
     "make_train_step",
+    "make_val_chunk",
     "scheduler_from_state_dict",
     "one_update",
     "set_learning_rate",

@@ -58,9 +58,6 @@ from multimodal_mtrssm_tpu_torch.nn.conv import DecoderConfig, EncoderConfig
 from multimodal_mtrssm_tpu_torch.train.trainer import Trainer, TrainerConfig
 from multimodal_mtrssm_tpu_torch.utils import require_device
 
-_ITEM = "ROADMAP queue 1 item"
-
-
 @dataclasses.dataclass
 class VizConfig:
     """The rollout-GIF callback's settings (reference
@@ -264,7 +261,7 @@ def _build_transform(node: dict):
     return cls(**args)
 
 
-def _data_config(raw: dict, dconf: dict, seq_len: int, pending: dict) -> DataModuleConfig:
+def _data_config(raw: dict, dconf: dict, seq_len: int) -> DataModuleConfig:
     """The data section as a ``DataModuleConfig``. A preprocess node that
     names the pipeline's own normaliser sets its parameters (the audio
     range); another transform replaces it."""
@@ -273,9 +270,6 @@ def _data_config(raw: dict, dconf: dict, seq_len: int, pending: dict) -> DataMod
         node = dconf.get(key)
         if node and (_class_name(node) or default) != default:
             transforms[field] = _build_transform(node)
-    if dconf.get("device_resident", False):
-        pending["device_resident"] = (dconf["device_resident"], f"host speed, moved from {_ITEM} "
-                                      "7 to the ROADMAP speed queue")
     audio_pre = _init_args(dconf.get("audio_observation_preprocess"))
     return DataModuleConfig(
         drop_modality=dconf.get("drop_modality"),
@@ -288,6 +282,8 @@ def _data_config(raw: dict, dconf: dict, seq_len: int, pending: dict) -> DataMod
         audio_min=float(audio_pre.get("min_value", -80.0)),
         audio_max=float(audio_pre.get("max_value", 0.0)),
         seed=int(raw.get("seed_everything", 42)),
+        device_resident=bool(dconf.get("device_resident", False)),
+        device_resident_max_bytes=int(dconf.get("device_resident_max_bytes", 8 << 30)),
     )
 
 
@@ -355,9 +351,8 @@ def load_experiment(path: str | Path, overrides: dict | None = None) -> Experime
             margs, stds3[0] if stds3[0] == obs_std else (stds3[0], obs_std))
     else:
         raise ValueError(f"unknown model class_path: {model_node.get('class_path')}")
-    data_pending: dict[str, tuple[Any, str]] = {}
     trainer_pending: dict[str, tuple[Any, str]] = {}
-    data = _data_config(raw, dconf, seq_len, data_pending)
+    data = _data_config(raw, dconf, seq_len)
     trainer = _trainer_config(raw, trainer_pending)
     # Lightning's 16-mixed is bf16 conv stacks with a float32 recurrence; the
     # unimodal RSSM has no conv dtype and stays in float32, as in JAX.
@@ -371,10 +366,8 @@ def load_experiment(path: str | Path, overrides: dict | None = None) -> Experime
         query_length=int(viz_args.get("query_length", 10)),
         fps=float(viz_args.get("fps", 10.0)),
     )
-    # A trainer is built on a datamodule, so data fields hold it back too.
-    pending = {"data": data_pending, "trainer": {**trainer_pending, **data_pending}}
     return Experiment(model=model, trainer=trainer, data=data, viz=viz, raw=raw,
-                      pending={k: v for k, v in pending.items() if v})
+                      pending={"trainer": trainer_pending} if trainer_pending else {})
 
 
 def build_model(config: Any) -> WorldModelNet:

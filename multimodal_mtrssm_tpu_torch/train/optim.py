@@ -16,6 +16,11 @@ axis, each rank holding its slice of m and v, updating that slice, and
 ``all_gather``-ing the parameter step within its ``data`` group. The clip
 reads the whole, already-summed gradient, so the update equals the
 replicated one element for element.
+
+The step is graph-safe (``train/graph.py`` captures it in a CUDA graph):
+it reads its step count and learning rate from device tensors, mirrors of
+the host ``count`` and ``lr`` that checkpoints and the schedulers keep,
+makes no tensor from a host number, and updates the moments in place.
 """
 
 from __future__ import annotations
@@ -36,14 +41,18 @@ class AdamW:
     ``lr`` may be changed between steps (:func:`set_learning_rate`).
 
     ``mesh``: sum the gradient over its ranks before the clip. ``zero1``
-    (with a mesh): keep only this rank's slice of the padded moments."""
+    (with a mesh): keep only this rank's slice of the padded moments.
+
+    ``count`` and ``lr`` are host numbers with device mirrors that
+    :meth:`step` reads (``_n``, ``_lr``): setting ``lr`` or loading a state
+    writes both, and a captured step's replay advances ``count`` by
+    :meth:`advance_host_count`, since the graph advances only ``_n``."""
 
     def __init__(self, params: Iterable[torch.Tensor], learning_rate: float = 1e-3,
                  grad_clip: float = 10.0, weight_decay: float = 0.01, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8, mesh: Mesh | None = None,
                  zero1: bool = False):
         self.params = list(params)
-        self.lr = learning_rate
         self.grad_clip, self.weight_decay = grad_clip, weight_decay
         self.b1, self.b2, self.eps = b1, b2, eps
         self.mesh = mesh
@@ -53,9 +62,35 @@ class AdamW:
         self.shard = -(-self.n // self.shards)
         self.lo = mesh.data_rank * self.shard if self.shards > 1 else 0
         dev = self.params[0].device
+        f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
         self.m = torch.zeros(self.shard, dtype=torch.float32, device=dev)
         self.v = torch.zeros(self.shard, dtype=torch.float32, device=dev)
+        # 1 - b is taken in double precision, as the JAX package's Python
+        # floats are; b ** t in f32, as its weak-typed scalars are.
+        self._consts = {"clip": f32(grad_clip), "b1": f32(b1), "b2": f32(b2),
+                        "1-b1": f32(1.0 - b1), "1-b2": f32(1.0 - b2)}
+        self._n = torch.zeros((), dtype=torch.int64, device=dev)
+        self._lr = f32(learning_rate)
         self.count = 0
+        self.lr = learning_rate
+
+    def _get_lr(self) -> float:
+        return self._host_lr
+
+    def _set_lr(self, value: float) -> None:
+        self._host_lr = value
+        self._lr.fill_(value)
+
+    lr = property(_get_lr, _set_lr, doc="The learning rate of the next steps (and its mirror).")
+
+    def device_state(self) -> list[torch.Tensor]:
+        """The tensors a step writes besides the parameters: the moments
+        and the step count's mirror."""
+        return [self.m, self.v, self._n]
+
+    def advance_host_count(self, steps: int = 1) -> None:
+        """Count ``steps`` steps that ran without Python (graph replays)."""
+        self.count += steps
 
     def zero_grad(self) -> None:
         """Drop every parameter's gradient."""
@@ -85,18 +120,17 @@ class AdamW:
         if self.mesh is not None:
             dist.all_reduce(g)
         p = torch.cat([p.reshape(-1) for p in self.params])
-        f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=g.device)  # noqa: E731
+        c = self._consts
         norm = torch.sqrt(torch.sum(g * g))
-        g = self._slice(g * torch.clamp(f32(self.grad_clip) / (norm + 1e-12), max=1.0))
+        g = self._slice(g * torch.clamp(c["clip"] / (norm + 1e-12), max=1.0))
         self.count += 1
-        # 1 - b is taken in double precision, as the JAX package's Python
-        # floats are; b ** t in f32, as its weak-typed scalars are.
-        b1, b2, t = f32(self.b1), f32(self.b2), f32(self.count)
-        self.m = b1 * self.m + f32(1.0 - self.b1) * g
-        self.v = b2 * self.v + f32(1.0 - self.b2) * g * g
+        self._n.add_(1)
+        b1, b2, t = c["b1"], c["b2"], self._n.to(torch.float32)
+        torch.add(b1 * self.m, c["1-b1"] * g, out=self.m)
+        torch.add(b2 * self.v, c["1-b2"] * g * g, out=self.v)
         mh = self.m / (1.0 - b1 ** t)
         vh = self.v / (1.0 - b2 ** t)
-        step = -f32(self.lr) * (mh / (torch.sqrt(vh) + self.eps) + self.weight_decay * self._slice(p))
+        step = -self._lr * (mh / (torch.sqrt(vh) + self.eps) + self.weight_decay * self._slice(p))
         step = self._gather(step)
         torch._foreach_add_(self.params, [s.view_as(q) for s, q in
                                           zip(step.split([q.numel() for q in self.params]),
@@ -106,14 +140,15 @@ class AdamW:
         """Moments (whole: under ZeRO-1 every rank of the ``data`` group
         gathers them, so every rank must call this), step count and
         learning rate."""
-        return {"m": self._gather(self.m), "v": self._gather(self.v), "count": self.count,
-                "lr": self.lr}
+        return {"m": self._gather(self.m).clone(), "v": self._gather(self.v).clone(),
+                "count": self.count, "lr": self.lr}
 
     def load_state_dict(self, state: dict) -> "AdamW":
         """Restore :meth:`state_dict`'s moments (flat, whole, in this
         optimizer's parameter order; under ZeRO-1 this rank keeps its
-        slice), step count and learning rate, on the parameters' device.
-        Raises when the moments do not fit the parameters."""
+        slice), step count and learning rate, on the parameters' device,
+        into this optimizer's own tensors. Raises when the moments do not
+        fit the parameters."""
         moments = {}
         for k in ("m", "v"):
             x = state[k]
@@ -121,9 +156,11 @@ class AdamW:
             if x.numel() != self.n:
                 raise ValueError(f"optimizer state {k!r} has {x.numel()} entries, the "
                                  f"parameters {self.n}")
-            moments[k] = self._slice(x.to(self.m.device, torch.float32)).clone()
-        self.m, self.v = moments["m"], moments["v"]
+            moments[k] = self._slice(x.to(self.m.device, torch.float32))
+        self.m.copy_(moments["m"])
+        self.v.copy_(moments["v"])
         self.count = int(state["count"])
+        self._n.fill_(self.count)
         self.lr = float(state["lr"])
         return self
 

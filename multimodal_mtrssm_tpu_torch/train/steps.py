@@ -15,25 +15,34 @@ ranks. The step is then the same function of ``(seed, step, global batch)``
 at any world size, as JAX's jit over a sharded batch is. A rank with no
 rows computes nothing and adds a zero gradient (the generator is seeded
 anew each step, so nothing after depends on its draws).
+
+K-step dispatch (JAX ``train/steps.py:53-76``, ``trainer.py:279-288``):
+:func:`make_train_chunk` and :func:`make_val_chunk` run K steps on a
+``[K, B, ...]`` chunk at steps ``step0 … step0+K-1``, each step's noise
+that of its eager step, and add each step's sample-weighted metrics to the
+caller's sums on the device, in step order, as the per-batch loop does. On
+the card each step replays a captured CUDA graph (``train/graph.py``); on
+the CPU, and on a process group whose backend no graph can capture
+(gloo), they are plain eager loops.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import warnings
+from typing import Any, Callable
 
-import numpy as np
 import torch
+import torch.distributed as dist
 
 from multimodal_mtrssm_tpu_torch.models import WorldModelNet
 from multimodal_mtrssm_tpu_torch.models.mrssm import Rows
+from multimodal_mtrssm_tpu_torch.train.graph import GraphedStep
 from multimodal_mtrssm_tpu_torch.train.optim import AdamW
+from multimodal_mtrssm_tpu_torch.utils import fold
 
 Batch = tuple[torch.Tensor, ...]
-
-
-def fold(seed: int, *path: int) -> int:
-    """A 64-bit seed derived from ``seed`` and the integers of ``path``."""
-    return int(np.random.SeedSequence([seed, *path]).generate_state(1, np.uint64)[0])
+# Path element of the validation noise seeds (the JAX trainer folds 0x5EED).
+VAL = 0x5EED
 
 
 def one_update(model: WorldModelNet, optimizer: AdamW, batch: Batch,
@@ -116,3 +125,112 @@ def make_grad_step(model: WorldModelNet) -> Callable[..., dict[str, torch.Tensor
         return accumulate_gradients(model, batch, generator, rows=rows)
 
     return grad_step
+
+
+def accumulate_metrics(acc: dict[str, Any], metrics: dict[str, torch.Tensor],
+                       weight: int) -> None:
+    """Add ``weight · metric`` on the device; the host reads once an epoch."""
+    for k, v in metrics.items():
+        acc[k] = acc.get(k, 0.0) + weight * v.detach()
+
+
+def _eager_reason(device: torch.device, mesh: Any) -> str | None:
+    """Why steps on ``device`` (on ``mesh``'s process group) run eagerly, or
+    None where a CUDA graph can capture them: the CPU has no graphs, and
+    gloo's collectives run on the host (which warns, as JAX warns where a
+    setting has no effect)."""
+    if device.type != "cuda":
+        return "the CPU has no CUDA graphs"
+    if mesh is not None and dist.get_backend() != "nccl":
+        reason = f"the {dist.get_backend()} backend's collectives cannot be captured"
+        # One place of issue, so the default filter shows it once, not once a chunk function.
+        warnings.warn(f"steps_per_dispatch > 1 has no effect here: {reason}, so each step of a "
+                      "chunk runs eagerly")
+        return reason
+    return None
+
+
+def _replay(graphs: dict[tuple, GraphedStep], build: Callable[[Batch, Any], GraphedStep],
+            chunk: Batch, seeds: list[int], sums: dict[str, Any], rows: Any) -> None:
+    """Batch i of ``chunk`` through the graph of its shape and ``rows``
+    (``build`` captures it the first time) with the noise of ``seeds[i]``,
+    the weighted metrics added to ``sums``."""
+    key = (tuple((tuple(x.shape[1:]), x.dtype) for x in chunk), rows)
+    if key not in graphs:
+        graphs[key] = build(tuple(x[0] for x in chunk), rows)
+    graph = graphs[key]
+    graph.load_sums(sums)
+    for i, seed in enumerate(seeds):
+        graph.replay(tuple(x[i] for x in chunk), seed)
+    graph.store_sums(sums)
+
+
+def make_train_chunk(model: WorldModelNet, optimizer: AdamW,
+                     train_step: Callable[..., dict[str, torch.Tensor]] | None = None
+                     ) -> Callable[..., None]:
+    """``(chunk, seed, step0, sums, rows=None) → None``: K optimizer steps on
+    ``chunk``, a ``[K, b, ...]`` tuple of this rank's ``rows`` of K global
+    batches (all of each without rows), step ``step0 + i`` on batch i with
+    the noise of ``fold(seed, step0 + i)``, as ``train_step`` (default
+    :func:`make_train_step`) takes it; each step's metrics, weighted by
+    ``b``, are added to ``sums`` in step order. On the card every step
+    replays one captured graph of the step; elsewhere each calls
+    ``train_step``. The function's ``graphs`` holds its captured steps by
+    batch shape and rows (None where it runs eagerly)."""
+    device = next(model.parameters()).device
+    eager = _eager_reason(device, optimizer.mesh)
+    step_fn = train_step or make_train_step(model, optimizer)
+    generator = torch.Generator(device=device)
+
+    def build(batch: Batch, rows: Any) -> GraphedStep:
+        return GraphedStep(lambda b: one_update(model, optimizer, b, generator, rows), batch,
+                           generator, batch[0].shape[0], optimizer)
+
+    def train_chunk(chunk: Batch, seed: int, step0: int, sums: dict[str, Any],
+                    rows: Rows | None = None) -> None:
+        k, weight = chunk[0].shape[:2]
+        if eager is None:
+            _replay(train_chunk.graphs, build, chunk, [fold(seed, step0 + i) for i in range(k)],
+                    sums, rows)
+            return
+        for i in range(k):
+            accumulate_metrics(sums, step_fn(tuple(x[i] for x in chunk), seed, step0 + i, rows),
+                               weight)
+
+    train_chunk.graphs = {} if eager is None else None  # type: ignore[attr-defined]
+    return train_chunk
+
+
+def make_val_chunk(model: WorldModelNet, mesh: Any = None,
+                   capture: bool = True) -> Callable[..., None]:
+    """``(chunk, seed, i0, sums, rows=None, eager=False) → None``: the
+    validation counterpart of :func:`make_train_chunk`, batch ``i0 + i`` of
+    the split with the noise of ``fold(seed, VAL, i0 + i)`` (the trainer's
+    ``_validate``), no gradient; each batch's metrics, weighted by its rows,
+    added to ``sums``. Batches replay a captured graph where ``capture``
+    asks for one and the device takes it, unless the call says ``eager``
+    (a ragged tail); the rest run one by one."""
+    device = next(model.parameters()).device
+    eager = _eager_reason(device, mesh) if capture else "no capture asked"
+    generator = torch.Generator(device=device)
+
+    def val_step(batch: Batch, rows: Any) -> dict[str, torch.Tensor]:
+        with torch.no_grad():
+            return local_step(model, batch, rows, generator) or {}
+
+    def build(batch: Batch, rows: Any) -> GraphedStep:
+        return GraphedStep(lambda b: val_step(b, rows), batch, generator, batch[0].shape[0])
+
+    def val_chunk(chunk: Batch, seed: int, i0: int, sums: dict[str, Any],
+                  rows: Rows | None = None, eager: bool = False) -> None:
+        k, weight = chunk[0].shape[:2]
+        seeds = [fold(seed, VAL, i0 + i) for i in range(k)]
+        if val_chunk.graphs is not None and not eager:
+            _replay(val_chunk.graphs, build, chunk, seeds, sums, rows)
+            return
+        for i in range(k):
+            generator.manual_seed(seeds[i])
+            accumulate_metrics(sums, val_step(tuple(x[i] for x in chunk), rows), weight)
+
+    val_chunk.graphs = {} if eager is None else None  # type: ignore[attr-defined]
+    return val_chunk

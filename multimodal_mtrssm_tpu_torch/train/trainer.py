@@ -13,8 +13,18 @@ an exact-resume ``last`` checkpoint; ``fit(resume=..., resume_from=...)``
 resumes mid-epoch or at an epoch boundary, or warm-starts from weights
 alone; ``profile_epoch`` traces one epoch with ``torch.profiler``;
 callbacks run after each epoch and at the end, with the ``best`` weights.
-An integer ``steps_per_dispatch`` is accepted and trains batch by batch
-(:class:`TrainerConfig`). ``use_wandb`` raises when set.
+``use_wandb`` raises when set.
+
+K-step dispatch (JAX ``trainer.py:97-98``, ``:315-328``, ``:455-523``):
+with ``steps_per_dispatch`` K > 1 (``"auto"``: :meth:`Trainer._resolve_spd`)
+and ``accumulate_grad_batches == 1``, an epoch trains from the datamodule's
+chunked stream: each ``[K, B, ...]`` chunk, and each full batch left over,
+goes to :func:`.steps.make_train_chunk`, which on the card replays one
+captured CUDA graph of the step per batch (``train/graph.py``); a ragged
+tail runs eagerly. Validation takes validation chunks the same way. The fit
+equals the K=1 fit bit for bit. SIGTERM is polled once a chunk, so the
+chunk in flight completes before the exact-resume checkpoint; its
+``items_done`` counts batches at any K, and its aux records K (``spd``).
 
 Data parallel (JAX ``trainer.py:180-257``): where a ``torch.distributed``
 process group is up (``parallel.mesh.init_from_env``), the trainer builds
@@ -70,15 +80,19 @@ from multimodal_mtrssm_tpu_torch.train.optim import (
 from multimodal_mtrssm_tpu_torch.train.steps import (
     Batch,
     Rows,
+    accumulate_metrics as _accumulate,
     apply_accumulated,
     fold,
-    local_step,
     make_grad_step,
+    make_train_chunk,
     make_train_step,
+    make_val_chunk,
 )
 
-# Path element of the validation noise seeds (the JAX trainer folds 0x5EED).
-_VAL = 0x5EED
+# Auto steps-per-dispatch sizing, JAX's constants (``trainer.py:97-98``):
+# chunks up to 1 GB, K up to 256.
+SPD_CHUNK_BUDGET_BYTES = 1 << 30
+SPD_MAX_STEPS = 256
 # An epoch-boundary resume reseeds its noise at seed + epoch · 9973, as JAX
 # (``trainer.py:433-434``).
 _RESEED = 9973
@@ -129,12 +143,13 @@ class _PreemptionGuard:
 class TrainerConfig:
     """Trainer hyperparameters: the JAX ``TrainerConfig``'s fields and defaults.
 
-    ``steps_per_dispatch``: ``"auto"`` or an integer K, accepted so a
-    YAML that sets it loads, but every value trains batch by batch. JAX
-    scans K steps in one dispatch (its auto K: chunks up to 1 GB, K up to
-    256) to amortise a TPU's dispatch round trip; in eager PyTorch a
-    K-batch chunk would still be K separate updates, so K would change no
-    work. Chunks return with a graphed K-step update."""
+    ``steps_per_dispatch``: ``"auto"`` or an integer K. K > 1 trains from
+    ``[K, B, ...]`` chunks, each step a replay of one captured CUDA graph on
+    the card (eager steps on the CPU, and where a graph cannot be captured),
+    bit for bit the K=1 fit; ``"auto"`` sizes K as JAX does (chunks up to
+    1 GB, K up to 256 and to the epoch's full batches). JAX scans K steps in
+    one dispatch to amortise a TPU's dispatch round trip; the graph saves
+    the card the eager step's hundreds of launches from the host."""
 
     max_epochs: int = 100
     seed: int = 42
@@ -198,9 +213,10 @@ class _EpochProgress:
         return cls(sums=dict(aux.get("partial_metrics", {})),
                    n_train=int(aux.get("n_train_eps", 0)), items_done=int(aux["items_done"]))
 
-    def aux(self, accum: int) -> dict[str, Any]:
+    def aux(self, accum: int, spd: int) -> dict[str, Any]:
         """The mid-epoch checkpoint's fields beside ``last``'s."""
-        return {"mid_epoch": True, "items_done": self.items_done, "accum": accum, "n_train_eps": self.n_train,
+        return {"mid_epoch": True, "items_done": self.items_done, "accum": accum, "spd": spd,
+                "n_train_eps": self.n_train,
                 "partial_metrics": {k: float(v) for k, v in self.sums.items()}}
 
 
@@ -265,8 +281,34 @@ class Trainer:
             lo, hi = mesh_rows(n, self.mesh)
             yield tuple(x.to(self.device) for x in shard_rows(batch, self.mesh)), (lo, hi, n), hi - lo
 
+    def _local_chunk(self, chunk: Batch) -> tuple[Batch, Rows | None, int]:
+        """A ``[K, B, ...]`` chunk as this rank trains on it (:meth:`_local`
+        for every batch of it at once)."""
+        if self.mesh is None:
+            return chunk, None, chunk[0].shape[1]
+        n = chunk[0].shape[1]
+        lo, hi = mesh_rows(n, self.mesh)
+        return tuple(x[:, lo:hi].contiguous().to(self.device) for x in chunk), (lo, hi, n), hi - lo
+
     def _batch_device(self) -> torch.device:
-        return torch.device("cpu") if self.mesh is not None else self.device
+        """Where the datamodule puts batches: on a mesh the host, from which
+        only the rank's rows move, unless every rank holds the dataset."""
+        if self.mesh is not None and not self.dm.device_resident_active():
+            return torch.device("cpu")
+        return self.device
+
+    def _resolve_spd(self) -> int:
+        """Steps per dispatch (JAX ``Trainer._resolve_spd``): an integer as
+        given; ``"auto"`` the most batches whose chunk stays within
+        ``SPD_CHUNK_BUDGET_BYTES``, at most ``SPD_MAX_STEPS`` and the
+        epoch's full batches (a chunk that cannot fill would never run)."""
+        spd = self.cfg.steps_per_dispatch
+        if spd != "auto":
+            return max(1, int(spd))
+        bs = self.dm.train_batch_size
+        n_full = self.dm.n_train // max(bs, 1)
+        by_mem = SPD_CHUNK_BUDGET_BYTES // max(1, self.dm.batch_nbytes(bs))
+        return max(1, min(SPD_MAX_STEPS, by_mem, n_full))
 
     def _reduce(self, sums: dict[str, Any], n: int) -> tuple[dict[str, float], int]:
         """Sample-weighted sums and their row count over every rank (one
@@ -394,7 +436,12 @@ class Trainer:
         train_step = make_train_step(model, optimizer)
         grad_step = make_grad_step(model)
         accum = cfg.accumulate_grad_batches
-        val_gen = torch.Generator(device=self.device)
+        spd = self._resolve_spd()
+        # The fit's (train, validation) chunk steps; no train chunk at K=1 or
+        # with accumulation, which train batch by batch.
+        chunks = self.chunk_steps = (
+            make_train_chunk(model, optimizer, train_step) if spd > 1 and accum == 1 else None,
+            make_val_chunk(model, self.mesh, capture=spd > 1))
         history: list[dict[str, float]] = []
         train_seconds = 0.0
 
@@ -424,12 +471,12 @@ class Trainer:
                         model.train()
                         global_step = self._train_epoch(epoch, epoch_seed, global_step, prog,
                                                         train_step, grad_step, optimizer,
-                                                        preempt)
+                                                        preempt, spd, chunks[0])
                         if preempt.stop:
                             # After the last applied step: a partial window is dropped.
                             optimizer.zero_grad()
                             prog.sums, prog.n_train = self._reduce(prog.sums, prog.n_train)
-                            save_last(epoch, global_step - prog.window, **prog.aux(accum))
+                            save_last(epoch, global_step - prog.window, **prog.aux(accum, spd))
                             self._say(f"preemption: saved a mid-epoch resume checkpoint (epoch "
                                       f"{epoch}, {prog.items_done} batches applied), stopping")
                             break
@@ -437,7 +484,7 @@ class Trainer:
                         row = {f"train/{k}": v / max(n_train, 1) for k, v in sums.items()}
                         epoch_time = time.perf_counter() - t0  # float() waited for the device
                         train_seconds += epoch_time
-                        row.update(self._validate(epoch_seed, val_gen))
+                        row.update(self._validate(epoch_seed, chunks[1], spd))
                         row.update({"epoch": epoch, "lr": scheduler.lr,
                                     "seq_per_sec": n_train / max(epoch_time, 1e-9)})
                         if logger is not None:
@@ -491,12 +538,32 @@ class Trainer:
 
     def _train_epoch(self, epoch: int, seed: int, step: int, prog: _EpochProgress,
                      train_step, grad_step, optimizer: AdamW,
-                     preempt: _PreemptionGuard) -> int:
+                     preempt: _PreemptionGuard, spd: int = 1, train_chunk=None) -> int:
         """Train epoch ``epoch`` on from ``prog`` (the batches it has
         applied are skipped) to its end or a SIGTERM, with the noise of
         ``fold(seed, step)`` at each batch's global step; updates ``prog``
-        and returns the global step after it."""
+        and returns the global step after it. With a chunk step
+        (``train_chunk``: K > 1 and no accumulation) it trains from the
+        chunked stream, polling for SIGTERM once an item."""
         accum = self.cfg.accumulate_grad_batches
+        if train_chunk is not None:
+            full = self.dm.train_batch_size
+            for kind, payload in self.dm.train_batches_chunked(
+                    epoch, spd, self._batch_device(), skip=prog.items_done):
+                chunk, rows, n = self._local_chunk(
+                    payload if kind == "scan" else tuple(x[None] for x in payload))
+                k = chunk[0].shape[0]
+                if (rows[2] if rows else n) == full:
+                    train_chunk(chunk, seed, step, prog.sums, rows)
+                else:  # the ragged tail
+                    _accumulate(prog.sums, train_step(tuple(x[0] for x in chunk), seed, step,
+                                                      rows), n)
+                prog.n_train += n * k
+                step += k
+                prog.items_done += k
+                if preempt.poll(self.mesh):
+                    break
+            return step
         batches = self._local(self.dm.train_batches(epoch, self._batch_device(),
                                                     skip=prog.items_done))
         if accum == 1:
@@ -527,17 +594,20 @@ class Trainer:
         return step
 
     @torch.no_grad()
-    def _validate(self, seed: int, generator: torch.Generator) -> dict[str, float]:
+    def _validate(self, seed: int, val_chunk, spd: int = 1) -> dict[str, float]:
         """The ``val/`` means of the validation batches, batch i's noise from
-        ``fold(seed, 0x5EED, i)`` (drawn at the global batch on a mesh)."""
+        ``fold(seed, 0x5EED, i)`` (drawn at the global batch on a mesh),
+        through ``val_chunk`` (:func:`.steps.make_val_chunk`) from the
+        validation chunks of ``spd`` batches, a ragged tail eagerly."""
         self.model.eval()
         sums: dict[str, Any] = {}
-        n = 0
-        for i, (batch, rows, k) in enumerate(self._local(self.dm.val_batches(
-                self._batch_device()))):
-            generator.manual_seed(fold(seed, _VAL, i))
-            _accumulate(sums, local_step(self.model, batch, rows, generator) or {}, k)
-            n += k
+        n, i, full = 0, 0, self.dm.val_batch_size
+        for kind, payload in self.dm.val_batches_chunked(spd, self._batch_device()):
+            chunk, rows, k = self._local_chunk(
+                payload if kind == "scan" else tuple(x[None] for x in payload))
+            val_chunk(chunk, seed, i, sums, rows, eager=(rows[2] if rows else k) != full)
+            n += k * chunk[0].shape[0]
+            i += chunk[0].shape[0]
         sums, n = self._reduce(sums, n)
         return {f"val/{k}": v / max(n, 1) for k, v in sums.items()}
 
@@ -580,12 +650,6 @@ def _trainer_mesh(cfg: TrainerConfig) -> Mesh | None:
     if mesh.rank == 0:
         print("trainer mesh: " + " × ".join(f"{n} {a}" for a, n in mesh.shape.items()))
     return mesh
-
-
-def _accumulate(acc: dict[str, Any], metrics: dict[str, torch.Tensor], weight: int) -> None:
-    """Add ``weight · metric`` on the device; the host reads once an epoch."""
-    for k, v in metrics.items():
-        acc[k] = acc.get(k, 0.0) + weight * v.detach()
 
 
 def _apply_window(optimizer: AdamW, window: list[tuple[dict, int]],

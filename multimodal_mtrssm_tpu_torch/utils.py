@@ -2,8 +2,15 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
+
+
+def fold(seed: int, *path: int) -> int:
+    """A 64-bit seed derived from ``seed`` and the integers of ``path``: the
+    role ``jax.random.fold_in`` plays in the JAX package."""
+    return int(np.random.SeedSequence([seed, *path]).generate_state(1, np.uint64)[0])
 
 
 def count_params(module: nn.Module) -> int:

@@ -230,7 +230,8 @@ def preempt_task(device, data_dir: str, log_dir: str, after: int, copy_to: str |
 
     trainer_mod.make_train_step = make
     try:
-        trainer = _trainer(data_dir, log_dir, zero1=True)
+        # The per-batch path (K=1), which polls for SIGTERM after every step.
+        trainer = _trainer(data_dir, log_dir, zero1=True, steps_per_dispatch=1)
         out = trainer.fit()
     finally:
         trainer_mod.make_train_step = real
@@ -268,7 +269,7 @@ def late_sigterm_task(device, data_dir: str, log_dir: str, when: str) -> dict:
 
     trainer_mod.agree = agree
     try:
-        trainer = _trainer(data_dir, log_dir, zero1=True)
+        trainer = _trainer(data_dir, log_dir, zero1=True, steps_per_dispatch=1)
         real_batches = trainer.dm.train_batches
 
         def train_batches(epoch, *args, **kwargs):
@@ -286,8 +287,9 @@ def late_sigterm_task(device, data_dir: str, log_dir: str, when: str) -> dict:
 
 
 def resume_task(device, data_dir: str, log_dir: str) -> dict:
-    """``fit(resume=True)`` of the 2-epoch run in ``log_dir``."""
-    trainer = _trainer(data_dir, log_dir, zero1=True)
+    """``fit(resume=True)`` of the 2-epoch run in ``log_dir``, at K=1 as the
+    preempted run trained."""
+    trainer = _trainer(data_dir, log_dir, zero1=True, steps_per_dispatch=1)
     out = trainer.fit(resume=True)
     return {"history": out["history"], "weights": _weights(trainer.model),
             "global_step": out["global_step"], "preempted": out["preempted"]}

@@ -117,9 +117,21 @@ def test_unsupported_trainer_fields_wait_for_the_trainer(override, field, item, 
     ``dcn_size``) are read into ``TrainerConfig`` as JAX reads them and
     ``build_trainer`` returns a trainer that takes them; item 8's
     ``precision: 16-mixed`` is the model's bf16 conv dtype, as JAX maps it,
-    and nothing waits."""
+    and nothing waits; item 7's ``device_resident`` (with
+    ``device_resident_max_bytes``) is read into ``DataModuleConfig`` as JAX
+    reads it, and the datamodule and trainer build."""
     exp = load_experiment(REPO / "configs" / "mopoe_mrssm.yaml", override)
     assert isinstance(exp.model, MoPoEMRSSM)
+    if item == "item 7":
+        theirs = jax_load_experiment(REPO / "configs" / "mopoe_mrssm.yaml", override)
+        assert exp.pending == {}
+        for f in ("device_resident", "device_resident_max_bytes"):
+            assert getattr(exp.data, f) == getattr(theirs.data, f)
+        assert exp.data.device_resident is True and exp.data.device_resident_max_bytes == 8 << 30
+        dm = exp.build_datamodule()
+        assert dm.cfg.device_resident is True
+        assert exp.build_trainer(datamodule=dm, device="cpu").dm is dm
+        return
     if item == "item 8":
         theirs = jax_load_experiment(REPO / "configs" / "mopoe_mrssm.yaml", override)
         assert exp.model.cfg.conv_dtype == torch.bfloat16

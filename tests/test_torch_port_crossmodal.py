@@ -104,8 +104,7 @@ def test_preprocess_nodes_build_the_transforms_jax_builds():
     """A data section's ``*_preprocess`` nodes that name another transform
     than the pipeline's default become that transform (a ``Compose`` of
     them too), as JAX builds them: the same arrays out; nothing waits.
-    ``modality`` builds its config; ``device_resident`` still waits, naming
-    where it goes."""
+    ``modality`` builds its config, and so does ``device_resident``."""
     nodes = {"action_preprocess": {"class_path": "multimodal_rssm.models.transform.RemoveDim",
                                    "init_args": {"axis": 1, "indices_to_remove": [0]}},
              "audio_observation_preprocess": {"init_args": {"min_value": -60.0,
@@ -130,7 +129,7 @@ def test_preprocess_nodes_build_the_transforms_jax_builds():
     assert exp.build_datamodule().cfg.modality == "audio"
     exp = config_mod.load_experiment(path, {"data": {"init_args": {"config": {
         "device_resident": True}}}})
-    assert "speed queue" in exp.pending["data"]["device_resident"][1]
+    assert exp.pending == {} and exp.build_datamodule().cfg.device_resident is True
     with pytest.raises(ValueError, match="unknown transform"):
         config_mod.load_experiment(path, {"data": {"init_args": {"config": {
             "audio_observation_preprocess": {"class_path": "Spectrogram"}}}}})

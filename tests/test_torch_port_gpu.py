@@ -24,6 +24,10 @@ evaluated word's rollout (6 intervals × 10 predictions, 10 frames). The
 cross-modal GIF batch's reconstructions (7 episodes × 30 frames) equal the
 CPU path's states and frames within 1e-4 before each row's first near-tie;
 a mid-epoch resume under random modality dropout ends bit-identical.
+K-step dispatch: each training route's fit at K=auto, its steps replays of
+a captured CUDA graph, equals its eager K=1 fit bit for bit under
+deterministic cuDNN, and so does a device-resident fit and a fit resumed
+from a SIGTERM inside a graphed chunk.
 """
 
 import dataclasses
@@ -1322,8 +1326,10 @@ def test_coalesced_rollout_equals_each_request_alone(cuda_device, family):
 @pytest.mark.gpu
 def test_mid_epoch_resume_on_the_card(cuda_device, tmp_path, monkeypatch):
     """SIGTERM after the 4th step (mid epoch 1 of 3-step epochs at B=8
-    T=30): a fresh trainer's ``resume=True`` ends within the train step's
-    bound of the uninterrupted fit."""
+    T=30) on the per-batch path (K=1; a graphed chunk's preemption is
+    ``test_kstep_preemption_inside_a_graphed_chunk``'s): a fresh trainer's
+    ``resume=True`` ends within the train step's bound of the uninterrupted
+    fit."""
     import os
     import signal
 
@@ -1341,7 +1347,8 @@ def test_mid_epoch_resume_on_the_card(cuda_device, tmp_path, monkeypatch):
         dm = EpisodeDataModule(DataModuleConfig(data_dir=str(tmp_path / "episodes"), batch_size=8,
                                                 sequence_length=30, noise_std=0.0))
         return Trainer(MoPoEMRSSM().to(cuda_device), dm,
-                       TrainerConfig(max_epochs=2, seed=0, log_dir=str(tmp_path / name)))
+                       TrainerConfig(max_epochs=2, seed=0, log_dir=str(tmp_path / name),
+                                     steps_per_dispatch=1))
 
     ref = trainer("ref")
     ref.fit()
@@ -1442,8 +1449,8 @@ def test_reconstructions_match_the_cpu(cuda_device, family):
 def test_random_dropout_resume_on_the_card(cuda_device, tmp_path, monkeypatch):
     """Under ``drop_modality="random"`` (pipeline noise 0), with cuDNN held
     to deterministic algorithms: a fit SIGTERMed after its 4th step (mid
-    epoch 1 of 3-step epochs at B=8 T=30) and resumed ends bit-identical to
-    the uninterrupted fit."""
+    epoch 1 of 3-step epochs at B=8 T=30, the per-batch path, K=1) and
+    resumed ends bit-identical to the uninterrupted fit."""
     import os
     import signal
 
@@ -1464,7 +1471,8 @@ def test_random_dropout_resume_on_the_card(cuda_device, tmp_path, monkeypatch):
                                                 sequence_length=30, noise_std=0.0,
                                                 drop_modality="random"))
         return Trainer(MoPoEMRSSM().to(cuda_device), dm,
-                       TrainerConfig(max_epochs=2, seed=0, log_dir=str(tmp_path / name)))
+                       TrainerConfig(max_epochs=2, seed=0, log_dir=str(tmp_path / name),
+                                     steps_per_dispatch=1))
 
     ref = trainer("ref")
     ref.fit()
@@ -2169,3 +2177,166 @@ def test_full_bf16_train_step_on_the_card_matches_the_cpu(cuda_device, family, c
     assert set(counts) == (bf16_enc if layout == "fused_enc" else set()), counts
     with pytest.raises(ValueError, match="use_pallas_train=False"):
         family(cfg_cls(compute_dtype=torch.bfloat16))
+
+
+# ---- K-step dispatch: the train step as a CUDA graph --------------------------------------
+
+KSTEP_ROUTES = {"mrssm": (MoPoEMRSSM, {}),
+                "mrssm_fused_stacked": (MoPoEMRSSM, {"conv_layout": "fused_enc",
+                                                     "use_pallas_train": "stacked"}),
+                "mmtrssm": (MoPoEMMTRSSM, {}),
+                "mmtrssm_fused": (MoPoEMMTRSSM, {"conv_layout": "fused_enc"}),
+                "mrssm_16_mixed": (MoPoEMRSSM, {"conv_layout": "fused_enc",
+                                                "conv_dtype": torch.bfloat16}),
+                "mrssm_plain": (MoPoEMRSSM, {"use_pallas_train": False}),
+                "mrssm_full_bf16": (MoPoEMRSSM, {"use_pallas_train": False,
+                                                 "compute_dtype": torch.bfloat16}),
+                "weighted": ("weighted", {}),
+                "rssm": ("rssm", {})}
+
+
+def _kstep_trainer(route: str, dev, episodes, log_dir, data=None, **kw):
+    """A 2-epoch trainer of a route at B=8 T=30 on ``episodes`` (pipeline
+    noise 0; the model's input noise where its config has one)."""
+    from multimodal_mtrssm_tpu_torch.data import DataModuleConfig, EpisodeDataModule
+    from multimodal_mtrssm_tpu_torch.models import (
+        RSSM,
+        RSSMConfig,
+        WeightedMoPoEMRSSM,
+        WeightedMRSSMConfig,
+    )
+    from multimodal_mtrssm_tpu_torch.train import Trainer, TrainerConfig
+
+    family, over = KSTEP_ROUTES[route]
+    modality = "multimodal"
+    if family == "weighted":
+        model = WeightedMoPoEMRSSM(WeightedMRSSMConfig())
+    elif family == "rssm":
+        model, modality = RSSM(RSSMConfig()), "vision"
+    else:
+        cfg = (MMTRSSMConfig if family is MoPoEMMTRSSM else MRSSMConfig)(**over)
+        model = family(cfg)
+    dm = EpisodeDataModule(DataModuleConfig(data_dir=str(episodes), batch_size=8,
+                                            sequence_length=30, noise_std=0.0, seed=0,
+                                            modality=modality, **(data or {})))
+    return Trainer(model.to(dev), dm, TrainerConfig(max_epochs=2, seed=0, log_dir=str(log_dir),
+                                                    **kw))
+
+
+@pytest.fixture(scope="module")
+def kstep_episodes(tmp_path_factory):
+    """43 episodes: 34 train (4 batches of 8 and a tail of 2), 9 val (a
+    batch and a tail of 1)."""
+    from multimodal_mtrssm_tpu_torch.data import generate_synthetic_audio_mnist
+
+    d = tmp_path_factory.mktemp("kstep")
+    generate_synthetic_audio_mnist(d, n_episodes=43, seed=0)
+    return d
+
+
+def _same_fits(a, out_a, b, out_b) -> bool:
+    rows = lambda out: [{k: v for k, v in r.items() if k != "seq_per_sec"}  # noqa: E731
+                        for r in out["history"]]
+    return (all(torch.equal(x, y) for x, y in zip(a.model.state_dict().values(),
+                                                  b.model.state_dict().values()))
+            and rows(out_a) == rows(out_b) and out_a["global_step"] == out_b["global_step"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", list(KSTEP_ROUTES))
+def test_kstep_graphed_fit_is_the_eager_fit(cuda_device, tmp_path, kstep_episodes, route,
+                                            monkeypatch):
+    """Each route's fit at K=auto (4: a graphed chunk of 4 and the ragged
+    tail an epoch; validation a graphed step and its tail) equals its eager
+    K=1 fit bit for bit under deterministic cuDNN: weights, epoch rows,
+    global step; the graph was captured and replayed."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    a = _kstep_trainer(route, cuda_device, kstep_episodes, tmp_path / "k1",
+                       steps_per_dispatch=1)
+    out_a = a.fit()
+    b = _kstep_trainer(route, cuda_device, kstep_episodes, tmp_path / "auto")
+    out_b = b.fit()
+    assert b._resolve_spd() == 4 and b.chunk_steps[0].graphs
+    assert b.chunk_steps[1].graphs
+    assert _same_fits(a, out_a, b, out_b) and out_b["global_step"] == 10
+
+
+@pytest.mark.gpu
+def test_kstep_device_resident_fit_is_the_host_fit(cuda_device, tmp_path, kstep_episodes,
+                                                   monkeypatch):
+    """A device-resident fit (the streams uploaded once, batches gathered on
+    the card) at K=auto equals the host-streamed one bit for bit."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    a = _kstep_trainer("mrssm", cuda_device, kstep_episodes, tmp_path / "host")
+    out_a = a.fit()
+    b = _kstep_trainer("mrssm", cuda_device, kstep_episodes, tmp_path / "dev",
+                       data={"device_resident": True})
+    out_b = b.fit()
+    assert b.dm._dev_data is not None and b.dm._dev_data[0].type == "cuda"
+    assert _same_fits(a, out_a, b, out_b)
+
+
+@pytest.mark.gpu
+def test_kstep_launch_counts_under_replay(cuda_device, tmp_path, kstep_episodes):
+    """A captured step's launches are counted once a replay, the capture's
+    own launches not at all: a fit's counts are the warm-ups' and the eager
+    tails' plus the replays' (one recurrence forward and backward each)."""
+    from multimodal_mtrssm_tpu_torch.train.graph import WARMUP_STEPS
+
+    trainer = _kstep_trainer("mrssm", cuda_device, kstep_episodes, tmp_path / "run")
+    kernels.reset_launch_counts()
+    trainer.fit()
+    counts = kernels.launch_counts()
+    train_graph = next(iter(trainer.chunk_steps[0].graphs.values()))
+    val_graph = next(iter(trainer.chunk_steps[1].graphs.values()))
+    assert train_graph.launches == {"recurrence_fwd": 1, "recurrence_bwd": 1}
+    assert val_graph.launches == {"recurrence_fwd": 1}
+    # 8 replays and the warm-up steps of the train graph, 2 eager tails; 2
+    # replays and the warm-ups of the validation graph, 2 eager tails.
+    assert counts["recurrence_bwd"] == 8 + WARMUP_STEPS + 2
+    assert counts["recurrence_fwd"] == 8 + WARMUP_STEPS + 2 + 2 + WARMUP_STEPS + 2
+    before = kernels.launch_counts()
+    kind, chunk = next(trainer.dm.train_batches_chunked(0, 4, cuda_device))
+    trainer.chunk_steps[0](chunk, 0, 0, {})
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+        "recurrence_fwd": 4, "recurrence_bwd": 4}
+
+
+@pytest.mark.gpu
+def test_kstep_preemption_inside_a_graphed_chunk(cuda_device, tmp_path, kstep_episodes,
+                                                 monkeypatch):
+    """SIGTERM during epoch 1's graphed chunk (after its 2nd replay): the
+    chunk completes, the mid-epoch ``last`` holds its 4 batches, and the
+    resumed fit ends bit for bit on the uninterrupted one."""
+    import os
+    import signal
+
+    from multimodal_mtrssm_tpu_torch.train import graph
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    ref = _kstep_trainer("mrssm", cuda_device, kstep_episodes, tmp_path / "ref")
+    ref.fit()
+    real, calls = graph.GraphedStep.replay, [0]
+
+    def replay(self, batch, seed):
+        real(self, batch, seed)
+        if self.optimizer is not None:
+            calls[0] += 1
+            if calls[0] == 6:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    with monkeypatch.context() as m:
+        m.setattr(graph.GraphedStep, "replay", replay)
+        cut = _kstep_trainer("mrssm", cuda_device, kstep_episodes, tmp_path / "cut")
+        assert cut.fit()["preempted"]
+    aux = cut.ckpt.aux("last")
+    assert (aux["epoch"], aux["items_done"], aux["global_step"], aux["spd"]) == (1, 4, 9, 4)
+    resumed = _kstep_trainer("mrssm", cuda_device, kstep_episodes, tmp_path / "cut")
+    assert [r["epoch"] for r in resumed.fit(resume=True)["history"]] == [1]
+    for a, b in zip(resumed.model.state_dict().values(), ref.model.state_dict().values()):
+        assert torch.equal(a, b)

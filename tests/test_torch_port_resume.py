@@ -219,20 +219,24 @@ def test_sigterm_after_an_epoch_resumes_at_the_next(tmp_path, data_dir):
 @pytest.mark.parametrize("family,noise_std", [("mrssm", 0.1), ("mrssm", 0.0),
                                              ("mmtrssm", 0.1)])
 def test_mid_epoch_resume_is_bit_identical(tmp_path, data_dir, reference, family, noise_std):
-    """SIGTERM after the 7th step (mid epoch 1): a fresh trainer's
+    """SIGTERM after the 7th step (mid epoch 1) of a fit on the per-batch
+    path (K=1: SIGTERM is polled after every step; a preemption inside a
+    K-step chunk is ``test_torch_port_kstep.py``'s): a fresh trainer's
     ``resume=True`` finishes the run with the weights of the uninterrupted
     fit bit for bit, and its epoch row's ``train/loss`` within rtol 1e-6
     (JAX ``tests/test_trainer.py:487``). With noise the skipped batches
     still draw theirs; without, they are dropped at the index level."""
     ref_trainer, ref = reference(family, noise_std=noise_std)
-    trainer = _trainer(data_dir, tmp_path / "int", family, noise_std=noise_std)
+    trainer = _trainer(data_dir, tmp_path / "int", family, noise_std=noise_std,
+                       steps_per_dispatch=1)
     with _sigterm_after(7):
         out = trainer.fit()
     assert out["preempted"] and [r["epoch"] for r in out["history"]] == [0]
     aux = trainer.ckpt.aux("last")
     assert aux["mid_epoch"] and aux["epoch"] == 1
     assert aux["items_done"] == 2 and aux["global_step"] == 7
-    resumed_trainer = _trainer(data_dir, tmp_path / "int", family, noise_std=noise_std)
+    resumed_trainer = _trainer(data_dir, tmp_path / "int", family, noise_std=noise_std,
+                               steps_per_dispatch=1)
     res = resumed_trainer.fit(resume=True)
     assert [r["epoch"] for r in res["history"]] == [1] and not res["preempted"]
     assert _same_weights(resumed_trainer.model, ref_trainer.model)

@@ -244,8 +244,8 @@ def test_trainer_fit_returns_the_jax_keys(tmp_path):
 def test_trainer_refuses_unsupported_fields(field, value, tmp_path):
     """``use_wandb`` still raises; gradient accumulation, an integer
     ``steps_per_dispatch``, ``profile_epoch``, ``zero1`` and ``dcn_size``
-    are honoured: a one-epoch fit steps once a window, trains batch by
-    batch at any K, writes a trace, or trains on one process (ZeRO-1 of one
+    are honoured: a one-epoch fit steps once a window, trains from K-batch
+    chunks (an optimizer step a batch), writes a trace, or trains on one process (ZeRO-1 of one
     shard is the replicated optimizer; ``dcn_size`` above the one rank
     warns and trains flat, as JAX's trainer does on one device)."""
     if field == "use_wandb":
