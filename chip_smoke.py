@@ -291,6 +291,29 @@ first two configurations' latent features.
     and all-gather inside the graph) bit for bit the one-process fit.
     ``--kstep`` runs this phase alone.
 
+13. After phase 12, the host input path (``drive_host_input``), on phase
+    12's episodes and their memory-mapped pack, at the pipeline's noise
+    0.1: (a) ``libfastbatch`` (``csrc/fastbatch.cc``, ``g++``) built on
+    this host; at std 0 both native gathers bit for bit their plain
+    versions on a B=8 T=30 batch, in memory and from the raw pack; at std
+    0.1 the same bits on 1, 3 and all threads; the host ms of one
+    stream's noised gather at 1, 2, 4 and all threads and through its
+    plain version, and of one batch's assembly through the native library
+    (the pipeline's thread counts) and through the plain versions (medians
+    of 15 interleaved turns); (b) under deterministic cuDNN,
+    ``MRSSMConfig()`` fits of 3 epochs at K=1 and K=auto, in memory and
+    from the pack, each pair bit for bit; (c) a K=auto fit whose second
+    epoch the trainer profiles (``profile_epoch``): every batch upload in
+    its trace a ``Memcpy HtoD (Pinned -> Device)`` on a stream that ran no
+    replay's recurrence kernel, at least one overlapping a replay's
+    kernels, none pageable; (d) ``Trainer.fit`` steps/s over epochs 2-3 at
+    K=auto, the host path against device-resident, 3 interleaved fits
+    each, for MRSSM nhwc and ``fused_enc`` + ``stacked``; (e) one word
+    (6 intervals × 10 predictions, 10 frames) of a seeded ``MRSSMConfig()``
+    evaluated batched (one rollout launch) and per interval (a launch an
+    interval): equal digits, and ms a word each way. ``--host-input`` runs
+    this phase alone.
+
 ``python3 chip_smoke.py --learning-demo`` runs only the learning
 demonstration's long runs (``learning_demo_phase``: ``demo_e2e`` at the JAX
 script's decisive flags, 5 seeds a family, ``crossmodal_e2e`` at 100 epochs
@@ -301,7 +324,7 @@ flag), with no contract lines.
 
 Each configuration's serving and training run, phase 3b's coalesced
 requests, phases 4b, 4c, 6, each part of 7, 8, 9, 10 (each rank's own
-counts, summed), 11 and 12, and the decoder's path
+counts, summed), 11, 12 and 13, and the decoder's path
 (``fused_decoder_apply`` on both decoders of the first two configurations'
 observed features at B=8 T=30, forward and a ``gaussian_nll`` backward), is
 driven with every launch count set to 0 just before it and read just after.
@@ -3781,31 +3804,23 @@ def _counting_datamodule():
             self.dropped_targets += int(torch.stack(
                 [(x == -1).flatten(1).all(1) for x in batch[4:6]]).any(0).sum())
 
-        def train_batches(self, epoch, device="cpu", skip=0):
-            for batch in super().train_batches(epoch, device, skip):
-                self._count(batch, "train")
-                yield batch
-
-        def val_batches(self, device="cpu"):
-            for batch in super().val_batches(device):
-                self._count(batch, "val")
-                self.val_batches_served += 1
-                yield batch
-
         def _items(self, items, stage: str):
-            """Chunked items (K-step dispatch), each batch of them counted."""
-            for kind, b in items:
+            """The served items (the flat streams are K=1 items), each batch
+            of them counted."""
+            for item in items:
+                kind, b = item[:2]
                 for batch in ([tuple(x[i] for x in b) for i in range(b[0].shape[0])]
                               if kind == "scan" else [b]):
                     self._count(batch, stage)
                     self.val_batches_served += stage == "val"
-                yield kind, b
+                yield item
 
-        def train_batches_chunked(self, epoch, k, device="cpu", skip=0):
-            return self._items(super().train_batches_chunked(epoch, k, device, skip), "train")
+        def train_batches_chunked(self, epoch, k, device="cpu", skip=0, rows=None):
+            return self._items(super().train_batches_chunked(epoch, k, device, skip, rows),
+                               "train")
 
-        def val_batches_chunked(self, k, device="cpu"):
-            return self._items(super().val_batches_chunked(k, device), "val")
+        def val_batches_chunked(self, k, device="cpu", rows=None):
+            return self._items(super().val_batches_chunked(k, device, rows), "val")
 
     return CountingDataModule
 
@@ -5549,8 +5564,8 @@ def _kstep_routes(work: Path) -> list[tuple[str, object, str]]:
 
 def _kstep_trainer(cfg, modality: str, dev, episodes: Path, run_dir: Path, **kw):
     """A fresh ``KSTEP_EPOCHS``-epoch ``Trainer`` of ``cfg`` at B=8 T=30 on
-    ``episodes`` (pipeline noise 0); ``device_resident`` and the trainer's
-    fields in ``kw``."""
+    ``episodes`` (pipeline noise 0); ``noise_std``, ``device_resident`` and
+    the trainer's fields in ``kw``."""
     from multimodal_mtrssm_tpu_torch.data import DataModuleConfig, EpisodeDataModule
     from multimodal_mtrssm_tpu_torch.models import (
         RSSM,
@@ -5566,10 +5581,11 @@ def _kstep_trainer(cfg, modality: str, dev, episodes: Path, run_dir: Path, **kw)
               if isinstance(cfg, WeightedMRSSMConfig) else RSSM if modality == "vision"
               else MoPoEMRSSM)
     dm = EpisodeDataModule(DataModuleConfig(
-        data_dir=str(episodes), batch_size=8, sequence_length=30, noise_std=0.0, seed=SEED,
-        modality=modality, device_resident=kw.pop("device_resident", False)))
+        data_dir=str(episodes), batch_size=8, sequence_length=30,
+        noise_std=kw.pop("noise_std", 0.0), seed=SEED, modality=modality,
+        device_resident=kw.pop("device_resident", False)))
     return Trainer(family(cfg).to(dev), dm, TrainerConfig(
-        max_epochs=KSTEP_EPOCHS, seed=SEED, log_dir=str(run_dir), **kw))
+        **{"max_epochs": KSTEP_EPOCHS, "seed": SEED, "log_dir": str(run_dir), **kw}))
 
 
 def _kstep_fit(make, name: str) -> tuple[object, dict, dict[str, int], list[float]]:
@@ -5919,6 +5935,355 @@ def kstep_phase() -> int:
     return 0
 
 
+# ---- phase 13: the host input path --------------------------------------------------------
+
+HOST_FITS = 3  # interleaved fits of each input path and route for the steps/s readings
+HOST_TURNS = 15  # interleaved turns of the batch-assembly and word timings
+HOST_NOISE = 0.1  # the pipeline's input noise: the native library draws it
+
+
+@contextlib.contextmanager
+def _plain_gathers():
+    """The pipeline's native gathers swapped for their plain versions (JAX's
+    numpy path) writing into the same buffers: the numpy side of the
+    batch-assembly timing."""
+    from multimodal_mtrssm_tpu_torch.data import native
+
+    real = native.gather_noise, native.gather_affine_noise
+
+    def gather_noise(src, idx, seq_len, std, seed, n_threads=0, out=None):
+        out[...] = native.gather_noise_plain(src, idx, seq_len, std, seed)
+        return out
+
+    def gather_affine_noise(src, idx, seq_len, scale, shift, std, seed, n_threads=0, out=None):
+        out[...] = native.gather_affine_noise_plain(src, idx, seq_len, scale, shift, std, seed)
+        return out
+
+    native.gather_noise, native.gather_affine_noise = gather_noise, gather_affine_noise
+    try:
+        yield
+    finally:
+        native.gather_noise, native.gather_affine_noise = real
+
+
+@contextlib.contextmanager
+def _recorded_copies():
+    """Yields the byte counts of the staged host-to-device copies made
+    inside it (``Staging._h2d``)."""
+    from multimodal_mtrssm_tpu_torch.data import staging
+
+    sizes: list[int] = []
+    real = staging.Staging._h2d
+
+    def h2d(self, dev, host):
+        sizes.append(host.numel() * host.element_size())
+        return real(self, dev, host)
+
+    staging.Staging._h2d = h2d
+    try:
+        yield sizes
+    finally:
+        staging.Staging._h2d = real
+
+
+def check_native(dm, packed, card: str) -> None:
+    """13(a): the native library built on this host; at std 0 both entry
+    points equal their plain versions bit for bit on a B=8 T=30 batch of
+    the vision stream (in memory, and the raw pack affinely); at std 0.1
+    the bits do not depend on the thread count; the ms to assemble one
+    batch through the native library and through the plain versions
+    (host clock, medians of interleaved turns), in memory and from the
+    pack, at ``HOST_NOISE``."""
+    import os
+
+    from multimodal_mtrssm_tpu_torch.data import native
+
+    t0 = time.perf_counter()
+    native.load_library()
+    built = time.perf_counter() - t0
+    idx = np.arange(8)
+    src, raw = dm._arrays["vision"], packed._arrays["vision"]
+    pairs = [(native.gather_noise(src, idx, 30, 0.0, 0),
+              native.gather_noise_plain(src, idx, 30, 0.0, 0)),
+             (native.gather_affine_noise(raw, idx, 30, 2 / 255, -1.0, 0.0, 0),
+              native.gather_affine_noise_plain(raw, idx, 30, 2 / 255, -1.0, 0.0, 0))]
+    if not all(np.array_equal(a, b) for a, b in pairs):
+        raise RuntimeError("the native gathers at std 0 differ from their plain versions")
+    threads = [native.gather_noise(src, idx, 30, HOST_NOISE, 5, n_threads=n) for n in (1, 3, 0)]
+    threads += [native.gather_affine_noise(raw, idx, 30, 2 / 255, -1.0, HOST_NOISE, 5,
+                                           n_threads=n) for n in (1, 3, 0)]
+    if not (all(np.array_equal(threads[0], t) for t in threads[1:3])
+            and all(np.array_equal(threads[3], t) for t in threads[4:])):
+        raise RuntimeError("the native gathers' bits depend on the thread count")
+    print(f"host input: libfastbatch built with g++ {' '.join(native.GXX_FLAGS)} in {built:.2f} s "
+          f"({native.library_path().name}) on {os.cpu_count()} host cores; at std 0 both entry "
+          "points bit for bit their plain versions (B=8 T=30 vision, in memory and the raw "
+          "pack); at std 0.1 the same bits on 1, 3 and all threads")
+    out = np.empty((8, 30, *src.shape[2:]), np.float32)
+    calls = {f"{n} threads" if n else "all threads": (
+        lambda n=n: native.gather_noise(src, idx, 30, HOST_NOISE, 5, n_threads=n, out=out))
+        for n in (1, 2, 4, 0)}
+    calls["numpy"] = lambda: native.gather_noise_plain(src, idx, 30, HOST_NOISE, 5)
+    times: dict[str, list[float]] = {name: [] for name in calls}
+    for t in range(HOST_TURNS):
+        for name in (list(calls) if t % 2 == 0 else list(reversed(calls))):
+            t1 = time.perf_counter()
+            calls[name]()
+            times[name].append((time.perf_counter() - t1) * 1e3)
+    print("time host gather_noise, one 32x32x1 stream at B=8 T=30, noise "
+          f"{HOST_NOISE}: " + ", ".join(f"{name} {np.median(v):.4f} ms" for name, v in
+                                        times.items())
+          + f" (host clock, medians of {HOST_TURNS} interleaved turns) | {card}")
+    for name, module in (("in memory", dm), ("from the pack", packed)):
+        rng = np.random.default_rng(0)
+        turns: dict[str, list[float]] = {"native": [], "numpy": []}
+        for t in range(HOST_TURNS):
+            for path in (("native", "numpy") if t % 2 == 0 else ("numpy", "native")):
+                with (_plain_gathers() if path == "numpy" else contextlib.nullcontext()):
+                    t1 = time.perf_counter()
+                    module._make_batch(idx, rng, train=True)
+                    turns[path].append((time.perf_counter() - t1) * 1e3)
+        print(f"time host batch assembly {name} (B=8 T=30, 3 streams, noise {HOST_NOISE}): "
+              f"native {np.median(turns['native']):.4f} ms, numpy {np.median(turns['numpy']):.4f}"
+              f" ms (host clock, medians of {HOST_TURNS} interleaved turns; ranges "
+              f"{min(turns['native']):.4f}-{max(turns['native']):.4f}, "
+              f"{min(turns['numpy']):.4f}-{max(turns['numpy']):.4f}) | {card}")
+
+
+def _upload_window(trace: Path, sizes: set[int], label: str) -> str:
+    """13(c): a trainer's profile of one K=auto epoch (chrome trace) read
+    for the batch uploads (host-to-device copies of a staged tensor's
+    bytes): fails on any pageable one, on none pinned, on one on a stream
+    that ran the replays' recurrence kernels, and unless one overlaps a
+    kernel of those streams. Returns what it saw."""
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    htod = [e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    if not kernels or not htod:
+        raise RuntimeError(f"{label}: the trace holds {len(kernels)} kernels, {len(htod)} "
+                           "host-to-device copies")
+    sized = all("bytes" in e.get("args", {}) for e in htod)
+    batch = [e for e in htod if not sized or e["args"]["bytes"] in sizes]
+    pageable = [e for e in batch if "Pageable" in e["name"]]
+    pinned = [e for e in batch if "Pinned" in e["name"]]
+    replay_streams = {e["args"].get("stream") for e in kernels
+                      if "recurrence_fwd_stages_kernel" in e["name"]}
+    copy_streams = {e["args"].get("stream") for e in pinned}
+    if pageable or not pinned:
+        raise RuntimeError(f"{label}: {len(pageable)} pageable and {len(pinned)} pinned batch "
+                           f"uploads ({_count_names(e['name'] for e in htod)})")
+    if not replay_streams or copy_streams & replay_streams:
+        raise RuntimeError(f"{label}: uploads on streams {copy_streams}, replays on "
+                           f"{replay_streams}")
+    replays = [e for e in kernels if e["args"].get("stream") in replay_streams]
+    overlapping = sum(any(k["ts"] < u["ts"] + u["dur"] and u["ts"] < k["ts"] + k["dur"]
+                          for k in replays) for u in pinned)
+    if not overlapping:
+        raise RuntimeError(f"{label}: no batch upload overlaps a replay's kernels")
+    return (f"{len(pinned)} batch uploads, each `Memcpy HtoD (Pinned -> Device)` on stream(s) "
+            f"{sorted(copy_streams)}, the replays on {sorted(replay_streams)}; {overlapping} "
+            f"overlap a replay's kernels; 0 pageable (host-to-device copies in the window: "
+            f"{_count_names(e['name'] for e in htod)}"
+            + ("" if sized else "; the trace gives no bytes, so every one counted") + ")")
+
+
+def _count_names(names) -> dict[str, int]:
+    """How many times each name occurs."""
+    import collections
+
+    return dict(collections.Counter(names))
+
+
+def _word_timings(model, classifier, test_data, card: str) -> dict[str, int]:
+    """13(e): one word evaluated both ways on the card: the per-interval
+    path (a rollout launch an interval) predicts the batched path's digits;
+    ms a word each way (synchronised host clock, medians of interleaved
+    turns). Returns the launch counts of the two evaluations."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.evaluation import (
+        generate_predictions_batched,
+        generate_predictions_with_classifier,
+        select_intervals_for_word,
+    )
+    from multimodal_mtrssm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from multimodal_mtrssm_tpu_torch.train.steps import fold
+
+    word = next(w for w in range(10) if select_intervals_for_word(
+        w, test_data, EVAL_ARGS["n_intervals"], EVAL_ARGS["query_length"]))
+    intervals = select_intervals_for_word(word, test_data, EVAL_ARGS["n_intervals"],
+                                          EVAL_ARGS["query_length"])
+    P, F = EVAL_ARGS["n_predictions"], EVAL_ARGS["n_frames"]
+    seed = fold(SEED, word)
+
+    def batched():
+        return generate_predictions_batched(model, classifier, intervals, seed, P, F,
+                                            classify_frame=1)
+
+    def per_interval():
+        return [d for i, iv in enumerate(intervals) for d in generate_predictions_with_classifier(
+            model, classifier, iv, seed, P, F, classify_frame=1, interval_index=i,
+            n_intervals=len(intervals))]
+
+    reset_launch_counts()
+    a = batched()
+    counts_a = launch_counts()
+    reset_launch_counts()
+    b = per_interval()
+    counts_b = launch_counts()
+    if counts_a["rollout"] != 1 or counts_b["rollout"] != len(intervals):
+        raise RuntimeError(f"rollout launches: batched {counts_a['rollout']}, per interval "
+                           f"{counts_b['rollout']} for {len(intervals)} intervals")
+    if a != b:
+        diff = sum(x != y for x, y in zip(a, b))
+        raise RuntimeError(f"word {word}: the per-interval digits differ from the batched ones "
+                           f"in {diff} of {len(a)} predictions")
+    turns: dict[str, list[float]] = {"batched": [], "per interval": []}
+    for t in range(HOST_TURNS):
+        for name in (("batched", "per interval") if t % 2 == 0 else ("per interval", "batched")):
+            fn = batched if name == "batched" else per_interval
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            turns[name].append((time.perf_counter() - t1) * 1e3)
+    print(f"host input: word {word} evaluated both ways on the card, {len(a)} predictions equal "
+          f"(digits {sorted(set(a))}); rollout launches batched 1, per interval {len(intervals)}")
+    print(f"time evaluation word (MRSSMConfig(), {len(intervals)} intervals x {P} predictions, "
+          f"{F} frames): batched {np.median(turns['batched']):.4f} ms, per interval "
+          f"{np.median(turns['per interval']):.4f} ms (synchronised host clock, medians of "
+          f"{HOST_TURNS} interleaved turns) | {card}")
+    return {k: counts_a.get(k, 0) + counts_b.get(k, 0) for k in counts_a}
+
+
+def drive_host_input(dev, work: Path, card: str, eval_inputs: dict | None = None) -> dict:
+    """Phase 13 (module docstring, 13): the host input path. Returns the
+    launch counts of its fits and evaluations."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.data import (
+        DataModuleConfig,
+        EpisodeDataModule,
+        generate_synthetic_audio_mnist,
+    )
+    from multimodal_mtrssm_tpu_torch.data.pack import pack_episodes
+    from multimodal_mtrssm_tpu_torch.models import MoPoEMRSSM, MRSSMConfig
+
+    t0 = time.perf_counter()
+    episodes = work / "episodes"
+    if not episodes.is_dir():
+        generate_synthetic_audio_mnist(episodes, n_episodes=KSTEP_EPISODES, seed=SEED)
+    packed_dir = work / "packed"
+    pack_episodes(episodes, packed_dir / "pack")
+    data = lambda d: EpisodeDataModule(DataModuleConfig(  # noqa: E731
+        data_dir=str(d), batch_size=8, sequence_length=30, noise_std=HOST_NOISE, seed=SEED))
+    dm, packed = data(episodes), data(packed_dir)
+    dm.setup()
+    packed.setup()
+    check_native(dm, packed, card)
+    runs: list[dict[str, int]] = []
+    failed: list[str] = []
+
+    def make(cfg, name, data_dir=episodes, **kw):
+        return _kstep_trainer(cfg, "multimodal", dev, data_dir, work / "fits" / name,
+                              noise_std=HOST_NOISE, **kw)
+
+    # (b) native noise and the pack: K=auto bit for bit K=1, and (c) the uploads.
+    cfg = MRSSMConfig()
+    with _deterministic_cudnn():
+        for what, data_dir in (("in memory", episodes), ("from the pack", packed_dir)):
+            try:
+                k1 = _kstep_fit(lambda n: make(cfg, n, data_dir, steps_per_dispatch=1),
+                                f"{what}-k1")
+                auto = _kstep_fit(lambda n: make(cfg, n, data_dir), f"{what}-auto")
+                if auto[0].dm._raw != (data_dir == packed_dir) or not _same_fit(k1, auto):
+                    raise RuntimeError(f"the K=auto fit {what} at noise {HOST_NOISE} is not the "
+                                       "K=1 fit bit for bit")
+                runs += [k1[2], auto[2]]
+                print(f"host input {what}, noise {HOST_NOISE} (native): the K="
+                      f"{auto[0]._resolve_spd()} fit on staged chunks bit for bit the K=1 fit "
+                      f"(weights, epoch rows, global step {auto[1]['global_step']}) | {card}")
+            except Exception as exc:  # noqa: BLE001 — every part runs; the phase fails after
+                import traceback
+
+                traceback.print_exc()
+                failed.append(f"{what}: {type(exc).__name__}: {exc}")
+        try:
+            with _recorded_copies() as sizes:
+                prof = make(cfg, "profile", max_epochs=2, profile_epoch=1)
+                prof.fit()
+            torch.cuda.synchronize()
+            trace = work / "fits" / "profile" / "profile" / "epoch_1.trace.json"
+            print(f"host input uploads, one K={prof._resolve_spd()} epoch of MRSSMConfig() "
+                  f"(trainer profile_epoch=1; {len(sizes)} staged copies in the fit): "
+                  f"{_upload_window(trace, set(sizes), 'uploads')} | {card}")
+        except Exception as exc:  # noqa: BLE001
+            import traceback
+
+            traceback.print_exc()
+            failed.append(f"uploads: {type(exc).__name__}: {exc}")
+
+    # (d) steps/s, host path against device-resident, interleaved fits.
+    for cfg in (MRSSMConfig(), MRSSMConfig(conv_layout="fused_enc", use_pallas_train="stacked")):
+        label = _label(cfg)
+        rates: dict[str, list[float]] = {"host": [], "resident": []}
+        try:
+            for t in range(HOST_FITS):
+                for path in (("host", "resident") if t % 2 == 0 else ("resident", "host")):
+                    fit = _kstep_fit(lambda n: make(cfg, n, device_resident=path == "resident"),
+                                     f"{label}-{path}-{t}")
+                    rates[path].append(_over_epochs(fit[3]))
+                    runs.append(fit[2])
+            print(f"time Trainer.fit {label} K=auto, noise {HOST_NOISE}, steps/s over epochs "
+                  f"2-{KSTEP_EPOCHS} of {HOST_FITS} interleaved fits each: host (prefetched, "
+                  f"staged, native) {np.median(rates['host']):.3f} "
+                  f"({', '.join(f'{r:.3f}' for r in rates['host'])}), device-resident "
+                  f"{np.median(rates['resident']):.3f} "
+                  f"({', '.join(f'{r:.3f}' for r in rates['resident'])}) | {card}")
+        except Exception as exc:  # noqa: BLE001
+            import traceback
+
+            traceback.print_exc()
+            failed.append(f"{label} timing: {type(exc).__name__}: {exc}")
+
+    # (e) one word both ways.
+    try:
+        if eval_inputs is None:
+            eval_inputs = evaluation_inputs(dev, work / "evaluation")
+        model = MoPoEMRSSM(MRSSMConfig()).init(torch.Generator().manual_seed(SEED)).to(dev).eval()
+        runs.append(_word_timings(model, eval_inputs["classifier"], eval_inputs["test_data"],
+                                  card))
+    except Exception as exc:  # noqa: BLE001
+        import traceback
+
+        traceback.print_exc()
+        failed.append(f"evaluation: {type(exc).__name__}: {exc}")
+    print(f"phase 13 took {time.perf_counter() - t0:.1f} s")
+    if failed:
+        raise RuntimeError("the host input path failed on: " + "; ".join(failed))
+    return {k: sum(r.get(k, 0) for r in runs) for k in runs[0]}
+
+
+def host_input_phase() -> int:
+    """``--host-input``: only phase 13, the host input path, with its checks."""
+    import torch
+
+    from multimodal_mtrssm_tpu_torch.ops.kernels import build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
+        return 2
+    card = card_line()
+    print(card)
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.load_library()
+    with tempfile.TemporaryDirectory() as work:
+        drive_host_input(torch.device("cuda", 0), Path(work), card)
+    return 0
+
+
 def main() -> int:
     """Every phase; the fit runs' episodes and checkpoints live in a
     temporary directory removed at the end."""
@@ -6133,6 +6498,9 @@ def _main(work: Path) -> int:
     # Phase 12: K-step dispatch, the train step as a CUDA graph, on every route.
     runs.append(drive_kstep(dev, work / "kstep", card))
     stamp("phase 12")
+    # Phase 13: the host input path (native gathers, staged uploads, per-interval evaluation).
+    runs.append(drive_host_input(dev, work / "kstep", card, eval_inputs))
+    stamp("phase 13")
     # Every pass of both bf16 stacks on the tensor cores.
     hmma = hmma_report(DECODER_BF16_HMMA + ENCODER_BF16_HMMA)
     if any(v == 0 for v in hmma.values()):
@@ -6142,7 +6510,7 @@ def _main(work: Path) -> int:
     launches = {k: sum(run.get(k, 0) for run in runs) for k in runs[0]}
     print("main-path launches, serving + training of the four configurations, resume, the "
           "train command and evaluation of the first two, the fused decoder path, the "
-          f"cross-modal run and phases 8 to 12: {launches}")
+          f"cross-modal run and phases 8 to 13: {launches}")
     pkg = "multimodal_mtrssm_tpu_torch"
     pallas = "multimodal_mtrssm_tpu/ops/pallas"
     meta = {
@@ -6206,7 +6574,8 @@ if __name__ == "__main__":
                  "--bf16-encoder-stamps": bf16_stamps_phase, "--bf16-decoder": bf16_decoder_phase,
                  "--bf16-decoder-once": bf16_decoder_once,
                  "--bf16-decoder-racecheck": bf16_decoder_racecheck,
-                 "--bf16-decoder-stamps": bf16_decoder_stamps_phase, "--kstep": kstep_phase}
+                 "--bf16-decoder-stamps": bf16_decoder_stamps_phase, "--kstep": kstep_phase,
+                 "--host-input": host_input_phase}
         if sys.argv[1:2] == ["--learning-demo"] and len(sys.argv) > 2:
             code = learning_demo_phase(Path(sys.argv[2]))
         elif sys.argv[1:2] == ["--bf16-encoder"] and len(sys.argv) > 2:

@@ -9,18 +9,20 @@ converted once into ``converted_episodes/`` behind a completion marker.
 Episodes are normalised once (audio min-max and vision [0, 255] to [-1, 1],
 or the config's ``*_preprocess`` transforms); a pack stays raw and each
 gathered batch is normalised, affinely for the standard normalisers, as
-JAX's numpy path does. The sorted episodes split 0.8 / 0.2 (reference
+JAX does. The sorted episodes split 0.8 / 0.2 (reference
 ``dataset.py:69-81``). A training epoch shuffles with ``default_rng((seed,
 epoch))``, so its batch order is the JAX module's. Validation batches, in
 split order, draw from ``default_rng((seed, 987654321))``, as JAX's and the
 reference's val DataLoader do. Each batch takes one seed from its generator
-and noises each input stream with ``GaussianNoise(noise_std)`` from
-``default_rng(seed ^ (k + 1))`` (k = 0, 1, 2 for action, audio, vision): the
-draws of the JAX module's numpy path (``data/native.py``; its optional
-native build draws from a generator of its own). The targets stay clean.
-Batches keep the reference's 6-tuple order (``mrssm/dataset.py:168-183``):
-(action_input, audio_input, vision_input, action_target, audio_target,
-vision_target).
+and noises each input stream with ``N(0, noise_std)`` from ``seed ^ (k +
+1)`` (k = 0, 1, 2 for action, audio, vision) through the native fused
+gather (``data/native.py``, ``csrc/fastbatch.cc``), where JAX's
+``_make_batch`` does (``data/pipeline.py:256-295``): in memory where
+``noise_std > 0``, and from a pack, whose gathered raw frames that library
+also normalises, for the standard (affine) normalisers, at any std. The
+targets stay clean. Batches keep the reference's 6-tuple order
+(``mrssm/dataset.py:168-183``): (action_input, audio_input, vision_input,
+action_target, audio_target, vision_target).
 
 ``drop_modality``: ``"audio"`` or ``"vision"`` replaces that input stream
 with the ``ZeroOut`` fill -1 in every batch; ``"random"`` draws, after the
@@ -47,9 +49,16 @@ and ``val_batches_chunked`` serve the flat streams' batches, bit for bit and
 in order, as ``("scan", [K, B, ...])`` items of K full batches and
 ``("step", batch)`` items for the rest (fewer than K full batches, and the
 ragged tail, which flushes the full ones before it), for the trainer's K-step
-dispatch. A daemon thread assembles the host items two ahead
-(``_prefetch_iter``); the consumer moves each to the device, so no thread but
-the caller's touches the card while it captures a CUDA graph.
+dispatch; the flat streams are their items at K=1. A daemon thread assembles
+the host items two ahead (``_prefetch_iter``, JAX's ``_device_prefetch``).
+On the CPU the items are those host arrays. On a CUDA device the thread
+assembles each item into a pinned buffer of a ring (a scan item's batches
+into slices of one ``[K, B, ...]`` buffer), and the consumer copies it to
+the card asynchronously on a copy stream, one item ahead
+(``data/staging.py``), so no thread but the caller's touches the card while
+it captures a CUDA graph; there is no other route to the card. With
+``rows`` (a mesh rank's rows of each batch) only those rows move, and each
+item carries ``(lo, hi, n)``.
 
 ``device_resident`` (JAX ``:79-96``, ``:485-651``): the normalised,
 T-sliced streams are uploaded once to the batches' device and every batch is
@@ -60,18 +69,17 @@ mid-epoch resume and any K draw the same noise; ``"random"`` drops, drawn
 from ``fold(seed, epoch, j, 3)``, touch training batches only. At
 ``noise_std=0`` it serves the host stream's values. Pack mode, or streams
 over ``device_resident_max_bytes``, warn once and stream from the host.
-
-Not ported here: ``native/fastbatch.cc`` and a pinned-memory prefetch
-(host speed: the ROADMAP speed queue).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import queue
 import threading
 import warnings
+from collections import Counter
 from pathlib import Path
 from typing import Callable, Iterable, Iterator
 
@@ -79,9 +87,10 @@ import numpy as np
 import torch
 
 from multimodal_mtrssm_tpu_torch.data import episodes as ep
+from multimodal_mtrssm_tpu_torch.data import native
 from multimodal_mtrssm_tpu_torch.data import pack as packmod
+from multimodal_mtrssm_tpu_torch.data.staging import RowsFn, Staging, staged_items
 from multimodal_mtrssm_tpu_torch.data.transforms import (
-    GaussianNoise,
     Identity,
     NormalizeAudioMelSpectrogram,
     NormalizeVisionImage,
@@ -95,6 +104,10 @@ Item = tuple[str, Batch]
 DROPS = (None, "audio", "vision", "random")
 # The validation stream's generator path (JAX's and the reference's val loader).
 _VAL_STREAM = 987654321
+# Floats of noise a native gather's thread draws (~1 ms of Box-Muller on an
+# H100's host, 4× the start of a thread): 4 threads for a B=8 T=30 stream
+# of 32x32 frames, 1 for its actions.
+NOISE_GRAIN = 1 << 16
 MODALITIES = ("multimodal", "audio", "vision")
 
 
@@ -161,17 +174,6 @@ def effective_data_dir(cfg: DataModuleConfig) -> Path:
     return Path(cfg.data_dir)
 
 
-def _gather_affine(src: np.ndarray, idx: np.ndarray, seq_len: int, scale: float, shift: float,
-                   noise_std: float, seed: int) -> np.ndarray:
-    """``src[idx, :seq_len] · scale + shift`` plus noise from
-    ``default_rng(seed)``: JAX ``native.gather_affine_noise``'s numpy path."""
-    idx = np.ascontiguousarray(idx, dtype=np.int64)
-    out = np.asarray(src[idx, :seq_len], dtype=np.float32) * scale + shift
-    if noise_std > 0:
-        out += np.random.default_rng(seed).normal(0.0, noise_std, out.shape).astype(np.float32)
-    return out
-
-
 class EpisodeDataModule:
     """Loads episodes, preprocesses once, serves batches on a device."""
 
@@ -183,6 +185,7 @@ class EpisodeDataModule:
         self._preprocess: dict[str, Callable] = {}
         self._dev_data: tuple[torch.device, dict[str, torch.Tensor]] | None = None
         self._dev_warned = False
+        self._frame_list: list[tuple[tuple[int, ...], np.dtype]] | None = None
 
     def setup(self) -> None:
         """Open the data directory's pack, or load and normalise its
@@ -211,6 +214,7 @@ class EpisodeDataModule:
             n = len(paths)
         n_train = int(n * cfg.train_ratio)
         self._split = (np.arange(n_train), np.arange(n_train, n))
+        self._frame_list = None
 
     def _require_setup(self) -> None:
         if self._arrays is None:
@@ -247,57 +251,89 @@ class EpisodeDataModule:
         per_frame = sum(int(np.prod(self._arrays[s].shape[2:])) for s in self._streams())
         return 2 * bs * self.cfg.sequence_length * per_frame * 4
 
+    def _frames(self) -> list[tuple[tuple[int, ...], np.dtype]]:
+        """Each output's per-row shape and dtype, in batch order (inputs,
+        then targets): ``[T, ...]`` float32 frames, T clamped to the
+        episodes; a pack's stream under a transform that is no affine
+        normaliser takes its transform's output on one episode."""
+        if self._frame_list is None:
+            T = self.cfg.sequence_length
+            frames = []
+            for s in self._streams():
+                src = self._arrays[s]
+                if self._raw and affine_of(self._preprocess[s]) is None:
+                    x = self._preprocess[s](np.asarray(src[:1, :T]))
+                    frames.append((x.shape[1:], x.dtype))
+                else:
+                    frames.append(((min(T, src.shape[1]), *src.shape[2:]), np.dtype(np.float32)))
+            self._frame_list = frames * 2
+        return self._frame_list
+
+    def _empty(self, lead: tuple[int, ...]) -> HostBatch:
+        """Uninitialised host arrays for a batch (or chunk) of ``lead``."""
+        return tuple(np.empty((*lead, *shape), dtype) for shape, dtype in self._frames())
+
     def _gather(self, stream: str, idx: np.ndarray, k: int, rng: np.random.Generator | None,
-                seed: int) -> tuple[np.ndarray, np.ndarray]:
-        """One stream's (input, target) for episodes ``idx``: the input
-        noised from ``default_rng(seed ^ (k + 1))`` where noise applies.
-        From a pack, the gathered raw frames are normalised here: affinely
-        for the standard normalisers (their noise drawn as above, even at
-        std 0), else by the transform with the noise drawn from ``rng``
-        (JAX ``data/pipeline.py:256-280``)."""
+                seed: int, noised: np.ndarray, clean: np.ndarray) -> None:
+        """One stream's input and target for episodes ``idx``, written into
+        ``noised`` and ``clean``: the input noised from ``seed ^ (k + 1)``
+        by the native gather where noise applies (in memory, ``noise_std >
+        0`` and a generator). From a pack the gathered raw frames are
+        normalised here: affinely by the native gather for the standard
+        normalisers (with the noise as above, at any std), else by the
+        transform, the noise then drawn from ``rng`` (JAX
+        ``data/pipeline.py:256-295``)."""
         cfg = self.cfg
-        T = cfg.sequence_length
+        T, src = cfg.sequence_length, self._arrays[stream]
+        threads = _gather_threads(noised.size)
         if not self._raw:
-            clean = self._arrays[stream][idx, :T]
+            native.gather_noise(src, idx, T, 0.0, 0, n_threads=1, out=clean)
             if rng is None or cfg.noise_std <= 0:
-                return clean, clean
-            return GaussianNoise(cfg.noise_std)(clean, np.random.default_rng(seed ^ (k + 1))), clean
+                noised[...] = clean
+            else:
+                native.gather_noise(src, idx, T, cfg.noise_std, seed ^ (k + 1), threads, noised)
+            return
         std = cfg.noise_std if rng is not None else 0.0
         pre = self._preprocess[stream]
         affine = affine_of(pre)
         if affine is not None:
-            noised = _gather_affine(self._arrays[stream], idx, T, *affine, std, seed ^ (k + 1))
-            clean = _gather_affine(self._arrays[stream], idx, T, *affine, 0.0, 0) if std > 0 \
-                else noised
-            return noised, clean
-        clean = pre(np.asarray(self._arrays[stream][idx, :T]))
+            native.gather_affine_noise(src, idx, T, *affine, std, seed ^ (k + 1),
+                                       threads if std > 0 else 1, noised)
+            if std > 0:
+                native.gather_affine_noise(src, idx, T, *affine, 0.0, 0, n_threads=1, out=clean)
+            else:
+                clean[...] = noised
+            return
+        clean[...] = pre(np.asarray(src[idx, :T]))
         if std > 0:
-            return clean + rng.normal(0, std, clean.shape).astype(np.float32), clean
-        return clean, clean
+            noised[...] = clean + rng.normal(0, std, clean.shape).astype(np.float32)
+        else:
+            noised[...] = clean
 
     def _make_batch(self, idx: np.ndarray, rng: np.random.Generator | None,
-                    train: bool = False) -> HostBatch:
-        """The 6-tuple (or the unimodal 4-tuple) of numpy arrays: the inputs
-        noised and dropped as the module docstring says, the targets clean. With ``rng`` a batch
-        first draws one noise seed (in memory only where ``noise_std > 0``);
-        a ``train`` batch under ``drop_modality="random"`` then draws each
-        sample's fate."""
+                    train: bool = False, out: HostBatch | None = None) -> HostBatch:
+        """The 6-tuple (or the unimodal 4-tuple) of numpy arrays, assembled
+        into ``out`` where given (else new arrays): the inputs noised and
+        dropped as the module docstring says, the targets clean. With
+        ``rng`` a batch first draws one noise seed (in memory only where
+        ``noise_std > 0``); a ``train`` batch under
+        ``drop_modality="random"`` then draws each sample's fate."""
         cfg = self.cfg
         draws = rng is not None and (self._raw or cfg.noise_std > 0)
         seed = int(rng.integers(0, 2**62)) if draws else 0
         streams = self._streams()
-        outs = {s: self._gather(s, idx, ep.EPISODE_KEYS.index(s), rng, seed) for s in streams}
+        n = len(streams)
+        out = self._empty((len(idx),)) if out is None else out
+        for j, s in enumerate(streams):
+            self._gather(s, idx, ep.EPISODE_KEYS.index(s), rng, seed, out[j], out[n + j])
         drop = cfg.drop_modality
-        if drop in ("audio", "vision") and drop in outs:  # a served stream only
-            outs[drop] = (np.full_like(outs[drop][0], -1.0), outs[drop][1])
+        if drop in ("audio", "vision") and drop in streams:  # a served stream only
+            out[streams.index(drop)].fill(-1.0)
         elif drop == "random" and train:
             choice = rng.integers(0, 3, size=len(idx))
             for k, s in ((1, "audio"), (2, "vision")):
-                x, target = outs[s]
-                sel = (choice == k).reshape((-1,) + (1,) * (x.ndim - 1))
-                outs[s] = (np.where(sel, -1.0, x).astype(np.float32), target)
-        inputs, targets = zip(*(outs[s] for s in streams))
-        return (*inputs, *targets)
+                out[streams.index(s)][choice == k] = -1.0
+        return out
 
     def _batched_indices(self, idx: np.ndarray, bs: int) -> list[np.ndarray]:
         """Full batches, then (unless ``drop_last``) the ragged tail."""
@@ -308,10 +344,6 @@ class EpisodeDataModule:
         if not self.cfg.drop_last and len(idx) % bs:
             out.append(idx[n_full * bs:])
         return out
-
-    @staticmethod
-    def _to_device(batch: HostBatch, device: torch.device | str) -> Batch:
-        return tuple(torch.as_tensor(np.ascontiguousarray(x), device=device) for x in batch)
 
     def _batch_consumes_rng(self, rng: np.random.Generator | None) -> bool:
         """Whether a train batch, ``_make_batch(idx, rng, train=True)``,
@@ -331,54 +363,48 @@ class EpisodeDataModule:
         idx = rng.permutation(self._split[0])
         return rng, self._batched_indices(idx, self.train_batch_size)
 
-    def train_batches(self, epoch: int, device: torch.device | str = "cpu",
-                      skip: int = 0) -> Iterator[Batch]:
-        """Shuffled, noised (and dropped) train batches of one epoch.
-        ``skip`` drops the first batches (a mid-epoch resume) and leaves
-        the rest as the whole epoch serves them: skipped batches still make
-        their draws, or are dropped at the index level when no batch draws
-        (JAX ``data/pipeline.py:354-376``)."""
-        self._require_setup()
-        if self.device_resident_active():
-            yield from (b for _, b in self.train_batches_chunked(epoch, 1, device, skip))
-            return
-        rng, groups = self._train_groups(epoch)
-        if skip and not self._batch_consumes_rng(rng):
-            groups, skip = groups[skip:], 0
-        for i, group in enumerate(groups):
-            batch = self._make_batch(group, rng, train=True)
-            if i >= skip:
-                yield self._to_device(batch, device)
+    def train_batches(self, epoch: int, device: torch.device | str = "cpu", skip: int = 0,
+                      rows: RowsFn | None = None) -> Iterator:
+        """Shuffled, noised (and dropped) train batches of one epoch: the
+        items of :meth:`train_batches_chunked` at K=1, each a batch (with
+        ``rows``: ``(batch, (lo, hi, n))``). ``skip`` drops the first
+        batches (a mid-epoch resume) and leaves the rest as the whole epoch
+        serves them: skipped batches still make their draws, or are dropped
+        at the index level when no batch draws (JAX
+        ``data/pipeline.py:354-376``)."""
+        for item in self.train_batches_chunked(epoch, 1, device, skip, rows):
+            yield item[1] if rows is None else item[1:]
 
-    def val_batches(self, device: torch.device | str = "cpu") -> Iterator[Batch]:
+    def val_batches(self, device: torch.device | str = "cpu",
+                    rows: RowsFn | None = None) -> Iterator:
         """Validation batches in split order, the inputs noised from
         ``default_rng((seed, 987654321))`` (JAX ``data/pipeline.py:653-664``)
-        and dropped only by a static ``drop_modality``."""
-        self._require_setup()
-        if self.device_resident_active():
-            yield from (b for _, b in self.val_batches_chunked(1, device))
-            return
-        for batch in self.host_batches("val"):
-            yield self._to_device(batch, device)
+        and dropped only by a static ``drop_modality``: the items of
+        :meth:`val_batches_chunked` at K=1, as :meth:`train_batches`."""
+        for item in self.val_batches_chunked(1, device, rows):
+            yield item[1] if rows is None else item[1:]
 
     def train_batches_chunked(self, epoch: int, k: int, device: torch.device | str = "cpu",
-                              skip: int = 0) -> Iterator[Item]:
+                              skip: int = 0, rows: RowsFn | None = None) -> Iterator[Item]:
         """``train_batches(epoch)``'s batches, bit for bit and in order, as
         ``("scan", [k, B, ...])`` items of k full batches and ``("step",
-        batch)`` items (:meth:`_grouped_indices`). ``skip`` counts
-        batches, as the trainer's ``items_done`` does (JAX counts chunk
-        items): the first ``skip`` batches make their draws and are dropped,
-        and the rest are grouped anew from there."""
+        batch)`` items (:meth:`_grouped_indices`) on ``device``; with
+        ``rows``, only rows ``rows(n)`` of each batch of ``n``, the item
+        then ``(kind, batch, (lo, hi, n))``. ``skip`` counts batches, as
+        the trainer's ``items_done`` does (JAX counts chunk items): the
+        first ``skip`` batches make their draws and are dropped, and the
+        rest are grouped anew from there."""
         self._require_setup()
         rng, groups = self._train_groups(epoch)
         bs = self.train_batch_size
         if self.device_resident_active():
-            return self._device_items(groups, bs, k, device, epoch, skip, train=True)
+            return self._device_items(groups, bs, k, device, epoch, skip, True, rows)
         if skip and not self._batch_consumes_rng(rng):
-            return self._host_items(groups[skip:], bs, k, device, rng, 0, train=True)
-        return self._host_items(groups, bs, k, device, rng, skip, train=True)
+            groups, skip = groups[skip:], 0
+        return self._host_items(groups, bs, k, device, rng, skip, True, rows)
 
-    def val_batches_chunked(self, k: int, device: torch.device | str = "cpu") -> Iterator[Item]:
+    def val_batches_chunked(self, k: int, device: torch.device | str = "cpu",
+                            rows: RowsFn | None = None) -> Iterator[Item]:
         """``val_batches()``'s batches as :meth:`train_batches_chunked`'s
         items, k clamped to the full validation batches (JAX
         ``data/pipeline.py:407-431``: the split is far smaller than the
@@ -388,9 +414,9 @@ class EpisodeDataModule:
         groups = self._batched_indices(self._split[1], bs)
         k = max(1, min(k, sum(1 for g in groups if len(g) == bs)))
         if self.device_resident_active():
-            return self._device_items(groups, bs, k, device, _VAL_STREAM, 0, train=False)
+            return self._device_items(groups, bs, k, device, _VAL_STREAM, 0, False, rows)
         rng = np.random.default_rng((self.cfg.seed, _VAL_STREAM))
-        return self._host_items(groups, bs, k, device, rng, 0, train=False)
+        return self._host_items(groups, bs, k, device, rng, 0, False, rows)
 
     @staticmethod
     def _grouped_indices(groups: Iterable[np.ndarray], bs: int,
@@ -414,23 +440,35 @@ class EpisodeDataModule:
 
     def _host_items(self, groups: list[np.ndarray], bs: int, k: int,
                     device: torch.device | str, rng: np.random.Generator, skip: int,
-                    train: bool) -> Iterator[Item]:
+                    train: bool, rows: RowsFn | None) -> Iterator[Item]:
         """The host path's items: each batch assembled in group order (the
         flat stream's draws, the first ``skip`` batches drawn and dropped)
-        on a prefetch thread, each item moved to ``device`` here."""
+        on a prefetch thread, a scan item's batches into slices of one
+        buffer. On the CPU the items are those arrays; on a CUDA device
+        each is assembled into a pinned buffer and staged (module
+        docstring)."""
+        device = torch.device(device)
+        plan = list(self._grouped_indices(groups[skip:], bs, k))
+        staging = None
+        if device.type == "cuda":
+            staging = Staging(device, Counter(idx.shape for _, idx in plan), self._frames())
 
-        def assemble() -> Iterator[tuple[str, HostBatch]]:
+        def assemble() -> Iterator[tuple]:
             for g in groups[:skip]:
                 self._make_batch(g, rng, train)
-            for kind, idx in self._grouped_indices(groups[skip:], bs, k):
+            for kind, idx in plan:
+                bufs = staging.take(idx.shape) if staging else (None, self._empty(idx.shape))
                 if kind == "scan":
-                    parts = [self._make_batch(g, rng, train) for g in idx]
-                    yield kind, tuple(np.stack(xs) for xs in zip(*parts))
+                    for i, g in enumerate(idx):
+                        self._make_batch(g, rng, train, tuple(x[i] for x in bufs[1]))
                 else:
-                    yield kind, self._make_batch(idx, rng, train)
+                    self._make_batch(idx, rng, train, bufs[1])
+                yield kind, idx.shape, bufs
 
-        for kind, host in _prefetch_iter(assemble()):
-            yield kind, self._to_device(host, device)
+        items = _prefetch_iter(assemble())
+        if staging is not None:
+            return staged_items(items, staging, rows)
+        return _cpu_items(items, rows)
 
     # ---- the device-resident dataset ----------------------------------------
     def device_resident_active(self) -> bool:
@@ -469,20 +507,22 @@ class EpisodeDataModule:
         return self._dev_data[1]
 
     def _device_items(self, groups: list[np.ndarray], bs: int, k: int,
-                      device: torch.device | str, path: int, skip: int,
-                      train: bool) -> Iterator[Item]:
+                      device: torch.device | str, path: int, skip: int, train: bool,
+                      rows: RowsFn | None) -> Iterator[Item]:
         """The device-resident path's items, grouped as the host path's;
         batch j of the stream (``skip`` onwards) draws from ``fold(seed,
-        path, j, ·)`` (``path``: the epoch, or validation's 987654321)."""
+        path, j, ·)`` (``path``: the epoch, or validation's 987654321).
+        With ``rows`` each rank gathers the whole batch and keeps its rows."""
         device = torch.device(device)
         data = self._device_dataset(device)
         gen = torch.Generator(device=device)
         j = skip
         for kind, idx in self._grouped_indices(groups[skip:], bs, k):
-            rows = np.atleast_2d(idx)
-            batch = self._device_batch(data, rows, path, j, gen, train)
-            yield kind, batch if kind == "scan" else tuple(x[0] for x in batch)
-            j += rows.shape[0]
+            mat = np.atleast_2d(idx)
+            batch = self._device_batch(data, mat, path, j, gen, train)
+            j += mat.shape[0]
+            yield _with_rows(kind, batch if kind == "scan" else tuple(x[0] for x in batch),
+                             rows, mat.shape[1])
 
     def _device_batch(self, data: dict[str, torch.Tensor], rows: np.ndarray, path: int,
                       j0: int, gen: torch.Generator, train: bool) -> Batch:
@@ -554,6 +594,30 @@ def _episode_paths(data_dir: Path) -> list[Path]:
     return paths
 
 
+def _gather_threads(elements: int) -> int:
+    """Threads for a native gather with noise of ``elements`` floats: one a
+    ``NOISE_GRAIN`` (rounded up), at most the cores. The library starts its
+    threads anew each call (~0.25 ms each on an H100's host), so a gather
+    without noise, a copy, takes one; the bits do not depend on it."""
+    return max(1, min(os.cpu_count() or 1, -(-elements // NOISE_GRAIN)))
+
+
+def _with_rows(kind: str, batch: Batch, rows: RowsFn | None, n: int) -> tuple:
+    """The item ``(kind, batch)``, or with ``rows`` its rows ``rows(n)`` of
+    each batch of ``n`` and ``(lo, hi, n)``."""
+    if rows is None:
+        return kind, batch
+    lo, hi = rows(n)
+    return kind, tuple(x[:, lo:hi].contiguous() if kind == "scan" else x[lo:hi]
+                       for x in batch), (lo, hi, n)
+
+
+def _cpu_items(items: Iterator[tuple], rows: RowsFn | None) -> Iterator[Item]:
+    """The prefetched host items as CPU tensors (no copy)."""
+    for kind, lead, (_, host) in items:
+        yield _with_rows(kind, tuple(torch.from_numpy(x) for x in host), rows, lead[-1])
+
+
 class _Raise:
     """A worker thread's exception, carried to the consumer."""
 
@@ -565,7 +629,8 @@ def _prefetch_iter(items: Iterator, depth: int = 2) -> Iterator:
     """``items`` run on a daemon thread, ``depth`` ahead (JAX
     ``data/pipeline.py:707-752``). The worker's exception is raised on the
     consumer, after the items before it; closing the consumer early stops
-    the worker instead of leaving it blocked on a full queue."""
+    the worker, instead of leaving it blocked on a full queue, and joins
+    it (after the item it is assembling, if any)."""
     q: queue.Queue = queue.Queue(maxsize=depth)
     stop = threading.Event()
     done = object()
@@ -601,3 +666,4 @@ def _prefetch_iter(items: Iterator, depth: int = 2) -> Iterator:
             yield item
     finally:
         stop.set()
+        thread.join()

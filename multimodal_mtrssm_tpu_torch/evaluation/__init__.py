@@ -27,6 +27,7 @@ from multimodal_mtrssm_tpu_torch.evaluation.word_transitions import (
     compute_true_distribution,
     evaluate_word_transitions,
     generate_predictions_batched,
+    generate_predictions_with_classifier,
     load_test_data_with_labels,
     predict_word,
     select_intervals_for_word,
@@ -45,6 +46,7 @@ __all__ = [
     "compute_true_distribution",
     "evaluate_word_transitions",
     "generate_predictions_batched",
+    "generate_predictions_with_classifier",
     "load_classifier",
     "load_mnist_arrays",
     "load_or_train_classifier",

@@ -10,9 +10,10 @@ families.
   prior-only ``rollout_transition`` (the rollout kernel on the card: MRSSM
   ``csrc/rollout.cu``, MMTRSSM ``csrc/rollout_mt.cu``), the vision decoder
   at ``classify_frame`` only, then the classifier; ``n_predictions``
-  samples per interval. A word's intervals × samples are one rollout launch;
-  JAX's per-interval ``generate_predictions_with_classifier`` (its
-  ``batched=False``) is not ported, so one evaluation has one noise stream.
+  samples per interval. With ``batched=True`` a word's intervals × samples
+  are one rollout launch; with ``batched=False`` (JAX's per-interval
+  protocol, the reference's loop shape) each interval is one launch at
+  ``B = n_predictions`` (``generate_predictions_with_classifier``).
 - q(w|wa) with a failure bucket "wf"; p(w|wa) from the deduplicated label
   sequences, skipping -1 silence; MR = Σ_w min(q, p) + min(q_wf, p_wf); the
   uniform, peak-one-hot and random-one-hot baselines; markdown and JSON.
@@ -21,7 +22,12 @@ Noise differs from JAX's by design (no stream equals JAX's key splits): a
 word's initial-state Gumbel noise comes from a CPU ``torch.Generator``
 seeded with ``fold(seed, word)``, and its rollout's from the kernel's
 Philox stream keyed by that same integer. The plain rollout on the CPU
-draws the same Philox noise, so the card and the CPU sample alike.
+draws the same Philox noise, so the card and the CPU sample alike. Both
+protocols keep that one stream: an interval of the per-interval path takes
+its row of the word's initial-state draw, and its rollout rows the keys
+``(row_seed, row_index)`` they have in the word's batched rollout
+(``ops.kernels.rollout.row_keys``), so ``batched=False`` predicts what
+``batched=True`` does (JAX splits a new key an interval there).
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from multimodal_mtrssm_tpu_torch.evaluation.classifier import MNISTClassifier, c
 from multimodal_mtrssm_tpu_torch.models import WorldModelNet
 from multimodal_mtrssm_tpu_torch.models.mrssm import draw_gumbels
 from multimodal_mtrssm_tpu_torch.nn.conv import cast_conv_in, cast_conv_out
+from multimodal_mtrssm_tpu_torch.ops.kernels.rollout import Seed, row_keys
 from multimodal_mtrssm_tpu_torch.train.steps import fold
 
 WORD_SET = list(range(10))
@@ -213,7 +220,47 @@ def _repeat_rows(state: Any, n: int) -> Any:
                           for f in dataclasses.fields(state)})
 
 
+def _init_noise(model: WorldModelNet, n_intervals: int, seed: int) -> dict[str, torch.Tensor]:
+    """A word's initial-state Gumbel noise, ``[n_intervals, ·]`` a site,
+    from a CPU generator seeded with ``seed``."""
+    shapes = {k: s for k, s in model.noise_shapes(n_intervals, 1).items()
+              if k.startswith("g_init")}
+    return draw_gumbels(shapes, torch.Generator().manual_seed(int(seed)), None)
+
+
 @torch.no_grad()
+def _predict(model: WorldModelNet, classifier: MNISTClassifier, intervals: list[dict],
+             init_noise: dict[str, torch.Tensor], rollout_seed: Seed, n_predictions: int,
+             n_frames: int, audio_transform: NormalizeAudioMelSpectrogram | None,
+             vision_transform: NormalizeVisionImage | None, classify_frame: int,
+             condition: str) -> dict[str, Any]:
+    """One rollout over ``intervals`` × ``n_predictions`` rows on the
+    model's device: the initial state from each interval's frame 0 on
+    ``init_noise`` (``[I, ·]``), repeated over its predictions, the rollout
+    on the Philox stream of ``rollout_seed``, the vision decoder at
+    ``classify_frame`` alone, the classifier (:func:`predict_word`'s keys
+    but the seed)."""
+    device = next(model.parameters()).device
+    audio_transform = audio_transform or NormalizeAudioMelSpectrogram(-80.0, 0.0)
+    vision_transform = vision_transform or NormalizeVisionImage()
+    a0 = np.stack([audio_transform(_to_nhwc(iv["audio"]))[0] for iv in intervals])
+    v0 = np.stack([vision_transform(_to_nhwc(iv["image"]))[0] for iv in intervals])
+    a0, v0 = _apply_condition(a0, v0, condition)
+    last = np.stack([iv["speaker"][-1] for iv in intervals])  # [I, A]
+    P = n_predictions
+    actions = torch.as_tensor(np.repeat(last, P, axis=0), dtype=torch.float32, device=device)
+    actions = actions[:, None, :].expand(len(intervals) * P, n_frames, -1).contiguous()
+    init_noise = {k: v.to(device) for k, v in init_noise.items()}
+    initial = model.initial_state(torch.as_tensor(a0, device=device),
+                                  torch.as_tensor(v0, device=device), *init_noise.values())
+    states = model.rollout_transition(actions, _repeat_rows(initial, P), rollout_seed)
+    feature = cast_conv_in(model.cfg, states[:, classify_frame].feature)
+    frame = cast_conv_out(model.cfg, model.vision_decoder(feature))  # [I·P, H, W, C]
+    logits = classifier_logits(classifier, (frame + 1.0) / 2.0)
+    return {"digits": logits.argmax(-1), "logits": logits, "initial": initial,
+            "init_noise": init_noise, "states": states}
+
+
 def predict_word(model: WorldModelNet, classifier: MNISTClassifier, intervals: list[dict],
                  seed: int, n_predictions: int = 10, n_frames: int = 10,
                  audio_transform: NormalizeAudioMelSpectrogram | None = None,
@@ -229,28 +276,10 @@ def predict_word(model: WorldModelNet, classifier: MNISTClassifier, intervals: l
     ``init_noise``, the rollout's ``states`` (``[I · P, n_frames]``) and the
     ``seed``."""
     _check_frame(classify_frame, n_frames)
-    device = next(model.parameters()).device
-    audio_transform = audio_transform or NormalizeAudioMelSpectrogram(-80.0, 0.0)
-    vision_transform = vision_transform or NormalizeVisionImage()
-    a0 = np.stack([audio_transform(_to_nhwc(iv["audio"]))[0] for iv in intervals])
-    v0 = np.stack([vision_transform(_to_nhwc(iv["image"]))[0] for iv in intervals])
-    a0, v0 = _apply_condition(a0, v0, condition)
-    last = np.stack([iv["speaker"][-1] for iv in intervals])  # [I, A]
-    P = n_predictions
-    actions = torch.as_tensor(np.repeat(last, P, axis=0), dtype=torch.float32, device=device)
-    actions = actions[:, None, :].expand(len(intervals) * P, n_frames, -1).contiguous()
-    init_shapes = {k: s for k, s in model.noise_shapes(len(intervals), 1).items()
-                   if k.startswith("g_init")}
-    init_noise = {k: v.to(device) for k, v in draw_gumbels(
-        init_shapes, torch.Generator().manual_seed(int(seed)), None).items()}
-    initial = model.initial_state(torch.as_tensor(a0, device=device),
-                                  torch.as_tensor(v0, device=device), *init_noise.values())
-    states = model.rollout_transition(actions, _repeat_rows(initial, P), int(seed))
-    feature = cast_conv_in(model.cfg, states[:, classify_frame].feature)
-    frame = cast_conv_out(model.cfg, model.vision_decoder(feature))  # [I·P, H, W, C]
-    logits = classifier_logits(classifier, (frame + 1.0) / 2.0)
-    return {"digits": logits.argmax(-1), "logits": logits, "initial": initial,
-            "init_noise": init_noise, "states": states, "seed": int(seed)}
+    out = _predict(model, classifier, intervals, _init_noise(model, len(intervals), seed),
+                   int(seed), n_predictions, n_frames, audio_transform, vision_transform,
+                   classify_frame, condition)
+    return {**out, "seed": int(seed)}
 
 
 def generate_predictions_batched(model: WorldModelNet, classifier: MNISTClassifier,
@@ -264,6 +293,30 @@ def generate_predictions_batched(model: WorldModelNet, classifier: MNISTClassifi
     ``n_predictions`` digits, in interval order."""
     out = predict_word(model, classifier, intervals, seed, n_predictions, n_frames,
                        audio_transform, vision_transform, classify_frame, condition)
+    return [int(d) for d in out["digits"].cpu()]
+
+
+def generate_predictions_with_classifier(
+        model: WorldModelNet, classifier: MNISTClassifier, interval: dict, seed: int,
+        n_predictions: int = 10, n_frames: int = 10,
+        audio_transform: NormalizeAudioMelSpectrogram | None = None,
+        vision_transform: NormalizeVisionImage | None = None, classify_frame: int = 0,
+        condition: str = "both", interval_index: int = 0, n_intervals: int = 1) -> list[int]:
+    """Predicted digits of one interval, from one rollout launch at ``B =
+    n_predictions`` (JAX's per-interval protocol): the interval as interval
+    ``interval_index`` of a word of ``n_intervals``, keyed as it is in that
+    word's batched rollout (the module docstring), so the digits are those
+    :func:`generate_predictions_batched` gives it with ``seed``."""
+    _check_frame(classify_frame, n_frames)
+    if not 0 <= interval_index < n_intervals:
+        raise ValueError(f"interval_index={interval_index} out of range for "
+                         f"n_intervals={n_intervals}")
+    i, P = interval_index, n_predictions
+    noise = {k: v[i:i + 1] for k, v in _init_noise(model, n_intervals, seed).items()}
+    row_seed, row_index = row_keys(int(seed), n_intervals * P)
+    out = _predict(model, classifier, [interval], noise,
+                   (row_seed[i * P:(i + 1) * P], row_index[i * P:(i + 1) * P]), P, n_frames,
+                   audio_transform, vision_transform, classify_frame, condition)
     return [int(d) for d in out["digits"].cpu()]
 
 
@@ -347,17 +400,18 @@ def evaluate_word_transitions(model: WorldModelNet, classifier: MNISTClassifier,
                               n_frames: int = 10, audio_min: float = -80.0,
                               audio_max: float = 0.0, seed: int = 0,
                               word_set: list[int] = WORD_SET, classify_frame: int = 0,
-                              condition: str = "both") -> dict:
+                              condition: str = "both", batched: bool = True) -> dict:
     """The Matching-Rate evaluation on the model's device; returns the
     results dict (JSON-ready), JAX's keys.
 
     ``condition``: "both" (the reference protocol), "vision" or "audio"
     (the other modality's conditioning frame is the ZeroOut fill -1).
-    Each word's intervals × samples are one rollout (its noise from
-    ``fold(seed, word)``). ``classify_frame`` picks the
-    imagined frame the classifier scores: 0 is the reference's; under the
-    reference's same-frame training alignment frame 1 carries the
-    one-word-ahead prediction that p(w|wa) describes."""
+    Each word's noise comes from ``fold(seed, word)``; ``batched=True``
+    runs its intervals × samples as one rollout, ``batched=False`` an
+    interval a rollout, with the same predictions. ``classify_frame``
+    picks the imagined frame the classifier scores: 0 is the reference's;
+    under the reference's same-frame training alignment frame 1 carries
+    the one-word-ahead prediction that p(w|wa) describes."""
     _check_frame(classify_frame, n_frames)
     audio_t = NormalizeAudioMelSpectrogram(audio_min, audio_max)
     vision_t = NormalizeVisionImage()
@@ -366,9 +420,14 @@ def evaluate_word_transitions(model: WorldModelNet, classifier: MNISTClassifier,
         intervals = select_intervals_for_word(word, test_data, n_intervals, query_length)
         if not intervals:
             continue
-        predicted = generate_predictions_batched(
-            model, classifier, intervals, fold(seed, word), n_predictions, n_frames, audio_t,
-            vision_t, classify_frame, condition)
+        args = (fold(seed, word), n_predictions, n_frames, audio_t, vision_t, classify_frame,
+                condition)
+        if batched:
+            predicted = generate_predictions_batched(model, classifier, intervals, *args)
+        else:
+            predicted = [d for i, iv in enumerate(intervals)
+                         for d in generate_predictions_with_classifier(
+                             model, classifier, iv, *args, i, len(intervals))]
         q_dist = compute_prediction_distribution(predicted, word_set)
         p_dist = compute_true_distribution(word, test_data, word_set)
         results[str(word)] = {

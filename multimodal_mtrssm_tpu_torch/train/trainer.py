@@ -31,7 +31,8 @@ process group is up (``parallel.mesh.init_from_env``), the trainer builds
 its mesh from ``dcn_size`` (``make_hybrid_mesh``: flat on one node unless
 ``dcn_size`` says otherwise) and shards the optimizer's moments over its
 ``data`` axis with ``zero1``. Each rank trains on its rows of every batch
-(``parallel.mesh.shard_rows``), the noise drawn at the global batch
+(``parallel.mesh.mesh_rows``; the datamodule assembles the whole batch and
+stages only those rows to the card), the noise drawn at the global batch
 (``shared_step``'s ``rows``), the gradient summed over the ranks; the epoch's
 sums are all-reduced once an epoch, so every rank takes the same scheduler,
 early-stop, divergence and checkpoint decisions, and a SIGTERM on any rank
@@ -66,7 +67,6 @@ from multimodal_mtrssm_tpu_torch.parallel.mesh import (
     make_mesh,
     mesh_rows,
     replicate,
-    shard_rows,
 )
 from multimodal_mtrssm_tpu_torch.train.checkpoint import CheckpointManager
 from multimodal_mtrssm_tpu_torch.train.metrics import MetricLogger
@@ -269,33 +269,19 @@ class Trainer:
             raise ValueError(f"batch size {bs} is not divisible by the world size {world}; the "
                              f"largest world that divides it is {fits}")
 
-    def _local(self, batches: Iterable[Batch]) -> Iterator[tuple[Batch, Rows | None, int]]:
-        """Each batch as this rank trains on it, with its rows ``(lo, hi, n)``
-        of the global batch (None on one process) and their count. On a
-        mesh ``batches`` are on the CPU and only the rank's rows move."""
-        for batch in batches:
-            if self.mesh is None:
-                yield batch, None, batch[0].shape[0]
-                continue
-            n = batch[0].shape[0]
-            lo, hi = mesh_rows(n, self.mesh)
-            yield tuple(x.to(self.device) for x in shard_rows(batch, self.mesh)), (lo, hi, n), hi - lo
+    def _rows(self, n: int) -> tuple[int, int]:
+        """This rank's rows of a batch of ``n`` (all of them on one process):
+        the rows the datamodule moves to the card."""
+        return mesh_rows(n, self.mesh)
 
-    def _local_chunk(self, chunk: Batch) -> tuple[Batch, Rows | None, int]:
-        """A ``[K, B, ...]`` chunk as this rank trains on it (:meth:`_local`
-        for every batch of it at once)."""
-        if self.mesh is None:
-            return chunk, None, chunk[0].shape[1]
-        n = chunk[0].shape[1]
-        lo, hi = mesh_rows(n, self.mesh)
-        return tuple(x[:, lo:hi].contiguous().to(self.device) for x in chunk), (lo, hi, n), hi - lo
-
-    def _batch_device(self) -> torch.device:
-        """Where the datamodule puts batches: on a mesh the host, from which
-        only the rank's rows move, unless every rank holds the dataset."""
-        if self.mesh is not None and not self.dm.device_resident_active():
-            return torch.device("cpu")
-        return self.device
+    def _items(self, items: Iterable[tuple]) -> Iterator[tuple[Batch, Rows | None, int]]:
+        """The datamodule's items of this rank's rows (``rows=self._rows``)
+        as ``(chunk, rows, b)``: a ``[K, b, ...]`` chunk (a step item's
+        batch with K=1), its rows ``(lo, hi, n)`` of the global batch (None
+        on one process) and their count."""
+        for kind, batch, (lo, hi, n) in items:
+            chunk = batch if kind == "scan" else tuple(x[None] for x in batch)
+            yield chunk, (None if self.mesh is None else (lo, hi, n)), hi - lo
 
     def _resolve_spd(self) -> int:
         """Steps per dispatch (JAX ``Trainer._resolve_spd``): an integer as
@@ -548,10 +534,8 @@ class Trainer:
         accum = self.cfg.accumulate_grad_batches
         if train_chunk is not None:
             full = self.dm.train_batch_size
-            for kind, payload in self.dm.train_batches_chunked(
-                    epoch, spd, self._batch_device(), skip=prog.items_done):
-                chunk, rows, n = self._local_chunk(
-                    payload if kind == "scan" else tuple(x[None] for x in payload))
+            for chunk, rows, n in self._items(self.dm.train_batches_chunked(
+                    epoch, spd, self.device, skip=prog.items_done, rows=self._rows)):
                 k = chunk[0].shape[0]
                 if (rows[2] if rows else n) == full:
                     train_chunk(chunk, seed, step, prog.sums, rows)
@@ -564,8 +548,9 @@ class Trainer:
                 if preempt.poll(self.mesh):
                     break
             return step
-        batches = self._local(self.dm.train_batches(epoch, self._batch_device(),
-                                                    skip=prog.items_done))
+        batches = ((batch, None if self.mesh is None else rows, rows[1] - rows[0])
+                   for batch, rows in self.dm.train_batches(epoch, self.device,
+                                                            prog.items_done, self._rows))
         if accum == 1:
             for batch, rows, k in batches:
                 _accumulate(prog.sums, train_step(batch, seed, step, rows), k)
@@ -602,9 +587,8 @@ class Trainer:
         self.model.eval()
         sums: dict[str, Any] = {}
         n, i, full = 0, 0, self.dm.val_batch_size
-        for kind, payload in self.dm.val_batches_chunked(spd, self._batch_device()):
-            chunk, rows, k = self._local_chunk(
-                payload if kind == "scan" else tuple(x[None] for x in payload))
+        for chunk, rows, k in self._items(self.dm.val_batches_chunked(spd, self.device,
+                                                                      self._rows)):
             val_chunk(chunk, seed, i, sums, rows, eager=(rows[2] if rows else k) != full)
             n += k * chunk[0].shape[0]
             i += chunk[0].shape[0]

@@ -2,10 +2,10 @@
 ``drop_modality`` (static and per-sample), the memory-mapped pack, the
 converters, the common processed directory and the preprocess overrides.
 
-Tolerances: every batch, episode and pack array exactly (bit for bit). The
-JAX pipeline draws its noise through ``data/native.py``, whose optional
-native build draws from a generator of its own; its numpy path, which the
-port copies, is held here by switching that build off.
+Tolerances: every batch, episode and pack array exactly (bit for bit). Both
+pipelines draw their noise, and normalise a pack's frames, through their
+native libraries (the same ``fastbatch.cc``), JAX's loaded by the
+``jax_native`` fixture.
 
 Two faults of the JAX pipeline are not copied, and the tests that pin the
 port's behaviour name them: under ``"random"`` JAX drops validation inputs
@@ -23,17 +23,16 @@ import pytest
 import torch
 
 from multimodal_mtrssm_tpu.data import episodes as jax_episodes
-from multimodal_mtrssm_tpu.data import native
 from multimodal_mtrssm_tpu.data import pack as jax_pack
 from multimodal_mtrssm_tpu.data import pipeline as jax_pipeline
 from multimodal_mtrssm_tpu.data import transforms as jax_transforms
 from multimodal_mtrssm_tpu_torch.data import episodes, pack, pipeline, transforms
+from _port_native import jax_native as jax_native  # noqa: F401 (a fixture)
 
 
 @pytest.fixture(autouse=True)
-def _jax_numpy_noise(monkeypatch):
-    """The JAX pipeline on its numpy noise path."""
-    monkeypatch.setattr(native, "_load", lambda: None)
+def _jax_native_noise(jax_native):
+    """The JAX pipeline on its native noise path, the port's."""
 
 
 @pytest.fixture(scope="module")
@@ -165,8 +164,8 @@ def test_packs_cross_read_with_jax(episode_dir, tmp_path):
                                             ("random", 0.1), ("audio", 0.1)])
 def test_pack_batches_match_jax(episode_dir, tmp_path, drop, noise_std):
     """Pack mode (a pack in ``data_dir/pack``): raw streams normalised a
-    gathered batch at a time, affinely, the noise as JAX's numpy path
-    draws it: train, validation and host batches bit for bit."""
+    gathered batch at a time, affinely, with the noise, by the native
+    library: train, validation and host batches bit for bit."""
     pack.pack_episodes(episode_dir, tmp_path / "data" / "pack")
     ours, theirs = _pair(tmp_path / "data", tmp_path, drop_modality=drop, noise_std=noise_std)
     for epoch in (0, 1):

@@ -419,6 +419,72 @@ def test_a_word_is_one_rollout_and_the_seed_fixes_it(trained, monkeypatch):
     assert launches == [8, 8, 8]
 
 
+@pytest.mark.parametrize("family", ["mrssm", "mmtrssm"])
+def test_per_interval_predictions_equal_batched_and_jax(family, trained, monkeypatch, tmp_path):
+    """``generate_predictions_with_classifier`` (``batched=False``): one
+    rollout an interval at B = ``n_predictions``, whose digits are those of
+    the word's batched rollout, prediction for prediction (the same
+    initial-state rows and per-row Philox keys); each interval's states
+    decoded at ``classify_frame`` by JAX's ``decode_state`` and classified
+    by its ``recognize_digits`` (the tail of JAX's
+    ``generate_predictions_with_classifier``) give the port's digits
+    outside logit near-ties."""
+    jmodel, params, port = _family(family)
+    model, _ = trained
+    jclf = jax_clf.load_classifier(clf.save_classifier(model, tmp_path / "clf.npz"))
+    intervals = _intervals(3)
+    kw = dict(n_predictions=4, n_frames=3, classify_frame=1)
+    batched = wt.generate_predictions_batched(port, model, intervals, 11, **kw)
+    launches = []
+    real = port.rollout_transition
+
+    def spy(actions, state, seed):
+        launches.append(real(actions, state, seed))
+        return launches[-1]
+
+    monkeypatch.setattr(port, "rollout_transition", spy)
+    per = [wt.generate_predictions_with_classifier(port, model, iv, 11, interval_index=i,
+                                                   n_intervals=3, **kw)
+           for i, iv in enumerate(intervals)]
+    assert [s.batch_size for s in launches] == [4, 4, 4]
+    assert sum(per, []) == batched
+    clear_share = []
+    for states, digits in zip(launches, per):
+        recon = jmodel.decode_state(params, SimpleNamespace(feature=jnp.asarray(
+            states[:, 1].feature.numpy())))["recon/vision"]
+        images = jnp.clip((recon + 1.0) / 2.0, 0.0, 1.0)
+        jlogits = np.asarray(jax_clf.classifier_apply(jclf, images))
+        top2 = np.sort(jlogits, -1)[:, -2:]
+        clear = (top2[:, 1] - top2[:, 0]) > TIE_EPS
+        np.testing.assert_array_equal(np.asarray(digits)[clear],
+                                      np.asarray(jax_clf.recognize_digits(jclf, images))[clear])
+        clear_share.append(clear.mean())
+    assert np.mean(clear_share) > 0.5
+    with pytest.raises(ValueError, match="interval_index"):
+        wt.generate_predictions_with_classifier(port, model, intervals[0], 11, interval_index=3,
+                                                n_intervals=3, **kw)
+
+
+def test_evaluation_per_interval_equals_batched(trained, monkeypatch):
+    """``evaluate_word_transitions(batched=False)``: a rollout an interval,
+    and the batched evaluation's results, word for word."""
+    _, _, port = _family("mrssm")
+    model, _ = trained
+    data = [_labeled([0, 1, 2], 0, 12), _labeled([1, 2, 0], 1, 12)]
+    kw = dict(n_intervals=2, query_length=10, n_predictions=4, n_frames=3, seed=5)
+    batched = wt.evaluate_word_transitions(port, model, data, **kw)
+    launches = []
+    real = port.rollout_transition
+
+    def spy(actions, state, seed):
+        launches.append(actions.shape[0])
+        return real(actions, state, seed)
+
+    monkeypatch.setattr(port, "rollout_transition", spy)
+    assert wt.evaluate_word_transitions(port, model, data, batched=False, **kw) == batched
+    assert launches == [4] * 6
+
+
 def test_eval_cli_end_to_end(trained, tmp_path, monkeypatch):
     """``python -m multimodal_mtrssm_tpu_torch evaluate-word-transitions``
     on a tiny config, a params-only ``best`` and labeled episodes: the

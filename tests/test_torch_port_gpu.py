@@ -2340,3 +2340,158 @@ def test_kstep_preemption_inside_a_graphed_chunk(cuda_device, tmp_path, kstep_ep
     assert [r["epoch"] for r in resumed.fit(resume=True)["history"]] == [1]
     for a, b in zip(resumed.model.state_dict().values(), ref.model.state_dict().values()):
         assert torch.equal(a, b)
+
+
+# ---- the staged host input path ----------------------------------------------------------
+
+
+def _staging_dm(episodes, **kw):
+    """The phase-12 episodes at B=8 T=30, native noise 0.1."""
+    from multimodal_mtrssm_tpu_torch.data import DataModuleConfig, EpisodeDataModule
+
+    return EpisodeDataModule(DataModuleConfig(data_dir=str(episodes), batch_size=8,
+                                              sequence_length=30, noise_std=0.1, seed=0, **kw))
+
+
+def _same_items(got, want) -> None:
+    assert [i[0] for i in got] == [i[0] for i in want] and got
+    for g, w in zip(got, want):
+        assert all(x.device.type == "cuda" for x in g[1])
+        assert all(torch.equal(x.cpu(), y) for x, y in zip(g[1], w[1]))
+
+
+@pytest.mark.gpu
+def test_staged_items_survive_a_slow_copy_and_a_slow_consumer(cuda_device, kstep_episodes,
+                                                             monkeypatch):
+    """Every train and validation item staged to the card (K=3 and K=1)
+    equals its host item bit for bit while each copy is held back on the
+    copy stream (a 20 ms spin before it) and the consumer sleeps 30 ms an
+    item; the worker is never handed a buffer whose copy's event has not
+    completed, and every copy is a pinned ``non_blocking`` one."""
+    import time
+
+    from multimodal_mtrssm_tpu_torch.data import staging
+
+    events: dict[int, torch.cuda.Event] = {}
+    early: list[int] = []
+    real_upload, real_take = staging.Staging.upload, staging.Staging.take
+
+    def upload(self, bufs, rows, scan):
+        with torch.cuda.stream(self.stream):
+            torch.cuda._sleep(20_000_000)
+        assert all(t.is_pinned() for t in bufs[0])
+        out, event = real_upload(self, bufs, rows, scan)
+        events[bufs[0][0].data_ptr()] = event
+        return out, event
+
+    def take(self, lead):
+        bufs = real_take(self, lead)
+        event = events.get(bufs[0][0].data_ptr())
+        if event is not None and not event.query():
+            early.append(bufs[0][0].data_ptr())
+        return bufs
+
+    monkeypatch.setattr(staging.Staging, "upload", upload)
+    monkeypatch.setattr(staging.Staging, "take", take)
+    dm = _staging_dm(kstep_episodes)
+    for k in (3, 1):
+        want = list(dm.train_batches_chunked(1, k))
+        got = []
+        for item in dm.train_batches_chunked(1, k, cuda_device):
+            time.sleep(0.03)
+            got.append((item[0], tuple(x.clone() for x in item[1])))
+        _same_items(got, want)
+        _same_items(list(dm.val_batches_chunked(k, cuda_device)), list(dm.val_batches_chunked(k)))
+    assert events and not early
+
+
+@pytest.mark.gpu
+def test_staged_stream_early_close_frees_the_ring(cuda_device, kstep_episodes, monkeypatch):
+    """Closing a staged stream after its first item joins the worker and
+    drops every pinned buffer of its ring."""
+    import gc
+    import threading
+    import weakref
+
+    from multimodal_mtrssm_tpu_torch.data import staging
+
+    rings = []
+    real_init = staging.Staging.__init__
+
+    def init(self, *args, **kw):
+        real_init(self, *args, **kw)
+        rings.append([weakref.ref(t) for q in self._free.values() for bufs in list(q.queue)
+                      for t in bufs[0]])
+
+    monkeypatch.setattr(staging.Staging, "__init__", init)
+    dm = _staging_dm(kstep_episodes)
+    dm.setup()
+    before = threading.active_count()
+    stream = dm.train_batches_chunked(0, 1, cuda_device)
+    kind, batch = next(stream)
+    assert threading.active_count() == before + 1 and rings and rings[0]
+    stream.close()
+    del stream
+    gc.collect()
+    assert threading.active_count() == before
+    assert all(ref() is None for ref in rings[0])
+
+
+@pytest.mark.gpu
+def test_mesh_rows_take_the_staged_copy(cuda_device, kstep_episodes, tmp_path, monkeypatch):
+    """A mesh rank's rows of each batch (the trainer's ``_rows`` on a mesh
+    of 2, rank 1) are staged alone: each item holds those rows of the host
+    item, bit for bit, and ``(lo, hi, n)``; a scan item's rows go a batch
+    at a time, each copy contiguous and pinned."""
+    from types import SimpleNamespace
+
+    from multimodal_mtrssm_tpu_torch.data import staging
+    from multimodal_mtrssm_tpu_torch.parallel.mesh import row_range
+
+    copies = []
+    real_h2d = staging.Staging._h2d
+
+    def h2d(self, dev, host):
+        copies.append((host.is_pinned(), host.is_contiguous()))
+        return real_h2d(self, dev, host)
+
+    monkeypatch.setattr(staging.Staging, "_h2d", h2d)
+    trainer = _kstep_trainer("mrssm", cuda_device, kstep_episodes, tmp_path / "run")
+    trainer.mesh = SimpleNamespace(world=2, rank=1)
+    dm = trainer.dm
+    want = list(dm.train_batches_chunked(0, 3))
+    got = list(trainer._items(dm.train_batches_chunked(0, 3, cuda_device, rows=trainer._rows)))
+    assert len(got) == len(want) == 3 and [w[0] for w in want] == ["scan", "step", "step"]
+    for (chunk, rows, b), (kind, host) in zip(got, want):
+        n = host[0].shape[1 if kind == "scan" else 0]
+        lo, hi = row_range(n, 2, 1)
+        assert rows == (lo, hi, n) and b == hi - lo and 0 < lo < hi == n
+        lead = host if kind == "scan" else tuple(x[None] for x in host)
+        for x, y in zip(chunk, lead):
+            assert x.device.type == "cuda" and torch.equal(x.cpu(), y[:, lo:hi])
+    assert copies and all(pinned and contiguous for pinned, contiguous in copies)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["memory", "pack"])
+def test_native_noise_fit_at_k_is_the_k1_fit(cuda_device, tmp_path, kstep_episodes, layout,
+                                             monkeypatch):
+    """At ``noise_std=0.1`` (the native library's noise), in memory and
+    from a pack, the K=auto fit on staged chunks equals the K=1 fit bit for
+    bit under deterministic cuDNN."""
+    from multimodal_mtrssm_tpu_torch.data.pack import pack_episodes
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    data_dir = kstep_episodes
+    if layout == "pack":
+        data_dir = tmp_path / "packed"
+        pack_episodes(kstep_episodes, data_dir / "pack")
+    fits = []
+    for name, spd in (("k1", 1), ("auto", "auto")):
+        t = _kstep_trainer("mrssm", cuda_device, data_dir, tmp_path / name,
+                           steps_per_dispatch=spd)
+        t.dm.cfg.noise_std = 0.1
+        fits.append((t, t.fit()))
+    assert fits[1][0].dm._raw == (layout == "pack") and fits[1][0].chunk_steps[0].graphs
+    assert _same_fits(*fits[0], *fits[1])

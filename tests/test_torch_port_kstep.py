@@ -3,8 +3,8 @@ trainer at K > 1, the graph-safe AdamW, the device-resident dataset and the
 prefetch thread, each held to the JAX package where it has a counterpart
 (no JAX fit runs here: JAX's pipeline, ``_resolve_spd`` and optimizer only).
 
-Tolerances: none. Chunked items equal JAX's chunked items exactly (JAX's
-numpy noise path); every fit at K > 1, and a device-resident fit at noise
+Tolerances: none. Chunked items equal JAX's chunked items exactly (both
+pipelines' noise from the native library); every fit at K > 1, and a device-resident fit at noise
 0, equals the K=1 host fit bit for bit (weights, epoch rows, global step);
 the AdamW equals its former out-of-place form bit for bit. On the CPU the
 chunk steps are eager loops: the CUDA graph's side is ``gpu``-marked in
@@ -44,6 +44,7 @@ from multimodal_mtrssm_tpu_torch.train.steps import (
     make_val_chunk,
 )
 from multimodal_mtrssm_tpu_torch.train.trainer import Trainer, TrainerConfig
+from _port_native import jax_native as jax_native  # noqa: F401 (a fixture)
 from _port_threads import _one_intra_op_thread  # noqa: F401 (autouse)
 
 
@@ -76,13 +77,6 @@ def _dm(data_dir, **kw):
 def _jax_dm(data_dir, tmp_path, **kw):
     return jax_pipeline.EpisodeDataModule(jax_pipeline.DataModuleConfig(
         common_processed_dir=str(tmp_path / "none"), **_kw(data_dir, **kw)))
-
-
-def _jax_numpy_noise(monkeypatch):
-    """Make the JAX pipeline take its numpy noise path (the port's)."""
-    from multimodal_mtrssm_tpu.data import native
-
-    monkeypatch.setattr(native, "_load", lambda: None)
 
 
 def _same_items(ours, theirs) -> None:
@@ -148,12 +142,11 @@ def k1_fit(tmp_path_factory, data_dir):
 
 
 @pytest.mark.parametrize("k,skip_items", [(2, 0), (2, 1), (3, 1), (5, 0)])
-def test_chunked_train_items_equal_jax(data_dir, tmp_path, monkeypatch, k, skip_items):
+def test_chunked_train_items_equal_jax(data_dir, tmp_path, jax_native, k, skip_items):
     """Kinds, shapes and values of ``train_batches_chunked`` equal JAX's on
-    the same data and noise (0.1, JAX's numpy path), ragged tails included;
-    ``skip`` counts batches here and items in JAX, so the port skips the
-    batches of JAX's first items."""
-    _jax_numpy_noise(monkeypatch)
+    the same data and noise (0.1, both from the native library), ragged
+    tails included; ``skip`` counts batches here and items in JAX, so the
+    port skips the batches of JAX's first items."""
     ours, theirs = _dm(data_dir, noise_std=0.1), _jax_dm(data_dir, tmp_path, noise_std=0.1)
     full = list(theirs.train_batches_chunked(1, k))
     skip = sum(np.asarray(b[0]).shape[0] if kind == "scan" else 1
@@ -180,10 +173,9 @@ def test_chunked_items_regroup_the_flat_stream(data_dir, noise_std):
         assert items[0][0] == ("scan" if len(flat) - skip - 1 >= k else "step")
 
 
-def test_val_chunked_clamps_k_to_full_batches(data_dir, tmp_path, monkeypatch):
+def test_val_chunked_clamps_k_to_full_batches(data_dir, tmp_path, jax_native):
     """k is clamped to the validation split's full batches, and the items
     equal JAX's (JAX ``tests/test_data_pipeline.py:198``)."""
-    _jax_numpy_noise(monkeypatch)
     ours, theirs = _dm(data_dir, noise_std=0.1), _jax_dm(data_dir, tmp_path, noise_std=0.1)
     got = list(ours.val_batches_chunked(256))
     assert [k for k, _ in got] == ["scan", "step"] and got[0][1][0].shape[:2] == (2, 2)

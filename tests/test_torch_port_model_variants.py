@@ -24,7 +24,6 @@ import numpy as np
 import pytest
 import torch
 
-from multimodal_mtrssm_tpu.data import native
 from multimodal_mtrssm_tpu.data import pipeline as jax_pipeline
 from multimodal_mtrssm_tpu_torch import server as server_mod
 from multimodal_mtrssm_tpu_torch.data import episodes, pipeline
@@ -43,6 +42,7 @@ from multimodal_mtrssm_tpu_torch.train import CheckpointManager, Trainer, Traine
 from multimodal_mtrssm_tpu_torch.train.config import load_experiment
 from multimodal_mtrssm_tpu_torch.viz.callback import LogRSSMOutput
 from _port_models import jax_scan_gumbels, to_jax_state, variant_family
+from _port_native import jax_native as jax_native  # noqa: F401 (a fixture)
 from _port_threads import _one_intra_op_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
@@ -270,11 +270,10 @@ def episode_dir(tmp_path_factory):
 
 @pytest.mark.parametrize("noise_std", [0.0, 0.1])
 @pytest.mark.parametrize("modality", ["audio", "vision"])
-def test_unimodal_batches_match_jax(episode_dir, tmp_path, monkeypatch, modality, noise_std):
+def test_unimodal_batches_match_jax(episode_dir, tmp_path, jax_native, modality, noise_std):
     """Two epochs of train batches, validation and host batches: 4-tuples
-    bit-equal to JAX's (its numpy noise path), each stream noised from its
-    own seed."""
-    monkeypatch.setattr(native, "_load", lambda: None)
+    bit-equal to JAX's (both noised by the native library), each stream
+    noised from its own seed."""
     cfg = dict(data_dir=str(episode_dir), batch_size=2, sequence_length=6, seed=5,
                common_processed_dir=str(tmp_path / "none"), modality=modality,
                noise_std=noise_std)

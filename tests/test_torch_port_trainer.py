@@ -4,10 +4,10 @@
 Tolerances: the optimizer's parameters within rtol 1e-6 of ``FusedAdamW``
 after each of 5 steps (atol 1e-9 for parameters that pass near 0; the same
 f32 formula, one rounding apart) and its first moment within 1e-7 absolute;
-schedulers, episodes and batches exactly. The port's input noise is the
-JAX pipeline's numpy path (``native.gather_noise`` without its native
-build, which draws from a generator of its own), so the noised batches are
-held to JAX's with that build switched off.
+schedulers, episodes and batches exactly. Both pipelines draw their input
+noise through their native libraries (the same ``fastbatch.cc``; JAX's
+loaded by the ``jax_native`` fixture), so the noised batches are held to
+JAX's bit for bit.
 """
 
 import dataclasses
@@ -31,6 +31,7 @@ from multimodal_mtrssm_tpu_torch.train import optim
 from multimodal_mtrssm_tpu_torch.train.steps import make_train_step
 from multimodal_mtrssm_tpu_torch.train.trainer import Trainer, TrainerConfig
 from multimodal_mtrssm_tpu_torch.train.weights import load_lightning_checkpoint
+from _port_native import jax_native as jax_native  # noqa: F401 (a fixture)
 from _port_threads import _one_intra_op_thread  # noqa: F401 (autouse)
 
 # ---- optimizer and schedulers -----------------------------------------------------
@@ -125,15 +126,7 @@ def test_datamodule_streams_match_jax_host_path(tmp_path):
             np.testing.assert_array_equal(x.numpy(), np.asarray(y))
 
 
-def _jax_numpy_noise(monkeypatch):
-    """Make the JAX pipeline take its numpy noise path."""
-    from multimodal_mtrssm_tpu.data import native
-
-    monkeypatch.setattr(native, "_load", lambda: None)
-
-
-def test_datamodule_noises_training_inputs_only(tmp_path, monkeypatch):
-    _jax_numpy_noise(monkeypatch)
+def test_datamodule_noises_training_inputs_only(tmp_path, jax_native):
     ours, theirs = _datamodules(tmp_path, noise_std=0.1)
     resid = []
     for g, w in zip(ours.train_batches(0), theirs.train_batches(0)):
@@ -154,11 +147,10 @@ def test_datamodule_noises_training_inputs_only(tmp_path, monkeypatch):
     assert all(torch.equal(a, b) for a, b in zip(first, (b[1] for b in ours.train_batches(0))))
 
 
-def test_datamodule_noised_batches_match_jax(tmp_path, monkeypatch):
+def test_datamodule_noised_batches_match_jax(tmp_path, jax_native):
     """At ``noise_std=0.1``: every epoch's train batches and the validation
     batches equal the JAX module's, the inputs' noise bit for bit; a second
     pass over validation gives the same noise."""
-    _jax_numpy_noise(monkeypatch)
     ours, theirs = _datamodules(tmp_path, noise_std=0.1)
     for epoch in (0, 1):
         for g, w in zip(ours.train_batches(epoch), theirs.train_batches(epoch), strict=True):
